@@ -1,0 +1,46 @@
+"""paddle_tpu_torch: the PyTorch/CUDA port of the repo's Fluid-style
+framework, for one NVIDIA Hopper card.
+
+The user-facing API mirrors ``paddle.fluid`` and the JAX package's
+module layout, so each module's counterpart is found by name:
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer
+    ids = fluid.layers.data("src_ids", [128], dtype="int64")
+    mask = fluid.layers.data("input_mask", [128])
+    out = transformer.bert_encoder(ids, mask, dropout_rate=0.0,
+                                   is_test=True, fused_attention=True)
+    exe = fluid.Executor()          # cuda:0; Executor(CPUPlace()) for the CPU
+
+What is ported so far is the serving path of a fused, inference-mode
+BERT encoder: Program building, startup, ``io.save_inference_model``,
+``inference.AnalysisPredictor`` and a one-replica
+``serving.InferenceServer``.  Its one TPU kernel, fused attention, is a
+hand-written CUDA kernel (``csrc/fused_attention.cu``, wrapper in
+``kernels/fused_attention.py``), built with nvcc at first use into
+``_build/``.
+"""
+from paddle_tpu_torch import framework
+from paddle_tpu_torch.framework import (
+    CPUPlace,
+    CUDAPlace,
+    Place,
+    Program,
+    cpu_places,
+    cuda_places,
+    default_main_program,
+    default_startup_program,
+    is_compiled_with_cuda,
+    name_scope,
+    program_guard,
+)
+from paddle_tpu_torch.executor import Executor
+from paddle_tpu_torch.scope import Scope, global_scope, scope_guard
+
+from paddle_tpu_torch import initializer, layers, unique_name
+from paddle_tpu_torch.param_attr import ParamAttr
+from paddle_tpu_torch import inference
+from paddle_tpu_torch import io
+from paddle_tpu_torch import kernels
+from paddle_tpu_torch import models
+from paddle_tpu_torch import serving

@@ -1,0 +1,84 @@
+"""Runtime Scope: name -> torch.Tensor store on one device.
+
+Port of the JAX package's ``scope.py`` (reference: paddle/fluid/framework/
+scope.h:46).  Only persistable values (parameters, and in the training
+slice optimizer state) live in a scope.  A scope carries the
+``torch.device`` its tensors live on: given at construction, or bound
+by the first executor that runs with it.  ``set`` takes a numpy array
+(or a tensor) and puts it on that device.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+__all__ = ["Scope", "global_scope", "scope_guard"]
+
+
+def to_numpy(t) -> np.ndarray:
+    """Host copy of a tensor; bfloat16 comes back as float32 (numpy has
+    no bfloat16)."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+class Scope:
+    def __init__(self, device=None):
+        self.vars: Dict[str, Any] = {}
+        self.device: Optional[torch.device] = (
+            torch.device(device) if device is not None else None)
+
+    def bind_device(self, device: torch.device) -> None:
+        """Pin this scope to ``device`` (first use), or check that it
+        already is: one scope never mixes devices."""
+        device = torch.device(device)
+        if self.device is None:
+            self.device = device
+        elif self.device != device:
+            raise ValueError(
+                "scope holds tensors on %s; cannot run it on %s (use a "
+                "separate Scope per device)" % (self.device, device))
+
+    def get(self, name: str):
+        return self.vars.get(name)
+
+    def set(self, name: str, value):
+        """Store ``value`` (numpy array or tensor) on the scope's device."""
+        if self.device is None:
+            raise RuntimeError(
+                "scope has no device yet: construct it with Scope(device=...) "
+                "or run an executor with it first")
+        if isinstance(value, torch.Tensor):
+            self.vars[name] = value.to(self.device)
+        else:
+            # the scope owns its copy: later writes to the caller's array
+            # (or a read-only view of another framework's buffer) cannot
+            # reach it
+            arr = np.require(np.asarray(value), requirements=["C", "W"])
+            self.vars[name] = torch.from_numpy(arr).to(self.device, copy=True)
+
+
+_global_scope = Scope()
+_scope_stack = [_global_scope]
+
+
+def global_scope() -> Scope:
+    return _scope_stack[-1]
+
+
+class scope_guard:
+    def __init__(self, scope: Scope):
+        self._scope = scope
+
+    def __enter__(self):
+        _scope_stack.append(self._scope)
+        return self._scope
+
+    def __exit__(self, *exc):
+        _scope_stack.pop()
