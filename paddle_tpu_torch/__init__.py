@@ -13,10 +13,14 @@ module layout, so each module's counterpart is found by name:
     exe = fluid.Executor()          # cuda:0; Executor(CPUPlace()) for the CPU
 
 What is ported so far is the serving path of a fused, inference-mode
-BERT encoder: Program building, startup, ``io.save_inference_model``,
+BERT encoder (Program building, startup, ``io.save_inference_model``,
 ``inference.AnalysisPredictor`` and a one-replica
-``serving.InferenceServer``.  Its one TPU kernel, fused attention, is a
-hand-written CUDA kernel (``csrc/fused_attention.cu``, wrapper in
+``serving.InferenceServer``) and the training path of fused BERT
+pretraining (``models.transformer.bert_pretrain``, ``backward``,
+``optimizer.SGDOptimizer`` / ``AdamOptimizer``, one ``Executor.run``
+per step).  Its one TPU op, fused attention, runs on hand-written CUDA
+kernels, forward and backward (``csrc/fused_attention.cu`` and
+``csrc/fused_attention_bwd.cu``, wrappers in
 ``kernels/fused_attention.py``), built with nvcc at first use into
 ``_build/``.
 """
@@ -38,6 +42,7 @@ from paddle_tpu_torch.executor import Executor
 from paddle_tpu_torch.scope import Scope, global_scope, scope_guard
 
 from paddle_tpu_torch import initializer, layers, unique_name
+from paddle_tpu_torch import backward, clip, optimizer, regularizer
 from paddle_tpu_torch.param_attr import ParamAttr
 from paddle_tpu_torch import inference
 from paddle_tpu_torch import io

@@ -10,6 +10,11 @@
 //   s  += causal ? (j <= i ? 0 : -1e9) : 0      (fp32, added first)
 //   s  += (Mask[n, j] - 1) * 1e9                (fp32, when Mask is given)
 //   Out = softmax(s) V                          (written in Q's dtype)
+//   LSE = log(sum_j exp(s_j))                   (fp32 [N, H, S], only when
+//                                                the caller asks for it)
+// The log-sum-exp is what the backward kernels (fused_attention_bwd.cu)
+// rebuild the probabilities from; the serving path does not ask for it and
+// does not pay for it.
 // These are the mask semantics of the op's einsum branch (the JAX
 // package's ops/nn_ops.py:709-717), which that package runs on the CPU,
 // so every row compares with that reference, pad query rows included.
@@ -48,19 +53,17 @@
 // this CUDA-core kernel does not reach, since it runs bf16 at the fp32
 // rate.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
+
+#include "fused_attention_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 8;
-constexpr int kBlockQ = kWarps * kRowsPerWarp;  // query rows per block
-constexpr int kBlockK = 64;                     // keys per K/V tile
-constexpr int kKeysPerLane = kBlockK / 32;
+using namespace attn;
+
+constexpr int kBlockQ = kBlockRows;  // query rows per block
+constexpr int kBlockK = kBlockCols;  // keys per K/V tile
+constexpr int kKeysPerLane = kColsPerLane;  // keys of a tile a lane scores
 
 struct Params {
   const void* q;
@@ -68,6 +71,7 @@ struct Params {
   const void* v;
   const float* mask;  // [N, Sk] fp32 with row stride mask_sn, or null
   void* out;
+  float* lse;         // [N, H, Sq] fp32, contiguous, or null
   int sq, sk, d;
   long long q_sn, q_sh, q_ss;
   long long k_sn, k_sh, k_ss;
@@ -78,52 +82,16 @@ struct Params {
   float scale;
 };
 
-template <typename T>
-__device__ __forceinline__ float to_float(T x);
-template <>
-__device__ __forceinline__ float to_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as a torch cast does
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Row stride (in floats) of the Q and K tiles in shared memory: 4 floats of
-// padding keep every row 16-byte aligned for float4 reads and put the rows
-// that a warp's lanes read at once on different banks.
-template <int DP>
-__host__ __device__ constexpr int qk_stride() { return DP + 4; }
-
 template <int DP>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t(kBlockQ) * qk_stride<DP>() + size_t(kBlockK) * qk_stride<DP>() +
+  return sizeof(float) * (size_t(kBlockQ) * row_stride<DP>() + size_t(kBlockK) * row_stride<DP>() +
                           size_t(kBlockK) * DP + size_t(kWarps) * kRowsPerWarp * kBlockK);
 }
 
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads) fused_attention_fwd_kernel(const Params p) {
-  constexpr int QS = qk_stride<DP>();
-  constexpr int kColsPerLane = DP / 32;
+  constexpr int QS = row_stride<DP>();
+  constexpr int kDimsPerLane = DP / 32;  // output columns a lane owns
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [kBlockQ][QS]
   float* Ks = Qs + kBlockQ * QS;                // [kBlockK][QS]
@@ -144,22 +112,17 @@ __global__ void __launch_bounds__(kThreads) fused_attention_fwd_kernel(const Par
   const float* mrow = p.mask != nullptr ? p.mask + n * p.mask_sn : nullptr;
 
   // Stage this block's query rows, zero past S and past D.
-  for (int i = tid; i < kBlockQ * DP; i += kThreads) {
-    const int r = i / DP, c = i % DP, qi = q0 + r;
-    float x = 0.f;
-    if (qi < p.sq && c < p.d) x = to_float<T>(qg[qi * p.q_ss + c]);
-    Qs[r * QS + c] = x;
-  }
+  stage_rows<T, DP>(Qs, qg, p.q_ss, q0, kBlockQ, p.sq, p.d);
 
   const int row0 = warp * kRowsPerWarp;
   float* Pw = Ps + warp * kRowsPerWarp * kBlockK;
-  float m_run[kRowsPerWarp], l_run[kRowsPerWarp], acc[kRowsPerWarp][kColsPerLane];
+  float m_run[kRowsPerWarp], l_run[kRowsPerWarp], acc[kRowsPerWarp][kDimsPerLane];
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     m_run[r] = -INFINITY;
     l_run[r] = 0.f;
 #pragma unroll
-    for (int c = 0; c < kColsPerLane; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < kDimsPerLane; ++c) acc[r][c] = 0.f;
   }
 
   for (int k0 = 0; k0 < p.sk; k0 += kBlockK) {
@@ -178,28 +141,7 @@ __global__ void __launch_bounds__(kThreads) fused_attention_fwd_kernel(const Par
 
     // s[r][t]: this warp's row r against this lane's key t of the tile.
     float s[kRowsPerWarp][kKeysPerLane];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-      for (int t = 0; t < kKeysPerLane; ++t) s[r][t] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < DP; c += 4) {
-      float4 kv[kKeysPerLane];
-#pragma unroll
-      for (int t = 0; t < kKeysPerLane; ++t)
-        kv[t] = *reinterpret_cast<const float4*>(&Ks[(lane + 32 * t) * QS + c]);
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(&Qs[(row0 + r) * QS + c]);
-#pragma unroll
-        for (int t = 0; t < kKeysPerLane; ++t) {
-          s[r][t] = fmaf(qv.x, kv[t].x, s[r][t]);
-          s[r][t] = fmaf(qv.y, kv[t].y, s[r][t]);
-          s[r][t] = fmaf(qv.z, kv[t].z, s[r][t]);
-          s[r][t] = fmaf(qv.w, kv[t].w, s[r][t]);
-        }
-      }
-    }
+    tile_dot<DP>(Qs, row0, Ks, lane, s);
 
     // Scale, then the causal and padding terms in the reference's order;
     // keys past S drop out of the softmax entirely.
@@ -210,9 +152,8 @@ __global__ void __launch_bounds__(kThreads) fused_attention_fwd_kernel(const Par
       const float mterm = (mrow != nullptr && valid) ? (mrow[kj] - 1.0f) * 1e9f : 0.f;
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
-        float x = s[r][t] * p.scale;
-        if (p.causal) x += (kj <= q0 + row0 + r) ? 0.f : -1e9f;
-        if (mrow != nullptr) x += mterm;
+        const float x = masked_score(s[r][t], p.scale, p.causal, q0 + row0 + r, kj,
+                                     mrow != nullptr, mterm);
         s[r][t] = valid ? x : -INFINITY;
       }
     }
@@ -236,7 +177,7 @@ __global__ void __launch_bounds__(kThreads) fused_attention_fwd_kernel(const Par
       l_run[r] = l_run[r] * corr + warp_sum(psum);
       m_run[r] = m_new;
 #pragma unroll
-      for (int c = 0; c < kColsPerLane; ++c) acc[r][c] *= corr;
+      for (int c = 0; c < kDimsPerLane; ++c) acc[r][c] *= corr;
     }
     __syncwarp();
 
@@ -248,14 +189,14 @@ __global__ void __launch_bounds__(kThreads) fused_attention_fwd_kernel(const Par
         pr[r] = *reinterpret_cast<const float4*>(&Pw[r * kBlockK + j]);
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        float vv[kColsPerLane];
+        float vv[kDimsPerLane];
 #pragma unroll
-        for (int c = 0; c < kColsPerLane; ++c) vv[c] = Vs[(j + jj) * DP + lane + 32 * c];
+        for (int c = 0; c < kDimsPerLane; ++c) vv[c] = Vs[(j + jj) * DP + lane + 32 * c];
 #pragma unroll
         for (int r = 0; r < kRowsPerWarp; ++r) {
           const float pj = jj == 0 ? pr[r].x : jj == 1 ? pr[r].y : jj == 2 ? pr[r].z : pr[r].w;
 #pragma unroll
-          for (int c = 0; c < kColsPerLane; ++c) acc[r][c] = fmaf(pj, vv[c], acc[r][c]);
+          for (int c = 0; c < kDimsPerLane; ++c) acc[r][c] = fmaf(pj, vv[c], acc[r][c]);
         }
       }
     }
@@ -266,8 +207,10 @@ __global__ void __launch_bounds__(kThreads) fused_attention_fwd_kernel(const Par
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int qi = q0 + row0 + r;
     if (qi >= p.sq) continue;
+    if (p.lse != nullptr && lane == 0)
+      p.lse[(n * gridDim.y + h) * p.sq + qi] = m_run[r] + logf(l_run[r]);
 #pragma unroll
-    for (int c = 0; c < kColsPerLane; ++c) {
+    for (int c = 0; c < kDimsPerLane; ++c) {
       const int d = lane + 32 * c;
       if (d < p.d) og[qi * p.o_ss + d] = from_float<T>(acc[r][c] / l_run[r]);
     }
@@ -294,10 +237,10 @@ cudaError_t dispatch_dim(const Params& p, int n, int h, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 on success):
+// dtype: 0 = float32, 1 = bfloat16.  lse may be null.  Returns a cudaError_t (0 on success):
 // the launch's own error, read with cudaGetLastError right after it.
 extern "C" int paddle_fused_attention_fwd(
-    const void* q, const void* k, const void* v, const void* mask, void* out, int dtype, int n,
+    const void* q, const void* k, const void* v, const void* mask, void* out, void* lse, int dtype, int n,
     int h, int sq, int sk, int d, long long q_sn, long long q_sh, long long q_ss, long long k_sn,
     long long k_sh, long long k_ss, long long v_sn, long long v_sh, long long v_ss, long long o_sn,
     long long o_sh, long long o_ss, long long mask_sn, int causal, float scale, void* stream) {
@@ -309,6 +252,7 @@ extern "C" int paddle_fused_attention_fwd(
   p.v = v;
   p.mask = static_cast<const float*>(mask);
   p.out = out;
+  p.lse = static_cast<float*>(lse);
   p.sq = sq;
   p.sk = sk;
   p.d = d;

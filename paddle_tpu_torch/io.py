@@ -57,17 +57,22 @@ def set_params_from_numpy(scope: Scope, arrays: Dict[str, np.ndarray],
                           device, program: Optional[Program] = None) -> None:
     """Put host arrays into ``scope`` by name, on ``device``.
 
-    This is how weights cross from the JAX package (its scope's values,
+    This is how state crosses from the JAX package (its scope's values,
     as numpy arrays) into the port, and how ``load_inference_model``
-    fills a predictor's scope.  With ``program`` given, each array's
-    shape is checked against the program's var of that name."""
+    fills a predictor's scope.  It carries every persistable by name:
+    parameters, and for training the optimizer's moments, beta pows and
+    learning rate.  With ``program`` given, each array's shape is
+    checked against the program's var of that name; a one-element var
+    takes any one-element array (a training program declares the Adam
+    beta pows [1] in startup and, after its update op, [] in main)."""
     scope.bind_device(torch.device(device))
     block = program.global_block() if program is not None else None
     for name, arr in arrays.items():
         arr = np.asarray(arr)
         var = block._find_var_recursive(name) if block is not None else None
         if var is not None and var.shape is not None and -1 not in var.shape:
-            if tuple(arr.shape) != tuple(var.shape):
+            one_element = arr.size == 1 and int(np.prod(var.shape)) == 1
+            if tuple(arr.shape) != tuple(var.shape) and not one_element:
                 raise ValueError(
                     "shape mismatch loading %r: array %s vs program %s"
                     % (name, arr.shape, tuple(var.shape)))

@@ -65,6 +65,15 @@ class LayerHelper:
         attr.initializer(sparam, startup_block)
         return param
 
+    def set_variable_initializer(self, var, init):
+        """Create ``var`` in the startup program and initialize it there."""
+        startup_block = self.startup_program.global_block()
+        svar = startup_block.create_var(
+            name=var.name, shape=var.shape, dtype=var.dtype, persistable=True
+        )
+        init(svar, startup_block)
+        return var
+
     @property
     def bias_attr(self):
         return self.kwargs.get("bias_attr")

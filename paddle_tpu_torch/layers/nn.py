@@ -1,5 +1,6 @@
 """NN layers (reference: python/paddle/fluid/layers/nn.py): fc,
-embedding and layer_norm, as the JAX package's ``layers/nn.py`` builds them."""
+embedding, layer_norm, mean, softmax_with_cross_entropy, matmul, topk
+and accuracy, as the JAX package's ``layers/nn.py`` builds them."""
 from __future__ import annotations
 
 import numpy as np
@@ -7,7 +8,8 @@ import numpy as np
 from paddle_tpu_torch import initializer
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["fc", "embedding", "layer_norm"]
+__all__ = ["fc", "embedding", "layer_norm", "mean", "softmax_with_cross_entropy", "matmul",
+           "topk", "accuracy"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None, act=None, name=None):
@@ -75,3 +77,68 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5,
         attrs={"epsilon": epsilon, "begin_norm_axis": begin_norm_axis},
     )
     return helper.append_activation(out)
+
+
+def _simple(op_type, x, attrs=None, out_slot="Out", in_slot="X", dtype=None):
+    helper = LayerHelper(op_type)
+    out = helper.create_variable_for_type_inference(dtype or x.dtype)
+    helper.append_op(type=op_type, inputs={in_slot: [x]}, outputs={out_slot: [out]}, attrs=attrs or {})
+    return out
+
+
+def mean(x, name=None):
+    return _simple("mean", x)
+
+
+def softmax_with_cross_entropy(
+    logits, label, soft_label=False, ignore_index=-100, numeric_stable_mode=True, return_softmax=False, axis=-1
+):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    softmax_out = helper.create_variable_for_type_inference(logits.dtype)
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op(
+        type="softmax_with_cross_entropy",
+        inputs={"Logits": [logits], "Label": [label]},
+        outputs={"Softmax": [softmax_out], "Loss": [loss]},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index, "axis": axis},
+    )
+    if return_softmax:
+        return loss, softmax_out
+    return loss
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="matmul",
+        inputs={"X": [x], "Y": [y]},
+        outputs={"Out": [out]},
+        attrs={"transpose_X": transpose_x, "transpose_Y": transpose_y, "alpha": float(alpha)},
+    )
+    return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    values = helper.create_variable_for_type_inference(input.dtype, stop_gradient=True)
+    indices = helper.create_variable_for_type_inference("int64", stop_gradient=True)
+    helper.append_op(
+        type="top_k", inputs={"X": [input]}, outputs={"Out": [values], "Indices": [indices]}, attrs={"k": k}
+    )
+    return values, indices
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """reference: layers/metric_op.py accuracy — top_k + accuracy op."""
+    helper = LayerHelper("accuracy")
+    _, indices = topk(input, k)
+    acc = helper.create_variable_for_type_inference("float32", stop_gradient=True)
+    correct = correct or helper.create_variable_for_type_inference("int32", stop_gradient=True)
+    total = total or helper.create_variable_for_type_inference("int32", stop_gradient=True)
+    helper.append_op(
+        type="accuracy",
+        inputs={"Indices": [indices], "Label": [label]},
+        outputs={"Accuracy": [acc], "Correct": [correct], "Total": [total]},
+    )
+    return acc

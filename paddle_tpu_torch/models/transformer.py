@@ -1,7 +1,9 @@
-"""BERT-style encoder, as the JAX package's ``models/transformer.py`` builds it.
+"""BERT-style encoder and pretraining heads, as the JAX package's
+``models/transformer.py`` builds them.
 
-The port carries the serving build of the encoder: the fused attention
-op (padding as ``mask``, causality as ``causal``) with dropout off.
+The port carries the fused build of the encoder: the fused attention
+op (padding as ``mask``, causality as ``causal``) with dropout off, for
+serving (``bert_encoder``) and for pretraining (``bert_pretrain``).
 The unfused attention path (matmul + softmax + an ``attn_bias``) and
 dropout use ops that come with the training slice of the port; asking
 for them raises here instead of building a program the executor cannot
@@ -16,7 +18,8 @@ from paddle_tpu_torch import layers
 from paddle_tpu_torch.layer_helper import LayerHelper
 from paddle_tpu_torch.param_attr import ParamAttr
 
-__all__ = ["multi_head_attention", "encoder_layer", "positionwise_ffn", "bert_encoder"]
+__all__ = ["multi_head_attention", "encoder_layer", "positionwise_ffn", "bert_encoder",
+           "bert_pretrain"]
 
 
 def _fc3(x, size, name, num_flatten_dims=2, act=None):
@@ -137,3 +140,65 @@ def bert_encoder(src_ids, input_mask=None, sent_ids=None, vocab_size: int = 3052
             name="%s_enc_%d" % (name, i), fused=True, mask=input_mask,
         )
     return x
+
+
+def bert_pretrain(
+    src_ids,
+    sent_ids,
+    input_mask,
+    mask_pos,
+    mask_labels,
+    nsp_labels,
+    vocab_size: int = 30522,
+    d_model: int = 768,
+    n_layer: int = 12,
+    n_head: int = 12,
+    d_inner: int = 3072,
+    max_pos: int = 512,
+    seq_len: int = 128,
+    dropout_rate: float = 0.1,
+    is_test: bool = False,
+    name: str = "bert",
+    fused_attention: bool = False,
+):
+    """BERT pretraining objective: masked-LM + next-sentence prediction
+    (the original BERT recipe's heads over ``bert_encoder``).
+
+    src_ids/sent_ids: int64 [N, S]; input_mask: float [N, S];
+    mask_pos: int64 [N*M, 1] FLATTENED positions into [N*S];
+    mask_labels: int64 [N*M, 1]; nsp_labels: int64 [N, 1].
+    Returns (total_loss, mlm_loss, nsp_acc).
+    """
+    enc = bert_encoder(
+        src_ids, input_mask, sent_ids, vocab_size, d_model, n_layer, n_head,
+        d_inner, max_pos, seq_len, dropout_rate, is_test, name,
+        fused_attention=fused_attention,
+    )  # [N, S, D]
+
+    # ---- masked LM head over gathered positions
+    flat = layers.reshape(enc, shape=[-1, d_model])          # [N*S, D]
+    picked = layers.gather(flat, layers.reshape(mask_pos, shape=[-1]))  # [N*M, D]
+    trans = _fc3(picked, d_model, name + "_mlm_trans", num_flatten_dims=1, act="gelu")
+    trans = layers.layer_norm(
+        trans, begin_norm_axis=1,
+        param_attr=ParamAttr(name=name + "_mlm_ln_scale"),
+        bias_attr=ParamAttr(name=name + "_mlm_ln_bias"),
+    )
+    # output projection TIED to the word embedding (original BERT recipe)
+    word_emb = enc.block.program.global_block().var(name + "_word_emb")
+    mlm_logits = layers.matmul(trans, word_emb, transpose_y=True)  # [N*M, V]
+    mlm_bias = layers.create_parameter([vocab_size], "float32",
+                                       name=name + "_mlm_out_b", is_bias=True)
+    mlm_logits = mlm_logits + mlm_bias
+    mlm_loss = layers.mean(layers.softmax_with_cross_entropy(mlm_logits, mask_labels))
+
+    # ---- next-sentence head on the [CLS] (first) token
+    first = layers.slice(enc, axes=[1], starts=[0], ends=[1])   # [N, 1, D]
+    pooled = _fc3(layers.reshape(first, shape=[-1, d_model]), d_model,
+                  name + "_pool", num_flatten_dims=1, act="tanh")
+    nsp_logits = _fc3(pooled, 2, name + "_nsp", num_flatten_dims=1)
+    nsp_loss = layers.mean(layers.softmax_with_cross_entropy(nsp_logits, nsp_labels))
+    nsp_acc = layers.accuracy(nsp_logits, nsp_labels)
+
+    total = mlm_loss + nsp_loss
+    return total, mlm_loss, nsp_acc

@@ -1,15 +1,31 @@
 """Math ops (the slice's subset of the JAX package's ``ops/math_ops.py``).
 
-Reference kernels: paddle/fluid/operators/mul_op.cc,
-operators/elementwise/*.  ``mul`` is a plain matrix product through
-``torch.matmul``; on the TPU it was XLA's, not a Pallas kernel.
+Reference kernels: paddle/fluid/operators/mul_op.cc, matmul_op.cc,
+sum_op.cc, mean_op.cc, operators/elementwise/*.  ``mul`` and ``matmul``
+are plain matrix products through ``torch.matmul``; on the TPU they were
+XLA's, not Pallas kernels.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from paddle_tpu_torch.core.registry import register_op
 from paddle_tpu_torch.ops.common import one
+
+
+@register_op("matmul")
+def matmul(inputs, attrs, device):
+    x, y = one(inputs, "X"), one(inputs, "Y")
+    if attrs.get("transpose_X", False) and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_Y", False) and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y)
+    alpha = attrs.get("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": out}
 
 
 @register_op("mul")
@@ -45,3 +61,18 @@ def _bcast_y(x, y, attrs):
 def elementwise_add(inputs, attrs, device):
     x, y = one(inputs, "X"), one(inputs, "Y")
     return {"Out": x + _bcast_y(x, y, attrs)}
+
+
+@register_op("sum")
+def sum_op(inputs, attrs, device):
+    """N-ary add: the grad-aggregation op (reference: operators/sum_op.cc)."""
+    vals = inputs["X"]
+    out = vals[0]
+    for v in vals[1:]:
+        out = out + v
+    return {"Out": out}
+
+
+@register_op("mean")
+def mean(inputs, attrs, device):
+    return {"Out": torch.mean(one(inputs, "X"))}

@@ -1,8 +1,9 @@
 """NN ops (the slice's subset of the JAX package's ``ops/nn_ops.py``).
 
-Reference kernels: operators/activation_op.cc (gelu),
-layer_norm_op.cc, and the fused attention op whose compute is the
-hand-written CUDA kernel in ``kernels/fused_attention.py``.
+Reference kernels: operators/activation_op.cc (gelu, tanh),
+layer_norm_op.cc, softmax_with_cross_entropy_op.cc, and the fused
+attention op, whose compute and gradient are the hand-written CUDA
+kernels behind ``kernels/fused_attention.py``.
 """
 from __future__ import annotations
 
@@ -18,6 +19,11 @@ from paddle_tpu_torch.ops.common import maybe, one
 def gelu(inputs, attrs, device):
     approximate = "tanh" if attrs.get("approximate", False) else "none"
     return {"Out": F.gelu(one(inputs, "X"), approximate=approximate)}
+
+
+@register_op("tanh")
+def tanh(inputs, attrs, device):
+    return {"Out": torch.tanh(one(inputs, "X"))}
 
 
 @register_op("layer_norm")
@@ -41,6 +47,29 @@ def layer_norm(inputs, attrs, device):
         y = y + bias.reshape(norm_shape)
     return {"Y": y.to(x.dtype), "Mean": mean.reshape(x.shape[:begin]),
             "Variance": var.reshape(x.shape[:begin])}
+
+
+@register_op("softmax_with_cross_entropy", no_grad_set={"Label"})
+def softmax_with_cross_entropy(inputs, attrs, device):
+    """Log-softmax and the picked label's negative log-probability; the
+    gradient reaches ``Logits`` only."""
+    logits = one(inputs, "Logits")
+    label = one(inputs, "Label")
+    axis = attrs.get("axis", -1)
+    logp = F.log_softmax(logits, dim=axis)
+    softmax_out = torch.exp(logp)
+    if attrs.get("soft_label", False):
+        loss = -torch.sum(label * logp, dim=axis, keepdim=True)
+    else:
+        if label.dim() == logits.dim() and label.shape[axis] == 1:
+            lbl = label.squeeze(axis)
+        else:
+            lbl = label
+        loss = -torch.gather(logp, axis, lbl[..., None].long())
+        ignore = attrs.get("ignore_index", -100)
+        if ignore >= 0:
+            loss = torch.where(lbl[..., None] == ignore, 0.0, loss)
+    return {"Softmax": softmax_out, "Loss": loss}
 
 
 @register_op("fused_attention", no_grad_set={"Mask"})

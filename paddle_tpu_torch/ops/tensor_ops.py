@@ -2,7 +2,8 @@
 the JAX package's ``ops/tensor_ops.py``).
 
 Reference kernels: operators/fill_constant_op.cc, uniform_random_op.cc,
-range_op.cc, reshape_op.cc, transpose_op.cc, lookup_table_op.cc.  The
+range_op.cc, reshape_op.cc, transpose_op.cc, slice_op.cc, gather_op.cc,
+lookup_table_op.cc, top_k_op.cc.  The
 random op draws from a ``torch.Generator`` seeded with the op's ``seed``
 attr (assigned by the program, framework.Program.next_seed).
 """
@@ -113,6 +114,18 @@ def transpose2(inputs, attrs, device):
     return {"Out": x.permute(*attrs["axis"]), "XShape": _xshape(x)}
 
 
+@register_op("slice")
+def slice_op(inputs, attrs, device):
+    x = one(inputs, "Input")
+    idx = [slice(None)] * x.dim()
+    for a, s, e in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        dim = x.shape[a]
+        s = max(s + dim, 0) if s < 0 else min(s, dim)
+        e = max(e + dim, 0) if e < 0 else min(e, dim)
+        idx[a] = slice(s, e)
+    return {"Out": x[tuple(idx)]}
+
+
 # ---------------------------------------------------------------------------
 # indexing / embedding
 # ---------------------------------------------------------------------------
@@ -129,3 +142,16 @@ def lookup_table(inputs, attrs, device):
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
     return {"Out": out}
+
+
+@register_op("gather", no_grad_set={"Index"})
+def gather(inputs, attrs, device):
+    """Rows of X at Index (reference: operators/gather_op.cc)."""
+    x, idx = one(inputs, "X"), one(inputs, "Index")
+    return {"Out": x[idx.long()]}
+
+
+@register_op("top_k", differentiable=False)
+def top_k(inputs, attrs, device):
+    vals, idx = torch.topk(one(inputs, "X"), attrs["k"])
+    return {"Out": vals, "Indices": idx}
