@@ -9,7 +9,9 @@ Phases, each of which raises (exit code != 0) on failure:
    triton versions; TF32 is switched off for matmuls and cuDNN.
 2. build: every CUDA source under ``paddle_tpu_torch/csrc/`` compiles
    with nvcc (one process per source, all at once); ptxas' register
-   and shared-memory report is printed.
+   report is printed, each backward kernel's SASS must hold wgmma
+   (HGMMA) and no atomics, and its launch configuration (threads,
+   rows, shared memory) is printed.
 3. kernel check: each kernel's wrapper runs on the card at the main
    paths' shapes (and a ragged one) and is held against its plain
    PyTorch version; the kernel, the plain version and one PyTorch
@@ -18,7 +20,9 @@ Phases, each of which raises (exit code != 0) on failure:
    device time, not the host's launch overhead.  The forward kernel
    (with and without its log-sum-exp output) comes first, then the
    backward's dK/dV and dQ kernels, whose library yardstick is the
-   backward of ``scaled_dot_product_attention``.
+   backward of ``scaled_dot_product_attention``.  The backward kernels
+   are also held on batches with an all-pad row, and two launches on the
+   same inputs must give the same bits.
 4. serving slice: full-width BERT-base (12 layers, d_model 768, 12
    heads, seq 128, random weights from a seed) is built with the port's
    layers, initialised on the card, saved with
@@ -87,11 +91,22 @@ BWD_CASES = [
     (3, 4, 77, 32, "float32", False, "contiguous"),
     (3, 4, 77, 32, "bfloat16", True, "contiguous"),
 ]
+# the backward kernels on a batch whose last row is all pad (checked, not timed)
+BWD_ALL_PAD_CASES = [
+    (8, 12, 128, 64, "float32", False, "nshd"),
+    (8, 12, 128, 64, "float32", True, "nshd"),
+    (8, 12, 128, 64, "bfloat16", False, "nshd"),
+    (8, 12, 128, 64, "bfloat16", True, "nshd"),
+    (3, 4, 77, 32, "float32", True, "contiguous"),
+]
 LSE_TOL = 1e-4  # fp32 log-sum-exp, relative to max(1, |ref|)
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s and op/s by type
+# H100 SXM published peaks (NVIDIA data sheet, dense).  Operations are
+# bounded at the tensor cores' rate: bf16 at 989 TFLOP/s; fp32 as 3xTF32
+# (three TF32 products per product, the least tensor-core work that keeps
+# fp32's accuracy) at 495 TFLOP/s.  (factor, op/s) by type.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_OPS = {"float32": (3, 495e12), "bfloat16": (1, 989e12)}
 
 BERT_BASE = dict(vocab_size=30522, d_model=768, n_layer=12, n_head=12, d_inner=3072,
                  max_pos=512, seq_len=128)
@@ -158,7 +173,43 @@ def build_kernels():
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log("[build]   " + line.strip())
+    check_bwd_build(res["fused_attention_bwd"]["path"])
     return res
+
+
+def check_bwd_build(lib_path):
+    """Each backward kernel instantiation issues wgmma (HGMMA in its SASS,
+    read with cuobjdump) and no atomics; and its launch configuration."""
+    import ctypes
+    import re
+
+    from paddle_tpu_torch.kernels import build
+
+    sass = subprocess.run([os.path.join(os.path.dirname(build._nvcc()), "cuobjdump"), "-sass",
+                           lib_path], capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split(None, 1)[0]
+        kind = re.search(r"bwd_(dkv|dq)_kernel", name)
+        if kind is None:
+            continue
+        label = "%s %s D%s" % (kind.group(1), "bf16" if "bfloat16" in name else "fp32",
+                               re.search(r"Li(\d+)E", name).group(1))
+        counts[label] = {"HGMMA": len(re.findall(r"\bHGMMA\.", chunk)),
+                         "atomics": len(re.findall(r"\b(ATOM|ATOMS|RED)\.", chunk))}
+    log("[build] backward SASS", json.dumps(counts, sort_keys=True))
+    if len(counts) != 12 or any(c["HGMMA"] == 0 or c["atomics"] for c in counts.values()):
+        raise AssertionError("backward kernels without wgmma or with atomics: %s" % counts)
+    config = ctypes.CDLL(lib_path).paddle_fused_attention_bwd_config
+    config.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    config.restype = None
+    cfg = (ctypes.c_int * 4)()
+    for which, kind in ((0, "dkv"), (1, "dq")):
+        for dtype, tname in ((0, "fp32"), (1, "bf16")):
+            for dp in (32, 64, 128):
+                config(which, dtype, dp, cfg)
+                log("[build] %s %s D%d: %d threads, %d rows a block, walked tiles of %d, "
+                    "%d bytes of shared memory" % (kind, tname, dp, *cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -203,7 +254,12 @@ def _time_ms(torch, fn, samples=21, per_sample=10):
     return statistics.median(times)
 
 
-def _attn_inputs(torch, case, gen):
+def _ops_s(ops, dtype):
+    factor, rate = PEAK_OPS[dtype]
+    return factor * ops / rate
+
+
+def _attn_inputs(torch, case, gen, all_pad=False):
     n, h, s, d, dtype, causal, layout = case
     dt = getattr(torch, dtype)
 
@@ -215,6 +271,8 @@ def _attn_inputs(torch, case, gen):
     q, k, v = make(), make(), make()
     lens = torch.randint(1, s + 1, (n,), generator=gen, device="cuda")
     lens[0] = s  # one all-real row
+    if all_pad:
+        lens[-1] = 0  # and one all-pad row
     mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None]).float()
     return q, k, v, mask
 
@@ -224,7 +282,7 @@ def _attn_bound(case):
     item = 4 if dtype == "float32" else 2
     nbytes = 4 * n * h * s * d * item + n * s * 4   # Q, K, V read, Out written, Mask read
     ops = 4 * n * h * s * s * d                     # Q K^T and P V
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, _ops_s(ops, dtype)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -258,9 +316,9 @@ def check_kernels(torch):
         row = {"shape": [n, h, s, d], "dtype": dtype, "causal": causal, "layout": layout,
                "max_abs_err": err, "tol": ATTN_TOL[dtype], "ms": kernel_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-        if case == TRAIN_CASE:  # the grad ops run it with the log-sum-exp output
-            row["ms_with_lse"] = _time_ms(torch, lambda: fa.fused_attention_fwd(
-                q, k, v, mask, causal, scale, return_lse=True))
+        if case == TRAIN_CASE:  # the grad ops run it with the row statistics output
+            row["ms_with_stats"] = _time_ms(torch, lambda: fa.fused_attention_fwd(
+                q, k, v, mask, causal, scale, return_stats=True))
         log("[kernel] fused_attention_fwd", json.dumps(row))
         if not finite or not err <= ATTN_TOL[dtype]:
             raise AssertionError("fused_attention_fwd disagrees with its plain version: %s" % row)
@@ -273,14 +331,14 @@ def _bwd_bounds(case):
     n, h, s, d, dtype, _, _ = case
     item = 4 if dtype == "float32" else 2
     nhsd = n * h * s * d
-    small = 2 * n * h * s * 4 + n * s * 4  # LSE and Di read (fp32), Mask read
+    small = 3 * n * h * s * 4 + n * s * 4  # row max, log row sum, Di read (fp32), Mask read
     work = {  # bytes (each input read once, each output written once), operations
         "dkv": (6 * nhsd * item + small, 8 * n * h * s * s * d),  # Q K V dO in, dK dV out
         "dq": (5 * nhsd * item + small, 6 * n * h * s * s * d),   # Q K V dO in, dQ out
     }
     out = {}
     for name, (nbytes, ops) in work.items():
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, _ops_s(ops, dtype)
         out[name] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
     return out
 
@@ -295,22 +353,41 @@ def _within(got, ref, dtype):
     return err.max().item(), bool((err <= 2e-2 + 2.0 ** -7 * ref.abs()).all().item())
 
 
+def _bwd_fp64(torch, fa, q, k, v, mask, causal, scale, d_out):
+    """dQ, dK, dV in float64 from the op's fp32 scores: the softmax and
+    every product in float64, nothing taken from the kernels.  The scores
+    stay those of fp32 (an fp64 score would keep q.k on an all-pad row,
+    where fp32's -1e9 absorbs it and the softmax is uniform)."""
+    s = fa._scores(q.float(), k.float(), mask, causal, scale).double()
+    p = torch.softmax(s, dim=-1)
+    q, k, v, do = q.double(), k.double(), v.double(), d_out.double()
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, v)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale,
+            torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale,
+            torch.einsum("bhqk,bhqd->bhkd", p, do))
+
+
 def check_bwd_kernels(torch):
     """The dK/dV and dQ kernels against ``fused_attention_bwd_plain`` on the
-    same inputs (the forward kernel's Out and log-sum-exp), and the
-    log-sum-exp against torch.logsumexp of the plain fp32 scores."""
+    same inputs (the forward kernel's Out and row statistics), fp32 also
+    against a float64 reference; two launches on the same inputs give the
+    same bits; the log-sum-exp rebuilt from the row statistics against
+    torch.logsumexp of the plain fp32 scores.  BWD_CASES are timed;
+    BWD_ALL_PAD_CASES (a batch with an all-pad row) are checked only."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import fused_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     results = []
-    for case in BWD_CASES:
+    for case, all_pad in [(c, False) for c in BWD_CASES] + [(c, True) for c in BWD_ALL_PAD_CASES]:
         n, h, s, d, dtype, causal, layout = case
-        q, k, v, mask = _attn_inputs(torch, case, gen)
+        q, k, v, mask = _attn_inputs(torch, case, gen, all_pad)
         d_out = _attn_inputs(torch, case, gen)[0]  # dO arrives in the head split's layout too
         scale = 1.0 / float(np.sqrt(d))
-        out, lse = fa.fused_attention_fwd(q, k, v, mask, causal, scale, return_lse=True)
+        out, stats = fa.fused_attention_fwd(q, k, v, mask, causal, scale, return_stats=True)
+        lse = fa.row_lse(stats)
         bias = ((mask - 1.0) * 1e9)[:, None, None, :]
         if causal:
             idx = torch.arange(s, device="cuda")
@@ -319,41 +396,45 @@ def check_bwd_kernels(torch):
         lse_err = (lse - torch.logsumexp(scores, dim=-1)).abs().max().item()
         lse_ok = lse_err <= LSE_TOL * max(1.0, lse.abs().max().item())
         di = (out.float() * d_out.float()).sum(-1)
-        dk, dv = fa.fused_attention_bwd_dkv(q, k, v, mask, causal, scale, d_out, lse, di)
-        dq = fa.fused_attention_bwd_dq(q, k, v, mask, causal, scale, d_out, lse, di)
-        rq, rk, rv = fa.fused_attention_bwd_plain(q, k, v, mask, causal, scale, out, d_out, lse)
+
+        def kernels_once():
+            dk_, dv_ = fa.fused_attention_bwd_dkv(q, k, v, mask, causal, scale, d_out, stats, di)
+            return fa.fused_attention_bwd_dq(q, k, v, mask, causal, scale, d_out, stats, di), dk_, dv_
+
+        dq, dk, dv = kernels_once()
+        again = kernels_once()
+        rq, rk, rv = fa.fused_attention_bwd_plain(q, k, v, mask, causal, scale, out, d_out, stats)
         torch.cuda.synchronize()
+        repeat = all(bool(torch.equal(a, b)) for a, b in zip((dq, dk, dv), again))
         errs = {name: _within(g, r, dtype) for name, g, r in (("dq", dq, rq), ("dk", dk, rk),
                                                               ("dv", dv, rv))}
         if dtype == "float32":
-            # the plain version on the card may sum in the kernels' own order
-            # (cuBLAS's FFMA GEMMs also run each dot product in sequence), so
+            # the plain version on the card may round as the kernels do, so
             # also hold the kernels to a float64 reference, with the same limit
-            r64 = fa.fused_attention_bwd_plain(q.double(), k.double(), v.double(), mask, causal,
-                                               scale, out.double(), d_out.double(), lse.double())
+            r64 = _bwd_fp64(torch, fa, q, k, v, mask, causal, scale, d_out)
             errs.update({name + "_vs_fp64": _within(g, r, dtype) for name, g, r in
                          (("dq", dq, r64[0]), ("dk", dk, r64[1]), ("dv", dv, r64[2]))})
         finite = all(bool(torch.isfinite(g.float()).all().item()) for g in (dq, dk, dv))
-        dkv_ms = _time_ms(torch, lambda: fa.fused_attention_bwd_dkv(
-            q, k, v, mask, causal, scale, d_out, lse, di))
-        dq_ms = _time_ms(torch, lambda: fa.fused_attention_bwd_dq(
-            q, k, v, mask, causal, scale, d_out, lse, di))
-        plain_ms = _time_ms(torch, lambda: fa.fused_attention_bwd_plain(
-            q, k, v, mask, causal, scale, out, d_out, lse))
-        # the library yardstick: the backward of one SDPA call with the same
-        # additive bias, timed without its forward
-        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
-        o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias.to(q.dtype), scale=scale)
-        library_ms = _time_ms(torch, lambda: torch.autograd.grad(
-            o, (qs, ks, vs), d_out, retain_graph=True))
-        bounds = _bwd_bounds(case)
         row = {"shape": [n, h, s, d], "dtype": dtype, "causal": causal, "layout": layout,
-               "max_abs_err": {name: e for name, (e, _) in errs.items()}, "lse_max_abs_err": lse_err,
-               "dkv_ms": dkv_ms, "dq_ms": dq_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "dkv_bound_ms": bounds["dkv"][0], "dkv_bound_by": bounds["dkv"][1],
-               "dq_bound_ms": bounds["dq"][0], "dq_bound_by": bounds["dq"][1]}
+               "all_pad_row": all_pad, "repeat_bit_equal": repeat,
+               "max_abs_err": {name: e for name, (e, _) in errs.items()}, "lse_max_abs_err": lse_err}
+        if not all_pad:
+            row["dkv_ms"] = _time_ms(torch, lambda: fa.fused_attention_bwd_dkv(
+                q, k, v, mask, causal, scale, d_out, stats, di))
+            row["dq_ms"] = _time_ms(torch, lambda: fa.fused_attention_bwd_dq(
+                q, k, v, mask, causal, scale, d_out, stats, di))
+            row["plain_ms"] = _time_ms(torch, lambda: fa.fused_attention_bwd_plain(
+                q, k, v, mask, causal, scale, out, d_out, stats))
+            # the library yardstick: the backward of one SDPA call with the
+            # same additive bias, timed without its forward
+            qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+            o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias.to(q.dtype), scale=scale)
+            row["library_ms"] = _time_ms(torch, lambda: torch.autograd.grad(
+                o, (qs, ks, vs), d_out, retain_graph=True))
+            for key, (bound, by) in _bwd_bounds(case).items():
+                row[key + "_bound_ms"], row[key + "_bound_by"] = bound, by
         log("[kernel] fused_attention_bwd", json.dumps(row))
-        if not (finite and lse_ok and all(ok for _, ok in errs.values())):
+        if not (finite and lse_ok and repeat and all(ok for _, ok in errs.values())):
             raise AssertionError("fused_attention backward disagrees with its plain version: %s"
                                  % row)
         results.append((case, row))
@@ -510,9 +591,10 @@ def pretrain_feed(rng, rows):
 
 def _profile_step(torch, step):
     """One step under torch.profiler: its wall time, the device time of its
-    kernels and the card's idle share, the host's own time in ops, and the
-    top kernels and host ops; None when the profiler reports no device
-    time.  The profiler's own cost lengthens the host side of this step."""
+    kernels and the card's idle share, the host's own time in ops, the
+    attention kernels' device time and share, and the top kernels and host
+    ops; None when the profiler reports no device time.  The profiler's
+    own cost lengthens the host side of this step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -532,9 +614,13 @@ def _profile_step(torch, step):
     kernels_.sort(key=lambda r: -r[1])
     host_ops.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in kernels_)
+    attention = [{"name": k[:90], "ms": t, "calls": c} for k, t, c in kernels_
+                 if "fused_attention" in k]
     return {"step_ms": wall_ms, "device_ms": device_ms, "device_idle_share": 1 - device_ms / wall_ms,
             "host_self_ms": sum(r[1] for r in host_ops),
             "launches": sum(r[2] for r in kernels_),
+            "attention_kernels": attention,
+            "attention_share_of_device": sum(r["ms"] for r in attention) / device_ms,
             "top_kernels": [{"name": k[:90], "ms": t, "calls": c} for k, t, c in kernels_[:12]],
             "top_host_ops": [{"name": k[:60], "ms": t, "calls": c} for k, t, c in host_ops[:12]]}
 

@@ -10,11 +10,15 @@
 //   s  += causal ? (j <= i ? 0 : -1e9) : 0      (fp32, added first)
 //   s  += (Mask[n, j] - 1) * 1e9                (fp32, when Mask is given)
 //   Out = softmax(s) V                          (written in Q's dtype)
-//   LSE = log(sum_j exp(s_j))                   (fp32 [N, H, S], only when
-//                                                the caller asks for it)
-// The log-sum-exp is what the backward kernels (fused_attention_bwd.cu)
-// rebuild the probabilities from; the serving path does not ask for it and
-// does not pay for it.
+//   Stats = [m, log l]                          (fp32 [2, N, H, S], only
+//                                                when the caller asks for it)
+// where m is the row max of s and l = sum_j exp(s_j - m).  The backward
+// kernels (fused_attention_bwd.cu) rebuild the probabilities from them as
+// P = exp((s - m) - log l).  The two stay apart: their sum, the row's
+// log-sum-exp, rounds back to m on a row whose every key is masked
+// (every score -1e9, where one fp32 ulp is 64), and exp(s - lse) would
+// then give each key 1 where the softmax gives 1/S.  The serving path
+// does not ask for the statistics and does not pay for them.
 // These are the mask semantics of the op's einsum branch (the JAX
 // package's ops/nn_ops.py:709-717), which that package runs on the CPU,
 // so every row compares with that reference, pad query rows included.
@@ -71,7 +75,7 @@ struct Params {
   const void* v;
   const float* mask;  // [N, Sk] fp32 with row stride mask_sn, or null
   void* out;
-  float* lse;         // [N, H, Sq] fp32, contiguous, or null
+  float* stats;       // [2, N, H, Sq] fp32, contiguous (row max, log row sum), or null
   int sq, sk, d;
   long long q_sn, q_sh, q_ss;
   long long k_sn, k_sh, k_ss;
@@ -207,8 +211,11 @@ __global__ void __launch_bounds__(kThreads) fused_attention_fwd_kernel(const Par
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int qi = q0 + row0 + r;
     if (qi >= p.sq) continue;
-    if (p.lse != nullptr && lane == 0)
-      p.lse[(n * gridDim.y + h) * p.sq + qi] = m_run[r] + logf(l_run[r]);
+    if (p.stats != nullptr && lane == 0) {
+      const long long at = (n * gridDim.y + h) * p.sq + qi;
+      p.stats[at] = m_run[r];
+      p.stats[at + (long long)gridDim.z * gridDim.y * p.sq] = logf(l_run[r]);
+    }
 #pragma unroll
     for (int c = 0; c < kDimsPerLane; ++c) {
       const int d = lane + 32 * c;
@@ -237,10 +244,10 @@ cudaError_t dispatch_dim(const Params& p, int n, int h, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  lse may be null.  Returns a cudaError_t (0 on success):
+// dtype: 0 = float32, 1 = bfloat16.  stats may be null.  Returns a cudaError_t (0 on success):
 // the launch's own error, read with cudaGetLastError right after it.
 extern "C" int paddle_fused_attention_fwd(
-    const void* q, const void* k, const void* v, const void* mask, void* out, void* lse, int dtype, int n,
+    const void* q, const void* k, const void* v, const void* mask, void* out, void* stats, int dtype, int n,
     int h, int sq, int sk, int d, long long q_sn, long long q_sh, long long q_ss, long long k_sn,
     long long k_sh, long long k_ss, long long v_sn, long long v_sh, long long v_ss, long long o_sn,
     long long o_sh, long long o_ss, long long mask_sn, int causal, float scale, void* stream) {
@@ -252,7 +259,7 @@ extern "C" int paddle_fused_attention_fwd(
   p.v = v;
   p.mask = static_cast<const float*>(mask);
   p.out = out;
-  p.lse = static_cast<float*>(lse);
+  p.stats = static_cast<float*>(stats);
   p.sq = sq;
   p.sk = sk;
   p.d = d;

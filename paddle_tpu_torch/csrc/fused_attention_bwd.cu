@@ -1,4 +1,5 @@
-// Fused scaled-dot-product attention, backward, for Hopper (sm_90a).
+// Fused scaled-dot-product attention, backward, for Hopper (sm_90a), on
+// the tensor cores.
 //
 // Replaces the two TPU kernels of the backward of jax's Pallas
 // flash_attention (jax 0.9.0, jax/experimental/pallas/ops/tpu/
@@ -10,80 +11,129 @@
 //     `fused_attention_bwd_dq_kernel`.
 //
 // What they compute, for Q, K, V, dO of shape [N, H, S, D] (fp32 or bf16),
-// the row log-sum-exp LSE that the forward kernel writes (fp32 [N, H, Sq])
-// and Di = rowsum(O * dO) (fp32 [N, H, Sq], a torch reduction beside the
+// the row statistics the forward kernel writes (fp32 [2, N, H, Sq]: the row
+// max m of the scores and log l, the log of the row sum of exp(s - m)) and
+// Di = rowsum(O * dO) (fp32 [N, H, Sq], a torch reduction beside the
 // launch, as XLA computed it beside the TPU kernels):
-//   s   = (Q K^T) * scale + causal + padding   (fp32, the forward's order:
+//   s   = (Q K^T) * scale + causal + padding   (fp32, the reference's order
+//                                               of additions:
 //                                               attn::masked_score)
-//   P   = exp(s - LSE)
+//   P   = exp((s - m) - log l)
 //   dV  = P^T dO
 //   dP  = dO V^T
 //   dS  = P * (dP - Di)
 //   dQ  = scale * dS K
 //   dK  = scale * dS^T Q                        (all written in Q's dtype)
 // This is the vjp of the op's einsum branch (the JAX package's
-// ops/nn_ops.py:709-717), with no gradient to Mask.  The raw products Q K^T
-// run through attn::tile_dot, the forward kernel's own FMA chain, so the
-// recomputed scores carry the forward's bits: near -1e9 one fp32 ulp is 64,
-// and any other order of additions would move P on rows with masked keys.
-// Pad query rows get real gradients (they attend the real keys, and later
-// layers send gradient back through them), so every row and every tile is
-// processed; nothing is skipped.
+// ops/nn_ops.py:709-717), with no gradient to Mask.  m and log l are kept
+// apart because their sum rounds away on a row whose keys are all masked:
+// there every score is -1e9, where one fp32 ulp is 64, so m + log(S) is m,
+// and exp(s - (m + log l)) would give each key 1 where the softmax gives
+// 1/S.  Pad query rows get real gradients (they attend the real keys, and
+// later layers send gradient back through them), so every row and every
+// tile is processed; nothing is skipped.
 //
-// Design, simple and right first, split as the TPU split it:
-//  * dK/dV: one block per (n, h, tile of kBlockRows keys).  A loop inside the
-//    block walks the query tiles (the TPU's sequential grid dimension);
-//    each warp owns kRowsPerWarp keys and keeps their dK and dV rows in
-//    fp32 registers across the walk.  For P^T and dP^T a lane owns
-//    kColsPerLane queries of the tile; P^T and dS^T go through small
-//    per-warp shared buffers to the two products that accumulate into the
-//    key rows, where a lane owns DP / 32 columns.
-//  * dQ: one block per (n, h, tile of kBlockRows queries), walking the K/V
-//    tiles; each warp owns kRowsPerWarp query rows and their dQ rows.
-//  * No atomics: every output element is summed by one thread in a fixed
-//    order, so results repeat bit for bit from run to run.
-//  * Products are fp32 FMAs on the CUDA cores for both input types, as in
-//    the forward kernel.  wgmma, TMA and fusing the two kernels are later
-//    work.
-//  * Ragged edges are masked: keys or queries past S give P = 0 and are not
-//    written; the head dim is zero-padded to DP (32, 64 or 128).  Q, K, V,
-//    dO, dQ, dK and dV are addressed through their (n, h, s) strides with a
-//    unit last stride, so the [N, S, H, D] views of the head split are read
-//    and written in place.
+// Score bits: the products here run on the tensor cores in another order
+// than the forward kernel's FMA chain, so a recomputed score can differ
+// from the forward's by fp32 rounding.  On a row with a real key that moves
+// P by about 1e-7 relative.  A masked score stays -1e9 exactly unless
+// |q.k * scale| >= 32 (half an ulp at 1e9), so all-pad rows keep their bits.
 //
 // What bounds them on an H100 SXM (reckoned from shapes; PERF.md holds the
-// measured times), at the training shape N=32, H=12, S=128, D=64, fp32:
-//  * dK/dV: four products (Q K^T, dO V^T, P^T dO, dS^T Q), 8*N*H*S*S*D =
-//    3.22 GFLOP, 48.1 us at 67 TFLOP/s; it reads Q, K, V, dO and writes dK,
-//    dV (75.5 MB, plus LSE and Di), 22.5 us at 3.35 TB/s.  Compute bounds it.
-//  * dQ: three products (Q K^T, dO V^T, dS K), 2.42 GFLOP, 36.1 us; it reads
-//    Q, K, V, dO and writes dQ (62.9 MB), 18.8 us.  Compute bounds it.
-// The split recomputes Q K^T and dO V^T in both kernels; a fused backward
-// needs five products, 4.03 GFLOP, 60.1 us for the pair against the
-// split's 84.1 us.
+// measured times), at the training shape N=32, H=12, S=128, D=64 with a
+// padding mask.  Bytes are Q, K, V, dO read once and the outputs written
+// once, plus the row statistics, Di and Mask; operations count the
+// products each kernel runs, at the tensor cores' rate:
+//   * dK/dV: four products (K Q^T, V dO^T, P^T dO, dS^T Q), 3.22 GFLOP;
+//     fp32 as 3xTF32 (below) is 3 x 3.22 GFLOP at 495 TFLOP/s = 19.5 us
+//     against 76.1 MB at 3.35 TB/s = 22.7 us; bf16 3.3 us against 11.4 us.
+//   * dQ: three products (Q K^T, dO V^T, dS K), 2.42 GFLOP; fp32 14.6 us
+//     against 63.5 MB = 18.9 us; bf16 2.4 us against 9.5 us.
+// So bytes bound both, in both types: every input is read from device
+// memory once per block that needs it, and the scores never leave the SM.
+//
+// Design:
+//  * The TPU's split: dK/dV blocks own keys and walk the query tiles; dQ
+//    blocks own queries and walk the key/value tiles.  A loop in the block
+//    takes the place of the TPU's sequential grid dimension.  Each
+//    warpgroup (128 threads) owns 64 rows, wgmma's M.  No atomics: every
+//    output element is summed by one thread in a fixed order, so results
+//    repeat bit for bit.
+//  * Products on wgmma, fp32 accumulators in registers.  The two products
+//    over D (scores and dP) take A and B from shared memory.  The products
+//    over the walked rows (P^T dO, dS^T Q, dS K) take A from registers: the
+//    accumulator fragment of the scores, turned into P or dS in place, is
+//    the A fragment of the next product.  Masks, exp, Di and the scale are
+//    applied to the fragment in the reference's order; exp is exp2 of the
+//    argument times log2(e), about 1e-6 relative at the arguments that
+//    matter.
+//  * bf16: bf16 wgmma.  The tiles are staged as they are stored, [rows][D];
+//    the products over the walked rows read the same tile MN-major (the
+//    descriptor's transpose flag).  P and dS feed A as two bf16 halves,
+//    big = bf16(x) and small = bf16(x - big): one rounding of P to bf16
+//    moved dV by up to 0.0625 where it is near 5 at the training shape,
+//    past the check's limit.  One warpgroup a block, 64 rows, walked tiles
+//    of 32; two stages in the ring.
+//  * fp32 (the training path's type): 3xTF32.  Each operand x splits into
+//    big (x with its 13 low mantissa bits cleared) and small = x - big, and
+//    each product is a_big b_big + a_big b_small + a_small b_big on TF32
+//    wgmma, accumulated in fp32: about 2^-20 of each term, fp32's accuracy
+//    to a few ulps, at three times TF32's work.  TF32 wgmma takes K-major
+//    operands only, so each walked tile is converted in shared memory into
+//    its halves and the halves of its transpose ([D][rows]); the A fragment
+//    taken from an accumulator holds columns {2t, 2t+1} where TF32 wants
+//    {t, t+4}, so the transposed tiles store each 8 walked rows in the order
+//    0 2 4 6 1 3 5 7 (split_tile).  The conversion costs as much as the
+//    products, so at D <= 64 a block runs two warpgroups (128 rows) that
+//    share it; walked tiles of 32 rows (16 at D = 128, one warpgroup, for
+//    shared memory); one raw stage, free again once it is converted.
+//  * Copies: each walked tile, and its per-row vectors (row max, log row
+//    sum, Di; or Mask), comes through the ring with cp.async; the next one
+//    loads while this one computes.  (TMA would need a 4-D tensor map per
+//    call for the [N, S, H, D] views; at tiles of 32 rows, cp.async of
+//    16-byte chunks is enough.)  The block's own rows are staged once, with
+//    their loads in flight together.  The outputs go out through shared
+//    memory in 16-byte stores.  Where a pointer, stride or D is not a
+//    multiple of 16 bytes, plain loads and stores take the same paths.
+//  * Shapes: any S (rows past S are zero-filled and give P = 0, and are not
+//    written); D up to 128, zero-padded to DP = 32, 64 or 128; causal or
+//    not; Mask or none; Q, K, V, dO, dQ, dK and dV are addressed through
+//    their (n, h, s) strides with a unit last stride, so the [N, S, H, D]
+//    views of the head split are read and written in place.
+//  * Shared memory tiles use wgmma's no-swizzle layout: core matrices of 8
+//    rows x 16 bytes, 128 contiguous bytes each (tile_off).
+//  * At the training shape: fp32 grids of 384 blocks (256 threads, 213,760
+//    and 197,376 bytes of shared memory for dK/dV and dQ: one block a SM),
+//    bf16 grids of 768 (128 threads, 33,536 bytes; registers allow three
+//    dK/dV or five dQ blocks a SM).
 
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "fused_attention_common.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
-using namespace attn;
+using attn::from_float;
+using attn::masked_score;
 
-constexpr int kTile = kBlockCols;  // rows of the walked tile (queries or keys)
+constexpr int kRows = 64;  // rows a warpgroup owns: wgmma's M
 
 struct BwdParams {
   const void* q;
   const void* k;
   const void* v;
-  const float* mask;  // [N, Sk] fp32 with row stride mask_sn, or null
+  const float* mask;   // [N, Sk] fp32 with row stride mask_sn, or null
   const void* dout;
-  const float* lse;   // [N, H, Sq] fp32, contiguous
-  const float* di;    // [N, H, Sq] fp32, contiguous
+  const float* stats;  // [2, N, H, Sq] fp32, contiguous: row max, log row sum
+  const float* di;     // [N, H, Sq] fp32, contiguous
   void* dq;
   void* dk;
   void* dv;
   int sq, sk, d;
+  long long nhs;       // N * H * Sq: from the row max to the log row sum
   long long q_sn, q_sh, q_ss;
   long long k_sn, k_sh, k_ss;
   long long v_sn, v_sh, v_ss;
@@ -93,280 +143,672 @@ struct BwdParams {
   long long dv_sn, dv_sh, dv_ss;
   long long mask_sn;
   int causal;
+  int vec;             // every row allows 16-byte copies and stores
   float scale;
 };
 
-// Shared memory: two [kBlockRows] tiles of the rows a block owns, two
-// [kTile] tiles of the rows it walks, `bufs` per-warp [kRowsPerWarp][kTile]
-// buffers, and two [kTile] vectors (LSE and Di of the walked queries).
+template <typename T, int DP>
+struct Cfg {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  // warpgroups a block: fp32 at D <= 64 runs two, each with its own 64 rows,
+  // which share the conversion of every walked tile (shared memory allows
+  // no second one at D = 128, and bf16 has no conversion to share)
+  static constexpr int kWG = kF32 && DP <= 64 ? 2 : 1;
+  static constexpr int kThreads = 128 * kWG;
+  static constexpr int kBlockRows = kRows * kWG;
+  // rows of a walked tile: bounded by shared memory (fp32) and registers
+  static constexpr int kWalk = kF32 && DP > 64 ? 16 : 32;
+  static constexpr int kRowTile = kBlockRows * DP * int(sizeof(T));  // bytes
+  static constexpr int kWalkTile = kWalk * DP * int(sizeof(T));
+  // The ring of raw walked tiles: a stage holds two (dK/dV: Q and dO; dQ: K
+  // and V).  The load of tile it + 1 starts once tile it is in shared memory
+  // (and, in fp32, converted) and runs while tile it computes.  bf16 reads
+  // a stage with wgmma, so it keeps two; fp32 is done with its stage once
+  // it is converted, so it keeps one.  Beside the stages, two slots of
+  // kWalk floats of three per-row vectors (dK/dV: row max, log row sum, Di;
+  // dQ: Mask).
+  static constexpr int kStages = kF32 ? 1 : 2;
+  static constexpr int kStage = 2 * kWalkTile;
+  static constexpr int kVecSlot = (3 * kWalk * 4 + 127) / 128 * 128;
+  static constexpr int kRing = kStages * kStage + 2 * kVecSlot;
+  // fp32: the block's two tiles in big and small halves, the ring, and the
+  // converted walked tiles (dK/dV: Q and dO, each big, small and both
+  // transposed; dQ: K big, small and transposed, V big and small)
+  static constexpr int smem_bytes(bool dkv) {
+    return kF32 ? 4 * kRowTile + kRing + (dkv ? 8 : 6) * kWalkTile : 2 * kRowTile + kRing;
+  }
+  // the epilogue stages each output through a [kBlockRows][DP + 8] tile
+  static constexpr int kOutTile = kBlockRows * (DP + 8) * int(sizeof(T));
+  static_assert(smem_bytes(true) >= 2 * kOutTile && smem_bytes(false) >= kOutTile,
+                "the epilogue's tiles must fit in the kernel's shared memory");
+};
+
+// Byte offset of element (r, c) of a [R][C] tile whose C runs along the
+// 16-byte chunks (CE elements each): chunk (r, c / CE) sits at
+// ((r / 8) * (C / CE) + c / CE) * 128 + (r % 8) * 16.
+template <int C, int CE>
+__device__ __forceinline__ int tile_off(int r, int c) {
+  return (((r >> 3) * (C / CE) + c / CE) << 7) + ((r & 7) << 4) + (c % CE) * (16 / CE);
+}
+
+// Descriptor of k-step ks of a [R][C] tile read K-major (K along C): core
+// matrices 128 bytes apart along K, (C / CE) * 128 apart along M or N; one
+// step is 32 bytes of K (tf32 k8, bf16 k16).
+template <int C, int CE>
+__device__ __forceinline__ uint64_t desc_k(const void* tile, int ks) {
+  return wg::desc(static_cast<const char*>(tile) + ks * 256, 128, (C / CE) * 128);
+}
+
+// Descriptor of k-step ks of a bf16 [R][C] tile read MN-major (K along R,
+// N along C): one step is 16 rows.
+template <int C>
+__device__ __forceinline__ uint64_t desc_mn(const void* tile, int ks) {
+  return wg::desc(static_cast<const char*>(tile) + ks * 2 * (C / 8) * 128, (C / 8) * 128, 128);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows [r0, r0 + R) of a [S, d] matrix (row stride ss, unit column stride)
+// into a [R][DP] tile as they are, zero past S and past d: cp.async where
+// `vec`, plain loads otherwise.  Chunk i of the tile is byte 16 i; a warp's
+// 32 chunks are 8 rows x 4 chunks, so a warp reads 64 contiguous bytes of
+// each of 8 rows and writes 512 contiguous bytes.
+template <typename T, int R, int DP, int NT>
+__device__ __forceinline__ void load_tile(T* tile, const T* src, long long ss, int r0, int s,
+                                          int d, bool vec) {
+  constexpr int CE = 16 / int(sizeof(T));
+  static_assert(R * DP / CE % NT == 0, "whole chunks a thread");
+#pragma unroll
+  for (int k = 0; k < R * DP / CE / NT; ++k) {
+    const int i = threadIdx.x + k * NT, rest = i >> 3;
+    const int row = r0 + (rest / (DP / CE)) * 8 + (i & 7), col = (rest % (DP / CE)) * CE;
+    T* dst = tile + i * CE;
+    if (vec) {
+      const bool ok = row < s && col < d;
+      cp_async16(dst, ok ? src + row * ss + col : src, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < CE; ++e)
+        dst[e] = (row < s && col + e < d) ? src[row * ss + col + e] : from_float<T>(0.f);
+    }
+  }
+}
+
+// x = big + small: big is x with the 13 low mantissa bits cleared (an exact
+// tf32 value), small = x - big (exact in fp32, at most 2^-10 |x|).  TF32
+// wgmma reads small to 11 bits, so a 3xTF32 product keeps about 2^-20 of
+// each term: fp32's accuracy to a few ulps.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// Chunk i (4 floats) of rows [r0, r0 + R) of a [S, d] fp32 matrix, zero
+// past S and past d, in load_tile's order.
 template <int DP>
-constexpr size_t smem_bytes(int bufs) {
-  return sizeof(float) * (size_t(2) * (kBlockRows + kTile) * row_stride<DP>() +
-                          size_t(bufs) * kWarps * kRowsPerWarp * kTile + 2 * kTile);
+__device__ __forceinline__ float4 fetch4(const float* src, long long ss, int i, int r0, int s,
+                                         int d, bool vec) {
+  const int rest = i >> 3;
+  const int row = r0 + (rest / (DP / 4)) * 8 + (i & 7), col = (rest % (DP / 4)) * 4;
+  if (vec) return row < s && col < d ? *reinterpret_cast<const float4*>(src + row * ss + col)
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+  float x[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) x[e] = (row < s && col + e < d) ? src[row * ss + col + e] : 0.f;
+  return make_float4(x[0], x[1], x[2], x[3]);
 }
 
-// ---------------------------------------------------------------------------
-// dK, dV: rows are keys, the walked tiles are queries.
-// ---------------------------------------------------------------------------
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads) fused_attention_bwd_dkv_kernel(const BwdParams p) {
-  constexpr int RS = row_stride<DP>();
-  constexpr int kDimsPerLane = DP / 32;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);  // [kBlockRows][RS]
-  float* Vs = Ks + kBlockRows * RS;             // [kBlockRows][RS]
-  float* Qs = Vs + kBlockRows * RS;             // [kTile][RS]
-  float* dOs = Qs + kTile * RS;                 // [kTile][RS]
-  float* Pb = dOs + kTile * RS;                 // [kWarps][kRowsPerWarp][kTile]
-  float* dSb = Pb + kWarps * kRowsPerWarp * kTile;
-  float* lse_s = dSb + kWarps * kRowsPerWarp * kTile;  // [kTile]
-  float* di_s = lse_s + kTile;                          // [kTile]
+__device__ __forceinline__ void store_split(float* big, float* small, int i, float4 x) {
+  uint4 b, sm;
+  split_tf32(x.x, b.x, sm.x);
+  split_tf32(x.y, b.y, sm.y);
+  split_tf32(x.z, b.z, sm.z);
+  split_tf32(x.w, b.w, sm.w);
+  reinterpret_cast<uint4*>(big)[i] = b;
+  reinterpret_cast<uint4*>(small)[i] = sm;
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const long long n = blockIdx.z;
-  const long long h = blockIdx.y;
-  const int k0 = blockIdx.x * kBlockRows;
-  const int row0 = warp * kRowsPerWarp;
-
-  const T* qg = static_cast<const T*>(p.q) + n * p.q_sn + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + n * p.k_sn + h * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + n * p.v_sn + h * p.v_sh;
-  const T* dog = static_cast<const T*>(p.dout) + n * p.do_sn + h * p.do_sh;
-  const float* lse_g = p.lse + (n * gridDim.y + h) * p.sq;
-  const float* di_g = p.di + (n * gridDim.y + h) * p.sq;
-  const float* mrow = p.mask != nullptr ? p.mask + n * p.mask_sn : nullptr;
-
-  stage_rows<T, DP>(Ks, kg, p.k_ss, k0, kBlockRows, p.sk, p.d);
-  stage_rows<T, DP>(Vs, vg, p.v_ss, k0, kBlockRows, p.sk, p.d);
-
-  // this warp's keys: validity and padding term, fixed for the whole walk
-  bool kvalid[kRowsPerWarp];
-  float mterm[kRowsPerWarp];
+// Rows [r0, r0 + R) of two [S, d] fp32 matrices (the block's own rows,
+// staged once) into the tf32 halves of two [R][DP] tiles.  The loads go out
+// in batches of up to 8 chunks a matrix before any is split and stored, so
+// up to 16 are in flight a thread.
+template <int R, int DP, int NT>
+__device__ __forceinline__ void load_split2(float* big0, float* small0, const float* src0,
+                                            long long ss0, float* big1, float* small1,
+                                            const float* src1, long long ss1, int r0, int s,
+                                            int d, bool vec) {
+  constexpr int kPer = R * DP / 4 / NT;  // chunks a thread, each matrix
+  constexpr int kBatch = kPer < 8 ? kPer : 8;
+  static_assert(kPer % kBatch == 0, "whole batches");
+#pragma unroll 1
+  for (int b0 = 0; b0 < kPer; b0 += kBatch) {
+    float4 x0[kBatch], x1[kBatch];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int kj = k0 + row0 + r;
-    kvalid[r] = kj < p.sk;
-    mterm[r] = (mrow != nullptr && kvalid[r]) ? (mrow[kj] - 1.0f) * 1e9f : 0.f;
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = threadIdx.x + (b0 + j) * NT;
+      x0[j] = fetch4<DP>(src0, ss0, i, r0, s, d, vec);
+      x1[j] = fetch4<DP>(src1, ss1, i, r0, s, d, vec);
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = threadIdx.x + (b0 + j) * NT;
+      store_split(big0, small0, i, x0[j]);
+      store_split(big1, small1, i, x1[j]);
+    }
   }
+}
 
-  float* Pw = Pb + warp * kRowsPerWarp * kTile;
-  float* dSw = dSb + warp * kRowsPerWarp * kTile;
-  float dk_acc[kRowsPerWarp][kDimsPerLane], dv_acc[kRowsPerWarp][kDimsPerLane];
+// A raw fp32 [R][DP] walked tile into its tf32 halves (same layout) and,
+// with kTrans, into the halves of its transpose [DP][R].  In the transpose,
+// walked row 8 a + r sits at column 8 a + (r / 2) + 4 (r % 2): the order
+// that makes logical column c of a k8 step the walked row whose P or dS the
+// accumulator fragment holds where TF32's A fragment wants column c.
+template <int R, int DP, bool kTrans, int NT>
+__device__ __forceinline__ void split_tile(const float* raw, float* big, float* small, float* tbig,
+                                           float* tsmall) {
+  static_assert(R * DP / 4 % NT == 0, "whole chunks a thread");
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
+  for (int k = 0; k < R * DP / 4 / NT; ++k) {
+    const int i = threadIdx.x + k * NT;
+    const float4 x = reinterpret_cast<const float4*>(raw)[i];
+    uint4 b, sm;
+    split_tf32(x.x, b.x, sm.x);
+    split_tf32(x.y, b.y, sm.y);
+    split_tf32(x.z, b.z, sm.z);
+    split_tf32(x.w, b.w, sm.w);
+    reinterpret_cast<uint4*>(big)[i] = b;
+    reinterpret_cast<uint4*>(small)[i] = sm;
+    if constexpr (kTrans) {
+      // chunk i is walked row `row`, columns 4 cc .. 4 cc + 3; in the
+      // transpose column 4 cc + e of it is float `base + 4 e` (tile_off)
+      const int rr = i & 7, rest = i >> 3, cc = rest % (DP / 4);
+      const int row = (rest / (DP / 4)) * 8 + rr;
+      const int pos = (row & ~7) | ((rr >> 1) + ((rr & 1) << 2));
+      const int base = tile_off<R, 4>(4 * cc, pos) >> 2;
+      // a warp's lanes are 8 rows x 4 chunks; in step e each lane writes
+      // element (e + rot) % 4 of its chunk, so the 32 scalar stores of a
+      // step fall on 32 banks
+      const int rot = ((cc >> 1) & 1) + 2 * (rr & 1);
 #pragma unroll
-    for (int c = 0; c < kDimsPerLane; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
-
-  for (int q0 = 0; q0 < p.sq; q0 += kTile) {
-    __syncthreads();  // the previous tile's reads are done
-    stage_rows<T, DP>(Qs, qg, p.q_ss, q0, kTile, p.sq, p.d);
-    stage_rows<T, DP>(dOs, dog, p.do_ss, q0, kTile, p.sq, p.d);
-    for (int i = tid; i < kTile; i += kThreads) {
-      const int qi = q0 + i;
-      lse_s[i] = qi < p.sq ? lse_g[qi] : 0.f;
-      di_s[i] = qi < p.sq ? di_g[qi] : 0.f;
-    }
-    __syncthreads();
-
-    // sT[r][t] = K[key r] . Q[query t];  dpT[r][t] = V[key r] . dO[query t]
-    float sT[kRowsPerWarp][kColsPerLane], dpT[kRowsPerWarp][kColsPerLane];
-    tile_dot<DP>(Ks, row0, Qs, lane, sT);
-    tile_dot<DP>(Vs, row0, dOs, lane, dpT);
-#pragma unroll
-    for (int t = 0; t < kColsPerLane; ++t) {
-      const int col = lane + 32 * t;
-      const int qi = q0 + col;
-      const bool qvalid = qi < p.sq;
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float x = masked_score(sT[r][t], p.scale, p.causal, qi, k0 + row0 + r,
-                                     mrow != nullptr, mterm[r]);
-        const float pv = (qvalid && kvalid[r]) ? expf(x - lse_s[col]) : 0.f;
-        Pw[r * kTile + col] = pv;
-        dSw[r * kTile + col] = pv * (dpT[r][t] - di_s[col]);
-      }
-    }
-    __syncwarp();
-
-    // dV[r] += sum_t P^T[r][t] dO[t];  dK[r] += sum_t dS^T[r][t] Q[t]
-#pragma unroll 2
-    for (int j = 0; j < kTile; j += 4) {
-      float4 pr[kRowsPerWarp], sr[kRowsPerWarp];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        pr[r] = *reinterpret_cast<const float4*>(&Pw[r * kTile + j]);
-        sr[r] = *reinterpret_cast<const float4*>(&dSw[r * kTile + j]);
-      }
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        float dov[kDimsPerLane], qv[kDimsPerLane];
-#pragma unroll
-        for (int c = 0; c < kDimsPerLane; ++c) {
-          dov[c] = dOs[(j + jj) * RS + lane + 32 * c];
-          qv[c] = Qs[(j + jj) * RS + lane + 32 * c];
-        }
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const float pj = jj == 0 ? pr[r].x : jj == 1 ? pr[r].y : jj == 2 ? pr[r].z : pr[r].w;
-          const float sj = jj == 0 ? sr[r].x : jj == 1 ? sr[r].y : jj == 2 ? sr[r].z : sr[r].w;
-#pragma unroll
-          for (int c = 0; c < kDimsPerLane; ++c) {
-            dv_acc[r][c] = fmaf(pj, dov[c], dv_acc[r][c]);
-            dk_acc[r][c] = fmaf(sj, qv[c], dk_acc[r][c]);
-          }
-        }
-      }
-    }
-    __syncwarp();  // Pw and dSw are rewritten by the next tile
-  }
-
-  T* dkg = static_cast<T*>(p.dk) + n * p.dk_sn + h * p.dk_sh;
-  T* dvg = static_cast<T*>(p.dv) + n * p.dv_sn + h * p.dv_sh;
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int kj = k0 + row0 + r;
-    if (!kvalid[r]) continue;
-#pragma unroll
-    for (int c = 0; c < kDimsPerLane; ++c) {
-      const int d = lane + 32 * c;
-      if (d < p.d) {
-        dkg[kj * p.dk_ss + d] = from_float<T>(dk_acc[r][c] * p.scale);
-        dvg[kj * p.dv_ss + d] = from_float<T>(dv_acc[r][c]);
+      for (int e = 0; e < 4; ++e) {
+        const int ee = (e + rot) & 3;
+        const uint32_t bv = ee == 0 ? b.x : ee == 1 ? b.y : ee == 2 ? b.z : b.w;
+        const uint32_t sv = ee == 0 ? sm.x : ee == 1 ? sm.y : ee == 2 ? sm.z : sm.w;
+        tbig[base + 4 * ee] = __uint_as_float(bv);
+        tsmall[base + 4 * ee] = __uint_as_float(sv);
       }
     }
   }
 }
 
+// The A fragments of the k-steps of a product over the walked rows, from
+// the accumulator `acc` (m64 x n kWalk) that holds P or dS.
+template <typename T, int W>
+struct Frags {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int kSteps = W / (kF32 ? 8 : 16);
+  uint32_t big[kSteps][4];
+  uint32_t small[kSteps][4];
+
+  __device__ __forceinline__ void make(const float (&acc)[W / 2]) {
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      if constexpr (kF32) {
+        // TF32 A: (row, col t), (row + 8, t), (row, t + 4), (row + 8, t + 4);
+        // the accumulator holds (row, 2t), (row, 2t + 1), (row + 8, 2t),
+        // (row + 8, 2t + 1): see split_tile for the matching B order
+        const int src[4] = {0, 2, 1, 3};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) split_tf32(acc[4 * ks + src[r]], big[ks][r], small[ks][r]);
+      } else {
+        // bf16 A for k16 is the accumulator's two n8 blocks as they are,
+        // in two bf16 halves: big = bf16(x), small = bf16(x - big)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float x0 = acc[8 * ks + 2 * r], x1 = acc[8 * ks + 2 * r + 1];
+          const __nv_bfloat162 b = __floats2bfloat162_rn(x0, x1);
+          const __nv_bfloat162 sm = __floats2bfloat162_rn(x0 - __low2float(b), x1 - __high2float(b));
+          big[ks][r] = *reinterpret_cast<const uint32_t*>(&b);
+          small[ks][r] = *reinterpret_cast<const uint32_t*>(&sm);
+        }
+      }
+    }
+  }
+  __device__ __forceinline__ void keep() {
+    wg::keep(big);
+    wg::keep(small);
+  }
+};
+
+// acc (m64 x n W) = A (kRows x DP, K-major) . B^T (B: W x DP, K-major):
+// the products over D.  fp32: 3xTF32 from the big and small halves.
+template <typename T, int DP, int W>
+__device__ __forceinline__ void mma_over_d(float (&acc)[W / 2], const T* a_big, const T* a_small,
+                                           const T* b_big, const T* b_small) {
+  constexpr int CE = 16 / int(sizeof(T));
+#pragma unroll
+  for (int ks = 0; ks < DP * int(sizeof(T)) / 32; ++ks) {
+    const uint64_t ab = desc_k<DP, CE>(a_big, ks), bb = desc_k<DP, CE>(b_big, ks);
+    if constexpr (std::is_same<T, float>::value) {
+      wg::mma_ss_tf32<W>(acc, desc_k<DP, CE>(a_small, ks), bb, ks > 0);
+      wg::mma_ss_tf32<W>(acc, ab, desc_k<DP, CE>(b_small, ks), 1);
+      wg::mma_ss_tf32<W>(acc, ab, bb, 1);
+    } else {
+      wg::mma_ss_bf16<W, 0>(acc, ab, bb, ks > 0);
+    }
+  }
+}
+
+// acc (m64 x n DP) += A (fragments, kRows x W) . B, B over the W walked rows
+// and DP columns: fp32 from the transposed halves [DP][W] (K-major), bf16
+// from the tile as stored [W][DP] (MN-major).
+template <typename T, int DP, int W>
+__device__ __forceinline__ void mma_over_walk(float (&acc)[DP / 2], const Frags<T, W>& a,
+                                              const T* b_big, const T* b_small) {
+#pragma unroll
+  for (int ks = 0; ks < Frags<T, W>::kSteps; ++ks) {
+    if constexpr (std::is_same<T, float>::value) {
+      const uint64_t bb = desc_k<W, 4>(b_big, ks);
+      wg::mma_rs_tf32<DP>(acc, a.small[ks], bb, 1);
+      wg::mma_rs_tf32<DP>(acc, a.big[ks], desc_k<W, 4>(b_small, ks), 1);
+      wg::mma_rs_tf32<DP>(acc, a.big[ks], bb, 1);
+    } else {
+      const uint64_t b = desc_mn<DP>(b_big, ks);
+      wg::mma_rs_bf16<DP, 1>(acc, a.small[ks], b, 1);
+      wg::mma_rs_bf16<DP, 1>(acc, a.big[ks], b, 1);
+    }
+  }
+}
+
+// Rows [r0, r0 + NT / 2) of a [S, d] output from the accumulators `acc`
+// (m64 x n DP each warpgroup, fragment layout) times `mul`: through the
+// [NT / 2][DP + 8] tile `buf` in shared memory (the pad spreads the rows a
+// warp writes over the banks), then 16-byte stores along the rows (plain
+// ones where not `vec`).  Rows past S are not written.
+template <typename T, int DP, int NT>
+__device__ __forceinline__ void store_rows(unsigned char* buf, const float (&acc)[DP / 2], float mul,
+                                           T* dst, long long ss, int r0, int s, int d, bool vec) {
+  constexpr int CE = 16 / int(sizeof(T));
+  constexpr int LD = DP + 8;
+  constexpr int R = NT / 2;  // 64 rows a warpgroup
+  T* tile = reinterpret_cast<T*>(buf);
+  const int lane = threadIdx.x & 31, t4 = lane & 3;
+  const int row_lo = 16 * (threadIdx.x >> 5) + (lane >> 2);  // warpgroup w's rows: 64 w + ...
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      T* at = tile + (row_lo + 8 * hh) * LD + 8 * j + 2 * t4;
+      const float x0 = acc[4 * j + 2 * hh] * mul, x1 = acc[4 * j + 2 * hh + 1] * mul;
+      if constexpr (sizeof(T) == 4)
+        *reinterpret_cast<float2*>(at) = make_float2(x0, x1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(at) = __floats2bfloat162_rn(x0, x1);
+    }
+  __syncthreads();
+  for (int i = threadIdx.x; i < R * DP / CE; i += NT) {
+    const int r = i / (DP / CE), c = (i % (DP / CE)) * CE, row = r0 + r;
+    if (row >= s || c >= d) continue;
+    const T* src = tile + r * LD + c;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst + row * ss + c) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < CE && c + e < d; ++e) dst[row * ss + c + e] = src[e];
+    }
+  }
+}
+
+template <int M>
+__device__ __forceinline__ void zero(float (&x)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) x[i] = 0.f;
+}
+
 // ---------------------------------------------------------------------------
-// dQ: rows are queries, the walked tiles are keys.
+// dK, dV: the block's rows are keys, the walked tiles are queries.
 // ---------------------------------------------------------------------------
 template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads) fused_attention_bwd_dq_kernel(const BwdParams p) {
-  constexpr int RS = row_stride<DP>();
-  constexpr int kDimsPerLane = DP / 32;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [kBlockRows][RS]
-  float* dOs = Qs + kBlockRows * RS;            // [kBlockRows][RS]
-  float* Ks = dOs + kBlockRows * RS;            // [kTile][RS]
-  float* Vs = Ks + kTile * RS;                  // [kTile][RS]
-  float* dSb = Vs + kTile * RS;                 // [kWarps][kRowsPerWarp][kTile]
+__global__ void __launch_bounds__(Cfg<T, DP>::kThreads, 1)
+    fused_attention_bwd_dkv_kernel(const BwdParams p) {
+  using C = Cfg<T, DP>;
+  constexpr bool kF32 = C::kF32;
+  constexpr int W = C::kWalk;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(128) unsigned char smem[];
+  // the block's keys and values (fp32: big and small halves)
+  T* Kb = reinterpret_cast<T*>(smem);
+  T* Vb = reinterpret_cast<T*>(smem + (kF32 ? 2 : 1) * C::kRowTile);
+  T* Ks = kF32 ? reinterpret_cast<T*>(smem + C::kRowTile) : Kb;
+  T* Vs = kF32 ? reinterpret_cast<T*>(smem + 3 * C::kRowTile) : Vb;
+  // the ring: [kStages][raw Q, raw dO], then [2][row max, log row sum, Di]
+  unsigned char* ring = smem + (kF32 ? 4 : 2) * C::kRowTile;
+  // fp32: the walked tile converted: Q, dO in halves, and their transposes
+  float* conv = reinterpret_cast<float*>(ring + C::kRing);
+  constexpr int kWalkF = W * DP;
+  float *Qb = conv, *Qs = conv + kWalkF, *dOb = conv + 2 * kWalkF, *dOs = conv + 3 * kWalkF;
+  float *QTb = conv + 4 * kWalkF, *QTs = conv + 5 * kWalkF;
+  float *dOTb = conv + 6 * kWalkF, *dOTs = conv + 7 * kWalkF;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const long long n = blockIdx.z;
-  const long long h = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockRows;
-  const int row0 = warp * kRowsPerWarp;
+  constexpr int NT = C::kThreads;
+  const int tid = threadIdx.x, wgi = tid >> 7, lane = tid & 31, t4 = lane & 3;
+  const long long n = blockIdx.z, h = blockIdx.y;
+  const int b0 = blockIdx.x * C::kBlockRows;  // the block's keys
+  const int k0 = b0 + kRows * wgi;            // this warpgroup's keys
+  // this thread's keys: k0 + row_lo and k0 + row_lo + 8
+  const int row_lo = 16 * ((tid >> 5) & 3) + (lane >> 2);
+  const bool vec = p.vec != 0;
 
   const T* qg = static_cast<const T*>(p.q) + n * p.q_sn + h * p.q_sh;
   const T* kg = static_cast<const T*>(p.k) + n * p.k_sn + h * p.k_sh;
   const T* vg = static_cast<const T*>(p.v) + n * p.v_sn + h * p.v_sh;
   const T* dog = static_cast<const T*>(p.dout) + n * p.do_sn + h * p.do_sh;
-  const float* lse_g = p.lse + (n * gridDim.y + h) * p.sq;
-  const float* di_g = p.di + (n * gridDim.y + h) * p.sq;
+  const long long at = (n * gridDim.y + h) * p.sq;
   const float* mrow = p.mask != nullptr ? p.mask + n * p.mask_sn : nullptr;
 
-  stage_rows<T, DP>(Qs, qg, p.q_ss, q0, kBlockRows, p.sq, p.d);
-  stage_rows<T, DP>(dOs, dog, p.do_ss, q0, kBlockRows, p.sq, p.d);
+  auto raw = [&](int it, int which) {
+    return reinterpret_cast<T*>(ring + (it % C::kStages) * C::kStage + which * C::kWalkTile);
+  };
+  auto vecs = [&](int it) {
+    return reinterpret_cast<float*>(ring + C::kStages * C::kStage + (it & 1) * C::kVecSlot);
+  };
+  // walked tile `it`: its rows [it W, it W + W) of Q and dO, and their row
+  // max, log row sum and Di
+  auto load_stage = [&](int it) {
+    const int q0 = it * W;
+    load_tile<T, W, DP, NT>(raw(it, 0), qg, p.q_ss, q0, p.sq, p.d, vec);
+    load_tile<T, W, DP, NT>(raw(it, 1), dog, p.do_ss, q0, p.sq, p.d, vec);
+    if (tid < 3 * W) {
+      const int which = tid / W, qi = q0 + tid % W;
+      const float* src = which == 0 ? p.stats + at : which == 1 ? p.stats + p.nhs + at : p.di + at;
+      cp_async4(vecs(it) + tid, qi < p.sq ? src + qi : src, qi < p.sq);
+    }
+  };
 
-  // this warp's queries: LSE and Di, fixed for the whole walk
-  float lse_r[kRowsPerWarp], di_r[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int qi = q0 + row0 + r;
-    lse_r[r] = qi < p.sq ? lse_g[qi] : 0.f;
-    di_r[r] = qi < p.sq ? di_g[qi] : 0.f;
+  const int n_tiles = (p.sq + W - 1) / W;
+  load_stage(0);
+  if constexpr (kF32) {
+    cp_async_commit();
+    load_split2<C::kBlockRows, DP, NT>(Kb, Ks, kg, p.k_ss, Vb, Vs, vg, p.v_ss, b0, p.sk, p.d, vec);
+  } else {
+    load_tile<T, C::kBlockRows, DP, NT>(Kb, kg, p.k_ss, b0, p.sk, p.d, vec);
+    load_tile<T, C::kBlockRows, DP, NT>(Vb, vg, p.v_ss, b0, p.sk, p.d, vec);
+    cp_async_commit();
   }
 
-  float* dSw = dSb + warp * kRowsPerWarp * kTile;
-  float dq_acc[kRowsPerWarp][kDimsPerLane];
+  // this thread's keys: validity and padding term, fixed for the walk
+  bool kvalid[2];
+  float mterm[2];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int c = 0; c < kDimsPerLane; ++c) dq_acc[r][c] = 0.f;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int kj = k0 + row_lo + 8 * hh;
+    kvalid[hh] = kj < p.sk;
+    mterm[hh] = (mrow != nullptr && kvalid[hh]) ? (mrow[kj] - 1.0f) * 1e9f : 0.f;
+  }
 
-  for (int k0 = 0; k0 < p.sk; k0 += kTile) {
-    __syncthreads();  // the previous tile's reads are done
-    stage_rows<T, DP>(Ks, kg, p.k_ss, k0, kTile, p.sk, p.d);
-    stage_rows<T, DP>(Vs, vg, p.v_ss, k0, kTile, p.sk, p.d);
+  float dk[DP / 2], dv[DP / 2];
+  zero(dk);
+  zero(dv);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = it * W;
+    // tile `it` has landed, and no other copy is in flight: the proxy fence
+    // (for bf16 stages, which wgmma reads as they landed) waits for nothing
+    // else
+    cp_async_wait_all();
+    wg::fence_proxy_async();
     __syncthreads();
-
-    // s[r][t] = Q[query r] . K[key t];  dp[r][t] = dO[query r] . V[key t]
-    float s[kRowsPerWarp][kColsPerLane], dp[kRowsPerWarp][kColsPerLane];
-    tile_dot<DP>(Qs, row0, Ks, lane, s);
-    tile_dot<DP>(dOs, row0, Vs, lane, dp);
-#pragma unroll
-    for (int t = 0; t < kColsPerLane; ++t) {
-      const int col = lane + 32 * t;
-      const int kj = k0 + col;
-      const bool kvalid = kj < p.sk;
-      const float mterm = (mrow != nullptr && kvalid) ? (mrow[kj] - 1.0f) * 1e9f : 0.f;
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const int qi = q0 + row0 + r;
-        const float x = masked_score(s[r][t], p.scale, p.causal, qi, kj, mrow != nullptr, mterm);
-        const float pv = (kvalid && qi < p.sq) ? expf(x - lse_r[r]) : 0.f;
-        dSw[r * kTile + col] = pv * (dp[r][t] - di_r[r]);
-      }
+    const T *qb = raw(it, 0), *qs = qb, *dob = raw(it, 1), *dos = dob;
+    const T *qtb = qb, *qts = qb, *dotb = dob, *dots = dob;
+    if constexpr (kF32) {
+      split_tile<W, DP, true, NT>(raw(it, 0), Qb, Qs, QTb, QTs);
+      split_tile<W, DP, true, NT>(raw(it, 1), dOb, dOs, dOTb, dOTs);
+      wg::fence_proxy_async();
+      __syncthreads();
+      qb = Qb, qs = Qs, dob = dOb, dos = dOs, qtb = QTb, qts = QTs, dotb = dOTb, dots = dOTs;
     }
-    __syncwarp();
+    if (it + 1 < n_tiles) {  // the next tile loads while this one computes
+      load_stage(it + 1);
+      cp_async_commit();
+    }
 
-    // dQ[r] += sum_j dS[r][j] K[j]
-#pragma unroll 2
-    for (int j = 0; j < kTile; j += 4) {
-      float4 sr[kRowsPerWarp];
+    // S^T = K Q^T and dP^T = V dO^T: keys x queries
+    float sT[W / 2], dpT[W / 2];
+    zero(sT);
+    zero(dpT);
+    wg::fence();
+    const int a_off = wgi * kRows * DP;  // this warpgroup's rows of the block's tiles
+    mma_over_d<T, DP, W>(sT, Kb + a_off, Ks + a_off, qb, qs);
+    mma_over_d<T, DP, W>(dpT, Vb + a_off, Vs + a_off, dob, dos);
+    wg::commit();
+    wg::wait_all();
+    wg::keep(sT);
+    wg::keep(dpT);
+
+    // P and dS in place, in the reference's order
+    const float* sv = vecs(it);
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r)
-        sr[r] = *reinterpret_cast<const float4*>(&dSw[r * kTile + j]);
+    for (int j = 0; j < W / 8; ++j) {
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        float kv[kDimsPerLane];
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t4 + e, qi = q0 + col;
+        const float mq = sv[col], lq = sv[W + col], dq = sv[2 * W + col];
 #pragma unroll
-        for (int c = 0; c < kDimsPerLane; ++c) kv[c] = Ks[(j + jj) * RS + lane + 32 * c];
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const float sj = jj == 0 ? sr[r].x : jj == 1 ? sr[r].y : jj == 2 ? sr[r].z : sr[r].w;
-#pragma unroll
-          for (int c = 0; c < kDimsPerLane; ++c) dq_acc[r][c] = fmaf(sj, kv[c], dq_acc[r][c]);
+        for (int hh = 0; hh < 2; ++hh) {
+          const int i = 4 * j + 2 * hh + e;
+          const float x = masked_score(sT[i], p.scale, p.causal, qi, k0 + row_lo + 8 * hh,
+                                       mrow != nullptr, mterm[hh]);
+          const float pv = (qi < p.sq && kvalid[hh]) ? exp2f(((x - mq) - lq) * kLog2e) : 0.f;
+          sT[i] = pv;
+          dpT[i] = pv * (dpT[i] - dq);
         }
       }
     }
-    __syncwarp();  // dSw is rewritten by the next tile
+
+    // dV += P^T dO, dK += dS^T Q
+    Frags<T, W> pa, dsa;
+    pa.make(sT);
+    dsa.make(dpT);
+    wg::fence();
+    mma_over_walk<T, DP, W>(dv, pa, dotb, dots);
+    mma_over_walk<T, DP, W>(dk, dsa, qtb, qts);
+    wg::commit();
+    wg::wait_all();
+    wg::keep(dv);
+    wg::keep(dk);
+    pa.keep();
+    dsa.keep();
+    __syncthreads();  // the stage and the converted tiles are rewritten next
   }
 
-  T* dqg = static_cast<T*>(p.dq) + n * p.dq_sn + h * p.dq_sh;
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int qi = q0 + row0 + r;
-    if (qi >= p.sq) continue;
-#pragma unroll
-    for (int c = 0; c < kDimsPerLane; ++c) {
-      const int d = lane + 32 * c;
-      if (d < p.d) dqg[qi * p.dq_ss + d] = from_float<T>(dq_acc[r][c] * p.scale);
-    }
+  // all of shared memory is free now: the epilogue stages dK and dV there
+  store_rows<T, DP, NT>(smem, dk, p.scale, static_cast<T*>(p.dk) + n * p.dk_sn + h * p.dk_sh,
+                        p.dk_ss, b0, p.sk, p.d, vec);
+  store_rows<T, DP, NT>(smem + C::kOutTile, dv, 1.0f,
+                        static_cast<T*>(p.dv) + n * p.dv_sn + h * p.dv_sh, p.dv_ss, b0, p.sk, p.d,
+                        vec);
+}
+
+// ---------------------------------------------------------------------------
+// dQ: the block's rows are queries, the walked tiles are keys and values.
+// ---------------------------------------------------------------------------
+template <typename T, int DP>
+__global__ void __launch_bounds__(Cfg<T, DP>::kThreads, 1)
+    fused_attention_bwd_dq_kernel(const BwdParams p) {
+  using C = Cfg<T, DP>;
+  constexpr bool kF32 = C::kF32;
+  constexpr int W = C::kWalk;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(128) unsigned char smem[];
+  // the block's queries and their dO rows (fp32: big and small halves)
+  T* Qb = reinterpret_cast<T*>(smem);
+  T* dOb = reinterpret_cast<T*>(smem + (kF32 ? 2 : 1) * C::kRowTile);
+  T* Qs = kF32 ? reinterpret_cast<T*>(smem + C::kRowTile) : Qb;
+  T* dOs = kF32 ? reinterpret_cast<T*>(smem + 3 * C::kRowTile) : dOb;
+  // the ring: [kStages][raw K, raw V], then [2][Mask]
+  unsigned char* ring = smem + (kF32 ? 4 : 2) * C::kRowTile;
+  // fp32: K in halves and transposed halves, V in halves
+  float* conv = reinterpret_cast<float*>(ring + C::kRing);
+  constexpr int kWalkF = W * DP;
+  float *Kb = conv, *Ks = conv + kWalkF, *KTb = conv + 2 * kWalkF, *KTs = conv + 3 * kWalkF;
+  float *Vb = conv + 4 * kWalkF, *Vs = conv + 5 * kWalkF;
+
+  constexpr int NT = C::kThreads;
+  const int tid = threadIdx.x, wgi = tid >> 7, lane = tid & 31, t4 = lane & 3;
+  const long long n = blockIdx.z, h = blockIdx.y;
+  const int b0 = blockIdx.x * C::kBlockRows;  // the block's queries
+  const int q0 = b0 + kRows * wgi;            // this warpgroup's queries
+  const int row_lo = 16 * ((tid >> 5) & 3) + (lane >> 2);
+  const bool vec = p.vec != 0;
+
+  const T* qg = static_cast<const T*>(p.q) + n * p.q_sn + h * p.q_sh;
+  const T* kg = static_cast<const T*>(p.k) + n * p.k_sn + h * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + n * p.v_sn + h * p.v_sh;
+  const T* dog = static_cast<const T*>(p.dout) + n * p.do_sn + h * p.do_sh;
+  const long long at = (n * gridDim.y + h) * p.sq;
+  const float* mrow = p.mask != nullptr ? p.mask + n * p.mask_sn : nullptr;
+
+  auto raw = [&](int it, int which) {
+    return reinterpret_cast<T*>(ring + (it % C::kStages) * C::kStage + which * C::kWalkTile);
+  };
+  auto mvals = [&](int it) {
+    return reinterpret_cast<float*>(ring + C::kStages * C::kStage + (it & 1) * C::kVecSlot);
+  };
+  // walked tile `it`: its rows [it W, it W + W) of K and V, and their Mask
+  auto load_stage = [&](int it) {
+    const int k0 = it * W;
+    load_tile<T, W, DP, NT>(raw(it, 0), kg, p.k_ss, k0, p.sk, p.d, vec);
+    load_tile<T, W, DP, NT>(raw(it, 1), vg, p.v_ss, k0, p.sk, p.d, vec);
+    if (mrow != nullptr && tid < W)
+      cp_async4(mvals(it) + tid, k0 + tid < p.sk ? mrow + k0 + tid : mrow, k0 + tid < p.sk);
+  };
+
+  const int n_tiles = (p.sk + W - 1) / W;
+  load_stage(0);
+  if constexpr (kF32) {
+    cp_async_commit();
+    load_split2<C::kBlockRows, DP, NT>(Qb, Qs, qg, p.q_ss, dOb, dOs, dog, p.do_ss, b0, p.sq, p.d,
+                                       vec);
+  } else {
+    load_tile<T, C::kBlockRows, DP, NT>(Qb, qg, p.q_ss, b0, p.sq, p.d, vec);
+    load_tile<T, C::kBlockRows, DP, NT>(dOb, dog, p.do_ss, b0, p.sq, p.d, vec);
+    cp_async_commit();
   }
+
+  // this thread's queries: row statistics and Di, fixed for the walk
+  bool qvalid[2];
+  float mr[2], lr[2], dr[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int qi = q0 + row_lo + 8 * hh;
+    qvalid[hh] = qi < p.sq;
+    mr[hh] = qvalid[hh] ? p.stats[at + qi] : 0.f;
+    lr[hh] = qvalid[hh] ? p.stats[p.nhs + at + qi] : 0.f;
+    dr[hh] = qvalid[hh] ? p.di[at + qi] : 0.f;
+  }
+
+  float dq[DP / 2];
+  zero(dq);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * W;
+    cp_async_wait_all();
+    wg::fence_proxy_async();
+    __syncthreads();
+    const T *kb = raw(it, 0), *ks = kb, *ktb = kb, *kts = kb, *vb = raw(it, 1), *vs = vb;
+    if constexpr (kF32) {
+      split_tile<W, DP, true, NT>(raw(it, 0), Kb, Ks, KTb, KTs);
+      split_tile<W, DP, false, NT>(raw(it, 1), Vb, Vs, nullptr, nullptr);
+      wg::fence_proxy_async();
+      __syncthreads();
+      kb = Kb, ks = Ks, ktb = KTb, kts = KTs, vb = Vb, vs = Vs;
+    }
+    if (it + 1 < n_tiles) {
+      load_stage(it + 1);
+      cp_async_commit();
+    }
+
+    // S = Q K^T and dP = dO V^T: queries x keys
+    float s[W / 2], dp[W / 2];
+    zero(s);
+    zero(dp);
+    wg::fence();
+    const int a_off = wgi * kRows * DP;  // this warpgroup's rows of the block's tiles
+    mma_over_d<T, DP, W>(s, Qb + a_off, Qs + a_off, kb, ks);
+    mma_over_d<T, DP, W>(dp, dOb + a_off, dOs + a_off, vb, vs);
+    wg::commit();
+    wg::wait_all();
+    wg::keep(s);
+    wg::keep(dp);
+
+    const float* mv = mvals(it);
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t4 + e, kj = k0 + col;
+        const bool kvalid = kj < p.sk;
+        const float mterm = mrow != nullptr ? (mv[col] - 1.0f) * 1e9f : 0.f;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int i = 4 * j + 2 * hh + e;
+          const float x = masked_score(s[i], p.scale, p.causal, q0 + row_lo + 8 * hh, kj,
+                                       mrow != nullptr, mterm);
+          const float pv =
+              (kvalid && qvalid[hh]) ? exp2f(((x - mr[hh]) - lr[hh]) * kLog2e) : 0.f;
+          dp[i] = pv * (dp[i] - dr[hh]);
+        }
+      }
+    }
+
+    // dQ += dS K
+    Frags<T, W> dsa;
+    dsa.make(dp);
+    wg::fence();
+    mma_over_walk<T, DP, W>(dq, dsa, ktb, kts);
+    wg::commit();
+    wg::wait_all();
+    wg::keep(dq);
+    dsa.keep();
+    __syncthreads();
+  }
+
+  store_rows<T, DP, NT>(smem, dq, p.scale, static_cast<T*>(p.dq) + n * p.dq_sn + h * p.dq_sh,
+                        p.dq_ss, b0, p.sq, p.d, vec);
 }
 
 // which: 0 = dK/dV, 1 = dQ
 template <typename T, int DP>
 cudaError_t launch(const BwdParams& p, int n, int h, int which, cudaStream_t stream) {
-  const size_t smem = smem_bytes<DP>(which == 0 ? 2 : 1);
+  using C = Cfg<T, DP>;
+  const int smem = C::smem_bytes(which == 0);
   const int rows = which == 0 ? p.sk : p.sq;
-  const dim3 grid((rows + kBlockRows - 1) / kBlockRows, h, n);
+  const dim3 grid((rows + C::kBlockRows - 1) / C::kBlockRows, h, n);
   cudaError_t err;
   if (which == 0) {
     err = cudaFuncSetAttribute(fused_attention_bwd_dkv_kernel<T, DP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    fused_attention_bwd_dkv_kernel<T, DP><<<grid, kThreads, smem, stream>>>(p);
+    fused_attention_bwd_dkv_kernel<T, DP><<<grid, C::kThreads, smem, stream>>>(p);
   } else {
     err = cudaFuncSetAttribute(fused_attention_bwd_dq_kernel<T, DP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    fused_attention_bwd_dq_kernel<T, DP><<<grid, kThreads, smem, stream>>>(p);
+    fused_attention_bwd_dq_kernel<T, DP><<<grid, C::kThreads, smem, stream>>>(p);
   }
   return cudaGetLastError();
 }
@@ -378,19 +820,22 @@ cudaError_t dispatch_dim(const BwdParams& p, int n, int h, int which, cudaStream
   return launch<T, 128>(p, n, h, which, stream);
 }
 
+bool aligned16(const void* ptr) { return ptr == nullptr || (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
+
 int run(int which, const void* q, const void* k, const void* v, const void* mask, const void* dout,
-        const void* lse, const void* di, void* dq, void* dk, void* dv, int dtype, int n, int h,
+        const void* stats, const void* di, void* dq, void* dk, void* dv, int dtype, int n, int h,
         int sq, int sk, int d, const long long* strides, long long mask_sn, int causal,
         float scale, void* stream) {
   if (n < 1 || h < 1 || sq < 1 || sk < 1 || d < 1 || d > 128 || n > 65535 || h > 65535)
     return int(cudaErrorInvalidValue);
+  if (dtype != 0 && dtype != 1) return int(cudaErrorInvalidValue);
   BwdParams p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.mask = static_cast<const float*>(mask);
   p.dout = dout;
-  p.lse = static_cast<const float*>(lse);
+  p.stats = static_cast<const float*>(stats);
   p.di = static_cast<const float*>(di);
   p.dq = dq;
   p.dk = dk;
@@ -398,6 +843,7 @@ int run(int which, const void* q, const void* k, const void* v, const void* mask
   p.sq = sq;
   p.sk = sk;
   p.d = d;
+  p.nhs = (long long)n * h * sq;
   long long* dst[21] = {&p.q_sn,  &p.q_sh,  &p.q_ss,  &p.k_sn,  &p.k_sh,  &p.k_ss,  &p.v_sn,
                         &p.v_sh,  &p.v_ss,  &p.do_sn, &p.do_sh, &p.do_ss, &p.dq_sn, &p.dq_sh,
                         &p.dq_ss, &p.dk_sn, &p.dk_sh, &p.dk_ss, &p.dv_sn, &p.dv_sh, &p.dv_ss};
@@ -405,40 +851,67 @@ int run(int which, const void* q, const void* k, const void* v, const void* mask
   p.mask_sn = mask_sn;
   p.causal = causal;
   p.scale = scale;
+  // 16-byte copies and stores need every row to start on 16 bytes, and D
+  // to fill whole chunks
+  const long long item = dtype == 0 ? 4 : 2;
+  bool vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) && aligned16(dq) &&
+             aligned16(dk) && aligned16(dv) && (d * item) % 16 == 0;
+  for (int i = 0; i < 21; ++i) vec = vec && (strides[i] * item) % 16 == 0;
+  p.vec = vec ? 1 : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_dim<float>(p, n, h, which, s);
-  else if (dtype == 1)
-    err = dispatch_dim<__nv_bfloat16>(p, n, h, which, s);
-  else
-    err = cudaErrorInvalidValue;
+  const cudaError_t err = dtype == 0 ? dispatch_dim<float>(p, n, h, which, s)
+                                     : dispatch_dim<__nv_bfloat16>(p, n, h, which, s);
   return int(err);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  strides: 21 (n, h, s) element strides,
-// in the order q, k, v, dout, dq, dk, dv.  lse and di: fp32 [N, H, Sq],
-// contiguous.  The dK/dV entry writes dk and dv (dq may be null); the dQ
-// entry writes dq (dk and dv may be null).  Each returns a cudaError_t (0 on
-// success): the launch's own error, read with cudaGetLastError right after.
+// in the order q, k, v, dout, dq, dk, dv.  stats: fp32 [2, N, H, Sq] (row
+// max, log row sum), di: fp32 [N, H, Sq], both contiguous.  The dK/dV entry
+// writes dk and dv (dq may be null); the dQ entry writes dq (dk and dv may
+// be null).  Each returns a cudaError_t (0 on success): the launch's own
+// error, read with cudaGetLastError right after.
 extern "C" int paddle_fused_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* mask, const void* dout,
-    const void* lse, const void* di, void* dq, void* dk, void* dv, int dtype, int n, int h, int sq,
-    int sk, int d, const long long* strides, long long mask_sn, int causal, float scale,
+    const void* stats, const void* di, void* dq, void* dk, void* dv, int dtype, int n, int h,
+    int sq, int sk, int d, const long long* strides, long long mask_sn, int causal, float scale,
     void* stream) {
-  return run(0, q, k, v, mask, dout, lse, di, dq, dk, dv, dtype, n, h, sq, sk, d, strides, mask_sn,
-             causal, scale, stream);
+  return run(0, q, k, v, mask, dout, stats, di, dq, dk, dv, dtype, n, h, sq, sk, d, strides,
+             mask_sn, causal, scale, stream);
 }
 
 extern "C" int paddle_fused_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* mask, const void* dout,
-    const void* lse, const void* di, void* dq, void* dk, void* dv, int dtype, int n, int h, int sq,
-    int sk, int d, const long long* strides, long long mask_sn, int causal, float scale,
+    const void* stats, const void* di, void* dq, void* dk, void* dv, int dtype, int n, int h,
+    int sq, int sk, int d, const long long* strides, long long mask_sn, int causal, float scale,
     void* stream) {
-  return run(1, q, k, v, mask, dout, lse, di, dq, dk, dv, dtype, n, h, sq, sk, d, strides, mask_sn,
-             causal, scale, stream);
+  return run(1, q, k, v, mask, dout, stats, di, dq, dk, dv, dtype, n, h, sq, sk, d, strides,
+             mask_sn, causal, scale, stream);
+}
+
+namespace {
+template <typename T, int DP>
+void config_of(int which, int* out) {
+  using C = Cfg<T, DP>;
+  out[0] = C::kThreads;
+  out[1] = C::kBlockRows;
+  out[2] = C::kWalk;
+  out[3] = C::smem_bytes(which == 0);
+}
+}  // namespace
+
+// The launch configuration of one instantiation, for reports: out[0..3] =
+// threads a block, rows a block owns, rows a walked tile, dynamic shared
+// memory bytes.  which: 0 = dK/dV, 1 = dQ; dtype as above; dp: the head dim.
+extern "C" void paddle_fused_attention_bwd_config(int which, int dtype, int dp, int* out) {
+  if (dtype == 0)
+    dp <= 32 ? config_of<float, 32>(which, out)
+             : dp <= 64 ? config_of<float, 64>(which, out) : config_of<float, 128>(which, out);
+  else
+    dp <= 32 ? config_of<__nv_bfloat16, 32>(which, out)
+             : dp <= 64 ? config_of<__nv_bfloat16, 64>(which, out)
+                        : config_of<__nv_bfloat16, 128>(which, out);
 }
 
 extern "C" const char* paddle_cuda_error_string(int err) {

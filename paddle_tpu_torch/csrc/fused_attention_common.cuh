@@ -1,6 +1,7 @@
-// Helpers shared by the fused attention kernels (fused_attention.cu,
-// fused_attention_bwd.cu): element conversion, warp reductions, the tile
-// layout in shared memory, and the score of one (query, key) pair.
+// Helpers of the fused attention kernels: element conversion and the score
+// of one (query, key) pair (fused_attention.cu, fused_attention_bwd.cu);
+// warp reductions, the tile layout in shared memory and the FMA tile
+// product of the forward kernel (fused_attention.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -69,7 +70,7 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src, long long s
 // acc[r][t] = sum over c of A[row0 + r][c] * B[lane + 32 t][c], for this
 // warp's kRowsPerWarp rows of A against kBlockCols rows of B (both tiles as
 // stage_rows leaves them).  Each sum runs over c upward in one fp32 FMA
-// chain, so a score recomputed here has the bits the forward kernel had.
+// chain.
 template <int DP>
 __device__ __forceinline__ void tile_dot(const float* A, int row0, const float* B, int lane,
                                          float acc[kRowsPerWarp][kColsPerLane]) {

@@ -1,6 +1,7 @@
 """paddle_tpu_torch on an NVIDIA card: the attention kernels (forward,
-its log-sum-exp, and the dK/dV and dQ backward kernels) against their
-plain versions, the small encoder served on the card against the CPU,
+its row statistics, and the dK/dV and dQ backward kernels) against their
+plain versions (on batches with an all-pad row too, and twice on the
+same inputs, bit for bit), the small encoder served on the card against the CPU,
 and a small pretraining step on the card against the CPU.
 
 Every test here needs a CUDA card and skips without one (marker
@@ -10,15 +11,15 @@ imports JAX):
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
-Tolerances: fp32 1e-4 (summation order: the kernel's fp32 FMAs against
-cuBLAS).  bf16 atol 2e-2 plus rtol 2**-7: one to two bf16 ulps at any
+Tolerances: fp32 1e-4 (summation order: the kernel's fp32 FMAs, or the
+backward's 3xTF32 tensor-core products, against cuBLAS).  bf16 atol 2e-2 plus rtol 2**-7: one to two bf16 ulps at any
 output scale.  The plain version rounds scores and weights to bf16
 where the kernel keeps fp32, and outputs of rows that attend few keys
 (early causal rows) reach magnitude 4 to 8, where one bf16 ulp is
 0.03.  The backward kernels take the same limits: fp32 at
 1e-4 * max(1, max|ref|) (the products sum over up to 200 keys or
-queries), bf16 at atol 2e-2 plus rtol 2**-7.  The log-sum-exp is fp32 in
-both dtypes, at 1e-4.  The encoder on the card against the CPU at 1e-4,
+queries), bf16 at atol 2e-2 plus rtol 2**-7.  The log-sum-exp rebuilt
+from the row statistics is fp32 in both dtypes, at 1e-4.  The encoder on the card against the CPU at 1e-4,
 as the JAX/port run parity; a training step's loss and gradients at
 1e-3 relative (fp32 sums in other orders through two layers forward and
 back).
@@ -46,7 +47,9 @@ def card():
     return torch.device("cuda", 0)
 
 
-def _inputs(card, n, h, s, d, dtype, head_split, seed=0):
+def _inputs(card, n, h, s, d, dtype, head_split, seed=0, all_pad=False):
+    """Q, K, V and a padding Mask with row 0 all real; with ``all_pad``
+    the last row is all pad (a batch padded with empty rows)."""
     g = torch.Generator(device=card).manual_seed(seed)
 
     def make():
@@ -57,6 +60,8 @@ def _inputs(card, n, h, s, d, dtype, head_split, seed=0):
     q, k, v = make(), make(), make()
     lens = torch.randint(1, s + 1, (n,), generator=g, device=card)
     lens[0] = s
+    if all_pad:
+        lens[-1] = 0
     mask = (torch.arange(s, device=card)[None, :] < lens[:, None]).float()
     return q, k, v, mask
 
@@ -94,16 +99,17 @@ def test_lse_matches_logsumexp(card, dtype, causal, shape, head_split):
     q, k, v, mask = _inputs(card, *shape, dtype, head_split, seed=1)
     scale = 1.0 / float(np.sqrt(shape[3]))
     kernels.reset_launch_counts()
-    out, lse = fa.fused_attention_fwd(q, k, v, mask, causal, scale, return_lse=True)
+    out, stats = fa.fused_attention_fwd(q, k, v, mask, causal, scale, return_stats=True)
     assert kernels.launch_counts() == {fa.KERNEL_NAME: 1}
     ref_out = fa.fused_attention_plain(q, k, v, mask, causal, scale)
-    # the kernel scores bf16 inputs in fp32: the reference log-sum-exp is
-    # that of the fp32 scores of the same values
-    _, ref_lse = fa.fused_attention_plain(q.float(), k.float(), v.float(), mask, causal, scale,
-                                          return_lse=True)
+    # the kernel scores bf16 inputs in fp32: the reference statistics are
+    # those of the fp32 scores of the same values
+    _, ref_stats = fa.fused_attention_plain(q.float(), k.float(), v.float(), mask, causal, scale,
+                                            return_stats=True)
     torch.cuda.synchronize()
-    assert lse.dtype == torch.float32 and lse.shape == q.shape[:3]
-    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+    assert stats.dtype == torch.float32 and stats.shape == (2,) + q.shape[:3]
+    torch.testing.assert_close(fa.row_lse(stats), fa.row_lse(ref_stats), atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(stats[0], ref_stats[0], atol=1e-4, rtol=1e-5)
     torch.testing.assert_close(out.float(), ref_out.float(), **TOL[dtype])
 
 
@@ -112,16 +118,29 @@ def test_lse_matches_logsumexp(card, dtype, causal, shape, head_split):
 @pytest.mark.parametrize("shape,head_split", CASES, ids=CASE_IDS)
 @pytest.mark.parametrize("with_mask", [True, False], ids=["mask", "nomask"])
 def test_backward_kernels_match_plain(card, dtype, causal, shape, head_split, with_mask):
-    q, k, v, mask = _inputs(card, *shape, dtype, head_split, seed=2)
+    _check_backward(card, dtype, causal, shape, head_split, with_mask, all_pad=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("shape,head_split", CASES[:4], ids=CASE_IDS[:4])
+def test_backward_kernels_all_pad_row(card, dtype, causal, shape, head_split):
+    """A batch whose last row is all pad: every score of it is -1e9, and
+    the kernels must rebuild P = 1/S (causal: 1/(i+1)) there."""
+    _check_backward(card, dtype, causal, shape, head_split, True, all_pad=True)
+
+
+def _check_backward(card, dtype, causal, shape, head_split, with_mask, all_pad):
+    q, k, v, mask = _inputs(card, *shape, dtype, head_split, seed=2, all_pad=all_pad)
     mask = mask if with_mask else None
     scale = 1.0 / float(np.sqrt(shape[3]))
     d_out = torch.randn(q.shape, generator=torch.Generator(device=card).manual_seed(3),
                         device=card).to(dtype)
-    out, lse = fa.fused_attention_fwd(q, k, v, mask, causal, scale, return_lse=True)
+    out, stats = fa.fused_attention_fwd(q, k, v, mask, causal, scale, return_stats=True)
     kernels.reset_launch_counts()
-    grads = fa.fused_attention_bwd(q, k, v, mask, causal, scale, out, d_out, lse)
+    grads = fa.fused_attention_bwd(q, k, v, mask, causal, scale, out, d_out, stats)
     assert kernels.launch_counts() == {fa.BWD_DKV_NAME: 1, fa.BWD_DQ_NAME: 1}
-    refs = fa.fused_attention_bwd_plain(q, k, v, mask, causal, scale, out, d_out, lse)
+    refs = fa.fused_attention_bwd_plain(q, k, v, mask, causal, scale, out, d_out, stats)
     torch.cuda.synchronize()
     for name, g, ref, t in zip("QKV", grads, refs, (q, k, v)):
         assert g.dtype == dtype and g.shape == t.shape, name
@@ -133,9 +152,26 @@ def test_backward_kernels_match_plain(card, dtype, causal, shape, head_split, wi
             torch.testing.assert_close(g.float(), ref.float(), **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_backward_kernels_repeat_bit_for_bit(card, dtype):
+    """No atomics: two launches of each kernel on the same inputs give
+    the same bits."""
+    q, k, v, mask = _inputs(card, 8, 12, 128, 64, dtype, True, seed=5, all_pad=True)
+    d_out = torch.randn(8, 128, 12, 64, generator=torch.Generator(device=card).manual_seed(6),
+                        device=card).to(dtype).permute(0, 2, 1, 3)
+    out, stats = fa.fused_attention_fwd(q, k, v, mask, True, 0.125, return_stats=True)
+    di = (out.float() * d_out.float()).sum(-1)
+    runs = [fa.fused_attention_bwd_dkv(q, k, v, mask, True, 0.125, d_out, stats, di)
+            + (fa.fused_attention_bwd_dq(q, k, v, mask, True, 0.125, d_out, stats, di),)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 def test_autograd_through_kernels(card):
     """The op's gradient on a CUDA tensor runs the forward kernel with the
-    log-sum-exp, then the two backward kernels; nothing of the plain
+    row statistics, then the two backward kernels; nothing of the plain
     version."""
     q, k, v, mask = _inputs(card, 2, 4, 40, 16, torch.float32, True, seed=4)
     q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))

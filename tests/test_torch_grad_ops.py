@@ -271,8 +271,8 @@ def test_plain_backward_bf16_against_fp32(causal):
     outs = {}
     for name, (a, b, c, do) in {"fp32": (qb.float(), kb.float(), vb.float(), d_out.bfloat16().float()),
                                 "bf16": (qb, kb, vb, d_out.bfloat16())}.items():
-        out, lse = fa.fused_attention_plain(a, b, c, mask, causal, scale, return_lse=True)
-        outs[name] = fa.fused_attention_bwd_plain(a, b, c, mask, causal, scale, out, do, lse)
+        out, stats = fa.fused_attention_plain(a, b, c, mask, causal, scale, return_stats=True)
+        outs[name] = fa.fused_attention_bwd_plain(a, b, c, mask, causal, scale, out, do, stats)
     for g32, g16 in zip(outs["fp32"], outs["bf16"]):
         assert g16.dtype == torch.bfloat16
         torch.testing.assert_close(g16.float(), g32, **BF16)
@@ -280,8 +280,10 @@ def test_plain_backward_bf16_against_fp32(causal):
 
 def test_plain_lse_is_logsumexp_of_scores():
     q, k, v, mask = _qkv_mask(torch.float32, seed=6)
-    out, lse = fa.fused_attention_plain(q, k, v, mask, True, 0.3, return_lse=True)
+    out, stats = fa.fused_attention_plain(q, k, v, mask, True, 0.3, return_stats=True)
     assert torch.equal(out, fa.fused_attention_plain(q, k, v, mask, True, 0.3))
+    assert stats.shape == (2, 2, 3, 11) and stats.dtype == torch.float32
+    lse = fa.row_lse(stats)
     s = torch.einsum("bhqd,bhkd->bhqk", q, k) * 0.3
     s = s + torch.triu(torch.full((11, 11), -1e9), 1) + ((mask - 1) * 1e9)[:, None, None, :]
     torch.testing.assert_close(lse, torch.logsumexp(s, -1), **FP32)
@@ -313,8 +315,9 @@ def test_function_meta_gives_shape_only_grads():
     gq, gk, gv = torch.autograd.grad([out], [q, k, v], [torch.empty_like(out)])
     for g, t in ((gq, q), (gk, k), (gv, v)):
         assert g.device.type == "meta" and g.shape == t.shape and g.dtype == t.dtype
-    out, lse = fa.fused_attention_fwd(q, k, v, mask, False, 0.5, return_lse=True)
-    assert lse.device.type == "meta" and tuple(lse.shape) == (2, 3, 9) and lse.dtype == torch.float32
+    out, stats = fa.fused_attention_fwd(q, k, v, mask, False, 0.5, return_stats=True)
+    assert stats.device.type == "meta" and tuple(stats.shape) == (2, 2, 3, 9)
+    assert stats.dtype == torch.float32
 
 
 def test_grad_op_shape_inference_over_meta():
@@ -343,12 +346,12 @@ def test_per_kernel_wrappers_on_cpu_give_the_plain_pieces():
     launch nothing."""
     q, k, v, mask = _qkv_mask(torch.float32, seed=8)
     d_out = torch.randn(q.shape, generator=torch.Generator().manual_seed(9))
-    out, lse = fa.fused_attention_plain(q, k, v, mask, True, 0.35, return_lse=True)
+    out, stats = fa.fused_attention_plain(q, k, v, mask, True, 0.35, return_stats=True)
     di = (out * d_out).sum(-1)
     kernels.reset_launch_counts()
-    dk, dv = fa.fused_attention_bwd_dkv(q, k, v, mask, True, 0.35, d_out, lse, di)
-    dq = fa.fused_attention_bwd_dq(q, k, v, mask, True, 0.35, d_out, lse, di)
+    dk, dv = fa.fused_attention_bwd_dkv(q, k, v, mask, True, 0.35, d_out, stats, di)
+    dq = fa.fused_attention_bwd_dq(q, k, v, mask, True, 0.35, d_out, stats, di)
     assert kernels.launch_counts() == {}
-    rq, rk, rv = fa.fused_attention_bwd_plain(q, k, v, mask, True, 0.35, out, d_out, lse)
+    rq, rk, rv = fa.fused_attention_bwd_plain(q, k, v, mask, True, 0.35, out, d_out, stats)
     for g, r in ((dq, rq), (dk, rk), (dv, rv)):
         torch.testing.assert_close(g, r, atol=0, rtol=0)
