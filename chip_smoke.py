@@ -9,20 +9,21 @@ Phases, each of which raises (exit code != 0) on failure:
    triton versions; TF32 is switched off for matmuls and cuDNN.
 2. build: every CUDA source under ``paddle_tpu_torch/csrc/`` compiles
    with nvcc (one process per source, all at once); ptxas' register
-   report is printed, each backward kernel's SASS must hold wgmma
-   (HGMMA) and no atomics, and its launch configuration (threads,
-   rows, shared memory) is printed.
+   report is printed, each attention kernel's SASS (forward, dK/dV, dQ,
+   every type and head dim) must hold wgmma (HGMMA) and no atomics, and
+   its launch configuration (threads, rows, walked tile, shared memory)
+   is printed.
 3. kernel check: each kernel's wrapper runs on the card at the main
    paths' shapes (and a ragged one) and is held against its plain
    PyTorch version; the kernel, the plain version and one PyTorch
    library call of the same function are timed with CUDA events, with
    the calls queued behind a spin kernel so that the events measure
    device time, not the host's launch overhead.  The forward kernel
-   (with and without its log-sum-exp output) comes first, then the
+   (with and without its row statistics output) comes first, then the
    backward's dK/dV and dQ kernels, whose library yardstick is the
-   backward of ``scaled_dot_product_attention``.  The backward kernels
-   are also held on batches with an all-pad row, and two launches on the
-   same inputs must give the same bits.
+   backward of ``scaled_dot_product_attention``.  Every kernel is also
+   held on batches with an all-pad row, and two launches on the same
+   inputs must give the same bits.
 4. serving slice: full-width BERT-base (12 layers, d_model 768, 12
    heads, seq 128, random weights from a seed) is built with the port's
    layers, initialised on the card, saved with
@@ -78,6 +79,16 @@ ATTN_CASES = [
     (3, 4, 77, 32, "bfloat16", False, "contiguous"),
     (32, 12, 128, 64, "float32", False, "nshd"),
 ]
+# the forward on a batch whose last row is all pad (checked, not timed), with
+# and without the row statistics output
+ATTN_ALL_PAD_CASES = [
+    (8, 12, 128, 64, "float32", False, "nshd"),
+    (8, 12, 128, 64, "float32", True, "nshd"),
+    (8, 12, 128, 64, "bfloat16", False, "nshd"),
+    (8, 12, 128, 64, "bfloat16", True, "nshd"),
+    (3, 4, 77, 32, "float32", True, "contiguous"),
+    (3, 4, 77, 32, "bfloat16", False, "contiguous"),
+]
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # fp32 summation order; 1-2 bf16 ulps
 MAIN_CASE = (16, 12, 128, 64, "float32", False, "nshd")  # the served path's top bucket
 TRAIN_CASE = (32, 12, 128, 64, "float32", False, "nshd")  # the training slice's shape
@@ -99,7 +110,7 @@ BWD_ALL_PAD_CASES = [
     (8, 12, 128, 64, "bfloat16", True, "nshd"),
     (3, 4, 77, 32, "float32", True, "contiguous"),
 ]
-LSE_TOL = 1e-4  # fp32 log-sum-exp, relative to max(1, |ref|)
+LSE_TOL = 1e-4  # fp32 log-sum-exp and row max, each row relative to max(1, |ref|)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense).  Operations are
 # bounded at the tensor cores' rate: bf16 at 989 TFLOP/s; fp32 as 3xTF32
@@ -173,41 +184,49 @@ def build_kernels():
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log("[build]   " + line.strip())
-    check_bwd_build(res["fused_attention_bwd"]["path"])
+    check_build(res["fused_attention"]["path"], res["fused_attention_bwd"]["path"])
     return res
 
 
-def check_bwd_build(lib_path):
-    """Each backward kernel instantiation issues wgmma (HGMMA in its SASS,
-    read with cuobjdump) and no atomics; and its launch configuration."""
+def check_build(fwd_path, bwd_path):
+    """Each attention kernel instantiation (forward, dK/dV, dQ; fp32 and
+    bf16; D32, 64, 128) issues wgmma (HGMMA in its SASS, read with
+    cuobjdump) and no atomics; and its launch configuration."""
     import ctypes
     import re
 
     from paddle_tpu_torch.kernels import build
 
-    sass = subprocess.run([os.path.join(os.path.dirname(build._nvcc()), "cuobjdump"), "-sass",
-                           lib_path], capture_output=True, text=True, check=True).stdout
     counts = {}
-    for chunk in sass.split("Function : ")[1:]:
-        name = chunk.split(None, 1)[0]
-        kind = re.search(r"bwd_(dkv|dq)_kernel", name)
-        if kind is None:
-            continue
-        label = "%s %s D%s" % (kind.group(1), "bf16" if "bfloat16" in name else "fp32",
-                               re.search(r"Li(\d+)E", name).group(1))
-        counts[label] = {"HGMMA": len(re.findall(r"\bHGMMA\.", chunk)),
-                         "atomics": len(re.findall(r"\b(ATOM|ATOMS|RED)\.", chunk))}
-    log("[build] backward SASS", json.dumps(counts, sort_keys=True))
-    if len(counts) != 12 or any(c["HGMMA"] == 0 or c["atomics"] for c in counts.values()):
-        raise AssertionError("backward kernels without wgmma or with atomics: %s" % counts)
-    config = ctypes.CDLL(lib_path).paddle_fused_attention_bwd_config
-    config.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    config.restype = None
+    for path in (fwd_path, bwd_path):
+        sass = subprocess.run([os.path.join(os.path.dirname(build._nvcc()), "cuobjdump"), "-sass",
+                               path], capture_output=True, text=True, check=True).stdout
+        for chunk in sass.split("Function : ")[1:]:
+            name = chunk.split(None, 1)[0]
+            kind = re.search(r"fused_attention_(fwd|bwd_dkv|bwd_dq)_kernel", name)
+            if kind is None:
+                continue
+            label = "%s %s D%s" % (kind.group(1).replace("bwd_", ""),
+                                   "bf16" if "bfloat16" in name else "fp32",
+                                   re.search(r"Li(\d+)E", name).group(1))
+            counts[label] = {"HGMMA": len(re.findall(r"\bHGMMA\.", chunk)),
+                             "atomics": len(re.findall(r"\b(ATOM|ATOMS|RED)\.", chunk))}
+    log("[build] attention SASS", json.dumps(counts, sort_keys=True))
+    if len(counts) != 18 or any(c["HGMMA"] == 0 or c["atomics"] for c in counts.values()):
+        raise AssertionError("attention kernels without wgmma or with atomics: %s" % counts)
     cfg = (ctypes.c_int * 4)()
-    for which, kind in ((0, "dkv"), (1, "dq")):
+    fwd_config = ctypes.CDLL(fwd_path).paddle_fused_attention_fwd_config
+    fwd_config.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    bwd_config = ctypes.CDLL(bwd_path).paddle_fused_attention_bwd_config
+    bwd_config.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fwd_config.restype = bwd_config.restype = None
+    for kind in ("fwd", "dkv", "dq"):
         for dtype, tname in ((0, "fp32"), (1, "bf16")):
             for dp in (32, 64, 128):
-                config(which, dtype, dp, cfg)
+                if kind == "fwd":
+                    fwd_config(dtype, dp, cfg)
+                else:
+                    bwd_config(0 if kind == "dkv" else 1, dtype, dp, cfg)
                 log("[build] %s %s D%d: %d threads, %d rows a block, walked tiles of %d, "
                     "%d bytes of shared memory" % (kind, tname, dp, *cfg))
 
@@ -286,41 +305,81 @@ def _attn_bound(case):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _bias(torch, mask, causal, s):
+    """The additive bias of Mask and the causal term, [N, 1, S, S] or [N, 1, 1, S]."""
+    bias = ((mask - 1.0) * 1e9)[:, None, None, :]
+    if causal:
+        idx = torch.arange(s, device="cuda")
+        bias = bias + torch.where(idx[None, :] <= idx[:, None], 0.0, -1e9)[None, None]
+    return bias
+
+
+def _rel_err(got, ref):
+    """(max abs err, whether every element is within LSE_TOL * max(1, |ref|))."""
+    err = (got - ref).abs()
+    return err.max().item(), bool((err <= LSE_TOL * ref.abs().clamp(min=1.0)).all().item())
+
+
 def check_kernels(torch):
+    """The forward kernel against ``fused_attention_plain`` on the same
+    inputs; a second launch gives the same bits.  ATTN_CASES are timed
+    beside the plain version and one SDPA call.  ATTN_ALL_PAD_CASES (a
+    batch with an all-pad row) are checked only, with and without the row
+    statistics: Out against the plain version both times, the statistics'
+    row max against the plain version's and their log-sum-exp against
+    torch.logsumexp of the fp32 scores, and both launches repeated bit
+    for bit."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import fused_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = []
-    for case in ATTN_CASES:
+    for case, all_pad in [(c, False) for c in ATTN_CASES] + [(c, True) for c in ATTN_ALL_PAD_CASES]:
         n, h, s, d, dtype, causal, layout = case
-        q, k, v, mask = _attn_inputs(torch, case, gen)
+        q, k, v, mask = _attn_inputs(torch, case, gen, all_pad)
         scale = 1.0 / float(np.sqrt(d))
         out = fa.fused_attention_fwd(q, k, v, mask, causal, scale)
+        again = fa.fused_attention_fwd(q, k, v, mask, causal, scale)
         ref = fa.fused_attention_plain(q, k, v, mask, causal, scale)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         finite = bool(torch.isfinite(out.float()).all().item())
-        # the library yardstick: one SDPA call with the same additive bias
-        bias = ((mask - 1.0) * 1e9)[:, None, None, :]
-        if causal:
-            idx = torch.arange(s, device="cuda")
-            bias = bias + torch.where(idx[None, :] <= idx[:, None], 0.0, -1e9)[None, None]
-        bias = bias.to(q.dtype)
-        kernel_ms = _time_ms(torch, lambda: fa.fused_attention_fwd(q, k, v, mask, causal, scale))
-        plain_ms = _time_ms(torch, lambda: fa.fused_attention_plain(q, k, v, mask, causal, scale))
-        library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=bias, scale=scale))
-        bound_ms, bound_by = _attn_bound(case)
+        repeat = bool(torch.equal(out, again))
+        ok = finite and repeat and err <= ATTN_TOL[dtype]
         row = {"shape": [n, h, s, d], "dtype": dtype, "causal": causal, "layout": layout,
-               "max_abs_err": err, "tol": ATTN_TOL[dtype], "ms": kernel_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-        if case == TRAIN_CASE:  # the grad ops run it with the row statistics output
-            row["ms_with_stats"] = _time_ms(torch, lambda: fa.fused_attention_fwd(
-                q, k, v, mask, causal, scale, return_stats=True))
+               "all_pad_row": all_pad, "repeat_bit_equal": repeat, "max_abs_err": err,
+               "tol": ATTN_TOL[dtype]}
+        bias = _bias(torch, mask, causal, s)
+        if all_pad:
+            # with the row statistics: the same Out, and statistics that
+            # carry the all-pad row's uniform softmax
+            out_s, stats = fa.fused_attention_fwd(q, k, v, mask, causal, scale, return_stats=True)
+            out_s2, stats2 = fa.fused_attention_fwd(q, k, v, mask, causal, scale, return_stats=True)
+            _, ref_stats = fa.fused_attention_plain(q, k, v, mask, causal, scale, return_stats=True)
+            scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale + bias
+            m_err, m_ok = _rel_err(stats[0], ref_stats[0])
+            lse_err, lse_ok = _rel_err(fa.row_lse(stats), torch.logsumexp(scores, dim=-1))
+            out_err = (out_s.float() - ref.float()).abs().max().item()
+            row["stats_max_abs_err"] = {"out": out_err, "row_max": m_err, "lse": lse_err}
+            row["stats_repeat_bit_equal"] = bool(torch.equal(out_s, out_s2) and torch.equal(stats, stats2))
+            row["stats_out_bit_equal"] = bool(torch.equal(out_s, out))
+            ok = (ok and row["stats_repeat_bit_equal"] and row["stats_out_bit_equal"]
+                  and m_ok and lse_ok and out_err <= ATTN_TOL[dtype])
+        else:
+            # the library yardstick: one SDPA call with the same additive bias
+            bias = bias.to(q.dtype)
+            row["ms"] = _time_ms(torch, lambda: fa.fused_attention_fwd(q, k, v, mask, causal, scale))
+            row["plain_ms"] = _time_ms(torch, lambda: fa.fused_attention_plain(
+                q, k, v, mask, causal, scale))
+            row["library_ms"] = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias, scale=scale))
+            row["bound_ms"], row["bound_by"] = _attn_bound(case)
+            if case == TRAIN_CASE:  # the grad ops run it with the row statistics output
+                row["ms_with_stats"] = _time_ms(torch, lambda: fa.fused_attention_fwd(
+                    q, k, v, mask, causal, scale, return_stats=True))
         log("[kernel] fused_attention_fwd", json.dumps(row))
-        if not finite or not err <= ATTN_TOL[dtype]:
+        if not ok:
             raise AssertionError("fused_attention_fwd disagrees with its plain version: %s" % row)
         results.append((case, row))
     return results
@@ -388,13 +447,9 @@ def check_bwd_kernels(torch):
         scale = 1.0 / float(np.sqrt(d))
         out, stats = fa.fused_attention_fwd(q, k, v, mask, causal, scale, return_stats=True)
         lse = fa.row_lse(stats)
-        bias = ((mask - 1.0) * 1e9)[:, None, None, :]
-        if causal:
-            idx = torch.arange(s, device="cuda")
-            bias = bias + torch.where(idx[None, :] <= idx[:, None], 0.0, -1e9)[None, None]
+        bias = _bias(torch, mask, causal, s)
         scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale + bias
-        lse_err = (lse - torch.logsumexp(scores, dim=-1)).abs().max().item()
-        lse_ok = lse_err <= LSE_TOL * max(1.0, lse.abs().max().item())
+        lse_err, lse_ok = _rel_err(lse, torch.logsumexp(scores, dim=-1))
         di = (out.float() * d_out.float()).sum(-1)
 
         def kernels_once():
@@ -768,8 +823,8 @@ def main() -> int:
     train = run_train(torch)
     check_train_against_cpu()
 
-    def row_of(rows, case):
-        return dict(next(row for c, row in rows if c == case))
+    def row_of(rows, case):  # the timed row of a case
+        return dict(next(row for c, row in rows if c == case and not row["all_pad_row"]))
 
     main_row, train_row = row_of(checks, MAIN_CASE), row_of(checks, TRAIN_CASE)
     bwd_row = row_of(bwd_checks, TRAIN_CASE)

@@ -1,4 +1,5 @@
-// Fused scaled-dot-product attention, forward, for Hopper (sm_90a).
+// Fused scaled-dot-product attention, forward, for Hopper (sm_90a), on the
+// tensor cores.
 //
 // Replaces the TPU kernel behind the JAX package's `fused_attention` op
 // (its ops/nn_ops.py:694-708, flash branch): jax's Pallas
@@ -26,50 +27,96 @@
 // this only on pad query rows, whose outputs are garbage by construction
 // in both (nn_ops.py:649-651) and are masked downstream.
 //
-// Design, simple and right first:
-//  * One block per (n, h, tile of kBlockQ query rows).  The TPU grid walked
-//    the K/V tiles as a sequential grid dimension and carried the softmax
-//    state in VMEM scratch; here a loop inside the block walks the K/V
-//    tiles, staged in shared memory, and each row's running max, running
-//    denominator and output accumulator stay in fp32 registers (online
-//    softmax), so no [N, H, S, S] tensor ever reaches device memory.
-//  * Each warp owns kRowsPerWarp query rows.  For Q K^T a lane owns
-//    kKeysPerLane keys of the tile and all of the warp's rows; for P V a
-//    lane owns DP / 32 output columns.  Probabilities go through a small
-//    per-warp shared buffer between the two products.
-//  * Products are fp32 FMAs on the CUDA cores, for both input types: bf16
-//    inputs are widened to fp32 when staged.  fp32 inputs therefore keep
-//    full fp32 products (a TF32 or bf16 tensor-core product would not meet
-//    the 1e-4 fp32 tolerance).  wgmma, TMA and warp specialisation for the
-//    bf16 path are later work.
-//  * Ragged edges are masked: any S (keys past S score -inf, query rows
-//    past S are not written) and any D <= 128 (head dim zero-padded to DP,
-//    one of 32, 64, 128).  Q, K, V and Out are addressed through their
-//    (n, h, s) strides with a unit last stride, so the [N, S, H, D] views
-//    the model's head split produces are read in place.
-//
 // What bounds it on an H100 SXM (reckoned from shapes; PERF.md holds the
-// measured times): at N=16, H=12, S=128, D=64 the two products are
-// 4*N*H*S*S*D = 805 MFLOP.  fp32 moves 25.2 MB (Q, K, V, Out; the mask is
-// 8 KB): 805 MFLOP / 67 TFLOP/s = 12.0 us against 25.2 MB / 3.35 TB/s =
-// 7.5 us, so compute bounds it.  bf16 moves 12.6 MB = 3.8 us; its products
-// on the tensor cores would take 0.8 us, so memory bounds bf16 - a bound
-// this CUDA-core kernel does not reach, since it runs bf16 at the fp32
-// rate.
+// measured times).  Bytes are Q, K, V read once and Out written once, plus
+// Mask; operations are the two products, 4 N H S^2 D, at the tensor cores'
+// rate (fp32 as 3xTF32, below: three TF32 products a product, 495
+// TFLOP/s; bf16 989 TFLOP/s).  At H=12, S=128, D=64:
+//   * fp32, N=32 (training): 50.3 MB at 3.35 TB/s = 15.0 us against
+//     3 x 1.61 GFLOP = 9.8 us;
+//   * fp32, N=16 (serving): 7.5 us against 4.9 us;
+//   * bf16, N=16: 3.8 us against 0.8 us.
+// So bytes bound every case: each input is read from device memory once
+// per block that needs it, and no [N, H, S, S] tensor leaves the SM.
+//
+// Design (the building blocks are attention_sm90.cuh's, shared with the
+// backward's dQ kernel, whose walk this kernel follows):
+//  * A block owns query rows of one (n, h) and walks the K/V tiles in a
+//    loop, where the TPU walked them as a sequential grid dimension.  Each
+//    warpgroup owns 64 rows (wgmma's M); fp32 at D <= 64 runs two a block,
+//    sharing each tile's conversion.  Every output element is summed by
+//    one thread in a fixed order, so results repeat bit for bit and a
+//    row's result does not depend on the batch it is served in.
+//  * S = Q K^T on wgmma, both operands K-major as stored, into an fp32
+//    accumulator in registers.  Scale, causal and padding terms are applied
+//    to the fragment in the reference's order (attn::masked_score); keys
+//    past S score -inf.
+//  * Online softmax on the fragment: each accumulator row lives in the 4
+//    lanes of a quad, so the row max takes two shuffles.  Each thread keeps
+//    its two rows' running max and its share of their running sums; the O
+//    accumulator is rescaled by exp(m_old - m_new) at each tile.  The first
+//    tile starts from m = -inf and holds key 0, which is real, so m is
+//    finite from then on (-1e9 on an all-pad row) and no (-inf) - (-inf)
+//    is formed.  exp is 2^x of the argument times log2(e) (ex2.approx,
+//    2 ulps), about 1e-6 relative.
+//  * O += P V on wgmma with A from registers: the score accumulator,
+//    turned into P = exp(s - m) in place, is the A fragment (attn::Frags).
+//    O is scaled by the inverse of the row sum once, at the end.
+//  * fp32 (the training path's type): 3xTF32.  Each operand x splits into
+//    big (x with its 13 low mantissa bits cleared) and small = x - big;
+//    each product is a_big b_big + a_big b_small + a_small b_big, about
+//    2^-20 of each term: fp32's accuracy to a few ulps.  The block's Q is
+//    split once; each K tile is split as it arrives, and each V tile into
+//    the halves of its transpose (TF32 wgmma takes K-major operands only),
+//    its walked rows in the order 0 2 4 6 1 3 5 7 that matches the
+//    accumulator fragment.  P splits into big and small in registers.
+//  * bf16: bf16 wgmma straight from the staged tiles; V is read MN-major
+//    through the descriptor's transpose flag.  P feeds A rounded once to
+//    bf16, as the reference rounds its softmax weights (the JAX package's
+//    ops/nn_ops.py:716); here P = exp(s - m) is unnormalised, in (0, 1],
+//    and the division comes at the end in fp32.  (The backward feeds P and
+//    dS as two bf16 halves: its sums over many rows grow past the limit.
+//    Two halves here measured no closer to the reference, and slower.)
+//  * Copies: the block's Q and each K/V tile with its Mask values come
+//    through cp.async; tile it + 1 loads while tile it computes (a ring of
+//    two stages in bf16; fp32 reuses its one raw stage once the tile is
+//    converted; a ring of four bf16 stages, all of S = 128 in flight at
+//    once, measured slower).  No mbarrier waits: nothing can wait forever.  Out goes
+//    out through shared memory in 16-byte stores.  Where a pointer, stride
+//    or D is not a multiple of 16 bytes, plain loads and stores take the
+//    same paths.
+//  * Shapes: any S (rows past S are zero-filled and not written); D up to
+//    128, zero-padded to DP = 32, 64 or 128; causal or not; Mask or none;
+//    Q, K, V and Out are addressed through their (n, h, s) strides with a
+//    unit last stride, so the [N, S, H, D] views of the head split are read
+//    and written in place.
+//  * Score bits: the dQ kernel computes S = Q K^T with the same split, the
+//    same k order and the same wgmma shapes (the same Cfg), so its
+//    recomputed scores are this kernel's, bit for bit.
+//  * At H=12, S=128, D=64: fp32 blocks of 256 threads own 128 rows with
+//    115,456 bytes of shared memory, two a SM (below): 192 blocks at N=16
+//    and 384 at N=32 are 0.73 and 1.45 waves on 132 SMs.  bf16 blocks of
+//    128 threads own 64 rows with 25,344 bytes; registers allow four a SM,
+//    so the 384 blocks at N=16 are 0.73 waves.
 
 #include <stdint.h>
 
-#include "fused_attention_common.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 
 using namespace attn;
 
-constexpr int kBlockQ = kBlockRows;  // query rows per block
-constexpr int kBlockK = kBlockCols;  // keys per K/V tile
-constexpr int kKeysPerLane = kColsPerLane;  // keys of a tile a lane scores
+// 2^x on the special-function unit, flushing denormal results to zero:
+// exp2f's extra steps keep denormals, which a softmax weight below 2^-126
+// does not need.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
-struct Params {
+struct FwdParams {
   const void* q;
   const void* k;
   const void* v;
@@ -77,169 +124,221 @@ struct Params {
   void* out;
   float* stats;       // [2, N, H, Sq] fp32, contiguous (row max, log row sum), or null
   int sq, sk, d;
+  long long nhs;      // N * H * Sq: from the row max to the log row sum
   long long q_sn, q_sh, q_ss;
   long long k_sn, k_sh, k_ss;
   long long v_sn, v_sh, v_ss;
   long long o_sn, o_sh, o_ss;
   long long mask_sn;
   int causal;
+  int vec;            // every row allows 16-byte copies and stores
   float scale;
 };
 
-template <int DP>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t(kBlockQ) * row_stride<DP>() + size_t(kBlockK) * row_stride<DP>() +
-                          size_t(kBlockK) * DP + size_t(kWarps) * kRowsPerWarp * kBlockK);
-}
-
+// Two blocks a SM: in fp32 at D = 64 that holds ptxas to 128 registers a
+// thread (it takes 166 unbounded, which leaves room for one block), and
+// shared memory (115,456 bytes a block) allows two.
 template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads) fused_attention_fwd_kernel(const Params p) {
-  constexpr int QS = row_stride<DP>();
-  constexpr int kDimsPerLane = DP / 32;  // output columns a lane owns
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [kBlockQ][QS]
-  float* Ks = Qs + kBlockQ * QS;                // [kBlockK][QS]
-  float* Vs = Ks + kBlockK * QS;                // [kBlockK][DP]
-  float* Ps = Vs + kBlockK * DP;                // [kWarps][kRowsPerWarp][kBlockK]
+__global__ void __launch_bounds__(Cfg<T, DP>::kThreads, 2)
+    fused_attention_fwd_kernel(const FwdParams p) {
+  using C = Cfg<T, DP>;
+  constexpr bool kF32 = C::kF32;
+  constexpr int W = C::kWalk;
+  constexpr int NT = C::kThreads;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(128) unsigned char smem[];
+  // the block's queries (fp32: big and small halves)
+  T* Qb = reinterpret_cast<T*>(smem);
+  T* Qs = kF32 ? reinterpret_cast<T*>(smem + C::kRowTile) : Qb;
+  // the ring: [kStages][raw K, raw V], then [2][Mask]
+  unsigned char* ring = smem + (kF32 ? 2 : 1) * C::kRowTile;
+  // fp32: K in halves, V's transpose in halves; before the walk, the
+  // block's raw Q
+  float* conv = reinterpret_cast<float*>(ring + C::kRing);
+  constexpr int kWalkF = W * DP;
+  float *Kb = conv, *Ks = conv + kWalkF, *VTb = conv + 2 * kWalkF, *VTs = conv + 3 * kWalkF;
+  static_assert(!kF32 || C::kRowTile <= 4 * C::kWalkTile, "raw Q must fit where K and V convert");
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const long long n = blockIdx.z;
-  const long long h = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockQ;
+  const int tid = threadIdx.x, wgi = tid >> 7, lane = tid & 31, t4 = lane & 3;
+  const long long n = blockIdx.z, h = blockIdx.y;
+  const int b0 = blockIdx.x * C::kBlockRows;  // the block's queries
+  const int q0 = b0 + kRows * wgi;            // this warpgroup's queries
+  // this thread's queries: q0 + row_lo and q0 + row_lo + 8
+  const int row_lo = 16 * ((tid >> 5) & 3) + (lane >> 2);
+  const bool vec = p.vec != 0;
 
   const T* qg = static_cast<const T*>(p.q) + n * p.q_sn + h * p.q_sh;
   const T* kg = static_cast<const T*>(p.k) + n * p.k_sn + h * p.k_sh;
   const T* vg = static_cast<const T*>(p.v) + n * p.v_sn + h * p.v_sh;
-  T* og = static_cast<T*>(p.out) + n * p.o_sn + h * p.o_sh;
   const float* mrow = p.mask != nullptr ? p.mask + n * p.mask_sn : nullptr;
 
-  // Stage this block's query rows, zero past S and past D.
-  stage_rows<T, DP>(Qs, qg, p.q_ss, q0, kBlockQ, p.sq, p.d);
+  auto raw = [&](int it, int which) {
+    return reinterpret_cast<T*>(ring + (it % C::kStages) * C::kStage + which * C::kWalkTile);
+  };
+  auto mvals = [&](int it) {
+    return reinterpret_cast<float*>(ring + C::kStages * C::kStage + (it & 1) * C::kVecSlot);
+  };
+  // walked tile `it`: its rows [it W, it W + W) of K and V, and their Mask
+  auto load_stage = [&](int it) {
+    const int k0 = it * W;
+    load_tile<T, W, DP, NT>(raw(it, 0), kg, p.k_ss, k0, p.sk, p.d, vec);
+    load_tile<T, W, DP, NT>(raw(it, 1), vg, p.v_ss, k0, p.sk, p.d, vec);
+    if (mrow != nullptr && tid < W)
+      cp_async4(mvals(it) + tid, k0 + tid < p.sk ? mrow + k0 + tid : mrow, k0 + tid < p.sk);
+  };
 
-  const int row0 = warp * kRowsPerWarp;
-  float* Pw = Ps + warp * kRowsPerWarp * kBlockK;
-  float m_run[kRowsPerWarp], l_run[kRowsPerWarp], acc[kRowsPerWarp][kDimsPerLane];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m_run[r] = -INFINITY;
-    l_run[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kDimsPerLane; ++c) acc[r][c] = 0.f;
+  // the block's queries and the first tile, in flight together
+  const int n_tiles = (p.sk + W - 1) / W;
+  load_tile<T, C::kBlockRows, DP, NT>(kF32 ? reinterpret_cast<T*>(conv) : Qb, qg, p.q_ss, b0,
+                                      p.sq, p.d, vec);
+  load_stage(0);
+  cp_async_commit();
+  if constexpr (kF32) {
+    cp_async_wait_all();
+    __syncthreads();
+    split_tile<C::kBlockRows, DP, false, NT>(conv, Qb, Qs, nullptr, nullptr);
+    __syncthreads();  // the first tile's conversion rewrites conv
   }
 
-  for (int k0 = 0; k0 < p.sk; k0 += kBlockK) {
-    __syncthreads();  // the previous tile's K/V reads are done
-    for (int i = tid; i < kBlockK * DP; i += kThreads) {
-      const int r = i / DP, c = i % DP, kj = k0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (kj < p.sk && c < p.d) {
-        kx = to_float<T>(kg[kj * p.k_ss + c]);
-        vx = to_float<T>(vg[kj * p.v_ss + c]);
-      }
-      Ks[r * QS + c] = kx;
-      Vs[r * DP + c] = vx;
-    }
+  // this thread's two rows: running max and its share of the running sum
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  float o[DP / 2];
+  zero(o);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * W;
+    // tile `it` has landed, and no other copy is in flight
+    cp_async_wait_all();
+    wg::fence_proxy_async();
     __syncthreads();
-
-    // s[r][t]: this warp's row r against this lane's key t of the tile.
-    float s[kRowsPerWarp][kKeysPerLane];
-    tile_dot<DP>(Qs, row0, Ks, lane, s);
-
-    // Scale, then the causal and padding terms in the reference's order;
-    // keys past S drop out of the softmax entirely.
-#pragma unroll
-    for (int t = 0; t < kKeysPerLane; ++t) {
-      const int kj = k0 + lane + 32 * t;
-      const bool valid = kj < p.sk;
-      const float mterm = (mrow != nullptr && valid) ? (mrow[kj] - 1.0f) * 1e9f : 0.f;
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float x = masked_score(s[r][t], p.scale, p.causal, q0 + row0 + r, kj,
-                                     mrow != nullptr, mterm);
-        s[r][t] = valid ? x : -INFINITY;
-      }
+    const T *kb = raw(it, 0), *ks = kb, *vtb = raw(it, 1), *vts = vtb;
+    if constexpr (kF32) {
+      split_tile<W, DP, false, NT>(raw(it, 0), Kb, Ks, nullptr, nullptr);
+      split_tile<W, DP, true, NT, false>(raw(it, 1), nullptr, nullptr, VTb, VTs);
+      wg::fence_proxy_async();
+      __syncthreads();
+      kb = Kb, ks = Ks, vtb = VTb, vts = VTs;
+    }
+    if (it + 1 < n_tiles) {  // the next tile loads while this one computes
+      load_stage(it + 1);
+      cp_async_commit();
     }
 
-    // Online softmax: fold this tile into each row's running max and sum,
-    // rescale the accumulator, and hand the tile's probabilities to P V.
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      float mx = s[r][0];
-#pragma unroll
-      for (int t = 1; t < kKeysPerLane; ++t) mx = fmaxf(mx, s[r][t]);
-      const float m_new = fmaxf(m_run[r], warp_max(mx));  // finite: key k0 is valid
-      const float corr = expf(m_run[r] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int t = 0; t < kKeysPerLane; ++t) {
-        const float pv = expf(s[r][t] - m_new);
-        psum += pv;
-        Pw[r * kBlockK + lane + 32 * t] = pv;
-      }
-      l_run[r] = l_run[r] * corr + warp_sum(psum);
-      m_run[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < kDimsPerLane; ++c) acc[r][c] *= corr;
-    }
-    __syncwarp();
+    // S = Q K^T: queries x keys
+    float s[W / 2];
+    zero(s);
+    wg::fence();
+    const int a_off = wgi * kRows * DP;  // this warpgroup's rows of the block's tile
+    mma_over_d<T, DP, W>(s, Qb + a_off, Qs + a_off, kb, ks);
+    wg::commit();
+    wg::wait_all();
+    wg::keep(s);
 
-#pragma unroll 2
-    for (int j = 0; j < kBlockK; j += 4) {
-      float4 pr[kRowsPerWarp];
+    // scores in the reference's order, and each row's max over the tile
+    const float* mv = mvals(it);
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r)
-        pr[r] = *reinterpret_cast<const float4*>(&Pw[r * kBlockK + j]);
+    for (int j = 0; j < W / 8; ++j) {
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        float vv[kDimsPerLane];
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t4 + e, kj = k0 + col;
+        const bool kvalid = kj < p.sk;
+        const float mterm = mrow != nullptr ? (mv[col] - 1.0f) * 1e9f : 0.f;
 #pragma unroll
-        for (int c = 0; c < kDimsPerLane; ++c) vv[c] = Vs[(j + jj) * DP + lane + 32 * c];
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const float pj = jj == 0 ? pr[r].x : jj == 1 ? pr[r].y : jj == 2 ? pr[r].z : pr[r].w;
-#pragma unroll
-          for (int c = 0; c < kDimsPerLane; ++c) acc[r][c] = fmaf(pj, vv[c], acc[r][c]);
+        for (int hh = 0; hh < 2; ++hh) {
+          const int i = 4 * j + 2 * hh + e;
+          const float x = masked_score(s[i], p.scale, p.causal, q0 + row_lo + 8 * hh, kj,
+                                       mrow != nullptr, mterm);
+          s[i] = kvalid ? x : -INFINITY;
+          mx[hh] = fmaxf(mx[hh], s[i]);
         }
       }
     }
-    __syncwarp();  // Pw is rewritten by the next tile
+    // online softmax: the new running max (the quad's 4 lanes hold a row),
+    // the old sum and O rescaled to it, and P = exp(s - m) in place
+    float corr[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m_run[hh], mx[hh]);  // finite: key k0 is real
+      corr[hh] = ex2((m_run[hh] - m_new) * kLog2e);  // 0 on the first tile
+      m_run[hh] = m_new;
+      l_run[hh] *= corr[hh];
+    }
+#pragma unroll
+    for (int i = 0; i < W / 2; ++i) {
+      const int hh = (i >> 1) & 1;
+      s[i] = ex2((s[i] - m_run[hh]) * kLog2e);  // keys past S: 2^-inf = 0
+      l_run[hh] += s[i];
+    }
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+
+    // O += P V
+    Frags<T, W, false> pa;  // bf16: P rounded once
+    pa.make(s);
+    wg::fence();
+    mma_over_walk<T, DP, W, false>(o, pa, vtb, vts);
+    wg::commit();
+    wg::wait_all();
+    wg::keep(o);
+    pa.keep();
+    __syncthreads();  // the stage and the converted tiles are rewritten next
   }
 
+  // each row's sum over its quad; O times its inverse (one division a
+  // row, not one an element); the statistics
+  float inv[2];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int qi = q0 + row0 + r;
-    if (qi >= p.sq) continue;
-    if (p.stats != nullptr && lane == 0) {
-      const long long at = (n * gridDim.y + h) * p.sq + qi;
-      p.stats[at] = m_run[r];
-      p.stats[at + (long long)gridDim.z * gridDim.y * p.sq] = logf(l_run[r]);
-    }
+  for (int hh = 0; hh < 2; ++hh) {
+    l_run[hh] += __shfl_xor_sync(0xffffffffu, l_run[hh], 1);
+    l_run[hh] += __shfl_xor_sync(0xffffffffu, l_run[hh], 2);
+    inv[hh] = 1.0f / l_run[hh];
+  }
 #pragma unroll
-    for (int c = 0; c < kDimsPerLane; ++c) {
-      const int d = lane + 32 * c;
-      if (d < p.d) og[qi * p.o_ss + d] = from_float<T>(acc[r][c] / l_run[r]);
+  for (int i = 0; i < DP / 2; ++i) o[i] *= inv[(i >> 1) & 1];
+  if (p.stats != nullptr && t4 == 0) {
+    const long long at = (n * gridDim.y + h) * p.sq;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int qi = q0 + row_lo + 8 * hh;
+      if (qi < p.sq) {
+        p.stats[at + qi] = m_run[hh];
+        p.stats[p.nhs + at + qi] = logf(l_run[hh]);
+      }
     }
   }
+  // all of shared memory is free now: the epilogue stages Out there
+  store_rows<T, DP, NT>(smem, o, 1.0f, static_cast<T*>(p.out) + n * p.o_sn + h * p.o_sh, p.o_ss,
+                        b0, p.sq, p.d, vec);
 }
 
 template <typename T, int DP>
-cudaError_t launch(const Params& p, int n, int h, cudaStream_t stream) {
-  const size_t smem = smem_bytes<DP>();
+cudaError_t launch(const FwdParams& p, int n, int h, cudaStream_t stream) {
+  using C = Cfg<T, DP>;
+  const int smem = C::smem_bytes(kFwd);
   cudaError_t err = cudaFuncSetAttribute(fused_attention_fwd_kernel<T, DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.sq + kBlockQ - 1) / kBlockQ, h, n);
-  fused_attention_fwd_kernel<T, DP><<<grid, kThreads, smem, stream>>>(p);
+  const dim3 grid((p.sq + C::kBlockRows - 1) / C::kBlockRows, h, n);
+  fused_attention_fwd_kernel<T, DP><<<grid, C::kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_dim(const Params& p, int n, int h, cudaStream_t stream) {
+cudaError_t dispatch_dim(const FwdParams& p, int n, int h, cudaStream_t stream) {
   if (p.d <= 32) return launch<T, 32>(p, n, h, stream);
   if (p.d <= 64) return launch<T, 64>(p, n, h, stream);
   return launch<T, 128>(p, n, h, stream);
+}
+
+template <typename T, int DP>
+void config_of(int* out) {
+  using C = Cfg<T, DP>;
+  out[0] = C::kThreads;
+  out[1] = C::kBlockRows;
+  out[2] = C::kWalk;
+  out[3] = C::smem_bytes(kFwd);
 }
 
 }  // namespace
@@ -253,7 +352,8 @@ extern "C" int paddle_fused_attention_fwd(
     long long o_sh, long long o_ss, long long mask_sn, int causal, float scale, void* stream) {
   if (n < 1 || h < 1 || sq < 1 || sk < 1 || d < 1 || d > 128 || n > 65535 || h > 65535)
     return int(cudaErrorInvalidValue);
-  Params p;
+  if (dtype != 0 && dtype != 1) return int(cudaErrorInvalidValue);
+  FwdParams p;
   p.q = q;
   p.k = k;
   p.v = v;
@@ -263,30 +363,36 @@ extern "C" int paddle_fused_attention_fwd(
   p.sq = sq;
   p.sk = sk;
   p.d = d;
-  p.q_sn = q_sn;
-  p.q_sh = q_sh;
-  p.q_ss = q_ss;
-  p.k_sn = k_sn;
-  p.k_sh = k_sh;
-  p.k_ss = k_ss;
-  p.v_sn = v_sn;
-  p.v_sh = v_sh;
-  p.v_ss = v_ss;
-  p.o_sn = o_sn;
-  p.o_sh = o_sh;
-  p.o_ss = o_ss;
+  p.nhs = (long long)n * h * sq;
+  const long long strides[12] = {q_sn, q_sh, q_ss, k_sn, k_sh, k_ss,
+                                 v_sn, v_sh, v_ss, o_sn, o_sh, o_ss};
+  long long* dst[12] = {&p.q_sn, &p.q_sh, &p.q_ss, &p.k_sn, &p.k_sh, &p.k_ss,
+                        &p.v_sn, &p.v_sh, &p.v_ss, &p.o_sn, &p.o_sh, &p.o_ss};
+  for (int i = 0; i < 12; ++i) *dst[i] = strides[i];
   p.mask_sn = mask_sn;
   p.causal = causal;
   p.scale = scale;
+  // 16-byte copies and stores need every row to start on 16 bytes, and D
+  // to fill whole chunks
+  const long long item = dtype == 0 ? 4 : 2;
+  bool vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) && (d * item) % 16 == 0;
+  for (int i = 0; i < 12; ++i) vec = vec && (strides[i] * item) % 16 == 0;
+  p.vec = vec ? 1 : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_dim<float>(p, n, h, s);
-  else if (dtype == 1)
-    err = dispatch_dim<__nv_bfloat16>(p, n, h, s);
-  else
-    err = cudaErrorInvalidValue;
+  const cudaError_t err =
+      dtype == 0 ? dispatch_dim<float>(p, n, h, s) : dispatch_dim<__nv_bfloat16>(p, n, h, s);
   return int(err);
+}
+
+// The launch configuration of one instantiation, for reports: out[0..3] =
+// threads a block, rows a block owns, rows a walked tile, dynamic shared
+// memory bytes.  dtype as above; dp: the head dim.
+extern "C" void paddle_fused_attention_fwd_config(int dtype, int dp, int* out) {
+  if (dtype == 0)
+    dp <= 32 ? config_of<float, 32>(out) : dp <= 64 ? config_of<float, 64>(out) : config_of<float, 128>(out);
+  else
+    dp <= 32 ? config_of<__nv_bfloat16, 32>(out)
+             : dp <= 64 ? config_of<__nv_bfloat16, 64>(out) : config_of<__nv_bfloat16, 128>(out);
 }
 
 extern "C" const char* paddle_cuda_error_string(int err) {

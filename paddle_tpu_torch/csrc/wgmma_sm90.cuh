@@ -1,10 +1,11 @@
 // Hopper warpgroup matrix multiply-accumulate (wgmma) for the attention
-// backward kernels (fused_attention_bwd.cu): the fence / commit / wait
-// steps, the shared-memory matrix descriptor, and one wrapper per shape
-// the kernels issue.  Every product is m64 x N, fp32 accumulators in
-// registers, laid out as the PTX ISA gives them for a warpgroup of 128
-// threads: thread (warp w, lane l) holds, for i = 0 .. N/2 - 1, element
-// (row 16 w + l / 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (l % 4) + i % 2).
+// kernels (fused_attention.cu, fused_attention_bwd.cu): the fence /
+// commit / wait steps, the shared-memory matrix descriptor, and one
+// wrapper per shape the kernels issue.  Every product is m64 x N, fp32
+// accumulators in registers, laid out as the PTX ISA gives them for a
+// warpgroup of 128 threads: thread (warp w, lane l) holds, for i = 0 ..
+// N/2 - 1, element (row 16 w + l / 4 + 8 ((i / 2) % 2), column
+// 8 (i / 4) + 2 (l % 4) + i % 2).
 //
 // *_ss: A and B from shared memory (descriptors).  *_rs: A from registers
 // (four 32-bit registers: four tf32 values for k8, eight bf16 for k16),

@@ -1,16 +1,19 @@
-"""The fused attention gradient on a batch row whose padding Mask is all
-zero (a batch padded with empty rows up to a fixed size feeds such a
-row).
+"""The fused attention, its row statistics and its gradient on a batch
+row whose padding Mask is all zero (a batch padded with empty rows up to
+a fixed size feeds such a row).
 
 Every score of such a row is -1e9, where one fp32 ulp is 64, so the
 row's log-sum-exp m + log(S) rounds back to m: a backward that took
 P = exp(s - lse) gave every key 1 where the softmax gives 1/S.  The port
 keeps the row max and the log row sum apart (``fa._row_stats``); these
-tests hold its gradient to the JAX package's on such rows.
+tests hold its output, its statistics and its gradient to the JAX
+package's on such rows.
 
 The JAX side runs on the CPU as its own tests run it: the op takes its
-einsum branch and ``jax.vjp`` differentiates that.  Limit 1e-5 absolute
-(fp32, the two frameworks sum in different orders; the fault was 5.6).
+einsum branch and ``jax.vjp`` differentiates that.  Gradient limit 1e-5
+absolute (fp32, the two frameworks sum in different orders; the fault
+was 5.6).  Forward limits: Out 1e-6 in fp32 and 2e-2 in bf16 (one to two
+bf16 ulps at unit scale), the fp32 statistics 1e-6.
 """
 import jax
 import jax.numpy as jnp
@@ -34,6 +37,49 @@ def _inputs(n=3, h=2, s=8, d=4, seed=0):
     lens = np.array([s, 0, 5][:n])
     mask = (np.arange(s)[None, :] < lens[:, None]).astype("float32")
     return q, k, v, mask, d_out
+
+
+def _jax_forward(q, k, v, mask, causal, scale, bf16):
+    """The JAX op's Out (as float32 numpy), and the row statistics [2, N,
+    H, S] (row max, log row sum) of its einsum branch's scores, taken from
+    the inputs' values in fp32 as the port takes them."""
+    cast = (lambda a: jnp.asarray(a, dtype=jnp.bfloat16)) if bf16 else jnp.asarray
+    jq, jk, jv, jm = cast(q), cast(k), cast(v), jnp.asarray(mask)
+    out = jreg.get_kernel("fused_attention")(
+        {"Q": [jq], "K": [jk], "V": [jv], "Mask": [jm]}, {"causal": causal, "scale": scale})["Out"]
+    s = jnp.einsum("bhqd,bhkd->bhqk", jq.astype(jnp.float32), jk.astype(jnp.float32)) * scale
+    S = q.shape[2]
+    if causal:
+        s = s + jnp.where(jnp.arange(S)[None, :] <= jnp.arange(S)[:, None], 0.0, -1e9)
+    s = s + ((jm - 1.0) * 1e9)[:, None, None, :]
+    m = s.max(-1)
+    stats = jnp.stack([m, jnp.log(jnp.exp(s - m[..., None]).sum(-1))])
+    return np.asarray(out.astype(jnp.float32)), np.asarray(stats)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_forward_matches_jax_on_all_pad_row(dtype, causal):
+    """The ``fused_attention`` op's Out and the plain row statistics
+    against the JAX op on every row: on the all-pad one each query takes
+    the mean of V (causal: of its first i + 1 rows), its row max is -1e9
+    and its log row sum log(S) (causal: log(i + 1))."""
+    q, k, v, mask, _ = _inputs(n=3, h=2, s=9, d=6, seed=5)
+    scale = 0.45
+    bf16 = dtype == torch.bfloat16
+    want_out, want_stats = _jax_forward(q, k, v, mask, causal, scale, bf16)
+    tq, tk, tv = (torch.from_numpy(a).to(dtype) for a in (q, k, v))
+    tmask = torch.from_numpy(mask)
+    out = treg.get_kernel("fused_attention")(
+        {"Q": [tq], "K": [tk], "V": [tv], "Mask": [tmask]}, {"causal": causal, "scale": scale},
+        CPU)["Out"]
+    _, stats = fa.fused_attention_fwd(tq, tk, tv, tmask, causal, scale, return_stats=True)
+    assert out.dtype == dtype and stats.dtype == torch.float32
+    np.testing.assert_allclose(out.float().numpy(), want_out, atol=2e-2 if bf16 else 1e-6, rtol=0)
+    np.testing.assert_allclose(stats.numpy(), want_stats, atol=1e-6, rtol=0)
+    assert (stats[0, 1] == -1e9).all()
+    keys = np.arange(1, 10) if causal else np.full(9, 9)
+    np.testing.assert_allclose(stats[1, 1].numpy(), np.log(keys)[None, :].repeat(2, 0), atol=1e-6)
 
 
 def _jax_grads(q, k, v, mask, d_out, causal, scale):

@@ -11,8 +11,8 @@ imports JAX):
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
-Tolerances: fp32 1e-4 (summation order: the kernel's fp32 FMAs, or the
-backward's 3xTF32 tensor-core products, against cuBLAS).  bf16 atol 2e-2 plus rtol 2**-7: one to two bf16 ulps at any
+Tolerances: fp32 1e-4 (summation order: the kernels' 3xTF32
+tensor-core products against cuBLAS).  bf16 atol 2e-2 plus rtol 2**-7: one to two bf16 ulps at any
 output scale.  The plain version rounds scores and weights to bf16
 where the kernel keeps fp32, and outputs of rows that attend few keys
 (early causal rows) reach magnitude 4 to 8, where one bf16 ulp is
@@ -110,6 +110,37 @@ def test_lse_matches_logsumexp(card, dtype, causal, shape, head_split):
     assert stats.dtype == torch.float32 and stats.shape == (2,) + q.shape[:3]
     torch.testing.assert_close(fa.row_lse(stats), fa.row_lse(ref_stats), atol=1e-4, rtol=1e-5)
     torch.testing.assert_close(stats[0], ref_stats[0], atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(out.float(), ref_out.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("shape,head_split", CASES, ids=CASE_IDS)
+@pytest.mark.parametrize("with_stats", [False, True], ids=["out", "stats"])
+def test_forward_all_pad_row(card, dtype, causal, shape, head_split, with_stats):
+    """A batch whose last row is all pad: every score of it is -1e9, and
+    the kernel must give each of its queries the uniform softmax over its
+    keys, with row max -1e9 in the statistics.  Two launches on the same
+    inputs give the same bits, and Out does not depend on whether the
+    statistics are asked for."""
+    q, k, v, mask = _inputs(card, *shape, dtype, head_split, seed=7, all_pad=True)
+    scale = 1.0 / float(np.sqrt(shape[3]))
+    runs = [fa.fused_attention_fwd(q, k, v, mask, causal, scale, return_stats=with_stats)
+            for _ in range(2)]
+    plain_out = fa.fused_attention_fwd(q, k, v, mask, causal, scale)
+    ref_out = fa.fused_attention_plain(q, k, v, mask, causal, scale)
+    torch.cuda.synchronize()
+    if with_stats:
+        (out, stats), (out2, stats2) = runs
+        _, ref_stats = fa.fused_attention_plain(q.float(), k.float(), v.float(), mask, causal,
+                                                scale, return_stats=True)
+        assert torch.equal(stats, stats2)
+        torch.testing.assert_close(stats, ref_stats, atol=1e-4, rtol=1e-5)
+        assert (stats[0, -1] == -1e9).all()
+    else:
+        out, out2 = runs
+    assert torch.equal(out, out2) and torch.equal(out, plain_out)
+    assert torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), ref_out.float(), **TOL[dtype])
 
 
