@@ -29,20 +29,33 @@ Phases, each of which raises (exit code != 0) on failure:
    layers, initialised on the card, saved with
    ``io.save_inference_model``, loaded by ``AnalysisPredictor`` and
    served by ``InferenceServer`` (max_batch_size 16) to concurrent
-   ``Client`` requests.  Every answer must be finite, match the same
-   request run alone, and the served path must have launched the
-   attention kernel 12 times per dispatch.  One request is also held
-   against the CPU predictor (plain PyTorch attention) on the same saved
-   model.
+   ``Client`` requests.  The warm-up runs each bucket once (eagerly);
+   a bucket's second served batch captures it as a CUDA graph.  Every
+   answer must be finite, match the same request run alone, and the
+   served path must have launched the attention kernel 12 times per
+   dispatch and built no cache entry after the warm-up.  Each request
+   through the captured predictor is held against the eager executor
+   (``use_program_cache=False``) on the same saved model, and one
+   against the CPU predictor (plain PyTorch attention).
 5. training slice: full-width BERT-base pretraining (``bert_pretrain``,
    MLM + NSP, fused attention, dropout off, ``AdamOptimizer(1e-4)``,
-   fp32) runs its startup on the card, one warm-up step and 3 steps on
-   one batch of 32 rows.  Every loss must be finite, the 3rd step's
-   below the 1st's, and each step must launch 12 dK/dV, 12 dQ and 24
-   forward attention kernels (each grad op runs the forward again for
-   its log-sum-exp).  Two steps at batch 2 are held against the port's
-   own CPU run of the same steps from the same state (the losses, and
-   three parameters' gradients in the first step).
+   fp32) runs its startup on the card, then steps on one batch of 32
+   rows: the entry's eager step, its captured step, and 5 timed
+   replays.  Every loss must be finite, the last step's below the
+   2nd's, and each step must launch 12 dK/dV, 12 dQ and 24 forward
+   attention kernels (each grad op runs the forward again for its row
+   statistics), in fp32.  Two steps at batch 2 are held against the
+   port's own CPU run of the same steps from the same state (the
+   losses, and three parameters' gradients in the first step).
+6. captured against eager: the fp32 training slice from one initial
+   state, three steps through the cached (captured) executor against
+   three eager ones (``use_program_cache=False``), and ``steps=3,
+   per_step_feed=True`` against three single captured runs; with the
+   unprofiled step time of both paths.
+7. AMP training slice: phase 5 with ``contrib.mixed_precision.decorate(
+   AdamOptimizer(1e-4))`` (bf16 AMP, as bench_bert.py trains it): the
+   same checks, with every attention launch in bf16, and two steps at
+   batch 2 against the CPU within the AMP tolerance.
 
 Output: progress lines, then a ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
@@ -78,6 +91,7 @@ ATTN_CASES = [
     (3, 4, 77, 32, "float32", True, "contiguous"),
     (3, 4, 77, 32, "bfloat16", False, "contiguous"),
     (32, 12, 128, 64, "float32", False, "nshd"),
+    (32, 12, 128, 64, "bfloat16", False, "nshd"),
 ]
 # the forward on a batch whose last row is all pad (checked, not timed), with
 # and without the row statistics output
@@ -92,6 +106,7 @@ ATTN_ALL_PAD_CASES = [
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # fp32 summation order; 1-2 bf16 ulps
 MAIN_CASE = (16, 12, 128, 64, "float32", False, "nshd")  # the served path's top bucket
 TRAIN_CASE = (32, 12, 128, 64, "float32", False, "nshd")  # the training slice's shape
+AMP_CASE = (32, 12, 128, 64, "bfloat16", False, "nshd")  # the AMP training slice's shape
 # the backward kernels' checks, same layout of a case
 BWD_CASES = [
     (32, 12, 128, 64, "float32", False, "nshd"),
@@ -122,13 +137,32 @@ PEAK_OPS = {"float32": (3, 495e12), "bfloat16": (1, 989e12)}
 BERT_BASE = dict(vocab_size=30522, d_model=768, n_layer=12, n_head=12, d_inner=3072,
                  max_pos=512, seq_len=128)
 SERVE_ROWS = [1, 3, 16, 5, 8, 2, 12, 7]   # concurrent requests, rows each
+SERVE_BURSTS = 3       # the same burst three times: the later ones meet captured buckets
 SERVE_TOL = 1e-4       # served vs the same request alone (batch shapes differ)
 CPU_REF_TOL = 1e-3     # card vs CPU predictor: fp32 summation order over 12 layers
 TRAIN_BATCH = 32
 TRAIN_MASKS = int(0.15 * BERT_BASE["seq_len"])  # masked positions per row, as bench_bert.py
-TRAIN_STEPS = 3        # timed steps, after one warm-up step
+TRAIN_STEPS = 5        # timed (replayed) steps, after the eager and the captured step
 CHECK_BATCH = 2        # the card-vs-CPU training step
 TRAIN_TOL = 1e-3       # card vs CPU step, relative: fp32 sums over 12 layers, forward and back
+# AMP card vs CPU step (loss, gradients), relative to the CPU's largest
+# magnitude: bf16 rounds each product's inputs and output to 8 bits of
+# mantissa (2**-8 = 3.9e-3 a rounding); the loss averages such differences,
+# a gradient gathers some 20 roundings a layer through 12 layers forward and
+# back (a random walk of them is about 6e-2 at most), and the two devices
+# sum in different orders
+AMP_TOL = (5e-3, 6e-2)
+AMP_SPREAD_SEEDS = 4   # more batches on which the AMP step's gradients are held to AMP_TOL
+# the card's Adam update against a float64 numpy Adam over the card's own
+# gradient: the parameter in units of lr (fp32 rounds the parameter to
+# about 1e-7 of itself and the update to about 1e-6 of lr; a wrong update
+# is off by the order of lr), the moments relative to their largest value
+ADAM_TOL = 1e-2
+# captured vs eager fp32 steps, relative to the largest magnitude: the same
+# kernels in the same order, but index_select's and gather's backward
+# (index_add_, scatter_add_) add with atomics whose order varies run to run
+CAPTURE_TOL = 1e-5
+CAPTURE_TIMED_STEPS = 5  # steps timed on each path after the three compared
 CHECK_GRADS = ["bert_word_emb", "bert_enc_0_att_q_w", "bert_enc_11_ffn_fc1_w"]
 
 
@@ -296,10 +330,12 @@ def _attn_inputs(torch, case, gen, all_pad=False):
     return q, k, v, mask
 
 
-def _attn_bound(case):
+def _attn_bound(case, stats=False):
     n, h, s, d, dtype, _, _ = case
     item = 4 if dtype == "float32" else 2
     nbytes = 4 * n * h * s * d * item + n * s * 4   # Q, K, V read, Out written, Mask read
+    if stats:
+        nbytes += 2 * n * h * s * 4                 # row max and log row sum written (fp32)
     ops = 4 * n * h * s * s * d                     # Q K^T and P V
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, _ops_s(ops, dtype)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -375,9 +411,10 @@ def check_kernels(torch):
             row["library_ms"] = _time_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=bias, scale=scale))
             row["bound_ms"], row["bound_by"] = _attn_bound(case)
-            if case == TRAIN_CASE:  # the grad ops run it with the row statistics output
+            if case in (TRAIN_CASE, AMP_CASE):  # the grad ops run it with the row statistics
                 row["ms_with_stats"] = _time_ms(torch, lambda: fa.fused_attention_fwd(
                     q, k, v, mask, causal, scale, return_stats=True))
+                row["bound_ms_with_stats"] = _attn_bound(case, stats=True)[0]
         log("[kernel] fused_attention_fwd", json.dumps(row))
         if not ok:
             raise AssertionError("fused_attention_fwd disagrees with its plain version: %s" % row)
@@ -545,47 +582,60 @@ def run_slice(torch, workdir):
     t0 = time.perf_counter()
     server.warmup()
     stats["warmup_s"] = time.perf_counter() - t0
+    # one entry a rung, each run once (eagerly, on this thread); a bucket's
+    # graph is captured at its second served batch on the server's worker
+    stats["cache_after_warmup"] = pred.jit_cache_stats()
 
     rng = np.random.RandomState(SEED)
     feeds = [_feed(rng, r, seq, BERT_BASE["vocab_size"]) for r in SERVE_ROWS]
     client = serving.Client(server)
-    answers, lat = [None] * len(feeds), [None] * len(feeds)
-    errors = []
+    bursts, errors, threads = [], [], []
+    for _ in range(SERVE_BURSTS):
+        answers, lat = [None] * len(feeds), [None] * len(feeds)
 
-    def one(i):
-        t = time.perf_counter()
-        try:
-            answers[i] = client.infer(feeds[i])
-        except Exception as e:  # noqa: BLE001 — reported and failed below
-            errors.append((i, repr(e)))
-        lat[i] = time.perf_counter() - t
+        def one(i, answers=answers, lat=lat):
+            t = time.perf_counter()
+            try:
+                answers[i] = client.infer(feeds[i])
+            except Exception as e:  # noqa: BLE001 — reported and failed below
+                errors.append((i, repr(e)))
+            lat[i] = time.perf_counter() - t
 
-    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(feeds))]
-    t0 = time.perf_counter()
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(120)
-    wall = time.perf_counter() - t0
+        burst = [threading.Thread(target=one, args=(i,)) for i in range(len(feeds))]
+        threads += burst
+        t0 = time.perf_counter()
+        for t in burst:
+            t.start()
+        for t in burst:
+            t.join(120)
+        bursts.append((answers, lat, time.perf_counter() - t0))
     server.stop(drain=True, timeout=60)
     counts = kernels.launch_counts()  # read right after the main path
     m = server.metrics()
-    if errors or any(a is None for a in answers) or any(t.is_alive() for t in threads):
+    stats["cache_after_traffic"] = pred.jit_cache_stats()
+    if stats["cache_after_traffic"]["misses"] != stats["cache_after_warmup"]["misses"]:
+        raise AssertionError("served traffic built new entries after the warm-up: %s"
+                             % stats["cache_after_traffic"])
+    if (errors or any(a is None for answers, _, _ in bursts for a in answers)
+            or any(t.is_alive() for t in threads)):
         raise AssertionError("requests failed: %s" % errors)
 
     dispatches = m["batches"] + m["warmup_runs"]
     launches = counts.get(KERNEL_NAME, 0)
+    # each burst's numbers; the first holds the buckets' eager runs on the
+    # worker and their captures, the last is the steady state
+    stats["bursts"] = [{"wall_s": wall, "rows_per_s": sum(SERVE_ROWS) / wall,
+                        "latency_ms_p50": 1e3 * statistics.median(lat),
+                        "latency_ms_max": 1e3 * max(lat)} for _, lat, wall in bursts]
     stats.update(dispatches=dispatches, batches=m["batches"], warmup_runs=m["warmup_runs"],
-                 launches=launches, rows=sum(SERVE_ROWS), wall_s=wall,
-                 rows_per_s=sum(SERVE_ROWS) / wall,
-                 latency_ms_p50=1e3 * statistics.median(lat), latency_ms_max=1e3 * max(lat))
+                 launches=launches, rows=sum(SERVE_ROWS) * SERVE_BURSTS)
     if launches != BERT_BASE["n_layer"] * dispatches or launches == 0:
         raise AssertionError(
             "%s launched %d times over %d dispatches (expected %d per dispatch)"
             % (KERNEL_NAME, launches, dispatches, BERT_BASE["n_layer"]))
 
     worst = 0.0
-    for f, (out,) in zip(feeds, answers):
+    for f, (out,) in [(f, a) for answers, _, _ in bursts for f, a in zip(feeds, answers)]:
         rows = f["src_ids"].shape[0]
         if out.shape != (rows, seq, BERT_BASE["d_model"]) or not np.isfinite(out).all():
             raise AssertionError("bad served output: shape %s" % (out.shape,))
@@ -595,11 +645,31 @@ def run_slice(torch, workdir):
     if not worst <= SERVE_TOL:
         raise AssertionError("served answers differ from the request alone by %g" % worst)
 
+    # unchanged under capture: each request alone through the captured
+    # predictor (by its entry's third run, a replay) against the eager
+    # interpreter (use_program_cache=False) on the same saved model
+    eager_exe, eager_scope = fluid.Executor(), fluid.Scope()
+    prog, feed_names, fetch_vars = fluid.io.load_inference_model(model_dir, eager_exe,
+                                                                 scope=eager_scope)
+    worst_eager, bit_equal = 0.0, True
+    for f in feeds:
+        pred.run(f)
+        replayed, = pred.run(f)
+        eager, = eager_exe.run(prog, feed=f, fetch_list=fetch_vars, scope=eager_scope,
+                               use_program_cache=False)
+        worst_eager = max(worst_eager, float(np.abs(replayed - eager).max()))
+        bit_equal = bit_equal and bool(np.array_equal(replayed, eager))
+    stats["captured_vs_eager_max_abs"] = worst_eager
+    stats["captured_vs_eager_bit_equal"] = bit_equal
+    stats["cache_after_checks"] = pred.jit_cache_stats()
+    if not worst_eager <= SERVE_TOL:
+        raise AssertionError("captured predictor differs from the eager one by %g" % worst_eager)
+
     cpu_cfg = fluid.inference.AnalysisConfig(model_dir)
     cpu_cfg.disable_gpu()
     cpu_pred = fluid.inference.create_paddle_predictor(cpu_cfg)
     ref, = cpu_pred.run(feeds[1])
-    cpu_err = float(np.abs(answers[1][0] - ref).max())
+    cpu_err = float(np.abs(bursts[-1][0][1][0] - ref).max())
     stats["card_vs_cpu_max_abs"] = cpu_err
     if not cpu_err <= CPU_REF_TOL:
         raise AssertionError("card and CPU predictors differ by %g" % cpu_err)
@@ -610,9 +680,13 @@ def run_slice(torch, workdir):
 # ---------------------------------------------------------------------------
 # phase 5: the training slice at full width
 # ---------------------------------------------------------------------------
-def pretrain_program(fluid, transformer):
+def pretrain_program(fluid, transformer, amp=False):
     """(main, startup, [total, mlm_loss, nsp_acc], params_grads) of fused
-    BERT-base pretraining with Adam."""
+    BERT-base pretraining with Adam; with ``amp``, Adam under
+    ``contrib.mixed_precision.decorate`` (bf16 AMP), as bench_bert.py
+    builds it."""
+    from paddle_tpu_torch.contrib import mixed_precision
+
     s = BERT_BASE["seq_len"]
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = SEED
@@ -621,7 +695,10 @@ def pretrain_program(fluid, transformer):
             ("src_ids", s, "int64"), ("sent_ids", s, "int64"), ("input_mask", s, "float32"),
             ("mask_pos", 1, "int64"), ("mask_label", 1, "int64"), ("nsp_label", 1, "int64"))]
         outs = transformer.bert_pretrain(*ins, dropout_rate=0.0, fused_attention=True, **BERT_BASE)
-        _, params_grads = fluid.optimizer.AdamOptimizer(1e-4).minimize(outs[0])
+        opt = fluid.optimizer.AdamOptimizer(1e-4)
+        if amp:
+            opt = mixed_precision.decorate(opt)
+        _, params_grads = opt.minimize(outs[0])
     return main, startup, list(outs), params_grads
 
 
@@ -680,7 +757,23 @@ def _profile_step(torch, step):
             "top_host_ops": [{"name": k[:60], "ms": t, "calls": c} for k, t, c in host_ops[:12]]}
 
 
-def run_train(torch):
+def _free_device_memory(torch):
+    """Release what earlier phases left to the collector, so each phase's
+    peak memory is its own."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def run_train(torch, amp=False):
+    """The training slice through the cached executor: the entry's first
+    step runs eagerly, its second is captured into a CUDA graph and
+    replayed, and TRAIN_STEPS replays are timed.  Every step must launch
+    24 forward, 12 dK/dV and 12 dQ attention kernels, in fp32 or (with
+    ``amp``) bf16, and the loss must fall."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import fused_attention as fa
@@ -690,14 +783,17 @@ def run_train(torch):
     batch, n_layer = TRAIN_BATCH, BERT_BASE["n_layer"]
     names = (fa.KERNEL_NAME, fa.BWD_DKV_NAME, fa.BWD_DQ_NAME)
     per_step = {fa.KERNEL_NAME: 2 * n_layer, fa.BWD_DKV_NAME: n_layer, fa.BWD_DQ_NAME: n_layer}
-    stats = {"batch": batch, "seq_len": BERT_BASE["seq_len"], "masks_per_row": TRAIN_MASKS}
+    kernel_dtype = "bfloat16" if amp else "float32"
+    stats = {"amp": amp, "batch": batch, "seq_len": BERT_BASE["seq_len"],
+             "masks_per_row": TRAIN_MASKS,
+             "allocated_before_bytes": _free_device_memory(torch)}
     t0 = time.perf_counter()
-    main, startup, outs, params_grads = pretrain_program(fluid, transformer)
+    main, startup, outs, params_grads = pretrain_program(fluid, transformer, amp)
     stats["build_s"] = time.perf_counter() - t0
     stats["ops"] = len(main.global_block().ops)
+    stats["casts"] = sum(op.type == "cast" for op in main.global_block().ops)
     exe = fluid.Executor()  # cuda:0
     scope = fluid.Scope()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     exe.run(startup, scope=scope)
     sync()
@@ -710,7 +806,7 @@ def run_train(torch):
 
     kernels.reset_launch_counts()  # counts from here on belong to the training path
     losses, times, deltas = [], [], []
-    for _ in range(1 + TRAIN_STEPS):
+    for _ in range(2 + TRAIN_STEPS):  # eager, captured and replayed, then replays
         before = kernels.launch_counts()
         sync()
         t = time.perf_counter()
@@ -721,79 +817,283 @@ def run_train(torch):
         deltas.append({k: after.get(k, 0) - before.get(k, 0) for k in names})
         losses.append({"total": float(total), "mlm": float(mlm), "nsp_acc": float(acc[0])})
     counts = kernels.launch_counts()  # read right after the training path
+    by_dtype = kernels.launch_counts_by_dtype()
     stats["launches"] = {k: counts.get(k, 0) for k in names}
+    stats["launches_by_dtype"] = {k: by_dtype.get(k, {}) for k in names}
     stats["launches_per_step"] = deltas
     stats["losses"] = losses
     stats["step_s"] = times
-    step_s = statistics.median(times[1:])
+    stats["eager_first_step_ms"], stats["capture_step_ms"] = 1e3 * times[0], 1e3 * times[1]
+    step_s = statistics.median(times[2:])
     stats["step_ms_median"] = 1e3 * step_s
     stats["tokens_per_s"] = batch * BERT_BASE["seq_len"] / step_s
     stats["real_tokens_per_s"] = stats["real_tokens"] / step_s
     stats["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    stats["cache"] = exe.jit_cache_stats()
     bad = [i for i, d in enumerate(deltas) if d != per_step]
     if bad:
         raise AssertionError("step(s) %s launched %s, expected %s per step"
                              % (bad, [deltas[i] for i in bad], per_step))
+    if any(set(by_dtype.get(k, {})) != {kernel_dtype} for k in names):
+        raise AssertionError("attention launches by type %s, expected %s only"
+                             % (by_dtype, kernel_dtype))
+    if stats["cache"]["graphs"] != 1:
+        raise AssertionError("the training step was not captured: %s" % stats["cache"])
     if not all(np.isfinite([l["total"], l["mlm"]]).all() for l in losses):
         raise AssertionError("non-finite loss: %s" % losses)
     if not losses[-1]["total"] < losses[1]["total"]:
         raise AssertionError("loss did not fall over the timed steps: %s" % losses)
 
     # what the step costs without its backward: the forward alone, which is
-    # also what the generic vjp grad ops recompute
+    # also what the generic vjp grad ops recompute (captured too)
     test_prog = main.clone(for_test=True)
     fwd_times = []
-    for _ in range(1 + TRAIN_STEPS):
+    for _ in range(2 + TRAIN_STEPS):
         sync()
         t = time.perf_counter()
         exe.run(test_prog, feed=feed, fetch_list=[outs[0].name], scope=scope)
         sync()
         fwd_times.append(time.perf_counter() - t)
-    stats["forward_only_ms_median"] = 1e3 * statistics.median(fwd_times[1:])
+    stats["forward_only_ms_median"] = 1e3 * statistics.median(fwd_times[2:])
     try:
         stats["profile"] = _profile_step(torch, step)
     except RuntimeError as e:  # the profiler's own failure: the numbers are then not measured
         stats["profile"] = "not measured (%s)" % e
-    log("[train]", json.dumps(stats))
+    exe.close()
+    log("[train-amp]" if amp else "[train]", json.dumps(stats))
     return stats
 
 
-def check_train_against_cpu():
-    """Two steps at ``batch`` from the same state on the card and on the
-    CPU: the first step's loss and gradients of CHECK_GRADS, and the
-    second step's loss (after each device's Adam update), agree within
-    TRAIN_TOL, relative to the CPU's largest magnitude."""
+def _clone_state(scope):
+    return {n: v.clone() for n, v in scope.vars.items()}
+
+
+def _load_state(scope, state):
+    """Put copies of ``state`` into ``scope`` (new tensors: a captured
+    entry copies them into its buffers before its next replay)."""
+    for n, v in state.items():
+        scope.vars[n] = v.clone()
+
+
+def _max_rel(a, b):
+    return float(np.abs(a - b).max() / max(float(np.abs(b).max()), 1e-30))
+
+
+def run_capture_check(torch):
+    """The fp32 training slice captured against eager, from the same
+    initial state: three steps each (the cached executor's captured and
+    replayed steps, its entry warmed first on a scope of its own, against
+    ``use_program_cache=False``), the first loss bit for bit, the losses
+    and the CHECK_GRADS parameters after three steps within CAPTURE_TOL;
+    then ``steps=3, per_step_feed=True`` against three single captured
+    runs from one state; and each path's step time, unprofiled."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer
+
+    sync = torch.cuda.synchronize
+    _free_device_memory(torch)
+    main, startup, outs, _ = pretrain_program(fluid, transformer)
+    boot_exe, boot = fluid.Executor(), fluid.Scope()
+    boot_exe.run(startup, scope=boot)
+    init = _clone_state(boot)
+    rng = np.random.RandomState(SEED + 3)
+    feeds = [pretrain_feed(rng, TRAIN_BATCH) for _ in range(3)]
+    paths = {}
+    for name, cached in (("eager", False), ("captured", True)):
+        exe, scope = fluid.Executor(), fluid.Scope()
+        if cached:  # the entry's eager warm-up, on a scope of its own
+            warm = fluid.Scope()
+            _load_state(warm, init)
+            exe.run(main, feed=feeds[0], fetch_list=[outs[0]], scope=warm)
+            del warm
+        _load_state(scope, init)
+        losses, times = [], []
+        for i in range(3 + CAPTURE_TIMED_STEPS):
+            sync()
+            t = time.perf_counter()
+            total, = exe.run(main, feed=feeds[i % 3], fetch_list=[outs[0]], scope=scope,
+                             use_program_cache=cached)
+            sync()
+            times.append(time.perf_counter() - t)
+            losses.append(float(total))
+            if i == 2:
+                params = {n: scope.vars[n].cpu().numpy() for n in CHECK_GRADS}
+        paths[name] = {"exe": exe, "scope": scope, "losses": losses, "params": params,
+                       "step_s": times, "step_ms_median": 1e3 * statistics.median(times[3:])}
+    eager, cap = paths["eager"], paths["captured"]
+    stats = {
+        "batch": TRAIN_BATCH,
+        "losses": {"eager": eager["losses"], "captured": cap["losses"]},
+        "first_loss_bit_equal": eager["losses"][0] == cap["losses"][0],
+        "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(cap["losses"][:3],
+                                                                  eager["losses"][:3])),
+        "param_rel_err": {n: _max_rel(cap["params"][n], eager["params"][n]) for n in CHECK_GRADS},
+        "eager_step_ms_median": eager["step_ms_median"],
+        "captured_step_ms_median": cap["step_ms_median"],
+        "eager_step_s": eager["step_s"], "captured_step_s": cap["step_s"],
+        "cache": {"eager": eager["exe"].jit_cache_stats(), "captured": cap["exe"].jit_cache_stats()},
+    }
+
+    # steps=3 with a feed a step, against three single captured runs, from one state
+    state = _clone_state(cap["scope"])
+    singles = []
+    for f in feeds:
+        singles.append(float(cap["exe"].run(main, feed=f, fetch_list=[outs[0]],
+                                            scope=cap["scope"])[0]))
+    single_params = {n: cap["scope"].vars[n].cpu().numpy() for n in CHECK_GRADS}
+    stacked = {n: np.stack([f[n] for f in feeds]) for n in feeds[0]}
+    multi_exe, multi_scope = fluid.Executor(), fluid.Scope()
+    for _ in range(2):  # the entry's eager warm-up, then its captured run
+        _load_state(multi_scope, state)
+        last, = multi_exe.run(main, feed=stacked, fetch_list=[outs[0]], scope=multi_scope,
+                              steps=3, per_step_feed=True)
+    stats["steps3"] = {
+        "singles": singles, "last": float(last),
+        "loss_rel_err": abs(float(last) - singles[-1]) / abs(singles[-1]),
+        "param_rel_err": {n: _max_rel(multi_scope.vars[n].cpu().numpy(), single_params[n])
+                          for n in CHECK_GRADS},
+        "cache": multi_exe.jit_cache_stats(),
+    }
+    for exe in (eager["exe"], cap["exe"], multi_exe):
+        exe.close()
+    log("[capture-check]", json.dumps(stats))
+    errs = ([stats["loss_rel_err"], stats["steps3"]["loss_rel_err"]]
+            + list(stats["param_rel_err"].values()) + list(stats["steps3"]["param_rel_err"].values()))
+    if not (stats["first_loss_bit_equal"] and max(errs) <= CAPTURE_TOL
+            and all(np.isfinite(cap["losses"]))
+            and stats["cache"]["captured"]["graphs"] == 1 == stats["steps3"]["cache"]["graphs"]
+            and stats["cache"]["eager"]["entries"] == 0):
+        raise AssertionError("captured and eager training steps differ: %s" % stats)
+    return stats
+
+
+def _adam_ops(main, params):
+    """{param: the adam op that updates it} for ``params``."""
+    return {op.input("Param")[0]: op for op in main.global_block().ops
+            if op.type == "adam" and op.input("Param")[0] in params}
+
+
+def _adam_state(scope, ops):
+    """Host copies of what the adam ops read: parameters, moments, beta
+    powers and learning rates."""
+    from paddle_tpu_torch.scope import to_numpy
+
+    names = {n for op in ops.values()
+             for slot in ("Param", "Moment1", "Moment2", "Beta1Pow", "Beta2Pow", "LearningRate")
+             for n in op.input(slot)}
+    return {n: to_numpy(scope.vars[n]).astype(np.float64) for n in names}
+
+
+def _adam_errors(ops, before, after, grads):
+    """For each parameter: how far the card's Adam update (``before`` ->
+    ``after``) lies from a float64 numpy Adam (paddle's adam_op.h: moments
+    first, then p -= lr * sqrt(1 - beta2^t) / (1 - beta1^t) * m / (sqrt(v)
+    + eps)) over the card's own gradient; the parameter in units of the
+    learning rate, the moments relative to their largest magnitude."""
+    errs = {}
+    for p, op in ops.items():
+        one = {slot: before[op.input(slot)[0]] for slot in
+               ("Param", "Moment1", "Moment2", "Beta1Pow", "Beta2Pow", "LearningRate")}
+        b1, b2, eps = op.attr("beta1", 0.9), op.attr("beta2", 0.999), op.attr("epsilon", 1e-8)
+        g = grads[p].astype(np.float64).reshape(one["Param"].shape)
+        lr = float(one["LearningRate"].reshape(()))
+        m = b1 * one["Moment1"] + (1 - b1) * g
+        v = b2 * one["Moment2"] + (1 - b2) * g * g
+        lr_t = lr * np.sqrt(1 - one["Beta2Pow"].reshape(())) / (1 - one["Beta1Pow"].reshape(()))
+        ref = one["Param"] - lr_t * m / (np.sqrt(v) + eps)
+        errs[p] = {"param_in_lr": float(np.abs(after[p] - ref).max() / lr),
+                   "moment1": _max_rel(after[op.input("Moment1")[0]], m),
+                   "moment2": _max_rel(after[op.input("Moment2")[0]], v)}
+    return errs
+
+
+def check_train_against_cpu(amp=False):
+    """Two steps at CHECK_BATCH from the same state on the card and on
+    the CPU.  On the card the entry is first warmed on a scope of its own,
+    so both compared steps run the captured graph (its capture, then a
+    replay).  Checked: the first step's loss and gradients of CHECK_GRADS
+    against the CPU's, within TRAIN_TOL (AMP_TOL with ``amp``) relative to
+    the CPU's largest magnitude; the second step's loss against the CPU's;
+    and each step's Adam update of CHECK_GRADS (parameters and moments)
+    against a float64 numpy Adam over the card's own gradients, within
+    ADAM_TOL.  In fp32 each device's second step starts from its own Adam
+    update.  With ``amp`` the CPU's starts from the card's updated state:
+    Adam's first update is lr times about the sign of each gradient
+    element, so an element whose gradient is within bf16 rounding of zero
+    moves lr one way on one device and lr the other way on the other, and
+    at random weights one update moves the loss by a third; a loss after
+    two different updates would measure that, not the second step (the
+    update itself is held to the numpy Adam instead).  With ``amp`` the
+    first step's check is then repeated from the initial state on
+    AMP_SPREAD_SEEDS more batches, each held to AMP_TOL, for the spread of
+    the bf16 gradient error."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import transformer
     from paddle_tpu_torch.scope import to_numpy
 
-    main, startup, outs, params_grads = pretrain_program(fluid, transformer)
+    main, startup, outs, params_grads = pretrain_program(fluid, transformer, amp)
     grads = {p.name: g.name for p, g in params_grads}
     fetch = [outs[0].name] + [grads[n] for n in CHECK_GRADS]
+    ops = _adam_ops(main, CHECK_GRADS)
     card_exe, card_scope = fluid.Executor(), fluid.Scope()
     card_exe.run(startup, scope=card_scope)
+    init = {n: to_numpy(v) for n, v in card_scope.vars.items()}
     cpu_exe, cpu_scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
-    fluid.io.set_params_from_numpy(
-        cpu_scope, {n: to_numpy(v) for n, v in card_scope.vars.items()}, "cpu")
+    fluid.io.set_params_from_numpy(cpu_scope, init, "cpu")
     feed = pretrain_feed(np.random.RandomState(SEED + 2), CHECK_BATCH)
+    warm = fluid.Scope()  # the entry's eager warm-up, on a scope of its own
+    _load_state(warm, card_scope.vars)
+    card_exe.run(main, feed=feed, fetch_list=fetch, scope=warm)
+    del warm
+    s0 = _adam_state(card_scope, ops)
     t0 = time.perf_counter()
-    card = card_exe.run(main, feed=feed, fetch_list=fetch, scope=card_scope)
+    card = card_exe.run(main, feed=feed, fetch_list=fetch, scope=card_scope)  # captured
     t1 = time.perf_counter()
     cpu = cpu_exe.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
     t2 = time.perf_counter()
-    # a second step: the loss after each device's own Adam update
-    card2 = card_exe.run(main, feed=feed, fetch_list=fetch[:1], scope=card_scope)
-    cpu2 = cpu_exe.run(main, feed=feed, fetch_list=fetch[:1], scope=cpu_scope)
-    stats = {"batch": CHECK_BATCH, "card_s": t1 - t0, "cpu_s": t2 - t1,
+    s1 = _adam_state(card_scope, ops)
+    # a second step, the same fetches: on the card a replay
+    if amp:
+        fluid.io.set_params_from_numpy(
+            cpu_scope, {n: to_numpy(v) for n, v in card_scope.vars.items()}, "cpu")
+    card2 = card_exe.run(main, feed=feed, fetch_list=fetch, scope=card_scope)
+    cpu2 = cpu_exe.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    s2 = _adam_state(card_scope, ops)
+    loss_tol, grad_tol = AMP_TOL if amp else (TRAIN_TOL, TRAIN_TOL)
+    stats = {"amp": amp, "batch": CHECK_BATCH, "card_s": t1 - t0, "cpu_s": t2 - t1,
              "loss_card": [float(card[0]), float(card2[0])],
-             "loss_cpu": [float(cpu[0]), float(cpu2[0])], "rel_err": {}}
-    ok = True
+             "loss_cpu": [float(cpu[0]), float(cpu2[0])], "tol": [loss_tol, grad_tol],
+             "adam_tol": ADAM_TOL, "rel_err": {},
+             "adam_err": {"step1": _adam_errors(ops, s0, s1, dict(zip(CHECK_GRADS, card[1:]))),
+                          "step2": _adam_errors(ops, s1, s2, dict(zip(CHECK_GRADS, card2[1:])))},
+             "card_cache": card_exe.jit_cache_stats()}
+    ok = stats["card_cache"]["graphs"] == 1
     for name, a, b in zip(["total", "total_step2"] + CHECK_GRADS,
                           [card[0], card2[0]] + card[1:], [cpu[0], cpu2[0]] + cpu[1:]):
-        rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+        rel = _max_rel(a, b)
         stats["rel_err"][name] = rel
-        ok = ok and bool(np.isfinite(a).all()) and rel <= TRAIN_TOL
-    log("[train-check]", json.dumps(stats))
+        ok = ok and bool(np.isfinite(a).all()) and rel <= (grad_tol if name in CHECK_GRADS
+                                                           else loss_tol)
+    ok = ok and all(e["param_in_lr"] <= ADAM_TOL and e["moment1"] <= ADAM_TOL
+                    and e["moment2"] <= ADAM_TOL
+                    for step in stats["adam_err"].values() for e in step.values())
+    if amp:  # the first step from the initial state on more batches: the spread
+        spread = []
+        for k in range(1, 1 + AMP_SPREAD_SEEDS):
+            f = pretrain_feed(np.random.RandomState(SEED + 2 + k), CHECK_BATCH)
+            fluid.io.set_params_from_numpy(card_scope, init, card_scope.device)
+            fluid.io.set_params_from_numpy(cpu_scope, init, "cpu")
+            a = card_exe.run(main, feed=f, fetch_list=fetch, scope=card_scope)  # a replay
+            b = cpu_exe.run(main, feed=f, fetch_list=fetch, scope=cpu_scope)
+            spread.append({name: _max_rel(x, y)
+                           for name, x, y in zip(["total"] + CHECK_GRADS, a, b)})
+        stats["spread"] = spread
+        ok = ok and all(r["total"] <= loss_tol and max(r[n] for n in CHECK_GRADS) <= grad_tol
+                        for r in spread)
+        stats["grad_rel_err_max_over_batches"] = max(
+            [stats["rel_err"][n] for n in CHECK_GRADS] + [r[n] for r in spread for n in CHECK_GRADS])
+    card_exe.close()
+    log("[train-check-amp]" if amp else "[train-check]", json.dumps(stats))
     if not ok:
         raise AssertionError("card and CPU training steps differ: %s" % stats)
     return stats
@@ -822,13 +1122,17 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     train = run_train(torch)
     check_train_against_cpu()
+    run_capture_check(torch)
+    train_amp = run_train(torch, amp=True)
+    check_train_against_cpu(amp=True)
 
     def row_of(rows, case):  # the timed row of a case
         return dict(next(row for c, row in rows if c == case and not row["all_pad_row"]))
 
     main_row, train_row = row_of(checks, MAIN_CASE), row_of(checks, TRAIN_CASE)
-    bwd_row = row_of(bwd_checks, TRAIN_CASE)
-    fwd_launches = {"serve": stats["launches"], "train": train["launches"][fa.KERNEL_NAME]}
+    bwd_row, bwd_amp_row = row_of(bwd_checks, TRAIN_CASE), row_of(bwd_checks, AMP_CASE)
+    fwd_launches = {"serve": stats["launches"], "train": train["launches"][fa.KERNEL_NAME],
+                    "train_amp": train_amp["launches"][fa.KERNEL_NAME]}
     replaced = ("jax/experimental/pallas/ops/tpu/flash_attention.py:%d (%s), reached from "
                 "paddle_tpu/ops/nn_ops.py:694 through the vjp grad paddle_tpu/core/registry.py:131")
     entries = [{
@@ -848,6 +1152,7 @@ def main() -> int:
         "shape": main_row["shape"],
         "dtype": main_row["dtype"],
         "train_shape": train_row,
+        "amp_shape": row_of(checks, AMP_CASE),
         "cases": [row for _, row in checks],
     }]
     for name, key, line, fn, errs in (
@@ -858,7 +1163,9 @@ def main() -> int:
             "route": "cuda",
             "source": "paddle_tpu_torch/csrc/fused_attention_bwd.cu",
             "replaces": replaced % (line, fn),
-            "launches": train["launches"][name],
+            "launches": train["launches"][name] + train_amp["launches"][name],
+            "launches_by_path": {"train": train["launches"][name],
+                                 "train_amp": train_amp["launches"][name]},
             "max_abs_err": max(bwd_row["max_abs_err"][e] for e in errs),
             "ms": bwd_row[key + "_ms"],
             # one plain backward and one SDPA backward compute dQ, dK and dV together
@@ -868,6 +1175,7 @@ def main() -> int:
             "library_ms": bwd_row["library_ms"],
             "shape": bwd_row["shape"],
             "dtype": bwd_row["dtype"],
+            "amp_shape": bwd_amp_row,
             "cases": [row for _, row in bwd_checks],
         })
     log("[done] %.1f s" % (time.perf_counter() - t_start))

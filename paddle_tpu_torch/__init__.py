@@ -17,9 +17,12 @@ BERT encoder (Program building, startup, ``io.save_inference_model``,
 ``inference.AnalysisPredictor`` and a one-replica
 ``serving.InferenceServer``) and the training path of fused BERT
 pretraining (``models.transformer.bert_pretrain``, ``backward``,
-``optimizer.SGDOptimizer`` / ``AdamOptimizer``, one ``Executor.run``
-per step).  Its one TPU op, fused attention, runs on hand-written CUDA
-kernels, forward and backward (``csrc/fused_attention.cu`` and
+``optimizer.SGDOptimizer`` / ``AdamOptimizer``, optionally under
+``contrib.mixed_precision.decorate`` for bf16 AMP).  ``Executor.run``
+keeps a run plan and an entry per feed signature and, on a card,
+captures each entry as a CUDA graph at its second run on one thread.
+Its one TPU op, fused attention, runs on hand-written CUDA kernels,
+forward and backward, in fp32 and bf16 (``csrc/fused_attention.cu`` and
 ``csrc/fused_attention_bwd.cu``, wrappers in
 ``kernels/fused_attention.py``), built with nvcc at first use into
 ``_build/``.
@@ -49,3 +52,4 @@ from paddle_tpu_torch import io
 from paddle_tpu_torch import kernels
 from paddle_tpu_torch import models
 from paddle_tpu_torch import serving
+from paddle_tpu_torch import contrib

@@ -1,0 +1,239 @@
+"""AMP decorator + program rewrite (reference: contrib/mixed_precision/
+decorator.py:27,194; fp16_lists.py; fp16_utils.py rewrite_program).
+
+A copy of the JAX package's ``contrib/mixed_precision/decorator.py``
+with its imports pointed at this package: the rewrite works on the
+Program alone, so both packages give the same program desc, cast for
+cast.  On the card the rewritten program's bf16 ops run bf16 kernels
+(cuBLAS for the products, the bf16 instantiations of the attention
+kernels)."""
+from __future__ import annotations
+
+import contextlib
+from typing import Optional, Set
+
+from paddle_tpu_torch import framework, unique_name
+from paddle_tpu_torch.framework import Operator
+
+__all__ = [
+    "AutoMixedPrecisionLists",
+    "OptimizerWithMixedPrecision",
+    "decorate",
+    "rewrite_program",
+    "bf16_guard",
+]
+
+
+class AutoMixedPrecisionLists:
+    """reference: fp16_lists.py — white (run low precision), black (keep
+    fp32), gray (follow inputs).
+
+    Gray ops keep activation chains (matmul -> bias add -> gelu, or
+    conv -> BN -> relu -> add) in bf16 end to end: casting back to fp32
+    at every non-white op would double the bytes of every elementwise op
+    between two products.  Gray ops run in bf16 whenever any float input
+    is already bf16; numerically sensitive internals (normalisation
+    statistics) are computed in fp32 inside the kernel (ops/nn_ops.py
+    layer_norm)."""
+
+    def __init__(self, custom_white_list=None, custom_black_list=None):
+        self.white_list: Set[str] = {
+            "matmul", "mul", "conv2d", "depthwise_conv2d", "conv2d_transpose",
+            "fused_attention",
+        }
+        self.black_list: Set[str] = {
+            "softmax_with_cross_entropy", "cross_entropy", "mean", "sum",
+            "reduce_mean", "reduce_sum", "softmax",
+        }
+        self.gray_list: Set[str] = {
+            "batch_norm", "layer_norm", "group_norm",
+            "relu", "relu6", "leaky_relu", "prelu", "elu", "gelu", "tanh",
+            "sigmoid", "hard_sigmoid", "hard_swish", "swish", "brelu",
+            "softplus", "softsign",
+            "elementwise_add", "elementwise_sub", "elementwise_mul",
+            "elementwise_div", "elementwise_max", "elementwise_min",
+            "pool2d", "dropout", "pad", "pad2d",
+            "reshape", "reshape2", "transpose", "transpose2", "squeeze",
+            "squeeze2", "unsqueeze", "unsqueeze2", "flatten", "flatten2",
+            "concat", "split", "slice", "stack", "scale", "expand",
+            "gather", "lookup_table",
+        }
+        if custom_white_list:
+            self.white_list |= set(custom_white_list)
+        if custom_black_list:
+            self.black_list |= set(custom_black_list)
+            self.white_list -= set(custom_black_list)
+            self.gray_list -= set(custom_black_list)
+
+
+# Per-op input slots / output slots that must stay fp32 even when the op
+# runs bf16 (running statistics, affine params — the BN kernel computes in
+# fp32 internally and casts Y back to X's dtype).
+_KEEP_FP32_IN = {
+    "batch_norm": {"Scale", "Bias", "Mean", "Variance"},
+    "layer_norm": {"Scale", "Bias"},
+    "group_norm": {"Scale", "Bias"},
+}
+_KEEP_FP32_OUT = {
+    "batch_norm": {"MeanOut", "VarianceOut", "SavedMean", "SavedVariance"},
+    "layer_norm": {"Mean", "Variance"},
+    "group_norm": {"Mean", "Variance"},
+}
+
+
+_LOW = "bfloat16"
+
+
+def _cast_in(block, op_index, op: Operator, dtype: str, skip_slots=()) -> int:
+    """Insert casts so ``op``'s float inputs arrive as ``dtype``; returns
+    how many ops were inserted before ``op``."""
+    inserted = 0
+    for slot, names in list(op.inputs.items()):
+        if slot in skip_slots:
+            continue
+        new_names = []
+        for n in names:
+            v = block._find_var_recursive(n)
+            if v is None or v.dtype not in ("float32", "float64"):
+                new_names.append(n)
+                continue
+            cast_name = unique_name.generate(n + ".cast_" + dtype)
+            block.create_var(name=cast_name, shape=v.shape, dtype=dtype, stop_gradient=v.stop_gradient)
+            block._insert_op(
+                op_index + inserted,
+                type="cast",
+                inputs={"X": [n]},
+                outputs={"Out": [cast_name]},
+                attrs={"in_dtype": v.dtype, "out_dtype": dtype, "op_role": op.attrs.get("op_role", "forward")},
+            )
+            inserted += 1
+            new_names.append(cast_name)
+        op.inputs[slot] = new_names
+    return inserted
+
+
+def rewrite_program(main_program, amp_lists: Optional[AutoMixedPrecisionLists] = None):
+    """Cast white-list ops to bf16 (reference: fp16_utils.py
+    rewrite_program).  Outputs of white ops become bf16; black-list ops
+    get their inputs cast back to fp32 lazily via a second pass."""
+    amp_lists = amp_lists or AutoMixedPrecisionLists()
+    block = main_program.global_block()
+
+    i = 0
+    low_vars: Set[str] = set()
+    while i < len(block.ops):
+        op = block.ops[i]
+        def _flip_outputs_low(op, keep_out=()):
+            for slot, names in op.outputs.items():
+                if slot in keep_out:
+                    continue
+                for n in names:
+                    v = block._find_var_recursive(n)
+                    if v is not None and v.dtype == "float32":
+                        v.dtype = _LOW
+                        low_vars.add(n)
+
+        if op.type in amp_lists.white_list:
+            i += _cast_in(block, i, op, _LOW)
+            _flip_outputs_low(op)
+        elif op.type in amp_lists.gray_list:
+            # follow inputs: stay bf16 if anything upstream already is —
+            # keeps activation chains (conv→BN→relu→add) in bf16 so HBM
+            # traffic halves; fp32-sensitive slots are exempted per op.
+            has_low = any(
+                n in low_vars for names in op.inputs.values() for n in names
+            )
+            if has_low:
+                i += _cast_in(block, i, op, _LOW, skip_slots=_KEEP_FP32_IN.get(op.type, ()))
+                _flip_outputs_low(op, keep_out=_KEEP_FP32_OUT.get(op.type, ()))
+        else:
+            # black list and everything unknown: cast bf16 inputs back up
+            # inputs that became bf16 upstream get cast back to fp32
+            inserted = 0
+            for slot, names in list(op.inputs.items()):
+                new_names = []
+                for n in names:
+                    if n in low_vars:
+                        v = block._find_var_recursive(n)
+                        cast_name = unique_name.generate(n + ".cast_fp32")
+                        block.create_var(name=cast_name, shape=v.shape, dtype="float32", stop_gradient=v.stop_gradient)
+                        block._insert_op(
+                            i + inserted,
+                            type="cast",
+                            inputs={"X": [n]},
+                            outputs={"Out": [cast_name]},
+                            attrs={"in_dtype": _LOW, "out_dtype": "float32",
+                                   "op_role": op.attrs.get("op_role", "forward")},
+                        )
+                        inserted += 1
+                        new_names.append(cast_name)
+                    else:
+                        new_names.append(n)
+                op.inputs[slot] = new_names
+            i += inserted
+        i += 1
+    main_program.version += 1
+
+
+@contextlib.contextmanager
+def bf16_guard():
+    """Parity with the reference's fp16_guard (ops built inside are
+    eligible for low precision) — the rewrite is list-driven here, so this
+    is a documentation no-op."""
+    yield
+
+
+class OptimizerWithMixedPrecision:
+    """reference: decorator.py:27.  bf16 needs no loss scaling (same
+    exponent range as fp32); the scaling fields exist for API parity and
+    are honored when ``use_dynamic_loss_scaling`` is explicitly set."""
+
+    def __init__(self, optimizer, amp_lists, init_loss_scaling=1.0,
+                 use_dynamic_loss_scaling=False):
+        self._optimizer = optimizer
+        self._amp_lists = amp_lists or AutoMixedPrecisionLists()
+        self._loss_scaling = float(init_loss_scaling)
+        self._use_dynamic_loss_scaling = use_dynamic_loss_scaling
+
+    def get_loss_scaling(self):
+        return self._loss_scaling
+
+    def backward(self, loss, startup_program=None, parameter_list=None, no_grad_set=None, callbacks=None):
+        from paddle_tpu_torch import layers
+
+        rewrite_program(loss.block.program, self._amp_lists)
+        scaled = loss
+        if self._loss_scaling != 1.0:
+            scaled = layers.scale(loss, scale=self._loss_scaling)
+        params_grads = self._optimizer.backward(
+            scaled, startup_program, parameter_list, no_grad_set, callbacks
+        )
+        if self._loss_scaling != 1.0:
+            from paddle_tpu_torch.layers import tensor as ltensor
+
+            unscaled = []
+            for p, g in params_grads:
+                if g is None:
+                    unscaled.append((p, g))
+                    continue
+                gv = g if isinstance(g, framework.Variable) else loss.block.var(g)
+                unscaled.append((p, ltensor.scale(gv, scale=1.0 / self._loss_scaling)))
+            params_grads = unscaled
+        return params_grads
+
+    def apply_gradients(self, params_grads):
+        return self._optimizer.apply_gradients(params_grads)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None, no_grad_set=None):
+        params_grads = self.backward(loss, startup_program, parameter_list, no_grad_set)
+        ops = self._optimizer.apply_gradients(params_grads)
+        return ops, params_grads
+
+
+def decorate(optimizer, amp_lists=None, init_loss_scaling=1.0,
+             incr_every_n_steps=1000, decr_every_n_nan_or_inf=2,
+             incr_ratio=2.0, decr_ratio=0.8, use_dynamic_loss_scaling=False):
+    """reference: decorator.py:194."""
+    return OptimizerWithMixedPrecision(
+        optimizer, amp_lists, init_loss_scaling, use_dynamic_loss_scaling
+    )

@@ -49,6 +49,7 @@ class OpDef:
         infer_shape: Optional[Callable] = None,
         no_grad_set: Optional[Set[str]] = None,
         differentiable: bool = True,
+        random: bool = False,
     ):
         self.type = type
         self.kernel = kernel
@@ -56,6 +57,9 @@ class OpDef:
         # input slots that never receive a gradient (e.g. integer Ids)
         self.no_grad_set = set(no_grad_set or ())
         self.differentiable = differentiable
+        # draws from a torch.Generator of its own (ops/common.py
+        # ``generator``): a CUDA graph capture would freeze its draws
+        self.random = random
 
 
 def register_op(
@@ -63,6 +67,7 @@ def register_op(
     infer_shape: Optional[Callable] = None,
     no_grad_set: Optional[Set[str]] = None,
     differentiable: bool = True,
+    random: bool = False,
 ):
     """Decorator: ``@register_op("gelu")`` over the kernel function."""
 
@@ -73,6 +78,7 @@ def register_op(
             infer_shape=infer_shape,
             no_grad_set=no_grad_set,
             differentiable=differentiable,
+            random=random,
         )
         return kernel
 

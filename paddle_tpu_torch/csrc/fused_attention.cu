@@ -317,8 +317,8 @@ template <typename T, int DP>
 cudaError_t launch(const FwdParams& p, int n, int h, cudaStream_t stream) {
   using C = Cfg<T, DP>;
   const int smem = C::smem_bytes(kFwd);
-  cudaError_t err = cudaFuncSetAttribute(fused_attention_fwd_kernel<T, DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static SmemLimit limit;
+  cudaError_t err = limit.raise_once(fused_attention_fwd_kernel<T, DP>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.sq + C::kBlockRows - 1) / C::kBlockRows, h, n);
   fused_attention_fwd_kernel<T, DP><<<grid, C::kThreads, smem, stream>>>(p);

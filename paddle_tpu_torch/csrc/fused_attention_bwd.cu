@@ -463,15 +463,14 @@ cudaError_t launch(const BwdParams& p, int n, int h, int which, cudaStream_t str
   const int smem = C::smem_bytes(which == 0 ? kDkv : kDq);
   const int rows = which == 0 ? p.sk : p.sq;
   const dim3 grid((rows + C::kBlockRows - 1) / C::kBlockRows, h, n);
+  static SmemLimit dkv_limit, dq_limit;
   cudaError_t err;
   if (which == 0) {
-    err = cudaFuncSetAttribute(fused_attention_bwd_dkv_kernel<T, DP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = dkv_limit.raise_once(fused_attention_bwd_dkv_kernel<T, DP>, smem);
     if (err != cudaSuccess) return err;
     fused_attention_bwd_dkv_kernel<T, DP><<<grid, C::kThreads, smem, stream>>>(p);
   } else {
-    err = cudaFuncSetAttribute(fused_attention_bwd_dq_kernel<T, DP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = dq_limit.raise_once(fused_attention_bwd_dq_kernel<T, DP>, smem);
     if (err != cudaSuccess) return err;
     fused_attention_bwd_dq_kernel<T, DP><<<grid, C::kThreads, smem, stream>>>(p);
   }

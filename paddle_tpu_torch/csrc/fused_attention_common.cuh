@@ -1,11 +1,15 @@
 // Helpers of the fused attention kernels (fused_attention.cu,
 // fused_attention_bwd.cu): a float converted to the tiles' element type,
-// and the score of one (query, key) pair.
+// the score of one (query, key) pair, and the once-only raise of a
+// kernel's shared-memory limit.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <mutex>
 
 namespace attn {
 
@@ -30,5 +34,31 @@ __device__ __forceinline__ float masked_score(float qk, float scale, bool causal
   if (has_mask) x = __fadd_rn(x, mterm);
   return x;
 }
+
+// Raises one kernel's dynamic shared-memory limit, once a device, at the
+// kernel's first launch there.  cudaFuncSetAttribute is a host-side call, not
+// a stream operation: the executor captures a step into a CUDA graph only
+// after running it once, so every later launch, captured or not, is the
+// launch alone.  One object a kernel instantiation (a function-local static
+// in its launcher); devices 0 to 63.
+class SmemLimit {
+ public:
+  template <typename Kernel>
+  cudaError_t raise_once(Kernel* kernel, int smem) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= 64) return cudaErrorInvalidDevice;
+    std::lock_guard<std::mutex> lock(mu_);
+    if ((done_ >> dev) & 1) return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess) done_ |= uint64_t{1} << dev;
+    return err;
+  }
+
+ private:
+  std::mutex mu_;
+  uint64_t done_ = 0;
+};
 
 }  // namespace attn

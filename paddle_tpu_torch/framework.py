@@ -348,6 +348,21 @@ class Block:
         registry.infer_shape(op, self)
         return op
 
+    def _insert_op(self, index, type, inputs=None, outputs=None, attrs=None) -> Operator:
+        """Insert an op before position ``index`` (the AMP rewrite's casts)."""
+        from paddle_tpu_torch.core import registry
+
+        op = Operator(self, type, inputs, outputs, attrs)
+        self.ops.insert(index, op)
+        registry.infer_shape(op, self)
+        return op
+
+    def prepend_op(self, type, inputs=None, outputs=None, attrs=None) -> Operator:
+        return self._insert_op(0, type, inputs, outputs, attrs)
+
+    def _remove_op(self, index):
+        del self.ops[index]
+
     def to_dict(self):
         return {
             "idx": self.idx,

@@ -4,8 +4,10 @@ Port of the JAX package's ``inference.py`` (reference:
 paddle/fluid/inference/api/ — AnalysisConfig, AnalysisPredictor,
 CreatePaddlePredictor).  The predictor loads a saved inference model
 into its own scope on its device and runs it through an Executor; the
-weights stay resident on the device between runs.  Precision variants
-and sharding come with later slices of the port.
+weights stay resident on the device between runs.  On a card each feed
+signature (each serving bucket) becomes a captured CUDA graph at its
+second run on one thread.  Precision variants and sharding come with
+later slices of the port.
 """
 from __future__ import annotations
 
@@ -101,6 +103,15 @@ class AnalysisPredictor:
         if n_valid == padded:
             return outs
         return [o[:n_valid] if o.ndim >= 1 and o.shape[0] == padded else o for o in outs]
+
+    def jit_cache_stats(self) -> Dict[str, object]:
+        """The wrapped executor's cache accounting (``Executor.
+        jit_cache_stats``): ``misses`` is the number of entries built,
+        one for each bucket the server's warm-up runs.  A bucket's CUDA
+        graph is captured at its entry's second run on one thread: the
+        warm-up runs on the caller's thread, so a served bucket is
+        captured at its second batch on the server's worker."""
+        return self._exe.jit_cache_stats()
 
     def input_specs(self):
         """Per-row (batch-free) shape/dtype for every feed var:

@@ -238,7 +238,7 @@ def _forward(q, k, v, mask, causal: bool, scale: float, want_stats: bool):
             int(bool(causal)), float(scale), stream,
         )
     _raise_on(err, _LIB, "fused_attention")
-    count_launch(KERNEL_NAME)
+    count_launch(KERNEL_NAME, q.dtype, stream)
     return out, stats
 
 
@@ -257,7 +257,7 @@ def _launch_bwd(entry: str, name: str, q, k, v, mask, causal, scale, d_out, stat
                  ctypes.addressof(strides), mask.stride(0) if mask is not None else 0,
                  int(bool(causal)), float(scale), stream)
     _raise_on(err, _BWD_LIB, name)
-    count_launch(name)
+    count_launch(name, q.dtype, stream)
 
 
 def _bwd_inputs(q, k, v, mask, causal, d_out, stats, di):

@@ -1,6 +1,7 @@
 """Tensor layers (reference: python/paddle/fluid/layers/tensor.py):
-create_parameter, create_global_var, reshape, transpose, slice, gather
-and range, as the JAX package's ``layers/tensor.py`` builds them."""
+create_parameter, create_global_var, cast, reshape, transpose, slice,
+gather, scale and range, as the JAX package's ``layers/tensor.py``
+builds them."""
 from __future__ import annotations
 
 from paddle_tpu_torch import framework, initializer, unique_name
@@ -8,8 +9,8 @@ from paddle_tpu_torch.core import types as core_types
 from paddle_tpu_torch.layer_helper import LayerHelper
 from paddle_tpu_torch.param_attr import ParamAttr
 
-__all__ = ["create_parameter", "create_global_var", "reshape", "transpose", "slice", "gather",
-           "range"]
+__all__ = ["create_parameter", "create_global_var", "cast", "reshape", "transpose", "slice",
+           "gather", "scale", "range"]
 
 
 def _helper_out(op_type, inputs, attrs=None, dtype="float32", out_slot="Out", stop_gradient=False):
@@ -42,6 +43,11 @@ def create_global_var(shape, value, dtype, persistable=False, force_cpu=False, n
     )
     helper.set_variable_initializer(var, initializer.Constant(value))
     return var
+
+
+def cast(x, dtype):
+    dtype = core_types.canonical_dtype(dtype)
+    return _helper_out("cast", {"X": [x]}, {"in_dtype": x.dtype, "out_dtype": dtype}, dtype=dtype)
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
@@ -81,6 +87,18 @@ def slice(input, axes, starts, ends):
 
 def gather(input, index):
     return _helper_out("gather", {"X": [input], "Index": [index]}, dtype=input.dtype)
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
+    helper = LayerHelper("scale", name=name, act=act)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="scale",
+        inputs={"X": [x]},
+        outputs={"Out": [out]},
+        attrs={"scale": float(scale), "bias": float(bias), "bias_after_scale": bias_after_scale},
+    )
+    return helper.append_activation(out)
 
 
 def range(start, end, step, dtype):

@@ -1,7 +1,7 @@
 """Math ops (the slice's subset of the JAX package's ``ops/math_ops.py``).
 
 Reference kernels: paddle/fluid/operators/mul_op.cc, matmul_op.cc,
-sum_op.cc, mean_op.cc, operators/elementwise/*.  ``mul`` and ``matmul``
+sum_op.cc, mean_op.cc, scale_op.cc, operators/elementwise/*.  ``mul`` and ``matmul``
 are plain matrix products through ``torch.matmul``; on the TPU they were
 XLA's, not Pallas kernels.
 """
@@ -61,6 +61,20 @@ def _bcast_y(x, y, attrs):
 def elementwise_add(inputs, attrs, device):
     x, y = one(inputs, "X"), one(inputs, "Y")
     return {"Out": x + _bcast_y(x, y, attrs)}
+
+
+@register_op("scale")
+def scale(inputs, attrs, device):
+    """x * scale + bias (or (x + bias) * scale), in X's dtype.  For a
+    bf16 X, scale and bias are first rounded to bf16 and each step rounds
+    to bf16, as the JAX package's weakly typed scalars do."""
+    x = one(inputs, "X")
+    s = float(attrs.get("scale", 1.0))
+    b = float(attrs.get("bias", 0.0))
+    if x.dtype in (torch.bfloat16, torch.float16):
+        s, b = (float(torch.tensor(v, dtype=x.dtype)) for v in (s, b))
+    out = x * s + b if attrs.get("bias_after_scale", True) else (x + b) * s
+    return {"Out": out.to(x.dtype)}
 
 
 @register_op("sum")

@@ -2,8 +2,8 @@
 the JAX package's ``ops/tensor_ops.py``).
 
 Reference kernels: operators/fill_constant_op.cc, uniform_random_op.cc,
-range_op.cc, reshape_op.cc, transpose_op.cc, slice_op.cc, gather_op.cc,
-lookup_table_op.cc, top_k_op.cc.  The
+range_op.cc, reshape_op.cc, transpose_op.cc, slice_op.cc, cast_op.cc,
+gather_op.cc, lookup_table_op.cc, top_k_op.cc.  The
 random op draws from a ``torch.Generator`` seeded with the op's ``seed``
 attr (assigned by the program, framework.Program.next_seed).
 """
@@ -37,7 +37,7 @@ def fill_constant(inputs, attrs, device):
     return {"Out": torch.full(shape, attrs.get("value", 0.0), dtype=dt, device=device)}
 
 
-@register_op("uniform_random", differentiable=False, infer_shape=_static_infer)
+@register_op("uniform_random", differentiable=False, infer_shape=_static_infer, random=True)
 def uniform_random(inputs, attrs, device):
     shape = tuple(int(s) for s in attrs.get("shape", ()))
     lo, hi = float(attrs.get("min", -1.0)), float(attrs.get("max", 1.0))
@@ -124,6 +124,14 @@ def slice_op(inputs, attrs, device):
         e = max(e + dim, 0) if e < 0 else min(e, dim)
         idx[a] = slice(s, e)
     return {"Out": x[tuple(idx)]}
+
+
+@register_op("cast")
+def cast(inputs, attrs, device):
+    """X in ``out_dtype`` (reference: operators/cast_op.cc).  Its vjp
+    casts the gradient back to X's dtype, so fp32 master weights get
+    fp32 gradients through the AMP rewrite's casts."""
+    return {"Out": one(inputs, "X").to(core_types.torch_dtype(attrs["out_dtype"]))}
 
 
 # ---------------------------------------------------------------------------

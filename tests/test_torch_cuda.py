@@ -2,7 +2,8 @@
 its row statistics, and the dK/dV and dQ backward kernels) against their
 plain versions (on batches with an all-pad row too, and twice on the
 same inputs, bit for bit), the small encoder served on the card against the CPU,
-and a small pretraining step on the card against the CPU.
+a small pretraining step on the card against the CPU, and the executor's
+captured steps (CUDA graphs) against its eager path, with bf16 AMP.
 
 Every test here needs a CUDA card and skips without one (marker
 ``cuda``).  The file imports neither jax nor paddle_tpu, so it also runs
@@ -22,8 +23,10 @@ queries), bf16 at atol 2e-2 plus rtol 2**-7.  The log-sum-exp rebuilt
 from the row statistics is fp32 in both dtypes, at 1e-4.  The encoder on the card against the CPU at 1e-4,
 as the JAX/port run parity; a training step's loss and gradients at
 1e-3 relative (fp32 sums in other orders through two layers forward and
-back).
+back).  The captured-step tests state their own tolerances.
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -324,3 +327,284 @@ def test_pretrain_step_on_card_matches_cpu(card):
             assert np.abs(g).max() < 1e-6 and np.abs(c).max() < 1e-6, p.name
             continue
         assert np.abs(g - c).max() <= 1e-3 * np.abs(c).max(), p.name
+
+
+# ---------------------------------------------------------------------------
+# captured steps (CUDA graphs) and bf16 AMP on the card
+# ---------------------------------------------------------------------------
+PRETRAIN_CFG = dict(vocab_size=97, d_model=64, n_layer=2, n_head=4, d_inner=128, max_pos=64,
+                    seq_len=16, dropout_rate=0.0, fused_attention=True)
+PER_STEP = {fa.KERNEL_NAME: 4, fa.BWD_DKV_NAME: 2, fa.BWD_DQ_NAME: 2}  # 2 layers
+
+
+def _pretrain(amp=False, seed=8):
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.models import transformer
+
+    s = PRETRAIN_CFG["seq_len"]
+    main, startup = tfluid.Program(), tfluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with tfluid.program_guard(main, startup), tfluid.unique_name.guard():
+        ins = [tfluid.layers.data(n, [w], dtype=d) for n, w, d in (
+            ("src_ids", s, "int64"), ("sent_ids", s, "int64"), ("input_mask", s, "float32"),
+            ("mask_pos", 1, "int64"), ("mask_label", 1, "int64"), ("nsp_label", 1, "int64"))]
+        total, _, _ = transformer.bert_pretrain(*ins, **PRETRAIN_CFG)
+        opt = tfluid.optimizer.AdamOptimizer(1e-4)
+        if amp:
+            opt = mixed_precision.decorate(opt)
+        _, pg = opt.minimize(total)
+    return main, startup, total, pg
+
+
+def _pretrain_feed(rng, rows=4, masks=3):
+    s, vocab = PRETRAIN_CFG["seq_len"], PRETRAIN_CFG["vocab_size"]
+    lens = rng.randint(s // 2, s + 1, rows)
+    lens[0] = s
+    pos = np.stack([rng.choice(np.arange(1, lens[i]), masks, replace=False) + i * s
+                    for i in range(rows)])
+    return {"src_ids": rng.randint(0, vocab, (rows, s)),
+            "sent_ids": (np.arange(s)[None, :] >= (lens[:, None] // 2)).astype("int64"),
+            "input_mask": (np.arange(s)[None, :] < lens[:, None]).astype("float32"),
+            "mask_pos": pos.reshape(-1, 1), "mask_label": rng.randint(0, vocab, (rows * masks, 1)),
+            "nsp_label": rng.randint(0, 2, (rows, 1))}
+
+
+def _state(scope):
+    return {n: v.detach().cpu().numpy() for n, v in scope.vars.items()}
+
+
+def _scope_from(state, device):
+    scope = tfluid.Scope()
+    tfluid.io.set_params_from_numpy(scope, state, device)
+    return scope
+
+
+def test_captured_step_matches_eager(card):
+    """Three steps through the cached executor (its entry warmed first on
+    a scope of its own, so the three are captured and replayed, then
+    replayed twice) against three eager runs (``use_program_cache=False``)
+    from the same state.  The captured first step runs the same kernels
+    on the same inputs as the eager one, so its loss is bit-equal.  Later
+    state is held to
+    rtol 1e-5 (loss) and atol 1e-6 (parameters): the word embedding's
+    gradient comes from ``index_select``'s backward (``index_add_``) and
+    the masked-token and label picks from ``torch.gather``'s
+    (``scatter_add_``), which add with atomics in an order that varies
+    from run to run, eager or captured.  The key biases, whose true
+    gradient is zero, are held to Adam's step bound (2 * lr a step)."""
+    main, startup, total, pg = _pretrain()
+    exe = tfluid.Executor()
+    scope = tfluid.Scope()
+    exe.run(startup, scope=scope)
+    init = _state(scope)
+    feeds = [_pretrain_feed(np.random.RandomState(i)) for i in range(3)]
+    exe.run(main, feed=feeds[0], fetch_list=[total], scope=_scope_from(init, card))  # warm-up
+    ref_exe, ref_scope = tfluid.Executor(), _scope_from(init, card)
+    got, ref = [], []
+    for f in feeds:
+        got.append(exe.run(main, feed=f, fetch_list=[total], scope=scope)[0])
+        ref.append(ref_exe.run(main, feed=f, fetch_list=[total], scope=ref_scope,
+                               use_program_cache=False)[0])
+    assert exe.jit_cache_stats()["graphs"] == 1
+    assert ref_exe.jit_cache_stats()["graphs"] == ref_exe.jit_cache_stats()["entries"] == 0
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_allclose(np.array(got), np.array(ref), rtol=1e-5)
+    for p, _ in pg:
+        a, b = _state(scope)[p.name], _state(ref_scope)[p.name]
+        tol = 2 * 1e-4 * 3 if p.name.endswith("_att_k_b") else 1e-6
+        assert np.abs(a - b).max() <= tol, p.name
+
+
+def test_launch_counts_under_replay(card):
+    """Each step counts its kernels once, whether it ran eagerly, was
+    captured and replayed, or replayed; ``steps=3`` counts three."""
+    main, startup, total, _ = _pretrain()
+    exe, scope = tfluid.Executor(), tfluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = _pretrain_feed(np.random.RandomState(0))
+    for _ in range(3):
+        kernels.reset_launch_counts()
+        exe.run(main, feed=feed, fetch_list=[total], scope=scope)
+        assert kernels.launch_counts() == PER_STEP
+    kernels.reset_launch_counts()
+    exe.run(main, feed=feed, fetch_list=[total], scope=scope, steps=3)  # a new entry: eager
+    exe.run(main, feed=feed, fetch_list=[total], scope=scope, steps=3)  # captured, replayed 3x
+    assert kernels.launch_counts() == {k: 6 * v for k, v in PER_STEP.items()}
+    assert kernels.launch_counts_by_dtype()[fa.KERNEL_NAME] == {"float32": 24}
+
+
+def test_steps_and_per_step_feed_on_card(card):
+    """``steps=3, per_step_feed=True`` against three single captured runs
+    from the same state, at the tolerance of the test above."""
+    main, startup, total, _ = _pretrain()
+    exe, scope = tfluid.Executor(), tfluid.Scope()
+    exe.run(startup, scope=scope)
+    init = _state(scope)
+    feeds = [_pretrain_feed(np.random.RandomState(i)) for i in range(3)]
+    stacked = {n: np.stack([f[n] for f in feeds]) for n in feeds[0]}
+    for f in feeds:  # warm the single-step entry, then restore the state
+        exe.run(main, feed=f, fetch_list=[total], scope=scope)
+    tfluid.io.set_params_from_numpy(scope, init, card)
+    singles = [exe.run(main, feed=f, fetch_list=[total], scope=scope)[0] for f in feeds]
+    after_singles = _state(scope)
+    multi_exe, multi_scope = tfluid.Executor(), _scope_from(init, card)
+    multi_exe.run(main, feed=stacked, fetch_list=[total], scope=multi_scope, steps=3,
+                  per_step_feed=True)  # eager warm-up of the entry
+    tfluid.io.set_params_from_numpy(multi_scope, init, card)
+    last, = multi_exe.run(main, feed=stacked, fetch_list=[total], scope=multi_scope, steps=3,
+                          per_step_feed=True)
+    assert multi_exe.jit_cache_stats()["graphs"] == 1
+    np.testing.assert_allclose(last, singles[-1], rtol=1e-5)
+    for n, v in _state(multi_scope).items():
+        tol = 2 * 1e-4 * 3 if n.endswith("_att_k_b") else 1e-6
+        assert np.abs(v - after_singles[n].reshape(v.shape)).max() <= tol, n
+
+
+def test_replaced_scope_tensor_is_picked_up(card):
+    """A scope tensor replaced behind a captured graph's back (here by
+    ``set_params_from_numpy``, and by an eager run) is copied into the
+    graph's buffer before the next replay: the replay reads the new
+    weights, never stale ones."""
+    main, startup, total, pg = _pretrain()
+    exe, scope = tfluid.Executor(), tfluid.Scope()
+    exe.run(startup, scope=scope)
+    init = _state(scope)
+    feed = _pretrain_feed(np.random.RandomState(1))
+    first = exe.run(main, feed=feed, fetch_list=[total], scope=scope)[0]
+    exe.run(main, feed=feed, fetch_list=[total], scope=scope)  # captured
+    tfluid.io.set_params_from_numpy(scope, init, card)
+    again = exe.run(main, feed=feed, fetch_list=[total], scope=scope)[0]  # replayed
+    np.testing.assert_allclose(again, first, rtol=1e-6)
+    # an eager run writes new tensors into the scope; the replay after it
+    # continues from them
+    exe.run(main, feed=feed, fetch_list=[total], scope=scope, use_program_cache=False)
+    ref_scope = _scope_from(_state(scope), card)
+    nxt = exe.run(main, feed=feed, fetch_list=[total], scope=scope)[0]
+    ref = tfluid.Executor().run(main, feed=feed, fetch_list=[total], scope=ref_scope,
+                                use_program_cache=False)[0]
+    np.testing.assert_allclose(nxt, ref, rtol=1e-6)
+
+
+def test_random_op_is_never_captured(card):
+    """A plan with random ops (a startup program's ``uniform_random``)
+    stays on the interpreter, whose generators are seeded by the op: one
+    executor runs the startup program on a fresh scope, again on it and on
+    a second scope, captures nothing, and gives the same values each time."""
+    _, startup, _, _ = _pretrain()
+    exe, scope_a, scope_b = tfluid.Executor(), tfluid.Scope(), tfluid.Scope()
+    exe.run(startup, scope=scope_a)
+    first = _state(scope_a)
+    exe.run(startup, scope=scope_a)
+    exe.run(startup, scope=scope_b)
+    stats = exe.jit_cache_stats()
+    assert stats["graphs"] == 0 and stats["hits"] == 2 and stats["misses"] == 1
+    for n, v in first.items():
+        np.testing.assert_array_equal(_state(scope_a)[n], v, err_msg=n)
+        np.testing.assert_array_equal(_state(scope_b)[n], v, err_msg=n)
+
+
+def test_second_scope_gets_its_own_graph(card):
+    """One executor captures a step on scope A, then runs it on scope B:
+    B gets a graph of its own over its own tensors.  A's state is
+    untouched by B's runs, the two scopes share no tensor, and B's step
+    equals an eager step from B's state (the tolerance of
+    test_captured_step_matches_eager)."""
+    main, startup, total, pg = _pretrain()
+    exe = tfluid.Executor()
+    boot = tfluid.Scope()
+    exe.run(startup, scope=boot)
+    init = _state(boot)
+    feed = _pretrain_feed(np.random.RandomState(4))
+    scope_a = _scope_from(init, card)
+    for _ in range(2):  # eager, then captured
+        exe.run(main, feed=feed, fetch_list=[total], scope=scope_a)
+    after_a = _state(scope_a)
+    b_init = {n: v * 0.5 if n in {p.name for p, _ in pg} else v for n, v in init.items()}
+    scope_b = _scope_from(b_init, card)
+    got = [exe.run(main, feed=feed, fetch_list=[total], scope=scope_b)[0] for _ in range(2)]
+    assert exe.jit_cache_stats()["graphs"] == 2
+    for n, v in after_a.items():
+        np.testing.assert_array_equal(_state(scope_a)[n], v, err_msg=n)
+    ptrs_a = {t.data_ptr() for t in scope_a.vars.values()}
+    assert not ptrs_a & {t.data_ptr() for t in scope_b.vars.values()}
+    ref_exe, ref_scope = tfluid.Executor(), _scope_from(b_init, card)
+    ref = [ref_exe.run(main, feed=feed, fetch_list=[total], scope=ref_scope,
+                       use_program_cache=False)[0] for _ in range(2)]
+    np.testing.assert_allclose(np.array(got), np.array(ref), rtol=1e-5)
+    for p, _ in pg:
+        tol = 2 * 1e-4 * 2 if p.name.endswith("_att_k_b") else 1e-6
+        assert np.abs(_state(scope_b)[p.name] - _state(ref_scope)[p.name]).max() <= tol, p.name
+
+
+def test_threads_share_a_captured_bucket(card):
+    """Four threads run one captured serving bucket (the eval program,
+    one feed signature) with feeds of their own, 20 times each: every
+    answer is its own feed's, as an eager run gives it (rtol 1e-6: the
+    eval forward has no atomics), never another thread's."""
+    main, startup, total, _ = _pretrain()
+    test_prog = main.clone(for_test=True)
+    exe, scope = tfluid.Executor(), tfluid.Scope()
+    exe.run(startup, scope=scope)
+    feeds = [_pretrain_feed(np.random.RandomState(10 + i)) for i in range(4)]
+    ref = [exe.run(test_prog, feed=f, fetch_list=[total], scope=scope,
+                   use_program_cache=False)[0] for f in feeds]
+    for f in feeds[:2]:  # eager, then captured, on this thread
+        exe.run(test_prog, feed=f, fetch_list=[total], scope=scope)
+    errors = []
+
+    def worker(i):
+        try:
+            for _ in range(20):
+                out, = exe.run(test_prog, feed=feeds[i], fetch_list=[total], scope=scope)
+                np.testing.assert_allclose(out, ref[i], rtol=1e-6)
+        except Exception as e:  # reported on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors[0]
+    assert exe.jit_cache_stats()["graphs"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attention_op_takes_bf16_mask(card, dtype):
+    """The AMP rewrite casts every float input of a white op, the padding
+    Mask too: the op gives the same bits with a bf16 Mask (0 and 1 are
+    exact in bf16) as with the fp32 one."""
+    from paddle_tpu_torch.core import registry
+
+    q, k, v, mask = _inputs(card, 4, 4, 16, 16, dtype, head_split=False)
+    attn = registry.get_kernel("fused_attention")
+    attrs = {"causal": False, "scale": 0.25}
+    a = attn({"Q": [q], "K": [k], "V": [v], "Mask": [mask]}, attrs, card)["Out"]
+    b = attn({"Q": [q], "K": [k], "V": [v], "Mask": [mask.to(torch.bfloat16)]}, attrs, card)["Out"]
+    assert torch.equal(a, b)
+
+
+def test_amp_step_on_card_matches_cpu(card):
+    """One AMP Adam step of the small pretraining from the same state, on
+    the card (bf16 kernels: cuBLAS and the attention kernels' bf16
+    instantiations) and on the CPU (the plain versions): the loss within
+    5e-3 relative and each gradient within 3e-2 of its largest magnitude
+    (bf16 rounds each product's inputs and output to 8 bits of mantissa,
+    and the two devices sum in different orders), and bf16 launches."""
+    main, startup, total, pg = _pretrain(amp=True)
+    gexe, gscope = tfluid.Executor(), tfluid.Scope()
+    gexe.run(startup, scope=gscope)
+    cexe, cscope = tfluid.Executor(tfluid.CPUPlace()), _scope_from(_state(gscope), "cpu")
+    feed = _pretrain_feed(np.random.RandomState(2))
+    fetch = [total] + [g for _, g in pg]
+    kernels.reset_launch_counts()
+    gres = gexe.run(main, feed=feed, fetch_list=fetch, scope=gscope)
+    assert kernels.launch_counts_by_dtype() == {k: {"bfloat16": n} for k, n in PER_STEP.items()}
+    cres = cexe.run(main, feed=feed, fetch_list=fetch, scope=cscope)
+    np.testing.assert_allclose(gres[0], cres[0], rtol=5e-3)
+    for (p, _), g, c in zip(pg, gres[1:], cres[1:]):
+        assert np.isfinite(g).all() and g.dtype == np.float32, p.name
+        if not p.name.endswith("_att_k_b"):
+            assert np.abs(g - c).max() <= 3e-2 * np.abs(c).max(), p.name
+    for p, _ in pg:
+        assert gscope.get(p.name).dtype == torch.float32, p.name
