@@ -56,6 +56,34 @@ Phases, each of which raises (exit code != 0) on failure:
    AdamOptimizer(1e-4))`` (bf16 AMP, as bench_bert.py trains it): the
    same checks, with every attention launch in bf16, and two steps at
    batch 2 against the CPU within the AMP tolerance.
+8. ResNet-50 training in bf16 AMP, as bench.py's run_resnet runs it
+   (224x224x3 NHWC, 1000 classes, ``decorate(MomentumOptimizer(0.1,
+   0.9))``, batch 256, batches staged on the card): the card's startup,
+   the entry's eager step, its captured step and 5 timed replays; step
+   time, images/s, the share of the bf16 dense peak (bench.py's 3 x 4.09
+   GFLOP an image), peak memory, the graph pool, one profiled replay
+   (idle share, kernels by class) and one eager step's device time by op
+   type (each grad op apart from the forward the generic vjp runs again
+   inside it).  Losses finite, the step captured, no attention kernel
+   launched.  Then two steps at batch 2 against the port's CPU run from
+   the same state (phase 7's measures, the relative L2 distance of all
+   the gradients, and the CPU's own distance under a 1e-6 nudge of the
+   images as the yardstick), and each step's Momentum update against a
+   float64 numpy one.
+9. ResNet-50 training in fp32 (NCHW, batch 128, no TF32): phase 8's
+   run and checks.
+10. ResNet-50 captured against eager (fp32, NCHW, batch 32): three steps
+   from one state, the losses, parameters, velocities and batch_norm
+   running statistics (which batch_norm reads and writes in place);
+   then a checkpoint round trip: ``save_persistables`` after two steps,
+   ``load_persistables`` into a fresh scope, and the next step's loss
+   there against the uninterrupted run's.
+11. ResNet-50 served: ``resnet50(..., is_test=True)`` with two training
+   steps' weights and statistics through ``save_inference_model``,
+   ``AnalysisPredictor`` and ``InferenceServer``, concurrent requests,
+   held against the request alone, the eager executor and the CPU
+   predictor.
+12. LeNet-5: Momentum steps on the card; the loss must fall.
 
 Output: progress lines, then a ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
@@ -164,6 +192,49 @@ ADAM_TOL = 1e-2
 CAPTURE_TOL = 1e-5
 CAPTURE_TIMED_STEPS = 5  # steps timed on each path after the three compared
 CHECK_GRADS = ["bert_word_emb", "bert_enc_0_att_q_w", "bert_enc_11_ffn_fc1_w"]
+
+# ResNet-50 as bench.py's run_resnet trains it: 224x224x3, 1000 classes,
+# MomentumOptimizer(0.1, 0.9); AMP NHWC at bench.py's batch of 256
+RESNET_HW, RESNET_CLASSES = 224, 1000
+RESNET_LR, RESNET_MU = 0.1, 0.9
+RESNET_AMP_BATCH = 256
+RESNET_FP32_BATCH = 128  # fp32 without TF32: half bench.py's batch keeps the phase's time down
+RESNET_STEPS = 5         # timed (replayed) steps, after the eager and the captured step
+RESNET50_FWD_FLOPS_PER_IMG = 4.09e9  # bench.py's count; a training step is 3x the forward
+BF16_DENSE_PEAK = 989e12  # H100 SXM bf16 dense, NVIDIA's data sheet
+RESNET_CHECK_BATCH = 2   # the card-vs-CPU ResNet-50 steps
+RESNET_CHECK_LR = 1e-3   # their learning rate (see check_resnet_against_cpu)
+RESNET_CHECK_GRADS = ["conv2d_0.w_0", "conv2d_26.w_0", "fc_0.w_0"]  # first, middle, last layer
+# card vs CPU ResNet-50 steps (readings on an H100 80GB HBM3 at 700 W).
+# The loss relative to the CPU's: fp32 sums in other orders through 53
+# conv and batch_norm layers; AMP as phase 7's bf16 rounding (read 1.1e-3
+# and 8.7e-3).  The first step's
+# gradient of a random ResNet-50 is ill-conditioned: nudging the images by
+# 1e-6 relative moves the CPU's own gradient by 3.4% (fp32) and 116%
+# (AMP: bf16 rounding flips) in relative L2, so all the gradients'
+# distance is held to RESNET_YARDSTICK times that nudge's, measured on
+# the same step (the card read 0.68x and 0.95x on the first step); in
+# fp32 the last layer's gradient, which sits above the chaos, is also
+# held to RESNET_FC_GRAD_TOL (read 4.9e-5)
+RESNET_LOSS_TOL = {False: 1e-3, True: 2e-2}
+RESNET_YARDSTICK = 2.0
+RESNET_FC_GRAD_TOL = 1e-3
+MOMENTUM_TOL = 1e-4      # the card's Momentum update vs float64 numpy, in lr (fp32 rounding)
+RESNET_CAPTURE_BATCH = 32
+RESNET_SERVE_ROWS = [1, 3, 16, 5, 8, 2]
+RESNET_STAT_STEPS = 20   # steps at learning rate 0 that give the served model its statistics
+# classes of the kernels of a ResNet-50 step, matched in order on the name
+RESNET_KERNEL_CLASSES = [
+    ("copies and casts", ("memcpy", "memset", "copy")),
+    ("convolution (cuDNN)", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit", "winograd",
+                             "nchwtonhwc", "nhwctonchw")),
+    ("gemm", ("gemm", "xmma", "cutlass", "sm90_", "sm80_")),
+    ("reductions", ("reduce", "welford")),
+    ("pooling", ("pool",)),
+    ("softmax", ("softmax",)),
+    ("elementwise", ("elementwise",)),
+]
+LENET_BATCH, LENET_STEPS, LENET_LR = 64, 20, 0.01
 
 
 def log(*args):
@@ -544,6 +615,42 @@ def _feed(rng, rows, seq_len, vocab):
     return {"src_ids": ids, "input_mask": mask}
 
 
+def _serve_bursts(client, feeds, n):
+    """``n`` bursts of one concurrent ``client.infer`` a feed, each on a
+    thread of its own: each burst's (answers, latencies, wall seconds).
+    Raises if a request failed or did not return."""
+    bursts, errors, threads = [], [], []
+    for _ in range(n):
+        answers, lat = [None] * len(feeds), [None] * len(feeds)
+
+        def one(i, answers=answers, lat=lat):
+            t = time.perf_counter()
+            try:
+                answers[i] = client.infer(feeds[i])
+            except Exception as e:  # noqa: BLE001 — reported and failed below
+                errors.append((i, repr(e)))
+            lat[i] = time.perf_counter() - t
+
+        burst = [threading.Thread(target=one, args=(i,)) for i in range(len(feeds))]
+        threads += burst
+        t0 = time.perf_counter()
+        for t in burst:
+            t.start()
+        for t in burst:
+            t.join(120)
+        bursts.append((answers, lat, time.perf_counter() - t0))
+    if (errors or any(a is None for answers, _, _ in bursts for a in answers)
+            or any(t.is_alive() for t in threads)):
+        raise AssertionError("requests failed: %s" % errors)
+    return bursts
+
+
+def _burst_stats(bursts, rows):
+    return [{"wall_s": wall, "rows_per_s": rows / wall,
+             "latency_ms_p50": 1e3 * statistics.median(lat),
+             "latency_ms_max": 1e3 * max(lat)} for _, lat, wall in bursts]
+
+
 def run_slice(torch, workdir):
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import kernels, serving
@@ -588,45 +695,22 @@ def run_slice(torch, workdir):
 
     rng = np.random.RandomState(SEED)
     feeds = [_feed(rng, r, seq, BERT_BASE["vocab_size"]) for r in SERVE_ROWS]
-    client = serving.Client(server)
-    bursts, errors, threads = [], [], []
-    for _ in range(SERVE_BURSTS):
-        answers, lat = [None] * len(feeds), [None] * len(feeds)
-
-        def one(i, answers=answers, lat=lat):
-            t = time.perf_counter()
-            try:
-                answers[i] = client.infer(feeds[i])
-            except Exception as e:  # noqa: BLE001 — reported and failed below
-                errors.append((i, repr(e)))
-            lat[i] = time.perf_counter() - t
-
-        burst = [threading.Thread(target=one, args=(i,)) for i in range(len(feeds))]
-        threads += burst
-        t0 = time.perf_counter()
-        for t in burst:
-            t.start()
-        for t in burst:
-            t.join(120)
-        bursts.append((answers, lat, time.perf_counter() - t0))
-    server.stop(drain=True, timeout=60)
+    try:
+        bursts = _serve_bursts(serving.Client(server), feeds, SERVE_BURSTS)
+    finally:
+        server.stop(drain=True, timeout=60)
     counts = kernels.launch_counts()  # read right after the main path
     m = server.metrics()
     stats["cache_after_traffic"] = pred.jit_cache_stats()
     if stats["cache_after_traffic"]["misses"] != stats["cache_after_warmup"]["misses"]:
         raise AssertionError("served traffic built new entries after the warm-up: %s"
                              % stats["cache_after_traffic"])
-    if (errors or any(a is None for answers, _, _ in bursts for a in answers)
-            or any(t.is_alive() for t in threads)):
-        raise AssertionError("requests failed: %s" % errors)
 
     dispatches = m["batches"] + m["warmup_runs"]
     launches = counts.get(KERNEL_NAME, 0)
     # each burst's numbers; the first holds the buckets' eager runs on the
     # worker and their captures, the last is the steady state
-    stats["bursts"] = [{"wall_s": wall, "rows_per_s": sum(SERVE_ROWS) / wall,
-                        "latency_ms_p50": 1e3 * statistics.median(lat),
-                        "latency_ms_max": 1e3 * max(lat)} for _, lat, wall in bursts]
+    stats["bursts"] = _burst_stats(bursts, sum(SERVE_ROWS))
     stats.update(dispatches=dispatches, batches=m["batches"], warmup_runs=m["warmup_runs"],
                  launches=launches, rows=sum(SERVE_ROWS) * SERVE_BURSTS)
     if launches != BERT_BASE["n_layer"] * dispatches or launches == 0:
@@ -721,12 +805,13 @@ def pretrain_feed(rng, rows):
     }
 
 
-def _profile_step(torch, step):
+def _profile_step(torch, step, all_kernels=False):
     """One step under torch.profiler: its wall time, the device time of its
     kernels and the card's idle share, the host's own time in ops, the
     attention kernels' device time and share, and the top kernels and host
-    ops; None when the profiler reports no device time.  The profiler's
-    own cost lengthens the host side of this step."""
+    ops (with ``all_kernels``, every kernel too); None when the profiler
+    reports no device time.  The profiler's own cost lengthens the host
+    side of this step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -748,13 +833,16 @@ def _profile_step(torch, step):
     device_ms = sum(r[1] for r in kernels_)
     attention = [{"name": k[:90], "ms": t, "calls": c} for k, t, c in kernels_
                  if "fused_attention" in k]
-    return {"step_ms": wall_ms, "device_ms": device_ms, "device_idle_share": 1 - device_ms / wall_ms,
-            "host_self_ms": sum(r[1] for r in host_ops),
-            "launches": sum(r[2] for r in kernels_),
-            "attention_kernels": attention,
-            "attention_share_of_device": sum(r["ms"] for r in attention) / device_ms,
-            "top_kernels": [{"name": k[:90], "ms": t, "calls": c} for k, t, c in kernels_[:12]],
-            "top_host_ops": [{"name": k[:60], "ms": t, "calls": c} for k, t, c in host_ops[:12]]}
+    out = {"step_ms": wall_ms, "device_ms": device_ms, "device_idle_share": 1 - device_ms / wall_ms,
+           "host_self_ms": sum(r[1] for r in host_ops),
+           "launches": sum(r[2] for r in kernels_),
+           "attention_kernels": attention,
+           "attention_share_of_device": sum(r["ms"] for r in attention) / device_ms,
+           "top_kernels": [{"name": k[:90], "ms": t, "calls": c} for k, t, c in kernels_[:12]],
+           "top_host_ops": [{"name": k[:60], "ms": t, "calls": c} for k, t, c in host_ops[:12]]}
+    if all_kernels:
+        out["all_kernels"] = [{"name": k, "ms": t, "calls": c} for k, t, c in kernels_]
+    return out
 
 
 def _free_device_memory(torch):
@@ -1098,6 +1186,542 @@ def check_train_against_cpu(amp=False):
         raise AssertionError("card and CPU training steps differ: %s" % stats)
     return stats
 
+# ---------------------------------------------------------------------------
+# phases 8 to 13: the LeNet / ResNet slice at full width
+# ---------------------------------------------------------------------------
+def resnet_program(fluid, fmt, amp=False, is_test=False):
+    """(main, startup, avg_loss, prediction, params_grads) of ResNet-50 at
+    224x224, 1000 classes, under ``MomentumOptimizer(0.1, 0.9)`` (with
+    ``amp``, ``decorate``d: bf16 AMP), as bench.py's run_resnet builds it;
+    no optimizer with ``is_test``."""
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.contrib import mixed_precision
+
+    hw = RESNET_HW
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = fluid.layers.data("img", [3, hw, hw] if fmt == "NCHW" else [hw, hw, 3])
+        lbl = fluid.layers.data("lbl", [1], dtype="int64")
+        loss, _, pred = models.resnet50(img, lbl, class_num=RESNET_CLASSES, is_test=is_test,
+                                        data_format=fmt)
+        params_grads = None
+        if not is_test:
+            opt = fluid.optimizer.MomentumOptimizer(learning_rate=RESNET_LR, momentum=RESNET_MU)
+            if amp:
+                opt = mixed_precision.decorate(opt)
+            _, params_grads = opt.minimize(loss)
+    return main, startup, loss, pred, params_grads
+
+
+def resnet_feed(torch, rng, rows, fmt, device=None):
+    """Images uniform in [-1, 1) and labels, as bench.py makes them; with
+    ``device``, staged there (bench.py stages its batches on the device:
+    the measurement is of the card, not of the host's copy)."""
+    hw = RESNET_HW
+    shape = (rows, 3, hw, hw) if fmt == "NCHW" else (rows, hw, hw, 3)
+    feed = {"img": rng.uniform(-1, 1, shape).astype(np.float32),
+            "lbl": rng.randint(0, RESNET_CLASSES, (rows, 1)).astype(np.int64)}
+    if device is not None:
+        feed = {n: torch.from_numpy(v).to(device) for n, v in feed.items()}
+    return feed
+
+
+def _kernel_class(name):
+    """The class of a kernel (or copy) on the card, from its name."""
+    low = name.lower()
+    for cls, keys in RESNET_KERNEL_CLASSES:
+        if any(k in low for k in keys):
+            return cls
+    return "other"
+
+
+def _op_breakdown(torch, step):
+    """Device ms of one eager step by op type, from CUDA events recorded on
+    the stream around each op kernel: each ``<type>_grad`` op's own time
+    (its autograd backward, which runs on autograd's thread but on the
+    same stream) apart from the forward it runs again inside it (the
+    generic vjp's recompute).  A spin kernel queued first lets the host
+    enqueue ahead of the card, so the events bracket device work rather
+    than the host's gaps."""
+    from paddle_tpu_torch.core import registry
+
+    in_grad = [False]  # a grad op's recompute runs on this thread, inside the grad op
+    saved, marks = {}, []
+
+    def wrap(name, kernel):
+        grad = name.endswith("_grad")
+
+        def wrapped(inputs, attrs, device):
+            kind = "grad" if grad else "recompute" if in_grad[0] else "op"
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            in_grad[0] = in_grad[0] or grad
+            try:
+                return kernel(inputs, attrs, device)
+            finally:
+                if grad:
+                    in_grad[0] = False
+                b.record()
+                marks.append((kind, name[:-len("_grad")] if grad else name, a, b))
+        return wrapped
+
+    for name, opdef in list(registry._REGISTRY.items()):
+        if opdef.kernel is not None:
+            saved[name] = opdef.kernel
+            opdef.kernel = wrap(name, opdef.kernel)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1 << 32)  # about two seconds: the host enqueues the step meanwhile
+        step()
+        torch.cuda.synchronize()
+    finally:
+        for name, kernel in saved.items():
+            registry._REGISTRY[name].kernel = kernel
+    by_type = {}
+    for kind, name, a, b in marks:
+        row = by_type.setdefault(name, {"forward_ms": 0.0, "grad_ms": 0.0, "recompute_ms": 0.0,
+                                        "ops": 0, "grad_ops": 0})
+        ms = a.elapsed_time(b)
+        if kind == "op":
+            row["forward_ms"] += ms
+            row["ops"] += 1
+        elif kind == "recompute":
+            row["recompute_ms"] += ms
+        else:
+            row["grad_ms"] += ms
+            row["grad_ops"] += 1
+    for row in by_type.values():
+        row["grad_own_ms"] = row["grad_ms"] - row["recompute_ms"]  # the grad op less its recompute
+    total = sum(r["forward_ms"] + r["grad_ms"] for r in by_type.values())
+    return {"device_ms_in_ops": total,
+            "recompute_ms": sum(r["recompute_ms"] for r in by_type.values()),
+            "by_type": dict(sorted(by_type.items(),
+                                   key=lambda kv: -(kv[1]["forward_ms"] + kv[1]["grad_ms"])))}
+
+
+def _kernel_classes(prof_stats):
+    """The profiled replay's kernels summed by class, with each class's
+    largest kernels by name."""
+    out = {}
+    for k in prof_stats.get("all_kernels", []):  # largest first
+        row = out.setdefault(_kernel_class(k["name"]), {"ms": 0.0, "calls": 0, "largest": []})
+        row["ms"] += k["ms"]
+        row["calls"] += k["calls"]
+        if len(row["largest"]) < 4:
+            row["largest"].append({"name": k["name"][:100], "ms": k["ms"], "calls": k["calls"]})
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]["ms"]))
+
+
+def run_resnet_train(torch, amp):
+    """ResNet-50 training as bench.py runs it (AMP: NHWC, batch
+    RESNET_AMP_BATCH) or in fp32 (NCHW, batch RESNET_FP32_BATCH), through
+    the cached executor: the card's startup, the entry's eager step, its
+    captured step, then RESNET_STEPS timed replays; one replay profiled
+    (idle share, kernels by class), then a warm eager step timed and one
+    more eager step's device time taken by op type (``_op_breakdown``).
+    Every loss must be finite, the step captured, and no attention kernel
+    launched (the path runs none)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+
+    sync = torch.cuda.synchronize
+    fmt, batch = ("NHWC", RESNET_AMP_BATCH) if amp else ("NCHW", RESNET_FP32_BATCH)
+    stats = {"amp": amp, "layout": fmt, "batch": batch, "image": RESNET_HW,
+             "classes": RESNET_CLASSES, "allocated_before_bytes": _free_device_memory(torch)}
+    t0 = time.perf_counter()
+    main, startup, loss, _, _ = resnet_program(fluid, fmt, amp)
+    stats["build_s"] = time.perf_counter() - t0
+    ops = [op.type for op in main.global_block().ops]
+    stats["ops"] = len(ops)
+    stats["op_types"] = {t: ops.count(t) for t in sorted(set(ops))}
+    exe, scope = fluid.Executor(), fluid.Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    sync()
+    stats["startup_s"] = time.perf_counter() - t0
+    feed = resnet_feed(torch, np.random.RandomState(SEED), batch, fmt, device="cuda")
+
+    def step():
+        return exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+
+    kernels.reset_launch_counts()  # counts from here on belong to the ResNet path
+    losses, times = [], []
+    for _ in range(2 + RESNET_STEPS):  # eager, captured and replayed, then replays
+        sync()
+        t = time.perf_counter()
+        l, = step()
+        sync()
+        times.append(time.perf_counter() - t)
+        losses.append(float(l))
+    stats["launches"] = kernels.launch_counts()  # read right after the ResNet path
+    stats["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    stats["cache"] = exe.jit_cache_stats()
+    stats["losses"] = losses
+    stats["step_s"] = times
+    stats["eager_first_step_ms"], stats["capture_step_ms"] = 1e3 * times[0], 1e3 * times[1]
+    step_s = statistics.median(times[2:])
+    stats["step_ms_median"] = 1e3 * step_s
+    stats["images_per_s"] = batch / step_s
+    flops = 3 * RESNET50_FWD_FLOPS_PER_IMG * batch  # bench.py's reckoning of a step
+    stats["tflop_per_s"] = flops / step_s / 1e12
+    stats["share_of_bf16_dense_peak"] = flops / step_s / BF16_DENSE_PEAK
+    prof = _profile_step(torch, step, all_kernels=True)
+    if prof is not None:
+        prof["kernel_classes"] = _kernel_classes(prof)
+        del prof["all_kernels"]
+    stats["profile"] = prof
+    exe.close()  # release the graph and its pool before the eager steps
+
+    def eager_step():
+        return exe.run(main, feed=feed, fetch_list=[loss], scope=scope, use_program_cache=False)
+
+    sync()
+    t = time.perf_counter()
+    eager_step()
+    sync()
+    stats["eager_step_ms"] = 1e3 * (time.perf_counter() - t)  # the interpreter, warm
+    stats["eager_op_breakdown"] = _op_breakdown(torch, eager_step)
+    log("[resnet-amp]" if amp else "[resnet]", json.dumps(stats))
+    if not all(np.isfinite(losses)):
+        raise AssertionError("non-finite ResNet-50 loss: %s" % losses)
+    if stats["cache"]["graphs"] != 1:
+        raise AssertionError("the ResNet-50 step was not captured: %s" % stats["cache"])
+    if stats["launches"]:
+        raise AssertionError("the ResNet-50 path launched attention kernels: %s"
+                             % stats["launches"])
+    return stats
+
+
+def _lr_name(main):
+    """The learning-rate var the program's Momentum ops read."""
+    return next(op.input("LearningRate")[0] for op in main.global_block().ops
+                if op.type == "momentum")
+
+
+def _global_rel(a, b):
+    """Relative L2 distance of two lists of arrays taken as one vector (0
+    when both are zero)."""
+    num = sum(float(np.sum((np.asarray(x, np.float64) - y) ** 2)) for x, y in zip(a, b))
+    den = sum(float(np.sum(np.asarray(y, np.float64) ** 2)) for y in b)
+    return float(np.sqrt(num / den)) if den else (0.0 if num == 0 else float("inf"))
+
+
+def _momentum_errors(main, names, before, after, grads):
+    """For each parameter in ``names``: how far the card's Momentum update
+    lies from a float64 numpy one (v = mu v + g; p -= lr v) over the
+    card's own gradient; the parameter in units of lr, the velocity
+    relative to its largest magnitude."""
+    ops = {op.input("Param")[0]: op for op in main.global_block().ops if op.type == "momentum"}
+    errs = {}
+    for p in names:
+        op = ops[p]
+        v0 = before[op.input("Velocity")[0]]
+        lr = float(before[op.input("LearningRate")[0]].reshape(()))
+        v = op.attr("mu") * v0 + grads[p].astype(np.float64).reshape(v0.shape)
+        errs[p] = {"param_in_lr": float(np.abs(after[p] - (before[p] - lr * v)).max() / lr),
+                   "velocity": _max_rel(after[op.input("Velocity")[0]], v)}
+    return errs
+
+
+def check_resnet_against_cpu(amp):
+    """Two ResNet-50 steps at RESNET_CHECK_BATCH from the same state on the
+    card (its entry warmed on a scope of its own, so a capture and a
+    replay) and on the CPU.  Each loss relative to the CPU's is held to
+    RESNET_LOSS_TOL.  The gradients: phase 7's measure for the layers of
+    RESNET_CHECK_GRADS (max abs difference over the CPU's largest
+    magnitude) and the relative L2 distance of all the gradients taken as
+    one vector.  The yardstick of how far apart two correct gradients of
+    this network lie is the same distances between the CPU's gradient and
+    the CPU's on the same state and images nudged by 1e-6 relative, taken
+    for each step; all the gradients' distance is held to
+    RESNET_YARDSTICK times that step's yardstick, and in fp32 the last
+    layer's (which sits above the chaos of the deep layers) to
+    RESNET_FC_GRAD_TOL.  A deep layer's largest element moves with the
+    single element that holds it (fp32 ``conv2d_26.w_0`` read 0.020 to
+    0.139 on the second step in three runs on an H100), so those are reported
+    beside their yardsticks, not held.  The learning rate var is set to
+    RESNET_CHECK_LR: at bench.py's 0.1 one step on a batch of 2 saturates
+    the softmax (the next loss reads 0 or -log(1e-8), with zero
+    gradients), which would leave the second step nothing to check.  The
+    second step takes another batch and, on the CPU, starts from the
+    card's updated state, so it checks the replayed step alone.  Each
+    step's Momentum update of RESNET_CHECK_GRADS is held to a float64
+    numpy one over the card's own gradient (MOMENTUM_TOL)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.scope import to_numpy
+
+    fmt = "NHWC" if amp else "NCHW"
+    main, startup, loss, _, pg = resnet_program(fluid, fmt, amp)
+    grads = [g.name for _, g in pg]
+    check = [grads[[p.name for p, _ in pg].index(n)] for n in RESNET_CHECK_GRADS]
+    fetch = [loss.name] + grads
+    card_exe, card_scope = fluid.Executor(), fluid.Scope()
+    card_exe.run(startup, scope=card_scope)
+    card_scope.set(_lr_name(main), np.array([RESNET_CHECK_LR], np.float32))
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    rng = np.random.RandomState(SEED + 5)
+    feeds = [resnet_feed(None, rng, RESNET_CHECK_BATCH, fmt) for _ in range(2)]
+    warm = fluid.Scope()  # the entry's eager warm-up, on a scope of its own
+    _load_state(warm, card_scope.vars)
+    card_exe.run(main, feed=feeds[0], fetch_list=fetch, scope=warm)
+    del warm
+
+    def cpu_step(state, feed):
+        scope = fluid.Scope()
+        fluid.io.set_params_from_numpy(scope, state, "cpu")
+        return cpu_exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+
+    names = dict(zip(grads, (p.name for p, _ in pg)))
+
+    def measures(a, b):  # phase 7's per-gradient measure, and all gradients' relative L2
+        out = {names[g]: _max_rel(a[1 + grads.index(g)], b[1 + grads.index(g)]) for g in check}
+        out["all_rel_l2"] = _global_rel(a[1:], b[1:])
+        return out
+
+    steps, times = [], []
+    for feed in feeds:  # the capture, then a replay
+        state = {n: to_numpy(v) for n, v in card_scope.vars.items()}
+        t0 = time.perf_counter()
+        card = card_exe.run(main, feed=feed, fetch_list=fetch, scope=card_scope)
+        t1 = time.perf_counter()
+        cpu = cpu_step(state, feed)
+        times.append((t1 - t0, time.perf_counter() - t1))
+        nudged = dict(feed, img=(feed["img"] * (1 + 1e-6 * rng.standard_normal(
+            feed["img"].shape))).astype(np.float32))
+        yard = cpu_step(state, nudged)
+        after = {n: to_numpy(v).astype(np.float64) for n, v in card_scope.vars.items()}
+        steps.append({
+            "loss_card": float(card[0]), "loss_cpu": float(cpu[0]),
+            "loss_rel_err": _max_rel(card[0], cpu[0]),
+            "grads": measures(card, cpu),
+            "yardstick_nudged_cpu": measures(yard, cpu),
+            "finite": all(bool(np.isfinite(a).all()) for a in card),
+            "momentum_err": _momentum_errors(
+                main, RESNET_CHECK_GRADS, {n: v.astype(np.float64) for n, v in state.items()},
+                after, dict(zip([names[g] for g in grads], card[1:])))})
+    stats = {"amp": amp, "layout": fmt, "batch": RESNET_CHECK_BATCH,
+             "card_and_cpu_s": times, "loss_tol": RESNET_LOSS_TOL[amp],
+             "yardstick_factor": RESNET_YARDSTICK, "steps": steps,
+             "card_cache": card_exe.jit_cache_stats()}
+    card_exe.close()
+    log("[resnet-check-amp]" if amp else "[resnet-check]", json.dumps(stats))
+    ok = stats["card_cache"]["graphs"] == 1
+    for st in steps:
+        ok = (ok and st["finite"] and st["loss_rel_err"] <= RESNET_LOSS_TOL[amp]
+              and st["grads"]["all_rel_l2"]
+              <= RESNET_YARDSTICK * st["yardstick_nudged_cpu"]["all_rel_l2"]
+              and (amp or st["grads"]["fc_0.w_0"] <= RESNET_FC_GRAD_TOL)
+              and all(e["param_in_lr"] <= MOMENTUM_TOL and e["velocity"] <= MOMENTUM_TOL
+                      for e in st["momentum_err"].values()))
+    if not ok:
+        raise AssertionError("card and CPU ResNet-50 steps differ: %s" % stats)
+    return stats
+
+
+def run_resnet_capture_check(torch, workdir):
+    """ResNet-50 (fp32, NCHW, batch RESNET_CAPTURE_BATCH, the learning-rate
+    var at RESNET_CHECK_LR: at 0.1 this batch's loss climbs to the
+    softmax's saturation in three steps) captured against eager from one
+    state, with cuDNN held to its deterministic algorithms for the phase:
+    its default weight gradients add with atomics, so two eager runs
+    already differ, and a random ResNet's gradients amplify that (the
+    velocities of two such runs read 22% apart on an H100).  Three steps each (the
+    cached executor's capture and replays, its entry warmed on a scope of
+    its own, against ``use_program_cache=False``): every loss, and the
+    parameters, velocities and batch_norm running statistics (which
+    batch_norm reads and writes in place), bit for bit.  Then the
+    checkpoint round trip: the captured run's state after two steps saved
+    with ``save_persistables``, loaded with ``load_persistables`` into a
+    fresh scope, and the next step there (a capture over the new scope)
+    against the uninterrupted run's third step (a replay): the same loss
+    and running statistics, bit for bit."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.scope import to_numpy
+
+    sync = torch.cuda.synchronize
+    _free_device_memory(torch)
+    main, startup, loss, _, _ = resnet_program(fluid, "NCHW")
+    boot_exe, boot = fluid.Executor(), fluid.Scope()
+    boot_exe.run(startup, scope=boot)
+    boot.set(_lr_name(main), np.array([RESNET_CHECK_LR], np.float32))
+    init = _clone_state(boot)
+    rng = np.random.RandomState(SEED + 6)
+    feeds = [resnet_feed(torch, rng, RESNET_CAPTURE_BATCH, "NCHW", "cuda") for _ in range(3)]
+    ckpt = os.path.join(workdir, "resnet50_ckpt")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    paths = {}
+    for name, cached in (("eager", False), ("captured", True)):
+        exe, scope = fluid.Executor(), fluid.Scope()
+        if cached:  # the entry's eager warm-up, on a scope of its own
+            warm = fluid.Scope()
+            _load_state(warm, init)
+            exe.run(main, feed=feeds[0], fetch_list=[loss], scope=warm)
+            del warm
+        _load_state(scope, init)
+        losses, times = [], []
+        for i in range(3):
+            if cached and i == 2:
+                fluid.io.save_persistables(exe, ckpt, main, scope=scope)
+            sync()
+            t = time.perf_counter()
+            l, = exe.run(main, feed=feeds[i], fetch_list=[loss], scope=scope,
+                         use_program_cache=cached)
+            sync()
+            times.append(time.perf_counter() - t)
+            losses.append(float(l))
+        paths[name] = {"exe": exe, "scope": scope, "losses": losses, "step_s": times,
+                       "state": {n: to_numpy(v) for n, v in scope.vars.items()}}
+    eager, cap = paths["eager"], paths["captured"]
+    groups = {"running_stats": [n for n in init if n.endswith((".mean_0", ".variance_0"))],
+              "velocities": [n for n in init if n.endswith("_velocity_0")],
+              "params": [p.name for p in main.all_parameters()]}
+    stats = {
+        "batch": RESNET_CAPTURE_BATCH, "cudnn_deterministic": True,
+        "losses": {n: p["losses"] for n, p in paths.items()},
+        "losses_bit_equal": eager["losses"] == cap["losses"],
+        "state_bit_equal": {g: all(np.array_equal(cap["state"][n], eager["state"][n])
+                                   for n in ns) for g, ns in groups.items()},
+        "running_stats_moved": all(not np.array_equal(cap["state"][n], to_numpy(init[n]))
+                                   for n in groups["running_stats"]),
+        "step_s": {n: p["step_s"] for n, p in paths.items()},
+        "cache": {"eager": eager["exe"].jit_cache_stats(),
+                  "captured": cap["exe"].jit_cache_stats()},
+    }
+    # the checkpoint round trip, on the captured run's executor: a fresh
+    # scope gets a graph of its own
+    fresh = fluid.Scope()
+    fluid.io.load_persistables(cap["exe"], ckpt, main, scope=fresh)
+    resumed, = cap["exe"].run(main, feed=feeds[2], fetch_list=[loss], scope=fresh)
+    torch.backends.cudnn.deterministic = deterministic
+    stats["checkpoint"] = {
+        "vars": len(fresh.vars), "files": len(os.listdir(ckpt)),
+        "resumed_loss": float(resumed), "uninterrupted_loss": cap["losses"][2],
+        "loss_bit_equal": float(resumed) == cap["losses"][2],
+        "running_stats_bit_equal": all(np.array_equal(to_numpy(fresh.vars[n]), cap["state"][n])
+                                       for n in groups["running_stats"]),
+        "graphs": cap["exe"].jit_cache_stats()["graphs"]}
+    for p in paths.values():
+        p["exe"].close()
+    log("[resnet-capture-check]", json.dumps(stats))
+    ck = stats["checkpoint"]
+    if not (stats["losses_bit_equal"] and all(stats["state_bit_equal"].values())
+            and stats["running_stats_moved"] and all(np.isfinite(cap["losses"]))
+            and stats["cache"]["captured"]["graphs"] == 1 == ck["graphs"] - 1
+            and stats["cache"]["eager"]["entries"] == 0 and ck["vars"] == len(init)
+            and ck["loss_bit_equal"] and ck["running_stats_bit_equal"]):
+        raise AssertionError("captured and eager ResNet-50 steps, or the checkpoint, "
+                             "differ: %s" % stats)
+    return stats
+
+
+def run_resnet_serving(torch, workdir):
+    """ResNet-50 served: ``resnet50(..., is_test=True)`` (fp32, NHWC) with
+    the startup's weights and the running statistics of RESNET_STAT_STEPS
+    training steps at learning rate 0 (at 0.1 two steps saturate the
+    softmax, and every comparison would read 0), through
+    ``save_inference_model``, ``AnalysisPredictor`` and ``InferenceServer``
+    (max_batch_size 16) to RESNET_SERVE_ROWS concurrent requests, twice.
+    Every answer finite, of shape [rows, 1000], within SERVE_TOL of the
+    same request alone; each request alone through the captured predictor
+    against the eager executor on the saved model (SERVE_TOL), and one
+    against the CPU predictor (CPU_REF_TOL).  The answers' mean top
+    probability must stay below 0.9, so that the comparisons see
+    unsaturated probabilities."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import serving
+
+    _free_device_memory(torch)
+    main, startup, loss, _, _ = resnet_program(fluid, "NHWC")
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    scope.set(_lr_name(main), np.zeros(1, np.float32))
+    rng = np.random.RandomState(SEED + 7)
+    for _ in range(RESNET_STAT_STEPS):  # the data's running statistics; the weights stay put
+        exe.run(main, feed=resnet_feed(torch, rng, 16, "NHWC", "cuda"), fetch_list=[loss],
+                scope=scope)
+    exe.close()
+    test_main, _, _, pred, _ = resnet_program(fluid, "NHWC", is_test=True)
+    model_dir = os.path.join(workdir, "resnet50")
+    fluid.io.save_inference_model(model_dir, ["img"], [pred], exe, main_program=test_main,
+                                  scope=scope)
+    predictor = fluid.inference.create_paddle_predictor(fluid.inference.AnalysisConfig(model_dir))
+    server = serving.InferenceServer(predictor, max_batch_size=16, batch_timeout_ms=5.0)
+    stats = {}
+    t0 = time.perf_counter()
+    server.warmup()
+    stats["warmup_s"] = time.perf_counter() - t0
+    feeds = [{"img": resnet_feed(None, rng, r, "NHWC")["img"]} for r in RESNET_SERVE_ROWS]
+    try:
+        bursts = _serve_bursts(serving.Client(server), feeds, 2)
+    finally:
+        server.stop(drain=True, timeout=60)
+    m = server.metrics()
+    stats["bursts"] = _burst_stats(bursts, sum(RESNET_SERVE_ROWS))
+    stats.update(batches=m["batches"], warmup_runs=m["warmup_runs"])
+    worst = 0.0
+    for f, (out,) in [(f, a) for answers, _, _ in bursts for f, a in zip(feeds, answers)]:
+        if out.shape != (f["img"].shape[0], RESNET_CLASSES) or not np.isfinite(out).all():
+            raise AssertionError("bad served ResNet-50 output: shape %s" % (out.shape,))
+        alone, = predictor.run(f)
+        worst = max(worst, float(np.abs(out - alone).max()))
+    stats["served_vs_alone_max_abs"] = worst
+    stats["mean_top_probability"] = float(np.mean(np.concatenate(
+        [a[0].max(1) for answers, _, _ in bursts for a in answers])))
+    eager_exe, eager_scope = fluid.Executor(), fluid.Scope()
+    prog, _, fetch_vars = fluid.io.load_inference_model(model_dir, eager_exe, scope=eager_scope)
+    worst_eager = 0.0
+    for f in feeds:
+        predictor.run(f)
+        replayed, = predictor.run(f)
+        eager, = eager_exe.run(prog, feed=f, fetch_list=fetch_vars, scope=eager_scope,
+                               use_program_cache=False)
+        worst_eager = max(worst_eager, float(np.abs(replayed - eager).max()))
+    stats["captured_vs_eager_max_abs"] = worst_eager
+    stats["cache"] = predictor.jit_cache_stats()
+    cpu_cfg = fluid.inference.AnalysisConfig(model_dir)
+    cpu_cfg.disable_gpu()
+    ref, = fluid.inference.create_paddle_predictor(cpu_cfg).run(feeds[1])
+    stats["card_vs_cpu_max_abs"] = float(np.abs(bursts[-1][0][1][0] - ref).max())
+    log("[resnet-serve]", json.dumps(stats))
+    if not (worst <= SERVE_TOL and worst_eager <= SERVE_TOL
+            and stats["card_vs_cpu_max_abs"] <= CPU_REF_TOL and stats["cache"]["graphs"] >= 1
+            and stats["mean_top_probability"] < 0.9):
+        raise AssertionError("served ResNet-50 answers differ: %s" % stats)
+    return stats
+
+
+def run_lenet(torch):
+    """LeNet-5 (the tests' parity config) on the card: LENET_STEPS Momentum
+    steps on one batch of LENET_BATCH, captured after the first; the loss
+    must fall below 0.7 of its first value."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import models
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = fluid.layers.data("img", [1, 28, 28])
+        lbl = fluid.layers.data("lbl", [1], dtype="int64")
+        loss, acc, _ = models.lenet5(img, lbl)
+        fluid.optimizer.MomentumOptimizer(LENET_LR, 0.9).minimize(loss)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED)
+    feed = {"img": rng.uniform(0, 1, (LENET_BATCH, 1, 28, 28)).astype(np.float32),
+            "lbl": rng.randint(0, 10, (LENET_BATCH, 1)).astype(np.int64)}
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0])
+              for _ in range(LENET_STEPS)]
+    stats = {"batch": LENET_BATCH, "lr": LENET_LR, "losses": losses,
+             "cache": exe.jit_cache_stats()}
+    exe.close()
+    log("[lenet]", json.dumps(stats))
+    if not (all(np.isfinite(losses)) and losses[-1] < 0.7 * losses[0]
+            and stats["cache"]["graphs"] == 1):
+        raise AssertionError("LeNet-5 did not train on the card: %s" % stats)
+    return stats
+
 
 # ---------------------------------------------------------------------------
 def main() -> int:
@@ -1125,6 +1749,19 @@ def main() -> int:
     run_capture_check(torch)
     train_amp = run_train(torch, amp=True)
     check_train_against_cpu(amp=True)
+    resnet_amp = run_resnet_train(torch, amp=True)
+    check_resnet_against_cpu(amp=True)
+    resnet = run_resnet_train(torch, amp=False)
+    check_resnet_against_cpu(amp=False)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        run_resnet_capture_check(torch, workdir)
+        run_resnet_serving(torch, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    run_lenet(torch)
+    # the ResNet path runs no TPU kernel: its launches of the attention kernels
+    resnet_launches = {"resnet50_amp": resnet_amp["launches"], "resnet50": resnet["launches"]}
 
     def row_of(rows, case):  # the timed row of a case
         return dict(next(row for c, row in rows if c == case and not row["all_pad_row"]))
@@ -1133,6 +1770,7 @@ def main() -> int:
     bwd_row, bwd_amp_row = row_of(bwd_checks, TRAIN_CASE), row_of(bwd_checks, AMP_CASE)
     fwd_launches = {"serve": stats["launches"], "train": train["launches"][fa.KERNEL_NAME],
                     "train_amp": train_amp["launches"][fa.KERNEL_NAME]}
+    fwd_launches.update({p: c.get(fa.KERNEL_NAME, 0) for p, c in resnet_launches.items()})
     replaced = ("jax/experimental/pallas/ops/tpu/flash_attention.py:%d (%s), reached from "
                 "paddle_tpu/ops/nn_ops.py:694 through the vjp grad paddle_tpu/core/registry.py:131")
     entries = [{
@@ -1164,8 +1802,9 @@ def main() -> int:
             "source": "paddle_tpu_torch/csrc/fused_attention_bwd.cu",
             "replaces": replaced % (line, fn),
             "launches": train["launches"][name] + train_amp["launches"][name],
-            "launches_by_path": {"train": train["launches"][name],
-                                 "train_amp": train_amp["launches"][name]},
+            "launches_by_path": dict({"train": train["launches"][name],
+                                      "train_amp": train_amp["launches"][name]},
+                                     **{p: c.get(name, 0) for p, c in resnet_launches.items()}),
             "max_abs_err": max(bwd_row["max_abs_err"][e] for e in errs),
             "ms": bwd_row[key + "_ms"],
             # one plain backward and one SDPA backward compute dQ, dK and dV together

@@ -18,7 +18,10 @@ BERT encoder (Program building, startup, ``io.save_inference_model``,
 ``serving.InferenceServer``) and the training path of fused BERT
 pretraining (``models.transformer.bert_pretrain``, ``backward``,
 ``optimizer.SGDOptimizer`` / ``AdamOptimizer``, optionally under
-``contrib.mixed_precision.decorate`` for bf16 AMP).  ``Executor.run``
+``contrib.mixed_precision.decorate`` for bf16 AMP), and the training of
+LeNet-5 and ResNet-50 (``models.lenet5``, ``models.resnet50``; conv2d,
+pool2d and batch_norm, ``MomentumOptimizer``, and checkpoints through
+``io.save_persistables`` / ``load_persistables``).  ``Executor.run``
 keeps a run plan and an entry per feed signature and, on a card,
 captures each entry as a CUDA graph at its second run on one thread.
 Its one TPU op, fused attention, runs on hand-written CUDA kernels,

@@ -41,6 +41,7 @@ explicit choice, and the reference the captured step is held against.
 from __future__ import annotations
 
 import collections
+import gc
 import threading
 import time
 import weakref
@@ -359,6 +360,14 @@ class Executor:
         entry.warmed.done = True
         if return_numpy:
             return [to_numpy(f) for f in fetches]
+        if graph_path:
+            # a fetch that is a state tensor becomes a graph buffer at the
+            # next run, which replays write into in place
+            state_ptrs = {t.untyped_storage().data_ptr() for t in state.values()}
+            state_ptrs.update(scope.vars[n].untyped_storage().data_ptr()
+                              for n in plan.state_out)
+            fetches = [f.clone() if f.untyped_storage().data_ptr() in state_ptrs else f
+                       for f in fetches]
         return fetches
 
     # ------------------------------------------------------------------
@@ -375,25 +384,34 @@ class Executor:
         # earlier write-back in the same graph overwrites
         buf_ptrs = {b.untyped_storage().data_ptr() for b in bufs.values()}
         graph = torch.cuda.CUDAGraph()
+        gc_was_enabled = gc.isenabled()
         with self._capture_lock:
             if self._capture_stream is None:
                 self._capture_stream = torch.cuda.Stream(self.device)
             stream = self._capture_stream
-            # "thread_local": the serving worker captures while other
-            # threads may make CUDA calls (another executor's sync, a host
-            # copy) that are legal outside this capture; this thread's own
-            # calls are still checked
-            with kernels.recording(stream.cuda_stream) as tally, \
-                    torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"), \
-                    torch.no_grad():
-                # read after the capture's own empty_cache, from the
-                # allocator's books (no CUDA call)
-                reserved = torch.cuda.memory_reserved(self.device)
-                fetches, new_state = entry.fn({n: bufs[n] for n in plan.state_in}, feed_bufs)
-                new_state = {n: v.clone() if v.untyped_storage().data_ptr() in buf_ptrs else v
-                             for n, v in new_state.items()}
-                for n, v in new_state.items():
-                    bufs[n].copy_(v.reshape(bufs[n].shape))
+            # no cyclic collection on this thread while it captures: one
+            # could free another graph held in dead cycles (an old
+            # executor's), and destroying a graph invalidates the capture
+            gc.disable()
+            try:
+                # "thread_local": the serving worker captures while other
+                # threads may make CUDA calls (another executor's sync, a
+                # host copy) that are legal outside this capture; this
+                # thread's own calls are still checked
+                with kernels.recording(stream.cuda_stream) as tally, \
+                        torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"), \
+                        torch.no_grad():
+                    # read after the capture's own empty_cache, from the
+                    # allocator's books (no CUDA call)
+                    reserved = torch.cuda.memory_reserved(self.device)
+                    fetches, new_state = entry.fn({n: bufs[n] for n in plan.state_in}, feed_bufs)
+                    new_state = {n: v.clone() if v.untyped_storage().data_ptr() in buf_ptrs else v
+                                 for n, v in new_state.items()}
+                    for n, v in new_state.items():
+                        bufs[n].copy_(v.reshape(bufs[n].shape))
+            finally:
+                if gc_was_enabled:
+                    gc.enable()
             pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         captured = _Graph(scope, graph, bufs, feed_bufs, list(fetches), dict(tally), pool_bytes)
         entry.graphs[id(scope)] = captured

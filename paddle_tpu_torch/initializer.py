@@ -1,10 +1,10 @@
 """Parameter initializers — append init ops to the startup program.
 
 Port of the JAX package's ``initializer.py`` (reference:
-python/paddle/fluid/initializer.py), the initializers the BERT slice
-uses.  RNG ops take deterministic seeds from the program
-(framework.Program.next_seed), the same seed sequence as the JAX
-package; the bits drawn from them differ (torch.Generator vs
+python/paddle/fluid/initializer.py), the initializers the BERT,
+LeNet and ResNet slices use.  RNG ops take deterministic seeds from the
+program (framework.Program.next_seed), the same seed sequence as the
+JAX package; the bits drawn from them differ (torch.Generator vs
 jax.random).
 """
 from __future__ import annotations
@@ -13,7 +13,7 @@ import math
 
 import numpy as np
 
-__all__ = ["Constant", "Uniform", "Xavier"]
+__all__ = ["Constant", "Uniform", "Normal", "Xavier"]
 
 
 class Initializer:
@@ -52,6 +52,25 @@ class UniformInitializer(Initializer):
         )
 
 
+class NormalInitializer(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        seed = self.seed or block.program.next_seed()
+        return block.append_op(
+            type="gaussian_random",
+            outputs={"Out": [var.name]},
+            attrs={
+                "shape": list(var.shape),
+                "dtype": var.dtype,
+                "mean": self.loc,
+                "std": self.scale,
+                "seed": seed,
+            },
+        )
+
+
 def _fan_in_out(var):
     shape = var.shape
     if len(shape) == 1:
@@ -64,9 +83,7 @@ def _fan_in_out(var):
 
 
 class XavierInitializer(Initializer):
-    """Glorot (reference: initializer.py XavierInitializer).  The
-    normal form appends ``gaussian_random``, which comes with a later
-    slice of the port."""
+    """Glorot (reference: initializer.py XavierInitializer)."""
 
     def __init__(self, uniform=True, fan_in=None, fan_out=None, seed=0):
         self.uniform, self.fan_in, self.fan_out, self.seed = uniform, fan_in, fan_out, seed
@@ -90,4 +107,5 @@ class XavierInitializer(Initializer):
 
 Constant = ConstantInitializer
 Uniform = UniformInitializer
+Normal = NormalInitializer
 Xavier = XavierInitializer

@@ -1,12 +1,17 @@
-"""Inference-model persistence, in the JAX package's on-disk format.
+"""Checkpoints and inference models, in the JAX package's on-disk format.
 
 Port of the JAX package's ``io.py``'s save/load path (reference:
-python/paddle/fluid/io.py save_inference_model:925,
-load_inference_model:1116).  A model directory holds ``__model__``
-(JSON: the pruned program, feed and fetch names) plus one ``.npy`` per
-persistable var and ``__manifest__.json`` (or one ``.npz`` when a
-params file name is given).  The format is the JAX package's, so a
-directory written by either package loads in the other.  Precision and
+python/paddle/fluid/io.py save_vars:109, save_persistables:477,
+load_vars:529, load_persistables:718, save_inference_model:925,
+load_inference_model:1116).  A checkpoint directory holds one ``.npy``
+per var and ``__manifest__.json`` (or one ``.npz`` when a params file
+name is given); a model directory adds ``__model__`` (JSON: the pruned
+program, feed and fetch names).  ``save_params`` keeps the parameters
+only; ``save_persistables`` keeps every persistable var, so a training
+run resumes from it: the optimizer's accumulators (momentum velocities,
+Adam moments and beta pows), the learning rate and batch_norm's running
+statistics are persistables, not parameters.  The format is the JAX
+package's, so a directory written by either package loads in the other.  Precision and
 sharding manifests come with later slices of the port; a model that
 carries one is refused here rather than served without it.
 """
@@ -25,7 +30,11 @@ from paddle_tpu_torch.scope import Scope, global_scope, to_numpy
 
 __all__ = [
     "save_vars",
+    "save_params",
+    "save_persistables",
     "load_vars",
+    "load_params",
+    "load_persistables",
     "save_inference_model",
     "load_inference_model",
     "set_params_from_numpy",
@@ -39,7 +48,13 @@ def _is_persistable(var: Variable) -> bool:
     return bool(var.persistable) and not var.is_data
 
 
-def _collect(program: Program, predicate: Callable[[Variable], bool]) -> List[Variable]:
+def _is_parameter(var: Variable) -> bool:
+    return isinstance(var, Parameter)
+
+
+def _collect(program: Program, predicate: Callable[[Variable], bool], vars=None) -> List[Variable]:
+    if vars is not None:
+        return [v if isinstance(v, Variable) else program.global_block().var(v) for v in vars]
     seen, out = set(), []
     for v in program.list_vars():
         if v.name not in seen and predicate(v):
@@ -79,14 +94,18 @@ def set_params_from_numpy(scope: Scope, arrays: Dict[str, np.ndarray],
         scope.set(name, arr)
 
 
-def save_vars(executor, dirname, main_program=None, predicate=None, filename=None, scope=None):
-    """reference: io.py:109.  ``filename`` packs everything into one .npz."""
+def save_vars(executor, dirname, main_program=None, vars=None, predicate=None, filename=None,
+              scope=None):
+    """reference: io.py:109 — ``vars``, or the program's vars that
+    ``predicate`` accepts (default: the persistables), from ``scope``
+    (default: the current global scope).  ``filename`` packs everything
+    into one .npz."""
     program = main_program or framework.default_main_program()
     scope = scope if scope is not None else global_scope()
     os.makedirs(dirname, exist_ok=True)
     manifest = {"format_version": 1, "vars": []}
     arrays = {}
-    for v in _collect(program, predicate or _is_persistable):
+    for v in _collect(program, predicate or _is_persistable, vars):
         val = scope.get(v.name)
         if val is None:
             raise RuntimeError("variable %r has no value in scope; run startup first" % v.name)
@@ -120,13 +139,42 @@ def _read_arrays(dirname: str) -> Dict[str, np.ndarray]:
     return {e["name"]: np.load(_var_path(dirname, e["name"])) for e in manifest["vars"]}
 
 
-def load_vars(executor, dirname, main_program=None, scope=None):
-    """reference: io.py:529 — every var of the directory's manifest into
-    ``scope`` (default: the current global scope), on the executor's
-    device."""
+def save_params(executor, dirname, main_program=None, filename=None, scope=None):
+    return save_vars(executor, dirname, main_program, predicate=_is_parameter,
+                     filename=filename, scope=scope)
+
+
+def save_persistables(executor, dirname, main_program=None, filename=None, scope=None):
+    """reference: io.py:477 — parameters, optimizer state, learning rate
+    and running statistics."""
+    return save_vars(executor, dirname, main_program, predicate=_is_persistable,
+                     filename=filename, scope=scope)
+
+
+def load_vars(executor, dirname, main_program=None, vars=None, predicate=None, filename=None,
+              scope=None):
+    """reference: io.py:529 — the directory's vars into ``scope``
+    (default: the current global scope), on the executor's device: every
+    var of its manifest, or with ``vars`` or ``predicate`` those of the
+    program's vars it holds.  The manifest names a packed file itself, so
+    ``filename`` is not needed to read one."""
     program = main_program or framework.default_main_program()
     scope = scope if scope is not None else global_scope()
-    set_params_from_numpy(scope, _read_arrays(dirname), executor.device, program)
+    arrays = _read_arrays(dirname)
+    if vars is not None or predicate is not None:
+        wanted = {v.name for v in _collect(program, predicate or _is_persistable, vars)}
+        arrays = {n: a for n, a in arrays.items() if n in wanted}
+    set_params_from_numpy(scope, arrays, executor.device, program)
+
+
+def load_params(executor, dirname, main_program=None, filename=None, scope=None):
+    return load_vars(executor, dirname, main_program, predicate=_is_parameter,
+                     filename=filename, scope=scope)
+
+
+def load_persistables(executor, dirname, main_program=None, filename=None, scope=None):
+    return load_vars(executor, dirname, main_program, predicate=_is_persistable,
+                     filename=filename, scope=scope)
 
 
 def _prune_program(program: Program, feed_names: Sequence[str], fetch_names: Sequence[str]) -> Program:

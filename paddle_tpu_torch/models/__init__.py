@@ -1,2 +1,7 @@
-"""Model builders of the port (reference: the JAX package's models/)."""
-from paddle_tpu_torch.models import transformer  # noqa: F401
+"""Model builders of the port (reference: the JAX package's models/).
+
+Each builder appends ops to the current default_main_program (use
+``framework.program_guard``) and returns the key output Variables."""
+from paddle_tpu_torch.models import lenet, resnet, transformer  # noqa: F401
+from paddle_tpu_torch.models.lenet import lenet5  # noqa: F401
+from paddle_tpu_torch.models.resnet import resnet18, resnet50  # noqa: F401

@@ -1,0 +1,29 @@
+"""LeNet-5 MNIST classifier.
+
+Reference: python/paddle/fluid/tests/book/test_recognize_digits.py:90-117
+(the `conv_net` variant), as the JAX package's ``models/lenet.py``
+builds it (a copy with its imports pointed at this package).  The
+BASELINE.md "MNIST LeNet" config.
+"""
+from __future__ import annotations
+
+from paddle_tpu_torch import layers
+
+__all__ = ["lenet5"]
+
+
+def lenet5(images, labels, class_num: int = 10):
+    """Build LeNet-5; returns (avg_loss, accuracy, prediction).
+
+    ``images``: [N, 1, 28, 28] float32; ``labels``: [N, 1] int64.
+    """
+    conv1 = layers.conv2d(images, num_filters=20, filter_size=5, act="relu")
+    pool1 = layers.pool2d(conv1, pool_size=2, pool_stride=2, pool_type="max")
+    conv2 = layers.conv2d(pool1, num_filters=50, filter_size=5, act="relu")
+    pool2 = layers.pool2d(conv2, pool_size=2, pool_stride=2, pool_type="max")
+    hidden = layers.fc(pool2, size=500, act="relu", num_flatten_dims=1)
+    prediction = layers.fc(hidden, size=class_num, act="softmax")
+    loss = layers.cross_entropy(prediction, labels)
+    avg_loss = layers.mean(loss)
+    acc = layers.accuracy(prediction, labels)
+    return avg_loss, acc, prediction

@@ -1,0 +1,104 @@
+"""ResNet for ImageNet, as the JAX package's ``models/resnet.py`` builds it
+(a copy with its imports pointed at this package, so both give the same
+program desc).
+
+Reference model family: python/paddle/fluid/tests/book/
+test_image_classification.py (resnet_cifar10) and the float16 benchmark's
+ResNet-50 (paddle/contrib/float16/float16_benchmark.md:40-52).
+
+NCHW is the default layout; ``data_format="NHWC"`` runs the whole network
+channels-last, where cuDNN's NHWC kernels take the activations without a
+transpose (``ops/nn_ops.py``).  bench.py trains ResNet-50 NHWC under the
+AMP decorator (contrib/mixed_precision) with MomentumOptimizer(0.1, 0.9).
+"""
+from __future__ import annotations
+
+from paddle_tpu_torch import layers
+
+__all__ = ["resnet", "resnet50", "resnet18"]
+
+_DEPTH_CFG = {
+    18: ("basic", [2, 2, 2, 2]),
+    34: ("basic", [3, 4, 6, 3]),
+    50: ("bottleneck", [3, 4, 6, 3]),
+    101: ("bottleneck", [3, 4, 23, 3]),
+    152: ("bottleneck", [3, 8, 36, 3]),
+}
+
+
+def _conv_bn(x, num_filters, filter_size, stride=1, act=None, is_test=False,
+             fmt="NCHW"):
+    conv = layers.conv2d(
+        x,
+        num_filters=num_filters,
+        filter_size=filter_size,
+        stride=stride,
+        padding=(filter_size - 1) // 2,
+        bias_attr=False,
+        data_format=fmt,
+    )
+    return layers.batch_norm(conv, act=act, is_test=is_test, data_layout=fmt)
+
+
+def _channels(x, fmt):
+    return x.shape[1] if fmt == "NCHW" else x.shape[-1]
+
+
+def _shortcut(x, out_ch, stride, is_test, fmt):
+    if _channels(x, fmt) != out_ch or stride != 1:
+        return _conv_bn(x, out_ch, 1, stride, is_test=is_test, fmt=fmt)
+    return x
+
+
+def _basic_block(x, num_filters, stride, is_test, fmt):
+    conv0 = _conv_bn(x, num_filters, 3, stride, act="relu", is_test=is_test, fmt=fmt)
+    conv1 = _conv_bn(conv0, num_filters, 3, 1, is_test=is_test, fmt=fmt)
+    short = _shortcut(x, num_filters, stride, is_test, fmt)
+    return layers.relu(short + conv1)
+
+
+def _bottleneck_block(x, num_filters, stride, is_test, fmt):
+    conv0 = _conv_bn(x, num_filters, 1, act="relu", is_test=is_test, fmt=fmt)
+    conv1 = _conv_bn(conv0, num_filters, 3, stride, act="relu", is_test=is_test, fmt=fmt)
+    conv2 = _conv_bn(conv1, num_filters * 4, 1, is_test=is_test, fmt=fmt)
+    short = _shortcut(x, num_filters * 4, stride, is_test, fmt)
+    return layers.relu(short + conv2)
+
+
+def resnet(images, labels, depth: int = 50, class_num: int = 1000,
+           is_test: bool = False, data_format: str = "NCHW"):
+    """Returns (avg_loss, accuracy, prediction).
+
+    images: [N, 3, H, W] (NCHW) or [N, H, W, 3] (data_format="NHWC").
+    """
+    block_kind, stages = _DEPTH_CFG[depth]
+    block_fn = _basic_block if block_kind == "basic" else _bottleneck_block
+    fmt = data_format
+
+    x = _conv_bn(images, 64, 7, stride=2, act="relu", is_test=is_test, fmt=fmt)
+    x = layers.pool2d(x, pool_size=3, pool_stride=2, pool_padding=1,
+                      pool_type="max", data_format=fmt)
+    num_filters = [64, 128, 256, 512]
+    for stage, blocks in enumerate(stages):
+        for i in range(blocks):
+            stride = 2 if i == 0 and stage > 0 else 1
+            x = block_fn(x, num_filters[stage], stride, is_test, fmt)
+    pool = layers.pool2d(x, pool_type="avg", global_pooling=True,
+                         data_format=fmt)
+    prediction = layers.fc(pool, size=class_num, act="softmax")
+    loss = layers.cross_entropy(prediction, labels)
+    avg_loss = layers.mean(loss)
+    acc = layers.accuracy(prediction, labels)
+    return avg_loss, acc, prediction
+
+
+def resnet50(images, labels, class_num: int = 1000, is_test: bool = False,
+             data_format: str = "NCHW"):
+    return resnet(images, labels, depth=50, class_num=class_num,
+                  is_test=is_test, data_format=data_format)
+
+
+def resnet18(images, labels, class_num: int = 1000, is_test: bool = False,
+             data_format: str = "NCHW"):
+    return resnet(images, labels, depth=18, class_num=class_num,
+                  is_test=is_test, data_format=data_format)

@@ -1,10 +1,11 @@
 """Optimizer update ops (the slice's subset of the JAX package's
 ``ops/optimizer_ops.py``).
 
-Reference kernels: paddle/fluid/operators/optimizers/{sgd,adam}_op.cc.
+Reference kernels:
+paddle/fluid/operators/optimizers/{sgd,momentum,adam}_op.cc.
 Each is a pure function of its inputs, like the JAX op: the outputs name
 the same vars as the state inputs (``ParamOut`` is ``Param``), and the
-executor writes them back to the scope after the block has run.  Both
+executor writes them back to the scope after the block has run.  All
 are non-differentiable.
 """
 from __future__ import annotations
@@ -21,6 +22,21 @@ def sgd(inputs, attrs, device):
     g = one(inputs, "Grad")
     lr = one(inputs, "LearningRate")
     return {"ParamOut": p - lr.reshape(()).to(p.dtype) * g}
+
+
+@register_op("momentum", differentiable=False)
+def momentum(inputs, attrs, device):
+    """v = mu * v + g; p -= lr * v, or with Nesterov p -= lr * (g + mu * v)."""
+    p, g = one(inputs, "Param"), one(inputs, "Grad")
+    v = one(inputs, "Velocity")
+    lr = one(inputs, "LearningRate").reshape(()).to(p.dtype)
+    mu = attrs.get("mu", 0.9)
+    v_new = mu * v + g
+    if attrs.get("use_nesterov", False):
+        p_new = p - (g + mu * v_new) * lr
+    else:
+        p_new = p - lr * v_new
+    return {"ParamOut": p_new, "VelocityOut": v_new}
 
 
 @register_op("adam", differentiable=False)

@@ -2,10 +2,10 @@
 the JAX package's ``ops/tensor_ops.py``).
 
 Reference kernels: operators/fill_constant_op.cc, uniform_random_op.cc,
-range_op.cc, reshape_op.cc, transpose_op.cc, slice_op.cc, cast_op.cc,
-gather_op.cc, lookup_table_op.cc, top_k_op.cc.  The
-random op draws from a ``torch.Generator`` seeded with the op's ``seed``
-attr (assigned by the program, framework.Program.next_seed).
+gaussian_random_op.cc, range_op.cc, reshape_op.cc, transpose_op.cc,
+slice_op.cc, cast_op.cc, gather_op.cc, lookup_table_op.cc, top_k_op.cc.
+The random ops draw from a ``torch.Generator`` seeded with the op's
+``seed`` attr (assigned by the program, framework.Program.next_seed).
 """
 from __future__ import annotations
 
@@ -44,6 +44,15 @@ def uniform_random(inputs, attrs, device):
     u = torch.rand(shape, generator=generator(attrs.get("seed", 0), device),
                    dtype=torch.float32, device=device)
     out = u * (hi - lo) + lo
+    return {"Out": out.to(core_types.torch_dtype(attrs.get("dtype", "float32")))}
+
+
+@register_op("gaussian_random", differentiable=False, infer_shape=_static_infer, random=True)
+def gaussian_random(inputs, attrs, device):
+    shape = tuple(int(s) for s in attrs.get("shape", ()))
+    z = torch.randn(shape, generator=generator(attrs.get("seed", 0), device),
+                    dtype=torch.float32, device=device)
+    out = attrs.get("mean", 0.0) + attrs.get("std", 1.0) * z
     return {"Out": out.to(core_types.torch_dtype(attrs.get("dtype", "float32")))}
 
 

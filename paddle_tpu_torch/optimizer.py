@@ -1,13 +1,13 @@
 """Optimizers: append the update ops to the program.
 
 Port of the JAX package's ``optimizer.py`` (reference:
-python/paddle/fluid/optimizer.py:50 Optimizer, SGD:609, Adam:1249):
-``Optimizer`` with the global learning-rate var and the accumulators
-(persistable vars initialised in the startup program), ``SGDOptimizer``
-and ``AdamOptimizer``.  The update ops (``ops/optimizer_ops.py``) run in
-the same block as forward and backward, and the executor writes what
-they update back to the scope.  The other optimizers come with later
-slices of the port.
+python/paddle/fluid/optimizer.py:50 Optimizer, SGD:609, Momentum:679,
+Adam:1249): ``Optimizer`` with the global learning-rate var and the
+accumulators (persistable vars initialised in the startup program),
+``SGDOptimizer``, ``MomentumOptimizer`` and ``AdamOptimizer``. The
+update ops (``ops/optimizer_ops.py``) run in the same block as forward
+and backward, and the executor writes what they update back to the
+scope. The other optimizers come with later slices of the port.
 """
 from __future__ import annotations
 
@@ -18,7 +18,8 @@ from paddle_tpu_torch.backward import append_backward
 from paddle_tpu_torch.framework import Variable
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Adam", "AdamOptimizer"]
+__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum", "MomentumOptimizer", "Adam",
+           "AdamOptimizer"]
 
 
 class Optimizer:
@@ -123,6 +124,29 @@ class SGDOptimizer(Optimizer):
         )
 
 
+class MomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            type="momentum",
+            inputs={"Param": [p], "Grad": [g], "Velocity": [v],
+                    "LearningRate": [self._create_param_lr(p)]},
+            outputs={"ParamOut": [p], "VelocityOut": [v]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov,
+                   "op_role": "optimize"},
+        )
+
+
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8, **kwargs):
         super().__init__(learning_rate, **kwargs)
@@ -169,4 +193,5 @@ class AdamOptimizer(Optimizer):
 
 
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

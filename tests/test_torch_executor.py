@@ -292,3 +292,27 @@ def test_threads_share_the_caches():
     stats = exe.jit_cache_stats()
     assert stats["hits"] + stats["misses"] == 4 + 4 * 5
     assert stats["misses"] == 1 + 3  # the startup program, then one entry a batch size
+
+
+# ---------------------------------------------------------------------------
+# fetched tensors are the caller's
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("pkg", ["jax", "torch"])
+def test_fetched_persistable_does_not_change_after_later_runs(pkg):
+    """A parameter fetched with ``return_numpy=False`` keeps its value
+    while later runs update the parameter, as the JAX executor's immutable
+    arrays do.  (On a card the later runs capture and replay a graph over
+    the scope's tensors: ``tests/test_torch_cuda.py`` holds it there.)"""
+    fluid = PACKAGES[pkg]
+    main, startup, loss = build_mlp(pkg, "sgd")
+    exe, scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    exe.run(startup, scope=scope)
+    xs, ys = batches(3)
+    w = main.all_parameters()[0].name
+    got, = exe.run(main, feed={"x": xs[0], "y": ys[0]}, fetch_list=[w], scope=scope,
+                   return_numpy=False)
+    first = np.array(got)
+    for i in (1, 2):
+        exe.run(main, feed={"x": xs[i], "y": ys[i]}, fetch_list=[loss], scope=scope)
+    np.testing.assert_array_equal(np.array(got), first)
+    assert not np.array_equal(np.array(scope.get(w)), first)  # the parameter itself moved on
