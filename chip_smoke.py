@@ -84,6 +84,40 @@ Phases, each of which raises (exit code != 0) on failure:
    held against the request alone, the eager executor and the CPU
    predictor.
 12. LeNet-5: Momentum steps on the card; the loss must fall.
+13. causal kernel check (after phase 3): the three attention kernels
+   with causal on and no Mask, as the transformer LM runs them, at its
+   training shape [64, 8, 256, 64] and its served path's top bucket
+   [4, 8, 256, 64], fp32 and bf16: forward (with and without its row
+   statistics) and the dK/dV + dQ pair against their plain versions and
+   a float64 reference, repeated bit for bit; timed beside the plain
+   version, ``scaled_dot_product_attention(is_causal=True)`` and the
+   same kernels without causal (which walk the same tiles).
+14. dropout kernel check (after phase 13): ``csrc/dropout.cu`` against
+   its plain version (the same Philox in torch's int64 ops, on the card)
+   bit for bit, at the LM's FFN and attention-weight shapes and an odd
+   size, fp32 and bf16, p 0.1 and 0.5, both implementations, also on an
+   unaligned view; the keep rate within 5 standard deviations; timed at
+   the unfused LM's three dropout sites against its bytes bound.
+15. LM served: ``transformer_lm`` at its defaults (vocab 32,000,
+   d_model 512, 6 layers, 8 heads, seq 256, random weights from a seed),
+   fused, logits only, through ``save_inference_model``,
+   ``AnalysisPredictor`` and ``InferenceServer`` (max_batch_size 4), two
+   bursts of 8 concurrent requests of 1 to 4 rows; held against the
+   request alone, the eager executor and the CPU predictor, 6 causal
+   forward launches a dispatch.
+16. LM trained, fused, fp32 (batch 64, Adam 1e-4): eager, captured and
+   5 replayed steps, each launching 12 forward, 6 dK/dV and 6 dQ causal
+   kernels; step time, tokens/s, peak memory, graph pool, a profiled
+   replay (idle share, kernels by class) and an eager step's device time
+   by op type; then two steps at batch 2 against the CPU, and 3 captured
+   steps against 3 eager ones.
+17. LM trained, fused, bf16 AMP: phase 16's run and CPU check.
+18. LM trained, unfused, as the Transformer recipe trains it: dropout
+   0.1, ``noam_decay(512, 4000)``, Adam (beta2 0.98, epsilon 1e-9),
+   ``GradientClipByGlobalNorm(1.0)``, ``L2Decay(1e-4)``, bf16 AMP, batch
+   64: captured, 48 dropout launches a step, the learning rate against
+   noam's formula in float64, captured against eager from one state, and
+   at dropout 0 its first loss against the fused build's.
 
 Output: progress lines, then a ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
@@ -235,6 +269,47 @@ RESNET_KERNEL_CLASSES = [
     ("elementwise", ("elementwise",)),
 ]
 LENET_BATCH, LENET_STEPS, LENET_LR = 64, 20, 0.01
+
+# the causal transformer LM at transformer_lm's own defaults (the JAX
+# package's models/transformer.py:233-246; Transformer-base widths)
+LM = dict(vocab_size=32000, d_model=512, n_layer=6, n_head=8, d_inner=2048, max_pos=2048,
+          seq_len=256)
+LM_BATCH = 64            # 16,384 tokens a training step
+LM_STEPS = 5             # timed (replayed) steps, after the eager and the captured step
+LM_SERVE_ROWS = [1, 3, 4, 2, 4, 1, 2, 3]  # concurrent requests, rows each (32.8 MB of logits a row)
+LM_SERVE_BURSTS = 2
+LM_CHECK_BATCH = 2       # the card-vs-CPU LM step
+LM_CHECK_GRADS = ["lm_word_emb", "lm_dec_0_att_q_w", "lm_head_w"]
+LM_CAPTURE_STEPS = 3
+# the Transformer recipe the unfused LM trains with (Vaswani et al. 2017, §5.3-5.4)
+LM_DROPOUT = 0.1
+LM_NOAM = (512, 4000)    # noam_decay(d_model, warmup_steps)
+LM_ADAM = dict(beta1=0.9, beta2=0.98, epsilon=1e-9)
+LM_CLIP_NORM = 1.0       # GradientClipByGlobalNorm
+LM_L2 = 1e-4             # L2Decay
+NOAM_TOL = 1e-6          # the fp32 learning rate against noam's formula in float64, relative
+# the causal kernels at the LM's shapes: training (N = 64) and the served
+# path's top bucket (N = 4); (N, H, S, D, dtype)
+LM_ATTN_CASES = [(64, 8, 256, 64, "float32"), (64, 8, 256, 64, "bfloat16"),
+                 (4, 8, 256, 64, "float32"), (4, 8, 256, 64, "bfloat16")]
+# the dropout kernel's checks: shapes (the unfused LM's FFN hidden, its
+# attention weights, and an odd size), both types, both rates
+DROPOUT_SHAPES = [(64, 256, 2048), (64, 8, 256, 256), (7, 1001)]
+DROPOUT_RATES = [0.1, 0.5]
+# timed at the unfused AMP LM's three dropout sites: (shape, dtype)
+DROPOUT_TIMED = [((64, 256, 2048), "bfloat16"), ((64, 8, 256, 256), "float32"),
+                 ((64, 256, 512), "bfloat16")]
+# classes of the kernels of an LM step, matched in order on the name
+# (cuBLAS's runtime-built bf16 GEMMs are named nvjet_*)
+LM_KERNEL_CLASSES = [
+    ("attention", ("fused_attention",)),
+    ("dropout", ("dropout_kernel",)),
+    ("gemm", ("gemm", "xmma", "cutlass", "sm90_", "sm80_", "nvjet")),
+    ("softmax", ("softmax",)),
+    ("copies and casts", ("memcpy", "memset", "copy")),
+    ("reductions", ("reduce", "welford")),
+    ("elementwise", ("elementwise",)),
+]
 
 
 def log(*args):
@@ -1227,10 +1302,10 @@ def resnet_feed(torch, rng, rows, fmt, device=None):
     return feed
 
 
-def _kernel_class(name):
+def _kernel_class(name, classes=None):
     """The class of a kernel (or copy) on the card, from its name."""
     low = name.lower()
-    for cls, keys in RESNET_KERNEL_CLASSES:
+    for cls, keys in classes or RESNET_KERNEL_CLASSES:
         if any(k in low for k in keys):
             return cls
     return "other"
@@ -1300,12 +1375,13 @@ def _op_breakdown(torch, step):
                                    key=lambda kv: -(kv[1]["forward_ms"] + kv[1]["grad_ms"])))}
 
 
-def _kernel_classes(prof_stats):
+def _kernel_classes(prof_stats, classes=None):
     """The profiled replay's kernels summed by class, with each class's
     largest kernels by name."""
     out = {}
     for k in prof_stats.get("all_kernels", []):  # largest first
-        row = out.setdefault(_kernel_class(k["name"]), {"ms": 0.0, "calls": 0, "largest": []})
+        row = out.setdefault(_kernel_class(k["name"], classes),
+                             {"ms": 0.0, "calls": 0, "largest": []})
         row["ms"] += k["ms"]
         row["calls"] += k["calls"]
         if len(row["largest"]) < 4:
@@ -1724,6 +1800,567 @@ def run_lenet(torch):
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# phases 13 to 19: the causal transformer LM slice, and the dropout kernel
+# ---------------------------------------------------------------------------
+def _causal_bound(case, stats=False):
+    """Bytes (Q, K, V read, Out written, row statistics written with
+    ``stats``) and operations (the two products over the causal triangle:
+    4 N H D S (S + 1) / 2) of a causal forward without Mask."""
+    n, h, s, d, dtype = case
+    item = 4 if dtype == "float32" else 2
+    nbytes = 4 * n * h * s * d * item + (2 * n * h * s * 4 if stats else 0)
+    ops = 4 * n * h * d * s * (s + 1) // 2
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, _ops_s(ops, dtype)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _causal_bwd_bounds(case):
+    n, h, s, d, dtype = case
+    item = 4 if dtype == "float32" else 2
+    nhsd, pairs = n * h * s * d, n * h * s * (s + 1) // 2
+    small = 3 * n * h * s * 4  # row max, log row sum, Di read (fp32)
+    out = {}
+    for name, nbytes, ops in (("dkv", 6 * nhsd * item + small, 8 * pairs * d),
+                              ("dq", 5 * nhsd * item + small, 6 * pairs * d)):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, _ops_s(ops, dtype)
+        out[name] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def check_causal_kernels(torch):
+    """The three attention kernels in the LM's case, causal with no Mask,
+    at the LM's training and serving shapes (LM_ATTN_CASES, in the head
+    split's [N, S, H, D] layout): the forward without and with its row
+    statistics, and the dK/dV + dQ pair, each against its plain version
+    (and fp32 also against a float64 reference) to the limits the
+    padded cases use, and repeated bit for bit.  Each is timed beside the
+    plain version and ``scaled_dot_product_attention(is_causal=True)``."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import fused_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rows = []
+    for case in LM_ATTN_CASES:
+        n, h, s, d, dtype = case
+        q, k, v = _attn_inputs(torch, (n, h, s, d, dtype, True, "nshd"), gen)[:3]
+        d_out = _attn_inputs(torch, (n, h, s, d, dtype, True, "nshd"), gen)[0]
+        scale = 1.0 / float(np.sqrt(d))
+        out = fa.fused_attention_fwd(q, k, v, None, True, scale)
+        again = fa.fused_attention_fwd(q, k, v, None, True, scale)
+        out_s, stats = fa.fused_attention_fwd(q, k, v, None, True, scale, return_stats=True)
+        ref, ref_stats = fa.fused_attention_plain(q, k, v, None, True, scale, return_stats=True)
+        scores = fa._scores(q.float(), k.float(), None, True, scale)
+        di = (out_s.float() * d_out.float()).sum(-1)
+
+        def bwd():
+            dk_, dv_ = fa.fused_attention_bwd_dkv(q, k, v, None, True, scale, d_out, stats, di)
+            return fa.fused_attention_bwd_dq(q, k, v, None, True, scale, d_out, stats, di), dk_, dv_
+
+        grads, grads2 = bwd(), bwd()
+        rgrads = fa.fused_attention_bwd_plain(q, k, v, None, True, scale, out_s, d_out, stats)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        m_err, m_ok = _rel_err(stats[0], ref_stats[0])
+        lse_err, lse_ok = _rel_err(fa.row_lse(stats), torch.logsumexp(scores, dim=-1))
+        errs = {nm: _within(g, r, dtype) for nm, g, r in zip(("dq", "dk", "dv"), grads, rgrads)}
+        if dtype == "float32":
+            r64 = _bwd_fp64(torch, fa, q, k, v, None, True, scale, d_out)
+            errs.update({nm + "_vs_fp64": _within(g, r, dtype)
+                         for nm, g, r in zip(("dq", "dk", "dv"), grads, r64)})
+            o64 = torch.softmax(scores.double(), -1) @ v.double()
+            errs["out_vs_fp64"] = _within(out, o64, dtype)
+        repeat = (torch.equal(out, again) and torch.equal(out_s, out)
+                  and all(torch.equal(a, b) for a, b in zip(grads, grads2)))
+        finite = all(bool(torch.isfinite(t.float()).all().item()) for t in (out,) + tuple(grads))
+        row = {"shape": [n, h, s, d], "dtype": dtype, "causal": True, "mask": None,
+               "layout": "nshd", "max_abs_err": err, "tol": ATTN_TOL[dtype],
+               "stats_max_abs_err": {"row_max": m_err, "lse": lse_err},
+               "bwd_max_abs_err": {nm: e for nm, (e, _) in errs.items()},
+               "repeat_bit_equal": bool(repeat)}
+        row["ms"] = _time_ms(torch, lambda: fa.fused_attention_fwd(q, k, v, None, True, scale))
+        row["ms_with_stats"] = _time_ms(torch, lambda: fa.fused_attention_fwd(
+            q, k, v, None, True, scale, return_stats=True))
+        row["plain_ms"] = _time_ms(torch, lambda: fa.fused_attention_plain(q, k, v, None, True, scale),
+                                   samples=7, per_sample=3)
+        row["library_ms"] = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale))
+        row["bound_ms"], row["bound_by"] = _causal_bound(case)
+        row["bound_ms_with_stats"] = _causal_bound(case, stats=True)[0]
+        row["dkv_ms"] = _time_ms(torch, lambda: fa.fused_attention_bwd_dkv(
+            q, k, v, None, True, scale, d_out, stats, di))
+        row["dq_ms"] = _time_ms(torch, lambda: fa.fused_attention_bwd_dq(
+            q, k, v, None, True, scale, d_out, stats, di))
+        # the same kernels without causal: they walk the same tiles (the
+        # causal ones above the diagonal add exactly 0), so the times show
+        # what skipping those tiles could save; SDPA skips them
+        _, full_stats = fa.fused_attention_fwd(q, k, v, None, False, scale, return_stats=True)
+        row["noncausal_ms"] = {
+            "fwd": _time_ms(torch, lambda: fa.fused_attention_fwd(q, k, v, None, False, scale)),
+            "dkv": _time_ms(torch, lambda: fa.fused_attention_bwd_dkv(
+                q, k, v, None, False, scale, d_out, full_stats, di)),
+            "dq": _time_ms(torch, lambda: fa.fused_attention_bwd_dq(
+                q, k, v, None, False, scale, d_out, full_stats, di)),
+            "library_fwd": _time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=scale))}
+        row["bwd_plain_ms"] = _time_ms(torch, lambda: fa.fused_attention_bwd_plain(
+            q, k, v, None, True, scale, out_s, d_out, stats), samples=7, per_sample=3)
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, scale=scale)
+        row["bwd_library_ms"] = _time_ms(torch, lambda: torch.autograd.grad(
+            o, (qs, ks, vs), d_out, retain_graph=True))
+        for key, (bound, by) in _causal_bwd_bounds(case).items():
+            row[key + "_bound_ms"], row[key + "_bound_by"] = bound, by
+        log("[kernel] causal LM case", json.dumps(row))
+        if not (finite and repeat and err <= ATTN_TOL[dtype] and m_ok and lse_ok
+                and all(ok for _, ok in errs.values())):
+            raise AssertionError("causal attention kernels disagree with their plain version: %s" % row)
+        rows.append((case, row))
+    return rows
+
+
+def check_dropout_kernel(torch):
+    """The dropout kernel against ``dropout_plain`` (the same Philox in
+    torch's int64 ops, on the card): Out and Mask bit-equal, for every
+    DROPOUT_SHAPES, type, rate and implementation, also on an unaligned
+    view; the keep rate within 5 standard deviations of 1 - p.  At the
+    unfused LM's dropout sites (DROPOUT_TIMED, p = LM_DROPOUT) the kernel,
+    the plain version and ``torch.nn.functional.dropout`` (which draws
+    other bits) are timed; the bound is its bytes (X read, Out and Mask
+    written)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import dropout as kd
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rows = []
+    cases = [(shape, dt, p, impl) for shape in DROPOUT_SHAPES for dt in ("float32", "bfloat16")
+             for p in DROPOUT_RATES for impl in ("downgrade_in_infer", "upscale_in_train")]
+    for shape, dt, p, impl in cases:
+        x = torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dt))
+        up = impl == "upscale_in_train"
+        seed = 1000 + len(rows)
+        out, mask = kd.dropout_train(x, p, seed, up)
+        ref_out, ref_mask = kd.dropout_plain(x, p, seed, up)
+        # an unaligned view (one element in): the kernel's element-wise path
+        flat = x.reshape(-1)[1:]
+        u_out, u_mask = kd.dropout_train(flat, p, seed, up)
+        u_ref = kd.dropout_plain(flat, p, seed, up)
+        torch.cuda.synchronize()
+        n = x.numel()
+        kept = mask.double().mean().item()
+        sigma = (p * (1 - p) / n) ** 0.5
+        row = {"shape": list(shape), "dtype": dt, "p": p, "impl": impl,
+               "out_bit_equal": bool(torch.equal(out, ref_out)),
+               "mask_bit_equal": bool(torch.equal(mask, ref_mask)),
+               "unaligned_bit_equal": bool(torch.equal(u_out, u_ref[0]) and torch.equal(u_mask, u_ref[1])),
+               "keep_rate": kept, "keep_rate_sigmas": abs(kept - (1 - p)) / sigma}
+        ok = (row["out_bit_equal"] and row["mask_bit_equal"] and row["unaligned_bit_equal"]
+              and row["keep_rate_sigmas"] <= 5.0)
+        log("[kernel] dropout", json.dumps(row))
+        if not ok:
+            raise AssertionError("dropout kernel disagrees with its plain version: %s" % row)
+        rows.append(row)
+    timed = []
+    for shape, dt in DROPOUT_TIMED:
+        x = torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dt))
+        item = x.element_size()
+        row = {"shape": list(shape), "dtype": dt, "p": LM_DROPOUT, "impl": "downgrade_in_infer",
+               "ms": _time_ms(torch, lambda: kd.dropout_train(x, LM_DROPOUT, 7, False)),
+               "plain_ms": _time_ms(torch, lambda: kd.dropout_plain(x, LM_DROPOUT, 7, False),
+                                    samples=5, per_sample=2),
+               "library_ms": _time_ms(torch, lambda: F.dropout(x, LM_DROPOUT, training=True)),
+               "bound_ms": 3 * x.numel() * item / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+        log("[kernel] dropout timed", json.dumps(row))
+        timed.append(row)
+    return {"checks": rows, "timed": timed}
+
+
+def lm_program(fluid, fused=True, dropout=0.0, amp=False, recipe=False, train=True):
+    """(main, startup, loss, logits, params_grads, lr) of transformer_lm at
+    the LM widths: fused attention (causal=) or the unfused build
+    (_causal_bias), with ``dropout``; ``train`` adds Adam, or with
+    ``recipe`` the Transformer recipe (noam_decay, Adam beta2 0.98 and
+    epsilon 1e-9, GradientClipByGlobalNorm, L2Decay), under
+    ``contrib.mixed_precision.decorate`` with ``amp``.  Without ``train``
+    it is the logits-only inference build (labels=None, is_test)."""
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.models import transformer
+
+    s = LM["seq_len"]
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    pg, lr = None, None
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids = fluid.layers.data("src_ids", [s], dtype="int64")
+        labels = fluid.layers.data("labels", [s, 1], dtype="int64") if train else None
+        loss, logits = transformer.transformer_lm(ids, labels, dropout_rate=dropout,
+                                                  is_test=not train, fused_attention=fused, **LM)
+        if train:
+            if recipe:
+                lr = fluid.layers.noam_decay(*LM_NOAM)
+                opt = fluid.optimizer.AdamOptimizer(
+                    lr, regularization=fluid.regularizer.L2Decay(LM_L2), **LM_ADAM)
+                fluid.clip.set_gradient_clip(fluid.clip.GradientClipByGlobalNorm(LM_CLIP_NORM))
+            else:
+                opt = fluid.optimizer.AdamOptimizer(1e-4)
+            if amp:
+                opt = mixed_precision.decorate(opt)
+            try:
+                _, pg = opt.minimize(loss)
+            finally:
+                fluid.clip.set_gradient_clip(None)
+    return main, startup, loss, logits, pg, lr
+
+
+def lm_feed(rng, rows):
+    s, vocab = LM["seq_len"], LM["vocab_size"]
+    ids = rng.randint(0, vocab, (rows, s + 1)).astype("int64")
+    return {"src_ids": ids[:, :-1], "labels": ids[:, 1:, None]}  # next-token targets
+
+
+def run_lm_serving(torch, workdir):
+    """The fused LM (fp32, logits only) saved with save_inference_model,
+    loaded by AnalysisPredictor and served by InferenceServer
+    (max_batch_size 4) to LM_SERVE_BURSTS bursts of concurrent requests.
+    Each answer finite, of shape [rows, S, V], within SERVE_TOL of the
+    request alone and of the eager executor, one within CPU_REF_TOL of the
+    CPU predictor; the causal forward kernel launched n_layer times a
+    dispatch."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels, serving
+    from paddle_tpu_torch.kernels.fused_attention import KERNEL_NAME
+
+    stats = {"allocated_before_bytes": _free_device_memory(torch)}
+    kernels.reset_launch_counts()  # counts from here on belong to the LM serving path
+    main, startup, _, logits, _, _ = lm_program(fluid, train=False)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    model_dir = os.path.join(workdir, "transformer_lm")
+    fluid.io.save_inference_model(model_dir, ["src_ids"], [logits], exe, main_program=main,
+                                  scope=scope)
+    del scope
+    pred = fluid.inference.create_paddle_predictor(fluid.inference.AnalysisConfig(model_dir))
+    server = serving.InferenceServer(pred, max_batch_size=4, batch_timeout_ms=5.0)
+    t0 = time.perf_counter()
+    server.warmup()
+    stats["warmup_s"] = time.perf_counter() - t0
+    stats["cache_after_warmup"] = pred.jit_cache_stats()
+    rng = np.random.RandomState(SEED + 20)
+    feeds = [{"src_ids": lm_feed(rng, r)["src_ids"]} for r in LM_SERVE_ROWS]
+    try:
+        bursts = _serve_bursts(serving.Client(server), feeds, LM_SERVE_BURSTS)
+    finally:
+        server.stop(drain=True, timeout=60)
+    counts = kernels.launch_counts()  # read right after the LM serving path
+    m = server.metrics()
+    stats["cache_after_traffic"] = pred.jit_cache_stats()
+    dispatches = m["batches"] + m["warmup_runs"]
+    launches = counts.get(KERNEL_NAME, 0)
+    stats["bursts"] = _burst_stats(bursts, sum(LM_SERVE_ROWS))
+    stats.update(dispatches=dispatches, batches=m["batches"], warmup_runs=m["warmup_runs"],
+                 launches=launches, by_dtype=kernels.launch_counts_by_dtype().get(KERNEL_NAME))
+    if launches != LM["n_layer"] * dispatches or launches == 0:
+        raise AssertionError("%s launched %d times over %d dispatches (expected %d per dispatch)"
+                             % (KERNEL_NAME, launches, dispatches, LM["n_layer"]))
+    worst = 0.0
+    for f, (out,) in [(f, a) for answers, _, _ in bursts for f, a in zip(feeds, answers)]:
+        rows = f["src_ids"].shape[0]
+        if out.shape != (rows, LM["seq_len"], LM["vocab_size"]) or not np.isfinite(out).all():
+            raise AssertionError("bad served LM output: shape %s" % (out.shape,))
+        alone, = pred.run(f)
+        worst = max(worst, float(np.abs(out - alone).max()))
+    stats["served_vs_alone_max_abs"] = worst
+    eager_exe, eager_scope = fluid.Executor(), fluid.Scope()
+    prog, _, fetch_vars = fluid.io.load_inference_model(model_dir, eager_exe, scope=eager_scope)
+    worst_eager = 0.0
+    for f in feeds[:4]:
+        pred.run(f)
+        replayed, = pred.run(f)
+        eager, = eager_exe.run(prog, feed=f, fetch_list=fetch_vars, scope=eager_scope,
+                               use_program_cache=False)
+        worst_eager = max(worst_eager, float(np.abs(replayed - eager).max()))
+    stats["captured_vs_eager_max_abs"] = worst_eager
+    cpu_cfg = fluid.inference.AnalysisConfig(model_dir)
+    cpu_cfg.disable_gpu()
+    ref, = fluid.inference.create_paddle_predictor(cpu_cfg).run(feeds[1])
+    stats["card_vs_cpu_max_abs"] = float(np.abs(bursts[-1][0][1][0] - ref).max())
+    stats["logit_max_abs"] = float(np.abs(ref).max())
+    log("[lm-serve]", json.dumps(stats))
+    if not (worst <= SERVE_TOL and worst_eager <= SERVE_TOL
+            and stats["card_vs_cpu_max_abs"] <= CPU_REF_TOL):
+        raise AssertionError("served LM answers disagree: %s" % stats)
+    return stats
+
+
+def _lm_steps(torch, exe, main, feed, fetch, scope, names, steps):
+    """``steps`` runs of the cached executor: (fetches a step, seconds a
+    step, kernel launches a step by kernel)."""
+    from paddle_tpu_torch import kernels
+
+    sync = torch.cuda.synchronize
+    outs, times, deltas = [], [], []
+    for _ in range(steps):
+        before = kernels.launch_counts()
+        sync()
+        t = time.perf_counter()
+        outs.append(exe.run(main, feed=feed, fetch_list=fetch, scope=scope))
+        sync()
+        times.append(time.perf_counter() - t)
+        after = kernels.launch_counts()
+        deltas.append({k: after.get(k, 0) - before.get(k, 0) for k in names})
+    return outs, times, deltas
+
+
+def run_lm_train(torch, amp=False):
+    """Fused LM training at LM_BATCH through the cached executor (Adam
+    1e-4, fp32 or bf16 AMP): the entry's eager step, its captured step,
+    LM_STEPS timed replays; each step launches 2 n_layer forward (the
+    grad ops' recompute with statistics), n_layer dK/dV and n_layer dQ
+    causal kernels in the step's type; step time, tokens/s, peak memory,
+    the graph pool, one profiled replay (idle share, kernels by class) and
+    one eager step's device time by op type."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import fused_attention as fa
+
+    names = (fa.KERNEL_NAME, fa.BWD_DKV_NAME, fa.BWD_DQ_NAME)
+    n_layer = LM["n_layer"]
+    per_step = {fa.KERNEL_NAME: 2 * n_layer, fa.BWD_DKV_NAME: n_layer, fa.BWD_DQ_NAME: n_layer}
+    kernel_dtype = "bfloat16" if amp else "float32"
+    stats = {"amp": amp, "batch": LM_BATCH, "seq_len": LM["seq_len"],
+             "allocated_before_bytes": _free_device_memory(torch)}
+    main, startup, loss, _, pg, _ = lm_program(fluid, amp=amp)
+    stats["ops"] = len(main.global_block().ops)
+    stats["params"] = int(sum(np.prod(p.shape) for p, _ in pg))
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = lm_feed(np.random.RandomState(SEED), LM_BATCH)
+    kernels.reset_launch_counts()  # counts from here on belong to this training path
+    outs, times, deltas = _lm_steps(torch, exe, main, feed, [loss], scope, names, 2 + LM_STEPS)
+    counts = kernels.launch_counts()  # read right after the training path
+    by_dtype = kernels.launch_counts_by_dtype()
+    losses = [float(o[0]) for o in outs]
+    step_s = statistics.median(times[2:])
+    stats.update(launches={k: counts.get(k, 0) for k in names},
+                 launches_by_dtype={k: by_dtype.get(k, {}) for k in names},
+                 launches_per_step=deltas, losses=losses, step_s=times,
+                 eager_first_step_ms=1e3 * times[0], capture_step_ms=1e3 * times[1],
+                 step_ms_median=1e3 * step_s, tokens_per_s=LM_BATCH * LM["seq_len"] / step_s,
+                 max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                 cache=exe.jit_cache_stats())
+    prof = _profile_step(torch, lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope),
+                         all_kernels=True)
+    if prof is not None:
+        prof["kernel_classes"] = _kernel_classes(prof, LM_KERNEL_CLASSES)
+        del prof["all_kernels"]
+    stats["profile"] = prof
+    exe.close()
+
+    def eager_step():
+        return exe.run(main, feed=feed, fetch_list=[loss], scope=scope, use_program_cache=False)
+
+    eager_step()
+    bd = _op_breakdown(torch, eager_step)
+    stats["eager_op_breakdown"] = {
+        "device_ms_in_ops": bd["device_ms_in_ops"], "recompute_ms": bd["recompute_ms"],
+        "by_type": {t: bd["by_type"][t] for t in list(bd["by_type"])[:12]}}
+    log("[lm-train-amp]" if amp else "[lm-train]", json.dumps(stats))
+    bad = [i for i, d in enumerate(deltas) if d != per_step]
+    if bad or any(set(by_dtype.get(k, {})) != {kernel_dtype} for k in names):
+        raise AssertionError("LM steps launched %s (by type %s), expected %s a step in %s"
+                             % (deltas, by_dtype, per_step, kernel_dtype))
+    if stats["cache"]["graphs"] != 1:
+        raise AssertionError("the LM training step was not captured: %s" % stats["cache"])
+    if not (np.isfinite(losses).all() and losses[-1] < losses[1]):
+        raise AssertionError("LM losses not finite or not falling: %s" % losses)
+    return stats
+
+
+def check_lm_against_cpu(amp=False):
+    """The fused LM's step at LM_CHECK_BATCH on the card (captured: its
+    entry warmed on a scope of its own first) and on the CPU from the same
+    state: the loss and the gradients of LM_CHECK_GRADS within TRAIN_TOL
+    (AMP_TOL with ``amp``) relative to the CPU's largest magnitude, as
+    the BERT phases hold them; in fp32 a second step's loss too."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.scope import to_numpy
+
+    main, startup, loss, _, pg, _ = lm_program(fluid, amp=amp)
+    grads = {p.name: g.name for p, g in pg}
+    fetch = [loss.name] + [grads[n] for n in LM_CHECK_GRADS]
+    card_exe, card_scope = fluid.Executor(), fluid.Scope()
+    card_exe.run(startup, scope=card_scope)
+    init = {n: to_numpy(v) for n, v in card_scope.vars.items()}
+    cpu_exe, cpu_scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    fluid.io.set_params_from_numpy(cpu_scope, init, "cpu")
+    feed = lm_feed(np.random.RandomState(SEED + 2), LM_CHECK_BATCH)
+    warm = fluid.Scope()
+    _load_state(warm, card_scope.vars)
+    card_exe.run(main, feed=feed, fetch_list=fetch, scope=warm)
+    del warm
+    card = card_exe.run(main, feed=feed, fetch_list=fetch, scope=card_scope)
+    cpu = cpu_exe.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    loss_tol, grad_tol = AMP_TOL if amp else (TRAIN_TOL, TRAIN_TOL)
+    stats = {"amp": amp, "batch": LM_CHECK_BATCH, "tol": [loss_tol, grad_tol],
+             "loss": [float(card[0]), float(cpu[0])], "rel_err": {}}
+    pairs = list(zip(["loss"] + LM_CHECK_GRADS, card, cpu))
+    if not amp:
+        card2 = card_exe.run(main, feed=feed, fetch_list=fetch[:1], scope=card_scope)
+        cpu2 = cpu_exe.run(main, feed=feed, fetch_list=fetch[:1], scope=cpu_scope)
+        pairs.append(("loss_step2", card2[0], cpu2[0]))
+    ok = card_exe.jit_cache_stats()["graphs"] == 1
+    for name, a, b in pairs:
+        rel = _max_rel(a, b)
+        stats["rel_err"][name] = rel
+        ok = ok and bool(np.isfinite(a).all()) and rel <= (grad_tol if name in LM_CHECK_GRADS
+                                                           else loss_tol)
+    card_exe.close()
+    log("[lm-check-amp]" if amp else "[lm-check]", json.dumps(stats))
+    if not ok:
+        raise AssertionError("card and CPU LM steps differ: %s" % stats)
+    return stats
+
+
+def run_lm_capture_check(torch):
+    """The fused fp32 LM captured against eager from one state:
+    LM_CAPTURE_STEPS steps each, the first loss bit for bit, the rest and
+    the LM_CHECK_GRADS parameters within CAPTURE_TOL (the embedding's
+    gradient adds with atomics)."""
+    import paddle_tpu_torch as fluid
+
+    _free_device_memory(torch)
+    main, startup, loss, _, _, _ = lm_program(fluid)
+    boot_exe, boot = fluid.Executor(), fluid.Scope()
+    boot_exe.run(startup, scope=boot)
+    init = _clone_state(boot)
+    del boot
+    feeds = [lm_feed(np.random.RandomState(SEED + 30 + i), LM_BATCH) for i in range(LM_CAPTURE_STEPS)]
+    paths = {}
+    for name, cached in (("eager", False), ("captured", True)):
+        exe, scope = fluid.Executor(), fluid.Scope()
+        if cached:
+            warm = fluid.Scope()
+            _load_state(warm, init)
+            exe.run(main, feed=feeds[0], fetch_list=[loss], scope=warm)
+            del warm
+        _load_state(scope, init)
+        losses = [float(exe.run(main, feed=f, fetch_list=[loss], scope=scope,
+                                use_program_cache=cached)[0]) for f in feeds]
+        paths[name] = (exe, losses, {n: scope.vars[n].cpu().numpy() for n in LM_CHECK_GRADS})
+    (e_exe, e_loss, e_par), (c_exe, c_loss, c_par) = paths["eager"], paths["captured"]
+    stats = {"losses": {"eager": e_loss, "captured": c_loss},
+             "first_loss_bit_equal": e_loss[0] == c_loss[0],
+             "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(c_loss, e_loss)),
+             "param_rel_err": {n: _max_rel(c_par[n], e_par[n]) for n in LM_CHECK_GRADS},
+             "cache": c_exe.jit_cache_stats()}
+    e_exe.close()
+    c_exe.close()
+    log("[lm-capture-check]", json.dumps(stats))
+    if not (stats["first_loss_bit_equal"] and stats["cache"]["graphs"] == 1
+            and max([stats["loss_rel_err"]] + list(stats["param_rel_err"].values())) <= CAPTURE_TOL):
+        raise AssertionError("captured and eager LM steps differ: %s" % stats)
+    return stats
+
+
+def run_lm_unfused(torch):
+    """The unfused LM as the Transformer recipe trains it: dropout
+    LM_DROPOUT, noam_decay, Adam (beta2 0.98, epsilon 1e-9),
+    GradientClipByGlobalNorm and L2Decay, in bf16 AMP, at LM_BATCH for
+    2 + LM_STEPS steps through the cached executor.  Held: the step is
+    captured (one graph) and launches 8 n_layer dropout kernels (each
+    grad op's recompute draws its forward's mask again) and no attention
+    kernel; the learning rate equals noam's formula in float64 at every
+    step; captured and eager steps from one state give the first loss bit
+    for bit and the rest within CAPTURE_TOL; and at dropout 0 the unfused
+    and fused builds agree on the first loss within AMP_TOL's loss limit."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import dropout as kd
+    from paddle_tpu_torch.kernels import fused_attention as fa
+
+    names = (kd.KERNEL_NAME, fa.KERNEL_NAME, fa.BWD_DKV_NAME, fa.BWD_DQ_NAME)
+    per_step = {kd.KERNEL_NAME: 8 * LM["n_layer"], fa.KERNEL_NAME: 0, fa.BWD_DKV_NAME: 0,
+                fa.BWD_DQ_NAME: 0}
+    stats = {"batch": LM_BATCH, "dropout": LM_DROPOUT, "allocated_before_bytes": _free_device_memory(torch)}
+    main, startup, loss, _, pg, lr = lm_program(fluid, fused=False, dropout=LM_DROPOUT, amp=True,
+                                                recipe=True)
+    ops = [op.type for op in main.global_block().ops]
+    stats["op_types"] = {t: ops.count(t) for t in ("dropout", "dropout_grad", "softmax", "matmul",
+                                                    "cast", "sqrt", "elementwise_max", "adam")}
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = _clone_state(scope)
+    feed = lm_feed(np.random.RandomState(SEED + 40), LM_BATCH)
+    kernels.reset_launch_counts()  # counts from here on belong to the unfused LM path
+    outs, times, deltas = _lm_steps(torch, exe, main, feed, [loss, lr], scope, names, 2 + LM_STEPS)
+    counts = kernels.launch_counts()  # read right after the unfused LM path
+    losses = [float(o[0]) for o in outs]
+    lrs = [float(np.asarray(o[1]).reshape(())) for o in outs]
+    d_model, warmup = LM_NOAM
+    t = np.arange(1, len(lrs) + 1, dtype=np.float64)
+    noam = d_model ** -0.5 * np.minimum(t ** -0.5, t * warmup ** -1.5)
+    step_s = statistics.median(times[2:])
+    stats.update(launches={k: counts.get(k, 0) for k in names},
+                 launches_by_dtype=kernels.launch_counts_by_dtype().get(kd.KERNEL_NAME),
+                 launches_per_step=deltas, losses=losses, lr=lrs,
+                 lr_rel_err=float(np.max(np.abs(np.array(lrs) - noam) / noam)),
+                 step_ms_median=1e3 * step_s, tokens_per_s=LM_BATCH * LM["seq_len"] / step_s,
+                 eager_first_step_ms=1e3 * times[0], capture_step_ms=1e3 * times[1],
+                 max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                 cache=exe.jit_cache_stats())
+    # a replay: the timed steps' own fetches, so the same entry
+    prof = _profile_step(torch, lambda: exe.run(main, feed=feed, fetch_list=[loss, lr], scope=scope),
+                         all_kernels=True)
+    if prof is not None:
+        prof["kernel_classes"] = _kernel_classes(prof, LM_KERNEL_CLASSES)
+        del prof["all_kernels"]
+    stats["profile"] = prof
+
+    # captured against eager from the initial state and one feed: on a
+    # fresh scope the warmed entry's first step is a capture, then replays
+    paths = {}
+    for name, x in (("captured", exe), ("eager", fluid.Executor())):
+        sc = fluid.Scope()
+        _load_state(sc, init)
+        paths[name] = [float(x.run(main, feed=feed, fetch_list=[loss], scope=sc,
+                                   use_program_cache=name == "captured")[0])
+                       for _ in range(LM_CAPTURE_STEPS)]
+        if name == "captured":
+            stats["cache_two_scopes"] = x.jit_cache_stats()  # a graph for each scope
+        del sc
+        x.close()
+    stats["captured_vs_eager"] = {
+        "losses": paths,
+        "first_loss_bit_equal": paths["captured"][0] == paths["eager"][0],
+        "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(paths["captured"], paths["eager"]))}
+
+    # dropout 0: the unfused and fused builds from one state
+    first = {}
+    for fused in (False, True):
+        m, st, l, _, _, _ = lm_program(fluid, fused=fused, amp=True)
+        x, sc = fluid.Executor(), fluid.Scope()
+        x.run(st, scope=sc)
+        if fused:
+            _load_state(sc, {n: v for n, v in state0.items() if n in sc.vars})
+        else:
+            state0 = _clone_state(sc)
+        first[fused] = float(x.run(m, feed=feed, fetch_list=[l], scope=sc, use_program_cache=False)[0])
+        x.close()
+    stats["p0_first_loss"] = {"unfused": first[False], "fused": first[True],
+                              "rel_err": abs(first[False] - first[True]) / abs(first[True])}
+    log("[lm-unfused]", json.dumps(stats))
+    if not (all(d == per_step for d in deltas) and stats["cache"]["graphs"] == 1
+            and stats["cache_two_scopes"]["graphs"] == 2
+            and np.isfinite(losses).all() and stats["lr_rel_err"] <= NOAM_TOL
+            and stats["captured_vs_eager"]["first_loss_bit_equal"]
+            and stats["captured_vs_eager"]["loss_rel_err"] <= CAPTURE_TOL
+            and stats["p0_first_loss"]["rel_err"] <= AMP_TOL[0]):
+        raise AssertionError("the unfused dropout LM failed its checks: %s" % stats)
+    return stats
+
+
 def main() -> int:
     import torch
 
@@ -1739,6 +2376,8 @@ def main() -> int:
     build_kernels()
     checks = check_kernels(torch)
     bwd_checks = check_bwd_kernels(torch)
+    causal_checks = check_causal_kernels(torch)
+    dropout_checks = check_dropout_kernel(torch)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         stats = run_slice(torch, workdir)
@@ -1760,8 +2399,24 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     run_lenet(torch)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        lm_serve = run_lm_serving(torch, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    lm_train = run_lm_train(torch)
+    check_lm_against_cpu()
+    run_lm_capture_check(torch)
+    lm_train_amp = run_lm_train(torch, amp=True)
+    check_lm_against_cpu(amp=True)
+    lm_unfused = run_lm_unfused(torch)
     # the ResNet path runs no TPU kernel: its launches of the attention kernels
     resnet_launches = {"resnet50_amp": resnet_amp["launches"], "resnet50": resnet["launches"]}
+    # the LM paths: fused serving and training run the causal kernels; the
+    # unfused one runs the dropout kernel and no attention kernel
+    lm_launches = {"lm_train": lm_train["launches"], "lm_train_amp": lm_train_amp["launches"],
+                   "lm_unfused": lm_unfused["launches"]}
+    lm_rows = {(c[0], c[4]): row for c, row in causal_checks}
 
     def row_of(rows, case):  # the timed row of a case
         return dict(next(row for c, row in rows if c == case and not row["all_pad_row"]))
@@ -1771,6 +2426,8 @@ def main() -> int:
     fwd_launches = {"serve": stats["launches"], "train": train["launches"][fa.KERNEL_NAME],
                     "train_amp": train_amp["launches"][fa.KERNEL_NAME]}
     fwd_launches.update({p: c.get(fa.KERNEL_NAME, 0) for p, c in resnet_launches.items()})
+    fwd_launches["lm_serve"] = lm_serve["launches"]
+    fwd_launches.update({p: c.get(fa.KERNEL_NAME, 0) for p, c in lm_launches.items()})
     replaced = ("jax/experimental/pallas/ops/tpu/flash_attention.py:%d (%s), reached from "
                 "paddle_tpu/ops/nn_ops.py:694 through the vjp grad paddle_tpu/core/registry.py:131")
     entries = [{
@@ -1791,7 +2448,16 @@ def main() -> int:
         "dtype": main_row["dtype"],
         "train_shape": train_row,
         "amp_shape": row_of(checks, AMP_CASE),
-        "cases": [row for _, row in checks],
+        "lm_causal": {
+            "train_fp32": {k: lm_rows[(64, "float32")][k] for k in ("ms", "ms_with_stats", "plain_ms",
+                           "library_ms", "bound_ms", "bound_ms_with_stats", "bound_by", "max_abs_err")},
+            "train_bf16": {k: lm_rows[(64, "bfloat16")][k] for k in ("ms", "ms_with_stats", "plain_ms",
+                           "library_ms", "bound_ms", "bound_ms_with_stats", "bound_by", "max_abs_err")},
+            "serve_fp32": {k: lm_rows[(4, "float32")][k] for k in ("ms", "plain_ms", "library_ms",
+                                                                   "bound_ms", "max_abs_err")},
+            "serve_bf16": {k: lm_rows[(4, "bfloat16")][k] for k in ("ms", "plain_ms", "library_ms",
+                                                                    "bound_ms", "max_abs_err")}},
+        "cases": [row for _, row in checks] + [row for _, row in causal_checks],
     }]
     for name, key, line, fn, errs in (
             (fa.BWD_DKV_NAME, "dkv", 1121, "_flash_attention_bwd_dkv", ("dk", "dv")),
@@ -1801,10 +2467,12 @@ def main() -> int:
             "route": "cuda",
             "source": "paddle_tpu_torch/csrc/fused_attention_bwd.cu",
             "replaces": replaced % (line, fn),
-            "launches": train["launches"][name] + train_amp["launches"][name],
+            "launches": (train["launches"][name] + train_amp["launches"][name]
+                         + sum(c.get(name, 0) for c in lm_launches.values())),
             "launches_by_path": dict({"train": train["launches"][name],
                                       "train_amp": train_amp["launches"][name]},
-                                     **{p: c.get(name, 0) for p, c in resnet_launches.items()}),
+                                     **{p: c.get(name, 0) for p, c in resnet_launches.items()},
+                                     **{p: c.get(name, 0) for p, c in lm_launches.items()}),
             "max_abs_err": max(bwd_row["max_abs_err"][e] for e in errs),
             "ms": bwd_row[key + "_ms"],
             # one plain backward and one SDPA backward compute dQ, dK and dV together
@@ -1815,8 +2483,34 @@ def main() -> int:
             "shape": bwd_row["shape"],
             "dtype": bwd_row["dtype"],
             "amp_shape": bwd_amp_row,
+            "lm_causal": {dt: {"ms": lm_rows[(64, dt)][key + "_ms"],
+                               "bound_ms": lm_rows[(64, dt)][key + "_bound_ms"],
+                               "plain_ms": lm_rows[(64, dt)]["bwd_plain_ms"],
+                               "library_ms": lm_rows[(64, dt)]["bwd_library_ms"],
+                               "max_abs_err": max(lm_rows[(64, dt)]["bwd_max_abs_err"][e] for e in errs)}
+                          for dt in ("float32", "bfloat16")},
             "cases": [row for _, row in bwd_checks],
         })
+    main_drop = dropout_checks["timed"][0]  # the unfused AMP LM's FFN dropout
+    entries.append({
+        "name": "dropout",
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/dropout.cu",
+        "replaces": "paddle_tpu/ops/nn_ops.py:322 (dropout; XLA-fused on the TPU, no pallas_call)",
+        "launches": sum(c.get("dropout", 0) for c in lm_launches.values()),
+        "launches_by_path": {p: c.get("dropout", 0) for p, c in lm_launches.items()},
+        "max_abs_err": 0.0 if all(r["out_bit_equal"] and r["mask_bit_equal"]
+                                  for r in dropout_checks["checks"]) else None,
+        "ms": main_drop["ms"],
+        "plain_ms": main_drop["plain_ms"],
+        "bound_ms": main_drop["bound_ms"],
+        "bound_by": main_drop["bound_by"],
+        "library_ms": main_drop["library_ms"],
+        "shape": main_drop["shape"],
+        "dtype": main_drop["dtype"],
+        "timed": dropout_checks["timed"],
+        "cases": dropout_checks["checks"],
+    })
     log("[done] %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": entries}))
     print(info["nvidia_smi"])

@@ -164,12 +164,37 @@ class Variable:
 
     __str__ = __repr__
 
-    def __add__(self, other):
+    def _binary(self, other, op, reverse=False):
         from paddle_tpu_torch.layers import math_helper
 
-        return math_helper.binary_op(self, other, "elementwise_add")
+        return math_helper.binary_op(self, other, op, reverse)
+
+    def __add__(self, other):
+        return self._binary(other, "elementwise_add")
 
     __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binary(other, "elementwise_sub")
+
+    def __rsub__(self, other):
+        return self._binary(other, "elementwise_sub", reverse=True)
+
+    def __mul__(self, other):
+        return self._binary(other, "elementwise_mul")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binary(other, "elementwise_div")
+
+    def __rtruediv__(self, other):
+        return self._binary(other, "elementwise_div", reverse=True)
+
+    def __neg__(self):
+        from paddle_tpu_torch.layers import tensor as ltensor
+
+        return ltensor.scale(self, scale=-1.0)
 
     def to_dict(self):
         return {

@@ -1,7 +1,8 @@
 """NN layers (reference: python/paddle/fluid/layers/nn.py): fc,
-embedding, conv2d, pool2d, batch_norm, layer_norm, relu, softmax, mean,
-cross_entropy, softmax_with_cross_entropy, matmul, topk and accuracy, as
-the JAX package's ``layers/nn.py`` builds them."""
+embedding, conv2d, pool2d, batch_norm, layer_norm, dropout, relu,
+softmax, mean, cross_entropy, softmax_with_cross_entropy, matmul, topk,
+accuracy, clip and clip_by_norm, as the JAX package's ``layers/nn.py``
+builds them."""
 from __future__ import annotations
 
 import numpy as np
@@ -9,9 +10,9 @@ import numpy as np
 from paddle_tpu_torch import initializer, unique_name
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm", "relu",
+__all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm", "dropout", "relu",
            "softmax", "mean", "cross_entropy", "softmax_with_cross_entropy", "matmul",
-           "topk", "accuracy"]
+           "topk", "accuracy", "clip", "clip_by_norm"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None, act=None, name=None):
@@ -31,9 +32,12 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None, act=Non
             attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
         )
         mul_results.append(tmp)
-    if len(mul_results) != 1:
-        raise NotImplementedError("fc over several inputs needs the sum op, not ported yet")
-    pre_act = helper.append_bias_op(mul_results[0], dim_start=num_flatten_dims)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(inputs[0].dtype)
+        helper.append_op(type="sum", inputs={"X": mul_results}, outputs={"Out": [pre_bias]})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
 
 
@@ -204,6 +208,28 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5,
     return helper.append_activation(out)
 
 
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    """reference: layers/nn.py dropout.  The op's ``seed`` is the
+    program's next (``Program.next_seed``) unless one is given; the op
+    draws its mask from that seed alone."""
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference(x.dtype, stop_gradient=True)
+    helper.append_op(
+        type="dropout",
+        inputs={"X": [x]},
+        outputs={"Out": [out], "Mask": [mask]},
+        attrs={
+            "dropout_prob": dropout_prob,
+            "is_test": is_test,
+            "seed": seed if seed is not None else helper.main_program.next_seed(),
+            "dropout_implementation": dropout_implementation,
+        },
+    )
+    return out
+
+
 def _simple(op_type, x, attrs=None, out_slot="Out", in_slot="X", dtype=None):
     helper = LayerHelper(op_type)
     out = helper.create_variable_for_type_inference(dtype or x.dtype)
@@ -287,3 +313,11 @@ def accuracy(input, label, k=1, correct=None, total=None):
         outputs={"Accuracy": [acc], "Correct": [correct], "Total": [total]},
     )
     return acc
+
+
+def clip(x, min, max, name=None):
+    return _simple("clip", x, {"min": min, "max": max})
+
+
+def clip_by_norm(x, max_norm, name=None):
+    return _simple("clip_by_norm", x, {"max_norm": max_norm})

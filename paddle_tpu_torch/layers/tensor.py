@@ -1,7 +1,7 @@
 """Tensor layers (reference: python/paddle/fluid/layers/tensor.py):
-create_parameter, create_global_var, cast, reshape, transpose, slice,
-gather, scale and range, as the JAX package's ``layers/tensor.py``
-builds them."""
+parameters and constants, casts and shape ops, ``scale``, ``sums``,
+``reduce_sum``, the elementwise family, comparisons, logical ops and
+``where``, as the JAX package's ``layers/tensor.py`` builds them."""
 from __future__ import annotations
 
 from paddle_tpu_torch import framework, initializer, unique_name
@@ -9,8 +9,12 @@ from paddle_tpu_torch.core import types as core_types
 from paddle_tpu_torch.layer_helper import LayerHelper
 from paddle_tpu_torch.param_attr import ParamAttr
 
-__all__ = ["create_parameter", "create_global_var", "cast", "reshape", "transpose", "slice",
-           "gather", "scale", "range"]
+__all__ = ["create_parameter", "create_global_var", "cast", "sums", "fill_constant", "reshape",
+           "transpose", "slice", "gather", "scale", "reduce_sum", "elementwise_add",
+           "elementwise_sub", "elementwise_mul", "elementwise_div", "elementwise_max",
+           "elementwise_min", "elementwise_pow", "equal", "not_equal", "less_than", "less_equal",
+           "greater_than", "greater_equal", "logical_and", "logical_or", "logical_not", "where",
+           "range"]
 
 
 def _helper_out(op_type, inputs, attrs=None, dtype="float32", out_slot="Out", stop_gradient=False):
@@ -48,6 +52,25 @@ def create_global_var(shape, value, dtype, persistable=False, force_cpu=False, n
 def cast(x, dtype):
     dtype = core_types.canonical_dtype(dtype)
     return _helper_out("cast", {"X": [x]}, {"in_dtype": x.dtype, "out_dtype": dtype}, dtype=dtype)
+
+
+def sums(input, out=None):
+    helper = LayerHelper("sum")
+    out = out or helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op(type="sum", inputs={"X": list(input)}, outputs={"Out": [out]})
+    return out
+
+
+def fill_constant(shape, dtype, value, force_cpu=False, out=None):
+    helper = LayerHelper("fill_constant")
+    dtype = core_types.canonical_dtype(dtype)
+    out = out or helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    helper.append_op(
+        type="fill_constant",
+        outputs={"Out": [out]},
+        attrs={"shape": list(shape), "dtype": dtype, "value": float(value)},
+    )
+    return out
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
@@ -101,6 +124,104 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
     return helper.append_activation(out)
 
 
+def _reduce(op_type, input, dim, keep_dim, name=None):
+    attrs = {"keep_dim": keep_dim, "reduce_all": dim is None}
+    if dim is not None:
+        attrs["dim"] = dim if isinstance(dim, (list, tuple)) else [dim]
+    else:
+        attrs["dim"] = [0]
+    return _helper_out(op_type, {"X": [input]}, attrs, dtype=input.dtype)
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", input, dim, keep_dim, name)
+
+
+def _elementwise(op_type, x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper(op_type, name=name, act=act)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]}, attrs={"axis": axis})
+    return helper.append_activation(out)
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_sub", x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_max", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_min", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_pow", x, y, axis, act, name)
+
+
+def _compare(op_type, x, y, cond=None):
+    helper = LayerHelper(op_type)
+    cond = cond or helper.create_variable_for_type_inference("bool", stop_gradient=True)
+    helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]}, outputs={"Out": [cond]})
+    return cond
+
+
+def equal(x, y, cond=None):
+    return _compare("equal", x, y, cond)
+
+
+def not_equal(x, y, cond=None):
+    return _compare("not_equal", x, y, cond)
+
+
+def less_than(x, y, cond=None, force_cpu=None):
+    return _compare("less_than", x, y, cond)
+
+
+def less_equal(x, y, cond=None):
+    return _compare("less_equal", x, y, cond)
+
+
+def greater_than(x, y, cond=None):
+    return _compare("greater_than", x, y, cond)
+
+
+def greater_equal(x, y, cond=None):
+    return _compare("greater_equal", x, y, cond)
+
+
+def logical_and(x, y, out=None, name=None):
+    return _compare("logical_and", x, y, out)
+
+
+def logical_or(x, y, out=None, name=None):
+    return _compare("logical_or", x, y, out)
+
+
+def logical_not(x, out=None, name=None):
+    helper = LayerHelper("logical_not")
+    out = out or helper.create_variable_for_type_inference("bool", stop_gradient=True)
+    helper.append_op(type="logical_not", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def where(condition, x, y):
+    return _helper_out("where", {"Condition": [condition], "X": [x], "Y": [y]}, dtype=x.dtype)
+
+
 def range(start, end, step, dtype):
     dtype = core_types.canonical_dtype(dtype)
     helper = LayerHelper("range")
@@ -110,3 +231,4 @@ def range(start, end, step, dtype):
         attrs={"start": float(start), "end": float(end), "step": float(step), "dtype": dtype},
     )
     return out
+

@@ -5,3 +5,4 @@ Each builder appends ops to the current default_main_program (use
 from paddle_tpu_torch.models import lenet, resnet, transformer  # noqa: F401
 from paddle_tpu_torch.models.lenet import lenet5  # noqa: F401
 from paddle_tpu_torch.models.resnet import resnet18, resnet50  # noqa: F401
+from paddle_tpu_torch.models.transformer import bert_encoder, bert_pretrain, transformer_lm  # noqa: F401

@@ -1,14 +1,18 @@
-"""BERT-style encoder and pretraining heads, as the JAX package's
-``models/transformer.py`` builds them.
+"""Transformer family: the BERT-style encoder, its pretraining heads and
+the decoder-only causal LM, as the JAX package's ``models/transformer.py``
+builds them, layer call for layer call, so both give the same Program
+JSON.
 
-The port carries the fused build of the encoder: the fused attention
-op (padding as ``mask``, causality as ``causal``) with dropout off, for
-serving (``bert_encoder``) and for pretraining (``bert_pretrain``).
-The unfused attention path (matmul + softmax + an ``attn_bias``) and
-dropout use ops that come with the training slice of the port; asking
-for them raises here instead of building a program the executor cannot
-run.  Parameter names (``<name>_enc_<i>_...``) match the JAX package's,
-so weights saved by either package load in the other.
+Attention has two builds.  The fused build (``fused=True``) is the
+``fused_attention`` op, with padding as ``mask`` and causality as
+``causal``: on a card its forward and gradient are the hand-written
+kernels behind ``kernels/fused_attention.py``.  The unfused build is
+batched matmuls, an additive ``attn_bias`` (``_causal_bias`` for the LM,
+a scaled padding mask for BERT), softmax and dropout.  Dropout, where
+the rate is nonzero, is the ``dropout`` op (``kernels/dropout.py`` on a
+card).  Parameter names (``<name>_enc_<i>_...``, ``<name>_dec_<i>_...``)
+match the JAX package's, so weights saved by either package load in the
+other.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ from paddle_tpu_torch.layer_helper import LayerHelper
 from paddle_tpu_torch.param_attr import ParamAttr
 
 __all__ = ["multi_head_attention", "encoder_layer", "positionwise_ffn", "bert_encoder",
-           "bert_pretrain"]
+           "bert_pretrain", "transformer_lm"]
 
 
 def _fc3(x, size, name, num_flatten_dims=2, act=None):
@@ -33,23 +37,30 @@ def _fc3(x, size, name, num_flatten_dims=2, act=None):
     )
 
 
-def _no_dropout(dropout_rate):
-    if dropout_rate:
-        raise NotImplementedError(
-            "dropout is not ported yet; build with dropout_rate=0 (the "
-            "inference configs) and fused attention")
+def multi_head_attention(
+    q_in,
+    kv_in,
+    d_model: int,
+    n_head: int,
+    dropout_rate: float = 0.1,
+    attn_bias=None,
+    is_test: bool = False,
+    name: str = "att",
+    fused: bool = False,
+    mask=None,
+    causal: bool = False,
+):
+    """Scaled-dot-product multi-head attention over [N, S, d_model].
 
+    Default path: q/k/v projections, [N, H, S, D] batched matmuls,
+    optional additive ``attn_bias`` ([S, S] causal or [N, 1, 1, S]
+    padding mask, broadcast into the logits), softmax, dropout of the
+    weights, and the output projection.
 
-def multi_head_attention(q_in, kv_in, d_model: int, n_head: int, dropout_rate: float = 0.1,
-                         attn_bias=None, is_test: bool = False, name: str = "att",
-                         fused: bool = False, mask=None, causal: bool = False):
-    """Multi-head attention over [N, S, d_model] through the
-    ``fused_attention`` op: q/k/v projections, a head split to
-    [N, H, S, D], the op, the head merge and the output projection."""
-    if not fused or attn_bias is not None:
-        raise NotImplementedError(
-            "only the fused attention path (mask=/causal=) is ported yet")
-    _no_dropout(dropout_rate)
+    ``fused=True`` (needs dropout_rate==0 inside attention): the
+    ``fused_attention`` op, with padding as ``mask`` [N, S] and
+    causality as ``causal=`` instead of a materialized ``attn_bias``.
+    """
     d_head = d_model // n_head
     q = _fc3(q_in, d_model, name + "_q")
     k = _fc3(kv_in, d_model, name + "_k")
@@ -61,34 +72,74 @@ def multi_head_attention(q_in, kv_in, d_model: int, n_head: int, dropout_rate: f
         return layers.transpose(x, perm=[0, 2, 1, 3])
 
     q, k, v = split_heads(q), split_heads(k), split_heads(v)
-    helper = LayerHelper(name + "_fused")
-    ctx = helper.create_variable_for_type_inference(q.dtype)
-    ins = {"Q": [q], "K": [k], "V": [v]}
-    if mask is not None:
-        ins["Mask"] = [mask]
-    helper.append_op(
-        type="fused_attention", inputs=ins, outputs={"Out": [ctx]},
-        attrs={"causal": bool(causal), "scale": 1.0 / float(np.sqrt(d_head))},
-    )
+    if fused:
+        if dropout_rate:
+            raise ValueError(
+                "fused attention has no in-kernel dropout; build with "
+                "dropout_rate=0 (the reference's inference/pretrain-bench "
+                "configs) or fused=False"
+            )
+        if attn_bias is not None:
+            raise ValueError(
+                "fused attention takes mask=/causal= instead of a "
+                "materialized attn_bias"
+            )
+        helper = LayerHelper(name + "_fused")
+        ctx = helper.create_variable_for_type_inference(q.dtype)
+        ins = {"Q": [q], "K": [k], "V": [v]}
+        if mask is not None:
+            ins["Mask"] = [mask]
+        helper.append_op(
+            type="fused_attention", inputs=ins, outputs={"Out": [ctx]},
+            attrs={"causal": bool(causal),
+                   "scale": 1.0 / float(np.sqrt(d_head))},
+        )
+    else:
+        if mask is not None or causal:
+            raise ValueError(
+                "mask=/causal= are the fused-path inputs; the unfused path "
+                "takes a materialized attn_bias (silently ignoring them "
+                "would drop the masking)"
+            )
+        scores = layers.matmul(q, k, transpose_y=True, alpha=1.0 / float(np.sqrt(d_head)))
+        if attn_bias is not None:
+            scores = scores + attn_bias
+        weights = layers.softmax(scores)
+        if dropout_rate:
+            weights = layers.dropout(weights, dropout_prob=dropout_rate, is_test=is_test)
+        ctx = layers.matmul(weights, v)  # [N, H, S, D]
     ctx = layers.transpose(ctx, perm=[0, 2, 1, 3])
     ctx = layers.reshape(ctx, shape=[0, 0, d_model])
     return _fc3(ctx, d_model, name + "_out")
 
 
 def positionwise_ffn(x, d_model, d_inner, name, act="gelu", is_test=False, dropout_rate=0.1):
-    _no_dropout(dropout_rate)
     hidden = _fc3(x, d_inner, name + "_fc0", act=act)
+    if dropout_rate:
+        hidden = layers.dropout(hidden, dropout_prob=dropout_rate, is_test=is_test)
     return _fc3(hidden, d_model, name + "_fc1")
 
 
-def encoder_layer(x, d_model, n_head, d_inner, attn_bias=None, dropout_rate: float = 0.1,
-                  is_test: bool = False, name: str = "enc_0", fused: bool = False,
-                  mask=None, causal: bool = False):
+def encoder_layer(
+    x,
+    d_model,
+    n_head,
+    d_inner,
+    attn_bias=None,
+    dropout_rate: float = 0.1,
+    is_test: bool = False,
+    name: str = "enc_0",
+    fused: bool = False,
+    mask=None,
+    causal: bool = False,
+):
     """Post-LN transformer block (attention + FFN, residuals)."""
     att = multi_head_attention(
         x, x, d_model, n_head, dropout_rate, attn_bias, is_test,
         name=name + "_att", fused=fused, mask=mask, causal=causal,
     )
+    if dropout_rate:
+        att = layers.dropout(att, dropout_prob=dropout_rate, is_test=is_test)
     x = layers.layer_norm(
         x + att,
         begin_norm_axis=2,
@@ -96,6 +147,8 @@ def encoder_layer(x, d_model, n_head, d_inner, attn_bias=None, dropout_rate: flo
         bias_attr=ParamAttr(name=name + "_ln1_bias"),
     )
     ffn = positionwise_ffn(x, d_model, d_inner, name + "_ffn", is_test=is_test, dropout_rate=dropout_rate)
+    if dropout_rate:
+        ffn = layers.dropout(ffn, dropout_prob=dropout_rate, is_test=is_test)
     return layers.layer_norm(
         x + ffn,
         begin_norm_axis=2,
@@ -104,29 +157,54 @@ def encoder_layer(x, d_model, n_head, d_inner, attn_bias=None, dropout_rate: flo
     )
 
 
+def _causal_bias(seq_len: int, dtype="float32"):
+    """[S, S] additive bias: 0 on/below diagonal, -1e9 above."""
+    r = layers.range(0, seq_len, 1, "int32")
+    rows = layers.reshape(r, shape=[seq_len, 1])
+    cols = layers.reshape(r, shape=[1, seq_len])
+    allowed = layers.cast(layers.less_equal(cols, rows), dtype)
+    return (allowed - 1.0) * 1e9
+
+
 def _embeddings(ids, vocab_size, d_model, max_pos, seq_len, name, extra_ids=None, extra_vocab=0):
-    emb = layers.embedding(ids, size=[vocab_size, d_model], param_attr=ParamAttr(name=name + "_word_emb"))
+    emb = layers.embedding(
+        ids, size=[vocab_size, d_model], param_attr=ParamAttr(name=name + "_word_emb")
+    )
     pos = layers.range(0, seq_len, 1, "int64")
     pos = layers.reshape(pos, shape=[1, seq_len])
-    pos_emb = layers.embedding(pos, size=[max_pos, d_model], param_attr=ParamAttr(name=name + "_pos_emb"))
+    pos_emb = layers.embedding(
+        pos, size=[max_pos, d_model], param_attr=ParamAttr(name=name + "_pos_emb")
+    )
     out = emb + pos_emb
     if extra_ids is not None:
         out = out + layers.embedding(
-            extra_ids, size=[extra_vocab, d_model], param_attr=ParamAttr(name=name + "_sent_emb"))
+            extra_ids, size=[extra_vocab, d_model], param_attr=ParamAttr(name=name + "_sent_emb")
+        )
     return out
 
 
-def bert_encoder(src_ids, input_mask=None, sent_ids=None, vocab_size: int = 30522,
-                 d_model: int = 768, n_layer: int = 12, n_head: int = 12, d_inner: int = 3072,
-                 max_pos: int = 512, seq_len: int = 128, dropout_rate: float = 0.1,
-                 is_test: bool = False, name: str = "bert", fused_attention: bool = False):
+def bert_encoder(
+    src_ids,
+    input_mask=None,
+    sent_ids=None,
+    vocab_size: int = 30522,
+    d_model: int = 768,
+    n_layer: int = 12,
+    n_head: int = 12,
+    d_inner: int = 3072,
+    max_pos: int = 512,
+    seq_len: int = 128,
+    dropout_rate: float = 0.1,
+    is_test: bool = False,
+    name: str = "bert",
+    fused_attention: bool = False,
+):
     """BERT-base encoder; returns the [N, S, d_model] sequence output.
 
-    ``input_mask``: float [N, S] (1 = token, 0 = pad), the ``Mask``
-    input of every layer's fused attention op."""
-    if not fused_attention:
-        raise NotImplementedError("only the fused attention build of bert_encoder is ported yet")
-    _no_dropout(dropout_rate)
+    ``input_mask``: float [N, S] (1 = token, 0 = pad) -> additive bias
+    (or the ``Mask`` input of every layer's fused_attention op when
+    ``fused_attention=True``).
+    """
     x = _embeddings(src_ids, vocab_size, d_model, max_pos, seq_len, name, sent_ids, 2)
     x = layers.layer_norm(
         x,
@@ -134,12 +212,61 @@ def bert_encoder(src_ids, input_mask=None, sent_ids=None, vocab_size: int = 3052
         param_attr=ParamAttr(name=name + "_emb_ln_scale"),
         bias_attr=ParamAttr(name=name + "_emb_ln_bias"),
     )
+    if dropout_rate:
+        x = layers.dropout(x, dropout_prob=dropout_rate, is_test=is_test)
+    attn_bias = None
+    if input_mask is not None and not fused_attention:
+        m = layers.reshape(input_mask, shape=[-1, 1, 1, seq_len])
+        attn_bias = layers.scale(m, scale=1e9, bias=-1e9)  # (m-1)*1e9
     for i in range(n_layer):
         x = encoder_layer(
-            x, d_model, n_head, d_inner, None, dropout_rate, is_test,
-            name="%s_enc_%d" % (name, i), fused=True, mask=input_mask,
+            x, d_model, n_head, d_inner, attn_bias, dropout_rate, is_test,
+            name="%s_enc_%d" % (name, i), fused=fused_attention,
+            mask=input_mask if fused_attention else None,
         )
     return x
+
+
+def transformer_lm(
+    src_ids,
+    labels,
+    vocab_size: int = 32000,
+    d_model: int = 512,
+    n_layer: int = 6,
+    n_head: int = 8,
+    d_inner: int = 2048,
+    seq_len: int = 256,
+    max_pos: int = 2048,
+    dropout_rate: float = 0.0,
+    is_test: bool = False,
+    name: str = "lm",
+    fused_attention: bool = False,
+):
+    """Decoder-only causal LM; returns (avg_loss, logits).
+
+    src_ids/labels: int64 [N, S] / [N, S, 1].
+
+    ``labels=None`` builds the logits-only program (serving, decoding)
+    and returns (None, logits).
+
+    ``fused_attention=True`` (needs dropout_rate=0): causality goes in
+    as the fused op's ``causal=`` attr instead of a materialized [S, S]
+    bias, and no [N, H, S, S] tensor is formed.
+    """
+    x = _embeddings(src_ids, vocab_size, d_model, max_pos, seq_len, name)
+    causal = None if fused_attention else _causal_bias(seq_len, x.dtype)
+    for i in range(n_layer):
+        x = encoder_layer(
+            x, d_model, n_head, d_inner, causal, dropout_rate, is_test,
+            name="%s_dec_%d" % (name, i), fused=fused_attention,
+            causal=fused_attention,
+        )
+    logits = _fc3(x, vocab_size, name + "_head")
+    if labels is None:  # inference/decoding program: logits only
+        return None, logits
+    loss = layers.softmax_with_cross_entropy(logits, labels)
+    avg_loss = layers.mean(loss)
+    return avg_loss, logits
 
 
 def bert_pretrain(

@@ -1,9 +1,11 @@
-"""Math ops (the slice's subset of the JAX package's ``ops/math_ops.py``).
+"""Math ops, as the JAX package's ``ops/math_ops.py`` has them.
 
 Reference kernels: paddle/fluid/operators/mul_op.cc, matmul_op.cc,
-sum_op.cc, mean_op.cc, scale_op.cc, operators/elementwise/*.  ``mul`` and ``matmul``
-are plain matrix products through ``torch.matmul``; on the TPU they were
-XLA's, not Pallas kernels.
+sum_op.cc, mean_op.cc, scale_op.cc, clip_op.cc, clip_by_norm_op.cc,
+operators/elementwise/*, reduce_ops/reduce_sum_op.cc, activation_op.cc (the unary
+math), controlflow/compare_op.cc and logical_op.cc.  ``mul`` and
+``matmul`` are plain matrix products through ``torch.matmul``; on the
+TPU they were XLA's, not Pallas kernels, as every op here was.
 """
 from __future__ import annotations
 
@@ -43,24 +45,43 @@ def mul(inputs, attrs, device):
 
 # ---------------------------------------------------------------------------
 # elementwise with axis-based broadcasting (reference: elementwise_op_function.h:
-# Y's dims align to X starting at `axis`)
+# the operand with fewer dims aligns to the other starting at `axis`)
 # ---------------------------------------------------------------------------
-def _bcast_y(x, y, attrs):
-    axis = attrs.get("axis", -1)
-    if x.dim() == y.dim() or y.dim() == 0:
-        return y
+def _align(small, big, axis):
+    if small.dim() == big.dim() or small.dim() == 0:
+        return small
     if axis == -1:
-        axis = x.dim() - y.dim()
-    shape = [1] * x.dim()
-    for i, s in enumerate(y.shape):
+        axis = big.dim() - small.dim()
+    shape = [1] * big.dim()
+    for i, s in enumerate(small.shape):
         shape[axis + i] = s
-    return y.reshape(shape)
+    return small.reshape(shape)
 
 
-@register_op("elementwise_add")
-def elementwise_add(inputs, attrs, device):
-    x, y = one(inputs, "X"), one(inputs, "Y")
-    return {"Out": x + _bcast_y(x, y, attrs)}
+def _ew(name, fn):
+    """Y's dims align to X's from ``axis`` (-1: X's trailing dims).  Where
+    X has fewer dims than Y, X aligns to Y the same way, as the
+    reference's elementwise_op_function.h does; the JAX package's kernel
+    aligns only Y and raises there (``GradientClipByGlobalNorm``'s
+    0-d norm against its [1] clip constant, or ``scalar / x``)."""
+    @register_op(name)
+    def kernel(inputs, attrs, device, _fn=fn):
+        x, y = one(inputs, "X"), one(inputs, "Y")
+        axis = attrs.get("axis", -1)
+        if x.dim() < y.dim():
+            return {"Out": _fn(_align(x, y, axis), y)}
+        return {"Out": _fn(x, _align(y, x, axis))}
+
+    return kernel
+
+
+_ew("elementwise_add", lambda x, y: x + y)
+_ew("elementwise_sub", lambda x, y: x - y)
+_ew("elementwise_mul", lambda x, y: x * y)
+_ew("elementwise_div", lambda x, y: x / y)
+_ew("elementwise_min", torch.minimum)
+_ew("elementwise_max", torch.maximum)
+_ew("elementwise_pow", lambda x, y: x ** y)
 
 
 @register_op("scale")
@@ -87,6 +108,89 @@ def sum_op(inputs, attrs, device):
     return {"Out": out}
 
 
+@register_op("clip")
+def clip(inputs, attrs, device):
+    return {"Out": torch.clamp(one(inputs, "X"), attrs.get("min"), attrs.get("max"))}
+
+
+@register_op("clip_by_norm")
+def clip_by_norm(inputs, attrs, device):
+    """X scaled down to an L2 norm of at most ``max_norm``."""
+    x = one(inputs, "X")
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(x * x))
+    return {"Out": x * (max_norm / torch.clamp(norm, min=max_norm))}
+
+
+# ---------------------------------------------------------------------------
+# unary math (reference: operators/activation_op.cc registers these too)
+# ---------------------------------------------------------------------------
+def _unary(name, fn):
+    @register_op(name)
+    def kernel(inputs, attrs, device, _fn=fn):
+        return {"Out": _fn(one(inputs, "X"))}
+
+    return kernel
+
+
+_unary("sqrt", torch.sqrt)
+_unary("rsqrt", lambda x: 1.0 / torch.sqrt(x))
+_unary("square", lambda x: x * x)
+_unary("exp", torch.exp)
+_unary("log", torch.log)
+_unary("abs", torch.abs)
+_unary("ceil", torch.ceil)
+_unary("floor", torch.floor)
+_unary("round", torch.round)  # half to even, as jnp.round
+_unary("reciprocal", lambda x: 1.0 / x)
+_unary("sign", torch.sign)
+_unary("cos", torch.cos)
+_unary("sin", torch.sin)
+_unary("logsigmoid", lambda x: -torch.logaddexp(torch.zeros_like(x), -x))
+
+
+# ---------------------------------------------------------------------------
+# reductions (reference: operators/reduce_ops/)
+# ---------------------------------------------------------------------------
+@register_op("reduce_sum")
+def reduce_sum(inputs, attrs, device):
+    x = one(inputs, "X")
+    dims = attrs.get("dim", [0])
+    if attrs.get("reduce_all", False) or dims is None:
+        dims = range(x.dim())
+    elif isinstance(dims, int):
+        dims = [dims]
+    return {"Out": torch.sum(x, dim=tuple(d % x.dim() for d in dims),
+                             keepdim=attrs.get("keep_dim", False))}
+
+
 @register_op("mean")
 def mean(inputs, attrs, device):
     return {"Out": torch.mean(one(inputs, "X"))}
+
+
+# ---------------------------------------------------------------------------
+# comparisons / logical (reference: operators/controlflow/compare_op.cc)
+# ---------------------------------------------------------------------------
+def _cmp(name, fn):
+    @register_op(name, differentiable=False)
+    def kernel(inputs, attrs, device, _fn=fn):
+        return {"Out": _fn(one(inputs, "X"), one(inputs, "Y"))}
+
+    return kernel
+
+
+_cmp("equal", torch.eq)
+_cmp("not_equal", torch.ne)
+_cmp("less_than", torch.lt)
+_cmp("less_equal", torch.le)
+_cmp("greater_than", torch.gt)
+_cmp("greater_equal", torch.ge)
+_cmp("logical_and", torch.logical_and)
+_cmp("logical_or", torch.logical_or)
+_cmp("logical_xor", torch.logical_xor)
+
+
+@register_op("logical_not", differentiable=False)
+def logical_not(inputs, attrs, device):
+    return {"Out": torch.logical_not(one(inputs, "X"))}

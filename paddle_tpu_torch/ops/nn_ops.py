@@ -1,10 +1,12 @@
 """NN ops (the ported subset of the JAX package's ``ops/nn_ops.py``).
 
-Reference kernels: operators/activation_op.cc (relu, gelu, tanh),
-softmax_op.cc, conv_op.cc, pool_op.cc, batch_norm_op.cc,
-layer_norm_op.cc, cross_entropy_op.cc, softmax_with_cross_entropy_op.cc,
-and the fused attention op, whose compute and gradient are the
-hand-written CUDA kernels behind ``kernels/fused_attention.py``.
+Reference kernels: operators/activation_op.cc, softmax_op.cc,
+conv_op.cc, pool_op.cc, batch_norm_op.cc, layer_norm_op.cc,
+cross_entropy_op.cc, softmax_with_cross_entropy_op.cc, dropout_op.cc,
+and the fused attention op.  The fused attention op's compute and
+gradient are the hand-written CUDA kernels behind
+``kernels/fused_attention.py``; dropout's training branch is the
+hand-written kernel behind ``kernels/dropout.py``.
 
 Convolution and pooling go through ``torch.nn.functional`` (cuDNN on a
 card), as the JAX package left them to XLA.  ``data_format="NHWC"``
@@ -19,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core.registry import register_op
+from paddle_tpu_torch.kernels.dropout import divisor, dropout_train
 from paddle_tpu_torch.kernels.fused_attention import fused_attention_fwd
 from paddle_tpu_torch.ops.common import maybe, one
 
@@ -40,25 +43,49 @@ def _from_nchw(y, fmt):
 # ---------------------------------------------------------------------------
 # activations
 # ---------------------------------------------------------------------------
-@register_op("relu")
-def relu(inputs, attrs, device):
-    return {"Out": torch.relu(one(inputs, "X"))}
+def _act(name, fn):
+    @register_op(name)
+    def kernel(inputs, attrs, device, _fn=fn):
+        return {"Out": _fn(one(inputs, "X"), attrs)}
+
+    return kernel
+
+
+def _gelu(x, a):
+    return F.gelu(x, approximate="tanh" if a.get("approximate", False) else "none")
+
+
+def _softplus(x, a):
+    return torch.logaddexp(x, torch.zeros_like(x))  # no linear cut-off, as jax.nn.softplus
+
+
+def _soft_relu(x, a):
+    t = a.get("threshold", 40.0)
+    return torch.log1p(torch.exp(torch.clamp(x, -t, t)))
+
+
+_act("relu", lambda x, a: torch.relu(x))
+_act("relu6", lambda x, a: torch.clamp(x, 0.0, a.get("threshold", 6.0)))
+_act("sigmoid", lambda x, a: torch.sigmoid(x))
+_act("tanh", lambda x, a: torch.tanh(x))
+_act("gelu", _gelu)
+_act("leaky_relu", lambda x, a: torch.where(x >= 0, x, a.get("alpha", 0.02) * x))
+_act("elu", lambda x, a: F.elu(x, a.get("alpha", 1.0)))
+_act("softplus", _softplus)
+_act("softsign", lambda x, a: x / (1 + torch.abs(x)))
+_act("swish", lambda x, a: x * torch.sigmoid(a.get("beta", 1.0) * x))
+_act("hard_sigmoid", lambda x, a: torch.clamp(a.get("slope", 0.2) * x + a.get("offset", 0.5), 0.0, 1.0))
+_act("hard_swish", lambda x, a: x * torch.clamp(x + a.get("offset", 3.0), 0.0, a.get("threshold", 6.0))
+     / a.get("scale", 6.0))
+_act("thresholded_relu", lambda x, a: torch.where(x > a.get("threshold", 1.0), x, 0.0))
+_act("stanh", lambda x, a: a.get("scale_b", 1.7159) * torch.tanh(a.get("scale_a", 0.67) * x))
+_act("soft_relu", _soft_relu)
+_act("brelu", lambda x, a: torch.clamp(x, a.get("t_min", 0.0), a.get("t_max", 24.0)))
 
 
 @register_op("softmax")
 def softmax(inputs, attrs, device):
     return {"Out": F.softmax(one(inputs, "X"), dim=attrs.get("axis", -1))}
-
-
-@register_op("gelu")
-def gelu(inputs, attrs, device):
-    approximate = "tanh" if attrs.get("approximate", False) else "none"
-    return {"Out": F.gelu(one(inputs, "X"), approximate=approximate)}
-
-
-@register_op("tanh")
-def tanh(inputs, attrs, device):
-    return {"Out": torch.tanh(one(inputs, "X"))}
 
 
 @register_op("layer_norm")
@@ -199,6 +226,32 @@ def batch_norm(inputs, attrs, device):
     y = torch.addcmul(bias.reshape(cshape), xf - use_mean.reshape(cshape), gain.reshape(cshape))
     return {"Y": y.to(x.dtype), "MeanOut": new_mean, "VarianceOut": new_var,
             "SavedMean": use_mean, "SavedVariance": use_var}
+
+
+# ---------------------------------------------------------------------------
+# dropout
+# ---------------------------------------------------------------------------
+@register_op("dropout")
+def dropout(inputs, attrs, device):
+    """reference: dropout_op.cc, with the JAX op's semantics.  In
+    ``is_test`` (or at p = 0) Out is X times 1 - p under
+    ``downgrade_in_infer`` (X itself in is_test under
+    ``upscale_in_train``) and Mask is ones.  In training the kept
+    elements pass (divided by 1 - p under ``upscale_in_train``) and the
+    rest are 0; Mask says which, in X's type.  The mask is a pure function
+    of the ``seed`` attr (``kernels/dropout.py``), so the op is not a
+    random op to the executor: its plans are captured like any other."""
+    x = one(inputs, "X")
+    p = float(attrs.get("dropout_prob", 0.5))
+    impl = attrs.get("dropout_implementation", "downgrade_in_infer")
+    is_test = attrs.get("is_test", False)
+    if is_test or p == 0.0:
+        out = x
+        if impl == "downgrade_in_infer":
+            out = x * divisor(p, x.dtype)  # 1 - p in X's type, as the JAX op's weak scalar
+        return {"Out": out, "Mask": torch.ones_like(x)}
+    out, mask = dropout_train(x, p, attrs.get("seed", 0), impl == "upscale_in_train")
+    return {"Out": out, "Mask": mask}
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@ the JAX package's ``ops/tensor_ops.py``).
 
 Reference kernels: operators/fill_constant_op.cc, uniform_random_op.cc,
 gaussian_random_op.cc, range_op.cc, reshape_op.cc, transpose_op.cc,
-slice_op.cc, cast_op.cc, gather_op.cc, lookup_table_op.cc, top_k_op.cc.
+slice_op.cc, cast_op.cc, gather_op.cc, lookup_table_op.cc, where_op.cc,
+top_k_op.cc.
 The random ops draw from a ``torch.Generator`` seeded with the op's
 ``seed`` attr (assigned by the program, framework.Program.next_seed).
 """
@@ -166,6 +167,11 @@ def gather(inputs, attrs, device):
     """Rows of X at Index (reference: operators/gather_op.cc)."""
     x, idx = one(inputs, "X"), one(inputs, "Index")
     return {"Out": x[idx.long()]}
+
+
+@register_op("where", no_grad_set={"Condition"})
+def where(inputs, attrs, device):
+    return {"Out": torch.where(one(inputs, "Condition"), one(inputs, "X"), one(inputs, "Y"))}
 
 
 @register_op("top_k", differentiable=False)

@@ -52,9 +52,9 @@ class Optimizer:
         mult = param.optimize_attr.get("learning_rate", 1.0) if param.optimize_attr else 1.0
         if mult == 1.0:
             return self._lr_var
-        raise NotImplementedError(
-            "a per-parameter learning rate (%r: %g) needs the scale op, not ported yet"
-            % (param.name, mult))
+        from paddle_tpu_torch.layers import tensor as ltensor
+
+        return ltensor.scale(self._lr_var, scale=float(mult))
 
     # ------------------------------------------------------------------
     def _add_accumulator(self, name, param, fill_value=0.0, shape=None, dtype=None):

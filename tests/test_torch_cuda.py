@@ -3,7 +3,10 @@ its row statistics, and the dK/dV and dQ backward kernels) against their
 plain versions (on batches with an all-pad row too, and twice on the
 same inputs, bit for bit), the small encoder served on the card against the CPU,
 a small pretraining step on the card against the CPU, and the executor's
-captured steps (CUDA graphs) against its eager path, with bf16 AMP.
+captured steps (CUDA graphs) against its eager path, with bf16 AMP; and
+the causal LM slice: the dropout kernel bit for bit against its plain
+version, the causal kernels at the LM's shape, every op type the slice
+adds under capture, and the unfused dropout LM captured against eager.
 
 Every test here needs a CUDA card and skips without one (marker
 ``cuda``).  The file imports neither jax nor paddle_tpu, so it also runs
@@ -874,3 +877,217 @@ def test_no_garbage_collection_while_capturing(card, monkeypatch):
     assert exe.jit_cache_stats()["graphs"] == 1
     assert seen == [(False, True), (True, False)]
     assert gc.isenabled()
+
+
+# ---------------------------------------------------------------------------
+# the causal LM slice: the dropout kernel, the causal kernels at the LM's
+# shape, the slice's op types under capture, and the unfused dropout LM
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("impl", ["downgrade_in_infer", "upscale_in_train"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(4, 256, 2048), (2, 8, 256, 256), (7, 1001), (3,)],
+                         ids=["ffn", "weights", "odd", "tiny"])
+def test_dropout_kernel_bit_equal_to_plain(card, shape, dtype, impl):
+    """Out and Mask of the kernel equal the plain version's (the same
+    Philox in torch's int64 ops, on the card) bit for bit, on an aligned
+    tensor and on a view one element in (the kernel's unaligned path)."""
+    from paddle_tpu_torch.kernels import dropout as kd
+
+    x = torch.randn(shape, generator=torch.Generator(device=card).manual_seed(9),
+                    device=card).to(dtype)
+    up = impl == "upscale_in_train"
+    for t in (x, x.reshape(-1)[1:]):
+        kernels.reset_launch_counts()
+        out, mask = kd.dropout_train(t, 0.3, 4242, up)
+        assert kernels.launch_counts() == ({kd.KERNEL_NAME: 1} if t.numel() else {})
+        ref_out, ref_mask = kd.dropout_plain(t, 0.3, 4242, up)
+        torch.cuda.synchronize()
+        assert out.dtype == mask.dtype == dtype and out.shape == t.shape
+        assert torch.equal(out, ref_out) and torch.equal(mask, ref_mask)
+        # and the CPU's plain version draws the same mask
+        assert torch.equal(mask.cpu(), kd.dropout_plain(t.cpu(), 0.3, 4242, up)[1])
+
+
+def test_dropout_refuses_what_it_does_not_take(card):
+    from paddle_tpu_torch.kernels import dropout as kd
+
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            kd.dropout_train(torch.ones(8, device=card, dtype=dt), 0.5, 1, False)
+
+
+def test_dropout_gradient_on_card(card):
+    """dX = where(Mask, dOut / (1 - p), 0) through the autograd Function,
+    the kernel launched once."""
+    from paddle_tpu_torch.kernels import dropout as kd
+
+    x = torch.randn(6, 50, device=card, requires_grad=True)
+    kernels.reset_launch_counts()
+    out, mask = kd.dropout_train(x, 0.25, 5, True)
+    g = torch.randn_like(out)
+    out.backward(g)
+    assert kernels.launch_counts() == {kd.KERNEL_NAME: 1}
+    want = torch.where(mask != 0, g / torch.full_like(g, 0.75), 0.0)
+    assert torch.equal(x.grad, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_causal_kernels_at_lm_shape(card, dtype):
+    """The LM's attention: causal, no Mask, [N, 8, 256, 64] in the head
+    split's layout, forward and backward against the plain versions."""
+    q, k, v, _ = _inputs(card, 4, 8, 256, 64, dtype, True, seed=12)
+    out = fa.fused_attention_fwd(q, k, v, None, True, 0.125)
+    ref = fa.fused_attention_plain(q, k, v, None, True, 0.125)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    _check_backward(card, dtype, True, (4, 8, 256, 64), True, False, all_pad=False)
+
+
+def _lm_op_cases():
+    rng = np.random.RandomState(17)
+    x, y = _f32(rng, 4, 9), _f32(rng, 4, 9)
+    pos = np.abs(x) + 0.5
+    cases = {}
+    for op in ("elementwise_sub", "elementwise_mul", "elementwise_min", "elementwise_max"):
+        cases[op] = (op, {"X": x, "Y": _f32(rng, 9)}, {"axis": -1}, ("Out",), {})
+    cases["elementwise_div"] = ("elementwise_div", {"X": x, "Y": pos}, {"axis": -1}, ("Out",), {})
+    cases["elementwise_pow"] = ("elementwise_pow", {"X": pos, "Y": y}, {"axis": -1}, ("Out",), {})
+    for op in ("sqrt", "rsqrt", "log", "reciprocal"):
+        cases[op] = (op, {"X": pos}, {}, ("Out",), {})
+    for op in ("square", "exp", "abs", "ceil", "floor", "round", "sign", "cos", "sin",
+               "logsigmoid", "relu6", "sigmoid", "leaky_relu", "elu", "softplus", "softsign",
+               "swish", "hard_sigmoid", "hard_swish", "thresholded_relu", "stanh", "soft_relu",
+               "brelu", "gelu", "tanh"):
+        cases[op] = (op, {"X": x}, {}, ("Out",), {})
+    cases["clip"] = ("clip", {"X": x}, {"min": -0.5, "max": 0.5}, ("Out",), {})
+    cases["clip_by_norm"] = ("clip_by_norm", {"X": x}, {"max_norm": 1.0}, ("Out",), {})
+    cases["reduce_sum"] = ("reduce_sum", {"X": x}, {"dim": [1], "keep_dim": False,
+                                                  "reduce_all": False}, ("Out",), {})
+    cases["reduce_sum_all"] = ("reduce_sum", {"X": x}, {"dim": [0], "reduce_all": True}, ("Out",), {})
+    b1, b2 = x > 0, y > 0
+    for op in ("equal", "not_equal", "less_than", "less_equal", "greater_than", "greater_equal"):
+        cases[op] = (op, {"X": np.round(x), "Y": np.round(y)}, {}, ("Out",), {})
+    for op in ("logical_and", "logical_or", "logical_xor"):
+        cases[op] = (op, {"X": b1, "Y": b2}, {}, ("Out",), {})
+    cases["logical_not"] = ("logical_not", {"X": b1}, {}, ("Out",), {})
+    cases["where"] = ("where", {"Condition": b1, "X": x, "Y": y}, {}, ("Out",), {})
+    for impl in ("downgrade_in_infer", "upscale_in_train"):
+        for is_test in (False, True):
+            cases["dropout_%s%s" % (impl.split("_")[0], "_test" if is_test else "")] = (
+                "dropout", {"X": _f32(rng, 8, 33)},
+                {"dropout_prob": 0.3, "is_test": is_test, "seed": 77,
+                 "dropout_implementation": impl}, ("Out", "Mask"), {})
+    return cases
+
+
+@pytest.mark.parametrize("case", sorted(_lm_op_cases()))
+def test_lm_op_type_under_capture(card, case):
+    """Each op type this slice adds, alone in a program, captured and
+    replayed against the eager path on the same inputs: the same bits
+    (the same kernels in the same order; dropout's mask is a function of
+    its seed, so a replay draws the same one)."""
+    op_type, inputs, attrs, out_slots, state = _lm_op_cases()[case]
+    main, feed, fetch, init = _one_op(card, op_type, inputs, attrs, out_slots, state)
+    exe, scope = tfluid.Executor(), _scope_from(init, card)
+    ref_exe, ref_scope = tfluid.Executor(), _scope_from(init, card)
+    for _ in range(4):
+        got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        ref = ref_exe.run(main, feed=feed, fetch_list=fetch, scope=ref_scope,
+                          use_program_cache=False)
+        for n, g, r in zip(fetch, got, ref):
+            np.testing.assert_array_equal(g, r, err_msg=n)
+    assert exe.jit_cache_stats()["graphs"] == 1
+
+
+SMALL_LM = dict(vocab_size=97, d_model=64, n_layer=2, n_head=4, d_inner=128, max_pos=64,
+                seq_len=32)
+
+
+def _lm(fused=True, dropout=0.0, amp=False, recipe=False):
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = tfluid.Program(), tfluid.Program()
+    main.random_seed = startup.random_seed = 3
+    s = SMALL_LM["seq_len"]
+    lr = None
+    with tfluid.program_guard(main, startup), tfluid.unique_name.guard():
+        ids = tfluid.layers.data("src_ids", [s], dtype="int64")
+        labels = tfluid.layers.data("labels", [s, 1], dtype="int64")
+        loss, _ = transformer.transformer_lm(ids, labels, dropout_rate=dropout,
+                                             fused_attention=fused, **SMALL_LM)
+        if recipe:
+            lr = tfluid.layers.noam_decay(64, 10)
+            opt = tfluid.optimizer.AdamOptimizer(lr, beta2=0.98, epsilon=1e-9,
+                                                 regularization=tfluid.regularizer.L2Decay(1e-4))
+            tfluid.clip.set_gradient_clip(tfluid.clip.GradientClipByGlobalNorm(1.0))
+        else:
+            opt = tfluid.optimizer.AdamOptimizer(1e-3)
+        if amp:
+            opt = tfluid.contrib.mixed_precision.decorate(opt)
+        try:
+            opt.minimize(loss)
+        finally:
+            tfluid.clip.set_gradient_clip(None)
+    return main, startup, loss, lr
+
+
+def _lm_feed(seed, rows=4):
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, SMALL_LM["vocab_size"], (rows, SMALL_LM["seq_len"] + 1)).astype("int64")
+    return {"src_ids": ids[:, :-1], "labels": ids[:, 1:, None]}
+
+
+def test_fused_lm_step_on_card_matches_cpu(card):
+    """The fused causal LM's first step on the card (captured after its
+    eager warm-up on another scope) against the CPU from one state: loss
+    and parameters after the step within 1e-3 relative."""
+    main, startup, loss, _ = _lm()
+    boot = tfluid.Scope()
+    tfluid.Executor().run(startup, scope=boot)
+    init = _state(boot)
+    feed = _lm_feed(1)
+    exe = tfluid.Executor()
+    exe.run(main, feed=feed, fetch_list=[loss], scope=_scope_from(init, card))  # warm-up
+    card_scope, cpu_scope = _scope_from(init, card), _scope_from(init, "cpu")
+    got, = exe.run(main, feed=feed, fetch_list=[loss], scope=card_scope)
+    ref, = tfluid.Executor(tfluid.CPUPlace()).run(main, feed=feed, fetch_list=[loss], scope=cpu_scope)
+    assert exe.jit_cache_stats()["graphs"] == 1
+    np.testing.assert_allclose(float(got), float(ref), rtol=1e-3)
+    a, b = _state(card_scope), _state(cpu_scope)
+    for n in ("lm_word_emb", "lm_dec_0_att_q_w", "lm_head_w"):
+        assert np.abs(a[n] - b[n]).max() <= 1e-3 * max(np.abs(b[n]).max(), 1e-30), n
+
+
+def test_unfused_dropout_lm_captured_matches_eager(card):
+    """The unfused dropout LM as the Transformer recipe trains it (noam,
+    Adam beta2 0.98, global-norm clipping, L2 decay, bf16 AMP) through
+    the cached executor against the eager path from one state: the step
+    is captured, it launches 8 dropout kernels a layer (4 forward, 4 in
+    the grad ops' recompute), the first loss is bit-equal, and the later
+    ones within 1e-5 relative (the embedding's gradient adds with
+    atomics); the learning rate follows noam's formula."""
+    from paddle_tpu_torch.kernels import dropout as kd
+
+    main, startup, loss, lr = _lm(fused=False, dropout=0.1, amp=True, recipe=True)
+    boot = tfluid.Scope()
+    tfluid.Executor().run(startup, scope=boot)
+    init = _state(boot)
+    feed = _lm_feed(2)
+    exe = tfluid.Executor()
+    exe.run(main, feed=feed, fetch_list=[loss], scope=_scope_from(init, card))  # warm-up
+    cap_scope, eager_scope = _scope_from(init, card), _scope_from(init, card)
+    eager_exe = tfluid.Executor()
+    cap, eager, lrs = [], [], []
+    for _ in range(3):
+        kernels.reset_launch_counts()
+        l, r = exe.run(main, feed=feed, fetch_list=[loss, lr], scope=cap_scope)
+        assert kernels.launch_counts().get(kd.KERNEL_NAME) == 8 * SMALL_LM["n_layer"]
+        cap.append(float(l))
+        lrs.append(float(np.asarray(r).reshape(())))
+        eager.append(float(eager_exe.run(main, feed=feed, fetch_list=[loss], scope=eager_scope,
+                                         use_program_cache=False)[0]))
+    assert exe.jit_cache_stats()["graphs"] == 1  # the warm-up ran eagerly on its own scope
+    assert cap[0] == eager[0]
+    np.testing.assert_allclose(cap, eager, rtol=1e-5)
+    t = np.arange(1, 4, dtype=np.float64)
+    np.testing.assert_allclose(lrs, 64 ** -0.5 * np.minimum(t ** -0.5, t * 10 ** -1.5), rtol=1e-6)

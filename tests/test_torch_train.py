@@ -251,18 +251,32 @@ def test_port_trains_from_its_own_startup():
 
 
 def test_clip_and_regularizer_pass_through_or_refuse():
+    """With no clip and no decay both hand the grads through unchanged;
+    with them, the port appends the JAX package's ops (L2 decay's
+    ``scale`` and ``sum``, a norm clip's ``clip_by_norm``), var for var."""
+    import paddle_tpu.clip as jclip
+    import paddle_tpu.regularizer as jreg
     from paddle_tpu_torch import clip, regularizer
 
-    main, startup = tfluid.Program(), tfluid.Program()
-    with tfluid.program_guard(main, startup), tfluid.unique_name.guard():
-        x = tfluid.layers.data("x", [4])
-        w = tfluid.layers.create_parameter([4, 2], "float32", name="w")
-        loss = tfluid.layers.mean(tfluid.layers.matmul(x, w))
-        pg = tfluid.backward.append_backward(loss)
-    assert clip.append_gradient_clip_ops(pg) == pg
-    assert regularizer.append_regularization_ops(pg) == pg
-    with pytest.raises(NotImplementedError, match="scale/sign"):
-        regularizer.append_regularization_ops(pg, regularizer.L2Decay(1e-4))
-    w.gradient_clip_attr = clip.GradientClipByNorm(1.0)
-    with pytest.raises(NotImplementedError, match="clip ops"):
-        clip.append_gradient_clip_ops(pg)
+    def build(fluid, clip_mod, reg_mod, configured):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            x = fluid.layers.data("x", [4])
+            w = fluid.layers.create_parameter([4, 2], "float32", name="w")
+            loss = fluid.layers.mean(fluid.layers.matmul(x, w))
+            pg = fluid.backward.append_backward(loss)
+            if not configured:
+                return main, pg, (clip_mod.append_gradient_clip_ops(pg),
+                                  reg_mod.append_regularization_ops(pg))
+            w.gradient_clip_attr = clip_mod.GradientClipByNorm(1.0)
+            out = clip_mod.append_gradient_clip_ops(pg)
+            out = reg_mod.append_regularization_ops(out, reg_mod.L2Decay(1e-4))
+        return main, pg, out
+
+    _, pg, (clipped, decayed) = build(tfluid, clip, regularizer, False)
+    assert clipped == pg and decayed == pg
+    jm, _, jout = build(jfluid, jclip, jreg, True)
+    tm, _, tout = build(tfluid, clip, regularizer, True)
+    assert tm.to_json() == jm.to_json()
+    assert [(p.name, g.name) for p, g in tout] == [(p.name, g.name) for p, g in jout]
+    assert [op.type for op in tm.global_block().ops][-3:] == ["clip_by_norm", "scale", "sum"]
