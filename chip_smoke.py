@@ -118,6 +118,40 @@ Phases, each of which raises (exit code != 0) on failure:
    64: captured, 48 dropout launches a step, the learning rate against
    noam's formula in float64, captured against eager from one state, and
    at dropout 0 its first loss against the fused build's.
+19. BERT-base trained with LAMB through the reader (the LAMB paper's BERT
+   recipe under bench_bert.py's AMP): phase 7's program with
+   ``decorate(LambOptimizer(1e-4, lamb_weight_decay=0.01))`` and
+   ``ExponentialMovingAverage(0.999).update()``, batch 32, numpy sample
+   tuples through ``DataFeeder`` into ``PyReader(capacity=4,
+   use_double_buffer=True)``, staged on the card on the reader's own
+   stream; the eager, captured and 5 replayed steps each on a batch of its
+   own, 24 / 12 / 12 bf16 attention launches a step.  Held, under
+   deterministic algorithms: the losses bit for bit against the same
+   batches fed as numpy dicts to a second executor; the EMA under
+   ``apply()`` against its float64 recurrence, with a captured eval step
+   there, and after ``restore()`` the next step bit for bit against the
+   uninterrupted run (the backup must be a copy: a replay under apply
+   writes the averages into the tensors the scope held); two
+   ``device_buffered(steps=4)`` chunks into ``run(steps=4,
+   per_step_feed=True)`` against single steps.  Measured: step time,
+   tokens/s, peak memory, graph pool, the reader's stall counters, a
+   profiled replay, and an eager step's device time of the ``lamb`` ops
+   and the EMA's.  Then Lamb's update of three parameters against a
+   float64 numpy Lamb, and two steps at batch 2 against the CPU (phase
+   7's AMP limits).
+20. The other optimizers: each new update op (lars_momentum, adagrad,
+   decayed_adagrad, adamax, adadelta, rmsprop plain and centered, ftrl,
+   lamb, dgc_momentum before and after rampup, average_accumulates across
+   spills and window restarts) captured at [30522, 768] fp32 against a
+   float64 numpy step, its replay timed against its bytes bound; each
+   optimizer class trains LeNet-5 for 10 captured steps (loss falls);
+   ModelAverage on Momentum is held as phase 19 holds the EMA.
+21. On phase 19's state: ``io.save_program``, ``load_inference_model``
+   into a fresh scope and its next step against the uninterrupted one,
+   bit for bit; ``gradients(total, [bert_word_emb])`` against
+   ``append_backward``'s gradient; ``FLAGS_check_nan_inf`` passes a clean
+   replay and raises on an ``inf`` in ``input_mask``, naming the vars,
+   with replays timed with the flag off and on.
 
 Output: progress lines, then a ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
@@ -310,6 +344,54 @@ LM_KERNEL_CLASSES = [
     ("reductions", ("reduce", "welford")),
     ("elementwise", ("elementwise",)),
 ]
+
+# BERT-base pretraining with LAMB (You et al. 2019, "Large Batch
+# Optimization for Deep Learning: Training BERT in 76 minutes"), under
+# bench_bert.py's bf16 AMP, fed by PyReader's double buffer, with an EMA of
+# the weights
+LAMB_LR, LAMB_WD = 1e-4, 0.01
+EMA_DECAY = 0.999
+LAMB_STEPS = 7           # eager, captured, 5 replays, each on a batch of its own
+READER_CAPACITY = 4
+LAMB_CHECK = ["bert_word_emb", "bert_enc_0_att_q_w", "bert_enc_0_ln1_scale"]
+# the card's Lamb update against a float64 numpy Lamb over the card's own
+# gradient, as ADAM_TOL: the parameter in units of lr times the trust
+# ratio (the size of the step), the moments relative to their largest value
+LAMB_TOL = ADAM_TOL
+# the EMA under apply() against the float64 recurrence of the fetched
+# parameters (the fp32 decay and 1 - decay the program holds; over the
+# bias correction the scope holds), relative to the largest magnitude:
+# three fp32 roundings a step over LAMB_STEPS steps; and the fp32 decay
+# power against its float64 product (one rounding a step)
+EMA_TOL = 1e-5
+DPOW_TOL = 1e-6
+CHUNK_STEPS = 4          # device_buffered(steps=4) into run(steps=4, per_step_feed=True)
+# every new update op once under capture at the word embedding's shape
+OPT_SHAPE = (30522, 768)
+# an op's captured step against float64 numpy over the same fp32 inputs,
+# relative to the largest magnitude of each output (fp32 rounds each of a
+# few operations to 6e-8; Lars' and Lamb's norms sum 23.4M squares)
+OPT_TOL = 1e-5
+# a parameter in units of its largest move: fp32 rounds a parameter of
+# magnitude 5 to 3e-7, 6e-6 of a move of 0.05 (lr 0.05)
+OPT_PARAM_TOL = 1e-4
+OPT_TIMED_REPLAYS = 10
+# each optimizer class trains LeNet-5 (LENET_BATCH) for OPT_LENET_STEPS
+# captured steps after its eager one; learning rates that move LeNet
+# within those steps (Lars scales its step by lars_coeff * |p| / |g|)
+OPT_LENET_STEPS = 10
+OPT_LENET = {
+    "lars": lambda O: O.LarsMomentumOptimizer(0.2, 0.9, lars_coeff=0.01),
+    "adagrad": lambda O: O.AdagradOptimizer(1e-3),
+    "decayed_adagrad": lambda O: O.DecayedAdagradOptimizer(3e-4),
+    "adamax": lambda O: O.AdamaxOptimizer(3e-4),
+    "adadelta": lambda O: O.AdadeltaOptimizer(1.0, epsilon=1e-8),
+    "rmsprop": lambda O: O.RMSPropOptimizer(1e-4),
+    "rmsprop_centered": lambda O: O.RMSPropOptimizer(1e-4, momentum=0.9, centered=True),
+    "ftrl": lambda O: O.FtrlOptimizer(1e-3),
+    "dgc": lambda O: O.DGCMomentumOptimizer(0.01, 0.9, rampup_begin_step=3),
+    "lamb": lambda O: O.LambOptimizer(0.01),
+}
 
 
 def log(*args):
@@ -839,26 +921,38 @@ def run_slice(torch, workdir):
 # ---------------------------------------------------------------------------
 # phase 5: the training slice at full width
 # ---------------------------------------------------------------------------
-def pretrain_program(fluid, transformer, amp=False):
-    """(main, startup, [total, mlm_loss, nsp_acc], params_grads) of fused
-    BERT-base pretraining with Adam; with ``amp``, Adam under
+PRETRAIN_FEEDS = (("src_ids", "int64"), ("sent_ids", "int64"), ("input_mask", "float32"),
+                  ("mask_pos", "int64"), ("mask_label", "int64"), ("nsp_label", "int64"))
+
+
+def pretrain_program(fluid, transformer, amp=False, lamb=False):
+    """(main, startup, [total, mlm_loss, nsp_acc], params_grads, ema) of
+    fused BERT-base pretraining with Adam; with ``amp``, under
     ``contrib.mixed_precision.decorate`` (bf16 AMP), as bench_bert.py
-    builds it."""
+    builds it.  With ``lamb``: LambOptimizer(LAMB_LR, LAMB_WD) and an
+    ExponentialMovingAverage(EMA_DECAY) of the weights (``ema``, else
+    None), the LAMB paper's BERT recipe."""
     from paddle_tpu_torch.contrib import mixed_precision
 
     s = BERT_BASE["seq_len"]
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = SEED
+    ema = None
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
-        ins = [fluid.layers.data(name, [w], dtype=dt) for name, w, dt in (
-            ("src_ids", s, "int64"), ("sent_ids", s, "int64"), ("input_mask", s, "float32"),
-            ("mask_pos", 1, "int64"), ("mask_label", 1, "int64"), ("nsp_label", 1, "int64"))]
+        ins = [fluid.layers.data(name, [1 if name in ("mask_pos", "mask_label", "nsp_label") else s],
+                                 dtype=dt) for name, dt in PRETRAIN_FEEDS]
         outs = transformer.bert_pretrain(*ins, dropout_rate=0.0, fused_attention=True, **BERT_BASE)
-        opt = fluid.optimizer.AdamOptimizer(1e-4)
+        if lamb:
+            opt = fluid.optimizer.LambOptimizer(learning_rate=LAMB_LR, lamb_weight_decay=LAMB_WD)
+        else:
+            opt = fluid.optimizer.AdamOptimizer(1e-4)
         if amp:
             opt = mixed_precision.decorate(opt)
         _, params_grads = opt.minimize(outs[0])
-    return main, startup, list(outs), params_grads
+        if lamb:
+            ema = fluid.optimizer.ExponentialMovingAverage(EMA_DECAY)
+            ema.update()
+    return main, startup, list(outs), params_grads, ema
 
 
 def pretrain_feed(rng, rows):
@@ -920,6 +1014,26 @@ def _profile_step(torch, step, all_kernels=False):
     return out
 
 
+class _deterministic:
+    """``torch.use_deterministic_algorithms`` (warnings only where an op has
+    no deterministic kernel, as cuBLAS' workspace check) and cuDNN's
+    deterministic algorithms, for a block whose runs are compared bit for
+    bit: the embedding's and gather's backward (index_add_, scatter_add_)
+    and cuDNN's weight gradients otherwise add with atomics."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        self.cudnn = self.torch.backends.cudnn.deterministic
+        self.torch.backends.cudnn.deterministic = True
+        self.torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def __exit__(self, *exc):
+        self.torch.use_deterministic_algorithms(False)
+        self.torch.backends.cudnn.deterministic = self.cudnn
+
+
 def _free_device_memory(torch):
     """Release what earlier phases left to the collector, so each phase's
     peak memory is its own."""
@@ -951,7 +1065,7 @@ def run_train(torch, amp=False):
              "masks_per_row": TRAIN_MASKS,
              "allocated_before_bytes": _free_device_memory(torch)}
     t0 = time.perf_counter()
-    main, startup, outs, params_grads = pretrain_program(fluid, transformer, amp)
+    main, startup, outs, params_grads, _ = pretrain_program(fluid, transformer, amp)
     stats["build_s"] = time.perf_counter() - t0
     stats["ops"] = len(main.global_block().ops)
     stats["casts"] = sum(op.type == "cast" for op in main.global_block().ops)
@@ -1055,7 +1169,7 @@ def run_capture_check(torch):
 
     sync = torch.cuda.synchronize
     _free_device_memory(torch)
-    main, startup, outs, _ = pretrain_program(fluid, transformer)
+    main, startup, outs, _, _ = pretrain_program(fluid, transformer)
     boot_exe, boot = fluid.Executor(), fluid.Scope()
     boot_exe.run(startup, scope=boot)
     init = _clone_state(boot)
@@ -1130,15 +1244,15 @@ def run_capture_check(torch):
     return stats
 
 
-def _adam_ops(main, params):
-    """{param: the adam op that updates it} for ``params``."""
+def _update_ops(main, params):
+    """{param: the adam or lamb op that updates it} for ``params``."""
     return {op.input("Param")[0]: op for op in main.global_block().ops
-            if op.type == "adam" and op.input("Param")[0] in params}
+            if op.type in ("adam", "lamb") and op.input("Param")[0] in params}
 
 
 def _adam_state(scope, ops):
-    """Host copies of what the adam ops read: parameters, moments, beta
-    powers and learning rates."""
+    """Host copies of what the adam (or lamb) ops read: parameters,
+    moments, beta powers and learning rates."""
     from paddle_tpu_torch.scope import to_numpy
 
     names = {n for op in ops.values()
@@ -1148,33 +1262,51 @@ def _adam_state(scope, ops):
 
 
 def _adam_errors(ops, before, after, grads):
-    """For each parameter: how far the card's Adam update (``before`` ->
-    ``after``) lies from a float64 numpy Adam (paddle's adam_op.h: moments
-    first, then p -= lr * sqrt(1 - beta2^t) / (1 - beta1^t) * m / (sqrt(v)
-    + eps)) over the card's own gradient; the parameter in units of the
-    learning rate, the moments relative to their largest magnitude."""
+    """For each parameter: how far the card's Adam or Lamb update
+    (``before`` -> ``after``) lies from a float64 numpy one over the card's
+    own gradient.  Adam (paddle's adam_op.h): moments first, then p -= lr
+    * sqrt(1 - beta2^t) / (1 - beta1^t) * m / (sqrt(v) + eps).  Lamb (You
+    et al. 2019, the JAX package's lamb op): r = m_hat / (sqrt(v_hat) +
+    eps) + wd * p, p -= lr * ratio * r with the trust ratio |p| / |r| over
+    the whole parameter (1 where a norm is 0).  The parameter's error is
+    in units of the step's learning rate (times Lamb's trust ratio, the
+    size of its step), the moments' relative to their largest magnitude."""
     errs = {}
     for p, op in ops.items():
         one = {slot: before[op.input(slot)[0]] for slot in
                ("Param", "Moment1", "Moment2", "Beta1Pow", "Beta2Pow", "LearningRate")}
-        b1, b2, eps = op.attr("beta1", 0.9), op.attr("beta2", 0.999), op.attr("epsilon", 1e-8)
+        b1, b2 = op.attr("beta1", 0.9), op.attr("beta2", 0.999)
+        eps = op.attr("epsilon", 1e-6 if op.type == "lamb" else 1e-8)
         g = grads[p].astype(np.float64).reshape(one["Param"].shape)
         lr = float(one["LearningRate"].reshape(()))
+        b1p, b2p = one["Beta1Pow"].reshape(()), one["Beta2Pow"].reshape(())
         m = b1 * one["Moment1"] + (1 - b1) * g
         v = b2 * one["Moment2"] + (1 - b2) * g * g
-        lr_t = lr * np.sqrt(1 - one["Beta2Pow"].reshape(())) / (1 - one["Beta1Pow"].reshape(()))
-        ref = one["Param"] - lr_t * m / (np.sqrt(v) + eps)
-        errs[p] = {"param_in_lr": float(np.abs(after[p] - ref).max() / lr),
+        if op.type == "lamb":
+            r = (m / (1 - b1p)) / (np.sqrt(v / (1 - b2p)) + eps) + op.attr("weight_decay") * one["Param"]
+            pn, rn = np.sqrt(np.sum(one["Param"] ** 2)), np.sqrt(np.sum(r * r))
+            ratio = pn / rn if pn > 0 and rn > 0 else 1.0
+            ref, unit = one["Param"] - lr * ratio * r, lr * ratio
+        else:
+            ratio = None
+            ref, unit = one["Param"] - lr * np.sqrt(1 - b2p) / (1 - b1p) * m / (np.sqrt(v) + eps), lr
+        errs[p] = {"param_in_lr": float(np.abs(after[p] - ref).max() / unit),
                    "moment1": _max_rel(after[op.input("Moment1")[0]], m),
                    "moment2": _max_rel(after[op.input("Moment2")[0]], v)}
+        if ratio is not None:
+            errs[p]["trust_ratio"] = float(ratio)
     return errs
 
 
-def check_train_against_cpu(amp=False):
+def check_train_against_cpu(amp=False, lamb=False):
     """Two steps at CHECK_BATCH from the same state on the card and on
-    the CPU.  On the card the entry is first warmed on a scope of its own,
-    so both compared steps run the captured graph (its capture, then a
-    replay).  Checked: the first step's loss and gradients of CHECK_GRADS
+    the CPU.  With ``lamb`` the program is phase 19's (Lamb and the EMA,
+    AMP) with no spread batches, and the float64 check is of Lamb's
+    update of LAMB_CHECK (its gradients beyond CHECK_GRADS are fetched and
+    reported against the CPU's, not held: a layer_norm scale's gradient
+    sums bf16-rounded products over every token).  On the card the entry
+    is first warmed on a scope of its own, so both compared steps run the
+    captured graph (its capture, then a replay).  Checked: the first step's loss and gradients of CHECK_GRADS
     against the CPU's, within TRAIN_TOL (AMP_TOL with ``amp``) relative to
     the CPU's largest magnitude; the second step's loss against the CPU's;
     and each step's Adam update of CHECK_GRADS (parameters and moments)
@@ -1194,10 +1326,12 @@ def check_train_against_cpu(amp=False):
     from paddle_tpu_torch.models import transformer
     from paddle_tpu_torch.scope import to_numpy
 
-    main, startup, outs, params_grads = pretrain_program(fluid, transformer, amp)
+    upd = LAMB_CHECK if lamb else CHECK_GRADS  # the updates held to float64
+    names = CHECK_GRADS + [n for n in upd if n not in CHECK_GRADS]  # the gradients fetched
+    main, startup, outs, params_grads, _ = pretrain_program(fluid, transformer, amp, lamb)
     grads = {p.name: g.name for p, g in params_grads}
-    fetch = [outs[0].name] + [grads[n] for n in CHECK_GRADS]
-    ops = _adam_ops(main, CHECK_GRADS)
+    fetch = [outs[0].name] + [grads[n] for n in names]
+    ops = _update_ops(main, upd)
     card_exe, card_scope = fluid.Executor(), fluid.Scope()
     card_exe.run(startup, scope=card_scope)
     init = {n: to_numpy(v) for n, v in card_scope.vars.items()}
@@ -1223,24 +1357,25 @@ def check_train_against_cpu(amp=False):
     cpu2 = cpu_exe.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
     s2 = _adam_state(card_scope, ops)
     loss_tol, grad_tol = AMP_TOL if amp else (TRAIN_TOL, TRAIN_TOL)
-    stats = {"amp": amp, "batch": CHECK_BATCH, "card_s": t1 - t0, "cpu_s": t2 - t1,
+    stats = {"amp": amp, "lamb": lamb, "batch": CHECK_BATCH, "card_s": t1 - t0, "cpu_s": t2 - t1,
              "loss_card": [float(card[0]), float(card2[0])],
              "loss_cpu": [float(cpu[0]), float(cpu2[0])], "tol": [loss_tol, grad_tol],
              "adam_tol": ADAM_TOL, "rel_err": {},
-             "adam_err": {"step1": _adam_errors(ops, s0, s1, dict(zip(CHECK_GRADS, card[1:]))),
-                          "step2": _adam_errors(ops, s1, s2, dict(zip(CHECK_GRADS, card2[1:])))},
+             "adam_err": {"step1": _adam_errors(ops, s0, s1, dict(zip(names, card[1:]))),
+                          "step2": _adam_errors(ops, s1, s2, dict(zip(names, card2[1:])))},
              "card_cache": card_exe.jit_cache_stats()}
     ok = stats["card_cache"]["graphs"] == 1
-    for name, a, b in zip(["total", "total_step2"] + CHECK_GRADS,
+    for name, a, b in zip(["total", "total_step2"] + names,
                           [card[0], card2[0]] + card[1:], [cpu[0], cpu2[0]] + cpu[1:]):
         rel = _max_rel(a, b)
         stats["rel_err"][name] = rel
-        ok = ok and bool(np.isfinite(a).all()) and rel <= (grad_tol if name in CHECK_GRADS
-                                                           else loss_tol)
+        ok = ok and bool(np.isfinite(a).all()) and (name not in CHECK_GRADS + ["total", "total_step2"]
+                                                    or rel <= (grad_tol if name in CHECK_GRADS
+                                                               else loss_tol))
     ok = ok and all(e["param_in_lr"] <= ADAM_TOL and e["moment1"] <= ADAM_TOL
                     and e["moment2"] <= ADAM_TOL
                     for step in stats["adam_err"].values() for e in step.values())
-    if amp:  # the first step from the initial state on more batches: the spread
+    if amp and not lamb:  # the first step from the initial state on more batches: the spread
         spread = []
         for k in range(1, 1 + AMP_SPREAD_SEEDS):
             f = pretrain_feed(np.random.RandomState(SEED + 2 + k), CHECK_BATCH)
@@ -1249,14 +1384,15 @@ def check_train_against_cpu(amp=False):
             a = card_exe.run(main, feed=f, fetch_list=fetch, scope=card_scope)  # a replay
             b = cpu_exe.run(main, feed=f, fetch_list=fetch, scope=cpu_scope)
             spread.append({name: _max_rel(x, y)
-                           for name, x, y in zip(["total"] + CHECK_GRADS, a, b)})
+                           for name, x, y in zip(["total"] + names, a, b)})
         stats["spread"] = spread
-        ok = ok and all(r["total"] <= loss_tol and max(r[n] for n in CHECK_GRADS) <= grad_tol
+        ok = ok and all(r["total"] <= loss_tol and max(r[n] for n in names) <= grad_tol
                         for r in spread)
         stats["grad_rel_err_max_over_batches"] = max(
-            [stats["rel_err"][n] for n in CHECK_GRADS] + [r[n] for r in spread for n in CHECK_GRADS])
+            [stats["rel_err"][n] for n in names] + [r[n] for r in spread for n in names])
     card_exe.close()
-    log("[train-check-amp]" if amp else "[train-check]", json.dumps(stats))
+    log("[train-check-lamb]" if lamb else "[train-check-amp]" if amp else "[train-check]",
+        json.dumps(stats))
     if not ok:
         raise AssertionError("card and CPU training steps differ: %s" % stats)
     return stats
@@ -2361,6 +2497,711 @@ def run_lm_unfused(torch):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phases 19 to 21: the rest of the training surface
+# ---------------------------------------------------------------------------
+def _row_samples(batch):
+    """A pretrain_feed batch as the sample tuples a reader yields, one a
+    row: the row's ids, sentence ids and input mask, its TRAIN_MASKS
+    masked positions ([TRAIN_MASKS, 1], already offset into the flattened
+    batch) and labels, and its NSP label.  DataFeeder stacks them back
+    into the batch, reshaping the positions and labels to [-1, 1]."""
+    m = TRAIN_MASKS
+    return [(batch["src_ids"][i], batch["sent_ids"][i], batch["input_mask"][i],
+             batch["mask_pos"][i * m:(i + 1) * m], batch["mask_label"][i * m:(i + 1) * m],
+             batch["nsp_label"][i]) for i in range(len(batch["src_ids"]))]
+
+
+def _ema_reference(tracked):
+    """The float64 EMA recurrence over the parameters fetched after each
+    step, with the fp32 decay and 1 - decay the program holds (the scale
+    ops' fp32 results), and the float64 product of the decays."""
+    d = float(np.float32(EMA_DECAY))
+    ema = {n: np.zeros_like(v) for n, v in tracked[0].items()}
+    for snap in tracked:
+        for n, v in snap.items():
+            ema[n] = d * ema[n] + (1.0 - d) * v
+    return ema, d ** len(tracked)
+
+
+def _differing(torch, a, b, names):
+    """The names whose tensors in scopes ``a`` and ``b`` differ in any bit."""
+    return [n for n in names if not torch.equal(a.vars[n], b.vars[n])]
+
+
+def _sub_step_ms(torch, fluid, main, scope, pick):
+    """Device time of the ops of ``main`` that ``pick`` selects, captured
+    as a program of their own (what they are inside the captured step):
+    every var they read and no picked op writes first is state, copied
+    from ``scope`` (gradients, which the step makes and drops, are random
+    tensors of their shape); an eager warm-up, a capture, and the replay
+    timed with _time_ms.  (The eager per-op breakdown of this step cannot
+    give it: the host takes longer to issue the step's 16,000 kernels than
+    the spin that keeps the card behind it lasts.)"""
+    blk = main.global_block()
+    ops = [op for op in blk.ops if pick(op)]
+    sub = fluid.Program()
+    sblk = sub.global_block()
+    written, state = set(), set()
+    for op in ops:
+        state.update(n for n in op.input_arg_names if n not in written)
+        written.update(op.output_arg_names)
+    for n in sorted(state | written):
+        v = blk.var(n)
+        sblk.create_var(name=n, shape=v.shape, dtype=v.dtype,
+                        persistable=n in state or v.persistable)
+    for op in ops:
+        sblk.append_op(op.type, inputs=dict(op.inputs), outputs=dict(op.outputs),
+                       attrs=dict(op.attrs))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    tensors = {n: scope.vars[n].clone() if n in scope.vars else
+               torch.randn(tuple(blk.var(n).shape), generator=gen, device="cuda") * 1e-3
+               for n in sorted(state)}
+    exe, warm, sc = fluid.Executor(), fluid.Scope(), fluid.Scope()
+    for x in (warm, sc):
+        x.bind_device(exe.device)
+        x.vars.update({n: t.clone() for n, t in tensors.items()})
+    del tensors
+    exe.run(sub, scope=warm)  # eager warm-up
+    del warm
+    exe.run(sub, scope=sc)  # capture
+    ms = _time_ms(torch, _the_graph(exe).replay, samples=11, per_sample=5)
+    nbytes = sum(sc.vars[n].numel() * sc.vars[n].element_size() for n in state)
+    out = {"ops": len(ops), "ms": ms, "state_bytes": int(nbytes),
+           "graph_pool_bytes": exe.jit_cache_stats()["graph_pool_bytes"]}
+    exe.close()
+    return out
+
+
+def run_lamb_reader(torch):
+    """Phase 19: BERT-base pretraining with LAMB (bf16 AMP, an EMA of the
+    weights) fed by PyReader's double buffer, LAMB_STEPS steps through
+    the cached executor (eager, captured, replays), each on a batch of its
+    own.  Sample tuples go through DataFeeder and are staged on the card
+    on the reader's side stream.  The phase runs under
+    ``torch.use_deterministic_algorithms``: the embedding's and the
+    gather's backward then add in a fixed order (sorted, not atomic), so
+    two runs of the same steps give the same bits.
+
+    Checked: each step launches 24 forward, 12 dK/dV and 12 dQ attention
+    kernels, in bf16; the losses are finite and equal, bit for bit, those
+    of the same batches fed as numpy dicts to a second executor from the
+    same state; under ``ema.apply()`` each of LAMB_CHECK equals the
+    float64 EMA recurrence of its fetched values over the bias correction
+    (EMA_TOL), the decay power its float64 product (DPOW_TOL), and a
+    captured eval step (captured before apply, so its replays copy the
+    averages into the tensors the scope held) runs there; after
+    ``restore()`` every parameter is the trained one, and the next
+    captured step's loss and every persistable equal the uninterrupted
+    run's bit for bit; ``device_buffered(steps=CHUNK_STEPS)`` chunks into
+    ``run(steps=CHUNK_STEPS, per_step_feed=True)`` (the chunk's eager run,
+    then its capture) equal the single steps bit for bit.  Measured: step
+    time, tokens/s, peak memory, the graph pool, the reader's stall
+    counters, a profiled replay, and the device time of the lamb ops and
+    of the EMA's ops captured apart (``_sub_step_ms``).  Returns the phase's
+    stats and what phase 21 continues from."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels, reader
+    from paddle_tpu_torch.kernels import fused_attention as fa
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.monitor import registry as mon
+
+    sync = torch.cuda.synchronize
+    n_layer = BERT_BASE["n_layer"]
+    names = (fa.KERNEL_NAME, fa.BWD_DKV_NAME, fa.BWD_DQ_NAME)
+    per_step = {fa.KERNEL_NAME: 2 * n_layer, fa.BWD_DKV_NAME: n_layer, fa.BWD_DQ_NAME: n_layer}
+    stats = {"batch": TRAIN_BATCH, "seq_len": BERT_BASE["seq_len"], "lr": LAMB_LR,
+             "weight_decay": LAMB_WD, "ema_decay": EMA_DECAY, "reader_capacity": READER_CAPACITY,
+             "allocated_before_bytes": _free_device_memory(torch)}
+    t0 = time.perf_counter()
+    main, startup, outs, params_grads, ema = pretrain_program(fluid, transformer, amp=True,
+                                                              lamb=True)
+    stats["build_s"] = time.perf_counter() - t0
+    block = main.global_block()
+    types = [op.type for op in block.ops]
+    stats["op_types"] = {t: types.count(t) for t in ("lamb", "cast", "scale", "elementwise_mul")}
+    params = [p.name for p, _ in params_grads]
+    test_prog = main.clone(for_test=True)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = _clone_state(scope)
+    persistables = sorted(init)
+    rng = np.random.RandomState(SEED + 50)
+    batches = [pretrain_feed(rng, TRAIN_BATCH) for _ in range(LAMB_STEPS + 1 + 2 * CHUNK_STEPS)]
+    stats["real_tokens"] = [int(b["input_mask"].sum()) for b in batches[:LAMB_STEPS]]
+    py_reader = fluid.PyReader(feed_list=[block.var(n) for n, _ in PRETRAIN_FEEDS],
+                               capacity=READER_CAPACITY, use_double_buffer=True, iterable=True)
+    py_reader.decorate_sample_list_generator(
+        lambda: (_row_samples(b) for b in batches[:LAMB_STEPS]))
+    counters = ("reader_consumer_stalls_total", "reader_consumer_stall_seconds_total",
+                "reader_producer_stalls_total", "reader_producer_stall_seconds_total")
+    c0 = {c: mon.REGISTRY.value(c) for c in counters}
+
+    kernels.reset_launch_counts()  # counts from here on belong to the Lamb path
+    losses, times, deltas, tracked = [], [], [], []
+    feeds = py_reader()
+    for _ in range(LAMB_STEPS):  # eager, captured, replays: each waits for its staged batch
+        before = kernels.launch_counts()
+        sync()
+        t = time.perf_counter()
+        feed = next(feeds)
+        total, = exe.run(main, feed=feed, fetch_list=[outs[0]], scope=scope)
+        sync()
+        times.append(time.perf_counter() - t)
+        after = kernels.launch_counts()
+        deltas.append({k: after.get(k, 0) - before.get(k, 0) for k in names})
+        losses.append(float(total))
+        tracked.append({n: scope.vars[n].double().cpu().numpy() for n in LAMB_CHECK})
+    counts = kernels.launch_counts()  # read right after the Lamb path
+    by_dtype = kernels.launch_counts_by_dtype()
+    feeds.close()
+    staged_on = {n: str(t.device) for n, t in feed.items()}
+    step_s = statistics.median(times[2:])
+    stats.update(
+        launches={k: counts.get(k, 0) for k in names},
+        launches_by_dtype={k: by_dtype.get(k, {}) for k in names},
+        launches_per_step=deltas, losses=losses, step_s=times, feeds_staged_on=staged_on,
+        eager_first_step_ms=1e3 * times[0], capture_step_ms=1e3 * times[1],
+        step_ms_median=1e3 * step_s, tokens_per_s=TRAIN_BATCH * BERT_BASE["seq_len"] / step_s,
+        real_tokens_per_s=float(np.mean(stats["real_tokens"])) / step_s,
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+        cache=exe.jit_cache_stats(),
+        reader_stalls={c: mon.REGISTRY.value(c) - c0[c] for c in counters})
+
+    # the same batches as numpy dicts, to a second executor from the same state
+    exe2, scope2 = fluid.Executor(), fluid.Scope()
+    _load_state(scope2, init)
+    dict_losses = [float(exe2.run(main, feed=b, fetch_list=[outs[0]], scope=scope2)[0])
+                   for b in batches[:LAMB_STEPS]]
+    stats["dict_fed_losses"] = dict_losses
+    stats["state_differing_after_steps"] = _differing(torch, scope, scope2, persistables)
+
+    # the EMA under apply(), with a captured eval step there, then restore()
+    ref, dpow64 = _ema_reference(tracked)
+    dpow = float(scope.vars[ema._dpow_var.name].reshape(()))
+    for _ in range(2):  # the eval entry's eager run and its capture, over the trained weights
+        exe.run(test_prog, feed=batches[0], fetch_list=[outs[0]], scope=scope)
+    trained = {n: scope.vars[n].clone() for n in params}
+    with fluid.scope_guard(scope):
+        with ema.apply(exe):
+            applied = {n: scope.vars[n].double().cpu().numpy() for n in LAMB_CHECK}
+            evals = [float(exe.run(test_prog, feed=batches[0], fetch_list=[outs[0]])[0])
+                     for _ in range(2)]  # replays: each copies the averages into its buffers
+    restored_differing = [n for n in params if not torch.equal(scope.vars[n], trained[n])]
+    del trained
+    nxt = batches[LAMB_STEPS]
+    after_restore = float(exe.run(main, feed=nxt, fetch_list=[outs[0]], scope=scope)[0])
+    uninterrupted = float(exe2.run(main, feed=nxt, fetch_list=[outs[0]], scope=scope2)[0])
+    stats["ema"] = {
+        "dpow": dpow, "dpow_float64": dpow64, "dpow_rel_err": abs(dpow - dpow64) / dpow64,
+        "rel_err": {n: _max_rel(applied[n], ref[n] / (1.0 - dpow)) for n in LAMB_CHECK},
+        "eval_losses_under_apply": evals, "restored_params_differing": restored_differing,
+        "loss_after_restore": after_restore, "loss_uninterrupted": uninterrupted,
+        "state_differing_after_restore": _differing(torch, scope, scope2, persistables),
+        "cache": exe.jit_cache_stats()}
+
+    # device_buffered chunks into steps=CHUNK_STEPS runs against single steps
+    rest = batches[LAMB_STEPS + 1:]
+    singles = [float(exe2.run(main, feed=b, fetch_list=[outs[0]], scope=scope2)[0]) for b in rest]
+    chunk_lasts = [float(exe.run(main, feed=c, fetch_list=[outs[0]], scope=scope,
+                                 steps=CHUNK_STEPS, per_step_feed=True)[0])
+                   for c in reader.device_buffered(rest, size=2, steps=CHUNK_STEPS)()]
+    stats["chunks"] = {"singles": singles, "chunk_last_losses": chunk_lasts,
+                       "state_differing": _differing(torch, scope, scope2, persistables),
+                       "cache": exe.jit_cache_stats()}
+    exe2.close()
+    del exe2, scope2
+
+    try:  # a replay of the Lamb step
+        prof = _profile_step(torch, lambda: exe.run(main, feed=batches[0], fetch_list=[outs[0]],
+                                                    scope=scope), all_kernels=True)
+        if prof is not None:
+            prof["kernel_classes"] = _kernel_classes(prof, LM_KERNEL_CLASSES)
+            del prof["all_kernels"]
+        stats["profile"] = prof
+    except RuntimeError as e:  # the profiler's own failure: the numbers are then not measured
+        stats["profile"] = "not measured (%s)" % e
+    del init
+    stats["optimizer_part"] = {
+        part: _sub_step_ms(torch, fluid, main, scope, pick)
+        for part, pick in (("lamb", lambda op: op.type == "lamb"),
+                           ("ema", lambda op: op.attr("op_role") == "optimize"
+                            and op.type != "lamb"))}
+    log("[lamb-reader]", json.dumps(stats))
+    ema_stats, chunk = stats["ema"], stats["chunks"]
+    ok = (all(d == per_step for d in deltas)
+          and all(set(by_dtype.get(k, {})) == {"bfloat16"} for k in names)
+          and stats["cache"]["graphs"] == 1 and np.isfinite(losses).all()
+          and set(staged_on.values()) == {"cuda:0"}
+          and dict_losses == losses and not stats["state_differing_after_steps"]
+          and ema_stats["dpow_rel_err"] <= DPOW_TOL
+          and max(ema_stats["rel_err"].values()) <= EMA_TOL
+          and np.isfinite(evals).all() and not restored_differing
+          and after_restore == uninterrupted and not ema_stats["state_differing_after_restore"]
+          and ema_stats["cache"]["graphs"] == 2
+          and chunk_lasts == [singles[CHUNK_STEPS - 1], singles[2 * CHUNK_STEPS - 1]]
+          and not chunk["state_differing"] and chunk["cache"]["graphs"] == 3
+          and stats["optimizer_part"]["lamb"]["ops"] == len(params))
+    if not ok:
+        raise AssertionError("the Lamb reader phase failed its checks: %s" % stats)
+    return stats, {"main": main, "test": test_prog, "outs": outs, "params": params,
+                   "exe": exe, "scope": scope, "batch": batches[0],
+                   "step_ms_median": stats["step_ms_median"]}
+
+
+def _np_update(op_type, x, attrs):
+    """One step of an update op in float64 numpy, the JAX package's
+    formula (paddle_tpu/ops/optimizer_ops.py), over ``x`` (slot: float64
+    array, or int64 for counters)."""
+    p, g = x["Param"], x.get("Grad")
+    lr = float(x["LearningRate"].reshape(())) if "LearningRate" in x else None
+    a = attrs
+    if op_type == "lars_momentum":
+        pn, gn = np.sqrt(np.sum(p * p)), np.sqrt(np.sum(g * g))
+        local = a["lars_coeff"] * pn / (gn + a["lars_weight_decay"] * pn) if pn > 0 and gn > 0 else 1.0
+        v = a["mu"] * x["Velocity"] + lr * local * (g + a["lars_weight_decay"] * p)
+        return {"ParamOut": p - v, "VelocityOut": v}
+    if op_type in ("adagrad", "decayed_adagrad"):
+        d = a.get("decay", None)
+        m = x["Moment"] + g * g if d is None else d * x["Moment"] + (1 - d) * g * g
+        return {"ParamOut": p - lr * g / (np.sqrt(m) + a["epsilon"]), "MomentOut": m}
+    if op_type == "adamax":
+        m = a["beta1"] * x["Moment"] + (1 - a["beta1"]) * g
+        u = np.maximum(a["beta2"] * x["InfNorm"], np.abs(g))
+        return {"ParamOut": p - lr / (1 - x["Beta1Pow"].reshape(())) * (m / (u + a["epsilon"])),
+                "MomentOut": m, "InfNormOut": u}
+    if op_type == "adadelta":
+        rho, eps = a["rho"], a["epsilon"]
+        asg = rho * x["AvgSquaredGrad"] + (1 - rho) * g * g
+        upd = -np.sqrt((x["AvgSquaredUpdate"] + eps) / (asg + eps)) * g
+        return {"ParamOut": p + upd, "AvgSquaredGradOut": asg,
+                "AvgSquaredUpdateOut": rho * x["AvgSquaredUpdate"] + (1 - rho) * upd * upd}
+    if op_type == "rmsprop":
+        rho, eps = a["decay"], a["epsilon"]
+        ms = rho * x["MeanSquare"] + (1 - rho) * g * g
+        if a["centered"]:
+            mg = rho * x["MeanGrad"] + (1 - rho) * g
+            den = np.sqrt(ms - mg * mg + eps)
+        else:
+            mg, den = x["MeanGrad"], np.sqrt(ms + eps)
+        mom = a["momentum"] * x["Moment"] + lr * g / den
+        return {"ParamOut": p - mom, "MomentOut": mom, "MeanSquareOut": ms, "MeanGradOut": mg}
+    if op_type == "ftrl":
+        pw, sq = a["lr_power"], x["SquaredAccumulator"]
+        nsq = sq + g * g
+        lin = x["LinearAccumulator"] + g - (nsq ** -pw - sq ** -pw) / lr * p
+        y = nsq ** -pw / lr + 2 * a["l2"]
+        out = np.where(np.abs(lin) > a["l1"], (a["l1"] * np.sign(lin) - lin) / y, 0.0)
+        return {"ParamOut": out, "SquaredAccumOut": nsq, "LinearAccumOut": lin}
+    if op_type == "lamb":
+        b1, b2 = a["beta1"], a["beta2"]
+        m = b1 * x["Moment1"] + (1 - b1) * g
+        v = b2 * x["Moment2"] + (1 - b2) * g * g
+        r = (m / (1 - x["Beta1Pow"].reshape(()))) / (np.sqrt(v / (1 - x["Beta2Pow"].reshape(())))
+                                                     + a["epsilon"]) + a["weight_decay"] * p
+        pn, rn = np.sqrt(np.sum(p * p)), np.sqrt(np.sum(r * r))
+        ratio = pn / rn if pn > 0 and rn > 0 else 1.0
+        return {"ParamOut": p - lr * ratio * r, "Moment1Out": m, "Moment2Out": v,
+                "Beta1PowOut": x["Beta1Pow"] * b1, "Beta2PowOut": x["Beta2Pow"] * b2}
+    if op_type == "dgc_momentum":
+        u = a["mu"] * x["U"] + g
+        v = x["V"] + u
+        if float(x["CurrentStep"].reshape(())) < a["rampup_begin_step"]:
+            return {"ParamOut": p - lr * u, "UOut": u, "VOut": x["V"]}
+        k = max(1, int(round(v.size * (1.0 - a["sparsity"]))))
+        sel = np.zeros(v.size, bool)
+        sel[np.argpartition(np.abs(v).ravel(), v.size - k)[v.size - k:]] = True
+        sel = sel.reshape(v.shape)
+        return {"ParamOut": p - lr * np.where(sel, v, 0.0), "UOut": np.where(sel, 0.0, u),
+                "VOut": np.where(sel, 0.0, v)}
+    if op_type == "average_accumulates":
+        s1, s2, s3 = x["Sum1"] + p, x["Sum2"], x["Sum3"]
+        acc, old = int(x["NumAccumulates"][0]) + 1, int(x["OldNumAccumulates"][0])
+        upd = int(x["NumUpdates"][0]) + 1
+        if upd % a["max_num_accumulates"] == 0:
+            s1, s2 = np.zeros_like(s1), s2 + s1
+        if acc >= a["min_average_window"] and acc >= min(a["max_average_window"],
+                                                         upd * a["average_window"]):
+            s1, s2, s3, old, acc = np.zeros_like(s1), np.zeros_like(s2), s1 + s2, acc, 0
+        return {"Sum1Out": s1, "Sum2Out": s2, "Sum3Out": s3,
+                "NumAccumulatesOut": np.array([acc]), "OldNumAccumulatesOut": np.array([old]),
+                "NumUpdatesOut": np.array([upd])}
+    raise KeyError(op_type)
+
+
+_STATE_OUT = {"ParamOut": "Param", "VelocityOut": "Velocity", "MomentOut": "Moment",
+              "InfNormOut": "InfNorm", "Moment1Out": "Moment1", "Moment2Out": "Moment2",
+              "Beta1PowOut": "Beta1Pow", "Beta2PowOut": "Beta2Pow",
+              "AvgSquaredGradOut": "AvgSquaredGrad", "AvgSquaredUpdateOut": "AvgSquaredUpdate",
+              "MeanSquareOut": "MeanSquare", "MeanGradOut": "MeanGrad",
+              "SquaredAccumOut": "SquaredAccumulator", "LinearAccumOut": "LinearAccumulator",
+              "Sum1Out": "Sum1", "Sum2Out": "Sum2", "Sum3Out": "Sum3",
+              "NumAccumulatesOut": "NumAccumulates", "OldNumAccumulatesOut": "OldNumAccumulates",
+              "NumUpdatesOut": "NumUpdates", "UOut": "U", "VOut": "V"}
+
+
+def _opt_cases(torch):
+    """(name, op type, state inputs (CUDA tensors at OPT_SHAPE), attrs,
+    captured runs checked); Param, Grad and LearningRate are added."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+
+    def rnd(scale=1.0):
+        return torch.randn(OPT_SHAPE, generator=gen, device="cuda") * scale
+
+    def pos():
+        return rnd().abs() + 0.1
+
+    def one(v, dtype=torch.float32):
+        return torch.tensor([v], dtype=dtype, device="cuda")
+
+    zeros = lambda: torch.zeros(OPT_SHAPE, device="cuda")  # noqa: E731
+    cases = [
+        ("lars_momentum", "lars_momentum", lambda: {"Velocity": rnd()},
+         {"mu": 0.9, "lars_coeff": 0.001, "lars_weight_decay": 0.0005}, 1),
+        ("adagrad", "adagrad", lambda: {"Moment": pos()}, {"epsilon": 1e-6}, 1),
+        ("decayed_adagrad", "decayed_adagrad", lambda: {"Moment": pos()},
+         {"decay": 0.95, "epsilon": 1e-6}, 1),
+        ("adamax", "adamax", lambda: {"Moment": rnd(), "InfNorm": pos(), "Beta1Pow": one(0.81)},
+         {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}, 1),
+        ("adadelta", "adadelta", lambda: {"AvgSquaredGrad": pos(), "AvgSquaredUpdate": pos()},
+         {"rho": 0.95, "epsilon": 1e-6}, 1),
+        ("ftrl", "ftrl", lambda: {"SquaredAccumulator": zeros(), "LinearAccumulator": zeros()},
+         {"l1": 0.01, "l2": 0.01, "lr_power": -0.5}, 1),
+        ("lamb", "lamb", lambda: {"Moment1": rnd(0.1), "Moment2": pos() * 0.1,
+                                  "Beta1Pow": one(0.9), "Beta2Pow": one(0.999)},
+         {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-6, "weight_decay": 0.01}, 1),
+        ("dgc_before_rampup", "dgc_momentum",
+         lambda: {"U": rnd(0.5), "V": rnd(0.25), "CurrentStep": one(1.0)},
+         {"mu": 0.9, "sparsity": 0.999, "rampup_begin_step": 2.0}, 1),
+        ("dgc_after_rampup", "dgc_momentum",
+         lambda: {"U": rnd(0.5), "V": rnd(0.25), "CurrentStep": one(5.0)},
+         {"mu": 0.9, "sparsity": 0.999, "rampup_begin_step": 2.0}, 1),
+        # max_num_accumulates 2, windows of 2 to 3: spills at updates 2
+        # and 4, restarts at updates 2 and 4 (4 captured runs)
+        ("average_accumulates", "average_accumulates",
+         lambda: {"Sum1": zeros(), "Sum2": zeros(), "Sum3": zeros(),
+                  "NumAccumulates": one(0, torch.int64), "OldNumAccumulates": one(0, torch.int64),
+                  "NumUpdates": one(0, torch.int64)},
+         {"average_window": 0.5, "max_num_accumulates": 2, "min_average_window": 2,
+          "max_average_window": 3}, 4),
+    ]
+    for centered in (False, True):
+        cases.insert(5, ("rmsprop_centered" if centered else "rmsprop", "rmsprop",
+                         lambda: (lambda mg: {"Moment": rnd(), "MeanSquare": pos() + mg * mg,
+                                              "MeanGrad": mg})(rnd(0.1)),
+                         {"decay": 0.9, "epsilon": 1e-6, "momentum": 0.9, "centered": centered}, 1))
+    return cases
+
+
+def _the_graph(exe):
+    """The one CUDA graph an executor holds."""
+    graphs = [g for e in exe._cache.values() for g in e.graphs.values()]
+    if len(graphs) != 1:
+        raise AssertionError("expected one captured graph, found %d" % len(graphs))
+    return graphs[0].graph
+
+
+def _check_update(out, ref, before, slot, keep=None):
+    """An output against its float64 reference (over the elements
+    ``keep`` marks, if given): a parameter in units of its largest move
+    (ftrl's parameter is not a move: in its own magnitude), anything else
+    relative to its largest magnitude."""
+    out = out.reshape(ref.shape)
+    if ref.dtype.kind == "i":
+        return 0.0 if np.array_equal(out, ref) else float("inf")
+    p0 = before["Param"]
+    if keep is not None:
+        out, ref, p0 = out[keep], ref[keep], p0[keep]
+    if slot == "ParamOut" and "SquaredAccumulator" not in before:
+        unit = float(np.abs(ref - p0).max())
+        return float(np.abs(out - ref).max()) / max(unit, 1e-30)
+    return _max_rel(out, ref)
+
+
+def _dgc_band(before, attrs):
+    """DGC's selection boundary: elements whose float64 |v| lies within
+    fp32 rounding (1e-6 relative) of the k-th largest may be picked or not
+    on either side."""
+    v = (before["V"] + attrs["mu"] * before["U"] + before["Grad"]).ravel()
+    k = max(1, int(round(v.size * (1.0 - attrs["sparsity"]))))
+    t = np.partition(np.abs(v), v.size - k)[v.size - k]
+    return (np.abs(np.abs(v) - t) <= 1e-6 * t).reshape(before["V"].shape)
+
+
+def run_update_ops(torch):
+    """Phase 20a: each update op the slice adds, alone in a program at
+    OPT_SHAPE (the word embedding's [30522, 768]) in fp32, its state
+    persistable: an eager warm-up on a scope of its own, then captured
+    runs on the state (average_accumulates four, across spills and window
+    restarts) each held to a float64 numpy step over the same inputs
+    (OPT_TOL; DGC's top-k picks the same elements outside its rounding
+    band), and the graph's replay timed against its bytes bound (each
+    input read and each output written once)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.scope import to_numpy
+
+    _free_device_memory(torch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    rows = {}
+    for name, op_type, make_state, attrs, runs in _opt_cases(torch):
+        state = dict(make_state(), Param=torch.randn(OPT_SHAPE, generator=gen, device="cuda"))
+        if op_type != "adadelta" and op_type != "average_accumulates":
+            state["LearningRate"] = torch.tensor([0.05], device="cuda")
+        grad = (torch.randn(OPT_SHAPE, generator=gen, device="cuda")
+                if op_type != "average_accumulates" else None)
+        ins = dict(state, **({"Grad": grad} if grad is not None else {}))
+        meta = {s: [torch.empty(t.shape, dtype=t.dtype, device="meta")] for s, t in ins.items()}
+        outs = tuple(registry.get_kernel(op_type)(meta, dict(attrs), torch.device("meta")))
+        main = fluid.Program()
+        blk = main.global_block()
+        for slot, t in ins.items():
+            blk.create_var(name=slot.lower(), shape=tuple(t.shape), dtype=str(t.dtype).split(".")[-1],
+                           persistable=slot != "Grad")
+        out_vars = [_STATE_OUT[o].lower() for o in outs]
+        blk.append_op(op_type, inputs={s: [s.lower()] for s in ins},
+                      outputs={o: [v] for o, v in zip(outs, out_vars)}, attrs=dict(attrs))
+        feed = {"grad": grad} if grad is not None else {}
+        exe, scope, warm = fluid.Executor(), fluid.Scope(), fluid.Scope()
+        for sc in (scope, warm):
+            sc.bind_device(exe.device)
+            sc.vars.update({s.lower(): t.clone() for s, t in state.items()})
+        exe.run(main, feed=feed, fetch_list=out_vars, scope=warm)  # eager warm-up
+        del warm
+        errs, ref_state = [], {s: to_numpy(t).astype(np.float64 if t.is_floating_point() else np.int64)
+                               for s, t in ins.items()}
+        for _ in range(runs):
+            got = exe.run(main, feed=feed, fetch_list=out_vars, scope=scope)
+            ref = _np_update(op_type, ref_state, attrs)
+            band = _dgc_band(ref_state, attrs) if name == "dgc_after_rampup" else None
+            err = {}
+            for slot, g in zip(outs, got):  # outside DGC's boundary band the picks agree
+                err[slot] = _check_update(g, ref[slot], ref_state, slot,
+                                          None if band is None else ~band)
+            errs.append(err)
+            ref_state.update({_STATE_OUT[s]: ref[s] for s in outs})
+        graph = _the_graph(exe)
+        ms = _time_ms(torch, graph.replay, samples=11, per_sample=OPT_TIMED_REPLAYS)
+        nbytes = (sum(t.numel() * t.element_size() for t in ins.values())
+                  + sum(state[_STATE_OUT[o]].numel() * state[_STATE_OUT[o]].element_size()
+                        for o in outs))
+        rows[name] = {"op": op_type, "shape": list(OPT_SHAPE), "runs": runs, "errors": errs,
+                      "band_elements": int(band.sum()) if band is not None else None,
+                      "ms": ms, "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+                      "graphs": exe.jit_cache_stats()["graphs"]}
+        exe.close()
+        del exe, scope, state, ins, ref_state
+        _free_device_memory(torch)
+    log("[update-ops]", json.dumps(rows))
+    bad = {n: r for n, r in rows.items()
+           if r["graphs"] != 1 or any(
+               e > (OPT_PARAM_TOL if slot == "ParamOut" else OPT_TOL)
+               for err in r["errors"] for slot, e in err.items())}
+    if bad:
+        raise AssertionError("update ops off their float64 steps: %s" % bad)
+    return rows
+
+
+def _lenet_program(fluid, make_opt, avg=False):
+    from paddle_tpu_torch import models
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = fluid.layers.data("img", [1, 28, 28])
+        lbl = fluid.layers.data("lbl", [1], dtype="int64")
+        loss, _, _ = models.lenet5(img, lbl)
+        make_opt(fluid.optimizer).minimize(loss)
+        average = fluid.optimizer.ModelAverage(0.15) if avg else None
+    return main, startup, loss, average
+
+
+def run_lenet_optimizers(torch):
+    """Phase 20b: each optimizer class trains LeNet-5 (batch LENET_BATCH,
+    one batch) for OPT_LENET_STEPS captured steps after its eager one; the
+    loss stays finite and falls.  Then ModelAverage on top of Momentum, as
+    phase 19 holds the EMA (with cuDNN and torch held to deterministic
+    algorithms, so two runs of the same steps give the same bits): under
+    ``apply()`` every parameter equals the float64 mean of its fetched
+    values (the window never restarts in these steps), a captured eval
+    step runs there (captured before apply), and after ``restore()`` the
+    next captured step's loss and every persistable equal a run that never
+    applied, bit for bit."""
+    import paddle_tpu_torch as fluid
+
+    _free_device_memory(torch)
+    rng = np.random.RandomState(SEED)
+    feed = {"img": rng.uniform(0, 1, (LENET_BATCH, 1, 28, 28)).astype(np.float32),
+            "lbl": rng.randint(0, 10, (LENET_BATCH, 1)).astype(np.int64)}
+    stats = {"batch": LENET_BATCH, "losses": {}}
+    for name, make in OPT_LENET.items():
+        main, startup, loss, _ = _lenet_program(fluid, make)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        losses = [float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0])
+                  for _ in range(1 + OPT_LENET_STEPS)]
+        stats["losses"][name] = losses
+        stats.setdefault("graphs", {})[name] = exe.jit_cache_stats()["graphs"]
+        exe.close()
+
+    main, startup, loss, avg = _lenet_program(fluid, lambda O: O.MomentumOptimizer(LENET_LR, 0.9),
+                                              avg=True)
+    test = main.clone(for_test=True)
+    params = [p.name for p in main.all_parameters()]
+    with _deterministic(torch):
+        runs = {}
+        for applied in (True, False):
+            exe, scope = fluid.Executor(), fluid.Scope()
+            exe.run(startup, scope=scope)
+            losses, snaps = [], []
+            for _ in range(1 + OPT_LENET_STEPS):
+                losses.append(float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]))
+                snaps.append({n: scope.vars[n].double().cpu().numpy() for n in params})
+            row = {"losses": losses}
+            if applied:
+                for _ in range(2):  # the eval entry's eager run and its capture
+                    exe.run(test, feed=feed, fetch_list=[loss], scope=scope)
+                trained = {n: scope.vars[n].clone() for n in params}
+                with fluid.scope_guard(scope):
+                    with avg.apply(exe):
+                        row["avg_rel_err"] = max(
+                            _max_rel(scope.vars[n].double().cpu().numpy(),
+                                     np.mean([s[n] for s in snaps], axis=0)) for n in params)
+                        row["evals"] = [float(exe.run(test, feed=feed, fetch_list=[loss])[0])
+                                        for _ in range(2)]
+                row["restored_differing"] = [n for n in params
+                                             if not torch.equal(scope.vars[n], trained[n])]
+            row["next_loss"] = float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0])
+            row["graphs"] = exe.jit_cache_stats()["graphs"]
+            runs[applied] = (row, exe, scope)
+        stats["model_average"] = runs[True][0]
+        stats["model_average"]["uninterrupted"] = runs[False][0]
+        stats["model_average"]["state_differing"] = _differing(
+            torch, runs[True][2], runs[False][2], sorted(runs[False][2].vars))
+        for _, exe, _ in runs.values():
+            exe.close()
+    log("[lenet-optimizers]", json.dumps(stats))
+    ma = stats["model_average"]
+    ok = (all(np.isfinite(l).all() and l[-1] < l[0] for l in stats["losses"].values())
+          and set(stats["graphs"].values()) == {1}
+          and ma["avg_rel_err"] <= EMA_TOL and np.isfinite(ma["evals"]).all()
+          and not ma["restored_differing"] and ma["next_loss"] == ma["uninterrupted"]["next_loss"]
+          and ma["losses"] == ma["uninterrupted"]["losses"] and not ma["state_differing"]
+          and ma["graphs"] == 2)
+    if not ok:
+        raise AssertionError("the optimizers' LeNet runs failed their checks: %s" % stats)
+    return stats
+
+
+def run_export_gradients_nan(torch, ctx, workdir):
+    """Phase 21, on phase 19's trained state (still under deterministic
+    algorithms): ``io.save_program`` of the Lamb program, the directory
+    loaded by ``load_inference_model`` into a fresh scope on a fresh
+    executor, whose next step (eager, the entry's first run) gives the
+    loss of the uninterrupted run's next step (a replay) and the same
+    persistables, bit for bit; ``gradients(total, [bert_word_emb])`` of an
+    fp32 BERT-base program equals the word embedding's gradient from
+    ``append_backward`` bit for bit; and FLAGS_check_nan_inf: with the
+    flag on a clean replay passes and a replay whose ``input_mask`` holds
+    an inf raises naming the vars.  Replays are timed in turns, fed numpy
+    dicts, fed the reader's staged batches, and fed dicts with the flag
+    on (the check's cost)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import reader
+    from paddle_tpu_torch.models import transformer
+
+    main, outs, exe, scope, batch = ctx["main"], ctx["outs"], ctx["exe"], ctx["scope"], ctx["batch"]
+    sync = torch.cuda.synchronize
+    stats = {}
+    d = os.path.join(workdir, "lamb_train_program")
+    t0 = time.perf_counter()
+    fluid.io.save_program(d, [n for n, _ in PRETRAIN_FEEDS], [outs[0]], exe, main, scope=scope)
+    stats["save_s"] = time.perf_counter() - t0
+    exe_f, scope_f = fluid.Executor(), fluid.Scope()
+    t0 = time.perf_counter()
+    prog, feed_names, fetch_vars = fluid.io.load_inference_model(d, exe_f, scope=scope_f)
+    stats["load_s"] = time.perf_counter() - t0
+    shutil.rmtree(d, ignore_errors=True)
+    loaded = float(exe_f.run(prog, feed=batch, fetch_list=fetch_vars, scope=scope_f)[0])
+    cont = float(exe.run(main, feed=batch, fetch_list=[outs[0]], scope=scope)[0])
+    stats["export"] = {"loss_loaded": loaded, "loss_uninterrupted": cont,
+                       "feed_names": feed_names, "vars": len(scope_f.vars),
+                       "state_differing": _differing(torch, scope_f, scope, sorted(scope.vars))}
+    exe_f.close()
+    del exe_f, scope_f
+
+    # gradients() against append_backward, fp32, from the trained parameters
+    grads = {}
+    for how in ("gradients", "append_backward"):
+        g_main, g_startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(g_main, g_startup), fluid.unique_name.guard():
+            s = BERT_BASE["seq_len"]
+            ins = [fluid.layers.data(n, [1 if n in ("mask_pos", "mask_label", "nsp_label") else s],
+                                     dtype=dt) for n, dt in PRETRAIN_FEEDS]
+            total = transformer.bert_pretrain(*ins, dropout_rate=0.0, fused_attention=True,
+                                              **BERT_BASE)[0]
+            word_emb = g_main.global_block().var("bert_word_emb")
+            if how == "gradients":
+                g_var, = fluid.gradients(total, [word_emb])
+            else:
+                g_var = dict((p.name, g) for p, g in fluid.append_backward(total))["bert_word_emb"]
+        g_scope = fluid.Scope()
+        g_scope.bind_device(exe.device)
+        g_scope.vars.update({n: scope.vars[n] for n in ctx["params"]})
+        grads[how] = fluid.Executor().run(g_main, feed=batch, fetch_list=[g_var], scope=g_scope,
+                                          use_program_cache=False)[0]
+        del g_scope
+    stats["gradients"] = {"grad_name": g_var.name, "bit_equal": bool(np.array_equal(*grads.values())),
+                          "max_abs_diff": float(np.abs(grads["gradients"] - grads["append_backward"]).max()),
+                          "finite": bool(np.isfinite(grads["gradients"]).all())}
+    del grads
+
+    # FLAGS_check_nan_inf on the captured Lamb step
+    bad = dict(batch, input_mask=batch["input_mask"].copy())
+    bad["input_mask"][0, 3] = np.inf
+    times = {"dict": [], "reader": [], "dict_flag_on": []}
+    try:
+        for _ in range(3):  # in turns: numpy dicts, the reader's staged batches, the flag on
+            for mode in times:
+                fluid.set_flags({"FLAGS_check_nan_inf": mode == "dict_flag_on"})
+                feeds = (reader.device_buffered([batch] * 3, size=2)() if mode == "reader"
+                         else iter([batch] * 3))
+                for _ in range(3):
+                    sync()
+                    t = time.perf_counter()
+                    exe.run(main, feed=next(feeds), fetch_list=[outs[0]], scope=scope)
+                    sync()
+                    times[mode].append(time.perf_counter() - t)
+                if mode == "reader":
+                    feeds.close()
+        fluid.set_flags({"FLAGS_check_nan_inf": True})
+        try:
+            exe.run(main, feed=bad, fetch_list=[outs[0]], scope=scope)
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+    finally:
+        fluid.set_flags({"FLAGS_check_nan_inf": False})
+    stats["nan_inf"] = {
+        "raised": raised is not None and "nan/inf detected" in raised,
+        "names_in_message": raised.count("'") // 2 if raised else 0,
+        "message_head": (raised or "")[:300],
+        "step_ms": {m: [1e3 * t for t in ts] for m, ts in times.items()},
+        "median_ms": {m: 1e3 * statistics.median(ts) for m, ts in times.items()},
+        "phase19_step_ms_median": ctx["step_ms_median"],
+        "cache": exe.jit_cache_stats()}
+    log("[export-gradients-nan]", json.dumps(stats))
+    n = stats["nan_inf"]
+    ok = (stats["export"]["loss_loaded"] == stats["export"]["loss_uninterrupted"]
+          and not stats["export"]["state_differing"]
+          and stats["gradients"]["bit_equal"] and stats["gradients"]["finite"]
+          and n["raised"] and outs[0].name in raised
+          and n["median_ms"]["dict"] < n["median_ms"]["dict_flag_on"])
+    if not ok:
+        raise AssertionError("the export, gradients or nan/inf checks failed: %s" % stats)
+    return stats
+
+
 def main() -> int:
     import torch
 
@@ -2410,12 +3251,26 @@ def main() -> int:
     lm_train_amp = run_lm_train(torch, amp=True)
     check_lm_against_cpu(amp=True)
     lm_unfused = run_lm_unfused(torch)
+    with _deterministic(torch):  # phase 21 continues from phase 19's state
+        lamb, ctx = run_lamb_reader(torch)
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            run_export_gradients_nan(torch, ctx, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        ctx["exe"].close()
+        del ctx
+    check_train_against_cpu(amp=True, lamb=True)
+    run_update_ops(torch)
+    run_lenet_optimizers(torch)
     # the ResNet path runs no TPU kernel: its launches of the attention kernels
     resnet_launches = {"resnet50_amp": resnet_amp["launches"], "resnet50": resnet["launches"]}
     # the LM paths: fused serving and training run the causal kernels; the
     # unfused one runs the dropout kernel and no attention kernel
     lm_launches = {"lm_train": lm_train["launches"], "lm_train_amp": lm_train_amp["launches"],
                    "lm_unfused": lm_unfused["launches"]}
+    # BERT-base with Lamb through the reader (phase 19): the three attention kernels
+    lamb_launches = {"lamb_reader": lamb["launches"]}
     lm_rows = {(c[0], c[4]): row for c, row in causal_checks}
 
     def row_of(rows, case):  # the timed row of a case
@@ -2428,6 +3283,7 @@ def main() -> int:
     fwd_launches.update({p: c.get(fa.KERNEL_NAME, 0) for p, c in resnet_launches.items()})
     fwd_launches["lm_serve"] = lm_serve["launches"]
     fwd_launches.update({p: c.get(fa.KERNEL_NAME, 0) for p, c in lm_launches.items()})
+    fwd_launches.update({p: c.get(fa.KERNEL_NAME, 0) for p, c in lamb_launches.items()})
     replaced = ("jax/experimental/pallas/ops/tpu/flash_attention.py:%d (%s), reached from "
                 "paddle_tpu/ops/nn_ops.py:694 through the vjp grad paddle_tpu/core/registry.py:131")
     entries = [{
@@ -2468,11 +3324,13 @@ def main() -> int:
             "source": "paddle_tpu_torch/csrc/fused_attention_bwd.cu",
             "replaces": replaced % (line, fn),
             "launches": (train["launches"][name] + train_amp["launches"][name]
-                         + sum(c.get(name, 0) for c in lm_launches.values())),
+                         + sum(c.get(name, 0) for c in lm_launches.values())
+                         + sum(c.get(name, 0) for c in lamb_launches.values())),
             "launches_by_path": dict({"train": train["launches"][name],
                                       "train_amp": train_amp["launches"][name]},
                                      **{p: c.get(name, 0) for p, c in resnet_launches.items()},
-                                     **{p: c.get(name, 0) for p, c in lm_launches.items()}),
+                                     **{p: c.get(name, 0) for p, c in lm_launches.items()},
+                                     **{p: c.get(name, 0) for p, c in lamb_launches.items()}),
             "max_abs_err": max(bwd_row["max_abs_err"][e] for e in errs),
             "ms": bwd_row[key + "_ms"],
             # one plain backward and one SDPA backward compute dQ, dK and dV together

@@ -29,6 +29,14 @@ forward and backward, in fp32 and bf16 (``csrc/fused_attention.cu`` and
 ``csrc/fused_attention_bwd.cu``, wrappers in
 ``kernels/fused_attention.py``), built with nvcc at first use into
 ``_build/``.
+
+The training surface around them: every optimizer of the JAX package
+(Lamb, Lars, Adagrad, DecayedAdagrad, Adamax, Adadelta, RMSProp, Ftrl,
+DGCMomentum, ModelAverage, ExponentialMovingAverage, PipelineOptimizer
+without stages), ``gradients``, the initializers, ``io.save_program``,
+``FLAGS_check_nan_inf`` (``get_flags``/``set_flags``), and the input
+pipeline: the ``reader`` decorators, ``PyReader`` (staged on the card by
+a double buffer on a side stream) and ``DataFeeder``.
 """
 from paddle_tpu_torch import framework
 from paddle_tpu_torch.framework import (
@@ -49,6 +57,12 @@ from paddle_tpu_torch.scope import Scope, global_scope, scope_guard
 
 from paddle_tpu_torch import initializer, layers, unique_name
 from paddle_tpu_torch import backward, clip, optimizer, regularizer
+from paddle_tpu_torch.backward import append_backward, gradients
+from paddle_tpu_torch import flags
+from paddle_tpu_torch.flags import get_flags, set_flags
+from paddle_tpu_torch import monitor, reader
+from paddle_tpu_torch.reader import DataLoader, PyReader, batch
+from paddle_tpu_torch.data_feeder import DataFeeder
 from paddle_tpu_torch.param_attr import ParamAttr
 from paddle_tpu_torch import inference
 from paddle_tpu_torch import io

@@ -9,8 +9,8 @@ contributions to one var are summed by a ``sum`` op
 (``_addup_repetitive_outputs_``, reference backward.py:135).  The module
 is host-only, so the grad-op descs it writes are the JAX package's,
 name for name.  No op of the port registers a grad maker of its own.
-``gradients()`` (calc_gradient, reference backward.py:939), which the
-shared core below also serves, comes with a later slice.
+``gradients()`` (calc_gradient, reference backward.py:939) runs on the
+same core with the requested inputs as extra leaves.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from paddle_tpu_torch.core import registry
 from paddle_tpu_torch.core import types as core_types
 from paddle_tpu_torch.framework import Operator, Parameter, Variable, grad_var_name
 
-__all__ = ["append_backward"]
+__all__ = ["append_backward", "gradients"]
 
 
 def _is_float_var(v: Variable) -> bool:
@@ -307,3 +307,28 @@ def _append_backward_impl(
     }
     program.version += 1
     return result, leaf_grads
+
+
+def gradients(targets, inputs, target_gradients=None, no_grad_set=None):
+    """reference: backward.py:939 calc_gradient: d(sum of targets)/d(inputs).
+
+    Each target's output-grad is seeded (ones, or the matching
+    ``target_gradients`` entry) and the contributions of all targets sum
+    into each input's grad (backward.py:821).  Returns one grad var per
+    input, None where an input gets no gradient.
+    """
+    targets = list(targets) if isinstance(targets, (list, tuple)) else [targets]
+    inputs = list(inputs) if isinstance(inputs, (list, tuple)) else [inputs]
+    if target_gradients is None:
+        target_gradients = [None] * len(targets)
+    elif not isinstance(target_gradients, (list, tuple)):
+        target_gradients = [target_gradients]
+    if len(target_gradients) != len(targets):
+        raise ValueError("target_gradients length %d != targets length %d"
+                         % (len(target_gradients), len(targets)))
+    _, leaf_grads = _append_backward_impl(
+        targets, list(target_gradients), parameter_list=None, no_grad_set=no_grad_set,
+        extra_leaves={iv.name for iv in inputs})
+    block = targets[0].block
+    return [block._find_var_recursive(leaf_grads[iv.name]) if leaf_grads.get(iv.name) else None
+            for iv in inputs]

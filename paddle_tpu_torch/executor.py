@@ -28,6 +28,13 @@ a graph), a run that creates scope state (a var it writes that the
 scope does not hold yet, so there is no tensor to write it back into),
 and ``use_program_cache=False``.  A capture that fails raises.
 
+With ``FLAGS_check_nan_inf`` set (``flags.py``), every run checks its
+fetches and the state it wrote for nan and inf after the step, outside
+the graph, on either path, and raises naming them: the counterpart of
+the JAX package's check at its compiled step's boundary.  It costs one
+host sync a run; with the flag off nothing is checked and nothing
+syncs.
+
 An entry's graphs are shared state (feed and output buffers): a lock
 per entry holds from the feed copy to the read-out of the fetches, so
 threads that run one bucket take turns.
@@ -50,7 +57,7 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from paddle_tpu_torch import framework, kernels
+from paddle_tpu_torch import flags, framework, kernels
 from paddle_tpu_torch.core import lowering, registry
 from paddle_tpu_torch.core import types as core_types
 from paddle_tpu_torch.scope import Scope, global_scope, to_numpy
@@ -176,6 +183,18 @@ class _Entry:
             for g in self.graphs.values():
                 g.graph.reset()
             self.graphs = {}
+
+
+def _check_nan_inf(named) -> None:
+    """Raise naming each floating tensor of ``named`` ((name, tensor)
+    pairs) that holds a nan or an inf; one host sync for all of them."""
+    named = [(n, t) for n, t in named if t.is_floating_point()]
+    if not named:
+        return
+    finite = torch.stack([torch.isfinite(t).all() for _, t in named]).tolist()
+    bad = [n for (n, _), ok in zip(named, finite) if not ok]
+    if bad:
+        raise RuntimeError("nan/inf detected in %s (FLAGS_check_nan_inf=1)" % bad)
 
 
 def _eager(fn, state, feeds, scope, steps, per_step_feed):
@@ -342,6 +361,7 @@ class Executor:
                     self._cache[key] = entry
             stats["dispatch_overhead_s"] += time.perf_counter() - t_run0
 
+        check_nan_inf = flags.get_flags("FLAGS_check_nan_inf")["FLAGS_check_nan_inf"]
         graph_path = (use_program_cache and self.device.type == "cuda" and not plan.random_ops
                       and all(n in scope.vars for n in plan.state_out))
         if graph_path:
@@ -351,6 +371,9 @@ class Executor:
                     graph = self._capture(entry, plan, scope, feeds, per_step_feed)
                 if graph is not None:
                     fetches = self._replay(graph, scope, feeds, steps, per_step_feed)
+                    if check_nan_inf:
+                        _check_nan_inf(list(zip(plan.fetch_names, fetches))
+                                       + [(n, graph.bufs[n]) for n in plan.state_out])
                     # the graph's outputs are overwritten by its next replay
                     if return_numpy:
                         return [to_numpy(f) for f in fetches]
@@ -358,6 +381,9 @@ class Executor:
         feeds = {n: t.to(self.device, non_blocking=True) for n, t in feeds.items()}
         fetches = _eager(entry.fn, state, feeds, scope, steps, per_step_feed)
         entry.warmed.done = True
+        if check_nan_inf:
+            _check_nan_inf(list(zip(plan.fetch_names, fetches))
+                           + [(n, scope.vars[n]) for n in plan.state_out if n in scope.vars])
         if return_numpy:
             return [to_numpy(f) for f in fetches]
         if graph_path:

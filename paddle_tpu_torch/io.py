@@ -11,7 +11,12 @@ only; ``save_persistables`` keeps every persistable var, so a training
 run resumes from it: the optimizer's accumulators (momentum velocities,
 Adam moments and beta pows), the learning rate and batch_norm's running
 statistics are persistables, not parameters.  The format is the JAX
-package's, so a directory written by either package loads in the other.  Precision and
+package's, so a directory written by either package loads in the other.
+``save_program`` writes the whole train program (backward and optimizer
+ops, nothing pruned) with every persistable, and
+``load_inference_model`` loads such a directory into a program that
+trains on from the saved state.  ``PyReader`` and ``DataLoader`` are
+``reader.py``'s, as in ``fluid.io``.  Precision and
 sharding manifests come with later slices of the port; a model that
 carries one is refused here rather than served without it.
 """
@@ -26,6 +31,7 @@ import torch
 
 from paddle_tpu_torch import framework
 from paddle_tpu_torch.framework import Parameter, Program, Variable
+from paddle_tpu_torch.reader import DataLoader, PyReader
 from paddle_tpu_torch.scope import Scope, global_scope, to_numpy
 
 __all__ = [
@@ -36,7 +42,10 @@ __all__ = [
     "load_params",
     "load_persistables",
     "save_inference_model",
+    "save_program",
     "load_inference_model",
+    "PyReader",
+    "DataLoader",
     "set_params_from_numpy",
 ]
 
@@ -198,6 +207,24 @@ def _prune_program(program: Program, feed_names: Sequence[str], fetch_names: Seq
     return pruned
 
 
+def _save_model(dirname, program, feed_names, fetch_names, executor, model_filename,
+                params_filename, scope):
+    """Write ``program`` as ``__model__`` JSON with its feed and fetch
+    names, and its persistable values beside it."""
+    os.makedirs(dirname, exist_ok=True)
+    model = {
+        "format_version": 1,
+        "program": json.loads(program.to_json()),
+        "feed_names": list(feed_names),
+        "fetch_names": list(fetch_names),
+    }
+    with open(os.path.join(dirname, model_filename or _MODEL_FILE), "w") as f:
+        json.dump(model, f)
+    save_vars(executor, dirname, program, predicate=_is_persistable,
+              filename=params_filename, scope=scope)
+    return list(fetch_names)
+
+
 def save_inference_model(dirname, feeded_var_names: Sequence[str], target_vars: Sequence,
                          executor, main_program: Optional[Program] = None,
                          model_filename=None, params_filename=None, scope=None):
@@ -206,18 +233,22 @@ def save_inference_model(dirname, feeded_var_names: Sequence[str], target_vars: 
     program = main_program or framework.default_main_program()
     fetch_names = [t.name if isinstance(t, Variable) else str(t) for t in target_vars]
     pruned = _prune_program(program, feeded_var_names, fetch_names)
-    os.makedirs(dirname, exist_ok=True)
-    model = {
-        "format_version": 1,
-        "program": json.loads(pruned.to_json()),
-        "feed_names": list(feeded_var_names),
-        "fetch_names": list(fetch_names),
-    }
-    with open(os.path.join(dirname, model_filename or _MODEL_FILE), "w") as f:
-        json.dump(model, f)
-    save_vars(executor, dirname, pruned, predicate=_is_persistable,
-              filename=params_filename, scope=scope)
-    return list(fetch_names)
+    return _save_model(dirname, pruned, feeded_var_names, fetch_names, executor,
+                       model_filename, params_filename, scope)
+
+
+def save_program(dirname, feeded_var_names: Sequence[str], target_vars: Sequence, executor,
+                 main_program: Optional[Program] = None, model_filename=None,
+                 params_filename=None, scope=None):
+    """The JAX package's ``io.save_program``: the FULL program, backward
+    and optimizer ops included, and its persistable state (parameters,
+    learning rate, accumulators) in ``save_inference_model``'s format.
+    Nothing is pruned, so a program loaded from the directory trains on
+    from the saved state."""
+    program = main_program or framework.default_main_program()
+    fetch_names = [t.name if isinstance(t, Variable) else str(t) for t in target_vars]
+    return _save_model(dirname, program, feeded_var_names, fetch_names, executor,
+                       model_filename, params_filename, scope)
 
 
 def load_inference_model(dirname, executor, model_filename=None, params_filename=None, scope=None):

@@ -11,8 +11,8 @@ from paddle_tpu_torch import initializer, unique_name
 from paddle_tpu_torch.layer_helper import LayerHelper
 
 __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm", "dropout", "relu",
-           "softmax", "mean", "cross_entropy", "softmax_with_cross_entropy", "matmul",
-           "topk", "accuracy", "clip", "clip_by_norm"]
+           "softmax", "mean", "cross_entropy", "square_error_cost", "softmax_with_cross_entropy",
+           "matmul", "topk", "accuracy", "clip", "clip_by_norm"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None, act=None, name=None):
@@ -247,6 +247,14 @@ def relu(x, name=None):
 
 def softmax(input, use_cudnn=False, name=None, axis=-1):
     return _simple("softmax", input, {"axis": axis})
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="square_error_cost", inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out]})
+    return out
 
 
 def cross_entropy(input, label, soft_label=False, ignore_index=-100):

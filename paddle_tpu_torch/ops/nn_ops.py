@@ -293,6 +293,12 @@ def softmax_with_cross_entropy(inputs, attrs, device):
     return {"Softmax": softmax_out, "Loss": loss}
 
 
+@register_op("square_error_cost", no_grad_set={"Y"})
+def square_error_cost(inputs, attrs, device):
+    d = one(inputs, "X") - one(inputs, "Y")
+    return {"Out": d * d}
+
+
 @register_op("fused_attention", no_grad_set={"Mask"})
 def fused_attention(inputs, attrs, device):
     """Fused scaled-dot-product attention: Q/K/V [N, H, S, D] -> ctx

@@ -2,13 +2,16 @@
 the JAX package's ``ops/tensor_ops.py``).
 
 Reference kernels: operators/fill_constant_op.cc, uniform_random_op.cc,
-gaussian_random_op.cc, range_op.cc, reshape_op.cc, transpose_op.cc,
+gaussian_random_op.cc, truncated_gaussian_random_op.cc,
+assign_value_op.cc, range_op.cc, reshape_op.cc, transpose_op.cc,
 slice_op.cc, cast_op.cc, gather_op.cc, lookup_table_op.cc, where_op.cc,
 top_k_op.cc.
 The random ops draw from a ``torch.Generator`` seeded with the op's
 ``seed`` attr (assigned by the program, framework.Program.next_seed).
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -55,6 +58,31 @@ def gaussian_random(inputs, attrs, device):
                     dtype=torch.float32, device=device)
     out = attrs.get("mean", 0.0) + attrs.get("std", 1.0) * z
     return {"Out": out.to(core_types.torch_dtype(attrs.get("dtype", "float32")))}
+
+
+@register_op("truncated_gaussian_random", differentiable=False, infer_shape=_static_infer,
+             random=True)
+def truncated_gaussian_random(inputs, attrs, device):
+    """mean + std * z, z a standard normal truncated to [-2, 2] (as
+    jax.random.truncated_normal draws it): the inverse normal CDF of a
+    uniform draw between the CDF's values at -2 and 2."""
+    shape = tuple(int(s) for s in attrs.get("shape", ()))
+    lo, hi = (0.5 * (1.0 + math.erf(b / math.sqrt(2.0))) for b in (-2.0, 2.0))
+    u = torch.rand(shape, generator=generator(attrs.get("seed", 0), device),
+                   dtype=torch.float32, device=device)
+    z = (math.sqrt(2.0) * torch.erfinv(2.0 * (lo + (hi - lo) * u) - 1.0)).clamp(-2.0, 2.0)
+    out = attrs.get("mean", 0.0) + attrs.get("std", 1.0) * z
+    return {"Out": out.to(core_types.torch_dtype(attrs.get("dtype", "float32")))}
+
+
+@register_op("assign_value", differentiable=False, infer_shape=_static_infer)
+def assign_value(inputs, attrs, device):
+    """The ``values`` attr (a flat list) as a tensor of ``shape``."""
+    dt = core_types.canonical_dtype(attrs.get("dtype", "float32"))
+    values = np.asarray(attrs["values"], dtype=core_types.np_dtype(dt))
+    shape = tuple(int(s) for s in attrs["shape"])
+    return {"Out": torch.from_numpy(values.reshape(shape)).to(
+        device=device, dtype=core_types.torch_dtype(dt))}
 
 
 @register_op("range", differentiable=False)

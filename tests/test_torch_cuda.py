@@ -6,7 +6,12 @@ a small pretraining step on the card against the CPU, and the executor's
 captured steps (CUDA graphs) against its eager path, with bf16 AMP; and
 the causal LM slice: the dropout kernel bit for bit against its plain
 version, the causal kernels at the LM's shape, every op type the slice
-adds under capture, and the unfused dropout LM captured against eager.
+adds under capture, and the unfused dropout LM captured against eager;
+and the rest of the training surface: each new optimizer op under
+capture against the eager path (bit for bit) and against float64, the
+EMA's and ModelAverage's backup across a captured step under ``apply``,
+the reader's side-stream staging under a slow consumer, PyReader
+feeding the captured step, and FLAGS_check_nan_inf on a replay.
 
 Every test here needs a CUDA card and skips without one (marker
 ``cuda``).  The file imports neither jax nor paddle_tpu, so it also runs
@@ -1091,3 +1096,253 @@ def test_unfused_dropout_lm_captured_matches_eager(card):
     np.testing.assert_allclose(cap, eager, rtol=1e-5)
     t = np.arange(1, 4, dtype=np.float64)
     np.testing.assert_allclose(lrs, 64 ** -0.5 * np.minimum(t ** -0.5, t * 10 ** -1.5), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the training surface: the other optimizers' ops, the
+# averages' backup under capture, the reader's staging, FLAGS_check_nan_inf
+# ---------------------------------------------------------------------------
+_STATE_OUT = {"ParamOut": "Param", "VelocityOut": "Velocity", "MomentOut": "Moment",
+              "InfNormOut": "InfNorm", "Moment1Out": "Moment1", "Moment2Out": "Moment2",
+              "Beta1PowOut": "Beta1Pow", "Beta2PowOut": "Beta2Pow",
+              "AvgSquaredGradOut": "AvgSquaredGrad", "AvgSquaredUpdateOut": "AvgSquaredUpdate",
+              "MeanSquareOut": "MeanSquare", "MeanGradOut": "MeanGrad",
+              "SquaredAccumOut": "SquaredAccumulator", "LinearAccumOut": "LinearAccumulator",
+              "Sum1Out": "Sum1", "Sum2Out": "Sum2", "Sum3Out": "Sum3",
+              "NumAccumulatesOut": "NumAccumulates",
+              "OldNumAccumulatesOut": "OldNumAccumulates", "NumUpdatesOut": "NumUpdates",
+              "UOut": "U", "VOut": "V"}
+
+
+def _update_op_cases():
+    """(op type, inputs, attrs): every input but Grad is state the op
+    reads and writes back, as an optimizer's program holds it."""
+    rng = np.random.RandomState(21)
+    sh = (96, 80)
+    p, lr = _f32(rng, *sh), np.array([0.05], "float32")
+    pos = lambda: np.abs(_f32(rng, *sh)) + 0.1  # noqa: E731
+    n = int(np.prod(sh))
+    distinct = lambda s: (((rng.permutation(n) + 1.0) / n) * rng.choice([-1.0, 1.0], n)  # noqa: E731
+                          ).reshape(sh).astype("float32") * s
+    mg = _f32(rng, *sh) * 0.1
+    cases = {
+        "lars_momentum": ("lars_momentum", {"Velocity": _f32(rng, *sh)},
+                          {"mu": 0.9, "lars_coeff": 0.001, "lars_weight_decay": 0.0005}),
+        "adamax": ("adamax", {"Moment": _f32(rng, *sh), "InfNorm": pos(),
+                              "Beta1Pow": np.array([0.81], "float32")}, {}),
+        "adagrad": ("adagrad", {"Moment": pos()}, {"epsilon": 1e-6}),
+        "decayed_adagrad": ("decayed_adagrad", {"Moment": pos()}, {"decay": 0.95}),
+        "adadelta": ("adadelta", {"AvgSquaredGrad": pos(), "AvgSquaredUpdate": pos()},
+                     {"rho": 0.95, "epsilon": 1e-6}),
+        "ftrl": ("ftrl", {"SquaredAccumulator": np.zeros(sh, "float32"),
+                          "LinearAccumulator": np.zeros(sh, "float32")},
+                 {"l1": 0.01, "l2": 0.01, "lr_power": -0.5}),
+        "lamb": ("lamb", {"Moment1": _f32(rng, *sh) * 0.1, "Moment2": pos() * 0.1,
+                          "Beta1Pow": np.array([0.9], "float32"),
+                          "Beta2Pow": np.array([0.999], "float32")}, {"weight_decay": 0.01}),
+        "average_accumulates": ("average_accumulates",
+                                {"Sum1": _f32(rng, *sh), "Sum2": _f32(rng, *sh),
+                                 "Sum3": _f32(rng, *sh),
+                                 "NumAccumulates": np.array([1], "int64"),
+                                 "OldNumAccumulates": np.array([0], "int64"),
+                                 "NumUpdates": np.array([2], "int64")},
+                                {"average_window": 0.5, "max_num_accumulates": 3,
+                                 "min_average_window": 2, "max_average_window": 3}),
+        "dgc_momentum": ("dgc_momentum", {"U": distinct(0.5), "V": distinct(0.25),
+                                          "CurrentStep": np.array([1.0], "float32")},
+                         {"mu": 0.9, "sparsity": 0.99, "rampup_begin_step": 2.0}),
+    }
+    for centered in (False, True):
+        cases["rmsprop_" + ("centered" if centered else "plain")] = (
+            "rmsprop", {"Moment": _f32(rng, *sh), "MeanSquare": pos() + mg * mg, "MeanGrad": mg},
+            {"decay": 0.9, "momentum": 0.9, "centered": centered})
+    out = {}
+    for name, (op, state, attrs) in cases.items():
+        inputs = dict(state, Param=p)
+        if op != "average_accumulates":
+            inputs["Grad"] = distinct(1.0) if op == "dgc_momentum" else _f32(rng, *sh)
+        if op not in ("adadelta", "average_accumulates"):
+            inputs["LearningRate"] = lr
+        out[name] = (op, inputs, attrs)
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(_update_op_cases()))
+def test_update_op_under_capture(card, case):
+    """Each optimizer op the training surface adds, alone in a program
+    whose state (parameter, accumulators, counters) is persistable,
+    through the cached executor: an eager run, a capture and two replays,
+    against the eager path on the same inputs, bit for bit (the same
+    kernels; data-dependent choices are selects, so nothing syncs inside
+    the graph).  dgc_momentum's step is a feed: 1 for the eager run and
+    the capture (dense, before rampup), 5 for the replays (sparse).  Each
+    run is also held to the same kernel in float64 on the CPU over the
+    state it started from, within 1e-5 of the largest magnitude (integer
+    counters exactly)."""
+    from paddle_tpu_torch.core import registry as treg
+
+    op_type, inputs, attrs = _update_op_cases()[case]
+    kernel = treg.get_kernel(op_type)
+    outs = tuple(kernel({s: [torch.from_numpy(a)] for s, a in inputs.items()}, dict(attrs),
+                        torch.device("cpu")))
+    state = {s: s.lower() for s in inputs if s not in ("Grad", "CurrentStep")}
+    state.update({o: _STATE_OUT[o].lower() for o in outs})
+    main, feed, fetch, init = _one_op(card, op_type, inputs, attrs, outs, state)
+    exe, scope = tfluid.Executor(), _scope_from(init, card)
+    ref_exe, ref_scope = tfluid.Executor(), _scope_from(init, card)
+    for i in range(4):
+        if "currentstep" in feed:
+            feed["currentstep"] = np.array([1.0 if i < 2 else 5.0], "float32")
+        held = dict(_state(ref_scope), **feed)
+        before = {s: held[s.lower()] for s in inputs}
+        got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        ref = ref_exe.run(main, feed=feed, fetch_list=fetch, scope=ref_scope,
+                          use_program_cache=False)
+        f64 = kernel({s: [torch.from_numpy(a.astype(np.float64) if a.dtype.kind == "f" else a)]
+                      for s, a in before.items()}, dict(attrs), torch.device("cpu"))
+        for n, g, r, slot in zip(fetch, got, ref, outs):
+            np.testing.assert_array_equal(g, r, err_msg=n)
+            want = f64[slot].numpy()
+            g = g.reshape(want.shape)
+            if want.dtype.kind == "i":
+                np.testing.assert_array_equal(g, want, err_msg=n)
+            else:
+                assert np.abs(g - want).max() <= 1e-5 * max(1.0, np.abs(want).max()), (n, i)
+    assert exe.jit_cache_stats()["graphs"] == 1
+
+
+def _avg_program(kind):
+    main, startup = tfluid.Program(), tfluid.Program()
+    main.random_seed = startup.random_seed = 5
+    with tfluid.program_guard(main, startup), tfluid.unique_name.guard():
+        x = tfluid.layers.data("x", [16])
+        y = tfluid.layers.data("y", [1])
+        h = tfluid.layers.fc(x, 32, act="tanh")
+        loss = tfluid.layers.mean(tfluid.layers.square_error_cost(tfluid.layers.fc(h, 1), y))
+        tfluid.optimizer.MomentumOptimizer(0.05, 0.9).minimize(loss)
+        if kind == "ema":
+            avg = tfluid.optimizer.ExponentialMovingAverage(0.9)
+            avg.update()
+        else:
+            avg = tfluid.optimizer.ModelAverage(0.5, min_average_window=2, max_average_window=4)
+    return main, startup, loss, avg
+
+
+@pytest.mark.parametrize("kind", ["ema", "model_average"])
+def test_average_backup_survives_a_captured_step(card, kind):
+    """Captured training steps, then a captured eval step under
+    ``apply()`` (its replay copies the averaged weights into the graph's
+    buffers, the tensors the scope held before), then ``restore()``: the
+    next captured training step's loss and every parameter equal those of
+    a run that never applied the average, bit for bit."""
+    main, startup, loss, avg = _avg_program(kind)
+    test = main.clone(for_test=True)
+    boot = tfluid.Scope()
+    tfluid.Executor().run(startup, scope=boot)
+    init = _state(boot)
+    rng = np.random.RandomState(4)
+    feeds = [{"x": rng.randn(8, 16).astype("float32"), "y": rng.randn(8, 1).astype("float32")}
+             for _ in range(5)]
+    runs = {}
+    for applied in (True, False):
+        exe, scope = tfluid.Executor(), _scope_from(init, card)
+        exe.run(main, feed=feeds[0], fetch_list=[loss], scope=_scope_from(init, card))  # warm-up
+        exe.run(test, feed=feeds[0], fetch_list=[loss], scope=_scope_from(init, card))
+        losses = []
+        with tfluid.scope_guard(scope):
+            for f in feeds[:4]:
+                losses.append(float(exe.run(main, feed=f, fetch_list=[loss])[0]))
+            if applied:
+                with avg.apply(exe):
+                    ev = exe.run(test, feed=feeds[0], fetch_list=[loss])[0]
+                    ev2 = exe.run(test, feed=feeds[0], fetch_list=[loss])[0]
+                assert np.isfinite(ev) and ev == ev2
+            losses.append(float(exe.run(main, feed=feeds[4], fetch_list=[loss])[0]))
+        runs[applied] = (losses, _state(scope), exe.jit_cache_stats())
+    assert runs[True][2]["graphs"] == 2  # the train step and the eval step
+    assert runs[True][0] == runs[False][0]
+    params = [p.name for p in main.all_parameters()]
+    for n in params:
+        np.testing.assert_array_equal(runs[True][1][n], runs[False][1][n], err_msg=n)
+
+
+@pytest.mark.parametrize("consumer", ["host_sleep", "busy_stream"])
+def test_reader_side_stream_staging(card, consumer):
+    """device_buffered stages on its own stream while the consumer is
+    slow (asleep on the host, or its stream busy with a long kernel): the
+    batches arrive on the card in order with the bytes the host gave, and
+    a tensor freed by the consumer is not reused under its pending work."""
+    import time
+
+    from paddle_tpu_torch import reader as TR
+
+    host = [{"a": np.full((512, 1024), i, "float32") + np.arange(1024, dtype="float32"),
+             "ids": np.arange(64, dtype="int64") * (i + 1)} for i in range(12)]
+    copies = []
+    for b in TR.device_buffered(host, size=2, device="cuda:0")():
+        assert b["a"].device == card and b["ids"].device == card
+        if consumer == "host_sleep":
+            time.sleep(0.02)
+        else:
+            torch.cuda._sleep(5_000_000)  # the consumer's stream is busy; the copies run ahead
+        copies.append({k: v * 1 for k, v in b.items()})  # read on the consumer's stream
+        del b
+    torch.cuda.synchronize()
+    assert len(copies) == len(host)
+    for want, got in zip(host, copies):
+        for k in want:
+            np.testing.assert_array_equal(got[k].cpu().numpy(), want[k], err_msg=k)
+
+
+def test_reader_feeds_the_captured_step(card):
+    """PyReader (double buffer on the card) feeding the cached executor:
+    the same losses, bit for bit, as the same batches fed as numpy dicts."""
+    from paddle_tpu_torch import reader as TR
+
+    main, startup = tfluid.Program(), tfluid.Program()
+    main.random_seed = startup.random_seed = 2
+    with tfluid.program_guard(main, startup), tfluid.unique_name.guard():
+        x = tfluid.layers.data("x", [16])
+        y = tfluid.layers.data("y", [1], dtype="int64")
+        loss = tfluid.layers.mean(tfluid.layers.softmax_with_cross_entropy(
+            tfluid.layers.fc(tfluid.layers.fc(x, 32, act="relu"), 4), y))
+        tfluid.optimizer.LambOptimizer(0.01).minimize(loss)
+    boot = tfluid.Scope()
+    tfluid.Executor().run(startup, scope=boot)
+    init = _state(boot)
+    rng = np.random.RandomState(8)
+    samples = [(rng.randn(16).astype("float32"), np.array([rng.randint(0, 4)], "int64"))
+               for _ in range(48)]
+    reader = tfluid.PyReader(feed_list=[x, y], capacity=4)
+    reader.decorate_sample_list_generator(TR.batch(lambda: iter(samples), 8))
+    a, b = tfluid.Executor(), tfluid.Executor()
+    sa, sb = _scope_from(init, card), _scope_from(init, card)
+    via_reader = [float(a.run(main, feed=f, fetch_list=[loss], scope=sa)[0]) for f in reader()]
+    via_dicts = [float(b.run(main, feed={"x": np.stack([s[0] for s in samples[i:i + 8]]),
+                                         "y": np.stack([s[1] for s in samples[i:i + 8]])},
+                             fetch_list=[loss], scope=sb)[0]) for i in range(0, 48, 8)]
+    assert a.jit_cache_stats()["graphs"] == 1
+    assert via_reader == via_dicts
+
+
+def test_check_nan_inf_on_a_replayed_entry(card, monkeypatch):
+    """With FLAGS_check_nan_inf on, a replay whose feed holds an inf
+    raises naming the nan weights it wrote; clean replays pass."""
+    from paddle_tpu_torch import flags as tflags
+
+    monkeypatch.setenv("FLAGS_check_nan_inf", "0")
+    monkeypatch.setattr(tflags, "_OVERRIDES", {})
+    main, startup, loss, _ = _avg_program("ema")
+    exe, scope = tfluid.Executor(), tfluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(1)
+    clean = {"x": rng.randn(8, 16).astype("float32"), "y": rng.randn(8, 1).astype("float32")}
+    bad = {"x": clean["x"].copy(), "y": clean["y"]}
+    bad["x"][0, 0] = np.inf
+    tfluid.set_flags({"FLAGS_check_nan_inf": True})
+    for _ in range(3):  # eager, capture, replay
+        exe.run(main, feed=clean, fetch_list=[loss], scope=scope)
+    assert exe.jit_cache_stats()["graphs"] == 1
+    with pytest.raises(RuntimeError, match="nan/inf detected") as err:
+        exe.run(main, feed=bad, fetch_list=[loss], scope=scope)
+    assert "fc_0.w_0" in str(err.value)
