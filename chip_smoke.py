@@ -153,6 +153,37 @@ Phases, each of which raises (exit code != 0) on failure:
    replay and raises on an ``inf`` in ``input_mask``, naming the vars,
    with replays timed with the flag off and on.
 
+22. DeepFM CTR with its tables in HBM (bench_deepfm.py's widths: 1M
+   features, 39 fields, embedding 16, deep (400, 400, 400), batch 4096,
+   Adam 1e-3), trained as a Fluid CTR user trains it: 16 batches written
+   as two MultiSlot files from the seed, loaded into an
+   ``InMemoryDataset``, ``global_shuffle(seed=0)``, then
+   ``Executor.train_from_dataset(thread=2)`` (batches staged on the card).
+   Under deterministic algorithms the 16 losses are bit-equal to a hand
+   loop of ``Executor.run`` over the same batches, and the last loss and
+   every persistable to ``run(steps=16, per_step_feed=True)``
+   (bench_deepfm.py's regime).  Measured: the median step after the
+   capture, examples/s, a profiled replay (idle share), peak memory, the
+   graph pool, an eager step's device time by op type, and the streaming
+   ``metrics.Auc`` of the epoch's probabilities.  Then one step's Adam
+   update of ``deepfm_fm_emb`` against float64 numpy, and two steps at
+   batch 64 against the CPU.
+23. DeepFM with its tables on two in-process parameter servers
+   (``bind_distributed_tables``): sync, from zero tables with SGD on both
+   sides, 4 steps at batch 4096 against the HBM run within rtol 2e-4,
+   with the host seconds of each step's pull, device step and push, the
+   unique-id count and bucket; then async under a ``DownpourSGD``
+   trainer through ``train_from_dataset(thread=2)`` and the overlapped
+   prefetch, 4 steps over one batch: the ids reach the host expansion as
+   host arrays (the prefetch stages the other feeds on the card), the
+   loss falls, and after ``flush()`` the
+   servers hold every queued push (their rows equal a float64 replay of
+   the pushes), with the pull seconds the overlap hid.
+24. GeoSGD (``sync_every=2``) on a small fc program: the pulled
+   parameters land on ``cuda:0`` and the next captured step reads them
+   (its loss bit-equal to an eager step from the same state);
+   ``DownpourSGD`` on a program without distributed tables raises.
+
 Output: progress lines, then a ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``.  Without a CUDA device it exits non-zero and prints no result.
@@ -392,6 +423,35 @@ OPT_LENET = {
     "dgc": lambda O: O.DGCMomentumOptimizer(0.01, 0.9, rampup_begin_step=3),
     "lamb": lambda O: O.LambOptimizer(0.01),
 }
+# DeepFM CTR at bench_deepfm.py's widths (its :19-26): 1,000,000 features,
+# 39 fields, embedding 16, deep tower (400, 400, 400), batch 4096,
+# AdamOptimizer(1e-3); 16 batches of MultiSlot text in two files
+DEEPFM = dict(num_features=1_000_000, num_fields=39, embed_dim=16, deep_layers=(400, 400, 400))
+DEEPFM_BATCH = 4096
+DEEPFM_BATCHES = 16
+DEEPFM_FILES = 2
+DEEPFM_CHECK_BATCH = 64  # the card-vs-CPU DeepFM steps
+DEEPFM_CPU_TOL = 1e-3    # their loss and the fm table's gradient, relative (fp32 sums)
+# the parameter-server runs: sync against HBM from zero tables with SGD on
+# both sides (tests/test_distributed.py:285's parity), async under a
+# DownpourSGD trainer; PS_STEPS steps each
+PS_STEPS = 4
+PS_LR = 0.5
+PS_SYNC_RTOL = 2e-4      # the JAX package's PS-against-dense tolerance
+# the servers' rows after the async epoch against a float64 replay of its
+# pushes, relative to the largest row value (float32 sums of a few pushes)
+PS_REPLAY_TOL = 1e-5
+GEO_SYNC_EVERY = 2
+CARD = "cuda:0"  # the device of the DeepFM phases' scopes
+# classes of the kernels of a DeepFM step, matched in order on the name
+DEEPFM_KERNEL_CLASSES = [
+    ("gemm", ("gemm", "xmma", "cutlass", "sm90_", "sm80_", "nvjet")),
+    ("embedding lookup and gradient (gather, index_add, sort)",
+     ("gather", "index", "scatter", "sort", "radix", "cub::")),
+    ("copies and fills", ("memcpy", "memset", "copy", "fill")),
+    ("reductions", ("reduce",)),
+    ("elementwise (Adam, activations)", ("elementwise",)),
+]
 
 
 def log(*args):
@@ -3202,6 +3262,420 @@ def run_export_gradients_nan(torch, ctx, workdir):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phases 22 to 24: DeepFM from a MultiSlot dataset, on HBM and on the PS
+# ---------------------------------------------------------------------------
+def deepfm_program(fluid, distributed=False, opt="adam", lr=1e-3):
+    """bench_deepfm.py's DeepFM (or its parameter-server build):
+    (main, startup, loss, prob, [ids, vals, label])."""
+    from paddle_tpu_torch import models
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 42
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids = fluid.layers.data("ids", [DEEPFM["num_fields"], 1], dtype="int64")
+        vals = fluid.layers.data("vals", [DEEPFM["num_fields"]])
+        lbl = fluid.layers.data("lbl", [1], dtype="int64")
+        loss, prob = models.deepfm_ctr(ids, vals, lbl, distributed_emb=distributed, **DEEPFM)
+        make = fluid.optimizer.AdamOptimizer if opt == "adam" else fluid.optimizer.SGDOptimizer
+        make(lr).minimize(loss)
+    return main, startup, loss, prob, [ids, vals, lbl]
+
+
+def write_multislot(workdir):
+    """DEEPFM_BATCHES batches of DEEPFM_BATCH lines, split over DEEPFM_FILES
+    MultiSlot files, from SEED: per line 39 ids, 39 values in [0, 1) and a
+    label.  The label is learnable: 1 where a hidden first-order score of
+    the line's features is above its median."""
+    f, n = DEEPFM["num_fields"], DEEPFM_BATCH * DEEPFM_BATCHES
+    rng = np.random.RandomState(SEED)
+    ids = rng.randint(0, DEEPFM["num_features"], (n, f))
+    vals = rng.uniform(0, 1, (n, f)).round(4)
+    score = (rng.randn(DEEPFM["num_features"])[ids] * vals).sum(1)
+    label = (score > np.median(score)).astype(np.int64)
+    paths, per = [], n // DEEPFM_FILES
+    # count, ids; count, values; count 1 (a literal), label
+    fmt = " ".join(["%d"] * (f + 2) + ["%.4f"] * f + ["1", "%d"])
+    for k in range(DEEPFM_FILES):
+        part = slice(k * per, (k + 1) * per)
+        rows = np.concatenate([np.full((per, 1), f), ids[part], np.full((per, 1), f),
+                               vals[part], label[part, None]], axis=1)
+        path = os.path.join(workdir, "part-%05d" % k)
+        np.savetxt(path, rows, fmt=fmt)
+        paths.append(path)
+    return paths
+
+
+def _deepfm_dataset(fluid, use_vars, paths):
+    ds = fluid.DatasetFactory().create_dataset("InMemoryDataset")
+    ds.set_use_var(use_vars)
+    ds.set_batch_size(DEEPFM_BATCH)
+    ds.set_filelist(paths)
+    ds.load_into_memory()
+    ds.global_shuffle(seed=0)
+    return ds
+
+
+def _timed_runs(torch, exe):
+    """Wrap ``exe.run`` so each call is timed to its end on the card
+    (``train_from_dataset`` calls it per step); returns the list of
+    (seconds, feed devices)."""
+    record, run = [], exe.run
+
+    def timed(program=None, feed=None, **kw):
+        t = time.perf_counter()
+        out = run(program, feed=feed, **kw)
+        torch.cuda.synchronize()
+        record.append((time.perf_counter() - t, sorted({str(v.device) for v in feed.values()
+                                                        if isinstance(v, torch.Tensor)})))
+        return out
+
+    exe.run = timed
+    return record
+
+
+def run_deepfm_hbm(torch, workdir):
+    """Phase 22 (see the module docstring)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels, native
+
+    stats = {"widths": DEEPFM, "batch": DEEPFM_BATCH, "batches": DEEPFM_BATCHES,
+             "native_available": native.native_available(),
+             "allocated_before_bytes": _free_device_memory(torch)}
+    t = time.perf_counter()
+    paths = write_multislot(workdir)
+    stats["write_files_s"] = time.perf_counter() - t
+    stats["file_bytes"] = sum(os.path.getsize(p) for p in paths)
+    main, startup, loss, prob, use_vars = deepfm_program(fluid)
+    t = time.perf_counter()
+    ds = _deepfm_dataset(fluid, use_vars, paths)
+    stats["load_and_shuffle_s"] = time.perf_counter() - t
+    batches = list(ds)
+    stats["examples"] = ds.get_memory_data_size()
+    boot = fluid.Scope()
+    fluid.Executor().run(startup, scope=boot)
+    init = _clone_state(boot)
+    del boot
+
+    def scope_from_init():
+        sc = fluid.Scope(device=CARD)
+        _load_state(sc, init)
+        return sc
+
+    with _deterministic(torch):
+        exe, scope = fluid.Executor(), scope_from_init()
+        record = _timed_runs(torch, exe)
+        _free_device_memory(torch)
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        out = exe.train_from_dataset(main, ds, scope=scope, thread=2, fetch_list=[loss, prob])
+        stats["epoch_s"] = time.perf_counter() - t
+        stats["launches"] = kernels.launch_counts()
+        stats["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        stats["cache"] = exe.jit_cache_stats()
+        del exe.run  # the class's run again
+        losses = [float(o[0]) for o in out]
+        step_s = [r[0] for r in record]
+        stats["feed_devices"] = sorted({d for r in record for d in r[1]})
+        stats["losses"] = losses
+        stats["step_s"] = step_s
+        stats["eager_first_step_ms"], stats["capture_step_ms"] = 1e3 * step_s[0], 1e3 * step_s[1]
+        med = statistics.median(step_s[2:])
+        stats["step_ms_median"] = 1e3 * med
+        stats["examples_per_s"] = DEEPFM_BATCH / med
+        auc = fluid.metrics.Auc("auc")
+        for o, b in zip(out, batches):
+            auc.update(np.concatenate([1 - o[1], o[1]], axis=1), b["lbl"])
+        stats["auc"] = float(auc.eval())
+        # a hand loop over the same batches, and bench_deepfm.py's regime
+        hand_exe, hand_scope = fluid.Executor(), scope_from_init()
+        hand = [float(hand_exe.run(main, feed=b, fetch_list=[loss], scope=hand_scope)[0])
+                for b in batches]
+        stacked = {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+        chunk_exe, chunk_scope = fluid.Executor(), scope_from_init()
+        chunk_last = float(chunk_exe.run(main, feed=stacked, fetch_list=[loss], scope=chunk_scope,
+                                         steps=DEEPFM_BATCHES, per_step_feed=True)[0])
+        stats["hand_loop_bit_equal"] = [np.float32(a).tobytes() == np.float32(b).tobytes()
+                                        for a, b in zip(losses, hand)]
+        stats["steps16_last_loss"] = chunk_last
+        stats["steps16_bit_equal"] = np.float32(chunk_last).tobytes() == np.float32(
+            losses[-1]).tobytes()
+        stats["steps16_state_differs"] = _differing(torch, scope, chunk_scope, sorted(scope.vars))
+        stats["hand_state_differs"] = _differing(torch, scope, hand_scope, sorted(scope.vars))
+        hand_exe.close()
+        chunk_exe.close()
+        del hand_scope, chunk_scope, stacked
+
+    def step():
+        return exe.run(main, feed=batches[0], fetch_list=[loss], scope=scope)
+
+    prof = _profile_step(torch, step, all_kernels=True)
+    if prof is not None:
+        prof["kernel_classes"] = _kernel_classes(prof, DEEPFM_KERNEL_CLASSES)
+        del prof["all_kernels"]
+        # the profiler's own host cost stretches the profiled step: the
+        # idle share against the unprofiled median step
+        stats["device_idle_share"] = 1 - prof["device_ms"] / stats["step_ms_median"]
+    stats["profile"] = prof
+    stats["graph_pool_bytes"] = exe.jit_cache_stats()["graph_pool_bytes"]
+    exe.close()
+
+    def eager_step():
+        return exe.run(main, feed=batches[1], fetch_list=[loss], scope=scope,
+                       use_program_cache=False)
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eager_step()
+    torch.cuda.synchronize()
+    stats["eager_step_ms"] = 1e3 * (time.perf_counter() - t)
+    stats["eager_op_breakdown"] = _op_breakdown(torch, eager_step)
+    # one step's Adam update of the FM table against float64 numpy
+    ops = _update_ops(main, ["deepfm_fm_emb"])
+    grad = "deepfm_fm_emb@GRAD"
+    before = _adam_state(scope, ops)
+    _, g = exe.run(main, feed=batches[2], fetch_list=[loss, grad], scope=scope,
+                   use_program_cache=False)
+    stats["adam_err"] = _adam_errors(ops, before, _adam_state(scope, ops), {"deepfm_fm_emb": g})
+    del before, g
+    stats["cpu_check"] = _deepfm_against_cpu(torch, fluid, main, scope, batches[3], loss, grad)
+    log("[deepfm-hbm]", json.dumps(stats))
+    ok = (all(np.isfinite(losses)) and len(losses) == DEEPFM_BATCHES
+          and stats["cache"]["graphs"] == 1 and stats["feed_devices"] == [CARD]
+          and all(stats["hand_loop_bit_equal"]) and stats["steps16_bit_equal"]
+          and not stats["steps16_state_differs"] and not stats["hand_state_differs"]
+          and all(e["param_in_lr"] <= ADAM_TOL and e["moment1"] <= ADAM_TOL
+                  and e["moment2"] <= ADAM_TOL for e in stats["adam_err"].values())
+          and stats["cpu_check"]["ok"] and not stats["launches"])
+    if not ok:
+        raise AssertionError("DeepFM HBM phase failed: %s" % {
+            k: stats[k] for k in ("losses", "cache", "feed_devices", "hand_loop_bit_equal",
+                                  "steps16_bit_equal", "steps16_state_differs",
+                                  "hand_state_differs", "adam_err", "cpu_check", "launches")})
+    return stats, batches
+
+
+def _deepfm_against_cpu(torch, fluid, main, scope, batch, loss, grad):
+    """Two steps at DEEPFM_CHECK_BATCH rows from the card's state, on the
+    card (eager) and on the CPU: losses and the FM table's first gradient
+    within DEEPFM_CPU_TOL relative."""
+    from paddle_tpu_torch.scope import to_numpy
+
+    feed = {k: v[:DEEPFM_CHECK_BATCH] for k, v in batch.items()}
+    init = {n: to_numpy(v) for n, v in scope.vars.items()}
+    card_exe, card_scope = fluid.Executor(), fluid.Scope()
+    fluid.io.set_params_from_numpy(card_scope, init, CARD)
+    cpu_exe, cpu_scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    fluid.io.set_params_from_numpy(cpu_scope, init, "cpu")
+    del init
+    card, cpu = [], []
+    for _ in range(2):
+        card.append(card_exe.run(main, feed=feed, fetch_list=[loss, grad], scope=card_scope))
+        cpu.append(cpu_exe.run(main, feed=feed, fetch_list=[loss, grad], scope=cpu_scope))
+    out = {"batch": DEEPFM_CHECK_BATCH, "tol": DEEPFM_CPU_TOL,
+           "loss_card": [float(c[0]) for c in card], "loss_cpu": [float(c[0]) for c in cpu],
+           "loss_rel": [_max_rel(a[0], b[0]) for a, b in zip(card, cpu)],
+           "fm_grad_rel": _max_rel(card[0][1], cpu[0][1])}
+    out["ok"] = max(out["loss_rel"] + [out["fm_grad_rel"]]) <= DEEPFM_CPU_TOL
+    card_exe.close()
+    return out
+
+
+def _ps_pair():
+    from paddle_tpu_torch.distributed import ParameterServer
+
+    return [ParameterServer().start(), ParameterServer().start()]
+
+
+def _phase_timers(exe):
+    """Wrap the executor's prefetch and push: host seconds per call."""
+    rec = {"pull_s": [], "push_s": [], "uniq": []}
+    pull, push = exe._prefetch_distributed_tables, exe._push_sparse
+
+    def timed_pull(program, feed):
+        t = time.perf_counter()
+        out = pull(program, feed)
+        rec["pull_s"].append(time.perf_counter() - t)
+        return out
+
+    def timed_push(program, ps_push, grads):
+        t = time.perf_counter()
+        push(program, ps_push, grads)
+        rec["push_s"].append(time.perf_counter() - t)
+        rec.setdefault("pushes", []).extend(
+            (table, uniq, g.copy()) for (table, uniq, _), g in zip(ps_push, grads))
+
+    exe._prefetch_distributed_tables, exe._push_sparse = timed_pull, timed_push
+    return rec
+
+
+def run_deepfm_ps(torch, batches):
+    """Phase 23 (see the module docstring)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.scope import to_numpy
+
+    stats = {"steps": PS_STEPS, "lr": PS_LR, "allocated_before_bytes": _free_device_memory(torch)}
+    feeds = batches[:PS_STEPS]
+    # HBM, SGD, zero tables
+    main, startup, loss, _, _ = deepfm_program(fluid, opt="sgd", lr=PS_LR)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    for n in ("deepfm_w1_emb", "deepfm_fm_emb"):
+        scope.vars[n].zero_()
+    dense_init = {n: to_numpy(v) for n, v in scope.vars.items() if not n.endswith("_emb")}
+    hbm = [float(exe.run(main, feed=f, fetch_list=[loss], scope=scope)[0]) for f in feeds]
+    exe.close()
+    del scope
+    # the same on two servers, sync
+    servers = _ps_pair()
+    try:
+        pmain, _, ploss, _, _ = deepfm_program(fluid, distributed=True, opt="sgd", lr=PS_LR)
+        client = fluid.distributed.bind_distributed_tables(
+            pmain, [s.endpoint for s in servers], optimizer="sgd", lr=PS_LR, initializer="zeros")
+        pexe, pscope = fluid.Executor(), fluid.Scope()
+        fluid.io.set_params_from_numpy(pscope, dense_init, CARD)
+        rec = _phase_timers(pexe)
+        sync, run_s = [], []
+        for f in feeds:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sync.append(float(pexe.run(pmain, feed=dict(f), fetch_list=[ploss], scope=pscope)[0]))
+            run_s.append(time.perf_counter() - t)
+        stats["sync"] = {
+            "losses": sync, "hbm_losses": hbm,
+            "max_rel": max(abs(a - b) / abs(b) for a, b in zip(sync, hbm)),
+            "run_s": run_s, "pull_s": rec["pull_s"], "push_s": rec["push_s"],
+            "device_and_host_step_s": [r - a - b for r, a, b in zip(run_s, rec["pull_s"],
+                                                                   rec["push_s"])],
+            "uniq_hist": dict(pmain._uniq_id_hist),
+            "buckets": sorted({fluid.executor.pow2_id_bucket(n) for n in pmain._uniq_id_hist}),
+            "server_rows": [s._dispatch({"op": "stats"}) for s in servers],
+            "cache": pexe.jit_cache_stats()}
+        pexe.close()
+        client.close()
+    finally:
+        for s in servers:
+            s.stop()
+    # async: a DownpourSGD trainer, the overlapped prefetch, one batch PS_STEPS times
+    servers = _ps_pair()
+    try:
+        amain, astartup, aloss, _, _ = deepfm_program(fluid, distributed=True, opt="sgd",
+                                                      lr=PS_LR)
+        fluid.distributed.bind_distributed_tables(
+            amain, [s.endpoint for s in servers], optimizer="sgd", lr=PS_LR, seed=SEED)
+        trainer = fluid.TrainerFactory().create_trainer(
+            {"trainer": "DistMultiTrainer", "device_worker": "DownpourSGD"})
+        trainer.set_fetch_var_and_info([aloss], ["loss"], 1)
+        aexe, ascope = fluid.Executor(), fluid.Scope()
+        aexe.run(astartup, scope=ascope)
+        rec = _phase_timers(aexe)
+        expand, ids_kinds = aexe._sparse_expand_ids, set()
+
+        def spied_expand(meta, ids_val, ladder=None):  # where each batch's ids lie
+            ids_kinds.add(type(ids_val).__name__)
+            return expand(meta, ids_val, ladder)
+
+        aexe._sparse_expand_ids = spied_expand
+        initial = {}  # every table row the epoch pulls, before any push
+        for meta in amain._distributed_tables.values():
+            uniq = np.unique(feeds[0]["ids"])
+            initial[meta["table"]] = (uniq, amain._ps_client.pull_sparse(meta["table"], uniq))
+        t = time.perf_counter()
+        out = aexe.train_from_dataset(amain, [dict(feeds[0]) for _ in range(PS_STEPS)],
+                                      scope=ascope, thread=2, trainer_desc=trainer)
+        epoch_s = time.perf_counter() - t
+        comm = amain._ps_communicator
+        t = time.perf_counter()
+        comm.flush()
+        flush_s = time.perf_counter() - t
+        # every push of the epoch, replayed in float64 on the rows first pulled
+        errs = {}
+        for table, (uniq, rows0) in initial.items():
+            want = rows0.astype(np.float64)
+            for tname, ids, g in rec["pushes"]:
+                if tname == table:
+                    np.subtract.at(want, np.searchsorted(uniq, ids), PS_LR * g.astype(np.float64))
+            errs[table] = _max_rel(amain._ps_client.pull_sparse(table, uniq), want)
+        losses = [float(o[0]) for o in out]
+        stats["async"] = {
+            "losses": losses, "epoch_s": epoch_s, "flush_s": flush_s,
+            "pending_after_flush": comm.pending(), "dropped": comm.dropped,
+            "server_vs_float64_replay": errs, "thread": 2, "ids_kinds": sorted(ids_kinds),
+            "pull_s": rec["pull_s"], "push_enqueue_s": rec["push_s"],
+            "cache": aexe.jit_cache_stats()}
+        comm.stop()
+        aexe.close()
+    finally:
+        for s in servers:
+            s.stop()
+    log("[deepfm-ps]", json.dumps(stats))
+    a = stats["async"]
+    ok = (stats["sync"]["max_rel"] <= PS_SYNC_RTOL and all(np.isfinite(stats["sync"]["losses"]))
+          and a["losses"][-1] < a["losses"][0] and a["pending_after_flush"] == 0
+          and a["dropped"] == 0 and max(a["server_vs_float64_replay"].values()) <= PS_REPLAY_TOL
+          and a["ids_kinds"] == ["ndarray"]
+          and a["cache"]["ps_pull_overlap_s"] + a["cache"]["ps_pull_wait_s"] > 0)
+    if not ok:
+        raise AssertionError("DeepFM PS phase failed: %s" % stats)
+    return stats
+
+
+def run_geo_and_descriptors(torch):
+    """Phase 24 (see the module docstring)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.distributed import GeoSGD, ParameterServer
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data("x", [64])
+        y = fluid.layers.data("y", [1])
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(
+            fluid.layers.fc(fluid.layers.fc(x, 256, act="relu"), 1), y))
+        fluid.optimizer.SGDOptimizer(0.05).minimize(loss)
+    server = ParameterServer().start()
+    stats = {"sync_every": GEO_SYNC_EVERY}
+    try:
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        geo = GeoSGD(main, scope, [server.endpoint], sync_every=GEO_SYNC_EVERY).init_worker()
+        rng = np.random.RandomState(SEED)
+        feeds = [{"x": rng.randn(128, 64).astype("float32"),
+                  "y": rng.randn(128, 1).astype("float32")} for _ in range(5)]
+        synced = []
+        for f in feeds[:4]:  # eager, captured, replays; syncs after steps 2 and 4
+            exe.run(main, feed=f, fetch_list=[loss], scope=scope)
+            synced.append(geo.step())
+        params = [p.name for p in main.all_parameters()]
+        stats["synced"] = synced
+        stats["param_devices"] = sorted({str(scope.vars[n].device) for n in params})
+        with _deterministic(torch):
+            ref_scope = fluid.Scope(device=CARD)
+            _load_state(ref_scope, scope.vars)
+            got = exe.run(main, feed=feeds[4], fetch_list=[loss], scope=scope)[0]
+            ref = fluid.Executor().run(main, feed=feeds[4], fetch_list=[loss], scope=ref_scope,
+                                       use_program_cache=False)[0]
+        stats["loss"] = float(got)
+        stats["bit_equal_to_eager"] = got.tobytes() == ref.tobytes()
+        stats["cache"] = exe.jit_cache_stats()
+        exe.close()
+    finally:
+        server.stop()
+    trainer = fluid.TrainerFactory().create_trainer(
+        {"trainer": "DistMultiTrainer", "device_worker": "DownpourSGD"})
+    try:
+        fluid.Executor().train_from_dataset(main, [], trainer_desc=trainer)
+        stats["downpour_refused"] = None
+    except ValueError as e:
+        stats["downpour_refused"] = str(e)
+    log("[geo-descriptors]", json.dumps(stats))
+    if not (stats["synced"] == [False, True, False, True] and stats["param_devices"] == [CARD]
+            and stats["bit_equal_to_eager"] and stats["cache"]["graphs"] == 1
+            and stats["downpour_refused"]):
+        raise AssertionError("GeoSGD / trainer descriptor phase failed: %s" % stats)
+    return stats
+
+
 def main() -> int:
     import torch
 
@@ -3263,6 +3737,14 @@ def main() -> int:
     check_train_against_cpu(amp=True, lamb=True)
     run_update_ops(torch)
     run_lenet_optimizers(torch)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        _, deepfm_batches = run_deepfm_hbm(torch, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    run_deepfm_ps(torch, deepfm_batches)
+    del deepfm_batches
+    run_geo_and_descriptors(torch)
     # the ResNet path runs no TPU kernel: its launches of the attention kernels
     resnet_launches = {"resnet50_amp": resnet_amp["launches"], "resnet50": resnet["launches"]}
     # the LM paths: fused serving and training run the causal kernels; the

@@ -37,6 +37,14 @@ without stages), ``gradients``, the initializers, ``io.save_program``,
 ``FLAGS_check_nan_inf`` (``get_flags``/``set_flags``), and the input
 pipeline: the ``reader`` decorators, ``PyReader`` (staged on the card by
 a double buffer on a side stream) and ``DataFeeder``.
+
+CTR training (DeepFM, ``models.deepfm_ctr``) from MultiSlot files:
+``DatasetFactory`` / ``InMemoryDataset`` / ``QueueDataset`` (parsed by
+``native/``), ``Executor.train_from_dataset`` with ``thread=N`` prefetch
+onto the card, ``trainer_desc`` / ``TrainerFactory``, ``metrics.Auc``,
+and the parameter server (``distributed``: ``ParameterServer``,
+``PSClient``, ``bind_distributed_tables``, the async ``Communicator``,
+``GeoSGD``) behind ``embedding(is_distributed=True)``.
 """
 from paddle_tpu_torch import framework
 from paddle_tpu_torch.framework import (
@@ -70,3 +78,7 @@ from paddle_tpu_torch import kernels
 from paddle_tpu_torch import models
 from paddle_tpu_torch import serving
 from paddle_tpu_torch import contrib
+from paddle_tpu_torch import dataset, distributed, incubate, metrics, native, recordio_writer
+from paddle_tpu_torch import fluid_dataset, trainer_desc
+from paddle_tpu_torch.fluid_dataset import DatasetFactory, InMemoryDataset, QueueDataset
+from paddle_tpu_torch.trainer_desc import TrainerFactory

@@ -44,6 +44,23 @@ step's fetches; with ``per_step_feed=True`` every feed carries a leading
 ``steps`` axis and step ``i`` reads slice ``i``.  ``use_program_cache=
 False`` runs the interpreter eagerly and caches nothing: the caller's
 explicit choice, and the reference the captured step is held against.
+
+Distributed lookup tables (``embedding(is_distributed=True)``, bound to
+parameter servers by ``distributed.bind_distributed_tables``): before
+the step ``run`` uniques each table's ids, pads the unique count to a
+power-of-two bucket (``pow2_id_bucket``) or the bound ladder, pulls the
+rows from the servers (the tables concurrently, each on a client of its
+own) and feeds them with the int32 ids-to-row map; after the step it
+pushes the rows' gradients, fetched as host copies taken before the
+entry's lock is released (a captured step's fetch buffers are
+overwritten by its next replay): blocking through ``push_sparse``, or
+queued on the program's ``Communicator`` in async mode.  Each bucket is
+a feed signature, so an entry of its own.  The plan key leaves out the
+prefetch's own feed names, so rows that ``train_from_dataset``'s
+overlapped prefetch installed ahead of ``run`` share the plan and the
+entry of the inline pull.  ``Executor.train_from_dataset`` loops a
+dataset's batches through ``run``, with ``thread=N`` prefetch onto the
+executor's device.
 """
 from __future__ import annotations
 
@@ -60,9 +77,9 @@ import torch
 from paddle_tpu_torch import flags, framework, kernels
 from paddle_tpu_torch.core import lowering, registry
 from paddle_tpu_torch.core import types as core_types
-from paddle_tpu_torch.scope import Scope, global_scope, to_numpy
+from paddle_tpu_torch.scope import Scope, global_scope, host_copy, to_numpy
 
-__all__ = ["Executor"]
+__all__ = ["Executor", "pow2_id_bucket"]
 
 # cache bounds, as the JAX package's defaults: an ordinary workload never
 # evicts; the bound is for programs built in a loop forever
@@ -74,22 +91,54 @@ def _as_fetch_name(f) -> str:
     return f.name if isinstance(f, framework.Variable) else str(f)
 
 
+def pow2_id_bucket(n_unique: int) -> int:
+    """The default sparse-prefetch unique-id bucket: the next power of
+    two >= ``n_unique``, floored at 8 (the JAX package's one definition,
+    which its tools size against)."""
+    return max(8, 1 << max(0, int(n_unique) - 1).bit_length())
+
+
+# program attributes of JAX package features that the port does not run
+# yet: a program that carries one raises instead of training without it
+_UNPORTED_PROGRAM_STATE = {
+    "_dense_ps_ctx": "the dense parameter server (DistributeTranspiler; ROADMAP A6b)",
+    "_pserver_ctx": "the dense parameter server (DistributeTranspiler; ROADMAP A6b)",
+    "_mesh_tables": "mesh-resident tables (bind_mesh_tables; ROADMAP A10)",
+    "_embedding_cache": "the embedding cache (ROADMAP A8)",
+    "_pipeline_plan": "the pipelined program (PipelineOptimizer cut_list; ROADMAP A10)",
+}
+
+# transient PS pull failures the overlap thread retries: the connection
+# classes only (a PS in-band application error, RuntimeError from
+# PSClient._call, is deterministic and surfaces)
+_PS_PULL_RETRYABLE = (ConnectionError, OSError, TimeoutError)
+
+
+def _host_ids(v) -> np.ndarray:
+    """A feed's ids as a host array (a staged card tensor comes back)."""
+    return to_numpy(v) if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
 class _RunPlan:
     """The block analysis of one plan key: the feed and fetch names, the
     persistable vars the block reads from the scope (``state_in``) and
-    writes back (``state_out``), each feed's torch dtype, and the random
-    ops that keep the plan on the interpreter."""
+    writes back (``state_out``), each feed's torch dtype, the random
+    ops that keep the plan on the interpreter, and ``n_push``: how many
+    fetches at the end of ``fetch_names`` are prefetched rows' gradients
+    that the run pushes and hides from the caller."""
 
     __slots__ = ("feed_names", "fetch_names", "state_in", "state_out", "feed_dtypes",
-                 "random_ops")
+                 "random_ops", "n_push")
 
-    def __init__(self, feed_names, fetch_names, state_in, state_out, feed_dtypes, random_ops):
+    def __init__(self, feed_names, fetch_names, state_in, state_out, feed_dtypes, random_ops,
+                 n_push=0):
         self.feed_names = feed_names
-        self.fetch_names = fetch_names
+        self.fetch_names = fetch_names  # the caller's, then the pushed rows' gradients
         self.state_in = state_in
         self.state_out = state_out
         self.feed_dtypes = feed_dtypes
         self.random_ops = random_ops
+        self.n_push = n_push
 
 
 class _LRUCache:
@@ -223,6 +272,7 @@ class Executor:
         self._cache_stats = {
             "hits": 0, "misses": 0, "plan_hits": 0, "plan_misses": 0,
             "plan_evictions": 0, "jit_evictions": 0, "dispatch_overhead_s": 0.0,
+            "ps_pull_overlap_s": 0.0, "ps_pull_wait_s": 0.0,
         }
         self._cache = _LRUCache(
             jit_cache_capacity if jit_cache_capacity is not None else _ENTRY_CACHE_CAPACITY,
@@ -253,7 +303,7 @@ class Executor:
         t = torch.from_numpy(np.ascontiguousarray(arr))
         return t.to(dtype) if dtype is not None else t
 
-    def _analyze(self, program, feed_names, fetch_names) -> _RunPlan:
+    def _analyze(self, program, feed_names, fetch_names, n_push=0) -> _RunPlan:
         """The block's true dataflow reads: a name is read from outside
         only when some op reads it before any op writes it."""
         block = program.global_block()
@@ -278,7 +328,7 @@ class Executor:
             feed_names, fetch_names,
             tuple(sorted((read & persistable) - set(feed_names))),
             tuple(sorted(written & persistable)),
-            feed_dtypes, random_ops)
+            feed_dtypes, random_ops, n_push)
 
     # ------------------------------------------------------------------
     def run(
@@ -303,29 +353,53 @@ class Executor:
         scope = scope if scope is not None else global_scope()
         scope.bind_device(self.device)
         feed = dict(feed or {})
-        fetch_names = tuple(_as_fetch_name(f) for f in (fetch_list or []))
+        for attr, what in _UNPORTED_PROGRAM_STATE.items():
+            if getattr(program, attr, None):
+                raise NotImplementedError("%s is not ported to paddle_tpu_torch yet" % what)
+        user_fetch = tuple(_as_fetch_name(f) for f in (fetch_list or []))
+        # distributed lookup tables: the plan key takes the feed names
+        # before the prefetch adds its rows and ids-to-row maps, and
+        # leaves those out even where the overlapped prefetch installed
+        # them ahead of this run, so the inline and the overlapped paths
+        # share one plan and one entry.  Rows a caller fed with no
+        # side-channel ids (a manual prefetch: nothing is pushed) are
+        # keyed apart.
+        dist_tables = getattr(program, "_distributed_tables", None)
+        feed_key_names, manual_prefetch = tuple(sorted(feed)), ()
+        if dist_tables:
+            side = getattr(program, "_sparse_prefetched_ids", None) or {}
+            internal = {n for m in dist_tables.values() for n in (m["rows_name"], m["local_name"])}
+            feed_key_names = tuple(sorted(n for n in feed if n not in internal))
+            manual_prefetch = tuple(sorted(
+                m["rows_name"] for m in dist_tables.values()
+                if m["rows_name"] in feed and m["rows_name"] not in side))
         plan_key = (
             program._uid,
             program.version,
             sum(len(b.ops) for b in program.blocks),
-            tuple(sorted(feed)),
-            fetch_names,
+            feed_key_names,
+            user_fetch,
             steps,
             per_step_feed,
             str(self.device),
+            manual_prefetch,
         )
+        ps_push = self._prefetch_distributed_tables(program, feed) if dist_tables else []
         with self._lock:
             plan = self._plans.get(plan_key) if use_program_cache else None
             if plan is not None:
                 stats["plan_hits"] += 1
             else:
                 stats["plan_misses"] += 1
-                plan = self._analyze(program, tuple(sorted(feed)), fetch_names)
+                plan = self._analyze(program, tuple(sorted(feed)),
+                                     user_fetch + tuple(g for _, _, g in ps_push), len(ps_push))
                 if use_program_cache:
                     self._plans[plan_key] = plan
 
-        if steps < 1:
-            raise ValueError("steps=%d: a run takes steps >= 1" % steps)
+        if steps != 1 and (ps_push or steps < 1):
+            raise ValueError(
+                "steps=%d: a run takes steps >= 1, and one step with distributed lookup "
+                "tables (the parameter-server pull and push are per batch)" % steps)
         if per_step_feed:
             bad = {n: np.shape(v) for n, v in feed.items() if tuple(np.shape(v)[:1]) != (steps,)}
             if bad:
@@ -362,6 +436,7 @@ class Executor:
             stats["dispatch_overhead_s"] += time.perf_counter() - t_run0
 
         check_nan_inf = flags.get_flags("FLAGS_check_nan_inf")["FLAGS_check_nan_inf"]
+        n_user = len(plan.fetch_names) - plan.n_push
         graph_path = (use_program_cache and self.device.type == "cuda" and not plan.random_ops
                       and all(n in scope.vars for n in plan.state_out))
         if graph_path:
@@ -369,21 +444,31 @@ class Executor:
                 graph = entry.graph_for(scope)
                 if graph is None and getattr(entry.warmed, "done", False):
                     graph = self._capture(entry, plan, scope, feeds, per_step_feed)
-                if graph is not None:
+                replayed = graph is not None
+                if replayed:
                     fetches = self._replay(graph, scope, feeds, steps, per_step_feed)
                     if check_nan_inf:
                         _check_nan_inf(list(zip(plan.fetch_names, fetches))
                                        + [(n, graph.bufs[n]) for n in plan.state_out])
-                    # the graph's outputs are overwritten by its next replay
+                    # the graph's outputs are overwritten by its next
+                    # replay: the caller's fetches and the pushed
+                    # gradients leave as copies, under the lock
+                    grads = [host_copy(g) for g in fetches[n_user:]]
                     if return_numpy:
-                        return [to_numpy(f) for f in fetches]
-                    return [f.clone() for f in fetches]
+                        out = [to_numpy(f) for f in fetches[:n_user]]
+                    else:
+                        out = [f.clone() for f in fetches[:n_user]]
+            if replayed:
+                self._push_sparse(program, ps_push, grads)
+                return out
         feeds = {n: t.to(self.device, non_blocking=True) for n, t in feeds.items()}
         fetches = _eager(entry.fn, state, feeds, scope, steps, per_step_feed)
         entry.warmed.done = True
         if check_nan_inf:
             _check_nan_inf(list(zip(plan.fetch_names, fetches))
                            + [(n, scope.vars[n]) for n in plan.state_out if n in scope.vars])
+        self._push_sparse(program, ps_push, [host_copy(g) for g in fetches[n_user:]])
+        fetches = fetches[:n_user]
         if return_numpy:
             return [to_numpy(f) for f in fetches]
         if graph_path:
@@ -469,6 +554,400 @@ class Executor:
         return graph.fetches
 
     # ------------------------------------------------------------------
+    # Distributed lookup tables: the sparse prefetch and push (reference:
+    # parameter_prefetch.cc + the trainer-side send of SelectedRows
+    # grads).  PS pulls run on the host per batch, the tables
+    # concurrently; in async mode train_from_dataset overlaps batch N+1's
+    # pulls with batch N's step.
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _sparse_expand_ids(meta, ids_val, ladder=None):
+        """Unique + bucket one table's batch ids.  Returns
+        ``(uniq_padded, n_uniq, counts, local)``: the bucketed unique
+        ids (padded by repeating the first, which receives no gradient —
+        no local index maps to the pad — so its push is a no-op), the
+        real unique count, per-unique occurrence counts, and the int32
+        ids-to-row map shaped like the feed (less a trailing 1 where the
+        table was built on ``[..., 1]`` ids).  ``ladder``: an explicit
+        unique-count bucket ladder; counts above its top rung, or no
+        ladder, take ``pow2_id_bucket``."""
+        ids_val = _host_ids(ids_val)
+        flat = ids_val.reshape(-1).astype(np.int64)
+        uniq, inv, counts = np.unique(flat, return_inverse=True, return_counts=True)
+        n = len(uniq)
+        bucket = next((int(r) for r in ladder or () if int(r) >= n), None)
+        if bucket is None:
+            bucket = pow2_id_bucket(n)
+        fill = uniq[0] if n else 0
+        uniq_p = np.concatenate([uniq, np.full(bucket - n, fill, np.int64)])
+        local = inv.astype(np.int32)
+        if meta["squeeze_last"] and ids_val.ndim >= 2 and ids_val.shape[-1] == 1:
+            local = local.reshape(ids_val.shape[:-1])
+        else:
+            local = local.reshape(ids_val.shape)
+        return uniq_p, n, counts, local
+
+    @staticmethod
+    def _record_uniq_count(program, n: int) -> None:
+        """Per-batch unique-id-count histogram (``program._uniq_id_hist``,
+        the id-ladder autotuner's input)."""
+        hist = program.__dict__.setdefault("_uniq_id_hist", {})
+        hist[n] = hist.get(n, 0) + 1
+
+    def _sparse_client_pool(self, program, n: int):
+        """``n`` dedicated PSClients for concurrent per-table pulls (a
+        PSClient socket is not thread-safe: interleaved frames corrupt
+        the wire), pooled on the program.  None when the bound client
+        has no endpoints to dial (a stub): the caller pulls serially."""
+        endpoints = getattr(getattr(program, "_ps_client", None), "endpoints", None)
+        if not endpoints:
+            return None
+        from paddle_tpu_torch.distributed.ps import PSClient
+
+        pool = program.__dict__.setdefault("_sparse_pull_pool", [])
+        while len(pool) < n:
+            pool.append(PSClient(list(endpoints)))
+        return pool[:n]
+
+    @staticmethod
+    def _pull_one_table(client, meta, uniq_p):
+        return np.asarray(client.pull_sparse(meta["table"], uniq_p), np.float32)
+
+    def _fanout_table_pulls(self, jobs, clients):
+        """Job 0 on the calling thread with ``clients[0]``, the others on
+        worker threads, each with a client of its own.  Returns
+        ``(rows by rows name, [(error, client)])``."""
+        results: Dict[str, np.ndarray] = {}
+        errors = []
+
+        def work(job, cl):
+            meta, uniq_p = job[0], job[1]
+            try:
+                results[meta["rows_name"]] = self._pull_one_table(cl, meta, uniq_p)
+            except BaseException as e:  # noqa: BLE001 — the caller re-raises
+                errors.append((e, cl))
+
+        threads = [threading.Thread(target=work, args=(job, cl), name="ptpu-sparse-pull",
+                                    daemon=True)
+                   for job, cl in zip(jobs[1:], clients[1:])]
+        for th in threads:
+            th.start()
+        work(jobs[0], clients[0])
+        for th in threads:
+            th.join()
+        return results, errors
+
+    def _pull_tables_concurrent(self, program, client, jobs):
+        """Every job's ``pull_sparse`` at once (job 0 on this thread with
+        the bound client, the rest on pool clients).  The first error
+        propagates after all joins, with its pool client closed and
+        dropped (the next pull redials)."""
+        pool = self._sparse_client_pool(program, len(jobs) - 1) if len(jobs) > 1 else []
+        if pool is None:
+            return {job[0]["rows_name"]: self._pull_one_table(client, job[0], job[1])
+                    for job in jobs}
+        results, errors = self._fanout_table_pulls(jobs, [client] + pool)
+        if errors:
+            pool_list = program.__dict__.get("_sparse_pull_pool", [])
+            for _, cl in errors:
+                if cl is not client:
+                    try:
+                        cl.close()
+                    finally:
+                        if cl in pool_list:
+                            pool_list.remove(cl)
+            raise errors[0][0]
+        return results
+
+    def _prefetch_distributed_tables(self, program, feed):
+        """Put each distributed table's rows for this batch's unique ids,
+        and the ids-to-row map, into ``feed``.  Returns ``[(table,
+        padded unique ids, rows gradient name)]`` for the tables whose
+        gradient the program computes (training), which ``run`` pushes
+        after the step.  Rows already in the feed came from the
+        overlapped prefetch (its side channel carries the unique ids, so
+        the push still happens) or from a manual caller (no push)."""
+        dist_tables = program._distributed_tables
+        block = program.global_block()
+        side = getattr(program, "_sparse_prefetched_ids", None)
+        ladder = getattr(program, "_sparse_id_ladder", None)
+        ps_push, pulls = [], []
+        for meta in dist_tables.values():
+            rows_name = meta["rows_name"]
+            gname = framework.grad_var_name(rows_name)
+            has_grad = block._find_var_recursive(gname) is not None
+            if rows_name in feed:
+                if side and rows_name in side:
+                    uniq_p = side.pop(rows_name)
+                    if has_grad:
+                        ps_push.append((meta["table"], uniq_p, gname))
+                continue
+            if meta["ids_name"] not in feed:
+                raise RuntimeError(
+                    "distributed table %r needs ids var %r in the feed "
+                    "(prefetch happens host-side per batch)" % (meta["table"], meta["ids_name"]))
+            uniq_p, n_uniq, counts, local = self._sparse_expand_ids(
+                meta, feed[meta["ids_name"]], ladder)
+            self._record_uniq_count(program, n_uniq)
+            feed[meta["local_name"]] = local
+            if has_grad:
+                ps_push.append((meta["table"], uniq_p, gname))
+            pulls.append((meta, uniq_p, n_uniq, counts, local))
+        if pulls:
+            client = getattr(program, "_ps_client", None)
+            if client is None:
+                raise RuntimeError(
+                    "program has distributed lookup tables; call "
+                    "paddle_tpu_torch.distributed.bind_distributed_tables("
+                    "program, endpoints) before running it")
+            rows = self._pull_tables_concurrent(program, client, pulls)
+            for job in pulls:
+                feed[job[0]["rows_name"]] = rows[job[0]["rows_name"]]
+        return ps_push
+
+    @staticmethod
+    def _push_sparse(program, ps_push, grads) -> None:
+        """Push each prefetched table's row gradients (host arrays): onto
+        the Communicator's queue in async mode, else blocking."""
+        if not ps_push:
+            return
+        comm = getattr(program, "_ps_communicator", None)
+        client = getattr(program, "_ps_client", None)
+        for (table, uniq, _), grad in zip(ps_push, grads):
+            if comm is not None:
+                comm.push(table, uniq, grad)
+            else:
+                client.push_sparse(table, uniq, grad)
+
+    # the overlapped sparse prefetch of async mode: batch N+1's pulls run
+    # on a background thread while batch N steps (bounded staleness 1,
+    # which async mode accepts; sync mode keeps the strict pull-after-push
+    # order)
+    _PS_PULL_POLICY = None  # built at first use
+
+    @classmethod
+    def _ps_pull_policy(cls):
+        if cls._PS_PULL_POLICY is None:
+            from paddle_tpu_torch.faults.retry import RetryPolicy
+
+            cls._PS_PULL_POLICY = RetryPolicy(
+                max_attempts=4, base_delay_s=0.05, multiplier=2.0, max_delay_s=1.0)
+        return cls._PS_PULL_POLICY
+
+    @staticmethod
+    def _sparse_overlap_clients(ctx, endpoints, n: int):
+        """The overlap thread's own clients, one per table: never the
+        caller's, nor the inline pool's."""
+        from paddle_tpu_torch.distributed.ps import PSClient
+
+        pool = ctx.setdefault("clients", [])
+        while len(pool) < n:
+            pool.append(PSClient(list(endpoints)))
+        return pool[:n]
+
+    @staticmethod
+    def _sparse_overlap_close(ctx) -> None:
+        for cl in ctx.pop("clients", []):
+            cl.close()
+
+    def _sparse_spawn_prefetch(self, program, feed) -> None:
+        """Start ``feed``'s table pulls on a background thread (one in
+        flight at a time).  A transient failure closes the thread's
+        clients, redials and retries under the pull RetryPolicy; on
+        exhaustion the error surfaces at the join."""
+        ladder = getattr(program, "_sparse_id_ladder", None)
+        endpoints = getattr(getattr(program, "_ps_client", None), "endpoints", None)
+        jobs = []
+        for meta in program._distributed_tables.values():
+            if meta["rows_name"] in feed or meta["ids_name"] not in feed:
+                continue
+            uniq_p, n, counts, local = self._sparse_expand_ids(meta, feed[meta["ids_name"]], ladder)
+            self._record_uniq_count(program, n)
+            jobs.append((meta, uniq_p, n, counts, local))
+        if not jobs or not endpoints:
+            return
+        ctx = program.__dict__.setdefault("_sparse_overlap_ctx", {})
+        result: Dict[str, Any] = {}
+        budget = self._ps_pull_policy().budget(op="ps.pull")
+
+        def pull():
+            t0 = time.perf_counter()
+            try:
+                while True:
+                    try:
+                        clients = self._sparse_overlap_clients(ctx, endpoints, len(jobs))
+                        vals, errs = self._fanout_table_pulls(jobs, clients)
+                        if errs:
+                            raise errs[0][0]
+                        result["vals"] = vals
+                        return
+                    except _PS_PULL_RETRYABLE:
+                        self._sparse_overlap_close(ctx)  # redial on a fresh set
+                        if not budget.backoff():
+                            raise
+            except BaseException as e:  # noqa: BLE001 — re-raised at the join
+                result["exc"] = e
+            finally:
+                result["dur"] = time.perf_counter() - t0
+
+        th = threading.Thread(target=pull, name="ptpu-sparse-prefetch", daemon=True)
+        ctx["pending"] = (th, result, jobs)
+        th.start()
+
+    def _sparse_join_prefetch(self, program, feed) -> None:
+        """Join the in-flight prefetch and put its rows and ids-to-row maps
+        into ``feed``; the unique ids ride the ``_sparse_prefetched_ids``
+        side channel so that the next ``run`` pushes this batch's
+        gradients.  ``ps_pull_overlap_s`` counts the pull seconds that hid
+        behind the step, ``ps_pull_wait_s`` what this join waited."""
+        ctx = program.__dict__.get("_sparse_overlap_ctx")
+        pending = ctx.pop("pending", None) if ctx else None
+        if pending is None:
+            return
+        th, result, jobs = pending
+        t0 = time.perf_counter()
+        th.join()
+        wait = time.perf_counter() - t0
+        with self._lock:
+            self._cache_stats["ps_pull_wait_s"] += wait
+            self._cache_stats["ps_pull_overlap_s"] += max(0.0, result.get("dur", 0.0) - wait)
+        if "exc" in result:
+            raise result["exc"]
+        side = program.__dict__.setdefault("_sparse_prefetched_ids", {})
+        for meta, uniq_p, _n, _counts, local in jobs:
+            feed[meta["rows_name"]] = result["vals"][meta["rows_name"]]
+            feed[meta["local_name"]] = local
+            side[meta["rows_name"]] = uniq_p
+
+    def _sparse_overlap_iter(self, program, batches):
+        """One-step lookahead: spawn batch N+1's pulls before yielding
+        batch N, join and install them when the consumer asks for N+1.
+        Every exit joins the pending thread and closes the overlap
+        clients.  Each batch is a copy: the caller's dicts never see the
+        installed rows (a second epoch over them would otherwise look
+        manually prefetched, and push nothing)."""
+        ctx = program.__dict__.setdefault("_sparse_overlap_ctx", {})
+        it = iter(batches)
+
+        def pull_next():
+            nxt = next(it, None)
+            return dict(nxt) if isinstance(nxt, dict) else nxt
+
+        try:
+            cur = pull_next()
+            if cur is None:
+                return
+            while True:
+                nxt = pull_next()
+                if nxt is not None:
+                    self._sparse_spawn_prefetch(program, nxt)
+                yield cur
+                if nxt is None:
+                    return
+                self._sparse_join_prefetch(program, nxt)
+                cur = nxt
+        finally:
+            pending = ctx.pop("pending", None)
+            if pending is not None:
+                pending[0].join()  # abandoned mid-epoch: drain the thread; its error is moot
+            self._sparse_overlap_close(ctx)
+            program.__dict__.pop("_sparse_prefetched_ids", None)
+            closer = getattr(it, "close", None)
+            if closer is not None:
+                closer()
+
+    # ------------------------------------------------------------------
+    def train_from_dataset(self, program=None, dataset=None, scope=None, thread=0, debug=False,
+                           fetch_list=None, fetch_info=None, print_period=100,
+                           trainer_desc=None, trace_id=None, checkpoint_dir=None,
+                           checkpoint_every=0, checkpoint_epoch=0, resume_from=None,
+                           checkpoint_async=False, phase_ledger=None, watchdog=None,
+                           train_log=None):
+        """Loop the dataset's batches through ``run`` (reference:
+        executor.py train_from_dataset -> the C++ Trainer/DeviceWorker
+        loop, trainer.h:38; here the cached step is the device worker).
+        Returns each step's fetches (numpy), when ``fetch_list`` is given.
+
+        ``trainer_desc`` (trainer_desc.py) supplies the fetch config and
+        checks that its device worker fits the program (Section needs a
+        PipelineOptimizer-cut program, DownpourSGD distributed lookup
+        tables; DownpourSGD installs the async Communicator).
+        ``thread=N`` (N > 1) prefetches N batches ahead on a background
+        thread through ``reader.device_buffered``, staged on the
+        executor's device: on the card for a CUDA executor (raising
+        where there is none), on the host for a ``CPUPlace`` one; a
+        distributed table's ids stay on the host, where each batch's
+        unique ids are taken.  With
+        distributed tables in async mode (a Communicator bound), batch
+        N+1's pulls overlap batch N's step.
+
+        Not ported yet, and raising by name: checkpoints and resume
+        (``checkpoint_dir``, ``resume_from``), the training control tower
+        (``phase_ledger``, ``watchdog``, ``train_log``) and the trace
+        spans (``trace_id``), ROADMAP A9; a compiled program, A10."""
+        unported = {"checkpoint_dir": checkpoint_dir, "resume_from": resume_from,
+                    "phase_ledger": phase_ledger, "watchdog": watchdog, "train_log": train_log,
+                    "trace_id": trace_id}
+        asked = [k for k, v in unported.items() if v]
+        if asked:
+            raise NotImplementedError(
+                "train_from_dataset(%s): checkpoints, the training control tower and the "
+                "trace spans (faults/checkpoint.py, monitor/train.py, monitor/spans.py) are "
+                "ROADMAP A9, not ported to paddle_tpu_torch yet" % ", ".join(asked))
+        if program is not None and getattr(program, "_is_compiled_program", False):
+            raise NotImplementedError(
+                "train_from_dataset over a compiled (multi-device) program is ROADMAP A10, "
+                "not ported to paddle_tpu_torch yet")
+        program = program if program is not None else framework.default_main_program()
+        n_prefetch = int(thread)
+        if trainer_desc is not None:
+            worker = trainer_desc._worker
+            if worker.worker_kind == "Section" and not getattr(program, "_pipeline_plan", None):
+                raise ValueError("Section worker needs a PipelineOptimizer(cut_list=...) program")
+            if (worker.worker_kind == "DownpourSGD"
+                    and not getattr(program, "_distributed_tables", None)):
+                raise ValueError("DownpourSGD worker needs embedding(is_distributed=True) tables")
+            worker._prepare(program)
+            fetch_list = fetch_list or trainer_desc._fetch_vars
+            fetch_info = fetch_info or trainer_desc._fetch_info
+            print_period = trainer_desc._print_period
+            n_prefetch = n_prefetch or int(getattr(trainer_desc, "thread_num", 0))
+        batches = iter(dataset)
+        tables = getattr(program, "_distributed_tables", None) or {}
+        if n_prefetch > 1:
+            from paddle_tpu_torch import reader
+
+            # a distributed table's ids stay on the host, where every
+            # batch expands them: staged, they would come back each step
+            batches = reader.device_buffered(
+                batches, size=n_prefetch,
+                device=self.device if self.device.type == "cuda" else None,
+                host_names=[m["ids_name"] for m in tables.values()])()
+        if tables and getattr(program, "_ps_communicator", None) is not None:
+            batches = self._sparse_overlap_iter(program, batches)
+        results = []
+        try:
+            for step, feed in enumerate(batches):
+                out = self.run(program, feed=feed, fetch_list=fetch_list, scope=scope)
+                if fetch_list:
+                    results.append(out)
+                    if debug and step % print_period == 0:
+                        names = fetch_info or [_as_fetch_name(f) for f in fetch_list]
+                        print("batch %d:" % step, dict(zip(names, out)))
+        finally:
+            closer = getattr(batches, "close", None)
+            if closer is not None:
+                closer()  # stop the prefetch producer and the overlap thread
+        return results
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None, thread=0, debug=False,
+                           fetch_list=None, fetch_info=None, print_period=100):
+        """``train_from_dataset`` over an inference program (its fetches,
+        no update): the reference's infer_from_dataset."""
+        return self.train_from_dataset(program, dataset, scope, thread, debug, fetch_list,
+                                       fetch_info, print_period)
+
+    # ------------------------------------------------------------------
     def jit_cache_stats(self) -> Dict[str, Any]:
         """Cache accounting, with the JAX package's keys and meanings.
 
@@ -479,8 +958,10 @@ class Executor:
         ``dispatch_overhead_s`` sums the host seconds each run spent
         before its step ran.  ``graphs`` counts the captured CUDA graphs
         of the live entries (one per entry and scope), and
-        ``graph_pool_bytes`` the device memory their captures reserved.  The parameter-server keys read 0: the
-        port has no parameter server yet."""
+        ``graph_pool_bytes`` the device memory their captures reserved.
+        ``ps_pull_overlap_s`` sums the seconds of the overlapped sparse
+        pulls that hid behind a step, ``ps_pull_wait_s`` the seconds the
+        loop waited for them."""
         with self._lock:
             graphs = [g for e in self._cache.values() for g in list(e.graphs.values())]
         return {
@@ -493,8 +974,8 @@ class Executor:
             "plan_misses": self._cache_stats["plan_misses"],
             "plan_evictions": self._cache_stats["plan_evictions"],
             "dispatch_overhead_s": self._cache_stats["dispatch_overhead_s"],
-            "ps_pull_overlap_s": 0.0,
-            "ps_pull_wait_s": 0.0,
+            "ps_pull_overlap_s": self._cache_stats["ps_pull_overlap_s"],
+            "ps_pull_wait_s": self._cache_stats["ps_pull_wait_s"],
             "graphs": len(graphs),
             "graph_pool_bytes": sum(g.pool_bytes for g in graphs),
         }

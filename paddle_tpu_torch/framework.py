@@ -466,6 +466,12 @@ class Program:
             "random_seed": self.random_seed,
             "blocks": [b.to_dict() for b in self.blocks],
         }
+        # distributed lookup-table metadata (layers.embedding
+        # is_distributed=True) survives serde, as in the JAX package: a
+        # loaded program can still prefetch and push
+        dist = getattr(self, "_distributed_tables", None)
+        if dist:
+            payload["distributed_tables"] = dist
         return json.dumps(payload)
 
     @staticmethod
@@ -473,6 +479,8 @@ class Program:
         data = json.loads(text)
         prog = Program()
         prog.random_seed = data.get("random_seed", 0)
+        if data.get("distributed_tables"):
+            prog._distributed_tables = data["distributed_tables"]
         prog.blocks = []
         for bd in data["blocks"]:
             prog.blocks.append(Block(prog, bd["idx"], bd["parent_idx"]))

@@ -1,8 +1,9 @@
 """NN layers (reference: python/paddle/fluid/layers/nn.py): fc,
-embedding, conv2d, pool2d, batch_norm, layer_norm, dropout, relu,
-softmax, mean, cross_entropy, softmax_with_cross_entropy, matmul, topk,
-accuracy, clip and clip_by_norm, as the JAX package's ``layers/nn.py``
-builds them."""
+embedding (in HBM, or on the parameter server with ``is_distributed``),
+conv2d, pool2d, batch_norm, layer_norm, dropout, relu, softmax, mean,
+cross_entropy, softmax_with_cross_entropy,
+sigmoid_cross_entropy_with_logits, matmul, topk, accuracy, auc, clip and
+clip_by_norm, as the JAX package's ``layers/nn.py`` builds them."""
 from __future__ import annotations
 
 import numpy as np
@@ -12,7 +13,8 @@ from paddle_tpu_torch.layer_helper import LayerHelper
 
 __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm", "dropout", "relu",
            "softmax", "mean", "cross_entropy", "square_error_cost", "softmax_with_cross_entropy",
-           "matmul", "topk", "accuracy", "clip", "clip_by_norm"]
+           "sigmoid_cross_entropy_with_logits", "matmul", "topk", "accuracy", "auc", "clip",
+           "clip_by_norm"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None, act=None, name=None):
@@ -43,12 +45,57 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None, act=Non
 
 def embedding(input, size, is_sparse=False, is_distributed=False, padding_idx=None,
               param_attr=None, dtype="float32"):
-    """reference: layers/nn.py:449 — a dense gather from a table on the
-    device.  Parameter-server tables (``is_distributed``) are a later
-    slice of the port."""
-    if is_distributed:
-        raise NotImplementedError("distributed lookup tables are not ported yet")
+    """reference: layers/nn.py:449.
+
+    ``is_distributed=True``: the table does NOT live on the device —
+    rows are served by the parameter server (distributed/ps.py) and
+    prefetched per batch (reference: transpiler/distribute_lookup_table.py
+    + parameter_prefetch.cc).  The layer records the table's metadata on
+    the program (``program._distributed_tables``, keyed by the prefetch
+    var, one entry per lookup site: several sites may share one server
+    table); bind servers with
+    ``paddle_tpu_torch.distributed.bind_distributed_tables(program,
+    endpoints)`` and the executor pulls before and pushes after each
+    step.  The ids must be a feed of the step.  Otherwise the lookup is a
+    dense gather from a table on the device."""
     helper = LayerHelper("embedding", param_attr=param_attr)
+    if is_distributed:
+        from paddle_tpu_torch.param_attr import ParamAttr
+
+        block = helper.main_program.current_block()
+        attr = param_attr if isinstance(param_attr, ParamAttr) else ParamAttr(name=param_attr)
+        table_name = attr.name or unique_name.generate("dist_emb_table")
+        rows = block.create_var(
+            name=unique_name.generate(table_name + "@PREFETCH"),
+            shape=[-1, size[1]], dtype=dtype, stop_gradient=False,
+        )
+        ids_shape = tuple(input.shape or ())
+        local_shape = ids_shape[:-1] if ids_shape and ids_shape[-1] == 1 else ids_shape
+        local = block.create_var(
+            name=unique_name.generate(table_name + "@LOCALIDS"),
+            shape=list(local_shape) or [-1], dtype="int32", stop_gradient=True,
+        )
+        tmp = helper.create_variable_for_type_inference(dtype)
+        pad = -1 if padding_idx is None else (padding_idx if padding_idx >= 0 else size[0] + padding_idx)
+        helper.append_op(
+            type="distributed_lookup_table",
+            inputs={"Rows": [rows], "Ids": [local], "OrigIds": [input]},
+            outputs={"Out": [tmp]},
+            attrs={"table": table_name, "padding_idx": pad},
+        )
+        prog = helper.main_program
+        if not hasattr(prog, "_distributed_tables"):
+            prog._distributed_tables = {}
+        prog._distributed_tables[rows.name] = {
+            "table": table_name,
+            "dim": int(size[1]),
+            "height": int(size[0]),
+            "ids_name": input.name,
+            "rows_name": rows.name,
+            "local_name": local.name,
+            "squeeze_last": bool(ids_shape and ids_shape[-1] == 1),
+        }
+        return tmp
     w = helper.create_parameter(param_attr, shape=size, dtype=dtype)
     tmp = helper.create_variable_for_type_inference(dtype)
     padding_idx = -1 if padding_idx is None else (padding_idx if padding_idx >= 0 else size[0] + padding_idx)
@@ -284,6 +331,25 @@ def softmax_with_cross_entropy(
     if return_softmax:
         return loss, softmax_out
     return loss
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None, normalize=False):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="sigmoid_cross_entropy_with_logits",
+        inputs={"X": [x], "Label": [label]},
+        outputs={"Out": [out]},
+        attrs={"ignore_index": ignore_index, "normalize": normalize},
+    )
+    return out
+
+
+def auc(input, label, curve="ROC", num_thresholds=200, topk=1, slide_steps=1):
+    """As in the JAX package, there is no graph AUC op: the streaming AUC
+    of a CTR model is ``paddle_tpu_torch.metrics.Auc`` over the fetched
+    probabilities."""
+    raise NotImplementedError("use paddle_tpu_torch.metrics.Auc for streaming AUC")
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):

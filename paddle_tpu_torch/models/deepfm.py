@@ -1,0 +1,76 @@
+"""DeepFM CTR model — the sparse, high-dimensional-lookup benchmark
+family (BASELINE.md "DeepFM / Wide&Deep"; the reference serves this class
+of model through the distributed lookup table and its parameter server,
+SURVEY.md §2.10), as the JAX package's ``models/deepfm.py`` builds it (a
+copy with its imports pointed at this package).
+
+Its two tables are gathered on the device (``lookup_table``), or with
+``distributed_emb=True`` served by the parameter server and prefetched
+per batch (``distributed_lookup_table``).
+"""
+from __future__ import annotations
+
+from paddle_tpu_torch import layers
+from paddle_tpu_torch.param_attr import ParamAttr
+
+__all__ = ["deepfm_ctr"]
+
+
+def deepfm_ctr(
+    feat_ids,
+    feat_vals,
+    labels,
+    num_features: int = 100000,
+    num_fields: int = 39,
+    embed_dim: int = 8,
+    deep_layers=(400, 400, 400),
+    name: str = "deepfm",
+    distributed_emb: bool = False,
+):
+    """feat_ids: int64 [N, F, 1] (or [N, F]); feat_vals: float32 [N, F];
+    labels [N, 1].
+
+    ``distributed_emb=True`` serves both tables from the parameter server
+    (huge-vocab CTR where the tables exceed HBM — BASELINE.md DeepFM;
+    feat_ids must be a feed, bind via
+    distributed.bind_distributed_tables).
+
+    Returns (avg_loss, auc_prob) where auc_prob is the CTR probability.
+    """
+    vals = layers.reshape(feat_vals, shape=[0, num_fields, 1])
+    emb_kw = dict(is_sparse=True, is_distributed=True) if distributed_emb else {}
+    # distributed mode looks up the raw [N, F, 1] feed ids (prefetch needs
+    # the feed var); dense mode drops the trailing 1 first
+    ids_in = feat_ids if distributed_emb else layers.reshape(feat_ids, shape=[0, num_fields])
+
+    # ---- first-order (wide) term: sum_f w_id(f) * val(f)
+    w1 = layers.embedding(
+        ids_in,
+        size=[num_features, 1],
+        param_attr=ParamAttr(name=name + "_w1_emb"),
+        **emb_kw,
+    )  # [N, F, 1]
+    first = layers.reduce_sum(w1 * vals, dim=[1])  # [N, 1]
+
+    # ---- second-order FM term over [N, F, K] embeddings
+    emb = layers.embedding(
+        ids_in,
+        size=[num_features, embed_dim],
+        param_attr=ParamAttr(name=name + "_fm_emb"),
+        **emb_kw,
+    )  # [N, F, K]
+    xv = emb * vals
+    sum_sq = layers.square(layers.reduce_sum(xv, dim=[1]))  # [N, K]
+    sq_sum = layers.reduce_sum(layers.square(xv), dim=[1])  # [N, K]
+    second = layers.scale(layers.reduce_sum(sum_sq - sq_sum, dim=[1], keep_dim=True), scale=0.5)
+
+    # ---- deep tower over flattened embeddings
+    deep = layers.reshape(xv, shape=[0, num_fields * embed_dim])
+    for i, width in enumerate(deep_layers):
+        deep = layers.fc(deep, size=width, act="relu", param_attr=ParamAttr(name="%s_deep_fc%d_w" % (name, i)))
+    deep_out = layers.fc(deep, size=1, param_attr=ParamAttr(name=name + "_deep_out_w"))
+
+    logits = first + second + deep_out
+    loss = layers.sigmoid_cross_entropy_with_logits(logits, layers.cast(labels, "float32"))
+    prob = layers.sigmoid(logits)
+    return layers.mean(loss), prob

@@ -2,8 +2,9 @@
 
 Reference kernels: operators/activation_op.cc, softmax_op.cc,
 conv_op.cc, pool_op.cc, batch_norm_op.cc, layer_norm_op.cc,
-cross_entropy_op.cc, softmax_with_cross_entropy_op.cc, dropout_op.cc,
-and the fused attention op.  The fused attention op's compute and
+cross_entropy_op.cc, softmax_with_cross_entropy_op.cc,
+sigmoid_cross_entropy_with_logits_op.cc, dropout_op.cc, and the fused
+attention op.  The fused attention op's compute and
 gradient are the hand-written CUDA kernels behind
 ``kernels/fused_attention.py``; dropout's training branch is the
 hand-written kernel behind ``kernels/dropout.py``.
@@ -291,6 +292,28 @@ def softmax_with_cross_entropy(inputs, attrs, device):
         if ignore >= 0:
             loss = torch.where(lbl[..., None] == ignore, 0.0, loss)
     return {"Softmax": softmax_out, "Loss": loss}
+
+
+@register_op("sigmoid_cross_entropy_with_logits", no_grad_set={"Label"})
+def sigmoid_cross_entropy_with_logits(inputs, attrs, device):
+    """max(x, 0) - x * label + log1p(exp(-|x|)), the JAX package's
+    formula: zero where the label is ``ignore_index``, and with
+    ``normalize`` divided by the count of labels that are not (at least
+    1).  Its gradient is sigmoid(x) - label at every x: at a tie
+    ``torch.maximum`` gives x half its gradient and ``abs`` has slope 0,
+    so at x = 0 it is 0.5 - label.  The JAX package's ``jnp.abs`` takes
+    slope 1 there, so its gradient at a logit of exactly 0 (a model whose
+    logits start at 0) is -label (ROADMAP queue C); elsewhere the two
+    agree."""
+    x = one(inputs, "X")
+    label = one(inputs, "Label")
+    loss = torch.maximum(x, torch.zeros_like(x)) - x * label + torch.log1p(torch.exp(-x.abs()))
+    ignore = attrs.get("ignore_index", -100)
+    kept = label != ignore
+    loss = torch.where(kept, loss, torch.zeros_like(loss))
+    if attrs.get("normalize", False):
+        loss = loss / torch.clamp(kept.sum().to(loss.dtype), min=1.0)
+    return {"Out": loss}
 
 
 @register_op("square_error_cost", no_grad_set={"Y"})

@@ -5,7 +5,8 @@ Reference kernels: operators/fill_constant_op.cc, uniform_random_op.cc,
 gaussian_random_op.cc, truncated_gaussian_random_op.cc,
 assign_value_op.cc, range_op.cc, reshape_op.cc, transpose_op.cc,
 slice_op.cc, cast_op.cc, gather_op.cc, lookup_table_op.cc, where_op.cc,
-top_k_op.cc.
+top_k_op.cc, and distributed/parameter_prefetch.cc (the distributed
+lookup table's gather).
 The random ops draw from a ``torch.Generator`` seeded with the op's
 ``seed`` attr (assigned by the program, framework.Program.next_seed).
 """
@@ -187,6 +188,31 @@ def lookup_table(inputs, attrs, device):
     padding_idx = attrs.get("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
+    return {"Out": out}
+
+
+@register_op("distributed_lookup_table", no_grad_set={"Ids", "OrigIds"})
+def distributed_lookup_table(inputs, attrs, device):
+    """Lookup over host-prefetched rows (reference:
+    operators/distributed/parameter_prefetch.cc + prefetch_op).
+
+    The executor pulls the batch's unique rows from the parameter server
+    before the step and feeds them as ``Rows``, with the int32 ids-to-row
+    map ``Ids`` (index_select takes it as it is, on the card too); the
+    op is a gather, so its vjp is the scatter-add (``index_add_``) whose
+    result is the sparse gradient pushed back after the step
+    (executor.py ``_prefetch_distributed_tables``).  ``OrigIds`` and
+    ``padding_idx`` mask pad tokens to zero rows (and, through the vjp,
+    zero their pushed gradients) as ``lookup_table`` does."""
+    rows = one(inputs, "Rows")
+    ids = one(inputs, "Ids")
+    out = rows.index_select(0, ids.reshape(-1)).reshape(tuple(ids.shape) + tuple(rows.shape[1:]))
+    padding_idx = attrs.get("padding_idx", -1)
+    orig = one(inputs, "OrigIds")
+    if padding_idx is not None and padding_idx >= 0 and orig is not None:
+        if orig.dim() >= 2 and orig.shape[-1] == 1:
+            orig = orig.squeeze(-1)
+        out = out * (orig != padding_idx).unsqueeze(-1).to(out.dtype)
     return {"Out": out}
 
 

@@ -277,10 +277,12 @@ class _CudaStager:
     array is pinned and copied with ``non_blocking=True`` on a stream of
     the stager's own, and an event marks the copy's end.  ``ready`` (on
     the consumer's thread) makes the consumer's current stream wait on
-    that event and records the tensors on it."""
+    that event and records the tensors on it.  A dict batch's entries
+    named in ``host_names`` stay as they came."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, host_names=()):
         self.device = device
+        self._host = frozenset(host_names)
         self._stream: Optional[torch.cuda.Stream] = None
 
     def _put(self, a):
@@ -294,7 +296,10 @@ class _CudaStager:
             torch.cuda.set_device(self.device)
             self._stream = torch.cuda.Stream(self.device)
         with torch.cuda.stream(self._stream):
-            staged = _tree_map(item, self._put)
+            if isinstance(item, dict):
+                staged = {k: v if k in self._host else self._put(v) for k, v in item.items()}
+            else:
+                staged = _tree_map(item, self._put)
             event = torch.cuda.Event()
             event.record(self._stream)
         return staged, event
@@ -304,13 +309,15 @@ class _CudaStager:
         stream = torch.cuda.current_stream(self.device)
         stream.wait_event(event)
         for t in _leaves(staged):
-            t.record_stream(stream)
+            if isinstance(t, torch.Tensor) and t.device == self.device:
+                t.record_stream(stream)
         return staged
 
 
 def device_buffered(reader, size: int = 2, device="auto", steps: Optional[int] = None,
                     drop_last: bool = True, compiled=None,
-                    feed_names: Optional[Sequence[str]] = None):
+                    feed_names: Optional[Sequence[str]] = None,
+                    host_names: Sequence[str] = ()):
     """Device-side prefetch: a bounded background thread that stages
     batches on the card ahead of the consumer, so feeds arrive as CUDA
     tensors and ``Executor.run`` takes them where they lie (the
@@ -325,6 +332,8 @@ def device_buffered(reader, size: int = 2, device="auto", steps: Optional[int] =
     per_step_feed=True)``; a ragged tail of fewer than N batches is
     dropped unless ``drop_last=False``.  ``compiled`` (the sharded mode)
     raises until the multi-device slice; ``feed_names`` belongs to it.
+    ``host_names``: names in a dict batch that stay on the host, as they
+    came (the ids a distributed table expands on the host every batch).
 
     Stalls count into the registry's reader counters; the producer
     thread shuts down when the consumer exits early (break/exception).
@@ -349,7 +358,7 @@ def device_buffered(reader, size: int = 2, device="auto", steps: Optional[int] =
                     return
                 yield group
 
-        stager = _CudaStager(dev) if dev is not None else None
+        stager = _CudaStager(dev, host_names) if dev is not None else None
 
         def stage(item):
             if steps is not None:

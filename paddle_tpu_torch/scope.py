@@ -28,6 +28,16 @@ def to_numpy(t) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def host_copy(x) -> np.ndarray:
+    """A host array that nothing else writes: a tensor, on the card or the
+    CPU, is copied out (a CPU tensor's ``numpy()`` would share its
+    memory); a numpy array is taken as it is."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach()
+        return to_numpy(t if t.is_cuda else t.clone())
+    return np.asarray(x)
+
+
 class Scope:
     def __init__(self, device=None):
         self.vars: Dict[str, Any] = {}

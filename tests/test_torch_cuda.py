@@ -11,7 +11,12 @@ and the rest of the training surface: each new optimizer op under
 capture against the eager path (bit for bit) and against float64, the
 EMA's and ModelAverage's backup across a captured step under ``apply``,
 the reader's side-stream staging under a slow consumer, PyReader
-feeding the captured step, and FLAGS_check_nan_inf on a replay.
+feeding the captured step, and FLAGS_check_nan_inf on a replay; and
+DeepFM: captured against eager bit for bit under deterministic
+algorithms, a parameter-server ``Rows`` feed through two id buckets
+(an entry and a graph each), the async Communicator's queue holding
+host copies that a replay does not change, and GeoSGD's pulls landing
+on the card and read by the next captured step.
 
 Every test here needs a CUDA card and skips without one (marker
 ``cuda``).  The file imports neither jax nor paddle_tpu, so it also runs
@@ -1346,3 +1351,217 @@ def test_check_nan_inf_on_a_replayed_entry(card, monkeypatch):
     with pytest.raises(RuntimeError, match="nan/inf detected") as err:
         exe.run(main, feed=bad, fetch_list=[loss], scope=scope)
     assert "fc_0.w_0" in str(err.value)
+
+
+# ---------------------------------------------------------------------------
+# DeepFM and the parameter server on the card
+# ---------------------------------------------------------------------------
+class _Deterministic:
+    """``torch.use_deterministic_algorithms`` for a block whose runs are
+    compared bit for bit: the embedding's backward (``index_add_``)
+    otherwise adds with atomics."""
+
+    def __enter__(self):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def __exit__(self, *exc):
+        torch.use_deterministic_algorithms(False)
+
+
+def _deepfm(distributed=False, fields=8, features=1000, embed=8, deep=(64, 64), seed=3):
+    from paddle_tpu_torch import models
+
+    main, startup = tfluid.Program(), tfluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with tfluid.program_guard(main, startup), tfluid.unique_name.guard():
+        ids = tfluid.layers.data("feat_ids", [fields, 1], dtype="int64")
+        vals = tfluid.layers.data("feat_vals", [fields])
+        label = tfluid.layers.data("label", [1], dtype="int64")
+        loss, prob = models.deepfm_ctr(ids, vals, label, num_features=features,
+                                       num_fields=fields, embed_dim=embed, deep_layers=deep,
+                                       distributed_emb=distributed)
+        opt = (tfluid.optimizer.SGDOptimizer(0.05) if distributed
+               else tfluid.optimizer.AdamOptimizer(1e-3))
+        opt.minimize(loss)
+    return main, startup, loss
+
+
+def _ctr_feed(rng, rows, fields=8, features=1000):
+    return {"feat_ids": rng.randint(0, features, (rows, fields)).astype("int64"),
+            "feat_vals": rng.uniform(0, 1, (rows, fields)).astype("float32"),
+            "label": rng.randint(0, 2, (rows, 1)).astype("int64")}
+
+
+def test_deepfm_captured_bit_equal_to_eager(card):
+    """Four DeepFM Adam steps through the cached executor (captured, then
+    replayed) against four eager ones from the same state, under
+    deterministic algorithms: losses and every persistable bit-equal.
+    The ids come as [B, F] for the [F, 1] var, as a dataset gives them."""
+    main, startup, loss = _deepfm()
+    boot = tfluid.Scope()
+    tfluid.Executor().run(startup, scope=boot)
+    init = _state(boot)
+    rng = np.random.RandomState(0)
+    feeds = [_ctr_feed(rng, 256) for _ in range(4)]
+    with _Deterministic():
+        exe = tfluid.Executor()
+        exe.run(main, feed=feeds[0], fetch_list=[loss], scope=_scope_from(init, card))  # warm-up
+        ref_exe, scope, ref_scope = tfluid.Executor(), _scope_from(init, card), _scope_from(init, card)
+        got = [exe.run(main, feed=f, fetch_list=[loss], scope=scope)[0] for f in feeds]
+        ref = [ref_exe.run(main, feed=f, fetch_list=[loss], scope=ref_scope,
+                           use_program_cache=False)[0] for f in feeds]
+    assert exe.jit_cache_stats()["graphs"] == 1
+    assert [g.tobytes() for g in got] == [r.tobytes() for r in ref]
+    a, b = _state(scope), _state(ref_scope)
+    for n in a:
+        assert a[n].tobytes() == b[n].tobytes(), n
+
+
+def _ps_run(card, init, feeds, main, loss, cached, comm=None):
+    from paddle_tpu_torch.distributed import ps as tps
+
+    server = tps.ParameterServer().start()
+    try:
+        tfluid.distributed.bind_distributed_tables(main, [server.endpoint], optimizer="sgd",
+                                                   lr=0.05, initializer="zeros")
+        exe, scope = tfluid.Executor(), _scope_from(init, card)
+        out = [exe.run(main, feed=dict(f), fetch_list=[loss], scope=scope,
+                       use_program_cache=cached)[0] for f in feeds]
+        return out, exe.jit_cache_stats()
+    finally:
+        server.stop()
+
+
+def test_ps_rows_through_two_buckets_each_captured(card):
+    """A PS-fed ``Rows`` feed whose unique-id count falls in two buckets
+    (batch 16 and batch 128 of 8 fields over 100,000 features: 128 and
+    1,024 rows): each bucket is an entry of its own with a graph of its
+    own, and the captured runs give the eager runs' losses bit for bit."""
+    main, startup, loss = _deepfm(distributed=True, features=100_000)
+    boot = tfluid.Scope()
+    tfluid.Executor().run(startup, scope=boot)
+    init = _state(boot)
+    rng = np.random.RandomState(1)
+    feeds = [_ctr_feed(rng, rows, features=100_000) for rows in (16, 128) * 4]
+    with _Deterministic():
+        got, stats = _ps_run(card, init, feeds, main, loss, cached=True)
+        main2, _, loss2 = _deepfm(distributed=True, features=100_000)
+        ref, _ = _ps_run(card, init, feeds, main2, loss2, cached=False)
+    assert stats["entries"] == 2 and stats["graphs"] == 2 and stats["misses"] == 2
+    assert {tfluid.executor.pow2_id_bucket(n) for n in main._uniq_id_hist} == {128, 1024}
+    assert [g.tobytes() for g in got] == [r.tobytes() for r in ref]
+
+
+def test_queued_async_pushes_are_host_copies(card):
+    """The Communicator's queue (its send thread not started) holds each
+    step's row gradients as host arrays, and a batch queued after a
+    replay is unchanged after the next replay overwrote the graph's
+    fetch buffers."""
+    from paddle_tpu_torch.distributed import ps as tps
+    from paddle_tpu_torch.distributed.communicator import Communicator
+
+    main, startup, loss = _deepfm(distributed=True)
+    server = tps.ParameterServer().start()
+    try:
+        client = tfluid.distributed.bind_distributed_tables(main, [server.endpoint], lr=0.05)
+        comm = main._ps_communicator = Communicator(client)  # not started: pushes stay queued
+        exe, scope = tfluid.Executor(), tfluid.Scope()
+        exe.run(startup, scope=scope)
+        rng = np.random.RandomState(2)
+        snapshots = []
+        for step in range(4):  # eager, capture, replay, replay
+            exe.run(main, feed=_ctr_feed(rng, 64), fetch_list=[loss], scope=scope)
+            queued = {t: list(q.queue) for t, q in comm._queues.items()}
+            assert all(isinstance(a, np.ndarray)
+                       for items in queued.values() for item in items for a in item)
+            snapshots.append({t: [(i.copy(), g.copy()) for i, g in items]
+                              for t, items in queued.items()})
+        assert exe.jit_cache_stats()["graphs"] == 1
+        final = {t: list(q.queue) for t, q in comm._queues.items()}
+        assert sorted(final) == ["deepfm_fm_emb", "deepfm_w1_emb"]
+        for t, items in final.items():
+            assert len(items) == 4
+            # the batches queued up to the first replay, after two more replays
+            for (i0, g0), (i1, g1) in zip(snapshots[2][t], items[:3]):
+                np.testing.assert_array_equal(i0, i1)
+                np.testing.assert_array_equal(g0, g1)
+        assert comm.pending() == 8
+        comm.flush()
+        assert comm.pending() == 0
+    finally:
+        server.stop()
+
+
+def test_geo_sgd_pulls_land_on_the_card(card):
+    """GeoSGD with sync_every=2 on a small fc program: the pulled params
+    are CUDA tensors on the scope's card, and the next captured step reads
+    them: its loss is bit-equal to an eager step from the same state."""
+    from paddle_tpu_torch.distributed import GeoSGD
+    from paddle_tpu_torch.distributed import ps as tps
+
+    main, startup = tfluid.Program(), tfluid.Program()
+    main.random_seed = startup.random_seed = 4
+    with tfluid.program_guard(main, startup), tfluid.unique_name.guard():
+        x = tfluid.layers.data("x", [6])
+        y = tfluid.layers.data("y", [1])
+        loss = tfluid.layers.mean(tfluid.layers.square_error_cost(
+            tfluid.layers.fc(tfluid.layers.fc(x, 16, act="relu"), 1), y))
+        tfluid.optimizer.SGDOptimizer(0.1).minimize(loss)
+    server = tps.ParameterServer().start()
+    try:
+        exe, scope = tfluid.Executor(), tfluid.Scope()
+        exe.run(startup, scope=scope)
+        geo = GeoSGD(main, scope, [server.endpoint], sync_every=2).init_worker()
+        rng = np.random.RandomState(3)
+        feeds = [{"x": rng.randn(32, 6).astype("float32"),
+                  "y": rng.randn(32, 1).astype("float32")} for _ in range(5)]
+        for f in feeds[:4]:  # eager, capture, replay, replay; two syncs
+            exe.run(main, feed=f, fetch_list=[loss], scope=scope)
+            synced = geo.step()
+        assert synced and exe.jit_cache_stats()["graphs"] == 1
+        params = [p.name for p in main.all_parameters()]
+        assert all(scope.vars[n].device == card for n in params)
+        with _Deterministic():
+            ref_scope = _scope_from(_state(scope), card)
+            got = exe.run(main, feed=feeds[4], fetch_list=[loss], scope=scope)[0]
+            ref = tfluid.Executor().run(main, feed=feeds[4], fetch_list=[loss], scope=ref_scope,
+                                        use_program_cache=False)[0]
+        assert got.tobytes() == ref.tobytes()
+    finally:
+        server.stop()
+
+
+def test_thread2_ps_ids_stay_on_the_host(card, monkeypatch):
+    """``train_from_dataset(thread=2)`` on a CUDA executor with
+    distributed tables in async mode: the prefetch stages the dense feeds
+    on the card, but the ids reach each batch's unique-id expansion as
+    host arrays (no copy back from the card); the loss falls and after
+    ``flush()`` nothing is left queued."""
+    from paddle_tpu_torch.distributed import ps as tps
+
+    main, startup, loss = _deepfm(distributed=True)
+    expand, kinds = tfluid.Executor._sparse_expand_ids, []
+
+    def spied(meta, ids_val, ladder=None):
+        kinds.append(type(ids_val))
+        return expand(meta, ids_val, ladder)
+
+    monkeypatch.setattr(tfluid.Executor, "_sparse_expand_ids", staticmethod(spied))
+    server = tps.ParameterServer().start()
+    try:
+        tfluid.distributed.bind_distributed_tables(main, [server.endpoint], lr=0.05,
+                                                   async_mode=True)
+        exe, scope = tfluid.Executor(), tfluid.Scope()
+        exe.run(startup, scope=scope)
+        feed = _ctr_feed(np.random.RandomState(5), 64)
+        out = exe.train_from_dataset(main, [dict(feed) for _ in range(6)], scope=scope,
+                                     thread=2, fetch_list=[loss])
+        losses = [float(o[0]) for o in out]
+        assert len(losses) == 6 and losses[-1] < losses[0], losses
+        assert len(kinds) == 2 * 6 and set(kinds) == {np.ndarray}, kinds
+        comm = main._ps_communicator
+        comm.flush()
+        assert comm.pending() == 0 and comm.dropped == 0
+        comm.stop()
+    finally:
+        server.stop()
