@@ -184,6 +184,31 @@ Phases, each of which raises (exit code != 0) on failure:
    (its loss bit-equal to an eager step from the same state);
    ``DownpourSGD`` on a program without distributed tables raises.
 
+25. Transformer NMT trained at bench_nmt.py's widths and feed (vocab
+   32,000, d_model 512, 6+6 layers, 8 heads, d_inner 2048, batch 128,
+   src/tgt 64, source lengths uniform in [32, 64] through ``src_mask``,
+   bf16 AMP, Adam 1e-4): eager, captured and 5 replayed steps; the
+   median replay, real tokens/s as bench_nmt.py counts them and padded
+   tokens/s, peak memory, the graph pool, a profiled replay and an eager
+   step's device time by op type; under deterministic algorithms 3
+   captured steps bit for bit against 3 eager ones; then one step at
+   batch 4 against the CPU in fp32 (1e-3) and in AMP (the AMP limits).
+26. Decoding: greedy and beam (beam 4, max_len 64) over 8 sources with
+   phase 25's weights, full prefix through ``make_program_logits_fn``;
+   each source's tokens on the card against the CPU's up to the first
+   step where the CPU's margin for that source is below 1e-3; a profiled
+   greedy decode; the cached decode at ``transformer_lm``'s defaults
+   against its full-prefix decode (teacher-forced logits within 1e-4); ms
+   per generated token.
+27. The Fluid book's RNN translation models at Fluid 1.5's book widths
+   (dict 30,000, word 16, hidden 32, beam 2, max length 8, batch 64):
+   the dynamic_lstm encoder with a DynamicRNN decoder (Adam) and the
+   bi-LSTM encoder-decoder (Adagrad), each captured and bit for bit
+   against eager; the ``While(max_trip_count=8)`` beam decode captured
+   with the CPU's SentenceIds; the unbounded ``While`` decode on the
+   interpreter (no graph) with the same SentenceIds.
+   Phases 25 to 27 launch none of the four hand kernels (checked).
+
 Output: progress lines, then a ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``.  Without a CUDA device it exits non-zero and prints no result.
@@ -443,6 +468,35 @@ PS_SYNC_RTOL = 2e-4      # the JAX package's PS-against-dense tolerance
 PS_REPLAY_TOL = 1e-5
 GEO_SYNC_EVERY = 2
 CARD = "cuda:0"  # the device of the DeepFM phases' scopes
+# Transformer NMT at bench_nmt.py's widths (its :29-52; BASELINE config 4):
+# vocab 32,000, d_model 512, 6+6 layers, 8 heads, d_inner 2048, batch 128,
+# src/tgt 64, source lengths uniform in [32, 64] carried by src_mask, bf16
+# AMP, AdamOptimizer(1e-4)
+NMT = dict(src_vocab=32000, tgt_vocab=32000, d_model=512, n_layer=6, n_head=8, d_inner=2048,
+           src_len=64, tgt_len=64)
+NMT_BATCH = 128          # 8,192 source and 8,192 target tokens a step
+NMT_LR = 1e-4
+NMT_STEPS = 5            # timed (replayed) steps, after the eager and the captured step
+NMT_CAPTURE_STEPS = 3
+NMT_CHECK_BATCH = 4      # the card-vs-CPU NMT steps
+NMT_CHECK_GRADS = ["nmt_tgt_word_emb", "nmt_dec_0_cross_q_w", "nmt_head_w"]
+# decoding (phase 26): greedy and beam over DECODE_SOURCES sources of
+# phase 25's feed, max_len = tgt_len; card tokens equal the CPU's up to the
+# first step where the CPU's top-2 (beam: top K + 1) margin is below
+# DECODE_TIE_MARGIN; the cached LM step's teacher-forced logits within
+# DECODE_LOGIT_TOL of the full program's, relative to max(1, max |logit|)
+DECODE_SOURCES = 8
+DECODE_BEAM = 4
+DECODE_TIE_MARGIN = 1e-3
+DECODE_LOGIT_TOL = 1e-4
+DECODE_LM_LEN = 64
+BOS, EOS = 1, 2
+# the Fluid book's RNN translation models at upstream Fluid 1.5's book
+# config (dict 30,000, word 16, hidden 32, beam 2, max length 8), batch 64,
+# sentences of up to 16 words
+BOOK = dict(dict=30000, word=16, hidden=32, beam=2, max_len=8, batch=64, src_len=16, trg_len=16,
+            lr=1e-3)
+BOOK_STEPS = 5           # each training path: eager (or warm-up), captured, 3 replays
 # classes of the kernels of a DeepFM step, matched in order on the name
 DEEPFM_KERNEL_CLASSES = [
     ("gemm", ("gemm", "xmma", "cutlass", "sm90_", "sm80_", "nvjet")),
@@ -3676,6 +3730,676 @@ def run_geo_and_descriptors(torch):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phases 25 to 27: Transformer NMT, decoding, the book's RNN translation models
+# ---------------------------------------------------------------------------
+def _hand_kernel_launches():
+    """The launch count of each of the four hand kernels since the last reset."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import fused_attention as fa
+
+    counts = kernels.launch_counts()
+    return {k: counts.get(k, 0) for k in (fa.KERNEL_NAME, fa.BWD_DKV_NAME, fa.BWD_DQ_NAME,
+                                          "dropout")}
+
+
+def _no_hand_kernel(what, launches):
+    if any(launches.values()):
+        raise AssertionError("%s launched a hand kernel: %s" % (what, launches))
+
+
+def nmt_program(fluid, amp=True, train=True, rows_cut=None):
+    """transformer_nmt as bench_nmt.py builds it (NMT's widths, dropout 0):
+    with ``train`` the loss under ``AdamOptimizer(1e-4)`` (decorated for
+    bf16 AMP with ``amp``), else the logits-only inference build.
+    (main, startup, loss, logits, params_grads)."""
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.models import seq2seq
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    pg = None
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        src = fluid.layers.data("src", [NMT["src_len"]], dtype="int64")
+        tgt = fluid.layers.data("tgt", [NMT["tgt_len"]], dtype="int64")
+        lbl = fluid.layers.data("lbl", [NMT["tgt_len"], 1], dtype="int64") if train else None
+        smask = fluid.layers.data("smask", [NMT["src_len"]])
+        loss, logits = seq2seq.transformer_nmt(src, tgt, lbl, src_mask=smask, dropout_rate=0.0,
+                                               is_test=not train, **NMT)
+        if train:
+            opt = fluid.optimizer.AdamOptimizer(NMT_LR)
+            if amp:
+                opt = mixed_precision.decorate(opt)
+            _, pg = opt.minimize(loss)
+    return main, startup, loss, logits, pg
+
+
+def nmt_feed(rng, rows):
+    """bench_nmt.py's feed: random ids, source lengths uniform in
+    [src_len / 2, src_len] carried by ``smask``; (feed, real tokens)."""
+    S, T, V = NMT["src_len"], NMT["tgt_len"], NMT["tgt_vocab"]
+    lens = rng.randint(S // 2, S + 1, rows)
+    feed = {"src": rng.randint(0, V, (rows, S)).astype("int64"),
+            "tgt": rng.randint(0, V, (rows, T)).astype("int64"),
+            "lbl": rng.randint(0, V, (rows, T, 1)).astype("int64"),
+            "smask": (np.arange(S)[None, :] < lens[:, None]).astype("float32")}
+    return feed, int(lens.sum()) + rows * T  # bench_nmt.py:115's count
+
+
+def run_nmt_train(torch):
+    """Phase 25: Transformer NMT trained at bench_nmt.py's widths and feed
+    (batch 128, src/tgt 64, bf16 AMP, Adam 1e-4): eager, captured and
+    NMT_STEPS replayed steps; step time, real and padded tokens/s, peak
+    memory, graph pool, a profiled replay, an eager step's device time by
+    op type; then, under deterministic algorithms, 3 captured steps bit
+    for bit against 3 eager ones from one state.  No hand kernel runs.
+    Returns (stats, the trained scope's tensors)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+
+    stats = {"batch": NMT_BATCH, "allocated_before_bytes": _free_device_memory(torch)}
+    main, startup, loss, _, pg = nmt_program(fluid)
+    stats["ops"] = len(main.global_block().ops)
+    stats["params"] = int(sum(np.prod(p.shape) for p, _ in pg))
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = _clone_state(scope)
+    feed, real_tokens = nmt_feed(np.random.RandomState(SEED), NMT_BATCH)
+    kernels.reset_launch_counts()  # counts from here on belong to the NMT training path
+    outs, times, _ = _lm_steps(torch, exe, main, feed, [loss], scope, (), 2 + NMT_STEPS)
+    launches = _hand_kernel_launches()  # read right after the training path
+    losses = [float(o[0]) for o in outs]
+    step_s = statistics.median(times[2:])
+    padded = NMT_BATCH * (NMT["src_len"] + NMT["tgt_len"])
+    stats.update(hand_kernel_launches=launches, losses=losses, step_s=times,
+                 eager_first_step_ms=1e3 * times[0], capture_step_ms=1e3 * times[1],
+                 step_ms_median=1e3 * step_s, real_tokens_per_step=real_tokens,
+                 real_tokens_per_s=real_tokens / step_s, padded_tokens_per_s=padded / step_s,
+                 max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                 cache=exe.jit_cache_stats())
+    prof = _profile_step(torch, lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope),
+                         all_kernels=True)
+    if prof is not None:
+        prof["kernel_classes"] = _kernel_classes(prof, LM_KERNEL_CLASSES)
+        del prof["all_kernels"]
+    stats["profile"] = prof
+    exe.close()
+
+    def eager_step():
+        return exe.run(main, feed=feed, fetch_list=[loss], scope=scope, use_program_cache=False)
+
+    eager_step()
+    bd = _op_breakdown(torch, eager_step)
+    stats["eager_op_breakdown"] = {
+        "device_ms_in_ops": bd["device_ms_in_ops"], "recompute_ms": bd["recompute_ms"],
+        "by_type": {t: bd["by_type"][t] for t in list(bd["by_type"])[:12]}}
+    state = dict(scope.vars)  # the trained weights, for phase 26
+    del scope
+    stats["capture_check"] = _nmt_capture_check(torch, main, loss, init)
+    del init
+    log("[nmt-train]", json.dumps(stats))
+    _no_hand_kernel("the NMT training path", launches)
+    if stats["cache"]["graphs"] != 1:
+        raise AssertionError("the NMT training step was not captured: %s" % stats["cache"])
+    if not (np.isfinite(losses).all() and losses[-1] < losses[1]):
+        raise AssertionError("NMT losses not finite or not falling: %s" % losses)
+    if not stats["capture_check"]["bit_equal"]:
+        raise AssertionError("captured and eager NMT steps differ: %s" % stats["capture_check"])
+    return stats, state
+
+
+def _nmt_capture_check(torch, main, loss, init):
+    """NMT_CAPTURE_STEPS steps through the cached executor (warmed on a
+    scope of its own, so captured, then replayed) against as many eager
+    ones from the same state, each on a batch of its own, under
+    deterministic algorithms: losses and every persistable bit-equal."""
+    import paddle_tpu_torch as fluid
+
+    feeds = [nmt_feed(np.random.RandomState(SEED + 40 + i), NMT_BATCH)[0]
+             for i in range(NMT_CAPTURE_STEPS)]
+    out = {}
+    with _deterministic(torch):
+        for name, cached in (("eager", False), ("captured", True)):
+            exe, scope = fluid.Executor(), fluid.Scope()
+            if cached:
+                warm = fluid.Scope()
+                _load_state(warm, init)
+                exe.run(main, feed=feeds[0], fetch_list=[loss], scope=warm)
+                del warm
+            _load_state(scope, init)
+            losses = [exe.run(main, feed=f, fetch_list=[loss], scope=scope,
+                              use_program_cache=cached)[0] for f in feeds]
+            out[name] = (losses, {n: v.clone() for n, v in scope.vars.items()},
+                         exe.jit_cache_stats()["graphs"])
+            exe.close()
+            del scope
+    (e_loss, e_state, _), (c_loss, c_state, graphs) = out["eager"], out["captured"]
+    # a one-element state var may be [1] in one scope and [] in the other
+    # (startup declares the beta pows [1], the update op writes []): compare values
+    differing = [n for n in e_state
+                 if not torch.equal(e_state[n].reshape(-1), c_state[n].reshape(-1))]
+    return {"losses": {"eager": [float(v) for v in e_loss], "captured": [float(v) for v in c_loss]},
+            "graphs": graphs, "differing_persistables": differing[:8],
+            "bit_equal": (graphs == 1 and not differing
+                          and all(a.tobytes() == b.tobytes() for a, b in zip(e_loss, c_loss)))}
+
+
+def check_nmt_against_cpu(amp):
+    """Phase 25's step at NMT_CHECK_BATCH (captured: its entry warmed on a
+    scope of its own first) and on the CPU from the same state: the loss
+    and the gradients of NMT_CHECK_GRADS within TRAIN_TOL in fp32, within
+    AMP_TOL in bf16 AMP, relative to the CPU's largest magnitude."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.scope import to_numpy
+
+    main, startup, loss, _, pg = nmt_program(fluid, amp=amp)
+    grads = {p.name: g.name for p, g in pg}
+    fetch = [loss.name] + [grads[n] for n in NMT_CHECK_GRADS]
+    card_exe, card_scope = fluid.Executor(), fluid.Scope()
+    card_exe.run(startup, scope=card_scope)
+    cpu_exe, cpu_scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    fluid.io.set_params_from_numpy(cpu_scope, {n: to_numpy(v) for n, v in card_scope.vars.items()},
+                                   "cpu")
+    feed, _ = nmt_feed(np.random.RandomState(SEED + 2), NMT_CHECK_BATCH)
+    warm = fluid.Scope()
+    _load_state(warm, card_scope.vars)
+    card_exe.run(main, feed=feed, fetch_list=fetch, scope=warm)
+    del warm
+    card = card_exe.run(main, feed=feed, fetch_list=fetch, scope=card_scope)
+    cpu = cpu_exe.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    loss_tol, grad_tol = AMP_TOL if amp else (TRAIN_TOL, TRAIN_TOL)
+    stats = {"amp": amp, "batch": NMT_CHECK_BATCH, "tol": [loss_tol, grad_tol],
+             "loss": [float(card[0]), float(cpu[0])], "rel_err": {},
+             "graphs": card_exe.jit_cache_stats()["graphs"]}
+    ok = stats["graphs"] == 1
+    for name, a, b in zip(["loss"] + NMT_CHECK_GRADS, card, cpu):
+        rel = _max_rel(a, b)
+        stats["rel_err"][name] = rel
+        ok = ok and bool(np.isfinite(a).all()) and rel <= (loss_tol if name == "loss" else grad_tol)
+    card_exe.close()
+    log("[nmt-check-amp]" if amp else "[nmt-check]", json.dumps(stats))
+    if not ok:
+        raise AssertionError("card and CPU NMT steps differ: %s" % stats)
+    return stats
+
+
+class _record_top_k:
+    """Record, at each step of a decode on the CPU, each source's smallest
+    gap between adjacent scores among its K + 1 best candidates: where it
+    is below the card/CPU difference, the two may pick differently.  For
+    greedy search that is the top-2 log-prob margin."""
+
+    def __init__(self):
+        self.margins = []  # a [sources] array a step
+
+    def __enter__(self):
+        from paddle_tpu_torch import decoding
+
+        self.common = decoding.common
+        self.orig = self.common.top_k
+
+        def top_k(x, k):
+            vals = x.sort(dim=-1, descending=True).values[..., : k + 1]
+            self.margins.append((vals[..., :-1] - vals[..., 1:]).amin(-1).numpy())
+            return self.orig(x, k)
+
+        self.common.top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        self.common.top_k = self.orig
+
+
+def _same_until_tie(card, cpu, margins, tol=DECODE_TIE_MARGIN):
+    """Each source's tokens on the card against the CPU's, position by
+    position, up to the first step whose CPU margin for that source is
+    below ``tol`` (the token of step i sits at position i + 1)."""
+    m = np.stack(margins)  # [steps, sources]
+    T = card.shape[-1]
+    first = [next((i + 1 for i in range(m.shape[0]) if m[i, b] < tol), T)
+             for b in range(m.shape[1])]
+    return {"first_tie_position_by_source": first,
+            "sources_without_tie": sum(f == T for f in first),
+            "equal_before_tie": all(bool((card[b, ..., :f] == cpu[b, ..., :f]).all())
+                                    for b, f in enumerate(first)),
+            "equal_throughout": bool((card == cpu).all()),
+            "smallest_margin": float(m.min())}
+
+
+def run_nmt_decode(torch, state):
+    """Phase 26: greedy and beam search (beam DECODE_BEAM, max_len 64) of
+    phase 25's trained NMT (its fp32 master weights) over DECODE_SOURCES
+    sources, full prefix through ``make_program_logits_fn``; each source's
+    tokens against the CPU's, equal up to the first step where the CPU's
+    margin for that source is below DECODE_TIE_MARGIN; a profiled greedy
+    decode (the card's idle share);
+    then the cached LM decode at transformer_lm's defaults against its
+    full-prefix decode on the same weights (teacher-forced logits within
+    DECODE_LOGIT_TOL), and ms per generated token of each."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import decoding
+
+    _free_device_memory(torch)
+    main, _, _, logits, _ = nmt_program(fluid, train=False)
+    names = [v.name for v in main.list_vars() if v.persistable]
+    weights = {n: state[n] for n in names}
+    fn = decoding.make_program_logits_fn(main, weights, ["src", "tgt", "smask"], logits.name)
+    feed, _ = nmt_feed(np.random.RandomState(SEED + 60), DECODE_SOURCES)
+    src, smask = feed["src"], feed["smask"]
+    stats = {"sources": DECODE_SOURCES, "beam": DECODE_BEAM, "max_len": NMT["tgt_len"],
+             "logits_fn_device": str(fn.device)}
+    from paddle_tpu_torch import kernels
+
+    kernels.reset_launch_counts()  # counts from here on belong to the decode paths
+    out = {}
+    for name, beam in (("greedy", 1), ("beam", DECODE_BEAM)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if beam == 1:
+            toks, scores = decoding.greedy_search(fn, src, BOS, EOS, max_len=NMT["tgt_len"],
+                                                  extra_feeds={"smask": smask})
+        else:
+            toks, scores = decoding.beam_search(fn, src, BOS, EOS, beam_size=beam,
+                                                max_len=NMT["tgt_len"],
+                                                extra_feeds={"smask": smask})
+        toks, scores = toks.cpu().numpy(), scores.cpu().numpy()  # the one read of the loop
+        dt = time.perf_counter() - t
+        steps = NMT["tgt_len"] - 1
+        out[name] = (toks, scores)
+        stats[name] = {"s": dt, "ms_per_step": 1e3 * dt / steps,
+                       "ms_per_generated_token": 1e3 * dt / (steps * DECODE_SOURCES * beam),
+                       "finite": bool(np.isfinite(scores).all()),
+                       "shape": list(toks.shape)}
+    cpu_fn = decoding.make_program_logits_fn(main, {n: v.cpu() for n, v in weights.items()},
+                                             ["src", "tgt", "smask"], logits.name,
+                                             place=fluid.CPUPlace())
+    for name, beam in (("greedy", 1), ("beam", DECODE_BEAM)):
+        t = time.perf_counter()
+        with _record_top_k() as rec:
+            toks, _ = decoding.beam_search(cpu_fn, torch.from_numpy(src), BOS, EOS,
+                                           beam_size=beam, max_len=NMT["tgt_len"],
+                                           extra_feeds={"smask": smask})
+        if beam == 1:
+            toks = toks[:, 0]
+        stats[name]["against_cpu"] = dict(_same_until_tie(out[name][0], toks.numpy(), rec.margins),
+                                          cpu_s=time.perf_counter() - t)
+    prof = _profile_step(torch, lambda: decoding.greedy_search(
+        fn, src, BOS, EOS, max_len=NMT["tgt_len"], extra_feeds={"smask": smask})[0].cpu())
+    stats["greedy"]["profile"] = prof and {k: prof[k] for k in (
+        "step_ms", "device_ms", "device_idle_share", "launches")}
+    stats["lm_cached"] = _lm_cached_decode(torch)
+    stats["hand_kernel_launches"] = _hand_kernel_launches()
+    log("[nmt-decode]", json.dumps(stats))
+    _no_hand_kernel("the decode paths", stats["hand_kernel_launches"])
+    g, b = out["greedy"], out["beam"]
+    if not (stats["greedy"]["finite"] and stats["beam"]["finite"]
+            and g[0].shape == (DECODE_SOURCES, NMT["tgt_len"])
+            and b[0].shape == (DECODE_SOURCES, DECODE_BEAM, NMT["tgt_len"])
+            and (g[0][:, 0] == BOS).all() and (np.diff(b[1], axis=1) <= 1e-6).all()):
+        raise AssertionError("bad NMT decode: %s" % stats)
+    if not all(stats[n]["against_cpu"]["equal_before_tie"] for n in ("greedy", "beam")):
+        raise AssertionError("card and CPU decodes differ before a tie: %s" % stats)
+    lm = stats["lm_cached"]
+    if not lm["teacher_forced_rel_err"] <= DECODE_LOGIT_TOL:
+        raise AssertionError("cached and full-prefix LM logits differ: %s" % lm)
+    return stats
+
+
+def _lm_cached_decode(torch):
+    """transformer_lm at its defaults (unfused, inference) with
+    random_transformer_lm_state's weights: the cached step's logits at each
+    of DECODE_LM_LEN positions of a fixed sequence against the full
+    program's (teacher forcing); greedy and beam decodes both ways (whether
+    their tokens are equal is printed: random weights leave near ties), and
+    ms per generated token of each."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import decoding
+    from paddle_tpu_torch.models import transformer
+
+    dims = dict(vocab=LM["vocab_size"], d_model=LM["d_model"], n_layer=LM["n_layer"],
+                n_head=LM["n_head"], d_inner=LM["d_inner"])
+    state = decoding.random_transformer_lm_state(np.random.RandomState(SEED + 61),
+                                                 max_pos=LM["max_pos"], **dims)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids = fluid.layers.data("src", [DECODE_LM_LEN], dtype="int64")
+        _, logits = transformer.transformer_lm(ids, None, dropout_rate=0.0, is_test=True,
+                                               fused_attention=False,
+                                               **dict(LM, seq_len=DECODE_LM_LEN))
+    pfn = decoding.make_program_logits_fn(main, state, ["src"], logits.name)
+    step_fn, make_cache = decoding.make_transformer_lm_step_fn(state, *dims.values(),
+                                                               DECODE_LM_LEN)
+    rows = DECODE_SOURCES
+    toks = torch.from_numpy(np.random.RandomState(SEED + 62).randint(
+        0, LM["vocab_size"], (rows, DECODE_LM_LEN))).to(pfn.device)
+    full = pfn({"src": toks})
+    cache, worst = make_cache(rows), 0.0
+    for t in range(DECODE_LM_LEN):
+        step_logits, cache = step_fn(cache, toks[:, t], t)
+        worst = max(worst, float((step_logits - full[:, t]).abs().max()))
+    scale = max(float(full.abs().max()), 1.0)
+    out = {"rows": rows, "len": DECODE_LM_LEN, "teacher_forced_max_abs": worst,
+           "teacher_forced_rel_err": worst / scale, "logit_max_abs": scale}
+
+    def full_fn(feeds):
+        return pfn({"src": feeds["tgt"]})
+
+    src = torch.zeros((rows, 1), dtype=torch.int64, device=pfn.device)
+    res = {}
+    for name, beam in (("greedy", 1), ("beam", DECODE_BEAM)):
+        for path in ("full_prefix", "cached"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if path == "full_prefix":
+                tk, _ = decoding.beam_search(full_fn, src, BOS, EOS, beam_size=beam,
+                                             max_len=DECODE_LM_LEN)
+            else:
+                tk, _ = decoding.beam_search_cached(step_fn, make_cache(rows * beam), rows, BOS,
+                                                    EOS, beam_size=beam, max_len=DECODE_LM_LEN)
+            tk = tk.cpu().numpy()
+            dt = time.perf_counter() - t
+            res[(name, path)] = tk
+            out["%s_%s_ms_per_generated_token" % (name, path)] = \
+                1e3 * dt / ((DECODE_LM_LEN - 1) * rows * beam)
+            out["%s_%s_ms_per_step" % (name, path)] = 1e3 * dt / (DECODE_LM_LEN - 1)
+    out["tokens_equal"] = all((res[(n, "full_prefix")] == res[(n, "cached")]).all()
+                              for n in ("greedy", "beam"))
+    return out
+
+
+def _book_mt_encoder(fluid, src, src_len):
+    emb = fluid.layers.embedding(src, size=[BOOK["dict"], BOOK["word"]],
+                                 param_attr=fluid.ParamAttr(name="mt_vemb"))
+    fc1 = fluid.layers.fc(emb, BOOK["hidden"] * 4, num_flatten_dims=2, act="tanh",
+                          param_attr=fluid.ParamAttr(name="mt_enc_fc"))
+    hidden, _ = fluid.layers.dynamic_lstm(fc1, size=BOOK["hidden"] * 4, seq_len=src_len,
+                                          param_attr=fluid.ParamAttr(name="mt_enc_lstm"))
+    return fluid.layers.sequence_last_step(hidden, seq_len=src_len)
+
+
+def _book_mt_step(fluid, word_emb, state):
+    cur = fluid.layers.fc([word_emb, state], BOOK["hidden"], act="tanh",
+                          param_attr=[fluid.ParamAttr(name="mt_dec_word_fc"),
+                                      fluid.ParamAttr(name="mt_dec_state_fc")])
+    logits = fluid.layers.fc(cur, BOOK["dict"], param_attr=fluid.ParamAttr(name="mt_dec_score_fc"))
+    return cur, logits
+
+
+def book_mt_train(fluid):
+    """tests/book/test_machine_translation.py's training program at the
+    book's widths: a dynamic_lstm encoder and a DynamicRNN decoder, Adam."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        src = fluid.layers.data("src", [BOOK["src_len"]], dtype="int64", lod_level=1)
+        src_len = main.global_block().var("src_seq_len")
+        trg = fluid.layers.data("trg", [BOOK["trg_len"]], dtype="int64")
+        nxt = fluid.layers.data("nxt", [BOOK["trg_len"], 1], dtype="int64")
+        context = _book_mt_encoder(fluid, src, src_len)
+        trg_emb = fluid.layers.embedding(trg, size=[BOOK["dict"], BOOK["word"]],
+                                         param_attr=fluid.ParamAttr(name="mt_vemb_t"))
+        trg_len = fluid.layers.fill_constant_batch_size_like(context, shape=[-1], dtype="int32",
+                                                             value=BOOK["trg_len"])
+        rnn = fluid.layers.DynamicRNN()
+        with rnn.block():
+            word = rnn.step_input(trg_emb, seq_len=trg_len)
+            pre_state = rnn.memory(init=context)
+            cur_state, logits = _book_mt_step(fluid, word, pre_state)
+            rnn.update_memory(pre_state, cur_state)
+            rnn.output(logits)
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(rnn(), nxt))
+        fluid.optimizer.AdamOptimizer(BOOK["lr"]).minimize(loss)
+    return main, startup, loss
+
+
+def book_red_train(fluid):
+    """tests/book/test_rnn_encoder_decoder.py's program at the book's
+    widths: a bi-LSTM encoder, a DynamicRNN decoder over a hand-written
+    LSTM step with a static context, Adagrad."""
+    H, dec = BOOK["hidden"], BOOK["hidden"]
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        src = fluid.layers.data("src", [BOOK["src_len"]], dtype="int64", lod_level=1)
+        src_len = main.global_block().var("src_seq_len")
+        trg = fluid.layers.data("trg", [BOOK["trg_len"]], dtype="int64")
+        nxt = fluid.layers.data("nxt", [BOOK["trg_len"], 1], dtype="int64")
+        emb = fluid.layers.embedding(src, size=[BOOK["dict"], BOOK["word"]])
+        fwd, _ = fluid.layers.dynamic_lstm(fluid.layers.fc(emb, H * 4, num_flatten_dims=2),
+                                           size=H * 4, seq_len=src_len)
+        bwd, _ = fluid.layers.dynamic_lstm(fluid.layers.fc(emb, H * 4, num_flatten_dims=2),
+                                           size=H * 4, is_reverse=True, seq_len=src_len)
+        encoded = fluid.layers.concat([fluid.layers.sequence_last_step(fwd, seq_len=src_len),
+                                       fluid.layers.sequence_first_step(bwd, seq_len=src_len)],
+                                      axis=1)
+        boot = fluid.layers.fc(encoded, dec, act="tanh", bias_attr=False)
+        context = fluid.layers.fc(encoded, dec, bias_attr=False)
+        trg_emb = fluid.layers.embedding(trg, size=[BOOK["dict"], BOOK["word"]])
+        cell_init = fluid.layers.fill_constant_batch_size_like(boot, shape=[-1, dec],
+                                                               dtype="float32", value=0.0)
+        cell_init.stop_gradient = False
+        trg_len = fluid.layers.fill_constant_batch_size_like(boot, shape=[-1], dtype="int32",
+                                                             value=BOOK["trg_len"])
+        rnn = fluid.layers.DynamicRNN()
+        with rnn.block():
+            word = rnn.step_input(trg_emb, seq_len=trg_len)
+            ctx = rnn.static_input(context)
+            h_mem = rnn.memory(init=boot, need_reorder=True)
+            c_mem = rnn.memory(init=cell_init)
+            x_t = fluid.layers.concat([ctx, word], axis=1)
+            gates = [fluid.layers.fc([h_mem, x_t], dec) for _ in range(4)]
+            f, i, o = (fluid.layers.sigmoid(g) for g in gates[:3])
+            c = fluid.layers.sums([fluid.layers.elementwise_mul(f, c_mem),
+                                   fluid.layers.elementwise_mul(i, fluid.layers.tanh(gates[3]))])
+            h = fluid.layers.elementwise_mul(o, fluid.layers.tanh(c))
+            rnn.update_memory(h_mem, h)
+            rnn.update_memory(c_mem, c)
+            rnn.output(fluid.layers.fc(h, BOOK["dict"], act="softmax"))
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(
+            fluid.layers.reshape(rnn(), shape=[-1, BOOK["dict"]]),
+            fluid.layers.reshape(nxt, shape=[-1, 1])))
+        fluid.optimizer.AdagradOptimizer(BOOK["lr"]).minimize(loss)
+    return main, startup, loss
+
+
+def book_train_feed(rng):
+    B, S, T, V = BOOK["batch"], BOOK["src_len"], BOOK["trg_len"], BOOK["dict"]
+    trg = rng.randint(3, V, (B, T)).astype("int64")
+    trg[:, 0] = BOS
+    return {"src": rng.randint(3, V, (B, S)).astype("int64"),
+            "src_seq_len": rng.randint(S // 4, S + 1, (B,)).astype("int32"),
+            "trg": trg, "nxt": ((trg * 7 + 3) % V)[:, :, None].astype("int64")}
+
+
+def book_mt_decode(fluid, bounded=True):
+    """The book's beam decode (tests/book/test_machine_translation.py) at
+    the book's widths: tensor arrays, per-step ``beam_search`` and the
+    parent gather inside ``While(max_trip_count=...)`` (or an unbounded
+    ``While`` with ``bounded=False``), ``beam_search_decode`` after it."""
+    B, K, H, L = BOOK["batch"], BOOK["beam"], BOOK["hidden"], BOOK["max_len"]
+    BK = B * K
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        src = fluid.layers.data("src", [BOOK["src_len"]], dtype="int64", lod_level=1)
+        src_len = main.global_block().var("src_seq_len")
+        init_ids = fluid.layers.data("init_ids", [1], dtype="int64")
+        init_scores = fluid.layers.data("init_scores", [1])
+        context = _book_mt_encoder(fluid, src, src_len)
+        state0 = fluid.layers.reshape(fluid.layers.expand(
+            fluid.layers.reshape(context, shape=[-1, 1, H]), [1, K, 1]), shape=[BK, H])
+        counter = fluid.layers.zeros(shape=[1], dtype="int64")
+        array_len = fluid.layers.fill_constant([1], "int64", L)
+        state_arr = fluid.layers.create_array(L + 1, [BK, H])
+        ids_arr = fluid.layers.create_array(L + 1, [BK, 1], "int64")
+        score_arr = fluid.layers.create_array(L + 1, [BK, 1])
+        parent_arr = fluid.layers.create_array(L + 1, [BK], "int32")
+        state_arr = fluid.layers.array_write(state0, counter, state_arr)
+        ids_arr = fluid.layers.array_write(fluid.layers.reshape(init_ids, shape=[BK, 1]), counter,
+                                           ids_arr)
+        score_arr = fluid.layers.array_write(fluid.layers.reshape(init_scores, shape=[BK, 1]),
+                                             counter, score_arr)
+        cond = fluid.layers.less_than(counter, array_len)
+        loop = fluid.layers.While(cond, max_trip_count=L if bounded else None)
+        with loop.block():
+            pre_ids = fluid.layers.reshape(fluid.layers.array_read(ids_arr, counter),
+                                           shape=[BK, 1])
+            pre_state = fluid.layers.reshape(fluid.layers.array_read(state_arr, counter),
+                                             shape=[BK, H])
+            pre_score = fluid.layers.reshape(fluid.layers.array_read(score_arr, counter),
+                                             shape=[BK, 1])
+            emb = fluid.layers.reshape(fluid.layers.embedding(
+                pre_ids, size=[BOOK["dict"], BOOK["word"]],
+                param_attr=fluid.ParamAttr(name="mt_vemb_t")), shape=[BK, BOOK["word"]])
+            cur_state, logits = _book_mt_step(fluid, emb, pre_state)
+            top_sc, top_ix = fluid.layers.topk(fluid.layers.softmax(logits), k=K)
+            accu = fluid.layers.elementwise_add(fluid.layers.log(top_sc), pre_score)
+            sel_ids, sel_sc, parent = fluid.layers.beam_search(pre_ids, pre_score, top_ix, accu, K,
+                                                               EOS, return_parent_idx=True)
+            fluid.layers.increment(counter, value=1, in_place=True)
+            fluid.layers.array_write(fluid.layers.gather(cur_state, parent), counter, state_arr)
+            fluid.layers.array_write(sel_ids, counter, ids_arr)
+            fluid.layers.array_write(sel_sc, counter, score_arr)
+            fluid.layers.array_write(parent, counter, parent_arr)
+            fluid.layers.less_than(counter, array_len, cond=cond)
+        ids, scores = fluid.layers.beam_search_decode(ids_arr, score_arr, beam_size=K, end_id=EOS,
+                                                      parents=parent_arr)
+    return main, startup, ids, scores
+
+
+def book_decode_feed(rng):
+    B, K, S = BOOK["batch"], BOOK["beam"], BOOK["src_len"]
+    return {"src": rng.randint(3, BOOK["dict"], (B, S)).astype("int64"),
+            "src_seq_len": rng.randint(S // 4, S + 1, (B,)).astype("int32"),
+            "init_ids": np.full((B * K, 1), BOS, "int64"),
+            "init_scores": np.where(np.arange(B * K) % K == 0, 0.0, -1e9).astype(
+                "float32").reshape(B * K, 1)}
+
+
+def _timed(torch, fn, n):
+    out, times = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out.append(fn())
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    return out, times
+
+
+def run_book_rnn(torch):
+    """Phase 27: the Fluid book's two RNN translation models at the
+    book's widths (BOOK), trained through the cached executor (captured)
+    and held bit for bit, under deterministic algorithms, to eager steps
+    from the same state; the ``While(max_trip_count=...)`` beam decode
+    captured, its SentenceIds equal to the CPU's; the same decode with an
+    unbounded ``While`` on the interpreter (no graph) giving the same
+    SentenceIds.  Launch-bound widths: the times are printed, not judged."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+
+    _free_device_memory(torch)
+    kernels.reset_launch_counts()  # counts from here on belong to the book models
+    stats = {"widths": BOOK}
+    rng = np.random.RandomState(SEED + 70)
+    feeds = [book_train_feed(rng) for _ in range(BOOK_STEPS)]
+    for name, build in (("machine_translation", book_mt_train),
+                        ("rnn_encoder_decoder", book_red_train)):
+        main, startup, loss = build(fluid)
+        boot_exe, boot = fluid.Executor(), fluid.Scope()
+        boot_exe.run(startup, scope=boot)
+        init = _clone_state(boot)
+        del boot
+        res = {}
+        with _deterministic(torch):
+            for path, cached in (("eager", False), ("captured", True)):
+                exe, scope = fluid.Executor(), fluid.Scope()
+                _load_state(scope, init)
+                losses, times = [], []
+                for f in feeds:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    losses.append(exe.run(main, feed=f, fetch_list=[loss], scope=scope,
+                                          use_program_cache=cached)[0])
+                    torch.cuda.synchronize()
+                    times.append(1e3 * (time.perf_counter() - t))
+                res[path] = (losses, times, {n: v.clone() for n, v in scope.vars.items()},
+                             exe.jit_cache_stats()["graphs"], None)
+                if cached:  # one more replay under the profiler: idle share, kernel count
+                    prof = _profile_step(torch, lambda: exe.run(main, feed=feeds[-1],
+                                                                fetch_list=[loss], scope=scope))
+                    res[path] = res[path][:4] + (prof,)
+                exe.close()
+        (e_l, e_t, e_s, _, _), (c_l, c_t, c_s, graphs, prof) = res["eager"], res["captured"]
+        differing = [n for n in e_s if not torch.equal(e_s[n].reshape(-1), c_s[n].reshape(-1))]
+        stats[name] = {"ops": len(main.global_block().ops), "graphs": graphs,
+                       "losses": [float(v) for v in c_l],
+                       "eager_step_ms": e_t, "captured_step_ms": c_t,
+                       "replay_ms_median": statistics.median(c_t[2:]),
+                       "eager_ms_median": statistics.median(e_t[1:]),
+                       "bit_equal": not differing and all(
+                           a.tobytes() == b.tobytes() for a, b in zip(e_l, c_l)),
+                       "differing_persistables": differing[:8],
+                       "profiled_replay": prof and {k: prof[k] for k in (
+                           "step_ms", "device_ms", "device_idle_share", "launches",
+                           "top_kernels")}}
+    stats["decode"] = _book_decode(torch)
+    stats["hand_kernel_launches"] = _hand_kernel_launches()
+    log("[book-rnn]", json.dumps(stats))
+    _no_hand_kernel("the book RNN models", stats["hand_kernel_launches"])
+    for name in ("machine_translation", "rnn_encoder_decoder"):
+        s = stats[name]
+        if not (s["graphs"] == 1 and s["bit_equal"] and np.isfinite(s["losses"]).all()):
+            raise AssertionError("%s: captured steps differ from eager or were not captured: %s"
+                                 % (name, s))
+    d = stats["decode"]
+    if not (d["bounded"]["graphs"] == 1 and d["bounded"]["ids_equal_cpu"]
+            and d["unbounded"]["graphs"] == 0 and d["unbounded"]["ids_equal_bounded"]):
+        raise AssertionError("book beam decode: %s" % d)
+    return stats
+
+
+def _book_decode(torch):
+    """The bounded decode through the cached executor (eager, captured, 3
+    replays) against the CPU's, and the unbounded one on the interpreter."""
+    import paddle_tpu_torch as fluid
+
+    feed = book_decode_feed(np.random.RandomState(SEED + 71))
+    out = {}
+    init = None
+    for name, bounded in (("bounded", True), ("unbounded", False)):
+        main, startup, ids, scores = book_mt_decode(fluid, bounded)
+        if init is None:
+            boot_exe, boot = fluid.Executor(), fluid.Scope()
+            boot_exe.run(startup, scope=boot)
+            init = _clone_state(boot)
+            del boot
+        exe, scope = fluid.Executor(), fluid.Scope()
+        _load_state(scope, init)
+        res, times = _timed(torch, lambda: exe.run(main, feed=feed, fetch_list=[ids, scores],
+                                                   scope=scope), 5)
+        got = res[-1]
+        row = {"graphs": exe.jit_cache_stats()["graphs"], "run_ms": times,
+               "ops": [op.type for op in main.global_block().ops].count(
+                   "bounded_while" if bounded else "while"),
+               "all_runs_equal": all((r[0] == got[0]).all() for r in res),
+               "shape": list(got[0].shape), "finite": bool(np.isfinite(got[1]).all())}
+        if bounded:
+            cpu_exe, cpu_scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+            fluid.io.set_params_from_numpy(cpu_scope, {n: v.cpu().numpy() for n, v in init.items()},
+                                           "cpu")
+            cpu = cpu_exe.run(main, feed=feed, fetch_list=[ids, scores], scope=cpu_scope)
+            row["ids_equal_cpu"] = bool((got[0] == cpu[0]).all())
+            row["scores_max_abs_vs_cpu"] = float(np.abs(got[1] - cpu[1]).max())
+            out["_ids"] = got[0]
+        else:
+            row["ids_equal_bounded"] = bool((got[0] == out["_ids"]).all())
+        exe.close()
+        out[name] = row
+    del out["_ids"]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3745,6 +4469,16 @@ def main() -> int:
     run_deepfm_ps(torch, deepfm_batches)
     del deepfm_batches
     run_geo_and_descriptors(torch)
+    nmt, nmt_state = run_nmt_train(torch)
+    check_nmt_against_cpu(amp=False)
+    check_nmt_against_cpu(amp=True)
+    nmt_decode = run_nmt_decode(torch, nmt_state)
+    del nmt_state
+    book = run_book_rnn(torch)
+    # the A7 paths (NMT training, decoding, the book's RNN models) run no hand kernel
+    a7_launches = {"nmt_train": nmt["hand_kernel_launches"],
+                   "nmt_decode": nmt_decode["hand_kernel_launches"],
+                   "book_rnn": book["hand_kernel_launches"]}
     # the ResNet path runs no TPU kernel: its launches of the attention kernels
     resnet_launches = {"resnet50_amp": resnet_amp["launches"], "resnet50": resnet["launches"]}
     # the LM paths: fused serving and training run the causal kernels; the
@@ -3766,6 +4500,7 @@ def main() -> int:
     fwd_launches["lm_serve"] = lm_serve["launches"]
     fwd_launches.update({p: c.get(fa.KERNEL_NAME, 0) for p, c in lm_launches.items()})
     fwd_launches.update({p: c.get(fa.KERNEL_NAME, 0) for p, c in lamb_launches.items()})
+    fwd_launches.update({p: c[fa.KERNEL_NAME] for p, c in a7_launches.items()})
     replaced = ("jax/experimental/pallas/ops/tpu/flash_attention.py:%d (%s), reached from "
                 "paddle_tpu/ops/nn_ops.py:694 through the vjp grad paddle_tpu/core/registry.py:131")
     entries = [{
@@ -3812,7 +4547,8 @@ def main() -> int:
                                       "train_amp": train_amp["launches"][name]},
                                      **{p: c.get(name, 0) for p, c in resnet_launches.items()},
                                      **{p: c.get(name, 0) for p, c in lm_launches.items()},
-                                     **{p: c.get(name, 0) for p, c in lamb_launches.items()}),
+                                     **{p: c.get(name, 0) for p, c in lamb_launches.items()},
+                                     **{p: c[name] for p, c in a7_launches.items()}),
             "max_abs_err": max(bwd_row["max_abs_err"][e] for e in errs),
             "ms": bwd_row[key + "_ms"],
             # one plain backward and one SDPA backward compute dQ, dK and dV together
@@ -3838,7 +4574,8 @@ def main() -> int:
         "source": "paddle_tpu_torch/csrc/dropout.cu",
         "replaces": "paddle_tpu/ops/nn_ops.py:322 (dropout; XLA-fused on the TPU, no pallas_call)",
         "launches": sum(c.get("dropout", 0) for c in lm_launches.values()),
-        "launches_by_path": {p: c.get("dropout", 0) for p, c in lm_launches.items()},
+        "launches_by_path": dict({p: c.get("dropout", 0) for p, c in lm_launches.items()},
+                                 **{p: c["dropout"] for p, c in a7_launches.items()}),
         "max_abs_err": 0.0 if all(r["out_bit_equal"] and r["mask_bit_equal"]
                                   for r in dropout_checks["checks"]) else None,
         "ms": main_drop["ms"],

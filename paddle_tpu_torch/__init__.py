@@ -45,6 +45,13 @@ onto the card, ``trainer_desc`` / ``TrainerFactory``, ``metrics.Auc``,
 and the parameter server (``distributed``: ``ParameterServer``,
 ``PSClient``, ``bind_distributed_tables``, the async ``Communicator``,
 ``GeoSGD``) behind ``embedding(is_distributed=True)``.
+
+Seq2seq: Programs with sub-blocks and the control-flow layers
+(``While``, ``cond``, ``StaticRNN``, ``DynamicRNN``, ``IfElse``,
+``Switch``, the tensor arrays), the recurrent layers (``dynamic_lstm``,
+``dynamic_gru``, ``dynamic_lstmp``), the sequence and beam layers,
+Transformer NMT (``models.seq2seq.transformer_nmt``) and ``decoding``
+(greedy and beam search, full prefix and KV-cached).
 """
 from paddle_tpu_torch import framework
 from paddle_tpu_torch.framework import (
@@ -78,7 +85,7 @@ from paddle_tpu_torch import kernels
 from paddle_tpu_torch import models
 from paddle_tpu_torch import serving
 from paddle_tpu_torch import contrib
-from paddle_tpu_torch import dataset, distributed, incubate, metrics, native, recordio_writer
+from paddle_tpu_torch import dataset, decoding, distributed, incubate, metrics, native, recordio_writer
 from paddle_tpu_torch import fluid_dataset, trainer_desc
 from paddle_tpu_torch.fluid_dataset import DatasetFactory, InMemoryDataset, QueueDataset
 from paddle_tpu_torch.trainer_desc import TrainerFactory

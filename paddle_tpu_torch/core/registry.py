@@ -50,6 +50,7 @@ class OpDef:
         no_grad_set: Optional[Set[str]] = None,
         differentiable: bool = True,
         random: bool = False,
+        host_read: bool = False,
     ):
         self.type = type
         self.kernel = kernel
@@ -60,6 +61,9 @@ class OpDef:
         # draws from a torch.Generator of its own (ops/common.py
         # ``generator``): a CUDA graph capture would freeze its draws
         self.random = random
+        # reads a tensor's value on the host (a loop or branch predicate):
+        # that read synchronises the stream, and a capture cannot hold it
+        self.host_read = host_read
 
 
 def register_op(
@@ -68,6 +72,7 @@ def register_op(
     no_grad_set: Optional[Set[str]] = None,
     differentiable: bool = True,
     random: bool = False,
+    host_read: bool = False,
 ):
     """Decorator: ``@register_op("gelu")`` over the kernel function."""
 
@@ -79,6 +84,7 @@ def register_op(
             no_grad_set=no_grad_set,
             differentiable=differentiable,
             random=random,
+            host_read=host_read,
         )
         return kernel
 

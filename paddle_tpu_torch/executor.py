@@ -24,9 +24,12 @@ the same keys and counters (``jit_cache_stats``):
 Three kinds of run stay on the interpreter, decided from the plan and
 the scope before the step runs: a plan with random ops (a startup
 program: its generators live on the host, and are not registered with
-a graph), a run that creates scope state (a var it writes that the
-scope does not hold yet, so there is no tensor to write it back into),
-and ``use_program_cache=False``.  A capture that fails raises.
+a graph) or with ops that read a value on the host (``while``,
+``conditional_block``, ``select_branch``: the predicate's read
+synchronises the stream), at any depth of the control-flow bodies; a
+run that creates scope state (a var it writes that the scope does not
+hold yet, so there is no tensor to write it back into); and
+``use_program_cache=False``.  A capture that fails raises.
 
 With ``FLAGS_check_nan_inf`` set (``flags.py``), every run checks its
 fetches and the state it wrote for nan and inf after the step, outside
@@ -122,22 +125,24 @@ def _host_ids(v) -> np.ndarray:
 class _RunPlan:
     """The block analysis of one plan key: the feed and fetch names, the
     persistable vars the block reads from the scope (``state_in``) and
-    writes back (``state_out``), each feed's torch dtype, the random
-    ops that keep the plan on the interpreter, and ``n_push``: how many
-    fetches at the end of ``fetch_names`` are prefetched rows' gradients
-    that the run pushes and hides from the caller."""
+    writes back (``state_out``), each feed's torch dtype, the op types
+    that keep the plan on the interpreter (``eager_ops``: random ops, and
+    ops that read a value on the host, a loop or branch predicate; at any
+    depth of the control-flow bodies), and ``n_push``: how many fetches
+    at the end of ``fetch_names`` are prefetched rows' gradients that the
+    run pushes and hides from the caller."""
 
     __slots__ = ("feed_names", "fetch_names", "state_in", "state_out", "feed_dtypes",
-                 "random_ops", "n_push")
+                 "eager_ops", "n_push")
 
-    def __init__(self, feed_names, fetch_names, state_in, state_out, feed_dtypes, random_ops,
+    def __init__(self, feed_names, fetch_names, state_in, state_out, feed_dtypes, eager_ops,
                  n_push=0):
         self.feed_names = feed_names
         self.fetch_names = fetch_names  # the caller's, then the pushed rows' gradients
         self.state_in = state_in
         self.state_out = state_out
         self.feed_dtypes = feed_dtypes
-        self.random_ops = random_ops
+        self.eager_ops = eager_ops
         self.n_push = n_push
 
 
@@ -310,7 +315,7 @@ class Executor:
         persistable = {v.name for v in program.list_vars() if v.persistable}
         read, written = set(), set()
         for op in block.ops:
-            for n in op.input_arg_names:
+            for n in lowering.op_reads(op):  # with what its bodies read
                 if n not in written:
                     read.add(n)
             written.update(op.output_arg_names)
@@ -322,13 +327,14 @@ class Executor:
             var = block._find_var_recursive(n)
             if var is not None:
                 feed_dtypes[n] = core_types.torch_dtype(var.dtype)
-        random_ops = tuple(sorted({op.type for op in block.ops
-                                   if registry.has_op(op.type) and registry.get_op(op.type).random}))
+        # ops a capture cannot hold, at any depth of the bodies
+        eager_ops = tuple(sorted({t for t in lowering.op_types(block.ops) if registry.has_op(t)
+                                  and (registry.get_op(t).random or registry.get_op(t).host_read)}))
         return _RunPlan(
             feed_names, fetch_names,
             tuple(sorted((read & persistable) - set(feed_names))),
             tuple(sorted(written & persistable)),
-            feed_dtypes, random_ops, n_push)
+            feed_dtypes, eager_ops, n_push)
 
     # ------------------------------------------------------------------
     def run(
@@ -437,7 +443,7 @@ class Executor:
 
         check_nan_inf = flags.get_flags("FLAGS_check_nan_inf")["FLAGS_check_nan_inf"]
         n_user = len(plan.fetch_names) - plan.n_push
-        graph_path = (use_program_cache and self.device.type == "cuda" and not plan.random_ops
+        graph_path = (use_program_cache and self.device.type == "cuda" and not plan.eager_ops
                       and all(n in scope.vars for n in plan.state_out))
         if graph_path:
             with entry.lock:  # feeds in, replay, fetches out: one thread at a time

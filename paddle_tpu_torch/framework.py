@@ -264,6 +264,18 @@ class Operator:
     def attr(self, name, default=None):
         return self.attrs.get(name, default)
 
+    def _rename_input(self, old, new):
+        for ns in self.inputs.values():
+            for i, n in enumerate(ns):
+                if n == old:
+                    ns[i] = new
+
+    def _rename_output(self, old, new):
+        for ns in self.outputs.values():
+            for i, n in enumerate(ns):
+                if n == old:
+                    ns[i] = new
+
     def to_dict(self):
         return {
             "type": self.type,
@@ -422,6 +434,19 @@ class Program:
 
     def block(self, idx) -> Block:
         return self.blocks[idx]
+
+    def _create_block(self, parent_idx=None) -> Block:
+        """A new block nested in the current one (or in ``parent_idx``),
+        made current: the sub-block of a control-flow layer."""
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        blk = Block(self, len(self.blocks), parent)
+        self.blocks.append(blk)
+        self.current_block_idx = blk.idx
+        return blk
+
+    def _rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.current_block().parent_idx
 
     @property
     def num_blocks(self):

@@ -2,8 +2,11 @@
 embedding (in HBM, or on the parameter server with ``is_distributed``),
 conv2d, pool2d, batch_norm, layer_norm, dropout, relu, softmax, mean,
 cross_entropy, softmax_with_cross_entropy,
-sigmoid_cross_entropy_with_logits, matmul, topk, accuracy, auc, clip and
-clip_by_norm, as the JAX package's ``layers/nn.py`` builds them."""
+sigmoid_cross_entropy_with_logits, matmul, topk, accuracy, auc, clip,
+clip_by_norm, and the sequence layers over the padded+length encoding
+(the pools, softmax, expand, reverse, mask, erase, enumerate, the CRF,
+edit_distance and ctc_greedy_decoder), as the JAX package's
+``layers/nn.py`` builds them."""
 from __future__ import annotations
 
 import numpy as np
@@ -14,7 +17,10 @@ from paddle_tpu_torch.layer_helper import LayerHelper
 __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm", "dropout", "relu",
            "softmax", "mean", "cross_entropy", "square_error_cost", "softmax_with_cross_entropy",
            "sigmoid_cross_entropy_with_logits", "matmul", "topk", "accuracy", "auc", "clip",
-           "clip_by_norm"]
+           "clip_by_norm", "sequence_pool", "sequence_softmax", "sequence_expand",
+           "sequence_reverse", "sequence_mask", "sequence_erase", "sequence_enumerate",
+           "sequence_expand_as", "sequence_first_step", "sequence_last_step", "linear_chain_crf",
+           "crf_decoding", "edit_distance", "ctc_greedy_decoder"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None, act=None, name=None):
@@ -395,3 +401,191 @@ def clip(x, min, max, name=None):
 
 def clip_by_norm(x, max_norm, name=None):
     return _simple("clip_by_norm", x, {"max_norm": max_norm})
+
+
+# ---------------------------------------------------------------------------
+# sequence layers over the padded+length encoding (ops/sequence_ops.py)
+# ---------------------------------------------------------------------------
+def sequence_pool(input, pool_type, seq_len=None):
+    helper = LayerHelper("sequence_pool")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    midx = helper.create_variable_for_type_inference("int32", stop_gradient=True)
+    inputs = {"X": [input]}
+    if seq_len is None and input.block.has_var(input.name + "_seq_len"):
+        seq_len = input.block.var(input.name + "_seq_len")
+    if seq_len is not None:
+        inputs["SeqLen"] = [seq_len]
+    helper.append_op(
+        type="sequence_pool",
+        inputs=inputs,
+        outputs={"Out": [out], "MaxIndex": [midx]},
+        attrs={"pooltype": pool_type.upper()},
+    )
+    return out
+
+
+def sequence_softmax(input, seq_len=None, use_cudnn=False, name=None):
+    helper = LayerHelper("sequence_softmax", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {"X": [input]}
+    if seq_len is not None:
+        inputs["SeqLen"] = [seq_len]
+    helper.append_op(type="sequence_softmax", inputs=inputs, outputs={"Out": [out]})
+    return out
+
+
+def sequence_expand(x, y, ref_level=-1, name=None):
+    helper = LayerHelper("sequence_expand", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="sequence_expand", inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]})
+    return out
+
+
+def sequence_reverse(x, seq_len=None, name=None):
+    helper = LayerHelper("sequence_reverse", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": [x]}
+    if seq_len is not None:
+        inputs["SeqLen"] = [seq_len]
+    helper.append_op(type="sequence_reverse", inputs=inputs, outputs={"Y": [out]})
+    return out
+
+
+def sequence_mask(x, maxlen=None, dtype="int64", name=None):
+    helper = LayerHelper("sequence_mask", name=name)
+    out = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    helper.append_op(
+        type="sequence_mask",
+        inputs={"X": [x]},
+        outputs={"Y": [out]},
+        attrs={"maxlen": maxlen if maxlen is not None else -1, "out_dtype": dtype},
+    )
+    return out
+
+
+
+def sequence_erase(input, tokens, seq_len=None, name=None):
+    """reference: sequence_erase_op.cc; returns (packed, new_seq_len)."""
+    helper = LayerHelper("sequence_erase", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    new_len = helper.create_variable_for_type_inference("int32")
+    ins = {"X": [input]}
+    if seq_len is not None:
+        ins["SeqLen"] = [seq_len]
+    helper.append_op(type="sequence_erase", inputs=ins,
+                     outputs={"Out": [out], "OutSeqLen": [new_len]},
+                     attrs={"tokens": list(tokens)})
+    return out, new_len
+
+
+def sequence_enumerate(input, win_size, pad_value=0, seq_len=None, name=None):
+    helper = LayerHelper("sequence_enumerate", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    ins = {"X": [input]}
+    if seq_len is not None:
+        ins["SeqLen"] = [seq_len]
+    helper.append_op(type="sequence_enumerate", inputs=ins, outputs={"Out": [out]},
+                     attrs={"win_size": win_size, "pad_value": pad_value})
+    return out
+
+
+def sequence_expand_as(x, y, seq_len=None, name=None):
+    helper = LayerHelper("sequence_expand_as", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="sequence_expand_as", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]}, attrs={})
+    return out
+
+
+def sequence_first_step(input, seq_len=None):
+    return sequence_pool(input, "first", seq_len=seq_len)
+
+
+def sequence_last_step(input, seq_len=None):
+    return sequence_pool(input, "last", seq_len=seq_len)
+
+
+
+def linear_chain_crf(input, label, param_attr=None, seq_len=None):
+    """CRF negative log-likelihood cost [B, 1]; creates the [K+2, K]
+    transition parameter (row 0 start, row 1 end, rows 2.. transitions)."""
+    helper = LayerHelper("linear_chain_crf", param_attr=param_attr)
+    size = input.shape[-1]
+    transition = helper.create_parameter(param_attr, shape=[size + 2, size], dtype=input.dtype)
+    alpha = helper.create_variable_for_type_inference(input.dtype)
+    emission_exps = helper.create_variable_for_type_inference(input.dtype)
+    transition_exps = helper.create_variable_for_type_inference(input.dtype)
+    log_likelihood = helper.create_variable_for_type_inference(input.dtype)
+    ins = {"Emission": [input], "Transition": [transition], "Label": [label]}
+    if seq_len is not None:
+        ins["SeqLen"] = [seq_len]
+    helper.append_op(
+        type="linear_chain_crf", inputs=ins,
+        outputs={"Alpha": [alpha], "EmissionExps": [emission_exps],
+                 "TransitionExps": [transition_exps],
+                 "LogLikelihood": [log_likelihood]},
+        attrs={},
+    )
+    return log_likelihood
+
+
+def crf_decoding(input, param_attr, label=None, seq_len=None):
+    """Viterbi decode using the transition parameter created by
+    linear_chain_crf (shared by ``param_attr.name``)."""
+    from paddle_tpu_torch.param_attr import ParamAttr
+
+    helper = LayerHelper("crf_decoding")
+    attr = ParamAttr._to_attr(param_attr)
+    transition = helper.main_program.global_block().var(attr.name)
+    viterbi_path = helper.create_variable_for_type_inference("int64")
+    ins = {"Emission": [input], "Transition": [transition]}
+    if label is not None:
+        ins["Label"] = [label]
+    if seq_len is not None:
+        ins["SeqLen"] = [seq_len]
+    helper.append_op(type="crf_decoding", inputs=ins,
+                     outputs={"ViterbiPath": [viterbi_path]}, attrs={})
+    return viterbi_path
+
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None,
+                  input_length=None, label_length=None):
+    """Batched Levenshtein distance -> (Out [B, 1], SequenceNum []).
+    ``ignored_tokens`` are erased (sequence_erase) before the DP."""
+    helper = LayerHelper("edit_distance")
+    if ignored_tokens:
+        input, input_length = sequence_erase(input, ignored_tokens, input_length)
+        label, label_length = sequence_erase(label, ignored_tokens, label_length)
+    out = helper.create_variable_for_type_inference("float32")
+    seq_num = helper.create_variable_for_type_inference("int64")
+    ins = {"Hyps": [input], "Refs": [label]}
+    if input_length is not None:
+        ins["HypsLength"] = [input_length]
+    if label_length is not None:
+        ins["RefsLength"] = [label_length]
+    helper.append_op(type="edit_distance", inputs=ins,
+                     outputs={"Out": [out], "SequenceNum": [seq_num]},
+                     attrs={"normalized": normalized})
+    return out, seq_num
+
+
+def ctc_greedy_decoder(input, blank, input_length=None, padding_value=0):
+    """Greedy CTC decode: per-step argmax then ctc_align (merge repeats,
+    drop blanks).  Returns (decoded [B, T], decoded_length [B])."""
+    helper = LayerHelper("ctc_greedy_decoder")
+    from paddle_tpu_torch.layers import tensor as ltensor
+
+    idx = ltensor.argmax(input, axis=-1)
+    out = helper.create_variable_for_type_inference("int64")
+    out_len = helper.create_variable_for_type_inference("int32")
+    ins = {"Input": [idx]}
+    if input_length is not None:
+        ins["SeqLen"] = [input_length]
+    helper.append_op(type="ctc_align", inputs=ins,
+                     outputs={"Output": [out], "OutputLength": [out_len]},
+                     attrs={"blank": int(blank), "merge_repeated": True,
+                            "padding_num": int(padding_value)})
+    return out, out_len
+
+

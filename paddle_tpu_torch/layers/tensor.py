@@ -1,8 +1,11 @@
 """Tensor layers (reference: python/paddle/fluid/layers/tensor.py):
 parameters and constants, casts and shape ops, ``scale``, ``sums``,
-``reduce_sum``, the elementwise family, comparisons, logical ops and
-``where``, as the JAX package's ``layers/tensor.py`` builds them."""
+``reduce_sum``, the elementwise family, comparisons, logical ops,
+``where``, ``concat``, ``expand``, ``assign`` and ``argmax``, as the JAX
+package's ``layers/tensor.py`` builds them."""
 from __future__ import annotations
+
+import numpy as np
 
 from paddle_tpu_torch import framework, initializer, unique_name
 from paddle_tpu_torch.core import types as core_types
@@ -14,7 +17,8 @@ __all__ = ["create_parameter", "create_global_var", "cast", "sums", "fill_consta
            "elementwise_sub", "elementwise_mul", "elementwise_div", "elementwise_max",
            "elementwise_min", "elementwise_pow", "equal", "not_equal", "less_than", "less_equal",
            "greater_than", "greater_equal", "logical_and", "logical_or", "logical_not", "where",
-           "range"]
+           "range", "concat", "assign", "fill_constant_batch_size_like", "zeros", "expand",
+           "argmax"]
 
 
 def _helper_out(op_type, inputs, attrs=None, dtype="float32", out_slot="Out", stop_gradient=False):
@@ -61,6 +65,28 @@ def sums(input, out=None):
     return out
 
 
+def concat(input, axis=0, name=None):
+    return _helper_out("concat", {"X": list(input)}, {"axis": axis}, dtype=input[0].dtype)
+
+
+def assign(input, output=None):
+    """``input`` (a Variable, or a numpy array as an ``assign_value``
+    constant) into ``output`` or a new var."""
+    helper = LayerHelper("assign")
+    if isinstance(input, np.ndarray):
+        out = output or helper.create_variable_for_type_inference(str(input.dtype))
+        helper.append_op(
+            type="assign_value",
+            outputs={"Out": [out]},
+            attrs={"shape": list(input.shape), "dtype": str(input.dtype),
+                   "values": input.flatten().tolist()},
+        )
+        return out
+    out = output or helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="assign", inputs={"X": [input]}, outputs={"Out": [out]})
+    return out
+
+
 def fill_constant(shape, dtype, value, force_cpu=False, out=None):
     helper = LayerHelper("fill_constant")
     dtype = core_types.canonical_dtype(dtype)
@@ -71,6 +97,27 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
         attrs={"shape": list(shape), "dtype": dtype, "value": float(value)},
     )
     return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value, input_dim_idx=0, output_dim_idx=0):
+    dtype = core_types.canonical_dtype(dtype)
+    return _helper_out(
+        "fill_constant_batch_size_like",
+        {"Input": [input]},
+        {
+            "shape": list(shape),
+            "dtype": dtype,
+            "value": float(value),
+            "input_dim_idx": input_dim_idx,
+            "output_dim_idx": output_dim_idx,
+        },
+        dtype=dtype,
+        stop_gradient=True,
+    )
+
+
+def zeros(shape, dtype, force_cpu=False):
+    return fill_constant(shape, dtype, 0.0)
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
@@ -100,6 +147,10 @@ def transpose(x, perm, name=None):
         attrs={"axis": list(perm)},
     )
     return out
+
+
+def expand(x, expand_times, name=None):
+    return _helper_out("expand", {"X": [x]}, {"expand_times": expand_times}, dtype=x.dtype)
 
 
 def slice(input, axes, starts, ends):
@@ -232,3 +283,7 @@ def range(start, end, step, dtype):
     )
     return out
 
+
+
+def argmax(x, axis=0):
+    return _helper_out("arg_max", {"X": [x]}, {"axis": axis}, dtype="int64", stop_gradient=True)

@@ -2,8 +2,9 @@
 
 Each builder appends ops to the current default_main_program (use
 ``framework.program_guard``) and returns the key output Variables."""
-from paddle_tpu_torch.models import deepfm, lenet, resnet, transformer  # noqa: F401
+from paddle_tpu_torch.models import deepfm, lenet, resnet, seq2seq, transformer  # noqa: F401
 from paddle_tpu_torch.models.deepfm import deepfm_ctr  # noqa: F401
 from paddle_tpu_torch.models.lenet import lenet5  # noqa: F401
 from paddle_tpu_torch.models.resnet import resnet18, resnet50  # noqa: F401
+from paddle_tpu_torch.models.seq2seq import transformer_nmt  # noqa: F401
 from paddle_tpu_torch.models.transformer import bert_encoder, bert_pretrain, transformer_lm  # noqa: F401

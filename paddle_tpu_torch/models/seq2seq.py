@@ -1,0 +1,114 @@
+"""Transformer NMT (seq2seq) — the BASELINE.md "Transformer NMT" config.
+
+Reference model family: python/paddle/fluid/tests/unittests/
+dist_transformer.py and book test test_machine_translation.py (attention
+seq2seq).  Variable-length sentence pairs use bucketed padding + masks
+(the LoDTensor-equivalent; SURVEY.md §5 long-context notes), not ragged
+LoD — masks feed both the encoder self-attention and the loss.
+
+Decoding (greedy/beam) lives in paddle_tpu_torch/decoding.py.  The port builds
+the same Program JSON as the JAX package's ``models/seq2seq.py``, layer call
+for layer call; the attention is the unfused build (matmul, the
+additive bias, softmax), so the NMT path launches no hand kernel.
+"""
+from __future__ import annotations
+
+from paddle_tpu_torch import layers
+from paddle_tpu_torch.param_attr import ParamAttr
+from paddle_tpu_torch.models.transformer import (
+    _causal_bias,
+    _embeddings,
+    _fc3,
+    encoder_layer,
+    multi_head_attention,
+    positionwise_ffn,
+)
+
+__all__ = ["transformer_nmt", "decoder_layer"]
+
+
+def decoder_layer(
+    x,
+    enc_out,
+    d_model,
+    n_head,
+    d_inner,
+    self_bias=None,
+    cross_bias=None,
+    dropout_rate: float = 0.0,
+    is_test: bool = False,
+    name: str = "dec_0",
+):
+    """Decoder block: causal self-attention + cross-attention + FFN."""
+    att = multi_head_attention(
+        x, x, d_model, n_head, dropout_rate, self_bias, is_test, name=name + "_self"
+    )
+    x = layers.layer_norm(
+        x + att, begin_norm_axis=2,
+        param_attr=ParamAttr(name=name + "_ln1_scale"),
+        bias_attr=ParamAttr(name=name + "_ln1_bias"),
+    )
+    cross = multi_head_attention(
+        x, enc_out, d_model, n_head, dropout_rate, cross_bias, is_test, name=name + "_cross"
+    )
+    x = layers.layer_norm(
+        x + cross, begin_norm_axis=2,
+        param_attr=ParamAttr(name=name + "_ln2_scale"),
+        bias_attr=ParamAttr(name=name + "_ln2_bias"),
+    )
+    ffn = positionwise_ffn(x, d_model, d_inner, name + "_ffn", is_test=is_test, dropout_rate=dropout_rate)
+    return layers.layer_norm(
+        x + ffn, begin_norm_axis=2,
+        param_attr=ParamAttr(name=name + "_ln3_scale"),
+        bias_attr=ParamAttr(name=name + "_ln3_bias"),
+    )
+
+
+def transformer_nmt(
+    src_ids,
+    tgt_ids,
+    labels=None,
+    src_mask=None,
+    src_vocab: int = 1000,
+    tgt_vocab: int = 1000,
+    d_model: int = 64,
+    n_layer: int = 2,
+    n_head: int = 4,
+    d_inner: int = 128,
+    src_len: int = 16,
+    tgt_len: int = 16,
+    dropout_rate: float = 0.0,
+    is_test: bool = False,
+    name: str = "nmt",
+):
+    """Returns (avg_loss or None, logits [N, tgt_len, tgt_vocab]).
+
+    src_ids [N, src_len] int64; tgt_ids [N, tgt_len] (decoder input, BOS-
+    shifted); labels [N, tgt_len, 1]; src_mask float [N, src_len] 1=token.
+    """
+    enc = _embeddings(src_ids, src_vocab, d_model, src_len, src_len, name + "_src")
+    enc_bias = None
+    cross_bias = None
+    if src_mask is not None:
+        m = layers.reshape(src_mask, shape=[-1, 1, 1, src_len])
+        enc_bias = layers.scale(m, scale=1e9, bias=-1e9)  # (m-1)*1e9
+        cross_bias = enc_bias
+    for i in range(n_layer):
+        enc = encoder_layer(
+            enc, d_model, n_head, d_inner, enc_bias, dropout_rate, is_test,
+            name="%s_enc_%d" % (name, i),
+        )
+
+    dec = _embeddings(tgt_ids, tgt_vocab, d_model, tgt_len, tgt_len, name + "_tgt")
+    causal = _causal_bias(tgt_len, dec.dtype)
+    for i in range(n_layer):
+        dec = decoder_layer(
+            dec, enc, d_model, n_head, d_inner, causal, cross_bias,
+            dropout_rate, is_test, name="%s_dec_%d" % (name, i),
+        )
+    logits = _fc3(dec, tgt_vocab, name + "_head")
+    if labels is None:
+        return None, logits
+    loss = layers.softmax_with_cross_entropy(logits, labels)
+    avg_loss = layers.mean(loss)
+    return avg_loss, logits

@@ -23,3 +23,11 @@ def generator(seed: int, device: torch.device) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(int(seed) if seed else 12345)
     return g
+
+
+def top_k(x: torch.Tensor, k: int):
+    """The ``k`` largest values along the last dim and their indices, in
+    ``jax.lax.top_k``'s order: descending, the lower index first among
+    equal values (``torch.topk`` leaves the order of ties open)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]

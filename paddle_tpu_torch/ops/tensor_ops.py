@@ -1,7 +1,9 @@
 """Tensor creation / manipulation ops (the slice's subset of
 the JAX package's ``ops/tensor_ops.py``).
 
-Reference kernels: operators/fill_constant_op.cc, uniform_random_op.cc,
+Reference kernels: operators/fill_constant_op.cc, fill_zeros_like_op.cc,
+fill_constant_batch_size_like_op.cc, assign_op.cc, concat_op.cc,
+expand_op.cc, arg_max_op.cc, uniform_random_op.cc,
 gaussian_random_op.cc, truncated_gaussian_random_op.cc,
 assign_value_op.cc, range_op.cc, reshape_op.cc, transpose_op.cc,
 slice_op.cc, cast_op.cc, gather_op.cc, lookup_table_op.cc, where_op.cc,
@@ -19,6 +21,7 @@ import torch
 
 from paddle_tpu_torch.core import types as core_types
 from paddle_tpu_torch.core.registry import register_op
+from paddle_tpu_torch.ops import common
 from paddle_tpu_torch.ops.common import generator, one
 
 
@@ -40,6 +43,29 @@ def fill_constant(inputs, attrs, device):
     shape = tuple(int(s) for s in attrs.get("shape", ()))
     dt = core_types.torch_dtype(attrs.get("dtype", "float32"))
     return {"Out": torch.full(shape, attrs.get("value", 0.0), dtype=dt, device=device)}
+
+
+@register_op("fill_zeros_like", differentiable=False)
+def fill_zeros_like(inputs, attrs, device):
+    return {"Out": torch.zeros_like(one(inputs, "X"))}
+
+
+@register_op("fill_constant_batch_size_like", differentiable=False)
+def fill_constant_batch_size_like(inputs, attrs, device):
+    """``shape`` with dim ``output_dim_idx`` taken from Input's dim
+    ``input_dim_idx`` (reference: fill_constant_batch_size_like_op.cc)."""
+    x = one(inputs, "Input")
+    shape = [int(s) for s in attrs["shape"]]
+    shape[attrs.get("output_dim_idx", 0)] = x.shape[attrs.get("input_dim_idx", 0)]
+    dt = core_types.torch_dtype(attrs.get("dtype", "float32"))
+    return {"Out": torch.full(tuple(shape), attrs.get("value", 0.0), dtype=dt, device=x.device)}
+
+
+@register_op("assign")
+def assign(inputs, attrs, device):
+    """X under a new name (reference: assign_op.cc).  Kernels never write
+    their inputs in place, so the value is shared, not copied."""
+    return {"Out": one(inputs, "X")}
 
 
 @register_op("uniform_random", differentiable=False, infer_shape=_static_infer, random=True)
@@ -146,6 +172,27 @@ def reshape2(inputs, attrs, device):
     return {"Out": _reshape(x, attrs["shape"]), "XShape": _xshape(x)}
 
 
+@register_op("reshape", infer_shape=_reshape_infer)
+def reshape(inputs, attrs, device):
+    """The v1 reshape: no XShape output."""
+    return {"Out": _reshape(one(inputs, "X"), attrs["shape"])}
+
+
+@register_op("concat")
+def concat(inputs, attrs, device):
+    return {"Out": torch.cat(list(inputs["X"]), dim=attrs.get("axis", 0))}
+
+
+@register_op("expand")
+def expand(inputs, attrs, device):
+    """X tiled ``expand_times`` along each dim (reference: expand_op.cc;
+    ``jnp.tile``'s rule where the counts are fewer than the dims)."""
+    x = one(inputs, "X")
+    times = [int(t) for t in attrs["expand_times"]]
+    times = [1] * (x.dim() - len(times)) + times
+    return {"Out": x.repeat(*times)}
+
+
 @register_op("transpose2")
 def transpose2(inputs, attrs, device):
     # a strided view: the consumer reads through its strides or copies
@@ -228,7 +275,13 @@ def where(inputs, attrs, device):
     return {"Out": torch.where(one(inputs, "Condition"), one(inputs, "X"), one(inputs, "Y"))}
 
 
+@register_op("arg_max", differentiable=False)
+def arg_max(inputs, attrs, device):
+    """The first index of the largest value (as ``jnp.argmax``)."""
+    return {"Out": torch.argmax(one(inputs, "X"), dim=attrs.get("axis", -1))}
+
+
 @register_op("top_k", differentiable=False)
 def top_k(inputs, attrs, device):
-    vals, idx = torch.topk(one(inputs, "X"), attrs["k"])
+    vals, idx = common.top_k(one(inputs, "X"), attrs["k"])
     return {"Out": vals, "Indices": idx}

@@ -16,7 +16,12 @@ DeepFM: captured against eager bit for bit under deterministic
 algorithms, a parameter-server ``Rows`` feed through two id buckets
 (an entry and a graph each), the async Communicator's queue holding
 host copies that a replay does not change, and GeoSGD's pulls landing
-on the card and read by the next captured step.
+on the card and read by the next captured step; and the seq2seq
+slice: bounded_while, static_rnn and dynamic_rnn training plans
+captured bit for bit against eager, plans with a host-read loop or
+branch (at any depth) staying eager and matching the CPU, and
+beam_search / beam_search_decode on the card against the CPU, and the
+decode's program logits captured on the card against the CPU.
 
 Every test here needs a CUDA card and skips without one (marker
 ``cuda``).  The file imports neither jax nor paddle_tpu, so it also runs
@@ -1565,3 +1570,137 @@ def test_thread2_ps_ids_stay_on_the_host(card, monkeypatch):
         comm.stop()
     finally:
         server.stop()
+
+
+# ---------------------------------------------------------------------------
+# control flow, the recurrences and the beam ops on the card
+# ---------------------------------------------------------------------------
+def _cf_case(case):
+    from torch_control_flow_cases import CASES
+
+    main, startup = tfluid.Program(), tfluid.Program()
+    main.random_seed = startup.random_seed = 5
+    with tfluid.program_guard(main, startup):
+        fetch, feeds, _ = CASES[case](tfluid)
+    boot = tfluid.Scope()
+    tfluid.Executor(tfluid.CPUPlace()).run(startup, scope=boot)
+    return main, fetch, feeds, _state(boot)
+
+
+@pytest.mark.parametrize("case", ["bounded_while", "static_rnn", "dynamic_rnn"])
+def test_fixed_trip_loop_plan_is_captured(card, case):
+    """A bounded_while, static_rnn or dynamic_rnn training plan reads
+    nothing on the host: the cached executor captures it, and three
+    replayed steps equal three eager ones from the same state, bit for
+    bit (under deterministic algorithms), fetches and persistables."""
+    main, fetch, feeds, init = _cf_case(case)
+    feeds = [feeds[0]] * 3 if len(feeds) == 1 else feeds
+    with _Deterministic():
+        exe = tfluid.Executor()
+        exe.run(main, feed=feeds[0], fetch_list=fetch, scope=_scope_from(init, card))  # warm-up
+        scope, ref_scope = _scope_from(init, card), _scope_from(init, card)
+        got = [exe.run(main, feed=f, fetch_list=fetch, scope=scope) for f in feeds]
+        ref = [tfluid.Executor().run(main, feed=f, fetch_list=fetch, scope=ref_scope,
+                                     use_program_cache=False) for f in feeds]
+    assert exe.jit_cache_stats()["graphs"] == 1
+    for g, r in zip(got, ref):
+        assert [a.tobytes() for a in g] == [b.tobytes() for b in r]
+    a, b = _state(scope), _state(ref_scope)
+    for n in a:
+        assert a[n].tobytes() == b[n].tobytes(), n
+
+
+@pytest.mark.parametrize("case", ["while", "cond", "conditional_block", "while_in_dynamic_rnn"])
+def test_host_read_plan_stays_eager(card, case):
+    """A plan holding while, conditional_block or select_branch (here or
+    nested in a DynamicRNN body) is never captured: three cached runs
+    build no graph, and each equals the CPU's run from the same state
+    (within 1e-5)."""
+    main, fetch, feeds, init = _cf_case(case)
+    exe, scope = tfluid.Executor(), _scope_from(init, card)
+    cpu_exe, cpu_scope = tfluid.Executor(tfluid.CPUPlace()), _scope_from(init, "cpu")
+    for i in range(3):
+        f = feeds[i % len(feeds)]
+        got = exe.run(main, feed=f, fetch_list=fetch, scope=scope)
+        want = cpu_exe.run(main, feed=f, fetch_list=fetch, scope=cpu_scope)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    stats = exe.jit_cache_stats()
+    assert stats["graphs"] == 0 and stats["entries"] == 1
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_beam_ops_on_card_match_cpu(card, ties):
+    """beam_search (also on constructed ties) and beam_search_decode on
+    CUDA tensors: the ids and parents equal the CPU's, the scores within
+    1e-6."""
+    from paddle_tpu_torch.core import registry
+
+    rng = np.random.RandomState(int(ties))
+    B, K, C, steps = 4, 4, 8, 6
+    pre_ids = rng.randint(3, 9, (B * K, 1)).astype("int64")
+    pre_ids[::5] = 2  # finished beams
+    pre_sc = rng.randn(B * K, 1).astype("float32")
+    sc = np.full((B * K, C), 0.125, "float32") if ties else rng.uniform(0.01, 1, (B * K, C))
+    ins = {"pre_ids": [pre_ids], "pre_scores": [pre_sc],
+           "ids": [rng.randint(0, 50, (B * K, C)).astype("int64")],
+           "scores": [np.asarray(sc, "float32")]}
+    dec = {"Ids": [rng.randint(0, 9, (steps, B * K, 1)).astype("int64")],
+           "Scores": [np.cumsum(-rng.uniform(0, 1, (steps, B * K, 1)), 0).astype("float32")],
+           "Parents": [(rng.randint(0, K, (steps, B * K)) + np.arange(B * K) // K * K)
+                       .astype("int32")]}
+    attrs = {"beam_size": K, "end_id": 2, "is_accumulated": False}
+    for op, inputs in (("beam_search", ins), ("beam_search_decode", dec)):
+        kernel = registry.get_kernel(op)
+        outs = {}
+        for dev in (card, torch.device("cpu")):
+            t = {s: [torch.from_numpy(v).to(dev) for v in vs] for s, vs in inputs.items()}
+            outs[dev.type] = kernel(t, attrs, dev)
+        for slot, got in outs["cuda"].items():
+            assert got.is_cuda, slot
+            got, want = got.cpu().numpy(), outs["cpu"][slot].numpy()
+            if got.dtype.kind == "f":
+                np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6, err_msg=slot)
+            else:
+                np.testing.assert_array_equal(got, want, err_msg=slot)
+
+
+def test_program_logits_fn_is_captured_on_card(card):
+    """decoding.make_program_logits_fn on the card runs the program as a
+    captured executor entry: three calls with one feed shape build one
+    graph, each call's logits within 1e-4 of the CPU interpreter's, and a
+    greedy decode through it gives the CPU's tokens."""
+    from paddle_tpu_torch import decoding
+    from paddle_tpu_torch.models import seq2seq
+
+    S, T, V = 10, 7, 40
+    main, startup = tfluid.Program(), tfluid.Program()
+    main.random_seed = startup.random_seed = 9
+    with tfluid.program_guard(main, startup), tfluid.unique_name.guard():
+        src = tfluid.layers.data("src", [S], dtype="int64")
+        tgt = tfluid.layers.data("tgt", [T], dtype="int64")
+        smask = tfluid.layers.data("smask", [S])
+        _, logits = seq2seq.transformer_nmt(src, tgt, None, src_mask=smask, src_vocab=V,
+                                            tgt_vocab=V, d_model=32, n_layer=2, n_head=4,
+                                            d_inner=64, src_len=S, tgt_len=T, is_test=True)
+    boot = tfluid.Scope()
+    tfluid.Executor(tfluid.CPUPlace()).run(startup, scope=boot)
+    state = _state(boot)
+    feeds = ["src", "tgt", "smask"]
+    fn = decoding.make_program_logits_fn(main, state, feeds, logits.name)
+    cpu_fn = decoding.make_program_logits_fn(main, state, feeds, logits.name,
+                                             place=tfluid.CPUPlace())
+    rng = np.random.RandomState(0)
+    for _ in range(3):
+        f = {"src": rng.randint(0, V, (3, S)), "tgt": rng.randint(0, V, (3, T)),
+             "smask": (np.arange(S)[None, :] < rng.randint(5, S + 1, (3, 1))).astype("float32")}
+        got = fn(f)
+        assert got.is_cuda
+        np.testing.assert_allclose(got.cpu().numpy(), cpu_fn(f).numpy(), rtol=1e-4, atol=1e-4)
+    assert fn.executor.jit_cache_stats()["graphs"] == 1
+    src_ids = torch.from_numpy(rng.randint(0, V, (3, S))).to(card)
+    mask = np.ones((3, S), "float32")
+    got, _ = decoding.greedy_search(fn, src_ids, 1, 2, max_len=T, extra_feeds={"smask": mask})
+    want, _ = decoding.greedy_search(cpu_fn, src_ids.cpu(), 1, 2, max_len=T,
+                                     extra_feeds={"smask": mask})
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
