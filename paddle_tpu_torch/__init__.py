@@ -52,6 +52,11 @@ Seq2seq: Programs with sub-blocks and the control-flow layers
 ``dynamic_gru``, ``dynamic_lstmp``), the sequence and beam layers,
 Transformer NMT (``models.seq2seq.transformer_nmt``) and ``decoding``
 (greedy and beam search, full prefix and KV-cached).
+
+The core layers: the math, tensor and plain nn ops with
+``layers/tensor.py``, ``layers/nn.py``'s plain names and ``layers/io.py``
+(the reader layers over ``reader.py``, ``layers.load``), and
+``models.vgg16`` and ``models.word2vec_ngram``.
 """
 from paddle_tpu_torch import framework
 from paddle_tpu_torch.framework import (
@@ -60,6 +65,7 @@ from paddle_tpu_torch.framework import (
     Place,
     Program,
     cpu_places,
+    cuda_pinned_places,
     cuda_places,
     default_main_program,
     default_startup_program,
@@ -78,9 +84,22 @@ from paddle_tpu_torch.flags import get_flags, set_flags
 from paddle_tpu_torch import monitor, reader
 from paddle_tpu_torch.reader import DataLoader, PyReader, batch
 from paddle_tpu_torch.data_feeder import DataFeeder
-from paddle_tpu_torch.param_attr import ParamAttr
+from paddle_tpu_torch.param_attr import ParamAttr, WeightNormParamAttr
 from paddle_tpu_torch import inference
 from paddle_tpu_torch import io
+from paddle_tpu_torch.io import (
+    load_inference_model,
+    load_params,
+    load_persistables,
+    load_vars,
+    save_inference_model,
+    save_params,
+    save_persistables,
+    save_program,
+    save_vars,
+)
+from paddle_tpu_torch.optimizer import ExponentialMovingAverage
+from paddle_tpu_torch.layers import learning_rate_scheduler as learning_rate_decay
 from paddle_tpu_torch import kernels
 from paddle_tpu_torch import models
 from paddle_tpu_torch import serving
@@ -89,3 +108,15 @@ from paddle_tpu_torch import dataset, decoding, distributed, incubate, metrics, 
 from paddle_tpu_torch import fluid_dataset, trainer_desc
 from paddle_tpu_torch.fluid_dataset import DatasetFactory, InMemoryDataset, QueueDataset
 from paddle_tpu_torch.trainer_desc import TrainerFactory
+
+# the LoDTensor surface: a scope var's tensor view carries the reference
+# binding's set / shape (a ragged sequence is padded, with its lengths)
+from paddle_tpu_torch.scope import _TensorView as Tensor
+
+LoDTensor = Tensor
+LoDTensorArray = list
+
+
+def CUDAPinnedPlace():
+    """Pinned host staging memory: a host place."""
+    return CPUPlace()

@@ -444,7 +444,7 @@ class Executor:
         check_nan_inf = flags.get_flags("FLAGS_check_nan_inf")["FLAGS_check_nan_inf"]
         n_user = len(plan.fetch_names) - plan.n_push
         graph_path = (use_program_cache and self.device.type == "cuda" and not plan.eager_ops
-                      and all(n in scope.vars for n in plan.state_out))
+                      and all(scope.vars.get(n) is not None for n in plan.state_out))
         if graph_path:
             with entry.lock:  # feeds in, replay, fetches out: one thread at a time
                 graph = entry.graph_for(scope)

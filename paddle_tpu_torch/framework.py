@@ -37,6 +37,8 @@ __all__ = [
     "grad_var_name",
     "cpu_places",
     "cuda_places",
+    "cuda_pinned_places",
+    "op_role_guard",
     "CPUPlace",
     "CUDAPlace",
     "device_of",
@@ -111,6 +113,12 @@ def cuda_places(device_ids=None):
     return [CUDAPlace(int(i)) for i in device_ids]
 
 
+def cuda_pinned_places(device_count=None):
+    """Pinned host staging memory (reference: framework.py
+    cuda_pinned_places): host places, one per device."""
+    return [CPUPlace() for _ in range(device_count or 1)]
+
+
 def is_compiled_with_cuda() -> bool:
     return torch.backends.cuda.is_built()
 
@@ -149,6 +157,30 @@ class Variable:
         self.is_data = is_data
         # op that most recently produced this var (set by append_op)
         self.op: Optional["Operator"] = None
+
+    # persistable decides which vars the executor's cached run plan reads
+    # from and writes back to the scope, and the plan key holds the
+    # program's version: so a toggle after a run (the mark-before-save
+    # pattern) bumps the version, and the next run analyses a new plan
+    @property
+    def persistable(self) -> bool:
+        return self._persistable
+
+    @persistable.setter
+    def persistable(self, value) -> None:
+        value = bool(value)
+        if value == getattr(self, "_persistable", None):
+            return  # the same value again: the plan stands
+        self._persistable = value
+        prog = getattr(getattr(self, "block", None), "program", None)
+        if prog is not None:
+            prog.version += 1
+
+    def astype(self, dtype):
+        """This var cast to ``dtype`` (a ``cast`` op)."""
+        from paddle_tpu_torch.layers import tensor as ltensor
+
+        return ltensor.cast(self, dtype)
 
     @property
     def grad_name(self):
@@ -361,6 +393,9 @@ class Block:
     def has_var(self, name: str) -> bool:
         return self._find_var_recursive(name) is not None
 
+    def has_var_local(self, name: str) -> bool:
+        return name in self.vars
+
     def _find_var_recursive(self, name: str) -> Optional[Variable]:
         blk = self
         while blk is not None:
@@ -421,6 +456,7 @@ class Program:
         self.blocks: List[Block] = [Block(self, 0)]
         self.current_block_idx = 0
         self.version = 0
+        self._op_role = "forward"
         self.random_seed = 0
         self._seed_counter = 0
         self._uid = next(Program._uid_counter)
@@ -591,3 +627,14 @@ def program_guard(main_program: Program, startup_program: Optional[Program] = No
 def name_scope(prefix: str):
     with unique_name.guard_prefix(prefix):
         yield
+
+
+@contextlib.contextmanager
+def op_role_guard(program: Program, role: str):
+    """``program._op_role`` set to ``role`` inside the block."""
+    prev = program._op_role
+    program._op_role = role
+    try:
+        yield
+    finally:
+        program._op_role = prev

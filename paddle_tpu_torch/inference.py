@@ -21,7 +21,7 @@ from paddle_tpu_torch.core import types as core_types
 from paddle_tpu_torch.executor import Executor
 from paddle_tpu_torch.scope import Scope
 
-__all__ = ["AnalysisConfig", "AnalysisPredictor", "create_paddle_predictor"]
+__all__ = ["AnalysisConfig", "PaddlePredictor", "AnalysisPredictor", "create_paddle_predictor"]
 
 
 class AnalysisConfig:
@@ -52,8 +52,18 @@ class AnalysisConfig:
         self.model_dir = model_dir
         self.params_file = params_file
 
+    def switch_use_feed_fetch_ops(self, flag: bool):
+        pass  # feeds and fetches are the predictor's arguments and results
 
-class AnalysisPredictor:
+    def switch_ir_optim(self, flag: bool = True):
+        pass  # the saved program runs as it is
+
+
+class PaddlePredictor:
+    """The predictors' base class (reference: api/paddle_api.h)."""
+
+
+class AnalysisPredictor(PaddlePredictor):
     """reference: api/analysis_predictor.h:46."""
 
     def __init__(self, config: AnalysisConfig):

@@ -1,7 +1,7 @@
 """fluid-style layers namespace (reference: python/paddle/fluid/layers/):
-the layers the ported model builders, optimizers, clips and learning-rate
-schedules call, the control-flow and recurrent layers, and the sequence
-and beam layers."""
+the tensor, nn and io layers, the layers the optimizers, clips and
+learning-rate schedules call, the control-flow and recurrent layers, and
+the sequence and beam layers."""
 from paddle_tpu_torch.layers import (  # noqa: F401
     control_flow, extended, io, learning_rate_scheduler, nn, ops, rnn, tensor)
 from paddle_tpu_torch.layers.control_flow import *  # noqa: F401,F403

@@ -1,9 +1,10 @@
 """NN layers (reference: python/paddle/fluid/layers/nn.py): fc,
 embedding (in HBM, or on the parameter server with ``is_distributed``),
-conv2d, pool2d, batch_norm, layer_norm, dropout, relu, softmax, mean,
-cross_entropy, softmax_with_cross_entropy,
-sigmoid_cross_entropy_with_logits, matmul, topk, accuracy, auc, clip,
-clip_by_norm, and the sequence layers over the padded+length encoding
+conv2d, conv2d_transpose, pool2d, the norms (batch, layer, group,
+spectral, data, l2), dropout, the activations and softmaxes, the losses,
+matmul and mul, one_hot and label_smooth, pad / crop and resize, the
+pixel reorderings, bilinear_tensor_product, py_func, topk, accuracy,
+auc, clip, clip_by_norm, and the sequence layers over the padded+length encoding
 (the pools, softmax, expand, reverse, mask, erase, enumerate, the CRF,
 edit_distance and ctc_greedy_decoder), as the JAX package's
 ``layers/nn.py`` builds them."""
@@ -14,13 +15,18 @@ import numpy as np
 from paddle_tpu_torch import initializer, unique_name
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm", "dropout", "relu",
-           "softmax", "mean", "cross_entropy", "square_error_cost", "softmax_with_cross_entropy",
-           "sigmoid_cross_entropy_with_logits", "matmul", "topk", "accuracy", "auc", "clip",
-           "clip_by_norm", "sequence_pool", "sequence_softmax", "sequence_expand",
-           "sequence_reverse", "sequence_mask", "sequence_erase", "sequence_enumerate",
-           "sequence_expand_as", "sequence_first_step", "sequence_last_step", "linear_chain_crf",
-           "crf_decoding", "edit_distance", "ctc_greedy_decoder"]
+__all__ = ["fc", "embedding", "conv2d", "conv2d_transpose", "pool2d", "batch_norm", "layer_norm",
+           "group_norm", "dropout", "relu", "softmax", "log_softmax", "mean", "cross_entropy",
+           "square_error_cost", "softmax_with_cross_entropy", "sigmoid_cross_entropy_with_logits",
+           "huber_loss", "log_loss", "smooth_l1", "matmul", "mul", "prelu", "l2_normalize",
+           "one_hot", "label_smooth", "maxout", "pad", "pad2d", "pad_constant_like", "crop",
+           "image_resize", "resize_bilinear", "resize_nearest", "pixel_shuffle",
+           "shuffle_channel", "spectral_norm", "data_norm", "bilinear_tensor_product", "py_func",
+           "topk", "accuracy", "auc", "clip", "clip_by_norm", "sequence_pool", "sequence_softmax",
+           "sequence_expand", "sequence_reverse", "sequence_mask", "sequence_erase",
+           "sequence_enumerate", "sequence_expand_as", "sequence_first_step",
+           "sequence_last_step", "linear_chain_crf", "crf_decoding", "edit_distance",
+           "ctc_greedy_decoder"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None, act=None, name=None):
@@ -170,6 +176,26 @@ def _conv_bias(helper, pre_bias, data_format="NCHW"):
     return tmp
 
 
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None, stride=1, padding=0,
+                     dilation=1, groups=1, param_attr=None, bias_attr=None, act=None, name=None):
+    """reference: layers/nn.py conv2d_transpose (NCHW; the filter is
+    [in_c, num_filters / groups, kh, kw])."""
+    helper = LayerHelper("conv2d_transpose", param_attr=param_attr, bias_attr=bias_attr, act=act,
+                         name=name)
+    fsize = filter_size if isinstance(filter_size, (list, tuple)) else [filter_size] * 2
+    filter_shape = [input.shape[1], num_filters // groups] + list(fsize)
+    w = helper.create_parameter(param_attr, shape=filter_shape, dtype=input.dtype)
+    pre_bias = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="conv2d_transpose",
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": _pair_list(stride), "paddings": _pair_list(padding),
+               "dilations": _pair_list(dilation), "groups": groups},
+    )
+    return helper.append_activation(_conv_bias(helper, pre_bias))
+
+
 def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1, pool_padding=0,
            global_pooling=False, use_cudnn=True, ceil_mode=False, exclusive=True, name=None,
            data_format="NCHW"):
@@ -261,6 +287,21 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5,
     return helper.append_activation(out)
 
 
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None, act=None, name=None):
+    helper = LayerHelper("group_norm", param_attr=param_attr, bias_attr=bias_attr, act=act, name=name)
+    c = input.shape[1]
+    s = helper.create_parameter(param_attr, shape=[c], dtype=input.dtype,
+                                default_initializer=initializer.Constant(1.0))
+    b = helper.create_parameter(bias_attr, shape=[c], dtype=input.dtype, is_bias=True)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mean = helper.create_variable_for_type_inference(input.dtype, stop_gradient=True)
+    var = helper.create_variable_for_type_inference(input.dtype, stop_gradient=True)
+    helper.append_op(type="group_norm", inputs={"X": [input], "Scale": [s], "Bias": [b]},
+                     outputs={"Y": [out], "Mean": [mean], "Variance": [var]},
+                     attrs={"epsilon": epsilon, "groups": groups})
+    return helper.append_activation(out)
+
+
 def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
             dropout_implementation="downgrade_in_infer"):
     """reference: layers/nn.py dropout.  The op's ``seed`` is the
@@ -300,6 +341,23 @@ def relu(x, name=None):
 
 def softmax(input, use_cudnn=False, name=None, axis=-1):
     return _simple("softmax", input, {"axis": axis})
+
+
+def log_softmax(input, axis=-1, name=None):
+    return _simple("log_softmax", input, {"axis": axis})
+
+
+def prelu(x, mode="all", param_attr=None, name=None):
+    """Alpha (0.25 at start) of shape [1] (``all``), [C] (``channel``) or
+    x's sample shape (``element``)."""
+    helper = LayerHelper("prelu", param_attr=param_attr, name=name)
+    alpha_shape = [1] if mode == "all" else ([x.shape[1]] if mode == "channel" else list(x.shape[1:]))
+    alpha = helper.create_parameter(param_attr, shape=alpha_shape, dtype=x.dtype,
+                                    default_initializer=initializer.Constant(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="prelu", inputs={"X": [x], "Alpha": [alpha]}, outputs={"Out": [out]},
+                     attrs={"mode": mode})
+    return out
 
 
 def square_error_cost(input, label):
@@ -351,6 +409,33 @@ def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None, no
     return out
 
 
+def _loss_with_side_output(op_type, x, y, side_slot, attrs):
+    """A loss op over X and Y with a second output (the residual or the
+    difference) that carries no gradient."""
+    helper = LayerHelper(op_type)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    side = helper.create_variable_for_type_inference(x.dtype, stop_gradient=True)
+    helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out], side_slot: [side]}, attrs=attrs)
+    return out
+
+
+def huber_loss(input, label, delta):
+    return _loss_with_side_output("huber_loss", input, label, "Residual", {"delta": delta})
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    return _loss_with_side_output("smooth_l1_loss", x, y, "Diff", {"sigma": sigma or 1.0})
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    helper = LayerHelper("log_loss", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="log_loss", inputs={"Predicted": [input], "Labels": [label]},
+                     outputs={"Loss": [out]}, attrs={"epsilon": epsilon})
+    return out
+
+
 def auc(input, label, curve="ROC", num_thresholds=200, topk=1, slide_steps=1):
     """As in the JAX package, there is no graph AUC op: the streaming AUC
     of a CTR model is ``paddle_tpu_torch.metrics.Auc`` over the fetched
@@ -368,6 +453,214 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
         attrs={"transpose_X": transpose_x, "transpose_Y": transpose_y, "alpha": float(alpha)},
     )
     return out
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="mul", inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]},
+                     attrs={"x_num_col_dims": x_num_col_dims, "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    norm = helper.create_variable_for_type_inference(x.dtype, stop_gradient=True)
+    helper.append_op(type="l2_normalize", inputs={"X": [x]}, outputs={"Out": [out], "Norm": [norm]},
+                     attrs={"axis": axis, "epsilon": epsilon})
+    return out
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op(type="one_hot", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"depth": depth})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32", name=None):
+    """(1 - epsilon) label + epsilon / K, K the last dim (a uniform prior,
+    as the JAX package builds it: ``prior_dist`` is not read)."""
+    from paddle_tpu_torch.layers import tensor as ltensor
+
+    smooth = ltensor.scale(label, scale=1.0 - epsilon)
+    return ltensor.increment_const(smooth, epsilon / float(label.shape[-1]))
+
+
+def maxout(x, groups, name=None):
+    return _simple("maxout", x, {"groups": groups})
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    return _simple("pad", x, {"paddings": paddings, "pad_value": pad_value})
+
+
+def pad2d(input, paddings=[0, 0, 0, 0], mode="constant", pad_value=0.0, data_format="NCHW",
+          name=None):
+    return _simple("pad2d", input, {"paddings": paddings, "mode": mode, "pad_value": pad_value})
+
+
+def pad_constant_like(x, y, pad_value=0.0, name=None):
+    helper = LayerHelper("pad_constant_like", name=name)
+    out = helper.create_variable_for_type_inference(y.dtype)
+    helper.append_op(type="pad_constant_like", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]}, attrs={"pad_value": float(pad_value)})
+    return out
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    """The block of ``shape`` (a list, or a var whose shape it is) at
+    ``offsets``."""
+    helper = LayerHelper("crop", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    ins = {"X": [x]}
+    attrs = {"offsets": list(offsets or [0] * len(x.shape))}
+    if isinstance(shape, (list, tuple)):
+        attrs["shape"] = list(shape)
+    elif shape is not None:
+        ins["Y"] = [shape]
+    helper.append_op(type="crop", inputs=ins, outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def image_resize(input, out_shape=None, scale=None, name=None, resample="BILINEAR",
+                 actual_shape=None, align_corners=True, align_mode=1):
+    """reference: layers/nn.py image_resize, bilinear or nearest."""
+    helper = LayerHelper("image_resize", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if out_shape is None and scale is None:
+        raise ValueError("image_resize: one of out_shape and scale must be set")
+    attrs = {"align_corners": bool(align_corners)}
+    if out_shape is not None:
+        attrs["out_h"], attrs["out_w"] = int(out_shape[0]), int(out_shape[1])
+    if scale is not None:
+        attrs["scale"] = float(scale)
+    op_type = "bilinear_interp" if resample.upper() == "BILINEAR" else "nearest_interp"
+    helper.append_op(type=op_type, inputs={"X": [input]}, outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None, align_corners=True,
+                    align_mode=1, **kw):
+    return image_resize(input, out_shape, scale, name, "BILINEAR", align_corners=align_corners,
+                        align_mode=align_mode)
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None, align_corners=True, **kw):
+    return image_resize(input, out_shape, scale, name, "NEAREST", align_corners=align_corners)
+
+
+def pixel_shuffle(x, upscale_factor):
+    return _simple("pixel_shuffle", x, {"upscale_factor": upscale_factor})
+
+
+def shuffle_channel(x, group):
+    return _simple("shuffle_channel", x, {"group": group})
+
+
+def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, name=None):
+    """``weight`` over its spectral norm, with the power iteration's U
+    and V as persistable Normal(0, 1) parameters that do not train."""
+    from paddle_tpu_torch.param_attr import ParamAttr
+
+    helper = LayerHelper("spectral_norm", name=name)
+    if any(int(s) < 0 for s in weight.shape):
+        raise ValueError("spectral_norm requires a fully static weight shape, got %s"
+                         % (weight.shape,))
+    h = int(weight.shape[dim])
+    w = int(np.prod([int(s) for i, s in enumerate(weight.shape) if i != dim]))
+    u = helper.create_parameter(ParamAttr(trainable=False), shape=[h], dtype=weight.dtype,
+                                default_initializer=initializer.Normal(0.0, 1.0))
+    v = helper.create_parameter(ParamAttr(trainable=False), shape=[w], dtype=weight.dtype,
+                                default_initializer=initializer.Normal(0.0, 1.0))
+    out = helper.create_variable_for_type_inference(weight.dtype)
+    helper.append_op(type="spectral_norm", inputs={"Weight": [weight], "U": [u], "V": [v]},
+                     outputs={"Out": [out]},
+                     attrs={"dim": int(dim), "power_iters": int(power_iters), "eps": float(eps)})
+    return out
+
+
+def data_norm(input, act=None, epsilon=1e-4, param_attr=None, data_layout="NCHW", in_place=False,
+              name=None, moving_mean_name=None, moving_variance_name=None,
+              do_model_average_for_mean_and_var=False):
+    """CTR data normalisation by trainable BatchSize / BatchSum /
+    BatchSquareSum accumulators (1e4, 0 and 1e4 at start, or the
+    ``batch_size`` / ``batch_sum`` / ``batch_square`` of a dict
+    ``param_attr``), which the op's gradient folds each batch into."""
+    from paddle_tpu_torch.param_attr import ParamAttr
+
+    helper = LayerHelper("data_norm", name=name, act=act)
+    c = int(input.shape[1] if data_layout == "NCHW" else input.shape[-1])
+    defaults = {"batch_size": 1e4, "batch_sum": 0.0, "batch_square": 1e4}
+    if param_attr and isinstance(param_attr, dict):
+        defaults.update({k: param_attr.get(k, v) for k, v in defaults.items()})
+
+    def stat(suffix, value):
+        return helper.create_parameter(
+            ParamAttr(name=None if name is None else name + "." + suffix), shape=[c],
+            dtype=input.dtype, default_initializer=initializer.Constant(float(value)))
+
+    batch_size = stat("batch_size", defaults["batch_size"])
+    batch_sum = stat("batch_sum", defaults["batch_sum"])
+    batch_square_sum = stat("batch_square_sum", defaults["batch_square"])
+    means = helper.create_variable_for_type_inference(input.dtype, stop_gradient=True)
+    scales = helper.create_variable_for_type_inference(input.dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="data_norm",
+        inputs={"X": [input], "BatchSize": [batch_size], "BatchSum": [batch_sum],
+                "BatchSquareSum": [batch_square_sum]},
+        outputs={"Y": [out], "Means": [means], "Scales": [scales]},
+        attrs={"epsilon": float(epsilon), "data_layout": data_layout})
+    return helper.append_activation(out)
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None, param_attr=None, bias_attr=None):
+    """out[b, k] = x[b]ᵀ W[k] y[b] + bias, W [size, M, N]."""
+    helper = LayerHelper("bilinear_tensor_product", param_attr=param_attr, bias_attr=bias_attr,
+                         act=act, name=name)
+    m, n = int(x.shape[-1]), int(y.shape[-1])
+    w = helper.create_parameter(param_attr, shape=[size, m, n], dtype=x.dtype)
+    bias = helper.create_parameter(bias_attr, shape=[1, size], dtype=x.dtype, is_bias=True)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    ins = {"X": [x], "Y": [y], "Weight": [w]}
+    if bias is not None:
+        ins["Bias"] = [bias]
+    helper.append_op(type="bilinear_tensor_product", inputs=ins, outputs={"Out": [out]}, attrs={})
+    return helper.append_activation(out)
+
+
+# py_func's host functions, by the op's ``func_id`` attr: (func, output
+# (shape, dtype) specs, out_shape_fn), one entry per distinct triple
+_PY_FUNC_REGISTRY = []
+_PY_FUNC_INDEX = {}
+
+
+def py_func(func, x, out, backward_func=None, skip_vars_in_backward_input=None,
+            out_shape_fn=None):
+    """Run the host function ``func`` at the op's place in the step, on
+    numpy copies of ``x``, into the pre-made vars ``out`` (their shapes
+    and dtypes are the contract).  A -1 in position 0 of an output shape
+    is the first input's batch; any other dynamic dim needs
+    ``out_shape_fn(input_shapes) -> [shape, ...]``.  ``backward_func`` is
+    not taken, as in the JAX package: keep py_func off the gradient's
+    path."""
+    if backward_func is not None:
+        raise NotImplementedError("py_func backward_func: use differentiable ops")
+    helper = LayerHelper("py_func")
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    specs = [(tuple(int(s) for s in o.shape), o.dtype) for o in outs]
+    key = (func, tuple(specs), out_shape_fn)
+    func_id = _PY_FUNC_INDEX.get(key)
+    if func_id is None:
+        _PY_FUNC_REGISTRY.append((func, specs, out_shape_fn))
+        func_id = _PY_FUNC_INDEX[key] = len(_PY_FUNC_REGISTRY) - 1
+    helper.append_op(type="py_func", inputs={"X": [v.name for v in xs]},
+                     outputs={"Out": [o.name for o in outs]}, attrs={"func_id": func_id})
+    return outs if isinstance(out, (list, tuple)) else outs[0]
 
 
 def topk(input, k, name=None):

@@ -13,3 +13,4 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     sequence_ops,
     tensor_ops,
 )
+from paddle_tpu_torch.ops import extended_ops  # noqa: F401,E402  (last: its aliases name the others)

@@ -2,8 +2,9 @@
 
 Reference kernels: paddle/fluid/operators/mul_op.cc, matmul_op.cc,
 sum_op.cc, mean_op.cc, scale_op.cc, clip_op.cc, clip_by_norm_op.cc,
-operators/elementwise/*, reduce_ops/reduce_sum_op.cc, activation_op.cc (the unary
-math), controlflow/compare_op.cc and logical_op.cc.  ``mul`` and
+operators/elementwise/*, reduce_ops/*, activation_op.cc (the unary
+math and pow), controlflow/compare_op.cc, logical_op.cc and
+isfinite_op.cc.  ``mul`` and
 ``matmul`` are plain matrix products through ``torch.matmul``; on the
 TPU they were XLA's, not Pallas kernels, as every op here was.
 """
@@ -82,6 +83,24 @@ _ew("elementwise_div", lambda x, y: x / y)
 _ew("elementwise_min", torch.minimum)
 _ew("elementwise_max", torch.maximum)
 _ew("elementwise_pow", lambda x, y: x ** y)
+class _FloorDiv(torch.autograd.Function):
+    """torch.floor_divide with the zero gradient jnp's floor_divide has
+    (torch gives the op no derivative)."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        ctx.shapes = (x.shape, y.shape)
+        return torch.floor_divide(x, y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.new_zeros(ctx.shapes[0]), g.new_zeros(ctx.shapes[1])
+
+
+# the sign rules of Python's % and // (the divisor's sign; rounding to
+# -inf), as jnp's
+_ew("elementwise_mod", torch.remainder)
+_ew("elementwise_floordiv", _FloorDiv.apply)
 
 
 @register_op("scale")
@@ -149,19 +168,46 @@ _unary("sin", torch.sin)
 _unary("logsigmoid", lambda x: -torch.logaddexp(torch.zeros_like(x), -x))
 
 
+@register_op("pow")
+def pow_op(inputs, attrs, device):
+    return {"Out": one(inputs, "X") ** attrs.get("factor", 1.0)}
+
+
 # ---------------------------------------------------------------------------
 # reductions (reference: operators/reduce_ops/)
 # ---------------------------------------------------------------------------
-@register_op("reduce_sum")
-def reduce_sum(inputs, attrs, device):
-    x = one(inputs, "X")
-    dims = attrs.get("dim", [0])
-    if attrs.get("reduce_all", False) or dims is None:
-        dims = range(x.dim())
-    elif isinstance(dims, int):
-        dims = [dims]
-    return {"Out": torch.sum(x, dim=tuple(d % x.dim() for d in dims),
-                             keepdim=attrs.get("keep_dim", False))}
+def _prod(x, dims, keep):
+    # torch.prod takes one dim at a time; an integer product keeps X's type
+    out = x
+    for d in sorted(dims, reverse=True):
+        out = torch.prod(out, dim=d, keepdim=keep)
+    return out.to(x.dtype)
+
+
+def _reduce(name, fn):
+    """Over ``dim`` (negative dims count from the end), or every dim
+    with ``reduce_all``; ``keep_dim`` keeps the reduced dims as 1."""
+    @register_op(name)
+    def kernel(inputs, attrs, device, _fn=fn):
+        x = one(inputs, "X")
+        dims = attrs.get("dim", [0])
+        if attrs.get("reduce_all", False) or dims is None:
+            dims = range(x.dim())
+        elif isinstance(dims, int):
+            dims = [dims]
+        return {"Out": _fn(x, tuple(d % x.dim() for d in dims), attrs.get("keep_dim", False))}
+
+    return kernel
+
+
+_reduce("reduce_sum", lambda x, d, k: torch.sum(x, dim=d, keepdim=k))
+_reduce("reduce_mean", lambda x, d, k: torch.mean(x, dim=d, keepdim=k))
+# amax / amin share the gradient equally among tied maxima, as jnp.max's
+_reduce("reduce_max", lambda x, d, k: torch.amax(x, dim=d, keepdim=k))
+_reduce("reduce_min", lambda x, d, k: torch.amin(x, dim=d, keepdim=k))
+_reduce("reduce_prod", _prod)
+_reduce("reduce_all", lambda x, d, k: torch.all(x, dim=d, keepdim=k))
+_reduce("reduce_any", lambda x, d, k: torch.any(x, dim=d, keepdim=k))
 
 
 @register_op("mean")
@@ -194,3 +240,9 @@ _cmp("logical_xor", torch.logical_xor)
 @register_op("logical_not", differentiable=False)
 def logical_not(inputs, attrs, device):
     return {"Out": torch.logical_not(one(inputs, "X"))}
+
+
+@register_op("isfinite", differentiable=False)
+def isfinite(inputs, attrs, device):
+    """Whether every element of X is finite, as a [1] bool."""
+    return {"Out": torch.isfinite(one(inputs, "X")).all().reshape(1)}

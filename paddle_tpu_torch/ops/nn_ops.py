@@ -1,10 +1,14 @@
 """NN ops (the ported subset of the JAX package's ``ops/nn_ops.py``).
 
-Reference kernels: operators/activation_op.cc, softmax_op.cc,
-conv_op.cc, pool_op.cc, batch_norm_op.cc, layer_norm_op.cc,
-cross_entropy_op.cc, softmax_with_cross_entropy_op.cc,
-sigmoid_cross_entropy_with_logits_op.cc, dropout_op.cc, and the fused
-attention op.  The fused attention op's compute and
+Reference kernels: operators/activation_op.cc, prelu_op.cc,
+softmax_op.cc, log_softmax_op.cc, conv_op.cc, conv_transpose_op.cc,
+pool_op.cc, batch_norm_op.cc, layer_norm_op.cc, group_norm_op.cc,
+data_norm_op.cc, spectral_norm_op.h, cross_entropy_op.cc,
+softmax_with_cross_entropy_op.cc, sigmoid_cross_entropy_with_logits_op.cc,
+huber_loss_op.cc, smooth_l1_loss_op.cc, log_loss_op.cc, norm_op.cc,
+maxout_op.cc, interpolate_op.cc, pixel_shuffle_op.cc,
+shuffle_channel_op.cc, bilinear_tensor_product_op.h, dropout_op.cc, and
+the fused attention op.  The fused attention op's compute and
 gradient are the hand-written CUDA kernels behind
 ``kernels/fused_attention.py``; dropout's training branch is the
 hand-written kernel behind ``kernels/dropout.py``.
@@ -18,6 +22,7 @@ contiguous NHWC tensor.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -82,11 +87,28 @@ _act("thresholded_relu", lambda x, a: torch.where(x > a.get("threshold", 1.0), x
 _act("stanh", lambda x, a: a.get("scale_b", 1.7159) * torch.tanh(a.get("scale_a", 0.67) * x))
 _act("soft_relu", _soft_relu)
 _act("brelu", lambda x, a: torch.clamp(x, a.get("t_min", 0.0), a.get("t_max", 24.0)))
+_act("prelu_channel", lambda x, a: x)  # the JAX package's placeholder: prelu below computes
+
+
+@register_op("prelu")
+def prelu(inputs, attrs, device):
+    """x where x > 0, else Alpha * x; Alpha is one value (``all``), one per
+    channel of an NCHW x (``channel``) or one per element of a sample
+    (``element``)."""
+    x, alpha = one(inputs, "X"), one(inputs, "Alpha")
+    if attrs.get("mode", "all") == "channel":
+        alpha = alpha.reshape((1, -1) + (1,) * (x.dim() - 2))
+    return {"Out": torch.where(x > 0, x, alpha * x)}
 
 
 @register_op("softmax")
 def softmax(inputs, attrs, device):
     return {"Out": F.softmax(one(inputs, "X"), dim=attrs.get("axis", -1))}
+
+
+@register_op("log_softmax")
+def log_softmax(inputs, attrs, device):
+    return {"Out": F.log_softmax(one(inputs, "X"), dim=attrs.get("axis", -1))}
 
 
 @register_op("layer_norm")
@@ -130,6 +152,27 @@ def conv2d(inputs, attrs, device):
     if b is not None:
         out = out + b.reshape((1, -1, 1, 1) if fmt == "NCHW" else (1, 1, 1, -1))
     return {"Output": out}
+
+
+@register_op("depthwise_conv2d")
+def depthwise_conv2d(inputs, attrs, device):
+    """conv2d with one group per input channel."""
+    x = one(inputs, "Input")
+    fmt = attrs.get("data_format", "NCHW")
+    return conv2d(inputs, dict(attrs, groups=x.shape[1] if fmt == "NCHW" else x.shape[-1]), device)
+
+
+@register_op("conv2d_transpose")
+def conv2d_transpose(inputs, attrs, device):
+    """reference: conv_transpose_op.cc.  NCHW; the Filter is [in_c,
+    out_c / groups, kh, kw], torch's own layout for it; the output size
+    is (in - 1) * stride - 2 * pad + dilation * (k - 1) + 1."""
+    return {"Output": F.conv_transpose2d(
+        one(inputs, "Input"), one(inputs, "Filter"),
+        stride=_pair(attrs.get("strides", [1, 1])),
+        padding=_pair(attrs.get("paddings", [0, 0])),
+        dilation=_pair(attrs.get("dilations", [1, 1])),
+        groups=attrs.get("groups", 1))}
 
 
 def _window_sum(x, ksize, strides, pads):
@@ -229,6 +272,93 @@ def batch_norm(inputs, attrs, device):
             "SavedMean": use_mean, "SavedVariance": use_var}
 
 
+@register_op("group_norm")
+def group_norm(inputs, attrs, device):
+    """reference: group_norm_op.cc.  NCHW; each sample's channels in
+    ``groups`` groups normalised by the group's mean and biased variance,
+    in fp32 (at least); Y in X's type, Mean and Variance [N, groups]."""
+    x = one(inputs, "X")
+    scale, bias = maybe(inputs, "Scale"), maybe(inputs, "Bias")
+    g = attrs.get("groups", 1)
+    eps = attrs.get("epsilon", 1e-5)
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape((n, g, c // g) + tuple(x.shape[2:]))
+    xg = xg.to(torch.promote_types(xg.dtype, torch.float32))
+    var, mean = torch.var_mean(xg, dim=tuple(range(2, xg.dim())), correction=0, keepdim=True)
+    y = ((xg - mean) / torch.sqrt(var + eps)).reshape(x.shape)
+    cshape = (1, c) + (1,) * (x.dim() - 2)
+    if scale is not None:
+        y = y * scale.reshape(cshape)
+    if bias is not None:
+        y = y + bias.reshape(cshape)
+    return {"Y": y.to(x.dtype), "Mean": mean.reshape(n, g), "Variance": var.reshape(n, g)}
+
+
+@register_op("spectral_norm", no_grad_set={"U", "V"})
+def spectral_norm(inputs, attrs, device):
+    """reference: operators/spectral_norm_op.h.  Weight over its largest
+    singular value sigma, found by ``power_iters`` steps of the power
+    iteration from U and V (v = Wᵀu / |Wᵀu|, u = Wv / |Wv|, sigma = uᵀWv),
+    W being Weight with dim ``dim`` first, as a matrix.  U and V and
+    each step's vectors are constants to the gradient, which reaches
+    Weight through W and sigma, as the JAX op's stop_gradient has it."""
+    w = one(inputs, "Weight")
+    u = one(inputs, "U").reshape(-1).detach()
+    v = one(inputs, "V").reshape(-1).detach()
+    dim = int(attrs.get("dim", 0))
+    eps = attrs.get("eps", 1e-12)
+    perm = (dim,) + tuple(i for i in range(w.dim()) if i != dim)
+    wmat = w.permute(*perm).reshape(w.shape[dim], -1)
+    for _ in range(int(attrs.get("power_iters", 1))):
+        v = wmat.T @ u
+        v = (v / (torch.linalg.vector_norm(v) + eps)).detach()
+        u = wmat @ v
+        u = (u / (torch.linalg.vector_norm(u) + eps)).detach()
+    sigma = u @ (wmat @ v)
+    out = (wmat / sigma).reshape(tuple(w.shape[p] for p in perm))
+    return {"Out": out.permute(*[int(i) for i in np.argsort(perm)])}
+
+
+class _DataNorm(torch.autograd.Function):
+    """Y = (X - BatchSum / BatchSize) * sqrt(BatchSize / BatchSquareSum).
+    Its backward gives X the gradient through the scale, and the three
+    statistics the reference's DataNormGradKernel cotangents (the JAX
+    op's custom_vjp): N, sum(X) and sum((X - mean)^2) + N * epsilon per
+    channel, so that the optimizer folds each batch's statistics in."""
+
+    @staticmethod
+    def forward(ctx, x, bsize, bsum, bsqsum, cshape, red, eps):
+        means = bsum / bsize
+        scales = torch.sqrt(bsize / bsqsum)
+        ctx.save_for_backward(x, means, scales)
+        ctx.cshape, ctx.red, ctx.eps = cshape, red, eps
+        return (x - means.reshape(cshape)) * scales.reshape(cshape)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, means, scales = ctx.saved_tensors
+        n = x.shape[0]
+        d_bsize = torch.full(means.shape, float(n), dtype=x.dtype, device=x.device)
+        d_bsum = torch.sum(x, dim=ctx.red)
+        d_bsqsum = torch.sum((x - means.reshape(ctx.cshape)) ** 2, dim=ctx.red) + d_bsize * ctx.eps
+        return gy * scales.reshape(ctx.cshape), d_bsize, d_bsum, d_bsqsum, None, None, None
+
+
+@register_op("data_norm")
+def data_norm(inputs, attrs, device):
+    """reference: operators/data_norm_op.cc, CTR data normalisation by the
+    accumulated BatchSize, BatchSum and BatchSquareSum (trainable: their
+    gradients carry the batch's statistics, ``_DataNorm``); the channel
+    is dim 1 of an NCHW X of rank > 2, else the last dim."""
+    x = one(inputs, "X")
+    bsize, bsum, bsqsum = one(inputs, "BatchSize"), one(inputs, "BatchSum"), one(inputs, "BatchSquareSum")
+    caxis = 1 if (attrs.get("data_layout", "NCHW") == "NCHW" and x.dim() > 2) else x.dim() - 1
+    cshape = tuple(-1 if i == caxis else 1 for i in range(x.dim()))
+    red = tuple(i for i in range(x.dim()) if i != caxis)
+    y = _DataNorm.apply(x, bsize, bsum, bsqsum, cshape, red, float(attrs.get("epsilon", 1e-4)))
+    return {"Y": y, "Means": bsum / bsize, "Scales": torch.sqrt(bsize / bsqsum)}
+
+
 # ---------------------------------------------------------------------------
 # dropout
 # ---------------------------------------------------------------------------
@@ -320,6 +450,151 @@ def sigmoid_cross_entropy_with_logits(inputs, attrs, device):
 def square_error_cost(inputs, attrs, device):
     d = one(inputs, "X") - one(inputs, "Y")
     return {"Out": d * d}
+
+
+@register_op("huber_loss", no_grad_set={"Y"})
+def huber_loss(inputs, attrs, device):
+    """0.5 r^2 where |r| <= delta, else delta (|r| - delta / 2), r = Y - X;
+    with the Residual r."""
+    x, y = one(inputs, "X"), one(inputs, "Y")
+    delta = attrs.get("delta", 1.0)
+    r = y - x
+    ar = torch.abs(r)
+    return {"Out": torch.where(ar <= delta, 0.5 * r * r, delta * (ar - 0.5 * delta)),
+            "Residual": r}
+
+
+@register_op("smooth_l1_loss", no_grad_set={"Y"})
+def smooth_l1_loss(inputs, attrs, device):
+    """Per row, the sum of 0.5 (sigma d)^2 where |d| < 1 / sigma^2, else
+    |d| - 0.5 / sigma^2, d = X - Y, as [N, 1]; with Diff d.  The inside
+    and outside weights are not read, as in the JAX op."""
+    x, y = one(inputs, "X"), one(inputs, "Y")
+    sigma2 = attrs.get("sigma", 1.0) ** 2
+    d = x - y
+    ad = torch.abs(d)
+    out = torch.where(ad < 1.0 / sigma2, 0.5 * d * d * sigma2, ad - 0.5 / sigma2)
+    return {"Out": torch.sum(out, dim=tuple(range(1, out.dim())), keepdim=True).reshape(x.shape[0], 1),
+            "Diff": d}
+
+
+@register_op("log_loss", no_grad_set={"Labels"})
+def log_loss(inputs, attrs, device):
+    p, y = one(inputs, "Predicted"), one(inputs, "Labels")
+    eps = attrs.get("epsilon", 1e-4)
+    return {"Loss": -y * torch.log(p + eps) - (1 - y) * torch.log(1 - p + eps)}
+
+
+# ---------------------------------------------------------------------------
+# norms, maxout, resize and the pixel reorderings
+# ---------------------------------------------------------------------------
+@register_op("l2_normalize")
+def l2_normalize(inputs, attrs, device):
+    """X over sqrt(sum(X^2) + epsilon) along ``axis``; with that Norm."""
+    x = one(inputs, "X")
+    norm = torch.sqrt(torch.sum(x * x, dim=attrs.get("axis", -1), keepdim=True)
+                      + attrs.get("epsilon", 1e-10))
+    return {"Out": x / norm, "Norm": norm}
+
+
+@register_op("norm")
+def norm(inputs, attrs, device):
+    return l2_normalize(inputs, attrs, device)
+
+
+@register_op("maxout")
+def maxout(inputs, attrs, device):
+    """The largest of each ``groups`` consecutive channels (NCHW)."""
+    x = one(inputs, "X")
+    g = attrs["groups"]
+    n, c, h, w = x.shape
+    return {"Out": torch.amax(x.reshape(n, c // g, g, h, w), dim=2)}
+
+
+def _interp(inputs, attrs, method):
+    """reference: operators/interpolate_op.cc, NCHW, to ``out_h`` x
+    ``out_w`` (or ``scale`` times H and W).  ``align_corners`` (the
+    default) maps corner to corner, src = dst (in - 1) / (out - 1), and an
+    axis of output size 1 samples coordinate 0; nearest rounds half to
+    even, as ``jnp.round``.  Without it, half-pixel sampling as
+    ``jax.image.resize``'s (which antialiases when it shrinks a bilinear
+    axis)."""
+    x = one(inputs, "X")
+    if maybe(inputs, "OutSize") is not None:
+        raise NotImplementedError("dynamic OutSize tensor; pass out_h/out_w attrs")
+    out_h, out_w = int(attrs.get("out_h", 0)), int(attrs.get("out_w", 0))
+    scale = attrs.get("scale", 0)
+    n, c, h, w = x.shape
+    if out_h <= 0 or out_w <= 0:
+        if not scale:
+            raise ValueError("interpolate needs out_h/out_w or scale")
+        out_h, out_w = int(h * scale), int(w * scale)
+    if not attrs.get("align_corners", True):
+        if method == "nearest":
+            out = F.interpolate(x, size=(out_h, out_w), mode="nearest-exact")
+        else:
+            out = F.interpolate(x, size=(out_h, out_w), mode="bilinear", align_corners=False,
+                                antialias=out_h < h or out_w < w)
+        return {"Out": out.to(x.dtype)}
+    ratio_h = (h - 1) / (out_h - 1) if out_h > 1 else 0.0
+    ratio_w = (w - 1) / (out_w - 1) if out_w > 1 else 0.0
+    ys = torch.arange(out_h, dtype=torch.float32, device=x.device) * ratio_h
+    xs = torch.arange(out_w, dtype=torch.float32, device=x.device) * ratio_w
+    if method == "nearest":
+        out = x.index_select(2, torch.round(ys).long()).index_select(3, torch.round(xs).long())
+        return {"Out": out}
+    y0 = torch.clamp(torch.floor(ys).long(), 0, h - 1)
+    x0 = torch.clamp(torch.floor(xs).long(), 0, w - 1)
+    y1, x1 = torch.clamp(y0 + 1, 0, h - 1), torch.clamp(x0 + 1, 0, w - 1)
+    wy = (ys - y0).reshape(1, 1, -1, 1)
+    wx = (xs - x0).reshape(1, 1, 1, -1)
+    rows0, rows1 = x.index_select(2, y0), x.index_select(2, y1)
+    out = (rows0.index_select(3, x0) * (1 - wy) * (1 - wx) + rows0.index_select(3, x1) * (1 - wy) * wx
+           + rows1.index_select(3, x0) * wy * (1 - wx) + rows1.index_select(3, x1) * wy * wx)
+    return {"Out": out.to(x.dtype)}
+
+
+@register_op("bilinear_interp")
+def bilinear_interp(inputs, attrs, device):
+    return _interp(inputs, attrs, "bilinear")
+
+
+@register_op("nearest_interp")
+def nearest_interp(inputs, attrs, device):
+    return _interp(inputs, attrs, "nearest")
+
+
+@register_op("pixel_shuffle")
+def pixel_shuffle(inputs, attrs, device):
+    """reference: operators/pixel_shuffle_op.cc: [N, C r^2, H, W] to
+    [N, C, H r, W r]."""
+    x = one(inputs, "X")
+    r = int(attrs.get("upscale_factor", 1))
+    n, c, h, w = x.shape
+    oc = c // (r * r)
+    return {"Out": x.reshape(n, oc, r, r, h, w).permute(0, 1, 4, 2, 5, 3).reshape(n, oc, h * r, w * r)}
+
+
+@register_op("shuffle_channel")
+def shuffle_channel(inputs, attrs, device):
+    """reference: operators/shuffle_channel_op.cc: the channels as a
+    [group, C / group] grid, transposed."""
+    x = one(inputs, "X")
+    g = int(attrs.get("group", 1))
+    n, c, h, w = x.shape
+    return {"Out": x.reshape(n, g, c // g, h, w).transpose(1, 2).reshape(n, c, h, w)}
+
+
+@register_op("bilinear_tensor_product")
+def bilinear_tensor_product(inputs, attrs, device):
+    """reference: operators/bilinear_tensor_product_op.h: out[b, k] =
+    x[b]ᵀ W[k] y[b] (+ Bias [1, K])."""
+    x, y, w = one(inputs, "X"), one(inputs, "Y"), one(inputs, "Weight")
+    out = torch.einsum("bm,kmn,bn->bk", x, w, y)
+    bias = maybe(inputs, "Bias")
+    if bias is not None:
+        out = out + bias.reshape(1, -1)
+    return {"Out": out}
 
 
 @register_op("fused_attention", no_grad_set={"Mask"})

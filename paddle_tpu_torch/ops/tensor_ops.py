@@ -1,5 +1,6 @@
-"""Tensor creation / manipulation ops (the slice's subset of
-the JAX package's ``ops/tensor_ops.py``).
+"""Tensor creation / manipulation ops (the JAX package's
+``ops/tensor_ops.py``; ``sampling_id`` is registered by ``extended_ops``,
+whose registration is the one the JAX package keeps).
 
 Reference kernels: operators/fill_constant_op.cc, fill_zeros_like_op.cc,
 fill_constant_batch_size_like_op.cc, assign_op.cc, concat_op.cc,
@@ -7,8 +8,13 @@ expand_op.cc, arg_max_op.cc, uniform_random_op.cc,
 gaussian_random_op.cc, truncated_gaussian_random_op.cc,
 assign_value_op.cc, range_op.cc, reshape_op.cc, transpose_op.cc,
 slice_op.cc, cast_op.cc, gather_op.cc, lookup_table_op.cc, where_op.cc,
-top_k_op.cc, and distributed/parameter_prefetch.cc (the distributed
-lookup table's gather).
+top_k_op.cc, squeeze_op.cc, unsqueeze_op.cc, flatten_op.cc, split_op.cc,
+stack_op.cc, unstack_op.cc, strided_slice_op.cc, shape_op.cc, pad_op.cc,
+pad2d_op.cc, one_hot_op.cc, gather_nd_op.cc, scatter_op.cc,
+arg_min_op.cc, argsort_op.cc, cumsum_op.cc, crop_op.cc, linspace_op.cc,
+meshgrid_op.cc, roll_op.cc, py_func_op.cc, and
+distributed/parameter_prefetch.cc (the distributed lookup table's
+gather).
 The random ops draw from a ``torch.Generator`` seeded with the op's
 ``seed`` attr (assigned by the program, framework.Program.next_seed).
 """
@@ -18,11 +24,12 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from paddle_tpu_torch.core import types as core_types
 from paddle_tpu_torch.core.registry import register_op
 from paddle_tpu_torch.ops import common
-from paddle_tpu_torch.ops.common import generator, one
+from paddle_tpu_torch.ops.common import generator, maybe, one
 
 
 def _static_infer(op, block):
@@ -200,6 +207,108 @@ def transpose2(inputs, attrs, device):
     return {"Out": x.permute(*attrs["axis"]), "XShape": _xshape(x)}
 
 
+@register_op("transpose")
+def transpose(inputs, attrs, device):
+    """The v1 transpose: no XShape output."""
+    return {"Out": one(inputs, "X").permute(*attrs["axis"])}
+
+
+@register_op("squeeze2")
+def squeeze2(inputs, attrs, device):
+    """The ``axes`` of size 1 dropped (the others are kept, as the JAX
+    op keeps them); no ``axes``: every dim of size 1."""
+    x = one(inputs, "X")
+    axes = attrs.get("axes", [])
+    if axes:
+        keep = {a % x.dim() for a in axes if x.shape[a % x.dim()] == 1}
+        out = x.reshape(tuple(s for i, s in enumerate(x.shape) if i not in keep))
+    else:
+        out = x.reshape(tuple(s for s in x.shape if s != 1))
+    return {"Out": out, "XShape": _xshape(x)}
+
+
+@register_op("unsqueeze2")
+def unsqueeze2(inputs, attrs, device):
+    x = one(inputs, "X")
+    out = x
+    for a in sorted(attrs["axes"]):
+        out = out.unsqueeze(a)
+    return {"Out": out, "XShape": _xshape(x)}
+
+
+@register_op("flatten2")
+def flatten2(inputs, attrs, device):
+    """X as a matrix: the dims before ``axis`` are its rows."""
+    x = one(inputs, "X")
+    axis = attrs.get("axis", 1)
+    rows = int(np.prod(tuple(x.shape[:axis])))
+    return {"Out": x.reshape(rows, int(np.prod(tuple(x.shape[axis:])))), "XShape": _xshape(x)}
+
+
+@register_op("split")
+def split(inputs, attrs, device):
+    """``num`` equal parts, or parts of the ``sections`` sizes, along ``axis``."""
+    x = one(inputs, "X")
+    axis = attrs.get("axis", 0)
+    num = attrs.get("num", 0)
+    if num:
+        if x.shape[axis] % num:
+            raise ValueError("split: dim %d of size %d is not a multiple of num=%d"
+                             % (axis, x.shape[axis], num))
+        return {"Out": list(torch.split(x, x.shape[axis] // num, dim=axis))}
+    idx = np.cumsum(attrs.get("sections", []))[:-1].tolist()
+    return {"Out": list(torch.tensor_split(x, [int(i) for i in idx], dim=axis))}
+
+
+@register_op("stack")
+def stack(inputs, attrs, device):
+    return {"Y": torch.stack(list(inputs["X"]), dim=attrs.get("axis", 0))}
+
+
+@register_op("unstack")
+def unstack(inputs, attrs, device):
+    return {"Y": list(torch.unbind(one(inputs, "X"), dim=attrs.get("axis", 0)))}
+
+
+@register_op("strided_slice")
+def strided_slice(inputs, attrs, device):
+    """Python's ``x[s:e:st]`` on each of ``axes``.  A negative stride (which
+    torch's slicing does not take) gathers the indices Python's slice
+    names, an arithmetic progression made by ``arange``."""
+    x = one(inputs, "Input")
+    for a, s, e, st in zip(attrs["axes"], attrs["starts"], attrs["ends"], attrs["strides"]):
+        if st > 0:
+            idx = [slice(None)] * x.dim()
+            idx[a] = slice(s, e, st)
+            x = x[tuple(idx)]
+        else:
+            picked = range(x.shape[a])[slice(s, e, st)]
+            x = x.index_select(a, torch.arange(picked.start, picked.stop, picked.step,
+                                               device=x.device))
+    return {"Out": x}
+
+
+@register_op("pad")
+def pad(inputs, attrs, device):
+    """``paddings`` as (before, after) pairs, one per dim, with ``pad_value``."""
+    x = one(inputs, "X")
+    p = [int(v) for v in attrs["paddings"]]
+    flat = [v for i in reversed(range(x.dim())) for v in (p[2 * i], p[2 * i + 1])]
+    return {"Out": F.pad(x, flat, value=float(attrs.get("pad_value", 0.0)))}
+
+
+@register_op("pad2d")
+def pad2d(inputs, attrs, device):
+    """H and W of an NCHW tensor padded by (top, bottom, left, right):
+    ``constant`` with ``pad_value``, ``reflect`` or ``edge``."""
+    x = one(inputs, "X")
+    t, b, l, r = (int(v) for v in attrs["paddings"])
+    mode = attrs.get("mode", "constant")
+    if mode == "constant":
+        return {"Out": F.pad(x, (l, r, t, b), value=float(attrs.get("pad_value", 0.0)))}
+    return {"Out": F.pad(x, (l, r, t, b), mode={"reflect": "reflect", "edge": "replicate"}[mode])}
+
+
 @register_op("slice")
 def slice_op(inputs, attrs, device):
     x = one(inputs, "Input")
@@ -263,6 +372,37 @@ def distributed_lookup_table(inputs, attrs, device):
     return {"Out": out}
 
 
+@register_op("lookup_table_v2", no_grad_set={"Ids"})
+def lookup_table_v2(inputs, attrs, device):
+    return lookup_table(inputs, attrs, device)
+
+
+@register_op("one_hot", differentiable=False)
+def one_hot(inputs, attrs, device):
+    """float32 rows with a 1 at each id (a trailing [..., 1] dim of the
+    ids is dropped); an id outside [0, depth) gives a row of zeros, as
+    ``jax.nn.one_hot`` (``F.one_hot`` would check the ids on the host)."""
+    x = one(inputs, "X")
+    if x.dim() >= 2 and x.shape[-1] == 1:
+        x = x.squeeze(-1)
+    classes = torch.arange(int(attrs["depth"]), device=x.device)
+    return {"Out": (x.unsqueeze(-1) == classes).to(torch.float32)}
+
+
+@register_op("gather_nd", no_grad_set={"Index"})
+def gather_nd(inputs, attrs, device):
+    """X at each index tuple of Index's last dim."""
+    x, idx = one(inputs, "X"), one(inputs, "Index").long()
+    return {"Out": x[tuple(idx[..., i] for i in range(idx.shape[-1]))]}
+
+
+@register_op("scatter", no_grad_set={"Ids"})
+def scatter(inputs, attrs, device):
+    """X with rows Ids set to (``overwrite``) or added by Updates."""
+    x, ids, upd = one(inputs, "X"), one(inputs, "Ids").long(), one(inputs, "Updates")
+    return {"Out": x.index_put((ids,), upd, accumulate=not attrs.get("overwrite", True))}
+
+
 @register_op("gather", no_grad_set={"Index"})
 def gather(inputs, attrs, device):
     """Rows of X at Index (reference: operators/gather_op.cc)."""
@@ -285,3 +425,184 @@ def arg_max(inputs, attrs, device):
 def top_k(inputs, attrs, device):
     vals, idx = common.top_k(one(inputs, "X"), attrs["k"])
     return {"Out": vals, "Indices": idx}
+
+
+@register_op("arg_min", differentiable=False)
+def arg_min(inputs, attrs, device):
+    """The first index of the smallest value (as ``jnp.argmin``)."""
+    return {"Out": torch.argmin(one(inputs, "X"), dim=attrs.get("axis", -1))}
+
+
+@register_op("argsort", differentiable=False)
+def argsort(inputs, attrs, device):
+    """The stable ascending order along ``axis``; ``descending`` reverses
+    it (so ties come last index first), as the JAX op does."""
+    x = one(inputs, "X")
+    axis = attrs.get("axis", -1)
+    idx = torch.argsort(x, dim=axis, stable=True)
+    if attrs.get("descending", False):
+        idx = torch.flip(idx, dims=(axis,))
+    return {"Out": torch.take_along_dim(x, idx, dim=axis), "Indices": idx}
+
+
+@register_op("cumsum")
+def cumsum(inputs, attrs, device):
+    """Running sums along ``axis`` (over the flattened X with ``flatten``),
+    from the end with ``reverse``, each leaving out its own element with
+    ``exclusive``; in X's type."""
+    x = one(inputs, "X")
+    axis = attrs.get("axis", -1)
+    if attrs.get("flatten", False):
+        x, axis = x.reshape(-1), 0
+    axis %= x.dim()
+    if attrs.get("reverse", False):
+        out = torch.flip(torch.cumsum(torch.flip(x, (axis,)), dim=axis, dtype=x.dtype), (axis,))
+    else:
+        out = torch.cumsum(x, dim=axis, dtype=x.dtype)
+    if attrs.get("exclusive", False):
+        # the JAX op shifts the sums one place along the axis, with a 0 in front
+        out = F.pad(out.movedim(axis, -1), (1, 0)).narrow(-1, 0, x.shape[axis]).movedim(-1, axis)
+    return {"Out": out}
+
+
+@register_op("uniform_random_batch_size_like", differentiable=False, random=True)
+def uniform_random_batch_size_like(inputs, attrs, device):
+    """Uniform in [min, max) of ``shape``, its dim ``output_dim_idx`` taken
+    from Input's dim ``input_dim_idx``."""
+    x = one(inputs, "Input")
+    shape = [int(s) for s in attrs["shape"]]
+    shape[attrs.get("output_dim_idx", 0)] = x.shape[attrs.get("input_dim_idx", 0)]
+    dt = core_types.torch_dtype(attrs.get("dtype", "float32"))
+    if x.device.type == "meta":  # shape inference: no generator there
+        return {"Out": torch.empty(tuple(shape), dtype=dt, device=x.device)}
+    lo, hi = float(attrs.get("min", -1.0)), float(attrs.get("max", 1.0))
+    u = torch.rand(tuple(shape), generator=generator(attrs.get("seed", 0), x.device),
+                   dtype=torch.float32, device=x.device)
+    return {"Out": (u * (hi - lo) + lo).to(dt)}
+
+
+@register_op("crop", no_grad_set={"Offsets"})
+def crop(inputs, attrs, device):
+    """reference: operators/crop_op.cc.  The block of Y's shape (or the
+    ``shape`` attr) at ``offsets``; an offset is clamped so that the block
+    fits, as ``jax.lax.dynamic_slice`` clamps it."""
+    x = one(inputs, "X")
+    offs = attrs.get("offsets") or [0] * x.dim()
+    y = maybe(inputs, "Y")
+    shape = list(y.shape) if y is not None else [int(v) for v in attrs.get("shape")]
+    for d, (o, n) in enumerate(zip(offs, shape)):
+        x = x.narrow(d, min(max(int(o), 0), x.shape[d] - n), n)
+    return {"Out": x}
+
+
+@register_op("crop_tensor", no_grad_set={"Shape", "Offsets"})
+def crop_tensor(inputs, attrs, device):
+    return crop(inputs, attrs, device)
+
+
+@register_op("pad_constant_like", no_grad_set={"X"})
+def pad_constant_like(inputs, attrs, device):
+    """reference: operators/pad_constant_like_op.cc: Y padded at the end of
+    each dim up to X's shape with ``pad_value``."""
+    x, y = one(inputs, "X"), one(inputs, "Y")
+    flat = [v for i in reversed(range(y.dim())) for v in (0, int(x.shape[i] - y.shape[i]))]
+    return {"Out": F.pad(y, flat, value=float(attrs.get("pad_value", 0.0)))}
+
+
+@register_op("linspace", differentiable=False, host_read=True)
+def linspace(inputs, attrs, device):
+    """``Num`` evenly spaced values from Start to Stop (both included).
+    The count is read on the host, so a plan holding the op stays on the
+    interpreter."""
+    start = one(inputs, "Start").reshape(()).to(torch.float32)
+    stop = one(inputs, "Stop").reshape(()).to(torch.float32)
+    num = int(one(inputs, "Num").reshape(()).item())
+    dt = core_types.torch_dtype(attrs.get("dtype", "float32"))
+    if num == 1:
+        return {"Out": start.reshape(1).to(dt)}
+    step = (stop - start) / (num - 1)
+    out = start + torch.arange(num, dtype=torch.float32, device=start.device) * step
+    out = torch.cat([out[:-1], stop.reshape(1)])  # the last value is Stop itself
+    return {"Out": out.to(dt)}
+
+
+@register_op("meshgrid")
+def meshgrid(inputs, attrs, device):
+    return {"Out": list(torch.meshgrid(*inputs["X"], indexing="ij"))}
+
+
+@register_op("roll")
+def roll(inputs, attrs, device):
+    """X shifted by ``shifts`` along ``axis`` (``dims``), elements leaving
+    one end entering at the other; with no axis, over the flattened X."""
+    x = one(inputs, "X")
+    shifts = [int(v) for v in attrs.get("shifts", [0])]
+    dims = attrs.get("axis", attrs.get("dims", None))
+    if dims is None:
+        return {"Out": torch.roll(x.reshape(-1), shifts[0]).reshape(x.shape)}
+    return {"Out": torch.roll(x, shifts, dims=tuple(dims))}
+
+
+@register_op("shape", differentiable=False)
+def shape_op(inputs, attrs, device):
+    """Input's shape as an int32 [rank] tensor."""
+    x = one(inputs, "Input")
+    return {"Out": _host_ints(tuple(x.shape), torch.int32, x.device)}
+
+
+@register_op("py_func", differentiable=False, host_read=True)
+def py_func(inputs, attrs, device):
+    """reference: operators/py_func_op.cc.  The host function registered by
+    ``layers.py_func`` runs at the op's place in the step, on numpy copies
+    of the inputs; its results go to the inputs' device.  That is a host
+    read, so a plan holding the op stays on the interpreter.  The output
+    shapes follow the JAX op's rules: a -1 only in position 0, the first
+    input's batch, or ``out_shape_fn`` of the input shapes."""
+    from paddle_tpu_torch.layers import nn as nn_layers
+    from paddle_tpu_torch.scope import to_numpy
+
+    fn, out_specs, out_shape_fn = nn_layers._PY_FUNC_REGISTRY[int(attrs["func_id"])]
+    xs = inputs.get("X", [])
+    if out_shape_fn is not None:
+        shapes = [tuple(int(v) for v in s) for s in out_shape_fn([tuple(x.shape) for x in xs])]
+        if any(d < 0 for s in shapes for d in s):
+            raise ValueError("py_func out_shape_fn returned a non-static shape: %r" % (shapes,))
+    else:
+        batch = int(xs[0].shape[0]) if xs and xs[0].dim() else None
+        shapes = []
+        for s, _ in out_specs:
+            shape = []
+            for i, d in enumerate(s):
+                if d >= 0:
+                    shape.append(d)
+                elif i == 0 and batch is not None:
+                    shape.append(batch)
+                else:
+                    raise ValueError(
+                        "py_func output shape %r has a dynamic dim outside position 0: "
+                        "pass out_shape_fn to py_func" % (s,))
+            shapes.append(tuple(shape))
+    dtypes = [core_types.torch_dtype(core_types.canonical_dtype(d)) for _, d in out_specs]
+    if device.type == "meta":  # shape inference: the function is not called
+        return {"Out": [torch.empty(s, dtype=d, device=device) for s, d in zip(shapes, dtypes)]}
+    out = fn(*[to_numpy(x) for x in xs])
+    if not isinstance(out, (list, tuple)):
+        out = (out,)
+    dev = xs[0].device if xs else device
+    res = []
+    for o, shape, dt in zip(out, shapes, dtypes):
+        arr = np.asarray(o).reshape(shape)
+        res.append(torch.from_numpy(np.ascontiguousarray(arr)).to(device=dev, dtype=dt))
+    return {"Out": res}
+
+
+def _host_ints(values, dtype, device):
+    """A 1-d tensor of host integers on ``device``, made by fills (a copy
+    from pageable host memory is not allowed while a CUDA graph is being
+    captured)."""
+    if device.type != "cuda":
+        return torch.tensor(list(values), dtype=dtype, device=device)
+    out = torch.empty(len(values), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        out.narrow(0, i, 1).fill_(int(v))  # a fill kernel with the value as its argument
+    return out

@@ -174,7 +174,9 @@ class AdamOptimizer(Optimizer):
     _op = "adam"
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
-                 **kwargs):
+                 lazy_mode=False, **kwargs):
+        # lazy_mode (update only the rows a sparse gradient touches) is
+        # accepted and ignored, as in the JAX package: gradients are dense
         super().__init__(learning_rate, **kwargs)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 

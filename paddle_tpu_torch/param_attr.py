@@ -3,7 +3,7 @@ from __future__ import annotations
 
 from paddle_tpu_torch import initializer as init
 
-__all__ = ["ParamAttr"]
+__all__ = ["ParamAttr", "WeightNormParamAttr"]
 
 
 class ParamAttr:
@@ -50,3 +50,13 @@ class ParamAttr:
             "gradient_clip_attr": self.gradient_clip,
             "do_model_average": self.do_model_average,
         }
+
+
+class WeightNormParamAttr(ParamAttr):
+    """A ParamAttr that also names the weight-norm ``dim`` (the JAX
+    package's ``param_attr.py``: the dim is kept, the parameter is
+    made as any other)."""
+
+    def __init__(self, dim=None, **kwargs):
+        super().__init__(**kwargs)
+        self.dim = dim

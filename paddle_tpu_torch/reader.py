@@ -564,6 +564,33 @@ def xmap_readers(mapper, reader, process_num, buffer_size, order=False):
     return decorated
 
 
+def multiprocess_reader(readers, use_pipe=True, queue_size=1000):
+    """reference: decorator.py multiprocess_reader: the samples of several
+    readers, interleaved as they come.  Each reader runs in a worker
+    thread, as in the JAX package (sample making is numpy and file work,
+    and a fork would copy the CUDA context)."""
+
+    def decorated():
+        out_q: "queue.Queue" = queue.Queue(queue_size)
+
+        def work(r):
+            for sample in r():
+                out_q.put(sample)
+            out_q.put(_END)
+
+        for r in readers:
+            threading.Thread(target=work, args=(r,), daemon=True).start()
+        done = 0
+        while done < len(readers):
+            item = out_q.get()
+            if item is _END:
+                done += 1
+            else:
+                yield item
+
+    return decorated
+
+
 # ---------------------------------------------------------------------------
 # PyReader
 # ---------------------------------------------------------------------------

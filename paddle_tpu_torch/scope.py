@@ -5,7 +5,9 @@ scope.h:46).  Only persistable values (parameters, and in the training
 slice optimizer state) live in a scope.  A scope carries the
 ``torch.device`` its tensors live on: given at construction, or bound
 by the first executor that runs with it.  ``set`` takes a numpy array
-(or a tensor) and puts it on that device.
+(or a tensor) and puts it on that device.  As the reference's scope, one
+has a parent (``get`` and ``find_var`` read through it) and kids, and
+``find_var(name).get_tensor()`` views a var's tensor.
 """
 from __future__ import annotations
 
@@ -38,11 +40,87 @@ def host_copy(x) -> np.ndarray:
     return np.asarray(x)
 
 
+class _TensorView:
+    """A scope var's tensor as the reference's LoDTensor binding shows it
+    (``scope.find_var(n).get_tensor()``): ``np.array(view)``, ``set``
+    and ``shape``."""
+
+    def __init__(self, scope: "Scope", name: str):
+        self._scope = scope
+        self._name = name
+
+    def __array__(self, dtype=None, copy=None):
+        arr = to_numpy(self._scope.vars[self._name])
+        return arr.astype(dtype) if dtype is not None else arr
+
+    def set(self, value, place=None):
+        """Store ``value`` on the scope's device; a scope with no device
+        yet takes ``place``'s."""
+        if place is not None:
+            from paddle_tpu_torch.framework import device_of
+
+            self._scope.bind_device(device_of(place))
+        self._scope.set(self._name, value)
+
+    def shape(self):
+        return list(np.shape(self._scope.vars[self._name]))
+
+
+class _VarView:
+    def __init__(self, scope: "Scope", name: str):
+        self._scope = scope
+        self._name = name
+
+    def get_tensor(self) -> _TensorView:
+        return _TensorView(self._scope, self._name)
+
+
 class Scope:
-    def __init__(self, device=None):
+    """A name -> tensor map on one device, with a parent it reads through
+    (``get``, ``find_var``) and kids (``new_scope``), as the reference's
+    hierarchical scope.  A kid inherits its parent's device."""
+
+    def __init__(self, parent: Optional["Scope"] = None, *, device=None):
         self.vars: Dict[str, Any] = {}
+        self.parent = parent
+        self.kids = []
+        if device is None and parent is not None:
+            device = parent.device
         self.device: Optional[torch.device] = (
             torch.device(device) if device is not None else None)
+
+    def new_scope(self) -> "Scope":
+        kid = Scope(self)
+        self.kids.append(kid)
+        return kid
+
+    def drop_kids(self):
+        self.kids = []
+
+    def local_var_names(self):
+        return list(self.vars.keys())
+
+    def _owner(self, name: str) -> Optional["Scope"]:
+        s = self
+        while s is not None:
+            if name in s.vars:
+                return s
+            s = s.parent
+        return None
+
+    def find_var(self, name: str) -> Optional[_VarView]:
+        """The var ``name`` here or in an ancestor, or None."""
+        owner = self._owner(name)
+        return _VarView(owner, name) if owner is not None else None
+
+    def var(self, name: str) -> _VarView:
+        """The var ``name``, made here (holding nothing yet) if no scope
+        up the chain has it."""
+        owner = self._owner(name)
+        if owner is None:
+            self.vars[name] = None
+            owner = self
+        return _VarView(owner, name)
 
     def bind_device(self, device: torch.device) -> None:
         """Pin this scope to ``device`` (first use), or check that it
@@ -56,7 +134,8 @@ class Scope:
                 "separate Scope per device)" % (self.device, device))
 
     def get(self, name: str):
-        return self.vars.get(name)
+        owner = self._owner(name)
+        return owner.vars[name] if owner is not None else None
 
     def set(self, name: str, value):
         """Store ``value`` (numpy array or tensor) on the scope's device."""

@@ -21,7 +21,12 @@ slice: bounded_while, static_rnn and dynamic_rnn training plans
 captured bit for bit against eager, plans with a host-read loop or
 branch (at any depth) staying eager and matching the CPU, and
 beam_search / beam_search_decode on the card against the CPU, and the
-decode's program logits captured on the card against the CPU.
+decode's program logits captured on the card against the CPU; and a
+``persistable`` toggle taking a fresh captured entry, every op type of
+the math, tensor and plain nn part of the core layers under capture
+(bit for bit against eager, and against the CPU), the host-read and
+random ones staying eager, their layers trained captured against eager,
+and VGG-16 under AMP with its dropouts captured against eager.
 
 Every test here needs a CUDA card and skips without one (marker
 ``cuda``).  The file imports neither jax nor paddle_tpu, so it also runs
@@ -1704,3 +1709,354 @@ def test_program_logits_fn_is_captured_on_card(card):
     want, _ = decoding.greedy_search(cpu_fn, src_ids.cpu(), 1, 2, max_len=T,
                                      extra_feeds={"smask": mask})
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+# ---------------------------------------------------------------------------
+# faults C1 and C2, and the math, tensor and plain nn op types (A1b)
+# ---------------------------------------------------------------------------
+def test_persistable_toggle_takes_a_fresh_captured_entry(card):
+    """``y = scale(x)`` captured and replayed; then ``y.persistable = True``
+    bumps the program's version, which the plan key and so the entry key
+    hold: the next run builds a new entry (eager), the one after captures
+    a second graph, and the replays write y to the scope."""
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(main, startup):
+        x = tfluid.layers.data("x", [4])
+        y = tfluid.layers.scale(x, scale=2.0)
+    exe, scope = tfluid.Executor(), tfluid.Scope()
+    feeds = [{"x": np.full((2, 4), i, np.float32)} for i in range(6)]
+    for f in feeds[:3]:
+        exe.run(main, feed=f, fetch_list=[y], scope=scope)
+    stats = exe.jit_cache_stats()
+    assert stats["graphs"] == 1 and stats["misses"] == 1 and scope.get(y.name) is None
+    y.persistable = True
+    for i, f in enumerate(feeds[3:]):
+        out, = exe.run(main, feed=f, fetch_list=[y], scope=scope)
+        np.testing.assert_array_equal(out, 2 * f["x"])
+        np.testing.assert_array_equal(scope.get(y.name).cpu().numpy(), 2 * f["x"])
+        stats = exe.jit_cache_stats()
+        assert stats["misses"] == 2 and stats["plan_misses"] == 2
+        assert stats["graphs"] == (1 if i == 0 else 2)  # eager first, then a graph of its own
+
+
+def test_placeholder_var_in_state_out_is_not_captured_over(card):
+    """A persistable output made in the scope by ``Scope.var`` and never
+    set holds no buffer: the first run writes it outside a graph, and the
+    runs after it capture and replay, each writing y to the scope."""
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(main, startup):
+        x = tfluid.layers.data("x", [4])
+        y = tfluid.layers.scale(x, scale=2.0)
+    y.persistable = True
+    exe, scope = tfluid.Executor(), tfluid.Scope()
+    scope.var(y.name)
+    assert y.name in scope.vars and scope.get(y.name) is None
+    for i in range(4):
+        f = {"x": np.full((2, 4), i, np.float32)}
+        out, = exe.run(main, feed=f, fetch_list=[y], scope=scope)
+        np.testing.assert_array_equal(out, 2 * f["x"])
+        np.testing.assert_array_equal(scope.get(y.name).cpu().numpy(), 2 * f["x"])
+    assert exe.jit_cache_stats()["graphs"] == 1
+
+
+def _a1b_program(card, op_type, inputs, attrs, outs):
+    """A program of one op: each array of ``inputs`` (slot -> list) fed as
+    its own var, ``outs`` slot -> number of outputs."""
+    main = tfluid.Program()
+    blk = main.global_block()
+    feed, ins = {}, {}
+    for slot, arrs in inputs.items():
+        names = []
+        for i, a in enumerate(arrs):
+            n = "%s_%d" % (slot.lower(), i)
+            blk.create_var(name=n, shape=a.shape, dtype=str(a.dtype))
+            feed[n] = a
+            names.append(n)
+        ins[slot] = names
+    outputs = {}
+    for slot, k in outs.items():
+        outputs[slot] = ["%s_out_%d" % (slot.lower(), i) for i in range(k)]
+        for n in outputs[slot]:
+            blk.create_var(name=n, dtype="float32")
+    blk.append_op(op_type, inputs=ins, outputs=outputs, attrs=attrs)
+    return main, feed, [n for ns in outputs.values() for n in ns]
+
+
+def _a1b_cases():
+    """name -> (op type, inputs, attrs, outputs) for every op type A1b's
+    first part adds that a capture holds."""
+    rng = np.random.RandomState(21)
+    x = _f32(rng, 3, 4, 5)
+    img = _f32(rng, 2, 4, 6, 6)
+    pos = np.abs(x) + 0.3
+    b = x > 0
+    one = {"Out": 1}
+    c = {}
+    for op in ("reduce_mean", "reduce_max", "reduce_min", "reduce_prod"):
+        c[op] = (op, {"X": [x]}, {"dim": [1], "keep_dim": False}, one)
+    for op in ("reduce_all", "reduce_any"):
+        c[op] = (op, {"X": [b]}, {"dim": [2]}, one)
+    c["elementwise_mod"] = ("elementwise_mod", {"X": [x * 5], "Y": [pos]}, {}, one)
+    c["elementwise_floordiv"] = ("elementwise_floordiv", {"X": [x * 5], "Y": [pos]}, {}, one)
+    c["pow"] = ("pow", {"X": [pos]}, {"factor": 1.5}, one)
+    c["isfinite"] = ("isfinite", {"X": [x]}, {}, one)
+    c["transpose"] = ("transpose", {"X": [x]}, {"axis": [2, 0, 1]}, one)
+    xs = {"Out": 1, "XShape": 1}
+    c["squeeze2"] = ("squeeze2", {"X": [x[:, :1]]}, {"axes": [1]}, xs)
+    c["unsqueeze2"] = ("unsqueeze2", {"X": [x]}, {"axes": [0, 3]}, xs)
+    c["flatten2"] = ("flatten2", {"X": [img]}, {"axis": 2}, xs)
+    c["squeeze"] = ("squeeze", {"X": [x[:, :1]]}, {"axes": [1]}, xs)
+    c["unsqueeze"] = ("unsqueeze", {"X": [x]}, {"axes": [1]}, xs)
+    c["flatten"] = ("flatten", {"X": [img]}, {"axis": 1}, xs)
+    c["split"] = ("split", {"X": [img]}, {"num": 2, "axis": 1}, {"Out": 2})
+    c["stack"] = ("stack", {"X": [x, x * 2]}, {"axis": 1}, {"Y": 1})
+    c["unstack"] = ("unstack", {"X": [x]}, {"axis": 1}, {"Y": 4})
+    c["strided_slice"] = ("strided_slice", {"Input": [x]},
+                          {"axes": [2, 1], "starts": [4, 0], "ends": [0, 4], "strides": [-2, 2]},
+                          one)
+    c["shape"] = ("shape", {"Input": [img]}, {}, one)
+    c["pad"] = ("pad", {"X": [x]}, {"paddings": [0, 1, 2, 0, 1, 1], "pad_value": 0.5}, one)
+    c["pad2d"] = ("pad2d", {"X": [img]}, {"paddings": [1, 2, 0, 1], "mode": "reflect"}, one)
+    c["lookup_table_v2"] = ("lookup_table_v2", {"W": [_f32(rng, 10, 4)],
+                                                "Ids": [rng.randint(0, 10, (3, 2))]}, {}, one)
+    c["one_hot"] = ("one_hot", {"X": [np.array([[0], [3], [9], [1]])]}, {"depth": 5}, one)
+    c["gather_nd"] = ("gather_nd", {"X": [x], "Index": [np.array([[0, 1], [2, 3]])]}, {}, one)
+    c["scatter"] = ("scatter", {"X": [_f32(rng, 6, 3)], "Ids": [np.array([4, 0, 4])],
+                                "Updates": [_f32(rng, 3, 3)]}, {"overwrite": False}, one)
+    c["arg_min"] = ("arg_min", {"X": [x]}, {"axis": 1}, one)
+    c["argsort"] = ("argsort", {"X": [x]}, {"axis": -1, "descending": True},
+                    {"Out": 1, "Indices": 1})
+    c["cumsum"] = ("cumsum", {"X": [x]}, {"axis": 1, "exclusive": True, "reverse": True}, one)
+    c["crop"] = ("crop", {"X": [img]}, {"offsets": [0, 1, 2, 0], "shape": [2, 2, 3, 4]}, one)
+    c["crop_tensor"] = ("crop_tensor", {"X": [img]}, {"offsets": [1, 0, 0, 0],
+                                                      "shape": [1, 4, 2, 2]}, one)
+    c["pad_constant_like"] = ("pad_constant_like", {"X": [img], "Y": [img[:1, :3]]},
+                              {"pad_value": 2.0}, one)
+    c["meshgrid"] = ("meshgrid", {"X": [_f32(rng, 3), _f32(rng, 5)]}, {}, {"Out": 2})
+    c["roll"] = ("roll", {"X": [x]}, {"shifts": [2], "axis": [2]}, one)
+    c["fill_zeros_like2"] = ("fill_zeros_like2", {"X": [x]}, {}, one)
+    c["fill"] = ("fill", {}, {"shape": [2, 3], "dtype": "float32", "value": 2.5}, one)
+    c["prelu"] = ("prelu", {"X": [img], "Alpha": [_f32(rng, 4)]}, {"mode": "channel"}, one)
+    c["prelu_channel"] = ("prelu_channel", {"X": [img]}, {}, one)
+    c["log_softmax"] = ("log_softmax", {"X": [x]}, {"axis": -1}, one)
+    conv = {"strides": [2, 2], "paddings": [1, 1], "dilations": [1, 1]}
+    c["depthwise_conv2d"] = ("depthwise_conv2d", {"Input": [img], "Filter": [_f32(rng, 4, 1, 3, 3)]},
+                             conv, {"Output": 1})
+    c["conv2d_transpose"] = ("conv2d_transpose",
+                             {"Input": [img], "Filter": [_f32(rng, 4, 3, 3, 3)]}, conv,
+                             {"Output": 1})
+    c["depthwise_conv2d_transpose"] = ("depthwise_conv2d_transpose",
+                                       {"Input": [img], "Filter": [_f32(rng, 4, 2, 3, 3)]}, conv,
+                                       {"Output": 1})
+    c["group_norm"] = ("group_norm", {"X": [img], "Scale": [_f32(rng, 4)], "Bias": [_f32(rng, 4)]},
+                       {"groups": 2}, {"Y": 1, "Mean": 1, "Variance": 1})
+    c["huber_loss"] = ("huber_loss", {"X": [x], "Y": [x * 0.5]}, {"delta": 0.7},
+                       {"Out": 1, "Residual": 1})
+    c["smooth_l1_loss"] = ("smooth_l1_loss", {"X": [x], "Y": [x * 0.5]}, {"sigma": 2.0},
+                           {"Out": 1, "Diff": 1})
+    c["log_loss"] = ("log_loss", {"Predicted": [np.clip(pos / 4, 0.05, 0.95)],
+                                  "Labels": [b.astype("float32")]}, {}, {"Loss": 1})
+    c["l2_normalize"] = ("l2_normalize", {"X": [x]}, {"axis": 1}, {"Out": 1, "Norm": 1})
+    c["norm"] = ("norm", {"X": [x]}, {"axis": -1}, {"Out": 1, "Norm": 1})
+    c["maxout"] = ("maxout", {"X": [img]}, {"groups": 2}, one)
+    c["bilinear_interp"] = ("bilinear_interp", {"X": [img]}, {"out_h": 11, "out_w": 9}, one)
+    c["nearest_interp"] = ("nearest_interp", {"X": [img]}, {"scale": 2.0}, one)
+    c["pixel_shuffle"] = ("pixel_shuffle", {"X": [img]}, {"upscale_factor": 2}, one)
+    c["shuffle_channel"] = ("shuffle_channel", {"X": [img]}, {"group": 2}, one)
+    c["spectral_norm"] = ("spectral_norm", {"Weight": [_f32(rng, 6, 8)], "U": [_f32(rng, 6)],
+                                            "V": [_f32(rng, 8)]}, {"power_iters": 2}, one)
+    c["data_norm"] = ("data_norm", {"X": [_f32(rng, 8, 5)],
+                                    "BatchSize": [np.full(5, 100.0, "float32")],
+                                    "BatchSum": [_f32(rng, 5)],
+                                    "BatchSquareSum": [np.full(5, 120.0, "float32")]}, {},
+                      {"Y": 1, "Means": 1, "Scales": 1})
+    c["bilinear_tensor_product"] = ("bilinear_tensor_product",
+                                    {"X": [_f32(rng, 5, 4)], "Y": [_f32(rng, 5, 3)],
+                                     "Weight": [_f32(rng, 2, 4, 3)], "Bias": [_f32(rng, 1, 2)]},
+                                    {}, one)
+    return c
+
+
+@pytest.mark.parametrize("case", sorted(_a1b_cases()))
+def test_a1b_op_type_under_capture(card, case):
+    """Each op type alone in a program on the card: an eager run, a
+    capture and two replays against the eager path, bit for bit under
+    deterministic algorithms, and against the CPU interpreter within
+    1e-5 (ids and bools exactly)."""
+    op_type, inputs, attrs, outs = _a1b_cases()[case]
+    main, feed, fetch = _a1b_program(card, op_type, inputs, attrs, outs)
+    cpu = tfluid.Executor(tfluid.CPUPlace()).run(main, feed=feed, fetch_list=fetch,
+                                                 scope=tfluid.Scope())
+    exe, scope = tfluid.Executor(), tfluid.Scope()
+    ref_exe, ref_scope = tfluid.Executor(), tfluid.Scope()
+    with _Deterministic():
+        for _ in range(4):
+            got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+            ref = ref_exe.run(main, feed=feed, fetch_list=fetch, scope=ref_scope,
+                              use_program_cache=False)
+            for n, g, r, h in zip(fetch, got, ref, cpu):
+                np.testing.assert_array_equal(g, r, err_msg=n)
+                np.testing.assert_allclose(np.asarray(g, np.float64), np.asarray(h, np.float64),
+                                           rtol=1e-5, atol=1e-5, err_msg=n)
+    assert exe.jit_cache_stats()["graphs"] == 1
+
+
+@pytest.mark.parametrize("case", ["py_func", "load", "linspace", "sampling_id",
+                                  "uniform_random_batch_size_like"])
+def test_a1b_host_and_random_plans_stay_eager(card, case, tmp_path):
+    """py_func, load and linspace read on the host, sampling_id and
+    uniform_random_batch_size_like draw from a generator: their plans run
+    the interpreter on every run (no graph), and give the CPU's values
+    (the seeded generators draw other bits on the card than on the CPU,
+    so those two are held by their support and seed-stability)."""
+    main = tfluid.Program()
+    blk = main.global_block()
+    feed = {}
+    with tfluid.program_guard(main, tfluid.Program()):
+        if case == "py_func":
+            x = tfluid.layers.data("x", [3])
+            out = blk.create_var(name="out", shape=[-1, 3], dtype="float32")
+            tfluid.layers.py_func(lambda a: a * 3.0 + 1.0, x, out)
+            feed = {"x": np.arange(6, dtype=np.float32).reshape(2, 3)}
+        elif case == "load":
+            np.save(str(tmp_path / "w.npy"), np.arange(6, dtype=np.float32))
+            out = blk.create_var(name="out", shape=[6], dtype="float32")
+            tfluid.layers.load(out, str(tmp_path / "w"))
+        elif case == "linspace":
+            for n, v in (("start", [0.5]), ("stop", [2.0])):
+                blk.create_var(name=n, shape=[1], dtype="float32")
+                feed[n] = np.array(v, np.float32)
+            blk.create_var(name="num", shape=[1], dtype="int32")
+            feed["num"] = np.array([4], np.int32)
+            blk.create_var(name="out", dtype="float32")
+            blk.append_op("linspace", inputs={"Start": ["start"], "Stop": ["stop"],
+                                              "Num": ["num"]},
+                          outputs={"Out": ["out"]}, attrs={"dtype": "float32"})
+        else:
+            x = tfluid.layers.data("x", [6])
+            feed = {"x": np.full((64, 6), 1.0 / 6, np.float32)}
+            blk.create_var(name="out", dtype="float32")
+            attrs = ({"seed": 4} if case == "sampling_id" else
+                     {"seed": 4, "shape": [-1, 8], "min": -1.0, "max": 1.0})
+            blk.append_op(case, inputs={"X" if case == "sampling_id" else "Input": [x.name]},
+                          outputs={"Out": ["out"]}, attrs=attrs)
+    exe = tfluid.Executor()
+    runs = [exe.run(main, feed=feed, fetch_list=["out"], scope=tfluid.Scope())[0]
+            for _ in range(3)]
+    assert exe.jit_cache_stats()["graphs"] == 0
+    cpu, = tfluid.Executor(tfluid.CPUPlace()).run(main, feed=feed, fetch_list=["out"],
+                                                  scope=tfluid.Scope())
+    for r in runs:
+        np.testing.assert_array_equal(r, runs[0])
+    if case == "sampling_id":
+        assert runs[0].shape == (64,) and runs[0].min() >= 0 and runs[0].max() < 6
+    elif case == "uniform_random_batch_size_like":
+        assert runs[0].shape == (64, 8) and -1 <= runs[0].min() and runs[0].max() < 1
+    else:
+        np.testing.assert_allclose(runs[0], cpu, rtol=1e-6)
+
+
+def _a1b_train_program(seed=5):
+    """The differentiable A1b layers in one small training program."""
+    main, startup = tfluid.Program(), tfluid.Program()
+    main.random_seed = startup.random_seed = seed
+    L = tfluid.layers
+    with tfluid.program_guard(main, startup), tfluid.unique_name.guard():
+        img = L.data("img", [4, 8, 8])
+        vec = L.data("vec", [6])
+        h = L.conv2d_transpose(img, 8, filter_size=3, stride=2, padding=1)
+        h = L.group_norm(L.prelu(h, "channel"), groups=4)
+        h = L.maxout(L.pad2d(h, [1, 1, 0, 2], mode="edge"), groups=2)
+        h = L.pixel_shuffle(L.shuffle_channel(L.resize_bilinear(h, out_shape=[10, 10]), 2), 2)
+        h = L.log_softmax(L.flatten(h, axis=1))
+        parts = L.split(h, 2, dim=1)
+        h = L.reduce_mean(L.stack(parts, axis=1), dim=[1])
+        v = L.bilinear_tensor_product(L.l2_normalize(vec, axis=1),
+                                      L.data_norm(vec, name="dn"), 3)
+        w = L.spectral_norm(L.create_parameter([6, 4], "float32", name="sn_w"))
+        loss = L.sums([L.reduce_mean(L.pow(L.cumsum(h, axis=1), 2.0)),
+                       L.reduce_mean(L.square(v)), L.reduce_mean(L.mul(vec, w)),
+                       L.reduce_mean(L.huber_loss(L.reduce_max(v, dim=[1], keep_dim=True),
+                                                  L.reduce_min(v, dim=[1], keep_dim=True), 0.5))])
+        tfluid.optimizer.MomentumOptimizer(0.05, 0.9).minimize(loss)
+    return main, startup, loss
+
+
+def test_a1b_layers_train_captured_bit_equal_to_eager(card):
+    """Their forward and vjp in one training program: three captured
+    steps against three eager ones from one state, under deterministic
+    algorithms, the losses and every persistable bit for bit; and the
+    first step's loss against the CPU within 1e-4."""
+    main, startup, loss = _a1b_train_program()
+    boot = tfluid.Scope()
+    tfluid.Executor().run(startup, scope=boot)
+    init = _state(boot)
+    rng = np.random.RandomState(0)
+    feeds = [{"img": rng.randn(4, 4, 8, 8).astype("float32"),
+              "vec": rng.randn(4, 6).astype("float32")} for _ in range(3)]
+    with _Deterministic():
+        paths = {}
+        for cached in (False, True):
+            exe, scope = tfluid.Executor(), _scope_from(init, card)
+            if cached:  # the entry's eager warm-up, on a scope of its own
+                exe.run(main, feed=feeds[0], fetch_list=[loss], scope=_scope_from(init, card))
+            losses = [float(exe.run(main, feed=f, fetch_list=[loss], scope=scope,
+                                    use_program_cache=cached)[0]) for f in feeds]
+            paths[cached] = (losses, _state(scope), exe.jit_cache_stats()["graphs"])
+    assert paths[True][0] == paths[False][0] and paths[True][2] == 1
+    for n, v in paths[False][1].items():
+        np.testing.assert_array_equal(paths[True][1][n], v, err_msg=n)
+    cpu_scope = tfluid.Scope(device="cpu")
+    for n, v in init.items():
+        cpu_scope.set(n, v)
+    cpu, = tfluid.Executor(tfluid.CPUPlace()).run(main, feed=feeds[0], fetch_list=[loss],
+                                                  scope=cpu_scope)
+    np.testing.assert_allclose(paths[False][0][0], float(cpu), rtol=1e-4)
+
+
+def _vgg(hw=32, dropout=True, seed=6):
+    from paddle_tpu_torch import models
+
+    main, startup = tfluid.Program(), tfluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with tfluid.program_guard(main, startup), tfluid.unique_name.guard():
+        img = tfluid.layers.data("img", [3, hw, hw])
+        lbl = tfluid.layers.data("lbl", [1], dtype="int64")
+        loss, _, _ = models.vgg16(img, lbl, class_num=10, dropout=dropout)
+        tfluid.contrib.mixed_precision.decorate(
+            tfluid.optimizer.MomentumOptimizer(1e-3, 0.9)).minimize(loss)
+    return main, startup, loss
+
+
+def test_vgg16_amp_with_dropout_captured_bit_equal_to_eager(card):
+    """VGG-16 (32x32, batch 8, bf16 AMP, both dropouts) captured against
+    eager from one state under deterministic algorithms and cuDNN's
+    deterministic algorithms: three losses and every persistable bit for
+    bit, and each step launches the dropout kernel 4 times (2 forward, 2
+    in the vjp's recompute)."""
+    main, startup, loss = _vgg()
+    boot = tfluid.Scope()
+    tfluid.Executor().run(startup, scope=boot)
+    init = _state(boot)
+    rng = np.random.RandomState(1)
+    feeds = [{"img": rng.uniform(-1, 1, (8, 3, 32, 32)).astype("float32"),
+              "lbl": rng.randint(0, 10, (8, 1)).astype("int64")} for _ in range(3)]
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with _Deterministic():
+            paths = {}
+            for cached in (False, True):
+                exe, scope = tfluid.Executor(), _scope_from(init, card)
+                if cached:
+                    exe.run(main, feed=feeds[0], fetch_list=[loss], scope=_scope_from(init, card))
+                kernels.reset_launch_counts()
+                losses = [float(exe.run(main, feed=f, fetch_list=[loss], scope=scope,
+                                        use_program_cache=cached)[0]) for f in feeds]
+                paths[cached] = (losses, _state(scope), kernels.launch_counts())
+    finally:
+        torch.backends.cudnn.deterministic = det
+    assert paths[True][0] == paths[False][0] and all(np.isfinite(paths[True][0]))
+    for n, v in paths[False][1].items():
+        np.testing.assert_array_equal(paths[True][1][n], v, err_msg=n)
+    assert paths[False][2].get("dropout") == 12 and paths[True][2].get("dropout") == 12

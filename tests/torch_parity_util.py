@@ -124,7 +124,7 @@ def op_parity(op_type, inputs, attrs, grad_slots=(), out_slots=None, seed=0,
     rng = np.random.RandomState(seed)
     float_outs = [(s, i) for s in out_slots for i, v in enumerate(_as_list(jout[s]))
                   if jnp.issubdtype(np.asarray(v).dtype, jnp.floating)]
-    cots = [rng.randn(*np.asarray(_as_list(jout[s])[i]).shape).astype("float32")
+    cots = [np.asarray(rng.randn(*np.asarray(_as_list(jout[s])[i]).shape), dtype="float32")
             for s, i in float_outs]
     keys = [(s, i) for s in grad_slots for i in range(len(inputs[s]))]
 
