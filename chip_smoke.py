@@ -242,6 +242,36 @@ Phases, each of which raises (exit code != 0) on failure:
    against the CPU or by their distribution.  Phases 28 and 29 launch no
    attention kernel (checked); phase 28 launches the dropout kernel.
 
+30. The Fluid 1.5 book's sentiment model (chapter 06, ``convolution_net``,
+   the program tests/book/test_understand_sentiment.py builds) at the
+   book's widths: a 5,147-word dictionary (synthetic), embedding 128, two
+   ``nets.sequence_conv_pool`` windows (3 and 4 words, 512 filters, tanh,
+   sqrt pooling), fc to 2 classes with softmax, ``Adagrad(0.002)``, batch
+   128 of reviews of 32 to 256 tokens padded to 256 and fed with
+   ``words_seq_len``, in fp32: startup on the card, eager, captured and 5
+   replayed steps; the median replay, reviews/s, peak memory, the graph
+   pool and a profiled replay's kernels by class.  Under deterministic
+   algorithms 3 captured steps bit for bit against 3 eager ones; 2 steps at
+   batch 4 against the CPU (losses, gradients and parameters within 1e-3);
+   the ``is_test`` build exported with the trained weights and served
+   through ``AnalysisPredictor`` and ``InferenceServer`` to concurrent
+   requests of 1 to 8 reviews of mixed lengths, each answer within 1e-4 of
+   the request alone and of the eager executor, within 1e-3 of the CPU
+   predictor.
+31. Each op type of the sequence, RNN-unit and sampled-loss part at a
+   model width (phase 29's method): nce (each sampler) and hsigmoid over
+   BERT's [30522, 768] table with 4,096 rows, cos_sim at [4096, 768],
+   sequence_conv, row_conv (20 steps of lookahead), sequence_reshape,
+   sequence_scatter and chunk_eval at phase 30's [128, 256, ...],
+   lstm_unit and gru_unit at batch 128, hidden 512, im2sequence on [32,
+   64, 48, 48] with a 3x3 kernel, warpctc on logits [32, 64, 96] with
+   labels up to 24: captured with no eager op, bit for bit against eager,
+   forward and vjp against the CPU, the replay's device time beside its
+   bytes bound.  nce's draw on the card: the same labels give the same
+   negatives (the CPU's too), and a chi-square test of 1M draws against
+   each sampler's distribution gives p > 1e-3.  Phases 30 and 31 launch
+   none of the four hand kernels (checked).
+
 Output: progress lines, then a ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``.  Without a CUDA device it exits non-zero and prints no result.
@@ -359,6 +389,7 @@ RESNET_FP32_BATCH = 128  # fp32 without TF32: half bench.py's batch keeps the ph
 RESNET_STEPS = 5         # timed (replayed) steps, after the eager and the captured step
 RESNET50_FWD_FLOPS_PER_IMG = 4.09e9  # bench.py's count; a training step is 3x the forward
 BF16_DENSE_PEAK = 989e12  # H100 SXM bf16 dense, NVIDIA's data sheet
+FP32_PEAK = 67e12  # H100 SXM fp32 outside the tensor cores (TF32 off), NVIDIA's data sheet
 RESNET_CHECK_BATCH = 2   # the card-vs-CPU ResNet-50 steps
 RESNET_CHECK_LR = 1e-3   # their learning rate (see check_resnet_against_cpu)
 RESNET_CHECK_GRADS = ["conv2d_0.w_0", "conv2d_26.w_0", "fc_0.w_0"]  # first, middle, last layer
@@ -570,6 +601,31 @@ CORE_SHAPES = {"hot": (128, 128, 768), "attn": (128, 128, 12, 64), "bert": (32, 
                "vocab": (30522, 768), "indices": 4096, "logits": (8192, 32000),
                "resnet": (64, 64, 56, 56), "wide": (256, 30522), "ctr": (4096, 39),
                "spectral": (3072, 768), "btp": (4096, 16)}
+
+# phase 30: the Fluid 1.5 book's chapter 06 sentiment model (convolution_net)
+# at the book's widths: imdb's word_dict() of 5,147 words (a synthetic table
+# here), embedding 128, hid_dim 512 filters over windows of 3 and 4 words
+# (tanh, sqrt pooling), 2 classes, Adagrad(0.002), batch 128; reviews of 32
+# to 256 tokens padded to 256, fed with their lengths (words_seq_len)
+SENT = dict(dict_size=5147, emb=128, hid=512, classes=2, max_len=256, min_len=32)
+SENT_BATCH = 128
+SENT_LR = 0.002
+SENT_STEPS = 5           # timed (replayed) steps, after the eager and the captured step
+SENT_CAPTURE_STEPS = 3
+SENT_CHECK_BATCH = 4     # the card-vs-CPU steps
+SENT_CHECK_STEPS = 2
+SENT_SERVE_ROWS = [1, 3, 8, 2, 5, 4, 7, 6]
+# phase 31: each op type A1b's second part adds, at a model width: BERT-base's
+# vocabulary table [30522, 768] under 4,096 rows (nce, hsigmoid, cos_sim),
+# phase 30's [128, 256, 128] (sequence_conv, row_conv with 20 steps of
+# lookahead, sequence_reshape, sequence_scatter into its 5,147 words,
+# chunk_eval over 29 IOB types), batch 128 at hidden 512 (lstm_unit,
+# gru_unit), a ResNet-style [32, 64, 48, 48] (im2sequence, 3x3), and CTC
+# logits [32, 64, 96] (95 classes and a blank) with labels up to 24
+SEQ_UNIT = dict(rows=4096, vocab=30522, width=768, neg=10, seq=(128, 256, 128), filters=512,
+                lookahead=20, unit=(128, 512), img=(32, 64, 48, 48), ctc=(32, 64, 96),
+                ctc_label=24, chunk_types=29)
+NCE_CHI2_DRAWS = 100_000  # label sums drawn for each sampler's chi-square test (10 ids each)
 
 
 def log(*args):
@@ -4778,6 +4834,18 @@ def run_vgg_serving(torch, workdir, scope):
     return stats
 
 
+def _append_op(op_type, ins, outs, attrs=None):
+    """append_op where no layer builds the op: ``ins`` slot -> vars,
+    ``outs`` slot -> count; the outputs' vars in slot order."""
+    from paddle_tpu_torch import framework
+
+    block = framework.default_main_program().current_block()
+    out_vars = {s: [block.create_var(name="%s_%s_%d" % (op_type, s.lower(), i))
+                    for i in range(k)] for s, k in outs.items()}
+    block.append_op(op_type, inputs=ins, outputs=out_vars, attrs=attrs or {})
+    return [v for vs in out_vars.values() for v in vs]
+
+
 def _core_op_cases(rng):
     """Phase 29's cases: (name, op type, shape label, feeds, build, grad
     inputs, tolerance).  ``build(L, v)`` appends the op to the current
@@ -4807,16 +4875,7 @@ def _core_op_cases(rng):
                      "vocab %s" % [vocab, d], "nmt logits %s" % list(sh["logits"]),
                      "deepfm %s" % list(sh["ctr"]))
 
-    def ap(op_type, ins, outs, attrs=None):
-        """append_op where no layer builds the op: ``ins`` slot -> vars,
-        ``outs`` slot -> count; the outputs' vars in slot order."""
-        from paddle_tpu_torch import framework
-
-        block = framework.default_main_program().current_block()
-        out_vars = {s: [block.create_var(name="%s_%s_%d" % (op_type, s.lower(), i))
-                        for i in range(k)] for s, k in outs.items()}
-        block.append_op(op_type, inputs=ins, outputs=out_vars, attrs=attrs or {})
-        return [v for vs in out_vars.values() for v in vs]
+    ap = _append_op
 
     cases = [
         ("reduce_mean", "reduce_mean", "hot %s" % list(hot), {"x": f32(*hot)},
@@ -5050,6 +5109,79 @@ def _scaled_err(ref, got):
     return float(np.abs(got - ref).max()) / max(1.0, float(np.abs(ref).max()))
 
 
+def _measure_op_case(torch, fluid, cpu_exe, rng, case):
+    """One op case of phases 29 and 31 (``_core_op_cases``' tuple) alone in
+    a program through ``Executor.run`` on cuda:0: an eager run
+    (``use_program_cache=False``), then the cached executor's warm-up,
+    capture and two replays, each bit for bit against the eager run under
+    deterministic algorithms, its plan free of eager ops; the card's
+    outputs against the CPU's within the case's tolerance relative to
+    max(1, max |CPU|); for a differentiable op, its vjp (``gradients``
+    with a seeded cotangent) on the card against the CPU's at the same
+    tolerance (at least 1e-5); and the replay's device time (CUDA events
+    around the graph's replays, ``_time_ms``) beside its bytes bound
+    (inputs read and outputs written once, at HBM_BYTES_PER_S).  Returns
+    (row, ok)."""
+    name, op_type, label, feeds, build, grad, tol = case
+    t0 = time.perf_counter()
+    main = fluid.Program()
+    with fluid.program_guard(main, fluid.Program()), fluid.unique_name.guard():
+        v = {n: fluid.layers.data(n, list(a.shape), dtype=str(a.dtype),
+                                  append_batch_size=False, stop_gradient=False)
+             for n, a in feeds.items()}
+        outs = build(fluid.layers, v)
+        outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+    fetch = [o.name for o in outs]
+    ref_exe, exe, scope = fluid.Executor(), fluid.Executor(), fluid.Scope()
+    eager_ops = list(exe._analyze(main, tuple(sorted(feeds)), tuple(fetch)).eager_ops)
+    with _deterministic(torch):
+        eager = ref_exe.run(main, feed=feeds, fetch_list=fetch, scope=fluid.Scope(),
+                            use_program_cache=False)
+        bit_equal = True
+        for _ in range(4):  # warm-up, capture, two replays
+            got = exe.run(main, feed=feeds, fetch_list=fetch, scope=scope)
+            bit_equal = bit_equal and all(np.array_equal(g, e) for g, e in zip(got, eager))
+    graphs = exe.jit_cache_stats()["graphs"]
+    ms = _time_ms(torch, _the_graph(exe).replay) if graphs == 1 else None
+    exe.close()
+    ref_exe.close()
+    cpu = cpu_exe.run(main, feed=feeds, fetch_list=fetch, scope=fluid.Scope())
+    fwd_err = max(_scaled_err(c, e) for c, e in zip(cpu, eager))
+    nbytes = sum(a.nbytes for a in feeds.values()) + sum(np.asarray(e).nbytes for e in eager)
+    row = {"name": name, "op": op_type, "shape": label,
+           "dtype": str(next(iter(feeds.values())).dtype) if feeds else "float32",
+           "replay_ms": ms, "bytes_bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+           "bytes": nbytes, "captured_bit_equal": bit_equal, "graphs": graphs,
+           "eager_ops": eager_ops, "fwd_rel_err": fwd_err, "tol": tol}
+    gnames = []
+    if grad:
+        gmain = fluid.Program()
+        with fluid.program_guard(gmain, fluid.Program()), fluid.unique_name.guard():
+            gv = {n: fluid.layers.data(n, list(a.shape), dtype=str(a.dtype),
+                                       append_batch_size=False, stop_gradient=False)
+                  for n, a in feeds.items()}
+            gouts = build(fluid.layers, gv)
+            gouts = [o for o in (gouts if isinstance(gouts, (list, tuple)) else [gouts])
+                     if o.dtype == "float32"]
+            cots = [fluid.layers.data("cot_%d" % i, list(o.shape), append_batch_size=False)
+                    for i, o in enumerate(gouts)]
+            gvars = fluid.gradients(gouts, [gv[n] for n in grad], target_gradients=cots)
+        gfeed = dict(feeds, **{c.name: rng.standard_normal(tuple(c.shape), dtype=np.float32)
+                               for c in cots})
+        gnames = [g.name for g in gvars if g is not None]
+        card_g = fluid.Executor().run(gmain, feed=gfeed, fetch_list=gnames, scope=fluid.Scope(),
+                                      use_program_cache=False)
+        cpu_g = cpu_exe.run(gmain, feed=gfeed, fetch_list=gnames, scope=fluid.Scope())
+        row["vjp_inputs"] = len(gnames)
+        row["vjp_rel_err"] = max(_scaled_err(c, g) for c, g in zip(cpu_g, card_g))
+        row["vjp_shapes"] = [list(np.shape(g)) for g in card_g]
+        del card_g, cpu_g, gfeed
+    row["s"] = time.perf_counter() - t0
+    ok = (bit_equal and graphs == 1 and not eager_ops and fwd_err <= tol
+          and row.get("vjp_rel_err", 0.0) <= max(tol, 1e-5) and (not grad or gnames))
+    return row, ok
+
+
 def run_core_ops(torch, workdir):
     """Phase 29: every op type of the core layers' first part at the model
     width it serves at, each alone in a program through ``Executor.run``
@@ -5075,64 +5207,11 @@ def run_core_ops(torch, workdir):
     cpu_exe = fluid.Executor(fluid.CPUPlace())
     rows, failures = [], []
     kernels.reset_launch_counts()
-    for name, op_type, label, feeds, build, grad, tol in _core_op_cases(rng):
-        t0 = time.perf_counter()
-        main = fluid.Program()
-        with fluid.program_guard(main, fluid.Program()), fluid.unique_name.guard():
-            v = {n: fluid.layers.data(n, list(a.shape), dtype=str(a.dtype),
-                                      append_batch_size=False, stop_gradient=False)
-                 for n, a in feeds.items()}
-            outs = build(fluid.layers, v)
-            outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
-        fetch = [o.name for o in outs]
-        ref_exe, exe, scope = fluid.Executor(), fluid.Executor(), fluid.Scope()
-        with _deterministic(torch):
-            eager = ref_exe.run(main, feed=feeds, fetch_list=fetch, scope=fluid.Scope(),
-                                use_program_cache=False)
-            bit_equal = True
-            for _ in range(4):  # warm-up, capture, two replays
-                got = exe.run(main, feed=feeds, fetch_list=fetch, scope=scope)
-                bit_equal = bit_equal and all(np.array_equal(g, e) for g, e in zip(got, eager))
-        graphs = exe.jit_cache_stats()["graphs"]
-        ms = _time_ms(torch, _the_graph(exe).replay) if graphs == 1 else None
-        exe.close()
-        ref_exe.close()
-        cpu = cpu_exe.run(main, feed=feeds, fetch_list=fetch, scope=fluid.Scope())
-        fwd_err = max(_scaled_err(c, e) for c, e in zip(cpu, eager))
-        nbytes = sum(a.nbytes for a in feeds.values()) + sum(np.asarray(e).nbytes for e in eager)
-        row = {"name": name, "op": op_type, "shape": label,
-               "dtype": str(next(iter(feeds.values())).dtype) if feeds else "float32",
-               "replay_ms": ms, "bytes_bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
-               "bytes": nbytes, "captured_bit_equal": bit_equal, "graphs": graphs,
-               "fwd_rel_err": fwd_err, "tol": tol}
-        if grad:
-            gmain = fluid.Program()
-            with fluid.program_guard(gmain, fluid.Program()), fluid.unique_name.guard():
-                gv = {n: fluid.layers.data(n, list(a.shape), dtype=str(a.dtype),
-                                           append_batch_size=False, stop_gradient=False)
-                      for n, a in feeds.items()}
-                gouts = build(fluid.layers, gv)
-                gouts = [o for o in (gouts if isinstance(gouts, (list, tuple)) else [gouts])
-                         if o.dtype == "float32"]
-                cots = [fluid.layers.data("cot_%d" % i, list(o.shape), append_batch_size=False)
-                        for i, o in enumerate(gouts)]
-                gvars = fluid.gradients(gouts, [gv[n] for n in grad], target_gradients=cots)
-            gfeed = dict(feeds, **{c.name: rng.standard_normal(tuple(c.shape), dtype=np.float32)
-                                   for c in cots})
-            gnames = [g.name for g in gvars if g is not None]
-            card_g = fluid.Executor().run(gmain, feed=gfeed, fetch_list=gnames, scope=fluid.Scope(),
-                                          use_program_cache=False)
-            cpu_g = cpu_exe.run(gmain, feed=gfeed, fetch_list=gnames, scope=fluid.Scope())
-            row["vjp_inputs"] = len(gnames)
-            row["vjp_rel_err"] = max(_scaled_err(c, g) for c, g in zip(cpu_g, card_g))
-            row["vjp_shapes"] = [list(np.shape(g)) for g in card_g]
-            del card_g, cpu_g, gfeed
-        row["s"] = time.perf_counter() - t0
+    for case in _core_op_cases(rng):
+        row, ok = _measure_op_case(torch, fluid, cpu_exe, rng, case)
         rows.append(row)
-        if not (bit_equal and graphs == 1 and fwd_err <= tol
-                and row.get("vjp_rel_err", 0.0) <= max(tol, 1e-5) and (not grad or gnames)):
+        if not ok:
             failures.append(row)
-        del eager, cpu, feeds
     saved, host_cases = _host_op_cases(rng, workdir)
     for op_type, label, feeds in host_cases:
         main = _build_host_op(fluid, op_type, feeds, saved, CORE_SHAPES["spectral"])
@@ -5169,6 +5248,463 @@ def run_core_ops(torch, workdir):
     if failures:
         raise AssertionError("core op types failed on the card: %s" % failures)
     _no_hand_kernel("phase 29", launches)
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# phases 30 and 31: the book's sentiment model, and the sequence, RNN-unit
+# and sampled-loss op types
+# ---------------------------------------------------------------------------
+def sentiment_program(fluid, is_test=False, lr=SENT_LR):
+    """(main, startup, prob, loss, acc, params_grads) of the Fluid book's
+    chapter 06 ``convolution_net`` at SENT's widths, as
+    tests/book/test_understand_sentiment.py builds it: embedding, two
+    ``nets.sequence_conv_pool`` windows (3 and 4 words, tanh, sqrt
+    pooling), concat, fc softmax; in training the mean cross entropy, the
+    accuracy and ``AdagradOptimizer(lr)``.  The ``is_test`` build is the
+    forward alone, with the same parameter names."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    loss = acc = params_grads = None
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        words = fluid.layers.data("words", [SENT["max_len"]], dtype="int64", lod_level=1)
+        seq_len = main.global_block().var("words_seq_len")
+        emb = fluid.layers.embedding(words, size=[SENT["dict_size"], SENT["emb"]])
+        convs = [fluid.nets.sequence_conv_pool(emb, SENT["hid"], size, act="tanh",
+                                               pool_type="sqrt", seq_len=seq_len)
+                 for size in (3, 4)]
+        prob = fluid.layers.fc(fluid.layers.concat(convs, axis=1), SENT["classes"],
+                               act="softmax")
+        if not is_test:
+            label = fluid.layers.data("label", [1], dtype="int64")
+            loss = fluid.layers.mean(fluid.layers.cross_entropy(prob, label))
+            acc = fluid.layers.accuracy(prob, label)
+            _, params_grads = fluid.optimizer.AdagradOptimizer(lr).minimize(loss)
+    return main, startup, prob, loss, acc, params_grads
+
+
+def sentiment_batch(rng, rows):
+    """A batch of ``rows`` synthetic reviews: lengths uniform in [min_len,
+    max_len], word ids uniform over the dictionary (0 past each end), labels
+    0 or 1."""
+    lens = rng.randint(SENT["min_len"], SENT["max_len"] + 1, rows)
+    words = rng.randint(1, SENT["dict_size"], (rows, SENT["max_len"]))
+    words[np.arange(SENT["max_len"])[None, :] >= lens[:, None]] = 0
+    return {"words": words.astype(np.int64), "words_seq_len": lens.astype(np.int32),
+            "label": rng.randint(0, SENT["classes"], (rows, 1)).astype(np.int64)}
+
+
+def _sentiment_flops(rows):
+    """A training step's operations: the two windows' products (3 and 4
+    times emb wide, hid out) over every padded position, forward and twice
+    that backward; the fc and the rest are below 0.1%."""
+    T, E, H = SENT["max_len"], SENT["emb"], SENT["hid"]
+    return 3 * sum(2 * rows * T * size * E * H for size in (3, 4))
+
+
+def run_sentiment_train(torch):
+    """Phase 30's training: the sentiment model at SENT's widths on the
+    card, batch SENT_BATCH in fp32: startup on the card, the entry's eager
+    step, its captured step and SENT_STEPS replays, each on a batch of its
+    own; the median replay, reviews/s and real tokens/s, the share of the
+    fp32 peak, peak memory, the graph pool, and one profiled replay's
+    kernels by class.  Every loss finite, the step captured, no attention
+    or dropout kernel.  Returns the stats and the trained scope."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+
+    sync = torch.cuda.synchronize
+    stats = {"widths": SENT, "batch": SENT_BATCH, "lr": SENT_LR,
+             "allocated_before_bytes": _free_device_memory(torch)}
+    main, startup, _, loss, acc, _ = sentiment_program(fluid)
+    ops = [op.type for op in main.global_block().ops]
+    stats["ops"] = len(ops)
+    stats["op_types"] = {t: ops.count(t) for t in sorted(set(ops))}
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED + 300)
+    n = 2 + SENT_STEPS
+    batches = [sentiment_batch(rng, SENT_BATCH) for _ in range(n + 1)]
+    kernels.reset_launch_counts()  # counts from here on belong to the sentiment path
+    losses, accs, times = [], [], []
+    for f in batches[:n]:
+        sync()
+        t = time.perf_counter()
+        l, a = exe.run(main, feed=f, fetch_list=[loss, acc], scope=scope)
+        sync()
+        times.append(time.perf_counter() - t)
+        losses.append(float(l))
+        accs.append(float(a))
+    stats["launches"] = _hand_kernel_launches()  # read right after the sentiment path
+    prof = _profile_step(torch, lambda: exe.run(main, feed=batches[n], fetch_list=[loss],
+                                                scope=scope), all_kernels=True)
+    if prof is not None:
+        prof["kernel_classes"] = _kernel_classes(prof)
+        del prof["all_kernels"]
+    stats["profile"] = prof
+    stats["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    stats["cache"] = exe.jit_cache_stats()
+    stats["graph_pool_bytes"] = stats["cache"]["graph_pool_bytes"]
+    stats.update(losses=losses, accuracies=accs, step_s=times)
+    stats["eager_first_step_ms"], stats["capture_step_ms"] = 1e3 * times[0], 1e3 * times[1]
+    step_s = statistics.median(times[2:])
+    stats["step_ms_median"] = 1e3 * step_s
+    stats["reviews_per_s"] = SENT_BATCH / step_s
+    stats["real_tokens_per_s"] = float(np.mean([b["words_seq_len"].sum() for b in batches[2:n]])
+                                       ) / step_s
+    stats["tflop_per_s"] = _sentiment_flops(SENT_BATCH) / step_s / 1e12
+    stats["share_of_fp32_peak"] = _sentiment_flops(SENT_BATCH) / step_s / FP32_PEAK
+    if prof is not None:  # the profiled replay's device time against the unprofiled replay
+        stats["device_idle_share_of_replay"] = 1 - prof["device_ms"] / stats["step_ms_median"]
+    exe.close()
+    log("[sentiment]", json.dumps(stats))
+    if not all(np.isfinite(losses)):
+        raise AssertionError("non-finite sentiment loss: %s" % losses)
+    if stats["cache"]["graphs"] != 1:
+        raise AssertionError("the sentiment step was not captured: %s" % stats["cache"])
+    _no_hand_kernel("phase 30", stats["launches"])
+    return stats, scope
+
+
+def run_sentiment_capture_check(torch):
+    """SENT_CAPTURE_STEPS captured steps of the sentiment model at batch
+    SENT_BATCH against as many eager ones from one state, under
+    deterministic algorithms (the embedding's gradient adds with atomics
+    otherwise): the losses and every persistable (parameters and Adagrad's
+    moments) bit for bit."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.scope import to_numpy
+
+    _free_device_memory(torch)
+    main, startup, _, loss, _, _ = sentiment_program(fluid)
+    boot_exe, boot = fluid.Executor(), fluid.Scope()
+    boot_exe.run(startup, scope=boot)
+    init = _clone_state(boot)
+    del boot
+    rng = np.random.RandomState(SEED + 301)
+    feeds = [sentiment_batch(rng, SENT_BATCH) for _ in range(SENT_CAPTURE_STEPS)]
+    paths = {}
+    with _deterministic(torch):
+        for name, cached in (("eager", False), ("captured", True)):
+            exe, scope = fluid.Executor(), fluid.Scope()
+            if cached:  # the entry's eager warm-up, on a scope of its own
+                warm = fluid.Scope()
+                _load_state(warm, init)
+                exe.run(main, feed=feeds[0], fetch_list=[loss], scope=warm)
+                del warm
+            _load_state(scope, init)
+            losses = [exe.run(main, feed=f, fetch_list=[loss], scope=scope,
+                              use_program_cache=cached)[0] for f in feeds]
+            paths[name] = {"losses": losses, "cache": exe.jit_cache_stats(),
+                           "state": {n: to_numpy(v) for n, v in scope.vars.items()}}
+            exe.close()
+    eager, cap = paths["eager"], paths["captured"]
+    differing = sorted(n for n in eager["state"]
+                       if not np.array_equal(eager["state"][n], cap["state"][n]))
+    stats = {"batch": SENT_BATCH, "steps": SENT_CAPTURE_STEPS,
+             "losses": {n: [float(v) for v in p["losses"]] for n, p in paths.items()},
+             "losses_bit_equal": all(a.tobytes() == b.tobytes()
+                                     for a, b in zip(eager["losses"], cap["losses"])),
+             "persistables": len(eager["state"]), "differing": differing[:10],
+             "cache": {n: p["cache"] for n, p in paths.items()}}
+    log("[sentiment-capture-check]", json.dumps(stats))
+    if not (stats["losses_bit_equal"] and not differing and cap["cache"]["graphs"] == 1
+            and eager["cache"]["entries"] == 0):
+        raise AssertionError("captured and eager sentiment steps differ: %s" % stats)
+    return stats
+
+
+def check_sentiment_against_cpu(torch):
+    """SENT_CHECK_STEPS steps at batch SENT_CHECK_BATCH on the card (a
+    captured entry, warmed on a scope of its own) and on the CPU from one
+    state: each step's loss within TRAIN_TOL relative, each step's
+    gradients within TRAIN_TOL by relative L2 over all of them and for each
+    parameter, and the parameters after the steps within TRAIN_TOL."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.scope import to_numpy
+
+    _free_device_memory(torch)
+    main, startup, _, loss, _, pg = sentiment_program(fluid)
+    names = [p.name for p, _ in pg]
+    fetch = [loss.name] + [g.name for _, g in pg]
+    card_exe, card_scope = fluid.Executor(), fluid.Scope()
+    card_exe.run(startup, scope=card_scope)
+    state = {n: to_numpy(v) for n, v in card_scope.vars.items()}
+    rng = np.random.RandomState(SEED + 302)
+    feeds = [sentiment_batch(rng, SENT_CHECK_BATCH) for _ in range(SENT_CHECK_STEPS)]
+    warm = fluid.Scope()
+    _load_state(warm, card_scope.vars)
+    card_exe.run(main, feed=feeds[0], fetch_list=fetch, scope=warm)
+    del warm
+    cpu_exe, cpu_scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    fluid.io.set_params_from_numpy(cpu_scope, state, "cpu")
+    steps = []
+    for f in feeds:
+        card = card_exe.run(main, feed=f, fetch_list=fetch, scope=card_scope)
+        cpu = cpu_exe.run(main, feed=f, fetch_list=fetch, scope=cpu_scope)
+        steps.append({"loss_card": float(card[0]), "loss_cpu": float(cpu[0]),
+                      "loss_rel_err": _max_rel(card[0], cpu[0]),
+                      "grads_all_rel_l2": _global_rel(card[1:], cpu[1:]),
+                      "grads_rel_l2": {n: _global_rel([a], [b])
+                                       for n, a, b in zip(names, card[1:], cpu[1:])},
+                      "finite": all(bool(np.isfinite(a).all()) for a in card)})
+    params = {n: _global_rel([to_numpy(card_scope.vars[n])], [to_numpy(cpu_scope.vars[n])])
+              for n in names}
+    stats = {"batch": SENT_CHECK_BATCH, "steps": steps, "params_rel_l2": params,
+             "card_cache": card_exe.jit_cache_stats()}
+    card_exe.close()
+    log("[sentiment-check]", json.dumps(stats))
+    ok = stats["card_cache"]["graphs"] == 1 and all(
+        st["finite"] and st["loss_rel_err"] <= TRAIN_TOL and st["grads_all_rel_l2"] <= TRAIN_TOL
+        and max(st["grads_rel_l2"].values()) <= TRAIN_TOL for st in steps) and max(
+        params.values()) <= TRAIN_TOL
+    if not ok:
+        raise AssertionError("card and CPU sentiment steps differ: %s" % stats)
+    return stats
+
+
+def run_sentiment_serving(torch, workdir, scope):
+    """The sentiment model served: the ``is_test`` build with phase 30's
+    trained weights through ``save_inference_model``, ``AnalysisPredictor``
+    and ``InferenceServer`` (max_batch_size 16) to SENT_SERVE_ROWS
+    concurrent requests of mixed lengths, twice.  Every answer of shape
+    [rows, 2], finite, within SERVE_TOL of the request run alone and of the
+    eager executor on the saved model, and within CPU_REF_TOL of the CPU
+    predictor."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import serving
+
+    _free_device_memory(torch)
+    test_main, _, prob, _, _, _ = sentiment_program(fluid, is_test=True)
+    model_dir = os.path.join(workdir, "sentiment")
+    fluid.io.save_inference_model(model_dir, ["words", "words_seq_len"], [prob],
+                                  fluid.Executor(), main_program=test_main, scope=scope)
+    predictor = fluid.inference.create_paddle_predictor(fluid.inference.AnalysisConfig(model_dir))
+    server = serving.InferenceServer(predictor, max_batch_size=16, batch_timeout_ms=5.0)
+    stats = {"rows": SENT_SERVE_ROWS}
+    t0 = time.perf_counter()
+    server.warmup()
+    stats["warmup_s"] = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED + 303)
+    feeds = []
+    for r in SENT_SERVE_ROWS:
+        b = sentiment_batch(rng, r)
+        feeds.append({"words": b["words"], "words_seq_len": b["words_seq_len"]})
+    try:
+        bursts = _serve_bursts(serving.Client(server), feeds, 2)
+    finally:
+        server.stop(drain=True, timeout=60)
+    m = server.metrics()
+    stats["bursts"] = _burst_stats(bursts, sum(SENT_SERVE_ROWS))
+    stats.update(batches=m["batches"], warmup_runs=m["warmup_runs"])
+    alone = [predictor.run(f)[0] for f in feeds]
+    eager_exe, eager_scope = fluid.Executor(), fluid.Scope()
+    prog, _, fetch_vars = fluid.io.load_inference_model(model_dir, eager_exe, scope=eager_scope)
+    eager = [eager_exe.run(prog, feed=f, fetch_list=fetch_vars, scope=eager_scope,
+                           use_program_cache=False)[0] for f in feeds]
+    cpu_cfg = fluid.inference.AnalysisConfig(model_dir)
+    cpu_cfg.disable_gpu()
+    cpu_pred = fluid.inference.create_paddle_predictor(cpu_cfg)
+    cpu = [cpu_pred.run(f)[0] for f in feeds]
+    worst = {"alone": 0.0, "eager": 0.0, "cpu": 0.0}
+    for answers, _, _ in bursts:
+        for f, (out,), a, e, c in zip(feeds, answers, alone, eager, cpu):
+            if out.shape != (f["words"].shape[0], SENT["classes"]) or not np.isfinite(out).all():
+                raise AssertionError("bad served sentiment output: shape %s" % (out.shape,))
+            worst["alone"] = max(worst["alone"], float(np.abs(out - a).max()))
+            worst["eager"] = max(worst["eager"], float(np.abs(out - e).max()))
+            worst["cpu"] = max(worst["cpu"], float(np.abs(out - c).max()))
+    stats["served_max_abs"] = worst
+    stats["cache"] = predictor.jit_cache_stats()
+    log("[sentiment-serve]", json.dumps(stats))
+    if not (worst["alone"] <= SERVE_TOL and worst["eager"] <= SERVE_TOL
+            and worst["cpu"] <= CPU_REF_TOL and stats["cache"]["graphs"] >= 1):
+        raise AssertionError("served sentiment answers differ: %s" % stats)
+    return stats
+
+
+def _nce_dist(vocab):
+    """A skewed custom distribution over ``vocab`` classes (Zipf-like,
+    shuffled), as a unigram table of a corpus is."""
+    p = 1.0 / (np.arange(vocab) + 10.0) ** 1.1
+    return np.random.RandomState(SEED + 310).permutation(p / p.sum()).astype(np.float32)
+
+
+def _seq_unit_op_cases(rng):
+    """Phase 31's cases, in ``_core_op_cases``' form."""
+    f32 = lambda *s: rng.standard_normal(s, dtype=np.float32)  # noqa: E731
+    su = SEQ_UNIT
+    rows, vocab, width = su["rows"], su["vocab"], su["width"]
+    B, T, D = su["seq"]
+    lens = rng.integers(SENT["min_len"], T + 1, B).astype(np.int32)
+    x = f32(rows, width)
+    label = rng.integers(0, vocab, (rows, 1))
+    table, bias = f32(vocab, width) * 0.05, f32(vocab) * 0.1
+    seq = f32(B, T, D)
+    ub, uh = su["unit"]
+    cb, ct, cc = su["ctc"]
+    V = "vocab [%d,%d], %d rows" % (vocab, width, rows)
+    S = "[%d,%d,%d]" % (B, T, D)
+    cases = []
+    for sampler in ("uniform", "log_uniform", "custom_dist"):
+        attrs = {"num_neg_samples": su["neg"], "sampler": sampler, "seed": 31}
+        if sampler == "custom_dist":
+            attrs["custom_dist"] = _nce_dist(vocab)
+        cases.append(("nce_" + sampler, "nce", V + ", %d negatives" % su["neg"],
+                      {"x": x, "label": label, "w": table, "b": bias},
+                      lambda L, v, attrs=attrs: _append_op(
+                          "nce", {"Input": [v["x"]], "Label": [v["label"]], "Weight": [v["w"]],
+                                  "Bias": [v["b"]]}, {"Cost": 1}, attrs),
+                      ("x", "w", "b"), 1e-4))
+    cases += [
+        ("hierarchical_sigmoid", "hierarchical_sigmoid", V + ", the default tree",
+         {"x": x, "label": label, "w": table[:vocab - 1], "b": bias[:vocab - 1]},
+         lambda L, v: _append_op("hierarchical_sigmoid", {"X": [v["x"]], "Label": [v["label"]],
+                                                          "W": [v["w"]], "Bias": [v["b"]]},
+                                 {"Out": 1, "PreOut": 1}, {"num_classes": vocab})[:1],
+         ("x", "w", "b"), 1e-4),
+        ("cos_sim", "cos_sim", "[%d,%d] x2" % (rows, width), {"x": x, "y": f32(rows, width)},
+         lambda L, v: L.cos_sim(v["x"], v["y"]), ("x", "y"), 1e-4),
+        ("sequence_conv", "sequence_conv", S + " -> %d, window 3" % su["filters"],
+         {"x": seq, "len": lens, "w": f32(3 * D, su["filters"]) * 0.05},
+         lambda L, v: _append_op("sequence_conv", {"X": [v["x"]], "Filter": [v["w"]],
+                                                   "SeqLen": [v["len"]]}, {"Out": 1},
+                                 {"contextStart": -1, "contextLength": 3}),
+         ("x", "w"), 1e-4),
+        ("row_conv", "row_conv", S + ", lookahead %d" % su["lookahead"],
+         {"x": seq, "len": lens, "w": f32(su["lookahead"] + 1, D) * 0.2},
+         lambda L, v: _append_op("row_conv", {"X": [v["x"]], "Filter": [v["w"]],
+                                              "SeqLen": [v["len"]]}, {"Out": 1}),
+         ("x", "w"), 1e-5),
+        ("lstm_unit", "lstm_unit", "[%d,%d]" % (ub, uh),
+         {"x": f32(ub, 4 * uh), "c": f32(ub, uh)},
+         lambda L, v: _append_op("lstm_unit", {"X": [v["x"]], "C_prev": [v["c"]]},
+                                 {"C": 1, "H": 1}, {"forget_bias": 1.0}), ("x", "c"), 1e-5),
+        ("gru_unit", "gru_unit", "[%d,%d]" % (ub, uh),
+         {"x": f32(ub, 3 * uh), "h": f32(ub, uh), "w": f32(uh, 3 * uh) * 0.05,
+          "b": f32(1, 3 * uh)},
+         lambda L, v: _append_op("gru_unit", {"Input": [v["x"]], "HiddenPrev": [v["h"]],
+                                              "Weight": [v["w"]], "Bias": [v["b"]]},
+                                 {"Gate": 1, "ResetHiddenPrev": 1, "Hidden": 1}),
+         ("x", "h", "w", "b"), 1e-4),
+        ("im2sequence", "im2sequence", "%s, 3x3" % list(su["img"]), {"x": f32(*su["img"])},
+         lambda L, v: L.im2sequence(v["x"], filter_size=3, stride=1), ("x",), 1e-5),
+        ("warpctc", "warpctc", "logits %s, labels up to %d" % (list(su["ctc"]), su["ctc_label"]),
+         {"logits": f32(cb, ct, cc), "label": rng.integers(1, cc, (cb, su["ctc_label"])),
+          "llen": rng.integers(ct // 2, ct + 1, cb),
+          "blen": rng.integers(su["ctc_label"] // 3, su["ctc_label"] + 1, cb)},
+         lambda L, v: L.warpctc(v["logits"], v["label"], blank=0, norm_by_times=True,
+                                input_length=v["llen"], label_length=v["blen"]),
+         ("logits",), 1e-4),
+        ("sequence_reshape", "sequence_reshape", S + " -> new_dim %d" % (2 * D),
+         {"x": seq, "len": lens},
+         lambda L, v: L.sequence_reshape(v["x"], 2 * D, seq_len=v["len"]), ("x",), 1e-5),
+        ("sequence_scatter", "sequence_scatter",
+         "[%d,%d] <- [%d,%d]" % (B, SENT["dict_size"], B, T),
+         {"x": f32(B, SENT["dict_size"]), "ids": rng.integers(0, SENT["dict_size"], (B, T)),
+          "upd": f32(B, T), "len": lens},
+         lambda L, v: L.sequence_scatter(v["x"], v["ids"], v["upd"], seq_len=v["len"]),
+         ("x", "upd"), 1e-5),
+        ("chunk_eval", "chunk_eval", "[%d,%d], IOB, %d types" % (B, T, su["chunk_types"]),
+         {"inf": rng.integers(0, 2 * su["chunk_types"] + 1, (B, T)),
+          "lab": rng.integers(0, 2 * su["chunk_types"] + 1, (B, T)), "len": lens},
+         lambda L, v: list(L.chunk_eval(v["inf"], v["lab"], "IOB", su["chunk_types"],
+                                        seq_length=v["len"])), (), 0.0),
+    ]
+    return cases
+
+
+def _merged_chi2(counts, p, min_expected=20.0):
+    """Pearson's chi-square p-value of ``counts`` against ``p``, classes
+    merged in order until each bin expects ``min_expected`` draws."""
+    from scipy import stats as sstats
+
+    n = counts.sum()
+    obs, exp, o, e = [], [], 0.0, 0.0
+    for c, q in zip(counts, p):
+        o, e = o + c, e + n * q
+        if e >= min_expected:
+            obs.append(o)
+            exp.append(e)
+            o = e = 0.0
+    if e:
+        obs[-1] += o
+        exp[-1] += e
+    return float(sstats.chisquare(obs, exp).pvalue), len(obs)
+
+
+def check_nce_sampler_on_card(torch):
+    """nce's draw on the card: the same label sum twice gives the same
+    negatives; NCE_CHI2_DRAWS label sums' negatives (10 each, over BERT's
+    vocabulary) are the CPU's draws, id for id, and against each sampler's
+    distribution a chi-square test gives p > 1e-3."""
+    from paddle_tpu_torch.ops import nn_ops
+
+    vocab, k = SEQ_UNIT["vocab"], SEQ_UNIT["neg"]
+    dist = _nce_dist(vocab)
+    c = np.arange(vocab, dtype=np.float64)
+    want = {"uniform": np.full(vocab, 1.0 / vocab),
+            "log_uniform": np.log((c + 2) / (c + 1)) / np.log(vocab + 1),
+            "custom_dist": dist.astype(np.float64) / dist.sum()}
+    out = {}
+    for sampler, p in want.items():
+        probs = torch.from_numpy(dist).to(CARD)
+        probs = probs / torch.sum(probs)
+        one = torch.tensor(123457, device=CARD)
+        a = nn_ops.nce_negatives(one, 31, k, vocab, sampler, probs)
+        b = nn_ops.nce_negatives(one, 31, k, vocab, sampler, probs)
+        sums = torch.arange(NCE_CHI2_DRAWS, device=CARD)
+        draws = nn_ops.nce_negatives(sums, 31, k, vocab, sampler, probs)
+        cpu = nn_ops.nce_negatives(sums.cpu(), 31, k, vocab, sampler, probs.cpu())
+        counts = np.bincount(draws.reshape(-1).cpu().numpy(), minlength=vocab)
+        pvalue, bins = _merged_chi2(counts, p)
+        out[sampler] = {"repeat_equal": bool(torch.equal(a, b)),
+                        "equal_cpu": bool(torch.equal(draws.cpu(), cpu)), "chi2_p": pvalue,
+                        "bins": bins, "draws": int(counts.sum())}
+    log("[nce-sampler]", json.dumps(out))
+    if not all(r["repeat_equal"] and r["equal_cpu"] and r["chi2_p"] > 1e-3 for r in out.values()):
+        raise AssertionError("nce's sampler on the card: %s" % out)
+    return out
+
+
+def run_seq_unit_ops(torch):
+    """Phase 31: every op type of A1b's second part at SEQ_UNIT's widths,
+    each alone through ``Executor.run`` on cuda:0 by ``_measure_op_case``
+    (captured with no eager op, bit for bit against eager, forward and vjp
+    against the CPU, the replay's device time beside its bytes bound);
+    then nce's sampler on the card (``check_nce_sampler_on_card``).  No
+    attention or dropout kernel is launched."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+
+    _free_device_memory(torch)
+    rng = np.random.default_rng(SEED + 31)
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    rows, failures = [], []
+    su = SEQ_UNIT
+    B, T, D = su["seq"]
+    ub, uh = su["unit"]
+    flops = {"sequence_conv": 2 * B * T * 3 * D * su["filters"],  # the products of the window
+             "gru_unit": 2 * ub * uh * 3 * uh}
+    kernels.reset_launch_counts()
+    for case in _seq_unit_op_cases(rng):
+        row, ok = _measure_op_case(torch, fluid, cpu_exe, rng, case)
+        if row["name"] in flops:  # bound by fp32 operations where those take longer
+            row["ops_bound_ms"] = 1e3 * flops[row["name"]] / FP32_PEAK
+        row["bound_ms"] = max(row["bytes_bound_ms"], row.get("ops_bound_ms", 0.0))
+        row["bound_by"] = "operations" if row["bound_ms"] > row["bytes_bound_ms"] else "bytes"
+        rows.append(row)
+        if not ok:
+            failures.append(row)
+    launches = _hand_kernel_launches()
+    sampler = check_nce_sampler_on_card(torch)
+    stats = {"ops": rows, "op_types": len({r["op"] for r in rows}), "launches": launches,
+             "nce_sampler": sampler, "failures": [r["name"] for r in failures]}
+    log("[seq-unit-ops]", json.dumps(stats))
+    if failures:
+        raise AssertionError("sequence, RNN-unit and sampled-loss op types failed on the card: %s"
+                             % failures)
+    _no_hand_kernel("phase 31", launches)
     return stats
 
 
@@ -5257,6 +5793,16 @@ def main() -> int:
         core_ops = run_core_ops(torch, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    sentiment, sentiment_scope = run_sentiment_train(torch)
+    run_sentiment_capture_check(torch)
+    check_sentiment_against_cpu(torch)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        run_sentiment_serving(torch, workdir, sentiment_scope)
+        del sentiment_scope
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    seq_unit_ops = run_seq_unit_ops(torch)
     # the A7 paths (NMT training, decoding, the book's RNN models) run no hand kernel
     a7_launches = {"nmt_train": nmt["hand_kernel_launches"],
                    "nmt_decode": nmt_decode["hand_kernel_launches"],
@@ -5284,7 +5830,10 @@ def main() -> int:
     fwd_launches.update({p: c.get(fa.KERNEL_NAME, 0) for p, c in lamb_launches.items()})
     fwd_launches.update({p: c[fa.KERNEL_NAME] for p, c in a7_launches.items()})
     # phases 28 and 29 (VGG-16, the core op types) launch no attention kernel (checked)
-    a1b_launches = {"vgg16": vgg["launches"], "core_ops": core_ops["launches"]}
+    # and neither do phases 30 and 31 (the sentiment model, the sequence, RNN-unit
+    # and sampled-loss op types)
+    a1b_launches = {"vgg16": vgg["launches"], "core_ops": core_ops["launches"],
+                    "sentiment": sentiment["launches"], "seq_unit_ops": seq_unit_ops["launches"]}
     fwd_launches.update({p: c[fa.KERNEL_NAME] for p, c in a1b_launches.items()})
     replaced = ("jax/experimental/pallas/ops/tpu/flash_attention.py:%d (%s), reached from "
                 "paddle_tpu/ops/nn_ops.py:694 through the vjp grad paddle_tpu/core/registry.py:131")
@@ -5363,8 +5912,7 @@ def main() -> int:
                      + vgg["launches"]["dropout"]),
         "launches_by_path": dict({p: c.get("dropout", 0) for p, c in lm_launches.items()},
                                  **{p: c["dropout"] for p, c in a7_launches.items()},
-                                 vgg16=vgg["launches"]["dropout"],
-                                 core_ops=core_ops["launches"]["dropout"]),
+                                 **{p: c["dropout"] for p, c in a1b_launches.items()}),
         "max_abs_err": 0.0 if all(r["out_bit_equal"] and r["mask_bit_equal"]
                                   for r in dropout_checks["checks"]) else None,
         "ms": main_drop["ms"],

@@ -102,6 +102,7 @@ from paddle_tpu_torch.optimizer import ExponentialMovingAverage
 from paddle_tpu_torch.layers import learning_rate_scheduler as learning_rate_decay
 from paddle_tpu_torch import kernels
 from paddle_tpu_torch import models
+from paddle_tpu_torch import nets
 from paddle_tpu_torch import serving
 from paddle_tpu_torch import contrib
 from paddle_tpu_torch import dataset, decoding, distributed, incubate, metrics, native, recordio_writer

@@ -6,8 +6,10 @@ matmul and mul, one_hot and label_smooth, pad / crop and resize, the
 pixel reorderings, bilinear_tensor_product, py_func, topk, accuracy,
 auc, clip, clip_by_norm, and the sequence layers over the padded+length encoding
 (the pools, softmax, expand, reverse, mask, erase, enumerate, the CRF,
-edit_distance and ctc_greedy_decoder), as the JAX package's
-``layers/nn.py`` builds them."""
+edit_distance and ctc_greedy_decoder), the sequence, RNN-unit and
+sampled-loss layers (im2sequence, warpctc, sequence_conv, nce, hsigmoid,
+lstm_unit, gru_unit, row_conv, nested_sequence_pool), as the JAX
+package's ``layers/nn.py`` builds them."""
 from __future__ import annotations
 
 import numpy as np
@@ -26,7 +28,8 @@ __all__ = ["fc", "embedding", "conv2d", "conv2d_transpose", "pool2d", "batch_nor
            "sequence_expand", "sequence_reverse", "sequence_mask", "sequence_erase",
            "sequence_enumerate", "sequence_expand_as", "sequence_first_step",
            "sequence_last_step", "linear_chain_crf", "crf_decoding", "edit_distance",
-           "ctc_greedy_decoder"]
+           "ctc_greedy_decoder", "im2sequence", "warpctc", "sequence_conv", "nce", "hsigmoid",
+           "lstm_unit", "gru_unit", "row_conv", "nested_sequence_pool"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None, act=None, name=None):
@@ -882,3 +885,237 @@ def ctc_greedy_decoder(input, blank, input_length=None, padding_value=0):
     return out, out_len
 
 
+
+
+# ---------------------------------------------------------------------------
+# the sequence, RNN-unit and sampled-loss layers (reference: layers/nn.py
+# im2sequence, warpctc:4324, sequence_conv:2210, nce:4950, hsigmoid:5066,
+# lstm_unit, gru_unit, row_conv:6334; ops in ops/nn_ops.py)
+# ---------------------------------------------------------------------------
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
+    """The ``filter_size`` patches of NCHW ``input`` at ``stride`` as rows
+    [N·oh·ow, C·kh·kw].  ``padding`` is accepted and, as in the JAX
+    package's layer, not passed to the op (which pads nothing)."""
+    helper = LayerHelper("im2sequence", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="im2sequence",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={
+            "kernels": filter_size if isinstance(filter_size, (list, tuple)) else [filter_size] * 2,
+            "strides": stride if isinstance(stride, (list, tuple)) else [stride] * 2,
+        },
+    )
+    return out
+
+
+def warpctc(input, label, blank=0, norm_by_times=False, input_length=None,
+            label_length=None):
+    """CTC loss; input [B, T, C] padded logits, label [B, L]."""
+    helper = LayerHelper("warpctc")
+    loss = helper.create_variable_for_type_inference(input.dtype)
+    ins = {"Logits": [input], "Label": [label]}
+    if input_length is not None:
+        ins["LogitsLength"] = [input_length]
+    if label_length is not None:
+        ins["LabelLength"] = [label_length]
+    helper.append_op(
+        type="warpctc", inputs=ins, outputs={"Loss": [loss]},
+        attrs={"blank": blank, "norm_by_times": norm_by_times},
+    )
+    return loss
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=True, bias_attr=None, param_attr=None, act=None,
+                  seq_len=None, name=None):
+    """Context-window conv over padded sequences [B, T, D]."""
+    helper = LayerHelper("sequence_conv", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    D = input.shape[-1]
+    w = helper.create_parameter(param_attr, shape=[filter_size * D, num_filters],
+                                dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    ins = {"X": [input], "Filter": [w]}
+    if seq_len is not None:
+        ins["SeqLen"] = [seq_len]
+    helper.append_op(
+        type="sequence_conv", inputs=ins, outputs={"Out": [out]},
+        attrs={"contextStart": -int(filter_size // 2), "contextLength": filter_size,
+               "contextStride": filter_stride},
+    )
+    return helper.append_activation(helper.append_bias_op(out, dim_start=2))
+
+
+def nce(input, label, num_total_classes, sample_weight=None, param_attr=None,
+        bias_attr=None, num_neg_samples=10, name=None, sampler="uniform",
+        custom_dist=None, seed=0, is_sparse=False):
+    """Noise-contrastive estimation loss -> [B, 1] cost.  uniform,
+    log_uniform (Zipfian), and custom_dist (a length-num_total_classes
+    probability sequence — the reference's CustomSampler,
+    operators/math/sampler.cc) samplers with their log(k*P) corrections;
+    ``sample_weight`` [B, 1] scales each example's cost
+    (reference: operators/nce_op.h sample_weight)."""
+    if custom_dist is not None:
+        sampler = "custom_dist"
+    if sampler not in ("uniform", "log_uniform", "custom_dist"):
+        raise ValueError("nce: unknown sampler %r" % sampler)
+    if sampler == "custom_dist" and custom_dist is None:
+        raise ValueError("nce: sampler='custom_dist' requires custom_dist")
+    helper = LayerHelper("nce", param_attr=param_attr, bias_attr=bias_attr, name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(param_attr, shape=[num_total_classes, dim], dtype=input.dtype)
+    b = helper.create_parameter(bias_attr, shape=[num_total_classes], dtype=input.dtype,
+                                is_bias=True)
+    cost = helper.create_variable_for_type_inference(input.dtype)
+    ins = {"Input": [input], "Label": [label], "Weight": [w]}
+    if b is not None:
+        ins["Bias"] = [b]
+    if sample_weight is not None:
+        ins["SampleWeight"] = [sample_weight]
+    attrs = {"num_neg_samples": num_neg_samples, "seed": seed, "sampler": sampler}
+    if custom_dist is not None:
+        dist = np.asarray(custom_dist, dtype=np.float32).reshape(-1)
+        if dist.shape[0] != num_total_classes:
+            raise ValueError(
+                "nce: custom_dist length %d != num_total_classes %d"
+                % (dist.shape[0], num_total_classes)
+            )
+        attrs["custom_dist"] = dist
+    helper.append_op(type="nce", inputs=ins, outputs={"Cost": [cost]}, attrs=attrs)
+    return cost
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None, path_table=None, path_code=None, is_custom=False,
+             is_sparse=False):
+    """Hierarchical sigmoid loss.  Default: complete binary tree over
+    ``num_classes`` leaves.  Custom (is_custom=True): ``path_table`` /
+    ``path_code`` [N, L] give each sample's leaf->root non-leaf indices
+    (-1 padded) and branch labels, and ``num_classes`` is the NON-LEAF
+    count (reference: layers/nn.py hsigmoid custom-tree contract)."""
+    if is_custom:
+        if path_table is None or path_code is None:
+            raise ValueError(
+                "hsigmoid(is_custom=True) requires path_table and path_code"
+            )
+    elif path_table is not None or path_code is not None:
+        raise ValueError(
+            "hsigmoid: path_table/path_code need is_custom=True "
+            "(silently ignoring them would train the wrong tree)"
+        )
+    helper = LayerHelper("hierarchical_sigmoid", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    dim = input.shape[-1]
+    rows = num_classes if is_custom else num_classes - 1
+    w = helper.create_parameter(param_attr, shape=[rows, dim], dtype=input.dtype)
+    b = helper.create_parameter(bias_attr, shape=[rows], dtype=input.dtype, is_bias=True)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    pre = helper.create_variable_for_type_inference(input.dtype)
+    ins = {"X": [input], "Label": [label], "W": [w]}
+    if b is not None:
+        ins["Bias"] = [b]
+    if is_custom:
+        ins["PathTable"] = [path_table]
+        ins["PathCode"] = [path_code]
+    helper.append_op(
+        type="hierarchical_sigmoid", inputs=ins,
+        outputs={"Out": [out], "PreOut": [pre]},
+        attrs={"num_classes": num_classes, "is_custom": is_custom},
+    )
+    return out
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None, name=None):
+    """One LSTM step: returns (hidden, cell).  x_t [B, D] concatenated
+    with h_prev feeds a 4H projection (reference: layers/nn.py lstm_unit)."""
+    helper = LayerHelper("lstm_unit", param_attr=param_attr, bias_attr=bias_attr, name=name)
+    from paddle_tpu_torch.layers import tensor as ltensor
+
+    H = hidden_t_prev.shape[-1]
+    cat = ltensor.concat([x_t, hidden_t_prev], axis=1)
+    gates = fc(cat, 4 * H, param_attr=param_attr, bias_attr=bias_attr)
+    c = helper.create_variable_for_type_inference(x_t.dtype)
+    h = helper.create_variable_for_type_inference(x_t.dtype)
+    helper.append_op(
+        type="lstm_unit",
+        inputs={"X": [gates], "C_prev": [cell_t_prev]},
+        outputs={"C": [c], "H": [h]},
+        attrs={"forget_bias": forget_bias},
+    )
+    return h, c
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+             activation="tanh", gate_activation="sigmoid", origin_mode=False):
+    """One GRU step (reference: layers/nn.py gru_unit).  size = 3*H.  As
+    the JAX package's layer, it passes no attrs: ``activation``,
+    ``gate_activation`` and ``origin_mode`` are ignored, and the op computes
+    the ``origin_mode=True`` form (ROADMAP queue C)."""
+    helper = LayerHelper("gru_unit", param_attr=param_attr, bias_attr=bias_attr)
+    H = size // 3
+    w = helper.create_parameter(param_attr, shape=[H, 3 * H], dtype=input.dtype)
+    b = helper.create_parameter(bias_attr, shape=[1, 3 * H], dtype=input.dtype, is_bias=True)
+    gate = helper.create_variable_for_type_inference(input.dtype)
+    reset_h = helper.create_variable_for_type_inference(input.dtype)
+    out_h = helper.create_variable_for_type_inference(input.dtype)
+    ins = {"Input": [input], "HiddenPrev": [hidden], "Weight": [w]}
+    if b is not None:
+        ins["Bias"] = [b]
+    helper.append_op(
+        type="gru_unit", inputs=ins,
+        outputs={"Gate": [gate], "ResetHiddenPrev": [reset_h], "Hidden": [out_h]},
+        attrs={},
+    )
+    return out_h, reset_h, gate
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None, seq_len=None):
+    """Lookahead (row) convolution; filter [future_context_size + 1, D]."""
+    helper = LayerHelper("row_conv", param_attr=param_attr, act=act)
+    d = int(input.shape[-1])
+    filt = helper.create_parameter(param_attr, shape=[future_context_size + 1, d],
+                                   dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    ins = {"X": [input], "Filter": [filt]}
+    if seq_len is not None:
+        ins["SeqLen"] = [seq_len]
+    helper.append_op(type="row_conv", inputs=ins, outputs={"Out": [out]}, attrs={})
+    return helper.append_activation(out)
+
+
+def nested_sequence_pool(input, outer_len, inner_len, pool_type="sum",
+                         inner_pool_type=None):
+    """N-level LoD pooling on the padded nested encoding (reference:
+    nested-sequence semantics of lod_tensor.h:110,:229 — recursively
+    nested sequences, e.g. doc -> sentence -> word).
+
+    ``inner_len`` is one length tensor (2-level) or a list ordered
+    outer->inner (N-level): level k's tensor has shape [B, S1..Sk].
+    For input [B, S1, ..., SL, D...], pools the innermost level with
+    ``inner_pool_type`` (defaults to ``pool_type``), then each enclosing
+    level with ``pool_type``; returns [B, D...].  Each level is a
+    flatten-to-[prod, Sk, D] + ``sequence_pool`` over its lengths."""
+    from paddle_tpu_torch.layers import tensor as ltensor
+
+    inners = list(inner_len) if isinstance(inner_len, (list, tuple)) else [inner_len]
+    lengths = [outer_len] + inners  # index k = level-k lengths, [B, S1..Sk]
+    L = len(lengths)
+    x = input
+    for k in range(L, 0, -1):
+        tail = [int(s) for s in x.shape[k:]]  # [Sk, D...]
+        flat = ltensor.reshape(x, shape=[-1] + tail)
+        ln = lengths[k - 1]
+        ln_flat = ltensor.reshape(ln, shape=[-1]) if k > 1 else ln
+        ptype = (inner_pool_type or pool_type) if k == L else pool_type
+        pooled = sequence_pool(flat, ptype, seq_len=ln_flat)  # [prod, D...]
+        if k > 1:
+            lead = [int(s) for s in input.shape[1:k]]
+            x = ltensor.reshape(
+                pooled, shape=[-1] + lead + [int(s) for s in pooled.shape[1:]]
+            )
+        else:
+            x = pooled
+    return x

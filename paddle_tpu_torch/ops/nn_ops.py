@@ -7,9 +7,11 @@ data_norm_op.cc, spectral_norm_op.h, cross_entropy_op.cc,
 softmax_with_cross_entropy_op.cc, sigmoid_cross_entropy_with_logits_op.cc,
 huber_loss_op.cc, smooth_l1_loss_op.cc, log_loss_op.cc, norm_op.cc,
 maxout_op.cc, interpolate_op.cc, pixel_shuffle_op.cc,
-shuffle_channel_op.cc, bilinear_tensor_product_op.h, dropout_op.cc, and
-the fused attention op.  The fused attention op's compute and
-gradient are the hand-written CUDA kernels behind
+shuffle_channel_op.cc, bilinear_tensor_product_op.h, dropout_op.cc,
+im2sequence_op.cc, warpctc_op.cc, lstm_unit_op.cc, gru_unit_op.cc,
+sequence_ops/sequence_conv_op.cc, nce_op.cc, hierarchical_sigmoid_op.cc,
+row_conv_op.h, and the fused attention op.  The fused attention op's
+compute and gradient are the hand-written CUDA kernels behind
 ``kernels/fused_attention.py``; dropout's training branch is the
 hand-written kernel behind ``kernels/dropout.py``.
 
@@ -22,12 +24,14 @@ contiguous NHWC tensor.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core.registry import register_op
-from paddle_tpu_torch.kernels.dropout import divisor, dropout_train
+from paddle_tpu_torch.kernels.dropout import divisor, dropout_train, philox4x32_10
 from paddle_tpu_torch.kernels.fused_attention import fused_attention_fwd
 from paddle_tpu_torch.ops.common import maybe, one
 
@@ -607,3 +611,305 @@ def fused_attention(inputs, attrs, device):
         one(inputs, "Q"), one(inputs, "K"), one(inputs, "V"),
         maybe(inputs, "Mask"), bool(attrs.get("causal", False)),
         float(attrs.get("scale", 1.0)))}
+
+
+# ---------------------------------------------------------------------------
+# the sequence, RNN-unit and sampled-loss ops (reference:
+# operators/im2sequence_op.cc, warpctc_op.cc, lstm_unit_op.cc,
+# gru_unit_op.cc, sequence_ops/sequence_conv_op.cc, nce_op.cc,
+# hierarchical_sigmoid_op.cc, row_conv_op.h)
+# ---------------------------------------------------------------------------
+def _seq_mask(seq_len, T, device):
+    """[B, T] validity of each padded position, from lengths [B]."""
+    return torch.arange(T, device=device)[None, :] < seq_len.reshape(-1, 1)
+
+
+@register_op("im2sequence")
+def im2sequence(inputs, attrs, device):
+    """Each ``kernels`` patch of X [N, C, H, W] at ``strides``, no
+    padding, as a row [N·oh·ow, C·kh·kw] in (c, kh, kw) order:
+    ``F.unfold``'s order, and ``conv_general_dilated_patches``'s."""
+    x = one(inputs, "X")
+    kh, kw = _pair(attrs.get("kernels", [1, 1]))
+    sh, sw = _pair(attrs.get("strides", [1, 1]))
+    patches = F.unfold(x, (kh, kw), stride=(sh, sw))  # [N, C·kh·kw, oh·ow]
+    return {"Out": patches.transpose(1, 2).reshape(-1, patches.shape[1])}
+
+
+_CTC_NEG = -1e30  # log 0 that stays finite: an infeasible alignment costs ~1e30, not inf
+
+
+class _LogAddExp(torch.autograd.Function):
+    """log(e^a + e^b) with ``jnp.logaddexp``'s derivative, g·e^(a − out)
+    and g·e^(b − out).  Where two "log 0"s of -1e30 meet, out rounds to
+    them in fp32 and each side takes the whole g (torch's own rule gives
+    each half): an infeasible alignment's gradient is the JAX op's."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        out = torch.logaddexp(a, b)
+        ctx.save_for_backward(a, b, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, out = ctx.saved_tensors
+        return g * torch.exp(a - out), g * torch.exp(b - out)
+
+
+@register_op("warpctc", no_grad_set={"Label", "LogitsLength", "LabelLength"})
+def warpctc(inputs, attrs, device):
+    """CTC loss [B, 1] of padded logits [B, T, C] against labels [B, L]:
+    the log-space alpha recursion over the blank-extended label, one step
+    of torch ops per time step (nothing read on the host, so a plan
+    holding it captures), differentiated through ``log_softmax`` by
+    autograd.  ``LogitsLength`` / ``LabelLength`` [B] default to T and L;
+    ``norm_by_times`` divides by the logit length.  ``F.ctc_loss`` gives
+    ``inf`` on an infeasible alignment, where this op's log 0 is -1e30."""
+    logits = one(inputs, "Logits")
+    label = one(inputs, "Label").long()
+    B, T, _ = logits.shape
+    L = label.shape[1]
+    logit_len, label_len = maybe(inputs, "LogitsLength"), maybe(inputs, "LabelLength")
+    dev = logits.device
+    logit_len = (torch.full((B,), T, dtype=torch.long, device=dev) if logit_len is None
+                 else logit_len.reshape(B).long())
+    label_len = (torch.full((B,), L, dtype=torch.long, device=dev) if label_len is None
+                 else label_len.reshape(B).long())
+    blank = int(attrs.get("blank", 0))
+    logp = F.log_softmax(logits.float(), dim=-1)
+    S = 2 * L + 1
+    ext = torch.full((B, S), blank, dtype=torch.long, device=dev)
+    ext[:, 1::2] = label
+    prev2 = torch.cat([torch.full((B, 2), -1, dtype=torch.long, device=dev), ext[:, :-2]], 1)
+    skip_ok = (ext != blank) & (ext != prev2)
+    cols = [logp[:, 0, blank:blank + 1]]
+    if S > 1:
+        cols.append(torch.gather(logp[:, 0, :], 1, ext[:, 1:2]))
+    cols.append(torch.full((B, S - len(cols)), _CTC_NEG, dtype=torch.float32, device=dev))
+    alpha = torch.cat(cols, 1)
+
+    def shift(a, k):
+        return torch.cat([torch.full((B, k), _CTC_NEG, dtype=a.dtype, device=dev), a[:, :-k]], 1)
+
+    for t in range(1, T):
+        lp_t = torch.gather(logp[:, t, :], 1, ext)
+        m = _LogAddExp.apply(alpha, shift(alpha, 1))
+        m = torch.where(skip_ok, _LogAddExp.apply(m, shift(alpha, 2)), m)
+        alpha = torch.where((t < logit_len)[:, None], m + lp_t, alpha)
+    last = (2 * label_len)[:, None]
+    a_last = torch.gather(alpha, 1, last)[:, 0]
+    a_prev = torch.gather(alpha, 1, torch.clamp(last - 1, min=0))[:, 0]
+    loss = -torch.where(label_len > 0, _LogAddExp.apply(a_last, a_prev), a_last)
+    if attrs.get("norm_by_times", False):
+        loss = loss / torch.clamp(logit_len.float(), min=1.0)
+    return {"Loss": loss.reshape(B, 1).to(logits.dtype)}
+
+
+@register_op("lstm_unit")
+def lstm_unit(inputs, attrs, device):
+    """One LSTM step: X [B, 4H] the pre-activation gates (i, f, c, o),
+    C_prev [B, H]; C = σ(f + forget_bias)·C_prev + σ(i)·tanh(c),
+    H = σ(o)·tanh(C)."""
+    x, c_prev = one(inputs, "X"), one(inputs, "C_prev")
+    i, f, c_hat, o = torch.chunk(x, 4, dim=-1)
+    c = (torch.sigmoid(f + attrs.get("forget_bias", 0.0)) * c_prev
+         + torch.sigmoid(i) * torch.tanh(c_hat))
+    return {"C": c, "H": torch.sigmoid(o) * torch.tanh(c)}
+
+
+@register_op("gru_unit")
+def gru_unit(inputs, attrs, device):
+    """One GRU step: Input [B, 3H] (update, reset, candidate), HiddenPrev
+    [B, H], Weight [H, 3H] (the first 2H columns for the gates, the last H
+    for the candidate), Bias [1, 3H]; Gate = [u, r, c], ResetHiddenPrev =
+    r·h_prev, Hidden = u·h_prev + (1 − u)·c.  That is the form upstream
+    calls ``origin_mode=True``; the JAX package's layer passes no attrs, so
+    the op always computes it (ROADMAP queue C)."""
+    x, h_prev, w = one(inputs, "Input"), one(inputs, "HiddenPrev"), one(inputs, "Weight")
+    b = maybe(inputs, "Bias")
+    H = h_prev.shape[-1]
+    if b is not None:
+        x = x + b.reshape(1, 3 * H)
+    u = torch.sigmoid(x[:, :H] + h_prev @ w[:, :H])
+    r = torch.sigmoid(x[:, H:2 * H] + h_prev @ w[:, H:2 * H])
+    c = torch.tanh(x[:, 2 * H:] + (r * h_prev) @ w[:, 2 * H:])
+    return {"Gate": torch.cat([u, r, c], dim=-1), "ResetHiddenPrev": r * h_prev,
+            "Hidden": u * h_prev + (1.0 - u) * c}
+
+
+@register_op("sequence_conv", no_grad_set={"SeqLen"})
+def sequence_conv(inputs, attrs, device):
+    """Context-window convolution over padded sequences: X [B, T, D],
+    Filter [ctx·D, F] -> [B, T, F].  The window is ``contextLength`` rows
+    from ``contextStart`` on (defaults 3 and -1); rows past a sequence's
+    end are zero before the window shifts and again on the output.  The
+    [B, T, ctx·D] context is built with ``F.pad`` and slices and
+    multiplied by the filter with ``torch.matmul``."""
+    x, w = one(inputs, "X"), one(inputs, "Filter")
+    seq_len = maybe(inputs, "SeqLen")
+    start = int(attrs.get("contextStart", attrs.get("context_start", -1)))
+    length = int(attrs.get("contextLength", attrs.get("context_length", 3)))
+    B, T, _ = x.shape
+    valid = None
+    if seq_len is not None:
+        valid = _seq_mask(seq_len, T, x.device)[:, :, None]
+        x = torch.where(valid, x, 0.0)
+    cols = []
+    for j in range(start, start + length):
+        if j < 0:
+            cols.append(F.pad(x, (0, 0, -j, 0))[:, :T])
+        elif j > 0:
+            cols.append(F.pad(x, (0, 0, 0, j))[:, j:])
+        else:
+            cols.append(x)
+    out = torch.matmul(torch.cat(cols, dim=-1), w)
+    if valid is not None:
+        out = torch.where(valid, out, 0.0)
+    return {"Out": out}
+
+
+@register_op("row_conv", no_grad_set={"SeqLen"})
+def row_conv(inputs, attrs, device):
+    """Lookahead convolution (Deep Speech 2): out[t] = Σ_j x[t+j]·filter[j]
+    over Filter [k, D], zero past each sequence's end."""
+    x, filt = one(inputs, "X"), one(inputs, "Filter")
+    seq_len = maybe(inputs, "SeqLen")
+    k = filt.shape[0]
+    B, T, _ = x.shape
+    if seq_len is not None:
+        x = x * _seq_mask(seq_len, T, x.device).to(x.dtype)[:, :, None]
+    xpad = F.pad(x, (0, 0, 0, k))
+    out = torch.zeros_like(x)
+    for j in range(k):
+        out = out + xpad[:, j:j + T, :] * filt[j][None, None, :]
+    return {"Out": out}
+
+
+@register_op("hierarchical_sigmoid", no_grad_set={"Label", "PathTable", "PathCode"})
+def hierarchical_sigmoid(inputs, attrs, device):
+    """Hierarchical sigmoid loss [B, 1] of X [B, D] over W's tree nodes
+    (Bias optional).  Default tree: the complete binary tree of
+    ``num_classes`` leaves in heap order, the leaf's code label + K, at
+    each of ceil(log2 K) + 1 levels the node code // 2 − 1 and the bit
+    code % 2.  Custom tree: PathTable [B, L] the nodes (-1 pads) and
+    PathCode [B, L] the bits.  PreOut equals Out, as the JAX op gives it."""
+    x, w = one(inputs, "X"), one(inputs, "W")
+    b = maybe(inputs, "Bias")
+    ptable, pcode = maybe(inputs, "PathTable"), maybe(inputs, "PathCode")
+    if ptable is not None:
+        if pcode is None:
+            raise ValueError("hierarchical_sigmoid: PathTable without PathCode")
+        node = torch.clamp(ptable, min=0).long()
+        logit = torch.einsum("bd,bld->bl", x, w[node])
+        if b is not None:
+            logit = logit + b.reshape(-1)[node]
+        sign = 2.0 * pcode.float() - 1.0
+        total = torch.sum(torch.where(ptable >= 0, _softplus(-sign * logit, None), 0.0), dim=1)
+        return {"Out": total.reshape(-1, 1), "PreOut": total.reshape(-1, 1)}
+    code = one(inputs, "Label").reshape(-1).long()
+    K = int(attrs["num_classes"])
+    code = code + K  # the leaf's heap code
+    total = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    for _ in range(max(1, int(np.ceil(np.log2(K))) + 1)):
+        node = torch.clamp(code // 2 - 1, min=0)
+        logit = torch.sum(x * w[node], dim=-1)
+        if b is not None:
+            logit = logit + b.reshape(-1)[node]
+        sign = 2.0 * (code % 2).float() - 1.0  # bit 1 = the right child
+        total = total + torch.where(code > 1, _softplus(-sign * logit, None), 0.0)
+        code = code // 2
+    return {"Out": total.reshape(-1, 1), "PreOut": total.reshape(-1, 1)}
+
+
+_DIST_CACHE = {}
+
+
+def _custom_dist(dist, device):
+    """``custom_dist`` normalised, on ``device``.  Kept per (values,
+    device), so that only the first run copies it there: a capture
+    refuses a host copy."""
+    arr = np.ascontiguousarray(np.asarray(dist, dtype=np.float32).reshape(-1))
+    key = (str(device), arr.tobytes())
+    probs = _DIST_CACHE.get(key)
+    if probs is None:
+        probs = torch.from_numpy(arr).to(device)
+        probs = probs / torch.sum(probs)
+        _DIST_CACHE[key] = probs
+    return probs
+
+
+def nce_negatives(label_sum, seed, k, V, sampler="uniform", probs=None):
+    """The ``k`` negative ids [..., k] (int64) that ``nce`` draws for a
+    batch whose labels sum to ``label_sum`` (an int64 tensor; one draw for
+    each of its elements).  The words are Philox4x32-10 (the dropout
+    kernel's generator) with key (the ``seed`` attr, 12345 where it is 0;
+    ``label_sum`` mod 2**32) and counter (i // 4, 0, 0, 0), so the same
+    labels give the same negatives, on either device, and nothing is read
+    on the host.  ``uniform``: (word·V) >> 32; ``log_uniform``:
+    floor(exp(u·log(V + 1))) − 1 with u the word's top 24 bits over 2**24
+    (the reference's LogUniformSampler); ``custom_dist``: the inverse CDF
+    of ``probs`` at u."""
+    key1 = (label_sum.long() & 0xFFFFFFFF)[..., None]
+    ctr = torch.arange((k + 3) // 4, dtype=torch.int64, device=label_sum.device)
+    zero = torch.zeros_like(ctr)
+    words = philox4x32_10([ctr, zero, zero, zero], ((int(seed) or 12345) & 0xFFFFFFFF, key1))
+    words = torch.stack([torch.broadcast_to(w, key1.shape[:-1] + ctr.shape) for w in words],
+                        dim=-1).reshape(key1.shape[:-1] + (-1,))[..., :k]
+    if sampler == "uniform":
+        return (words * V) >> 32
+    # float64, so that the card's and the CPU's roundings of exp and of the
+    # CDF's sums (1e-16 apart) flip no id at a class boundary
+    u = (words >> 8).double() * (1.0 / (1 << 24))
+    if sampler == "log_uniform":
+        return torch.clamp(torch.exp(u * math.log(V + 1.0)).long() - 1, 0, V - 1)
+    return torch.clamp(torch.searchsorted(torch.cumsum(probs.double(), 0), u), 0, V - 1)
+
+
+def nce_cost(x, label, w, b, sample_weight, neg, k, sampler="uniform", probs=None):
+    """NCE's cost [B, 1] given its negatives ``neg`` [k], term for term the
+    JAX op's: softplus(−(s_true − log kP(true))) + Σ softplus(s_neg −
+    log kP(neg)), scaled by ``sample_weight``; s = x·w[id] (+ b[id])."""
+    V = w.shape[0]
+    if sampler == "custom_dist":
+        logp_all = torch.log(torch.clamp(probs, min=1e-30))
+        log_kp_true = math.log(k) + logp_all[label]
+        log_kp_neg = math.log(k) + logp_all[neg]
+    elif sampler == "log_uniform":
+        def logp(c):  # log1p keeps precision once c + 1 passes 2**24
+            return torch.log(torch.log1p(1.0 / (c.float() + 1.0)) / math.log(V + 1.0))
+
+        log_kp_true = math.log(k) + logp(label)
+        log_kp_neg = math.log(k) + logp(neg)
+    else:
+        log_kp_true = torch.full(label.shape, math.log(k / V), device=x.device)
+        log_kp_neg = torch.full(neg.shape, math.log(k / V), device=x.device)
+    true_logit = torch.sum(x * w[label], dim=-1)
+    neg_logit = x @ w[neg].T  # [B, k]
+    if b is not None:
+        true_logit = true_logit + b.reshape(-1)[label]
+        neg_logit = neg_logit + b.reshape(-1)[neg][None, :]
+    cost = (_softplus(-(true_logit - log_kp_true), None)
+            + torch.sum(_softplus(neg_logit - log_kp_neg[None, :], None), dim=-1))
+    if sample_weight is not None:
+        cost = cost * sample_weight.reshape(-1)
+    return cost.reshape(-1, 1)
+
+
+@register_op("nce", no_grad_set={"Label", "SampleWeight"})
+def nce(inputs, attrs, device):
+    """Noise-contrastive estimation: Input [B, D], Label [B, 1], Weight
+    [V, D], Bias [V], SampleWeight [B, 1] -> Cost [B, 1]; ``num_neg_samples``
+    negatives from ``sampler`` (``nce_negatives``), costed by ``nce_cost``.
+    The draw is a pure function of the seed attr and the labels' sum, as the
+    JAX op's (whose bits, jax.random's, differ): so the op is not a random
+    op, a plan holding it captures, and the generic vjp's recompute sees
+    the forward's negatives."""
+    x, w = one(inputs, "Input"), one(inputs, "Weight")
+    label = one(inputs, "Label").reshape(-1).long()
+    k = int(attrs.get("num_neg_samples", 10))
+    sampler = attrs.get("sampler", "uniform")
+    probs = _custom_dist(attrs["custom_dist"], x.device) if sampler == "custom_dist" else None
+    neg = nce_negatives(label.sum(), attrs.get("seed", 0), k, w.shape[0], sampler, probs)
+    return {"Cost": nce_cost(x, label, w, maybe(inputs, "Bias"), maybe(inputs, "SampleWeight"),
+                             neg, k, sampler, probs)}

@@ -25,6 +25,7 @@ import torch
 
 import paddle_tpu as jfluid
 import paddle_tpu_torch as tfluid
+from paddle_tpu.layers import extended as jext
 from paddle_tpu.layers import io as jio
 from paddle_tpu.layers import nn as jnn
 from paddle_tpu.layers import tensor as jtensor
@@ -291,17 +292,22 @@ def test_load_layer_reads_a_save_vars_file(tmp_path):
 
 
 def test_layers_namespace_has_the_slice_names():
-    """Every name of the JAX package's layers/tensor.py and layers/io.py
-    __all__, and its plain layers/nn.py names, reach ``fluid.layers``."""
-    part2 = {"gru_unit", "lstm_unit", "hsigmoid", "im2sequence", "nce", "nested_sequence_pool",
-             "row_conv", "sequence_conv", "warpctc"}
+    """Every name of the JAX package's layers/tensor.py, layers/io.py and
+    layers/nn.py __all__ reaches ``fluid.layers``, and so does each
+    layers/extended.py name whose op types the port registers."""
     for mod in (jtensor, jio, jnn):
         for n in mod.__all__:
-            if n not in part2:
-                assert hasattr(tfluid.layers, n), n
+            assert hasattr(tfluid.layers, n), n
     assert set(jtensor.__all__) <= set(tfluid.layers.tensor.__all__)
     assert set(jio.__all__) == set(tfluid.layers.io.__all__)
-    assert set(jnn.__all__) - part2 == set(tfluid.layers.nn.__all__)
+    assert set(jnn.__all__) == set(tfluid.layers.nn.__all__)
+    extended = {"cos_sim", "sequence_reshape", "sequence_scatter", "chunk_eval", "reduce_all",
+                "reduce_any", "elementwise_mod", "elementwise_floordiv", "logical_xor", "sum",
+                "sampling_id", "gaussian_random", "gaussian_random_batch_size_like",
+                "uniform_random_batch_size_like", "npair_loss", "autoincreased_step_counter"}
+    assert extended <= set(jext.__all__)
+    for n in extended:
+        assert hasattr(tfluid.layers, n), n
 
 
 def test_create_py_reader_by_data_feeds_the_executor():

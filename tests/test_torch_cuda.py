@@ -26,7 +26,10 @@ decode's program logits captured on the card against the CPU; and a
 the math, tensor and plain nn part of the core layers under capture
 (bit for bit against eager, and against the CPU), the host-read and
 random ones staying eager, their layers trained captured against eager,
-and VGG-16 under AMP with its dropouts captured against eager.
+and VGG-16 under AMP with its dropouts captured against eager; and every
+op type of the sequence, RNN-unit and sampled-loss part (nce with each
+sampler, its negatives the CPU's draw) under capture, and their layers
+trained captured against eager.
 
 Every test here needs a CUDA card and skips without one (marker
 ``cuda``).  The file imports neither jax nor paddle_tpu, so it also runs
@@ -2060,3 +2063,188 @@ def test_vgg16_amp_with_dropout_captured_bit_equal_to_eager(card):
     for n, v in paths[False][1].items():
         np.testing.assert_array_equal(paths[True][1][n], v, err_msg=n)
     assert paths[False][2].get("dropout") == 12 and paths[True][2].get("dropout") == 12
+
+
+# ---------------------------------------------------------------------------
+# the sequence, RNN-unit and sampled-loss op types (A1b part 2) and their
+# layers, and the book's sentiment program
+# ---------------------------------------------------------------------------
+def _seq_unit_cases():
+    """name -> (op type, inputs, attrs, outputs) for every op type A1b's
+    second part adds, each a capture must hold (nce with each sampler)."""
+    rng = np.random.RandomState(22)
+    seq = _f32(rng, 4, 7, 5)
+    lens = np.array([0, 7, 3, 5], "int32")
+    one = {"Out": 1}
+    c = {"cos_sim": ("cos_sim", {"X": [_f32(rng, 6, 8)], "Y": [_f32(rng, 1, 8)]}, {},
+                     {"Out": 1, "XNorm": 1, "YNorm": 1}),
+         "sequence_conv": ("sequence_conv", {"X": [seq], "Filter": [_f32(rng, 20, 6)],
+                                             "SeqLen": [lens]},
+                           {"contextStart": -2, "contextLength": 4}, one),
+         "row_conv": ("row_conv", {"X": [seq], "Filter": [_f32(rng, 3, 5)], "SeqLen": [lens]},
+                      {}, one),
+         "im2sequence": ("im2sequence", {"X": [_f32(rng, 2, 3, 7, 9)]},
+                         {"kernels": [2, 3], "strides": [1, 2]}, one),
+         "lstm_unit": ("lstm_unit", {"X": [_f32(rng, 5, 24)], "C_prev": [_f32(rng, 5, 6)]},
+                       {"forget_bias": 0.5}, {"C": 1, "H": 1}),
+         "gru_unit": ("gru_unit", {"Input": [_f32(rng, 5, 18)], "HiddenPrev": [_f32(rng, 5, 6)],
+                                   "Weight": [_f32(rng, 6, 18)], "Bias": [_f32(rng, 1, 18)]},
+                      {}, {"Gate": 1, "ResetHiddenPrev": 1, "Hidden": 1}),
+         "hierarchical_sigmoid": ("hierarchical_sigmoid",
+                                  {"X": [_f32(rng, 6, 8)], "Label": [rng.randint(0, 10, (6, 1))],
+                                   "W": [_f32(rng, 9, 8)], "Bias": [_f32(rng, 9)]},
+                                  {"num_classes": 10}, {"Out": 1, "PreOut": 1}),
+         "hierarchical_sigmoid_custom": (
+             "hierarchical_sigmoid",
+             {"X": [_f32(rng, 4, 8)], "Label": [np.zeros((4, 1), "int64")],
+              "W": [_f32(rng, 5, 8)], "PathTable": [np.array([[0, 1, 3], [0, 2, -1],
+                                                              [0, 1, 4], [0, -1, -1]])],
+              "PathCode": [rng.randint(0, 2, (4, 3))]},
+             {"num_classes": 5, "is_custom": True}, {"Out": 1, "PreOut": 1}),
+         "warpctc": ("warpctc", {"Logits": [_f32(rng, 4, 12, 6)],
+                                 "Label": [rng.randint(1, 6, (4, 4))],
+                                 "LogitsLength": [np.array([12, 9, 3, 12])],
+                                 "LabelLength": [np.array([4, 2, 4, 0])]},
+                     {"norm_by_times": True}, {"Loss": 1}),
+         "sequence_reshape": ("sequence_reshape", {"X": [_f32(rng, 3, 4, 6)],
+                                                   "SeqLen": [np.array([4, 2, 0], "int32")]},
+                              {"new_dim": 8}, {"Out": 1, "OutSeqLen": 1}),
+         "sequence_scatter": ("sequence_scatter",
+                              {"X": [_f32(rng, 3, 10)], "Ids": [rng.randint(0, 10, (3, 5))],
+                               "Updates": [_f32(rng, 3, 5)],
+                               "SeqLen": [np.array([5, 2, 0], "int32")]}, {}, one),
+         "chunk_eval": ("chunk_eval", {"Inference": [rng.randint(0, 7, (5, 9))],
+                                       "Label": [rng.randint(0, 7, (5, 9))],
+                                       "SeqLength": [np.array([9, 0, 4, 7, 1])]},
+                        {"chunk_scheme": "IOB", "num_chunk_types": 3,
+                         "excluded_chunk_types": [1]},
+                        {"Precision": 1, "Recall": 1, "F1-Score": 1, "NumInferChunks": 1,
+                         "NumLabelChunks": 1, "NumCorrectChunks": 1})}
+    dist = rng.uniform(0.1, 1.0, 50).astype("float32")
+    for sampler in ("uniform", "log_uniform", "custom_dist"):
+        attrs = {"num_neg_samples": 7, "sampler": sampler, "seed": 3}
+        if sampler == "custom_dist":
+            attrs["custom_dist"] = dist
+        c["nce_" + sampler] = ("nce", {"Input": [_f32(rng, 6, 8)],
+                                       "Label": [rng.randint(0, 50, (6, 1))],
+                                       "Weight": [_f32(rng, 50, 8)], "Bias": [_f32(rng, 50)],
+                                       "SampleWeight": [np.abs(_f32(rng, 6, 1)) + 0.5]},
+                               attrs, {"Cost": 1})
+    return c
+
+
+@pytest.mark.parametrize("case", sorted(_seq_unit_cases()))
+def test_seq_unit_op_type_under_capture(card, case):
+    """Each op type alone in a program on the card, its plan free of eager
+    ops: an eager run, a capture and two replays against the eager path,
+    bit for bit under deterministic algorithms, and against the CPU
+    interpreter within 1e-5 (ids and counts exactly); nce draws the same
+    negatives on either device, so its cost is held to the CPU's too."""
+    op_type, inputs, attrs, outs = _seq_unit_cases()[case]
+    main, feed, fetch = _a1b_program(card, op_type, inputs, attrs, outs)
+    cpu = tfluid.Executor(tfluid.CPUPlace()).run(main, feed=feed, fetch_list=fetch,
+                                                 scope=tfluid.Scope())
+    exe, scope = tfluid.Executor(), tfluid.Scope()
+    ref_exe, ref_scope = tfluid.Executor(), tfluid.Scope()
+    assert exe._analyze(main, tuple(sorted(feed)), tuple(fetch)).eager_ops == ()
+    with _Deterministic():
+        for _ in range(4):
+            got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+            ref = ref_exe.run(main, feed=feed, fetch_list=fetch, scope=ref_scope,
+                              use_program_cache=False)
+            for n, g, r, h in zip(fetch, got, ref, cpu):
+                np.testing.assert_array_equal(g, r, err_msg=n)
+                np.testing.assert_allclose(np.asarray(g, np.float64), np.asarray(h, np.float64),
+                                           rtol=1e-5, atol=1e-5, err_msg=n)
+    assert exe.jit_cache_stats()["graphs"] == 1
+
+
+@pytest.mark.parametrize("sampler", ["uniform", "log_uniform", "custom_dist"])
+def test_nce_negatives_on_card_equal_the_cpu_draw(card, sampler):
+    """The sampler reads nothing on the host: a device label sum in, the
+    same Philox words, so the same ids, on either device; captured in a
+    graph of its own, a replay draws them again."""
+    from paddle_tpu_torch.ops import nn_ops
+
+    probs = torch.rand(30522, generator=torch.Generator().manual_seed(1)) + 0.1
+    probs = probs / probs.sum()
+    sums = torch.arange(0, 4096 * 977, 977)
+    cpu = nn_ops.nce_negatives(sums, 11, 10, 30522, sampler, probs)
+    dev_sums = sums.to(card)
+    dev_probs = probs.to(card)
+    got = nn_ops.nce_negatives(dev_sums, 11, 10, 30522, sampler, dev_probs)
+    torch.testing.assert_close(got.cpu(), cpu, rtol=0, atol=0)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        nn_ops.nce_negatives(dev_sums, 11, 10, 30522, sampler, dev_probs)  # warm-up
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = nn_ops.nce_negatives(dev_sums, 11, 10, 30522, sampler, dev_probs)
+    out.zero_()
+    g.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.cpu(), cpu, rtol=0, atol=0)
+
+
+def _seq_unit_train_program(seed=7):
+    """The differentiable A1b part 2 layers but im2sequence (whose rows
+    are patches, not examples) in one small training program."""
+    main, startup = tfluid.Program(), tfluid.Program()
+    main.random_seed = startup.random_seed = seed
+    L, nets = tfluid.layers, tfluid.nets
+    with tfluid.program_guard(main, startup), tfluid.unique_name.guard():
+        words = L.data("words", [12], dtype="int64", lod_level=1)
+        lens = main.global_block().var("words_seq_len")
+        label = L.data("label", [1], dtype="int64")
+        emb = L.embedding(words, size=[40, 8])
+        a = nets.sequence_conv_pool(emb, 6, 3, act="tanh", pool_type="sqrt", seq_len=lens)
+        r = L.sequence_pool(L.row_conv(emb, 2, seq_len=lens), "sum", seq_len=lens)
+        h, c = L.lstm_unit(a, L.fc(r, 4), L.fc(r, 4))
+        gh, _, _ = L.gru_unit(L.fc(h, 12), h, 12)
+        feat = L.concat([gh, L.fc(c, 18)], axis=1)
+        ctc = L.warpctc(L.reshape(L.fc(feat, 24), [-1, 4, 6]),
+                        L.data("ctc_label", [2], dtype="int64"))
+        loss = L.mean(L.sums([
+            L.hsigmoid(feat, label, 20), L.nce(feat, label, 20, num_neg_samples=5,
+                                               sampler="log_uniform"),
+            ctc * 0.1, L.reshape(L.cos_sim(feat, L.fc(feat, 22)), [-1, 1])]))
+        tfluid.optimizer.AdamOptimizer(1e-3).minimize(loss)
+    return main, startup, loss
+
+
+def test_seq_unit_layers_train_captured_bit_equal_to_eager(card):
+    """Their forward and vjp in one training program: three captured
+    steps against three eager ones from one state, under deterministic
+    algorithms, the losses and every persistable bit for bit; and the
+    first step's loss against the CPU within 1e-4."""
+    main, startup, loss = _seq_unit_train_program()
+    boot = tfluid.Scope()
+    tfluid.Executor().run(startup, scope=boot)
+    init = _state(boot)
+    rng = np.random.RandomState(1)
+    # no empty review: its row of the cos_sim is 0, whose norm has no gradient
+    feeds = [{"words": rng.randint(0, 40, (4, 12)), "words_seq_len": np.array([12, 5, 1, 9],
+                                                                               "int32"),
+              "label": rng.randint(0, 20, (4, 1)), "ctc_label": rng.randint(1, 6, (4, 2))}
+             for _ in range(3)]
+    with _Deterministic():
+        paths = {}
+        for cached in (False, True):
+            exe, scope = tfluid.Executor(), _scope_from(init, card)
+            if cached:  # the entry's eager warm-up, on a scope of its own
+                exe.run(main, feed=feeds[0], fetch_list=[loss], scope=_scope_from(init, card))
+            losses = [float(exe.run(main, feed=f, fetch_list=[loss], scope=scope,
+                                    use_program_cache=cached)[0]) for f in feeds]
+            paths[cached] = (losses, _state(scope), exe.jit_cache_stats()["graphs"])
+    assert paths[True][0] == paths[False][0] and paths[True][2] == 1
+    assert np.isfinite(paths[True][0]).all()
+    for n, v in paths[False][1].items():
+        np.testing.assert_array_equal(paths[True][1][n], v, err_msg=n)
+    cpu_scope = tfluid.Scope(device="cpu")
+    for n, v in init.items():
+        cpu_scope.set(n, v)
+    cpu, = tfluid.Executor(tfluid.CPUPlace()).run(main, feed=feeds[0], fetch_list=[loss],
+                                                  scope=cpu_scope)
+    np.testing.assert_allclose(paths[False][0][0], float(cpu), rtol=1e-4)
