@@ -272,6 +272,41 @@ Phases, each of which raises (exit code != 0) on failure:
    each sampler's distribution gives p > 1e-3.  Phases 30 and 31 launch
    none of the four hand kernels (checked).
 
+32. The causal LM (phase 18's program: fused, bf16 AMP, Adam 1e-4, at
+   ``transformer_lm``'s widths, batch 64, seq 256) trained from 12 batches
+   of MultiSlot text (256 src_ids and 256 labels a line, two dense int64
+   slots, from the seed) through an ``InMemoryDataset`` and
+   ``train_from_dataset(thread=2, phase_ledger=True, watchdog=True,
+   train_log=, trace_id=, checkpoint_dir=, checkpoint_every=4,
+   checkpoint_async=True)`` inside ``monitor.trace_session(path=,
+   device_trace_dir=)`` (torch.profiler over the epoch), under
+   deterministic algorithms (``CUBLAS_WORKSPACE_CONFIG`` is set at the
+   top of this script, before CUDA starts, for every phase and child).
+   Checked and printed: the ledger's phases summing to the epoch's wall
+   clock within 1%, each step's ``device_execute`` beside its CUDA-event
+   time, the MFU gauge beside ``estimate_block_flops`` and the replayed
+   step, the merged trace (the ``executor/*`` and ``train_step`` spans
+   under the epoch's trace id; a device lane holding 12 forward, 6 dK/dV
+   and 6 dQ attention kernels inside each step's host span, within the
+   anchor's printed reading error plus 50 us), ``/metrics``, ``/trainz``
+   (12 step rows; checkpoints at steps 4, 8 and 12) and ``/healthz`` over
+   HTTP, the armed loop's tax (disarmed, armed, armed, disarmed epochs),
+   ``memory.device_memory_stats()``, and a sync and an async save of the
+   0.63 GB state.
+33. Faults and step-exact resume: a fresh interpreter (``subprocess``)
+   trains phase 32's program on phase 32's files with
+   ``PADDLE_TPU_FAULTS`` killing it at its 11th ``executor.run`` (after a
+   5 s delay that lets step 8's background save commit); the ``LATEST``
+   checkpoint verifies, and a second child resumes from it at step 8 and
+   trains steps 8 to 11 with losses equal to phase 32's bit for bit. In
+   process: an ``executor.run`` error at step 6 surfaces typed
+   (``BackendUnavailable``) and a resume from that run's checkpoint
+   matches phase 32 bit for bit; a ``reader.prefetch`` error surfaces
+   typed and the producer thread ends; a flipped byte in phase 32's
+   newest checkpoint makes the restore fall back to the previous one
+   (one fallback, a ``train/resume`` warning event), and the resumed
+   steps match phase 32 bit for bit.
+
 Output: progress lines, then a ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``.  Without a CUDA device it exits non-zero and prints no result.
@@ -289,6 +324,12 @@ import threading
 import time
 
 import numpy as np
+
+# cuBLAS reproducible across processes under deterministic algorithms
+# (phases 32 and 33 compare a resumed child's losses bit for bit): this
+# must be in the environment before CUDA initialises, so it is set here,
+# before torch is imported, for every phase and every child process
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 1234
@@ -626,6 +667,22 @@ SEQ_UNIT = dict(rows=4096, vocab=30522, width=768, neg=10, seq=(128, 256, 128), 
                 lookahead=20, unit=(128, 512), img=(32, 64, 48, 48), ctc=(32, 64, 96),
                 ctc_label=24, chunk_types=29)
 NCE_CHI2_DRAWS = 100_000  # label sums drawn for each sampler's chi-square test (10 ids each)
+
+# phases 32 and 33: the causal LM (LM widths, bf16 AMP, Adam 1e-4) trained from
+# a MultiSlot dataset of LM_DS_BATCHES batches of LM_BATCH rows through
+# train_from_dataset under the control tower, a trace session and the
+# checkpointer (every LM_DS_EVERY steps), then killed and resumed
+LM_DS_BATCHES = 12
+LM_DS_EVERY = 4
+LM_DS_TRACE_ID = "lm-dataset-epoch"
+LM_DS_KILL_AFTER = 10    # the child's executor.run dies at its 11th hit (startup is the 1st)
+LM_DS_KILL_DELAY_S = 5.0  # the dying run waits first, so step 8's background save commits
+LM_DS_ERROR_AFTER = 6    # in-process: the 7th run after startup (step 6) raises
+LM_DS_TAX_STEPS = LM_DS_BATCHES  # each leg of the armed-tax comparison: one epoch
+ALIGN_SLACK_US = 50.0    # CUPTI's card clock mapped onto the host's, beyond the anchor's own error
+ATTN_SYMBOLS = {"fused_attention_fwd": "fused_attention_fwd_kernel",
+                "fused_attention_bwd_dkv": "fused_attention_bwd_dkv_kernel",
+                "fused_attention_bwd_dq": "fused_attention_bwd_dq_kernel"}
 
 
 def log(*args):
@@ -5708,12 +5765,468 @@ def run_seq_unit_ops(torch):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phases 32 and 33: the causal LM from a dataset under the control tower,
+# then faults and step-exact resume
+# ---------------------------------------------------------------------------
+def write_lm_multislot(workdir):
+    """LM_DS_BATCHES batches of LM_BATCH lines as MultiSlot text over two
+    files, from SEED: per line 256 src_ids and their 256 next-token labels,
+    two dense int64 slots."""
+    s, n = LM["seq_len"], LM_BATCH * LM_DS_BATCHES
+    tokens = np.random.RandomState(SEED + 200).randint(0, LM["vocab_size"], (n, s + 1))
+    rows = np.concatenate([np.full((n, 1), s), tokens[:, :-1], np.full((n, 1), s), tokens[:, 1:]],
+                          axis=1)
+    paths, per = [], n // 2
+    for k in range(2):
+        path = os.path.join(workdir, "lm-part-%05d" % k)
+        np.savetxt(path, rows[k * per:(k + 1) * per], fmt="%d")
+        paths.append(path)
+    return paths
+
+
+def lm_dataset(fluid, main, paths):
+    """The files in an InMemoryDataset over the program's src_ids and labels
+    (labels [256, 1] come out [64, 256]: the dense-slot reshape), in file
+    order."""
+    block = main.global_block()
+    ds = fluid.DatasetFactory().create_dataset("InMemoryDataset")
+    ds.set_use_var([block.var("src_ids"), block.var("labels")])
+    ds.set_batch_size(LM_BATCH)
+    ds.set_filelist(paths)
+    ds.load_into_memory()
+    return ds
+
+
+def _loss_bits(out):
+    """Each step's fp32 loss as the hex of its four bytes."""
+    return [np.asarray(o[0], np.float32).reshape(-1)[:1].tobytes().hex() for o in out]
+
+
+def _event_timed_runs(torch, exe):
+    """Wrap ``exe.run`` with a CUDA event before and after each call (no
+    sync): [(start, end)] per run, read after the epoch."""
+    record, run = [], exe.run
+
+    def timed(program=None, feed=None, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run(program, feed=feed, **kw)
+        end.record()
+        record.append((start, end))
+        return out
+
+    exe.run = timed
+    return record
+
+
+def _wall_timed_runs(exe):
+    """Wrap ``exe.run`` so each call's host wall time (which includes the
+    fetch's sync) and its end (perf_counter) are recorded."""
+    record, run = [], exe.run
+
+    def timed(program=None, feed=None, **kw):
+        t = time.perf_counter()
+        out = run(program, feed=feed, **kw)
+        end = time.perf_counter()
+        record.append((end - t, end))
+        return out
+
+    exe.run = timed
+    return record
+
+
+def _http_get(host, port, path):
+    import urllib.request
+
+    with urllib.request.urlopen("http://%s:%d%s" % (host, port, path), timeout=30) as r:
+        return r.status, r.read()
+
+
+def _check_merged_trace(path, tid, n_steps):
+    """The merged trace: it loads, holds the executor/* and train/step spans
+    under the epoch's trace id, and a device lane with the three attention
+    kernels, each inside the host span of its step (within the anchor's
+    reading error and ALIGN_SLACK_US).  Returns its statistics."""
+    with open(path) as f:
+        doc = json.load(f)
+    evs = doc["traceEvents"]
+    other = doc.get("otherData", {})
+    spans = [e for e in evs if e.get("cat") != "jsonl" and e.get("ph") == "X"
+             and str(e.get("name", "")).startswith("executor/")]
+    names = sorted({e["name"] for e in spans})
+    steps = sorted((e for e in spans if e["name"] == "executor/train_step"
+                    and tid in (e.get("args", {}).get("trace_ids") or ())),
+                   key=lambda e: e["ts"])
+    kernels_ = [e for e in evs if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    attn = {k: [e for e in kernels_ if sym in str(e.get("name", ""))]
+            for k, sym in ATTN_SYMBOLS.items()}
+    if not steps:
+        raise AssertionError("no executor/train_step span under trace id %r" % tid)
+    err_us = 1e6 * float(other.get("device_anchor_error_s") or 0.0)
+    tol_us = err_us + ALIGN_SLACK_US
+    per_step = [{k: 0 for k in ATTN_SYMBOLS} for _ in steps]
+    worst, outside = -1e18, 0
+    for k, evs_k in attn.items():
+        for e in evs_k:
+            t0, t1 = float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))
+            # the step whose span holds the kernel's start, else the nearest
+            best = min(range(len(steps)), key=lambda i: max(steps[i]["ts"] - t0,
+                                                            t1 - steps[i]["ts"] - steps[i]["dur"]))
+            st = steps[best]
+            protrude = max(st["ts"] - t0, t1 - st["ts"] - st["dur"])
+            worst = max(worst, protrude)
+            if protrude > tol_us:
+                outside += 1
+            else:
+                per_step[best][k] += 1
+    stats = {"bytes": os.path.getsize(path), "events": len(evs), "span_names": names,
+             "train_steps_under_trace_id": len(steps), "kernel_events": len(kernels_),
+             "attention_events": {k: len(v) for k, v in attn.items()},
+             "attention_by_step": per_step,
+             "device_anchor_source": other.get("device_anchor_source"),
+             "alignment_error_us": err_us, "containment_tol_us": tol_us,
+             "worst_protrusion_us": worst, "kernels_outside_their_step": outside}
+    want = {"executor/train_step", "executor/train_epoch", "executor/device_execute",
+            "executor/h2d_feed", "executor/d2h_fetch", "executor/jit_compile", "executor/lower"}
+    n_layer = LM["n_layer"]
+    per = {"fused_attention_fwd": 2 * n_layer, "fused_attention_bwd_dkv": n_layer,
+           "fused_attention_bwd_dq": n_layer}
+    if (not want <= set(names) or len(steps) != n_steps or outside
+            or other.get("device_anchor_source") != "marker"
+            or any(row != per for row in per_step)):
+        raise AssertionError("merged trace check failed: %s" % json.dumps(stats)[:4000])
+    return stats
+
+
+def run_lm_dataset(torch, workdir):
+    """Phase 32 (see the module docstring).  Returns its statistics, the
+    per-step loss bits, the dataset files and the checkpoint directory."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels, memory, monitor
+    from paddle_tpu_torch.faults.checkpoint import TrainCheckpoint
+    from paddle_tpu_torch.monitor import registry as mreg
+    from paddle_tpu_torch.monitor import train as mtrain
+
+    t_phase = time.perf_counter()
+    stats = {"batches": LM_DS_BATCHES, "batch": LM_BATCH, "checkpoint_every": LM_DS_EVERY,
+             "allocated_before_bytes": _free_device_memory(torch)}
+    t = time.perf_counter()
+    paths = write_lm_multislot(workdir)
+    stats["write_files_s"] = time.perf_counter() - t
+    stats["file_bytes"] = sum(os.path.getsize(p) for p in paths)
+    main, startup, loss, _, pg, _ = lm_program(fluid, amp=True)
+    t = time.perf_counter()
+    ds = lm_dataset(fluid, main, paths)
+    stats["load_s"] = time.perf_counter() - t
+    first = next(iter(ds))
+    stats["feed_shapes"] = {k: list(v.shape) for k, v in first.items()}
+    persist = [v for v in main.list_vars() if v.persistable]
+    stats["persistables"] = len(persist)
+    stats["state_bytes_reckoned"] = int(sum(4 * np.prod(v.shape) for v in persist
+                                            if v.shape and -1 not in v.shape))
+    ckdir, trace_dir = os.path.join(workdir, "ckpt"), os.path.join(workdir, "devtrace")
+    trace_path, log_path = os.path.join(workdir, "trace.json"), os.path.join(workdir, "steps.jsonl")
+    with _deterministic(torch):
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        events = _event_timed_runs(torch, exe)
+        kernels.reset_launch_counts()  # counts from here on belong to this path
+        t = time.perf_counter()
+        with monitor.trace_session(path=trace_path, device_trace_dir=trace_dir) as sess:
+            out = exe.train_from_dataset(
+                main, ds, scope=scope, thread=2, fetch_list=[loss], phase_ledger=True,
+                watchdog=True, train_log=log_path, trace_id=LM_DS_TRACE_ID,
+                checkpoint_dir=ckdir, checkpoint_every=LM_DS_EVERY, checkpoint_async=True)
+        stats["epoch_and_export_s"] = time.perf_counter() - t
+        stats["launches"] = kernels.launch_counts()  # read right after the path
+        torch.cuda.synchronize()
+        del exe.run
+        bits = _loss_bits(out)
+        losses = [float(o[0]) for o in out]
+        stats["losses"] = losses
+        stats["spans_recorded"] = len(sess.spans)
+        led = exe.last_train_ledger
+        snap = led.snapshot()
+        rows = snap["steps"]
+        event_ms = [s.elapsed_time(e) for s, e in events]
+        dev_ms = [1e3 * r["phases"].get("device_execute", 0.0) for r in rows]
+        stats["ledger"] = {k: snap[k] for k in ("phases", "fractions", "wall_s", "n_steps",
+                                                "steps_per_second", "examples_per_second",
+                                                "mfu_ratio", "flops_per_step", "peak_flops",
+                                                "checkpoint")}
+        stats["phases_sum_s"] = sum(snap["phases"].values())
+        stats["device_execute_ms_by_step"] = dev_ms
+        stats["cuda_event_ms_by_step"] = event_ms
+        med_dev, med_ev = statistics.median(dev_ms[2:]), statistics.median(event_ms[2:])
+        stats["replay_device_execute_ms_median"] = med_dev
+        stats["replay_cuda_event_ms_median"] = med_ev
+        step_ms = statistics.median([1e3 * r["duration_s"] for r in rows[2:]])
+        flops = snap["flops_per_step"]
+        stats["mfu"] = {"gauge": mreg.REGISTRY.value("train_mfu_ratio"),
+                        "flops_per_step": flops, "peak_flops": snap["peak_flops"],
+                        "replay_step_ms_median": step_ms,
+                        "at_replay_step": flops / (step_ms / 1e3) / snap["peak_flops"]
+                        if snap["peak_flops"] else None,
+                        "estimate_block_flops": mtrain.estimate_block_flops(main, batch=LM_BATCH)}
+        stats["trace"] = _check_merged_trace(trace_path, LM_DS_TRACE_ID, LM_DS_BATCHES)
+        stats["step_log_lines"] = sum(1 for _ in open(log_path))
+        host, port = exe.start_train_admin(port=0)
+        try:
+            st_m, body_m = _http_get(host, port, "/metrics")
+            st_t, body_t = _http_get(host, port, "/trainz")
+            st_h, body_h = _http_get(host, port, "/healthz")
+        finally:
+            exe.stop_train_admin()
+        trainz = json.loads(body_t)
+        history = [h["step"] for h in trainz["checkpoint"]["history"]]
+        stats["http"] = {"metrics_status": st_m, "metrics_bytes": len(body_m),
+                         "trainz_status": st_t, "trainz_steps": len(trainz["ledger"]["steps"]),
+                         "checkpoint_history": history, "healthz": json.loads(body_h),
+                         "metrics_has_phase_counter": b"train_phase_seconds_total" in body_m}
+        stats["checkpoints"] = exe.last_checkpoints
+        stats["checkpoint_bytes"] = mreg.REGISTRY.value("train_checkpoint_bytes")
+        stats["memory_stats"] = memory.device_memory_stats()[0]
+        stats["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        # the armed loop's tax: disarmed, armed, armed, disarmed epochs over
+        # the same captured entry, each step's host wall time (fetch included)
+        legs = {}
+        for leg, armed in (("disarmed_1", False), ("armed_1", True), ("armed_2", True),
+                           ("disarmed_2", False)):
+            rec = _wall_timed_runs(exe)
+            kw = dict(phase_ledger=True, watchdog=True,
+                      train_log=os.path.join(workdir, "tax.jsonl")) if armed else {}
+            exe.train_from_dataset(main, ds, scope=scope, thread=2, fetch_list=[loss], **kw)
+            del exe.run
+            legs[leg] = 1e3 * statistics.median([d for d, _ in rec])
+        armed_ms = statistics.median([legs["armed_1"], legs["armed_2"]])
+        plain_ms = statistics.median([legs["disarmed_1"], legs["disarmed_2"]])
+        stats["armed_tax"] = {"legs_ms": legs, "armed_ms": armed_ms, "disarmed_ms": plain_ms,
+                              "tax": armed_ms / plain_ms - 1.0}
+        # one sync and one async save of the trained state, timed
+        t = time.perf_counter()
+        TrainCheckpoint(os.path.join(workdir, "ck-sync")).save(main, scope, step=1)
+        sync_s = time.perf_counter() - t
+        ck = TrainCheckpoint(os.path.join(workdir, "ck-async"))
+        t = time.perf_counter()
+        ck.save_async(main, scope, step=1)
+        fg_s = time.perf_counter() - t
+        ck.wait()
+        stats["save"] = {"sync_s": sync_s, "async_foreground_s": fg_s,
+                         "async_total_s": time.perf_counter() - t,
+                         "bytes": mreg.REGISTRY.value("train_checkpoint_bytes")}
+        exe.close()
+        del exe, scope
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log("[lm-dataset]", json.dumps(stats))
+    led_wall = stats["ledger"]["wall_s"]
+    n_layer = LM["n_layer"]
+    want_launches = {"fused_attention_fwd": 2 * n_layer * LM_DS_BATCHES,
+                     "fused_attention_bwd_dkv": n_layer * LM_DS_BATCHES,
+                     "fused_attention_bwd_dq": n_layer * LM_DS_BATCHES}
+    ok = (np.isfinite(losses).all() and len(losses) == LM_DS_BATCHES
+          and all(stats["launches"].get(k, 0) == n for k, n in want_launches.items())
+          and abs(stats["phases_sum_s"] - led_wall) <= 0.01 * led_wall
+          and stats["http"]["metrics_status"] == stats["http"]["trainz_status"] == 200
+          and stats["http"]["metrics_has_phase_counter"]
+          and stats["http"]["trainz_steps"] == LM_DS_BATCHES
+          and history == list(range(LM_DS_EVERY, LM_DS_BATCHES + 1, LM_DS_EVERY))
+          and stats["http"]["healthz"].get("ok") is True
+          and stats["step_log_lines"] == LM_DS_BATCHES
+          and stats["memory_stats"]["peak_bytes_in_use"] is not None)
+    if not ok:
+        raise AssertionError("phase 32 failed its checks: %s" % json.dumps(stats)[:6000])
+    return stats, bits, paths, ckdir
+
+
+def lm_dataset_child(argv):
+    """The phase-33 child: a fresh interpreter trains phase 32's program on
+    phase 32's files (``--resume``: from the run dir's checkpoint), printing
+    each run's loss bits as it returns; PADDLE_TPU_FAULTS comes from the
+    parent's environment."""
+    import torch
+
+    data_dir, run_dir = argv[0], argv[1]
+    resume = "--resume" in argv
+    sys.path.insert(0, REPO)
+    import paddle_tpu_torch as fluid
+
+    paths = sorted(os.path.join(data_dir, f) for f in os.listdir(data_dir)
+                   if f.startswith("lm-part-"))
+    main, startup, loss, _, _, _ = lm_program(fluid, amp=True)
+    ds = lm_dataset(fluid, main, paths)
+    with _deterministic(torch):
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        run = exe.run
+
+        def logged(program=None, feed=None, **kw):
+            out = run(program, feed=feed, **kw)
+            print("CHILD_LOSS", _loss_bits([out])[0], flush=True)
+            return out
+
+        exe.run = logged
+        out = exe.train_from_dataset(
+            main, ds, scope=scope, thread=2, fetch_list=[loss], checkpoint_dir=run_dir,
+            checkpoint_every=LM_DS_EVERY, checkpoint_async=True,
+            resume_from=run_dir if resume else None)
+    print("CHILD_DONE", json.dumps({"resume_step": exe.last_resume_step,
+                                    "restore_path": exe.last_restore_path,
+                                    "losses": _loss_bits(out)}), flush=True)
+    return 0
+
+
+def _spawn_lm_child(data_dir, run_dir, resume=False, faults_plan=None):
+    env = dict(os.environ)
+    env.pop("PADDLE_TPU_FAULTS", None)
+    if faults_plan:
+        env["PADDLE_TPU_FAULTS"] = faults_plan
+    argv = [sys.executable, "-u", os.path.join(REPO, "chip_smoke.py"), "--lm-dataset-child",
+            data_dir, run_dir] + (["--resume"] if resume else [])
+    t = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, env=env, timeout=300)
+    wall = time.perf_counter() - t
+    lines = proc.stdout.splitlines()
+    losses = [ln.split()[1] for ln in lines if ln.startswith("CHILD_LOSS ")]
+    done = [json.loads(ln[len("CHILD_DONE "):]) for ln in lines if ln.startswith("CHILD_DONE ")]
+    return {"rc": proc.returncode, "wall_s": wall, "run_losses": losses,
+            "done": done[0] if done else None, "stderr_tail": proc.stderr[-3000:]}
+
+
+def run_lm_faults(torch, workdir, bits, paths, ckdir32):
+    """Phase 33 (see the module docstring)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import faults, monitor
+    from paddle_tpu_torch.faults.checkpoint import verify_checkpoint_dir
+    from paddle_tpu_torch.serving.errors import BackendUnavailable
+
+    t_phase = time.perf_counter()
+    stats = {}
+    data_dir = os.path.dirname(paths[0])
+    # 1. SIGKILL mid-epoch in a fresh interpreter, then a resume in another
+    run_dir = os.path.join(workdir, "kill-run")
+    plan = ("executor.run=delay:%g,after=%d,times=1;executor.run=kill,after=%d"
+            % (LM_DS_KILL_DELAY_S, LM_DS_KILL_AFTER, LM_DS_KILL_AFTER))
+    killed = _spawn_lm_child(data_dir, run_dir, faults_plan=plan)
+    with open(os.path.join(run_dir, "LATEST")) as f:
+        latest = f.read().strip()
+    verify_checkpoint_dir(os.path.join(run_dir, latest))
+    # the killed child's logged runs: steps 0 to 8 (its startup run is not logged)
+    killed_steps = killed["run_losses"]
+    t = time.perf_counter()
+    resumed = _spawn_lm_child(data_dir, run_dir, resume=True)
+    stats["kill"] = {"plan": plan, "rc": killed["rc"], "wall_s": killed["wall_s"],
+                     "steps_run": len(killed_steps), "latest": latest,
+                     "killed_losses_equal": killed_steps == bits[:len(killed_steps)],
+                     "resume_rc": resumed["rc"], "resume_wall_s": resumed["wall_s"],
+                     "resume": resumed["done"]}
+    # the resumed child's time to its first step: its wall less its runs'
+    # share is not separable from outside, so its whole wall is reported
+    res = resumed["done"] or {}
+    stats["kill"]["resumed_losses_equal"] = res.get("losses") == bits[LM_DS_EVERY * 2:]
+    if not (killed["rc"] == -9 and latest == "ckpt-%06d" % (2 * LM_DS_EVERY)
+            and len(killed_steps) == LM_DS_KILL_AFTER - 1
+            and stats["kill"]["killed_losses_equal"] and resumed["rc"] == 0
+            and res.get("resume_step") == 2 * LM_DS_EVERY and stats["kill"]["resumed_losses_equal"]):
+        raise AssertionError("SIGKILL drill failed: %s\nkilled stderr: %s\nresumed stderr: %s"
+                             % (json.dumps(stats["kill"]), killed["stderr_tail"],
+                                resumed["stderr_tail"]))
+    main, startup, loss, _, _, _ = lm_program(fluid, amp=True)
+    ds = lm_dataset(fluid, main, paths)
+    with _deterministic(torch):
+        # 2a. an executor.run error at step 6 surfaces typed; its checkpoint resumes exactly
+        err_dir = os.path.join(workdir, "error-run")
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        run_losses, run = [], exe.run
+
+        def logged(program=None, feed=None, **kw):
+            out = run(program, feed=feed, **kw)
+            run_losses.append(_loss_bits([out])[0])
+            return out
+
+        exe.run = logged
+        raised = None
+        with faults.armed("executor.run=error,after=%d,times=1" % LM_DS_ERROR_AFTER) as fplan:
+            try:
+                exe.train_from_dataset(main, ds, scope=scope, thread=2, fetch_list=[loss],
+                                       checkpoint_dir=err_dir, checkpoint_every=LM_DS_EVERY,
+                                       checkpoint_async=True)
+            except BackendUnavailable as e:
+                raised = type(e).__name__
+            triggers = fplan.triggers()
+        del exe.run
+        exe.close()
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        t = time.perf_counter()
+        first_step = _wall_timed_runs(exe)
+        out = exe.train_from_dataset(main, ds, scope=scope, thread=2, fetch_list=[loss],
+                                     resume_from=err_dir)
+        del exe.run
+        stats["error"] = {"raised": raised, "triggers": triggers, "steps_before": run_losses,
+                          "before_equal": run_losses == bits[:LM_DS_ERROR_AFTER],
+                          "resume_step": exe.last_resume_step,
+                          "resume_to_first_step_s": first_step[0][1] - t,
+                          "resumed_equal": _loss_bits(out) == bits[LM_DS_EVERY:]}
+        # 2b. a reader.prefetch error surfaces typed in the consumer; the producer ends
+        base = sum(1 for th in threading.enumerate() if th.name == "ptpu-prefetch")
+        prefetch_err = None
+        with faults.armed("reader.prefetch=error:OSError,after=2,times=1"):
+            try:
+                exe.train_from_dataset(main, ds, scope=scope, thread=2, fetch_list=[loss])
+            except OSError as e:
+                prefetch_err = str(e)
+        deadline = time.time() + 10
+        while (sum(1 for th in threading.enumerate() if th.name == "ptpu-prefetch") > base
+               and time.time() < deadline):
+            time.sleep(0.01)
+        stats["prefetch"] = {"error": prefetch_err, "producers_left": sum(
+            1 for th in threading.enumerate() if th.name == "ptpu-prefetch") - base}
+        exe.close()
+        # 3. a flipped byte in the newest checkpoint: the restore falls back to the previous one
+        newest = os.path.join(ckdir32, "ckpt-%06d" % LM_DS_BATCHES)
+        victim = os.path.join(newest, "params", "lm_head_w.npy")
+        with open(victim, "r+b") as f:
+            f.seek(os.path.getsize(victim) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        seq0 = max((e.get("seq", 0) for e in monitor.eventz()["events"]), default=0)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        out = exe.train_from_dataset(main, ds, scope=scope, thread=2, fetch_list=[loss],
+                                     resume_from=ckdir32)
+        resume_events = [e for e in monitor.eventz()["events"]
+                         if e.get("seq", 0) > seq0 and e.get("kind") == "train/resume"]
+        stats["fallback"] = {"flipped": victim, "fallbacks": exe.last_restore_fallbacks,
+                             "restore_path": exe.last_restore_path,
+                             "resume_step": exe.last_resume_step,
+                             "resume_events": resume_events[-1:],
+                             "resumed_equal": _loss_bits(out) == bits[2 * LM_DS_EVERY:]}
+        exe.close()
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log("[lm-faults]", json.dumps(stats))
+    ev = (stats["fallback"]["resume_events"] or [{}])[-1]
+    if not (stats["error"]["raised"] == "BackendUnavailable"
+            and stats["error"]["before_equal"] and stats["error"]["resume_step"] == LM_DS_EVERY
+            and stats["error"]["resumed_equal"]
+            and stats["prefetch"]["error"] and stats["prefetch"]["producers_left"] == 0
+            and stats["fallback"]["fallbacks"] == 1
+            and stats["fallback"]["resume_step"] == 2 * LM_DS_EVERY
+            and stats["fallback"]["resumed_equal"] and ev.get("severity") == "warning"):
+        raise AssertionError("phase 33 failed its checks: %s" % json.dumps(stats)[:6000])
+    return stats
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--lm-dataset-child"]:  # phase 33's child process
+        return lm_dataset_child(sys.argv[2:])
     sys.path.insert(0, REPO)
     import paddle_tpu_torch  # noqa: F401 — fails outside a checkout of the repo
     from paddle_tpu_torch.kernels import fused_attention as fa
@@ -5803,6 +6316,12 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     seq_unit_ops = run_seq_unit_ops(torch)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        lm_ds, lm_ds_bits, lm_ds_paths, lm_ds_ckpt = run_lm_dataset(torch, workdir)
+        run_lm_faults(torch, workdir, lm_ds_bits, lm_ds_paths, lm_ds_ckpt)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     # the A7 paths (NMT training, decoding, the book's RNN models) run no hand kernel
     a7_launches = {"nmt_train": nmt["hand_kernel_launches"],
                    "nmt_decode": nmt_decode["hand_kernel_launches"],
@@ -5812,7 +6331,7 @@ def main() -> int:
     # the LM paths: fused serving and training run the causal kernels; the
     # unfused one runs the dropout kernel and no attention kernel
     lm_launches = {"lm_train": lm_train["launches"], "lm_train_amp": lm_train_amp["launches"],
-                   "lm_unfused": lm_unfused["launches"]}
+                   "lm_unfused": lm_unfused["launches"], "lm_dataset": lm_ds["launches"]}
     # BERT-base with Lamb through the reader (phase 19): the three attention kernels
     lamb_launches = {"lamb_reader": lamb["launches"]}
     lm_rows = {(c[0], c[4]): row for c, row in causal_checks}

@@ -82,6 +82,7 @@ from paddle_tpu_torch.backward import append_backward, gradients
 from paddle_tpu_torch import flags
 from paddle_tpu_torch.flags import get_flags, set_flags
 from paddle_tpu_torch import monitor, reader
+from paddle_tpu_torch import profiler, memory, debugger, faults
 from paddle_tpu_torch.reader import DataLoader, PyReader, batch
 from paddle_tpu_torch.data_feeder import DataFeeder
 from paddle_tpu_torch.param_attr import ParamAttr, WeightNormParamAttr

@@ -18,9 +18,9 @@ message size is bounded, so an exposed port is a data-plane risk only
 (like the reference's unauthenticated gRPC PS).  numpy has no bfloat16:
 a ``bfloat16`` payload decodes to float32 (its bits shifted into the high
 half of each float32, exact), and a ``torch.bfloat16`` tensor encodes as
-a ``bfloat16`` payload of its own bits.  The fault points of the JAX
-package's ``pull_sparse`` / ``push_sparse`` come with the faults slice
-(ROADMAP A9).
+a ``bfloat16`` payload of its own bits.  ``pull_sparse`` and
+``push_sparse`` carry the JAX package's ``ps.pull`` and ``ps.push`` fault
+points.
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from paddle_tpu_torch import faults as _faults
 from paddle_tpu_torch.faults.retry import RetryPolicy
 
 __all__ = ["ParameterServer", "PSClient", "shard_ids"]
@@ -564,6 +565,8 @@ class PSClient:
 
     def pull_sparse(self, table: str, ids: np.ndarray) -> np.ndarray:
         """Row lookup for a flat id array -> [len(ids), dim]."""
+        if _faults.active is not None:  # disarmed: one is-None gate
+            _faults.active.faultpoint("ps.pull", table=table)
         ids = np.asarray(ids).reshape(-1)
         n = len(self.endpoints)
         parts = shard_ids(ids, n)
@@ -578,6 +581,8 @@ class PSClient:
         return out
 
     def push_sparse(self, table: str, ids: np.ndarray, grads: np.ndarray) -> None:
+        if _faults.active is not None:  # disarmed: one is-None gate
+            _faults.active.faultpoint("ps.push", table=table)
         ids = np.asarray(ids).reshape(-1)
         grads = np.asarray(grads).reshape(len(ids), -1)
         # de-duplicate ids, summing grads (reference merge_ids_op)

@@ -69,20 +69,97 @@ from __future__ import annotations
 
 import collections
 import gc
+import itertools
+import os
 import threading
 import time
 import weakref
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from paddle_tpu_torch import faults as _faults
 from paddle_tpu_torch import flags, framework, kernels
 from paddle_tpu_torch.core import lowering, registry
 from paddle_tpu_torch.core import types as core_types
+from paddle_tpu_torch.monitor import events as _mon_events
+from paddle_tpu_torch.monitor import flight as _mon_flight
+from paddle_tpu_torch.monitor import registry as _mon_registry
+from paddle_tpu_torch.monitor import spans as _mon_spans
+from paddle_tpu_torch.monitor import train as _mon_train
 from paddle_tpu_torch.scope import Scope, global_scope, host_copy, to_numpy
 
 __all__ = ["Executor", "pow2_id_bucket"]
+
+# run-phase observability (the JAX package's, ``monitor/``).  The cache
+# counters are COLLECT-ON-READ: every Executor's ``_cache_stats`` dict
+# registers here at construction and the registry sums them when a
+# consumer scrapes, so ``run`` pays nothing beyond the dict increments
+# it already does.  The per-phase spans gate on ``_mon_spans.recording()``,
+# one flag check each when no trace session is active.
+_exec_stats_lock = threading.Lock()
+_exec_stats: List[Dict[str, Any]] = []  # one _cache_stats dict per LIVE Executor
+_exec_retired = {
+    "hits": 0, "misses": 0, "runs": 0,
+    "plan_hits": 0, "plan_misses": 0, "dispatch_overhead_s": 0.0,
+    "plan_evictions": 0, "jit_evictions": 0,
+    "ps_pull_overlap_s": 0.0, "ps_pull_wait_s": 0.0,
+}  # folded-in dead executors
+
+
+def _retire_exec_stats(stats: Dict[str, Any]) -> None:
+    # weakref.finalize callback: fold a dead executor's totals into the
+    # retired base so the counters stay monotonic
+    with _exec_stats_lock:
+        try:
+            _exec_stats.remove(stats)
+        except ValueError:
+            return
+        for k in _exec_retired:
+            _exec_retired[k] += stats.get(k, 0)
+
+
+def _sum_exec_stats(key: str):
+    with _exec_stats_lock:
+        return _exec_retired[key] + sum(d.get(key, 0) for d in _exec_stats)
+
+
+for _name, _key, _help in (
+        ("executor_runs_total", "runs", "Executor.run invocations (all executors)"),
+        ("executor_jit_cache_hits_total", "hits", "runs served by an existing compiled entry"),
+        ("executor_jit_cache_misses_total", "misses",
+         "newly built entries (a block lowering; on the card the next run captures it)"),
+        ("executor_plan_cache_hits_total", "plan_hits",
+         "runs served by a cached run plan (no per-run block re-analysis)"),
+        ("executor_plan_cache_misses_total", "plan_misses",
+         "run-plan builds (an O(n_ops) dataflow analysis each)"),
+        ("executor_dispatch_overhead_seconds_total", "dispatch_overhead_s",
+         "host-side run() seconds spent before the step ran"),
+        ("executor_plan_cache_evictions_total", "plan_evictions",
+         "run plans evicted by the LRU capacity bound"),
+        ("executor_jit_cache_evictions_total", "jit_evictions",
+         "compiled jit entries evicted by the LRU capacity bound"),
+        ("executor_ps_pull_overlap_seconds_total", "ps_pull_overlap_s",
+         "dense-PS pull seconds hidden behind device compute (overlapped "
+         "pull thread; train_from_dataset async mode)"),
+        ("executor_ps_pull_wait_seconds_total", "ps_pull_wait_s",
+         "seconds run() blocked joining the overlapped dense-PS pull (the "
+         "NOT-hidden remainder of the pull latency)")):
+    # the names and help texts are the JAX package's, so one scrape
+    # reads either package's executors alike
+    _mon_registry.REGISTRY.counter_callback(
+        _name, _help, fn=lambda _k=_key: _sum_exec_stats(_k))
+# per-run distribution, observed only while a trace session is active;
+# the always-on totals live in the callback counters above
+_MON_DISPATCH_HIST = _mon_registry.REGISTRY.histogram(
+    "executor_dispatch_overhead_seconds",
+    "per-run host dispatch overhead (recorded under trace sessions)")
+# per-step train-loop distribution, always on, with the epoch's trace id
+# pinned as an OpenMetrics exemplar
+_MON_TRAIN_STEP_HIST = _mon_registry.REGISTRY.histogram(
+    "executor_train_step_seconds",
+    "per-step train_from_dataset wall time (exemplar: epoch trace id)")
 
 # cache bounds, as the JAX package's defaults: an ordinary workload never
 # evicts; the bound is for programs built in a loop forever
@@ -269,16 +346,43 @@ class Executor:
     and raise when there is no CUDA device; ``Executor(CPUPlace())``
     runs on the CPU."""
 
+    # crash-resume bookkeeping of the last train_from_dataset call
+    last_resume_step = None
+    last_restore_path = None
+    last_restore_fallbacks = 0
+    last_restore_stats = None
+    last_checkpoints = ()
+    last_train_trace_id = None
+    # training control tower (monitor/train.py): ``_train_ledger`` arms
+    # run()'s phase charges while train_from_dataset runs with a ledger
+    # (one is-None gate otherwise); the last epoch's ledger, watchdog and
+    # step-log path stay readable for /trainz
+    _train_ledger = None
+    _train_admin = None
+    _train_admin_thread = None
+    last_train_ledger = None
+    last_train_watchdog = None
+    last_train_log = None
+
     def __init__(self, place: Optional[framework.Place] = None,
                  plan_cache_capacity: Optional[int] = None,
                  jit_cache_capacity: Optional[int] = None):
         self.place = place if place is not None else framework.CUDAPlace(0)
         self.device: torch.device = framework.device_of(place)
+        if self.device.type == "cuda":
+            # FLAGS_fraction_of_gpu_memory_to_use caps the card's share
+            # before this executor allocates on it
+            from paddle_tpu_torch import memory
+
+            memory.apply_memory_fraction(self.device)
         self._cache_stats = {
-            "hits": 0, "misses": 0, "plan_hits": 0, "plan_misses": 0,
+            "hits": 0, "misses": 0, "runs": 0, "plan_hits": 0, "plan_misses": 0,
             "plan_evictions": 0, "jit_evictions": 0, "dispatch_overhead_s": 0.0,
             "ps_pull_overlap_s": 0.0, "ps_pull_wait_s": 0.0,
         }
+        with _exec_stats_lock:
+            _exec_stats.append(self._cache_stats)
+        weakref.finalize(self, _retire_exec_stats, self._cache_stats)
         self._cache = _LRUCache(
             jit_cache_capacity if jit_cache_capacity is not None else _ENTRY_CACHE_CAPACITY,
             on_evict=self._evict_entry)
@@ -352,8 +456,36 @@ class Executor:
         last step's fetches (numpy arrays, or tensors on the device with
         ``return_numpy=False``).  With ``per_step_feed`` each feed value
         carries a leading ``steps`` axis and step ``i`` reads slice
-        ``i``."""
+        ``i``.
+
+        The ``executor.run`` fault point gates the top of every run; its
+        ``kill`` mode SIGKILLs this process.  Under a trace session each
+        run records its phase spans (``executor/lower``,
+        ``executor/h2d_feed``, ``executor/jit_compile`` for a capture,
+        ``executor/device_execute``, ``executor/d2h_fetch``).  With a
+        step-phase ledger armed (``train_from_dataset(phase_ledger=)``)
+        the run is one ``device_execute`` window, less the ``h2d``
+        charged inside it; the window closes after the fetches' host
+        copy, which is where the card's step becomes visible to the
+        host, so a run with no fetch leaves its device time to the next
+        window."""
+        self._cache_stats["runs"] += 1
+        if _faults.active is not None:  # disarmed: one is-None gate
+            _faults.active.faultpoint("executor.run", pid=os.getpid())
+        led = self._train_ledger
+        if led is None:
+            return self._run(program, feed, fetch_list, scope, return_numpy,
+                             use_program_cache, steps, per_step_feed, None)
+        tok = led.window_begin()
+        out = self._run(program, feed, fetch_list, scope, return_numpy,
+                        use_program_cache, steps, per_step_feed, led)
+        led.window_end(tok, "device_execute")
+        return out
+
+    def _run(self, program, feed, fetch_list, scope, return_numpy, use_program_cache,
+             steps, per_step_feed, led):
         t_run0 = time.perf_counter()
+        rec = _mon_spans.recording()
         stats = self._cache_stats
         program = program if program is not None else framework.default_main_program()
         scope = scope if scope is not None else global_scope()
@@ -412,7 +544,15 @@ class Executor:
                 raise ValueError(
                     "per_step_feed=True: every feed needs a leading steps=%d axis; got %s"
                     % (steps, bad))
+        # hot-path: begin dispatch (plan hit -> feed coercion -> entry hit -> replay)
+        if rec or led is not None:
+            t0 = time.perf_counter()
         feeds = {n: self._coerce_feed(feed[n], plan.feed_dtypes.get(n)) for n in plan.feed_names}
+        if led is not None:
+            led.charge("h2d", time.perf_counter() - t0)
+        if rec:
+            _mon_spans.record_span("executor/h2d_feed", t0, time.perf_counter() - t0,
+                                   cat="transfer", n_feeds=len(feeds))
 
         state, missing = {}, []
         for n in plan.state_in:
@@ -434,12 +574,21 @@ class Executor:
                 stats["hits"] += 1
             else:
                 stats["misses"] += 1
+                t0 = time.perf_counter()
                 entry = _Entry(lowering.lower_block(
                     program.global_block(), plan.feed_names, plan.fetch_names, plan.state_out,
                     self.device))
+                if rec:
+                    _mon_spans.record_span("executor/lower", t0, time.perf_counter() - t0,
+                                           cat="lower", n_ops=len(program.global_block().ops))
                 if use_program_cache:
                     self._cache[key] = entry
-            stats["dispatch_overhead_s"] += time.perf_counter() - t_run0
+            overhead = time.perf_counter() - t_run0
+            stats["dispatch_overhead_s"] += overhead
+        if rec:
+            ids = _mon_spans.current_trace_ids()
+            _MON_DISPATCH_HIST.observe(
+                overhead, exemplar={"trace_id": ids[0]} if ids else None)
 
         check_nan_inf = flags.get_flags("FLAGS_check_nan_inf")["FLAGS_check_nan_inf"]
         n_user = len(plan.fetch_names) - plan.n_push
@@ -448,27 +597,51 @@ class Executor:
         if graph_path:
             with entry.lock:  # feeds in, replay, fetches out: one thread at a time
                 graph = entry.graph_for(scope)
-                if graph is None and getattr(entry.warmed, "done", False):
+                captured = graph is None and getattr(entry.warmed, "done", False)
+                if captured:
+                    t0 = time.perf_counter()
                     graph = self._capture(entry, plan, scope, feeds, per_step_feed)
+                    if rec:
+                        _mon_spans.record_span("executor/jit_compile", t0,
+                                               time.perf_counter() - t0, cat="compile",
+                                               steps=steps)
                 replayed = graph is not None
                 if replayed:
-                    fetches = self._replay(graph, scope, feeds, steps, per_step_feed)
+                    t0 = time.perf_counter()
+                    fetches = self._replay(graph, scope, feeds, steps, per_step_feed, led)
+                    if rec:
+                        _mon_spans.record_span("executor/device_execute", t0,
+                                               time.perf_counter() - t0, cat="execute",
+                                               steps=steps)
+                    # hot-path: end dispatch (the replay is queued; everything below may sync)
                     if check_nan_inf:
                         _check_nan_inf(list(zip(plan.fetch_names, fetches))
                                        + [(n, graph.bufs[n]) for n in plan.state_out])
                     # the graph's outputs are overwritten by its next
                     # replay: the caller's fetches and the pushed
                     # gradients leave as copies, under the lock
+                    t0 = time.perf_counter()
                     grads = [host_copy(g) for g in fetches[n_user:]]
                     if return_numpy:
                         out = [to_numpy(f) for f in fetches[:n_user]]
                     else:
                         out = [f.clone() for f in fetches[:n_user]]
+                    if rec:
+                        _mon_spans.record_span("executor/d2h_fetch", t0,
+                                               time.perf_counter() - t0, cat="transfer",
+                                               n_fetch=len(out))
             if replayed:
                 self._push_sparse(program, ps_push, grads)
                 return out
+        t0 = time.perf_counter()
         feeds = {n: t.to(self.device, non_blocking=True) for n, t in feeds.items()}
+        if led is not None:
+            led.charge("h2d", time.perf_counter() - t0)
+        t0 = time.perf_counter()
         fetches = _eager(entry.fn, state, feeds, scope, steps, per_step_feed)
+        if rec:
+            _mon_spans.record_span("executor/device_execute", t0, time.perf_counter() - t0,
+                                   cat="execute", steps=steps, eager=True)
         entry.warmed.done = True
         if check_nan_inf:
             _check_nan_inf(list(zip(plan.fetch_names, fetches))
@@ -476,7 +649,12 @@ class Executor:
         self._push_sparse(program, ps_push, [host_copy(g) for g in fetches[n_user:]])
         fetches = fetches[:n_user]
         if return_numpy:
-            return [to_numpy(f) for f in fetches]
+            t0 = time.perf_counter()
+            out = [to_numpy(f) for f in fetches]
+            if rec:
+                _mon_spans.record_span("executor/d2h_fetch", t0, time.perf_counter() - t0,
+                                       cat="transfer", n_fetch=len(out))
+            return out
         if graph_path:
             # a fetch that is a state tensor becomes a graph buffer at the
             # next run, which replays write into in place
@@ -534,9 +712,10 @@ class Executor:
         entry.graphs[id(scope)] = captured
         return captured
 
-    def _replay(self, graph: _Graph, scope: Scope, feeds, steps, per_step_feed):
+    def _replay(self, graph: _Graph, scope: Scope, feeds, steps, per_step_feed, led=None):
         """Bring a tensor replaced in the graph's scope into its buffer,
-        copy the feeds in, and replay the graph ``steps`` times."""
+        copy the feeds in, and replay the graph ``steps`` times.  An armed
+        ledger is charged the feeds' copies as ``h2d``."""
         for n, buf in graph.bufs.items():
             cur = scope.vars.get(n)
             if cur is buf:
@@ -549,13 +728,17 @@ class Executor:
                     % (n, tuple(cur.shape), tuple(buf.shape)))
             buf.copy_(cur.reshape(buf.shape))
             scope.vars[n] = buf  # the buffer was this scope's tensor at capture
+        t0 = time.perf_counter()
         if per_step_feed:
             feeds = {n: t.to(self.device, non_blocking=True) for n, t in feeds.items()}
         for i in range(steps):
             if per_step_feed or i == 0:
                 for n, buf in graph.feeds.items():
                     buf.copy_(feeds[n][i] if per_step_feed else feeds[n], non_blocking=True)
+                if led is not None:
+                    led.charge("h2d", time.perf_counter() - t0)
             graph.graph.replay()
+            t0 = time.perf_counter()
         kernels.add_launches(graph.launches, steps)
         return graph.fetches
 
@@ -883,23 +1066,51 @@ class Executor:
         executor's device: on the card for a CUDA executor (raising
         where there is none), on the host for a ``CPUPlace`` one; a
         distributed table's ids stay on the host, where each batch's
-        unique ids are taken.  With
-        distributed tables in async mode (a Communicator bound), batch
-        N+1's pulls overlap batch N's step.
+        unique ids are taken.  With distributed tables in async mode (a
+        Communicator bound), batch N+1's pulls overlap batch N's step.
 
-        Not ported yet, and raising by name: checkpoints and resume
-        (``checkpoint_dir``, ``resume_from``), the training control tower
-        (``phase_ledger``, ``watchdog``, ``train_log``) and the trace
-        spans (``trace_id``), ROADMAP A9; a compiled program, A10."""
-        unported = {"checkpoint_dir": checkpoint_dir, "resume_from": resume_from,
-                    "phase_ledger": phase_ledger, "watchdog": watchdog, "train_log": train_log,
-                    "trace_id": trace_id}
-        asked = [k for k, v in unported.items() if v]
-        if asked:
-            raise NotImplementedError(
-                "train_from_dataset(%s): checkpoints, the training control tower and the "
-                "trace spans (faults/checkpoint.py, monitor/train.py, monitor/spans.py) are "
-                "ROADMAP A9, not ported to paddle_tpu_torch yet" % ", ".join(asked))
+        Crash-resumable training, exact to a step:
+        ``checkpoint_dir`` + ``checkpoint_every=N`` commits an atomic
+        checkpoint every N completed steps — the program's persistables,
+        the PS sparse tables (when the program is bound to a
+        ``PSClient``), and the dataset cursor, all via tmp+rename
+        (``faults.checkpoint.TrainCheckpoint``).  A killed run restarted
+        with ``resume_from=<same dir>`` restores all three and skips the
+        consumed batches before any prefetch stages them, so it
+        continues within one checkpoint interval of where it died;
+        ``last_resume_step`` reports the restored cursor,
+        ``last_restore_path`` and ``last_restore_fallbacks`` which
+        checkpoint served it.  ``resume_from`` and a different
+        ``checkpoint_dir`` fork the run: restore from one, save to the
+        other.  The Communicator's queued pushes are flushed before each
+        save.  ``checkpoint_async=True`` leaves the step only the
+        snapshot (a host copy of the state, complete before the next
+        step can write it in place); a background thread writes and
+        commits, and the epoch joins the tail save before returning.
+        ``last_checkpoints`` lists this epoch's saves.
+
+        Request-scoped tracing: the epoch mints a trace id (or joins
+        ``trace_id``) readable back via ``last_train_trace_id``; while a
+        trace session or flight recorder is live, every step runs under
+        that id inside an ``executor/train_step`` span parented to one
+        ``executor/train_epoch`` span.
+
+        Training control tower (monitor/train.py):
+        ``phase_ledger=True`` (or a ``StepPhaseLedger``) attributes every
+        wall-clock second of the epoch to data_wait / h2d /
+        device_execute / ps_wait / checkpoint / restore_fallback / other
+        (``train_phase_seconds_total{phase=}``, throughput and MFU
+        gauges), asserted to sum to the elapsed time within 1%.  A step's
+        device time is seen by the host where ``run`` copies a fetch out,
+        so fetch the loss for the step's device time to land in its own
+        ``device_execute``.  ``watchdog=True`` (or a ``TrainWatchdog``)
+        runs EWMA + z-score anomaly detection per step, emitting
+        ``train/anomaly`` events and raising ``TrainAnomalyError`` for
+        kinds in its ``halt_on``.  ``train_log=<path>`` streams one JSONL
+        record per step (``monitor.train.replay_step_log`` reads it).
+        ``start_train_admin()`` serves it all at ``/trainz``.
+
+        A compiled (multi-device) program is ROADMAP A10 and raises."""
         if program is not None and getattr(program, "_is_compiled_program", False):
             raise NotImplementedError(
                 "train_from_dataset over a compiled (multi-device) program is ROADMAP A10, "
@@ -918,7 +1129,66 @@ class Executor:
             fetch_info = fetch_info or trainer_desc._fetch_info
             print_period = trainer_desc._print_period
             n_prefetch = n_prefetch or int(getattr(trainer_desc, "thread_num", 0))
+        scope = scope if scope is not None else global_scope()
+        # training control tower: the ledger's epoch window opens HERE so
+        # a resume restore below is attributed (restore_fallback) inside
+        # the wall clock its 1% sum contract covers
+        led = None
+        if phase_ledger:
+            led = (phase_ledger if isinstance(phase_ledger, _mon_train.StepPhaseLedger)
+                   else _mon_train.StepPhaseLedger(device=self.device))
+            self.last_train_ledger = led
+            led.begin_epoch()
+        wd = None
+        if watchdog:
+            wd = (watchdog if isinstance(watchdog, _mon_train.TrainWatchdog)
+                  else _mon_train.TrainWatchdog())
+            self.last_train_watchdog = wd
+        steplog = None
+        if train_log:
+            steplog = _mon_train.StepLog(train_log)
+            self.last_train_log = train_log
+        # crash-resume: restore persistables + PS tables + the dataset
+        # cursor BEFORE the first batch, then skip the consumed prefix
+        ckpt = None
+        start_step = 0
+        self.last_resume_step = None
+        self.last_restore_path = None
+        self.last_restore_fallbacks = 0
+        self.last_restore_stats = None
+        self.last_checkpoints = []
+        if checkpoint_dir is not None or resume_from is not None:
+            from paddle_tpu_torch.faults.checkpoint import TrainCheckpoint
+
+            ckpt = TrainCheckpoint(checkpoint_dir or resume_from,
+                                   every_n_steps=int(checkpoint_every))
+            if resume_from is not None:
+                src = (ckpt if checkpoint_dir in (None, resume_from)
+                       else TrainCheckpoint(resume_from))
+                scope.bind_device(self.device)
+                tok = led.window_begin() if led is not None else None
+                cursor = src.restore(program, scope,
+                                     ps_client=getattr(program, "_ps_client", None))
+                if tok is not None:
+                    led.window_end(tok, "restore_fallback")
+                self.last_restore_path = src.last_restore_path
+                self.last_restore_fallbacks = src.last_restore_fallbacks
+                self.last_restore_stats = src.last_restore_stats
+                if cursor is not None:
+                    start_step = int(cursor.get("step", 0))
+                    self.last_resume_step = start_step
+                _mon_events.emit(
+                    "train/resume",
+                    severity="warning" if self.last_restore_fallbacks else "info",
+                    message="resumed from %s at step %d (%d fallback(s))"
+                    % (self.last_restore_path, start_step, self.last_restore_fallbacks),
+                    cat="train", step=start_step, path=self.last_restore_path,
+                    fallbacks=self.last_restore_fallbacks)
         batches = iter(dataset)
+        if start_step:
+            # skip the consumed batches before the prefetch, which would
+            # otherwise stage them on the card
+            batches = itertools.islice(batches, start_step, None)
         tables = getattr(program, "_distributed_tables", None) or {}
         if n_prefetch > 1:
             from paddle_tpu_torch import reader
@@ -931,20 +1201,170 @@ class Executor:
                 host_names=[m["ids_name"] for m in tables.values()])()
         if tables and getattr(program, "_ps_communicator", None) is not None:
             batches = self._sparse_overlap_iter(program, batches)
+        if led is not None:
+            batches = led.timed_iter(batches)
+        # the epoch trace id: minted per call (or joined via trace_id=);
+        # the epoch span id parents every step span
+        tid = trace_id or _mon_flight.new_trace_id()
+        self.last_train_trace_id = tid
+        epoch_sid = epoch_t0 = None
+        n_steps = 0
         results = []
+        monitoring = led is not None or wd is not None or steplog is not None
+        self._train_ledger = led  # arm run()'s phase charges (or clear)
+        t_prev = time.perf_counter()
         try:
-            for step, feed in enumerate(batches):
-                out = self.run(program, feed=feed, fetch_list=fetch_list, scope=scope)
+            for i, feed in enumerate(batches):
+                step = start_step + i  # the global step (resume-aware cursor)
+                if _mon_spans.recording():
+                    if epoch_sid is None:
+                        epoch_sid = _mon_spans.new_span_id()
+                        epoch_t0 = time.perf_counter()
+                    t0 = time.perf_counter()
+                    with _mon_spans.trace_context((tid,)):
+                        with _mon_spans.parent_scope(epoch_sid):
+                            with _mon_spans.parent_scope() as step_sid:
+                                out = self.run(program, feed=feed, fetch_list=fetch_list,
+                                               scope=scope)
+                            _mon_spans.record_span(
+                                "executor/train_step", t0, time.perf_counter() - t0,
+                                cat="train", span_id=step_sid, step=step)
+                else:
+                    out = self.run(program, feed=feed, fetch_list=fetch_list, scope=scope)
+                n_steps += 1
+                t_now = time.perf_counter()
+                dur, t_prev = t_now - t_prev, t_now  # the step period, data_wait included
+                _MON_TRAIN_STEP_HIST.observe(dur, exemplar={"trace_id": tid})
                 if fetch_list:
                     results.append(out)
-                    if debug and step % print_period == 0:
+                    if debug and i % print_period == 0:
                         names = fetch_info or [_as_fetch_name(f) for f in fetch_list]
                         print("batch %d:" % step, dict(zip(names, out)))
+                        _mon_events.emit(
+                            "train/progress", severity="info",
+                            message="batch %d: %s" % (step, {
+                                n: float(np.mean(v)) for n, v in zip(names, out)
+                                if np.issubdtype(np.asarray(v).dtype, np.number)}),
+                            cat="train", step=step)
+                if monitoring:
+                    self._observe_step(program, feed, out, fetch_list, step, dur, led, wd,
+                                       steplog, tid)
+                if ckpt is not None and ckpt.should_save(step + 1):
+                    tok = led.window_begin() if led is not None else None
+                    self._train_checkpoint(ckpt, program, scope, step + 1,
+                                           int(checkpoint_epoch), bool(checkpoint_async))
+                    if tok is not None:
+                        # the foreground cost: the quiesce and the (sync)
+                        # write or the (async) snapshot
+                        led.window_end(tok, "checkpoint", detail="sync")
+            if ckpt is not None:
+                # commit the tail background save before returning (a
+                # write error surfaces here, on the epoch's own path)
+                tok = led.window_begin() if led is not None else None
+                ckpt.wait()
+                if tok is not None:
+                    led.window_end(tok, "checkpoint", detail="commit")
+            if led is not None:
+                led.finish_epoch()  # the remainder lands in `other`; the 1% sum asserted
         finally:
+            self._train_ledger = None  # disarm run()'s phase charges
+            if led is not None:
+                led.finish_epoch(strict=False)  # an exceptional exit keeps its own error
+            if steplog is not None:
+                steplog.close()
+            if ckpt is not None and ckpt.in_flight:
+                # abnormal exit with a save still writing: join it; the
+                # epoch's primary error stays the one that propagates
+                try:
+                    ckpt.wait()
+                except BaseException:  # noqa: BLE001 — deliberate
+                    pass
+            if epoch_sid is not None:
+                with _mon_spans.trace_context((tid,)):
+                    _mon_spans.record_span(
+                        "executor/train_epoch", epoch_t0, time.perf_counter() - epoch_t0,
+                        cat="train", span_id=epoch_sid, steps=n_steps)
             closer = getattr(batches, "close", None)
             if closer is not None:
                 closer()  # stop the prefetch producer and the overlap thread
         return results
+
+    @staticmethod
+    def _observe_step(program, feed, out, fetch_list, step, dur, led, wd, steplog, tid):
+        """One step's control-tower bookkeeping: the ledger's row, the
+        watchdog's detectors, the step log's record, then a typed halt."""
+        examples = _mon_train.batch_examples(feed)
+        loss_val = None
+        if out and fetch_list:
+            li = wd.loss_index if wd is not None else 0
+            try:
+                loss_val = float(np.mean(out[li]))
+            except (TypeError, ValueError, IndexError):
+                loss_val = None
+        row = None
+        if led is not None:
+            if led.flops_per_step is None:
+                # the static-FLOPs MFU numerator, resolved once against the
+                # first batch's leading dim
+                led.flops_per_step = _mon_train.estimate_block_flops(
+                    program, batch=max(1, examples))
+            row = led.step_done(step, dur, examples=examples, loss=loss_val)
+        anomalies = ()
+        if wd is not None:
+            anomalies = wd.observe_step(step, loss=loss_val, step_time_s=dur)
+        if steplog is not None:
+            rec = (dict(row) if row is not None
+                   else {"step": step, "duration_s": round(dur, 6), "examples": examples})
+            if loss_val is not None and "loss" not in rec:
+                rec["loss"] = loss_val
+            if anomalies:
+                rec["anomalies"] = list(anomalies)
+            rec["trace_id"] = tid
+            steplog.write(rec)
+        if wd is not None and anomalies:
+            # after the step is logged, so the fatal step is in the record
+            wd.raise_if_halt(anomalies)
+
+    def _train_checkpoint(self, ckpt, program, scope, step, epoch, async_=False) -> None:
+        """Quiesce, then commit one atomic checkpoint: the async
+        Communicator is flushed (every queued sparse gradient reaches the
+        server) so the saved params, PS rows and cursor describe the SAME
+        step.  ``async_``: snapshot on this thread, write and commit on the
+        checkpoint's background writer."""
+        comm = getattr(program, "_ps_communicator", None)
+        if comm is not None:
+            comm.flush()
+        t0 = time.perf_counter()
+        saver = ckpt.save_async if async_ else ckpt.save
+        saver(program, scope, step=step, epoch=epoch,
+              ps_client=getattr(program, "_ps_client", None))
+        self.last_checkpoints.append({"step": int(step), "name": ckpt._name(step),
+                                      "mode": "async" if async_ else "sync",
+                                      "foreground_s": time.perf_counter() - t0})
+
+    # ------------------------------------------------------------------
+    # the training control tower: the trainer's scrapeable surface
+    # ------------------------------------------------------------------
+    def start_train_admin(self, host: str = "127.0.0.1", port: int = 0):
+        """Serve this trainer's observability surface over HTTP
+        (``port=0`` = ephemeral; returns the bound ``(host, port)``):
+        ``/metrics`` (Prometheus/OpenMetrics with exemplars),
+        ``/trainz`` (ledger snapshot + last-N step table + watchdog
+        state + checkpoint/resume history), ``/statusz``, ``/tracez``,
+        ``/eventz``, ``/healthz``."""
+        return _mon_train.start_train_admin(self, host=host, port=port)
+
+    def stop_train_admin(self) -> None:
+        _mon_train.stop_train_admin(self)
+
+    @property
+    def train_admin_address(self):
+        srv = self._train_admin
+        return srv.server_address if srv is not None else None
+
+    def trainz(self):
+        """The ``/trainz`` document (see ``monitor.train.trainz_doc``)."""
+        return _mon_train.trainz_doc(self)
 
     def infer_from_dataset(self, program=None, dataset=None, scope=None, thread=0, debug=False,
                            fetch_list=None, fetch_info=None, print_period=100):

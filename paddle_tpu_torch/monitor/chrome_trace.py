@@ -1,0 +1,320 @@
+"""Chrome trace-event exporter (chrome://tracing / Perfetto).
+
+The port's copy of the JAX package's exporter: the analog of the reference's ``timeline.py`` (which merged
+host RecordEvent profiles with CUPTI device records into one trace
+file): this merges
+
+* recorded host spans (``monitor.spans`` — Executor run phases,
+  lowering, RecordEvent blocks, serving batches, each carrying its
+  request ``trace_ids`` when recorded under a trace context),
+* the profiler's JSONL event stream (``profiler.emit_trace_event`` —
+  discrete events like ``serving.batch`` with a wall ``ts`` and
+  optionally a ``run_ms`` duration),
+* flight-recorder records (``requests=`` — tail-sampled slow/errored
+  request span trees), and
+* a ``torch.profiler`` trace directory (``device_trace_dir=`` — the
+  trace-event JSON that ``profiler.stop_profiler`` exports there:
+  the card's kernels, graph replays included, and the host's ops),
+  time-aligned with the host spans,
+
+into a single ``trace.json`` in the trace-event format — client span,
+queue wait, batch assembly, executor h2d/execute/d2h, and the
+device-side kernel timeline on one scroll, attributable to one trace id.
+"""
+from __future__ import annotations
+
+import glob
+import gzip
+import json
+import os
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from paddle_tpu_torch.monitor import spans as _spans
+
+__all__ = ["export_chrome_trace"]
+
+# device-trace events keep their own pid topology (one pid per card and
+# per profiled process), offset into a reserved range so they can never
+# collide with the exporting host process's pid
+_DEVICE_PID_BASE = 1 << 20
+
+
+def _jsonl_events(path: str) -> List[Dict[str, object]]:
+    events = []
+    try:
+        f = open(path)
+    except OSError:
+        # the sink may never have been started (e.g. the traced body
+        # failed early) — an absent stream must not kill the export
+        return events
+    with f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                events.append(json.loads(line))
+            except ValueError:
+                continue  # a torn tail line must not kill the export
+    return events
+
+
+def _device_trace_file(trace_dir: str) -> Optional[str]:
+    """The newest ``*.trace.json`` (or ``.gz``) in ``trace_dir``."""
+    cands = (glob.glob(os.path.join(trace_dir, "*.trace.json"))
+             + glob.glob(os.path.join(trace_dir, "*.trace.json.gz")))
+    return max(cands, key=os.path.getmtime) if cands else None
+
+
+def _load_device_trace(trace_dir: str) -> Tuple[List[Dict[str, object]], Dict[str, object]]:
+    """(trace events, the document's other top-level keys) of the newest
+    trace-event JSON that ``torch.profiler``'s ``export_chrome_trace``
+    wrote into ``trace_dir``; ([], {}) when there is none or it does not
+    parse (never raises — a half-written profile must not kill the
+    host-side export)."""
+    path = _device_trace_file(trace_dir)
+    if path is None:
+        return [], {}
+    try:
+        opener = gzip.open if path.endswith(".gz") else open
+        with opener(path, "rt") as f:
+            doc = json.load(f)
+    except (OSError, ValueError):
+        return [], {}
+    if isinstance(doc, list):
+        return doc, {}
+    evs = doc.get("traceEvents") if isinstance(doc, dict) else None
+    if not isinstance(evs, list):
+        return [], {}
+    meta = {k: v for k, v in doc.items() if k != "traceEvents"}
+    meta["_path"] = path
+    return evs, meta
+
+
+def _device_anchor_default(trace_dir: str, device: Sequence[Dict[str, object]],
+                           meta: Dict[str, object]) -> Tuple[Optional[float], str, Optional[float]]:
+    """(wall-clock seconds at device-trace ts 0, where it came from, its
+    reading error in seconds).  In order: the profiler's anchor marker
+    (its wall time, read when this process started the trace, minus its
+    ts in the trace); the trace's own ``baseTimeNanoseconds`` (Kineto
+    writes ts relative to it, rounded to the second on some builds); the
+    wall clock read just before the trace started, taken as the earliest
+    event's time."""
+    try:
+        from paddle_tpu_torch import profiler
+
+        marker = profiler.last_device_marker()
+        last = profiler.last_device_trace()
+        anchor_name = profiler.ANCHOR_EVENT
+    except Exception:
+        marker, last, anchor_name = None, None, None
+    if (marker and os.path.abspath(marker[0]) == os.path.abspath(trace_dir)
+            and os.path.abspath(marker[3]) == os.path.abspath(str(meta.get("_path")))):
+        ts = next((float(ev["ts"]) for ev in device
+                   if isinstance(ev, dict) and ev.get("name") == anchor_name and "ts" in ev),
+                  None)
+        if ts is not None:
+            return marker[1] - ts / 1e6, "marker", marker[2]
+    base_ns = meta.get("baseTimeNanoseconds")
+    if base_ns:
+        return float(base_ns) / 1e9, "baseTimeNanoseconds", None
+    if last and os.path.abspath(last[0]) == os.path.abspath(trace_dir) and last[1] is not None:
+        first = min((float(ev["ts"]) for ev in device if isinstance(ev, dict) and "ts" in ev),
+                    default=0.0)
+        return last[1] - first / 1e6, "start_wall", None
+    return None, "none", None
+
+
+def export_chrome_trace(
+    path: str,
+    spans: Optional[Sequence[Dict[str, object]]] = None,
+    jsonl_path: Optional[str] = None,
+    pid: Optional[int] = None,
+    requests: Optional[Sequence[Dict[str, object]]] = None,
+    device_trace_dir: Optional[str] = None,
+    device_anchor: Optional[float] = None,
+) -> str:
+    """Write ``path`` as a chrome://tracing-loadable JSON object.
+
+    ``spans``: output of ``spans.stop_recording()`` (or any list in that
+    shape).  ``jsonl_path``: an ``emit_trace_event`` JSONL file to merge.
+    ``requests``: flight-recorder records (``FlightRecorder.snapshot()``)
+    whose span trees are merged in with their trace ids.
+    ``device_trace_dir``: a ``torch.profiler`` trace dir whose newest
+    trace-event JSON is merged as device-side lanes; ``device_anchor``
+    is the wall-clock time at device-trace ts 0 (defaulting to the
+    profiler's anchor marker for that dir, else the trace's
+    ``baseTimeNanoseconds``, else the profiler's start time, else the
+    earliest host event).  Where the anchor came from and its reading
+    error are written under ``otherData``.  Timestamps from every source share the
+    wall-clock timebase; the earliest event is rebased to t=0 so the
+    viewer opens centered.
+    """
+    spans = list(spans or [])
+    for rec in requests or ():
+        spans.extend(rec.get("spans") or ())
+    jsonl = _jsonl_events(jsonl_path) if jsonl_path else []
+    device, device_meta_doc = (_load_device_trace(device_trace_dir)
+                               if device_trace_dir else ([], {}))
+    anchor_source, anchor_err = ("argument" if device_anchor is not None else None), None
+    pid = os.getpid() if pid is None else pid
+
+    starts = [float(s["ts"]) for s in spans if "ts" in s]
+    for ev in jsonl:
+        ts = float(ev.get("ts", 0.0))
+        starts.append(ts - float(ev.get("run_ms", 0.0)) / 1e3)
+    if device:
+        if device_anchor is None:
+            device_anchor, anchor_source, anchor_err = _device_anchor_default(
+                device_trace_dir, device, device_meta_doc)
+        if device_anchor is not None:
+            starts.append(device_anchor)
+    base = min(starts) if starts else 0.0
+    if device and device_anchor is None:
+        device_anchor = base  # no anchor known: device t=0 at first host event
+        anchor_source = "first_host_event"
+
+    events: List[Dict[str, object]] = []
+    tids = set()
+    # span-id -> (ts_us, tid) of every exported span: parent edges that
+    # cross lanes (threads, or processes via a wire hop) get explicit
+    # flow arrows — the viewer draws the hierarchy instead of the reader
+    # inferring it from timestamps
+    span_sites: Dict[str, tuple] = {}
+    child_edges: List[tuple] = []  # (child_id, parent_id, ts_us, tid)
+    for s in spans:
+        if "ts" not in s:
+            continue  # a torn/foreign span dict must not kill the export
+        tid = int(s.get("tid", 0))
+        tids.add(tid)
+        args = dict(s.get("args") or {})
+        if s.get("error"):
+            args["error"] = True
+        if s.get("trace_ids"):
+            args["trace_ids"] = list(s["trace_ids"])
+        ev = {
+            "name": str(s["name"]),
+            "cat": str(s.get("cat", "host")),
+            "ph": "X",
+            "ts": (float(s["ts"]) - base) * 1e6,  # microseconds
+            "dur": float(s.get("dur", 0.0)) * 1e6,
+            "pid": pid,
+            "tid": tid,
+        }
+        if s.get("id"):
+            args["span_id"] = s["id"]
+            span_sites[str(s["id"])] = (ev["ts"], tid)
+        if s.get("parent"):
+            args["parent_id"] = s["parent"]
+            if s.get("id"):
+                child_edges.append(
+                    (str(s["id"]), str(s["parent"]), ev["ts"], tid))
+        if args.pop("instant", None):
+            ev["ph"] = "i"
+            ev["s"] = "t"
+            ev.pop("dur")
+        if args:
+            ev["args"] = args
+        events.append(ev)
+
+    for child_id, parent_id, ts_us, tid in child_edges:
+        site = span_sites.get(parent_id)
+        if site is None or site[1] == tid:
+            continue  # same lane (nesting is visible) or parent not exported
+        try:
+            flow_id = int(child_id, 16) & 0x7FFFFFFF
+        except ValueError:
+            continue  # foreign span dict with a non-hex id
+        events.append({
+            "name": "span_parent", "cat": "flow", "ph": "s",
+            "ts": site[0], "pid": pid, "tid": site[1], "id": flow_id,
+        })
+        events.append({
+            "name": "span_parent", "cat": "flow", "ph": "f", "bp": "e",
+            "ts": max(ts_us, site[0]), "pid": pid, "tid": tid, "id": flow_id,
+        })
+
+    _JSONL_TID = 0  # dedicated lane for the discrete event stream
+    for rec in jsonl:
+        rec = dict(rec)
+        name = str(rec.pop("event", "event"))
+        ts = float(rec.pop("ts", base))
+        run_ms = rec.pop("run_ms", None)
+        ev = {
+            "name": name,
+            "cat": "jsonl",
+            "pid": pid,
+            "tid": _JSONL_TID,
+        }
+        if run_ms is not None:
+            # ts was stamped at emit time (batch END) — rebase to start
+            ev["ph"] = "X"
+            ev["ts"] = (ts - float(run_ms) / 1e3 - base) * 1e6
+            ev["dur"] = float(run_ms) * 1e3
+        else:
+            ev["ph"] = "i"
+            ev["s"] = "t"
+            ev["ts"] = (ts - base) * 1e6
+        if rec:
+            ev["args"] = rec
+        events.append(ev)
+
+    # device-side lanes: the profiler's events are already trace-event
+    # dicts with µs timestamps relative to its session start — shift
+    # them onto the shared wall timebase and move their pids into the
+    # reserved device range (metadata rows ride along so Perfetto shows
+    # the profiler's process/thread names)
+    device_meta: List[Dict[str, object]] = []
+    device_shift_us = ((device_anchor or 0.0) - base) * 1e6
+    for ev in device:
+        if not isinstance(ev, dict) or "ph" not in ev:
+            continue
+        ev = dict(ev)
+        if "pid" in ev:
+            try:
+                ev["pid"] = _DEVICE_PID_BASE + int(ev["pid"])
+            except (TypeError, ValueError):
+                continue
+        if ev.get("ph") == "M":
+            device_meta.append(ev)
+            continue
+        if "ts" not in ev:
+            continue
+        ev["ts"] = float(ev["ts"]) + device_shift_us
+        ev["cat"] = ev.get("cat", "device")
+        events.append(ev)
+
+    meta: List[Dict[str, object]] = [{
+        "name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+        "args": {"name": "paddle_tpu_torch host"},
+    }]
+    if jsonl:
+        meta.append({
+            "name": "thread_name", "ph": "M", "pid": pid, "tid": _JSONL_TID,
+            "args": {"name": "jsonl events"},
+        })
+    main_tid = threading.get_ident()
+    lanes = _spans.thread_lanes()
+    # every REGISTERED lane gets its name row even when its thread
+    # recorded no span this session (an idle replica worker is still a
+    # track the fleet view should name; viewers ignore eventless tids)
+    for tid in sorted(tids | set(lanes)):
+        name = lanes.get(tid) or (
+            "main" if tid == main_tid else "thread-%d" % tid)
+        meta.append({
+            "name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
+            "args": {"name": name},
+        })
+    meta.extend(device_meta)
+
+    events.sort(key=lambda e: e.get("ts", 0.0))
+    doc: Dict[str, object] = {"traceEvents": meta + events, "displayTimeUnit": "ms"}
+    if device:
+        # the host timebase's zero, and the device lanes' alignment onto it
+        doc["otherData"] = {"base_wall_s": base, "device_anchor_wall_s": device_anchor,
+                            "device_anchor_source": anchor_source,
+                            "device_anchor_error_s": anchor_err}
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return path

@@ -31,6 +31,7 @@ from typing import Any, Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from paddle_tpu_torch import faults as _faults
 from paddle_tpu_torch import framework
 from paddle_tpu_torch.core import types as core_types
 from paddle_tpu_torch.data_feeder import DataFeeder
@@ -128,6 +129,11 @@ class _Prefetcher:
         try:
             src = self._source() if callable(self._source) else self._source
             for item in src:
+                if _faults.active is not None:  # disarmed: one is-None gate
+                    # prefetch-thread death: the injected error rides the
+                    # existing producer-exception channel — surfaced
+                    # TYPED in the consumer, thread terminates cleanly
+                    _faults.active.faultpoint("reader.prefetch")
                 if self._transform is not None:
                     item = self._transform(item)
                 if not self._put(item):
@@ -142,6 +148,7 @@ class _Prefetcher:
     def __iter__(self):
         return self
 
+    # hot-path: begin prefetch_next (consumer pop — the batch must already be staged)
     def __next__(self):
         if self._finished:
             raise StopIteration
@@ -159,6 +166,7 @@ class _Prefetcher:
                 raise self._exc
             raise StopIteration
         return item
+    # hot-path: end prefetch_next
 
     def close(self) -> None:
         """Stop the producer and release its thread.  Idempotent; safe

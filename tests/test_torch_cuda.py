@@ -2248,3 +2248,96 @@ def test_seq_unit_layers_train_captured_bit_equal_to_eager(card):
     cpu, = tfluid.Executor(tfluid.CPUPlace()).run(main, feed=feeds[0], fetch_list=[loss],
                                                   scope=cpu_scope)
     np.testing.assert_allclose(paths[False][0][0], float(cpu), rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# checkpoints against captured steps (faults/checkpoint.py): a captured step
+# writes each new value into the scope's own tensor in place, so an async
+# save must copy before the next replay, and a restore must land where the
+# graph reads
+# ---------------------------------------------------------------------------
+def _ckpt_program():
+    main, startup = tfluid.Program(), tfluid.Program()
+    main.random_seed = startup.random_seed = 5
+    with tfluid.program_guard(main, startup), tfluid.unique_name.guard():
+        x = tfluid.layers.data("x", [16])
+        y = tfluid.layers.data("y", [1])
+        h = tfluid.layers.fc(x, 32, act="relu")
+        loss = tfluid.layers.mean(tfluid.layers.square_error_cost(tfluid.layers.fc(h, 1), y))
+        tfluid.optimizer.AdamOptimizer(0.01).minimize(loss)
+    return main, startup, loss
+
+
+def _ckpt_feed(i):
+    rng = np.random.RandomState(100 + i)
+    x = rng.randn(8, 16).astype("float32")
+    return {"x": x, "y": x[:, :1] * 2.0}
+
+
+def test_async_snapshot_is_taken_before_the_next_replay(card, tmp_path):
+    """save_async returns with every persistable already on the host: the
+    replay right after it and in-place writes to the live tensors do not
+    reach the checkpoint."""
+    from paddle_tpu_torch.faults.checkpoint import TrainCheckpoint
+
+    main, startup, loss = _ckpt_program()
+    exe, scope = tfluid.Executor(), tfluid.Scope()
+    exe.run(startup, scope=scope)
+    for i in range(3):  # eager, capture, replay
+        exe.run(main, feed=_ckpt_feed(i), fetch_list=[loss], scope=scope)
+    assert exe.jit_cache_stats()["graphs"] == 1
+    want = {n: t.detach().cpu().clone() for n, t in scope.vars.items()}
+    ck = TrainCheckpoint(str(tmp_path / "run"))
+    ck.save_async(main, scope, step=3)
+    exe.run(main, feed=_ckpt_feed(3), fetch_list=[loss], scope=scope)  # an in-place replay
+    for t in scope.vars.values():
+        t.add_(1.0)  # and a direct in-place write
+    ck.wait()
+    fresh = tfluid.Scope(device=card)
+    assert ck.restore(main, fresh)["step"] == 3
+    for n, t in want.items():
+        assert torch.equal(fresh.vars[n].cpu(), t), n
+
+
+def test_restore_writes_into_a_captured_graphs_buffers(card, tmp_path):
+    """A restore into a scope a graph was captured on writes the graph's own
+    buffers in place (the scope keeps the same tensors), so the next replay
+    continues from the checkpoint: its loss equals a run that never left
+    that step, bit for bit."""
+    from paddle_tpu_torch.faults.checkpoint import TrainCheckpoint
+
+    main, startup, loss = _ckpt_program()
+    exe, scope = tfluid.Executor(), tfluid.Scope()
+    exe.run(startup, scope=scope)
+    ck = TrainCheckpoint(str(tmp_path / "run"))
+    losses = []
+    for i in range(6):
+        if i == 3:
+            ck.save(main, scope, step=3)
+        losses.append(exe.run(main, feed=_ckpt_feed(i), fetch_list=[loss], scope=scope)[0])
+    tensors = dict(scope.vars)
+    assert ck.restore(main, scope)["step"] == 3
+    assert all(scope.vars[n] is t for n, t in tensors.items())  # in place: the same tensors
+    again = [exe.run(main, feed=_ckpt_feed(i), fetch_list=[loss], scope=scope)[0]
+             for i in range(3, 6)]
+    assert exe.jit_cache_stats()["graphs"] == 1
+    np.testing.assert_array_equal(np.array(again), np.array(losses[3:]))
+
+
+def test_restore_keeps_a_bf16_persistable_bf16(card, tmp_path):
+    """A bf16 scope tensor saved (as float32, numpy has no bfloat16) comes
+    back as bf16, in place, with its values."""
+    from paddle_tpu_torch.faults.checkpoint import TrainCheckpoint
+
+    main, startup, loss = _ckpt_program()
+    exe, scope = tfluid.Executor(), tfluid.Scope()
+    exe.run(startup, scope=scope)
+    name = sorted(n for n in scope.vars if n.endswith("w_0"))[0]
+    scope.vars[name] = scope.vars[name].to(torch.bfloat16)
+    want = scope.vars[name].clone()
+    ck = TrainCheckpoint(str(tmp_path / "run"))
+    ck.save(main, scope, step=1)
+    scope.vars[name].zero_()
+    ck.restore(main, scope)
+    assert scope.vars[name].dtype == torch.bfloat16
+    assert torch.equal(scope.vars[name], want)

@@ -14,7 +14,10 @@ paddle_tpu.
   CUDA raises in ``train_from_dataset``'s prefetch: there is no host
   fallback.
 * The A9 arguments (checkpoints, resume, the phase ledger, the watchdog,
-  the step log, a trace id) and a compiled program (A10) raise by name.
+  the step log, a trace id) are accepted and take effect on an empty
+  dataset (their full behaviour: tests/test_torch_checkpoint.py and
+  tests/test_torch_train_observability.py); a compiled program (A10)
+  raises by name.
 * The ``trainer_desc`` checks as the JAX package's: the same errors for
   a Section worker without a ``cut_list`` program and a DownpourSGD one
   without distributed tables, DownpourSGD installs the Communicator,
@@ -169,11 +172,24 @@ def test_cuda_executor_without_a_card_raises(tmp_path, monkeypatch):
                                  dict(train_log="log.jsonl"), dict(trace_id="abc")],
                          ids=lambda a: next(iter(a)))
 def test_a9_arguments_raise_by_name(arg, tmp_path):
+    """Once refused by name (ROADMAP A9), each argument is now accepted
+    and takes effect, even over an empty dataset."""
     main, _, loss, _, use_vars = build("torch")
     exe = tfluid.Executor(tfluid.CPUPlace())
     name = next(iter(arg))
-    with pytest.raises(NotImplementedError, match=r"%s.*A9" % name):
-        exe.train_from_dataset(main, [], fetch_list=[loss], **arg)
+    if name in ("checkpoint_dir", "resume_from", "train_log"):
+        arg = {name: str(tmp_path / arg[name])}
+    assert exe.train_from_dataset(main, [], fetch_list=[loss], **arg) == []
+    if name in ("checkpoint_dir", "resume_from"):
+        assert (tmp_path / "ckpt").is_dir() and exe.last_resume_step is None
+    elif name == "phase_ledger":
+        assert exe.last_train_ledger.snapshot()["finished"]
+    elif name == "watchdog":
+        assert exe.last_train_watchdog.state()["steps_observed"] == 0
+    elif name == "train_log":
+        assert (tmp_path / "log.jsonl").read_text() == ""
+    else:
+        assert exe.last_train_trace_id == "abc"
 
 
 def test_compiled_program_raises_a10():
