@@ -306,6 +306,34 @@ Phases, each of which raises (exit code != 0) on failure:
    newest checkpoint makes the restore fall back to the previous one
    (one fallback, a ``train/resume`` warning event), and the resumed
    steps match phase 32 bit for bit.
+34. Continuous-batching LM decode (with kernel B3's check beside the
+   dropout kernel's: ``decode_attention`` at [32, 8, 512, 64] for K = 1
+   and 4 against its plain version within 1e-5 of max |ctx|, timed with
+   the plain version and the dequantize-then-SDPA route): the causal LM at
+   LM widths (random weights from the seed) served by ``DecodeServer``
+   (32 slots, slot rungs 8/16/32, length rungs 128/256/512, 4 steps a
+   tick; every rung pair's chunk, admit and release captured as CUDA
+   graphs at warmup).  Legs: 96 requests in three waves, the later ones
+   joining mid-decode (generated tokens/s, TTFT p50 and p99, ms a tick and
+   a token, occupancy, KV bytes, memory, a profiled top-rung replay; no
+   capture after warmup); the same requests request at a time; 32
+   teacher-forced 256-token slots through the captured top-rung chunk
+   against the CPU (logits within 1e-4 of max(1, max |logit|)); 16
+   requests spread over total length (every sixth in sorted order) decoded
+   alone by the scalar cached step (tokens equal up to a top-2 margin under
+   1e-3, positions held printed by length rung); the int8 KV cache on the
+   same traffic (6 B3 launches a step, as many in the profiled replay as
+   the graph launches, at least 1.8x fp32's sequences at a fixed budget
+   at every rung pair, tokens equal to fp32's up to a margin under twice
+   the measured teacher-forced logit deviation); 16 requests over a shared
+   128-token prefix with and without the prefix cache (at least 1,920
+   prefill tokens saved, tokens by the margin rule); speculative decode
+   with k = 4, the target as its own draft (acceptance at least 0.9) and a
+   random 2-layer draft, tokens equal to plain greedy by the margin rule;
+   one stream of 256 tokens in at least 2 chunks.  The hand kernels'
+   counts are reset after each server's warmup and read after its legs:
+   the attention kernels and dropout on none of the six servers, B3 on the
+   int8 server alone.
 
 Output: progress lines, then a ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
@@ -679,7 +707,38 @@ LM_DS_KILL_AFTER = 10    # the child's executor.run dies at its 11th hit (startu
 LM_DS_KILL_DELAY_S = 5.0  # the dying run waits first, so step 8's background save commits
 LM_DS_ERROR_AFTER = 6    # in-process: the 7th run after startup (step 6) raises
 LM_DS_TAX_STEPS = LM_DS_BATCHES  # each leg of the armed-tax comparison: one epoch
+# phase 34: the causal LM (LM widths, random weights from SEED + 70) served
+# token by token by the continuous-batching DecodeServer: 9 rung pairs over
+# captured CUDA graphs, 96 requests in 3 waves (prompts of 16 to 192 tokens,
+# 16 to 256 new, at most 512 in all), request at a time, the card against
+# the CPU, isolation, the int8 KV cache, the prefix cache, speculative decode
+# and a stream.  Kernel B3 is checked at the top rung's attention shape.
+DEC_SERVER = dict(max_slots=32, slot_ladder=[8, 16, 32], len_ladder=[128, 256, 512],
+                  steps_per_tick=4)
+DEC_MAX_LEN = 512
+DEC_REQUESTS = 96
+DEC_WAVES = 3
+DEC_PROMPT = (16, 192)
+DEC_NEW = (16, 256)
+DEC_TF_LEN = 256          # leg 3: teacher-forced positions a slot
+DEC_ISOLATED = 16         # leg 4: requests decoded alone (spread over total length)
+DEC_PREFIX = dict(reqs=16, prefix=128, suffix=(1, 15), new=32, budget=64 << 20)
+DEC_SIDE_SERVER = dict(max_slots=8, slot_ladder=[8], len_ladder=[256], steps_per_tick=4)
+DEC_SPEC = dict(k=4, reqs=8, prompt=(16, 64), new=64, draft=dict(d_model=256, n_layer=2,
+                                                                   n_head=4, d_inner=1024))
+DEC_SPEC_SELF_FLOOR = 0.9  # self-draft accepted / proposed
+DEC_INT8_SEQS_FLOOR = 1.8  # int8 sequences at a fixed budget over fp32's (bench_serving.py)
+DEC_STREAM_NEW = 256
+DEC_QUEUE_WAIT_MS = 120_000.0  # the admission queue's AIMD wait target
+B3_SHAPE = (32, 8, 512, 64)  # [S, H, T, Dh] at the top rung pair
+B3_KS = (1, 4)
+B3_TOL = 1e-5             # of max |ctx|: fp32 sums in another order
 ALIGN_SLACK_US = 50.0    # CUPTI's card clock mapped onto the host's, beyond the anchor's own error
+# the merge moves a launch's device work that CUPTI timed before its launch
+# call to the launch; the largest move it may make: about 3x the largest
+# seen on an H100 (3.1 ms, a graph replay's kernels), a fifth of the LM's
+# AMP step, so a moved kernel cannot be counted in another step
+DEVICE_MOVE_MAX_US = 10000.0
 ATTN_SYMBOLS = {"fused_attention_fwd": "fused_attention_fwd_kernel",
                 "fused_attention_bwd_dkv": "fused_attention_bwd_dkv_kernel",
                 "fused_attention_bwd_dq": "fused_attention_bwd_dq_kernel"}
@@ -1265,23 +1324,34 @@ def pretrain_feed(rng, rows):
     }
 
 
-def _profile_step(torch, step, all_kernels=False):
+def _profile_step(torch, step, all_kernels=False, warmup=False):
     """One step under torch.profiler: its wall time, the device time of its
     kernels and the card's idle share, the host's own time in ops, the
     attention kernels' device time and share, and the top kernels and host
     ops (with ``all_kernels``, every kernel too); None when the profiler
     reports no device time.  The profiler's own cost lengthens the host
-    side of this step."""
+    side of this step.  With ``warmup`` the step runs once more first, in
+    the profiler's warm-up (recorded and discarded): late in a full run a
+    profile without one lost about 40 of its step's kernels."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    plan = dict(schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) if warmup else {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **plan) as prof:
+        if warmup:
+            step()
+            torch.cuda.synchronize()
+            prof.step()
         t = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
+        if warmup:
+            prof.step()
     kernels_, host_ops = [], []
     for e in prof.key_averages():
+        if e.key.startswith("ProfilerStep"):  # the schedule's step range, not work
+            continue
         if e.device_type == DeviceType.CUDA:  # a kernel (or copy) on the card
             kernels_.append((e.key, e.self_device_time_total / 1e3, e.count))
         else:  # a host-side op: its own CPU time, children excluded
@@ -3911,13 +3981,14 @@ def run_geo_and_descriptors(torch):
 # phases 25 to 27: Transformer NMT, decoding, the book's RNN translation models
 # ---------------------------------------------------------------------------
 def _hand_kernel_launches():
-    """The launch count of each of the four hand kernels since the last reset."""
+    """The launch count of each of the five hand kernels since the last reset."""
     from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import decode_attention as kda
     from paddle_tpu_torch.kernels import fused_attention as fa
 
     counts = kernels.launch_counts()
     return {k: counts.get(k, 0) for k in (fa.KERNEL_NAME, fa.BWD_DKV_NAME, fa.BWD_DQ_NAME,
-                                          "dropout")}
+                                          "dropout", kda.KERNEL_NAME)}
 
 
 def _no_hand_kernel(what, launches):
@@ -5847,7 +5918,11 @@ def _check_merged_trace(path, tid, n_steps):
     """The merged trace: it loads, holds the executor/* and train/step spans
     under the epoch's trace id, and a device lane with the three attention
     kernels, each inside the host span of its step (within the anchor's
-    reading error and ALIGN_SLACK_US).  Returns its statistics."""
+    reading error and ALIGN_SLACK_US).  A kernel the merge moved to its
+    launch call (CUPTI timed it before the launch; ``args["moved_us"]``) is
+    held by its launch's place in the step and counted apart, so the
+    containment of CUPTI's own times is counted on the kernels not moved;
+    no move may exceed DEVICE_MOVE_MAX_US.  Returns its statistics."""
     with open(path) as f:
         doc = json.load(f)
     evs = doc["traceEvents"]
@@ -5866,7 +5941,7 @@ def _check_merged_trace(path, tid, n_steps):
     err_us = 1e6 * float(other.get("device_anchor_error_s") or 0.0)
     tol_us = err_us + ALIGN_SLACK_US
     per_step = [{k: 0 for k in ATTN_SYMBOLS} for _ in steps]
-    worst, outside = -1e18, 0
+    worst, outside, worst_moved, moved, moved_outside = -1e18, 0, -1e18, 0, 0
     for k, evs_k in attn.items():
         for e in evs_k:
             t0, t1 = float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))
@@ -5875,10 +5950,15 @@ def _check_merged_trace(path, tid, n_steps):
                                                             t1 - steps[i]["ts"] - steps[i]["dur"]))
             st = steps[best]
             protrude = max(st["ts"] - t0, t1 - st["ts"] - st["dur"])
-            worst = max(worst, protrude)
-            if protrude > tol_us:
-                outside += 1
+            was_moved = "moved_us" in (e.get("args") or {})
+            if was_moved:
+                moved += 1
+                worst_moved = max(worst_moved, protrude)
+                moved_outside += int(protrude > tol_us)
             else:
+                worst = max(worst, protrude)
+                outside += int(protrude > tol_us)
+            if protrude <= tol_us:
                 per_step[best][k] += 1
     stats = {"bytes": os.path.getsize(path), "events": len(evs), "span_names": names,
              "train_steps_under_trace_id": len(steps), "kernel_events": len(kernels_),
@@ -5886,13 +5966,20 @@ def _check_merged_trace(path, tid, n_steps):
              "attention_by_step": per_step,
              "device_anchor_source": other.get("device_anchor_source"),
              "alignment_error_us": err_us, "containment_tol_us": tol_us,
-             "worst_protrusion_us": worst, "kernels_outside_their_step": outside}
+             "worst_protrusion_us": worst, "kernels_outside_their_step": outside,
+             "attention_moved": moved, "moved_worst_protrusion_us": worst_moved,
+             "moved_outside_their_step": moved_outside,
+             "device_launches": other.get("device_launches"),
+             "device_launches_moved": other.get("device_launches_moved"),
+             "device_largest_move_us": other.get("device_largest_move_us"),
+             "device_move_max_us": DEVICE_MOVE_MAX_US}
     want = {"executor/train_step", "executor/train_epoch", "executor/device_execute",
             "executor/h2d_feed", "executor/d2h_fetch", "executor/jit_compile", "executor/lower"}
     n_layer = LM["n_layer"]
     per = {"fused_attention_fwd": 2 * n_layer, "fused_attention_bwd_dkv": n_layer,
            "fused_attention_bwd_dq": n_layer}
-    if (not want <= set(names) or len(steps) != n_steps or outside
+    if (not want <= set(names) or len(steps) != n_steps or outside or moved_outside
+            or (other.get("device_largest_move_us") or 0.0) > DEVICE_MOVE_MAX_US
             or other.get("device_anchor_source") != "marker"
             or any(row != per for row in per_step)):
         raise AssertionError("merged trace check failed: %s" % json.dumps(stats)[:4000])
@@ -6219,6 +6306,553 @@ def run_lm_faults(torch, workdir, bits, paths, ckdir32):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phase 34: continuous-batching LM decode, and kernel B3
+# ---------------------------------------------------------------------------
+FP32_SIMT_OPS_S = 67e12  # float32 outside the tensor cores (the H100 SXM data sheet)
+
+
+def check_decode_attention_kernel(torch):
+    """Kernel B3 (decode attention over an int8 KV cache) at B3_SHAPE, for
+    K = 1 (the step's entry) and K = 4 (the verify's), ``ts`` spread over 0
+    to 507: codes and scales from ``quant.quantize_rows`` of random fp32
+    rows, held against ``decode_attention_plain`` on the card within B3_TOL
+    of max |ctx|, bit for bit across two launches.  The kernel, the plain
+    version and the nearest library route (dequantize to fp32, then
+    ``scaled_dot_product_attention`` with the same boolean mask: not the
+    same function, it reads the whole fp32 copy) are timed.  The bound:
+    the codes and scales of the positions each slot reads (t <= ts + K -
+    1) read once, q read and ctx written, at 3.35 TB/s; or its 4 Dh fp32
+    operations a position and query at 67 TFLOP/s."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch import quant
+    from paddle_tpu_torch.kernels import decode_attention as kda
+
+    S, H, T, Dh = B3_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 72)
+    scale = Dh ** -0.5
+    ts = torch.linspace(0, T - 1 - max(B3_KS) + 1, S, device="cuda").round().to(torch.int32)
+    out = []
+    for K in B3_KS:
+        q = torch.randn(S, K, H, Dh, generator=gen, device="cuda")
+        kc, ks = quant.quantize_rows(torch.randn(S, H, T, Dh, generator=gen, device="cuda") * 2)
+        vc, vs = quant.quantize_rows(torch.randn(S, H, T, Dh, generator=gen, device="cuda"))
+        got = kda.decode_attention(q, kc, ks, vc, vs, ts, scale)
+        again = kda.decode_attention(q, kc, ks, vc, vs, ts, scale)
+        ref = kda.decode_attention_plain(q, kc, ks, vc, vs, ts, scale)
+        lim = torch.clamp(ts.long()[:, None] + torch.arange(K, device="cuda")[None, :], max=T - 1)
+        mask = torch.arange(T, device="cuda")[None, None, None, :] <= lim[:, :, None, None]
+        mask = mask.permute(0, 2, 1, 3)  # [S, 1, K, T] over SDPA's [S, H, K, T]
+
+        def library():
+            kf = quant.dequantize_rows(kc, ks)
+            vf = quant.dequantize_rows(vc, vs)
+            return F.scaled_dot_product_attention(q.transpose(1, 2), kf, vf, attn_mask=mask,
+                                                  scale=scale).transpose(1, 2)
+
+        lib_err = float((library() - ref).abs().max())
+        n_read = int((torch.clamp(ts.long() + K - 1, max=T - 1) + 1).sum()) * H
+        nbytes = 2 * n_read * (Dh + 4) + 2 * q.numel() * 4 + S * 4
+        n_ops = int((lim + 1).sum()) * H * 4 * Dh
+        err = float((got - ref).abs().max())
+        row = {"K": K, "shape": [S, H, T, Dh], "dtype": "int8 codes, fp32 scales and q",
+               "ts": [int(ts.min()), int(ts.max())],
+               "max_abs_err": err, "max_abs_ctx": float(ref.abs().max()),
+               "rel_err": err / float(ref.abs().max()),
+               "bit_equal_relaunch": bool(torch.equal(got, again)),
+               "library_max_abs_diff": lib_err,
+               "ms": _time_ms(torch, lambda: kda.decode_attention(q, kc, ks, vc, vs, ts, scale)),
+               "plain_ms": _time_ms(torch, lambda: kda.decode_attention_plain(
+                   q, kc, ks, vc, vs, ts, scale), samples=7, per_sample=4),
+               "library_ms": _time_ms(torch, library, samples=7, per_sample=4),
+               "library_route": "dequantize_rows to fp32, then SDPA with the boolean mask",
+               "bytes": nbytes, "ops": n_ops,
+               "bound_ms": max(nbytes / HBM_BYTES_PER_S, n_ops / FP32_SIMT_OPS_S) * 1e3,
+               "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= n_ops / FP32_SIMT_OPS_S
+               else "operations"}
+        log("[kernel] decode_attention_int8", json.dumps(row))
+        if not (row["rel_err"] <= B3_TOL and row["bit_equal_relaunch"]):
+            raise AssertionError("decode attention kernel disagrees with its plain version: %s"
+                                 % row)
+        out.append(row)
+    return out
+
+
+def _decode_traffic(rng, vocab, n):
+    """``n`` requests: (prompt ids, new tokens), prompt + new <= DEC_MAX_LEN."""
+    reqs = []
+    for _ in range(n):
+        plen = int(rng.randint(DEC_PROMPT[0], DEC_PROMPT[1] + 1))
+        new = min(int(rng.randint(DEC_NEW[0], DEC_NEW[1] + 1)), DEC_MAX_LEN - plen)
+        reqs.append((rng.randint(0, vocab, plen).astype(np.int32), new))
+    return reqs
+
+
+def _decode_gauges(srv):
+    """The decode server's counters and gauges, read without ``metrics()``
+    (whose KV-ladder plan is a Python DP: polled every few ms, it would
+    take the interpreter lock from the tick thread it measures)."""
+    return {"generated_tokens": srv._tokens_c.value, "prefill_tokens": srv._prefill_c.value,
+            "ticks": srv._ticks_c.value, "slot_occupancy": srv._occupancy_g.value,
+            "kv_cache_bytes": srv._kv_bytes_g.value}
+
+
+def _serve_waves(torch, srv, traffic, waves, together=True):
+    """Submit ``traffic`` in ``waves``: each later wave when the running one
+    has generated a third of its tokens (so it joins a batch mid-decode);
+    with ``together=False`` one group at a time, each awaited (request at a
+    time).  Returns the tokens, per-request TTFT seconds, the wall seconds,
+    the server's tick and token deltas, the occupancy samples and the
+    largest KV-bytes gauge read."""
+    n = len(traffic)
+    per = -(-n // waves)
+    d0 = dict(_decode_gauges(srv))
+    occ, kv_bytes, joined_mid = [], 0, []
+    reqs = []
+    t0 = time.perf_counter()
+    for w in range(waves):
+        group = [srv.submit({"tokens": p}, max_new_tokens=m) for p, m in traffic[w * per:(w + 1) * per]]
+        if w:
+            joined_mid.append(not all(r.done() for r in reqs))
+        reqs += group
+        target = sum(m for _, m in traffic[w * per:(w + 1) * per]) / 3.0
+        g0 = _decode_gauges(srv)["generated_tokens"]
+        while True:
+            d = _decode_gauges(srv)
+            occ.append(d["slot_occupancy"])
+            kv_bytes = max(kv_bytes, d["kv_cache_bytes"])
+            if together and w < waves - 1 and d["generated_tokens"] - g0 < target:
+                time.sleep(0.005)
+                continue
+            if not together and not all(r.done() for r in group):
+                time.sleep(0.005)
+                continue
+            break
+    while not all(r.done() for r in reqs):
+        d = _decode_gauges(srv)
+        occ.append(d["slot_occupancy"])
+        kv_bytes = max(kv_bytes, d["kv_cache_bytes"])
+        time.sleep(0.005)
+    wall = time.perf_counter() - t0
+    toks = [np.asarray(r.result(timeout=600)[0]).tolist() for r in reqs]
+    d1 = _decode_gauges(srv)
+    return {"tokens": toks, "ttft_s": [r.first_token_t - r.submit_t for r in reqs],
+            "wall_s": wall, "ticks": d1["ticks"] - d0["ticks"],
+            "generated": d1["generated_tokens"] - d0["generated_tokens"],
+            "prefill": d1["prefill_tokens"] - d0["prefill_tokens"],
+            "occupancy": occ, "kv_cache_bytes_max": kv_bytes, "joined_mid_decode": joined_mid}
+
+
+def _teacher_forced(torch, steps_fns, seqs, plens):
+    """Each sequence (prompt + generated) teacher-forced through each step
+    fn of ``steps_fns`` ({name: (step_fn, make_cache)}), all sequences as
+    the rows of one batch on the card: per sequence, the top-2 margin of
+    the first fn's logits at each generated position, the argmax tokens,
+    and the largest logit difference of every other fn from the first at
+    those positions (absolute, and relative to max(1, max |logit|))."""
+    n = len(seqs)
+    T = max(len(s) for s in seqs)
+    toks = np.zeros((n, T), np.int32)
+    for i, s in enumerate(seqs):
+        toks[i, :len(s)] = s
+    tok_d = torch.from_numpy(toks).cuda()
+    names = list(steps_fns)
+    caches = {k: steps_fns[k][1](n, T) for k in names}
+    margins = [[] for _ in range(n)]
+    argmax = [[] for _ in range(n)]
+    dev = {k: 0.0 for k in names[1:]}
+    dev_abs = {k: 0.0 for k in names[1:]}
+    plens_np = np.asarray(plens)
+    lens = np.asarray([len(s) for s in seqs])
+    for t in range(T - 1):
+        ts = torch.full((n,), t, dtype=torch.int32, device="cuda")
+        outs = {}
+        for k in names:
+            outs[k], caches[k] = steps_fns[k][0](caches[k], tok_d[:, t], ts)
+        live = (t >= plens_np - 1) & (t < lens - 1)  # positions whose next token was generated
+        if not live.any():
+            continue
+        ref = outs[names[0]]
+        top2 = torch.topk(ref, 2, dim=-1)
+        m = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
+        a = top2.indices[:, 0].cpu().numpy()
+        scale = max(1.0, float(ref.abs().max()))
+        rows = torch.from_numpy(np.nonzero(live)[0]).cuda()
+        for k in names[1:]:
+            d = float((outs[k][rows] - ref[rows]).abs().max())
+            dev_abs[k] = max(dev_abs[k], d)
+            dev[k] = max(dev[k], d / scale)
+        for i in np.nonzero(live)[0]:
+            margins[i].append(float(m[i]))
+            argmax[i].append(int(a[i]))
+    return {"margins": margins, "argmax": argmax, "deviation": dev, "deviation_abs": dev_abs}
+
+
+def _margin_rule(got, want, margins, tol):
+    """``got`` equals ``want`` (token lists a request) up to the first
+    position whose margin is below ``tol``: the positions held, the
+    requests equal throughout, and whether every request holds."""
+    held, full, ok = 0, 0, True
+    for g, w, m in zip(got, want, margins):
+        first = next((i for i, x in enumerate(m) if x < tol), len(w))
+        n = first
+        ok = ok and g[:n] == w[:n]
+        held += n
+        full += int(g == w)
+    return {"requests": len(got), "equal_throughout": full, "positions_held": held,
+            "holds": ok, "tie_margin": tol}
+
+
+def _chunk_step_ms(torch, pool, s, t, vocab, rng):
+    """ms a step of the captured chunk at rung pair (s, t) with every slot
+    active (prompts of t - 1 tokens, so no slot finishes while timed), and
+    the state the timed replays left (about 100 positions in)."""
+    st = pool.alloc(s, t)
+    for slot in range(s):
+        st = pool.admit(st, slot, rng.randint(0, vocab, t - 1).astype(np.int32), t - 1, t)
+    return _time_ms(torch, lambda: pool.chunk(st), samples=5, per_sample=4) / pool.steps, st
+
+
+def _lm_server(torch, decoding, state, dims, name, kv_dtype="fp32", side=False, **kw):
+    from paddle_tpu_torch.serving.decode import DecodeServer
+
+    step_fn, make_cache = decoding.make_transformer_lm_pooled_step_fn(state, *dims.values(),
+                                                                      kv_dtype=kv_dtype)
+    cfg = dict(DEC_SIDE_SERVER if side else DEC_SERVER)
+    # the traffic queues on purpose (waves of 32 requests a 32-slot pool), so
+    # the admission queue's AIMD target is set above the decode's own length
+    srv = DecodeServer(step_fn, make_cache, eos_id=EOS, name=name, kv_dtype=kv_dtype,
+                       max_seq_len=max(cfg["len_ladder"]), target_queue_wait_ms=DEC_QUEUE_WAIT_MS,
+                       **cfg, **kw)
+    t = time.perf_counter()
+    built = srv.warmup()
+    torch.cuda.synchronize()
+    return srv, {"graphs": built, "warmup_s": time.perf_counter() - t,
+                 "state_bytes": srv._pool.state_bytes(),
+                 "graph_pool_bytes": srv._pool.graph_pool_bytes()}
+
+
+def run_lm_decode_server(torch, lm_cached_ms_per_step=None):
+    """Phase 34: the causal LM at transformer_lm's widths served by the
+    port's DecodeServer (9 rung pairs captured as CUDA graphs) — see the
+    module docstring for the legs and what each holds."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import decoding, kernels
+    from paddle_tpu_torch.kernels import decode_attention as kda
+    from paddle_tpu_torch.serving.client import Client
+    from paddle_tpu_torch.serving.speculative import make_lm_speculative
+
+    t_phase = time.perf_counter()
+    _free_device_memory(torch)
+    dims = dict(vocab=LM["vocab_size"], d_model=LM["d_model"], n_layer=LM["n_layer"],
+                n_head=LM["n_head"], d_inner=LM["d_inner"])
+    state = decoding.random_transformer_lm_state(np.random.RandomState(SEED + 70),
+                                                 max_pos=LM["max_pos"], **dims)
+    vocab = dims["vocab"]
+    traffic = _decode_traffic(np.random.RandomState(SEED + 71), vocab, DEC_REQUESTS)
+    stats = {"requests": DEC_REQUESTS, "waves": DEC_WAVES, "server": DEC_SERVER,
+             "prompt_tokens": int(sum(len(p) for p, _ in traffic)),
+             "new_tokens_asked": int(sum(m for _, m in traffic))}
+    hand = {}
+
+    # leg 1: fp32, continuous batching
+    srv, stats["fp32_warmup"] = _lm_server(torch, decoding, state, dims, "lm-decode")
+    pool = srv._pool
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    leg1 = _serve_waves(torch, srv, traffic, DEC_WAVES)
+    hand["fp32"] = _hand_kernel_launches()
+    m = srv.metrics()
+    stats["fp32"] = {
+        "generated_tokens_per_s": leg1["generated"] / leg1["wall_s"],
+        "consumed_tokens_per_s": (leg1["generated"] + leg1["prefill"]) / leg1["wall_s"],
+        "wall_s": leg1["wall_s"], "ticks": leg1["ticks"], "generated": leg1["generated"],
+        "prefill": leg1["prefill"], "ms_per_tick": 1e3 * leg1["wall_s"] / leg1["ticks"],
+        "ms_per_generated_token": 1e3 * leg1["wall_s"] / leg1["generated"],
+        "ttft_p50_ms": 1e3 * float(np.percentile(leg1["ttft_s"], 50)),
+        "ttft_p99_ms": 1e3 * float(np.percentile(leg1["ttft_s"], 99)),
+        "slot_occupancy_mean": float(np.mean(leg1["occupancy"])),
+        "kv_cache_bytes_max": leg1["kv_cache_bytes_max"],
+        "kv_rung_bytes_top": pool.kv_rung_bytes(32, DEC_MAX_LEN),
+        "state_bytes_allocated": pool.state_bytes(),
+        "graph_pool_bytes": pool.graph_pool_bytes(),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "waves_joined_mid_decode": leg1["joined_mid_decode"],
+        "misses_after_warmup": pool.jit_cache_stats()["misses"],
+        "recompiles": int(m.get("recompiles", 0))}
+    # leg 8: a stream of DEC_STREAM_NEW tokens
+    kernels.reset_launch_counts()
+    marks = []
+    for chunk in Client(srv).infer_stream({"tokens": traffic[0][0]}, max_new_tokens=DEC_STREAM_NEW):
+        marks.append((time.perf_counter(), len(chunk)))
+    stats["stream"] = {"chunks": len(marks), "tokens": sum(n for _, n in marks),
+                       "first_chunk_before_last_s": marks[-1][0] - marks[0][0]}
+    # leg 2: the same requests, request at a time (groups of 32, each awaited)
+    leg2 = _serve_waves(torch, srv, traffic, DEC_REQUESTS // DEC_SERVER["max_slots"],
+                        together=False)
+    hand["fp32_stream_and_request_at_a_time"] = _hand_kernel_launches()
+    stats["request_at_a_time"] = {"generated_tokens_per_s": leg2["generated"] / leg2["wall_s"],
+                                  "wall_s": leg2["wall_s"], "ticks": leg2["ticks"]}
+    # the captured chunk alone: ms a step at 8 and 32 active slots, a profiled replay
+    rng = np.random.RandomState(SEED + 73)
+    stats["fp32"]["ms_per_step_8_slots"] = _chunk_step_ms(torch, pool, 8, DEC_MAX_LEN, vocab, rng)[0]
+    stats["fp32"]["ms_per_step_32_slots"], st = _chunk_step_ms(torch, pool, 32, DEC_MAX_LEN, vocab,
+                                                               rng)
+    stats["cached_decode_phase26_ms_per_step_8_rows"] = lm_cached_ms_per_step
+    prof = _profile_step(torch, lambda: pool.chunk(st), all_kernels=True, warmup=True)
+    # where the profiled replay started: one chunk before the state it left
+    stats["fp32"]["profiled_positions"] = [int(st["pos"].min()) - pool.steps,
+                                           int(st["pos"].max()) - pool.steps]
+    stats["fp32"]["profile"] = prof and {
+        "kernels_a_tick": prof["launches"], "device_ms": prof["device_ms"],
+        "step_ms": prof["step_ms"], "classes": _kernel_classes(prof, LM_KERNEL_CLASSES)}
+    # leg 3: the card against the CPU, teacher-forced through the captured top-rung chunk
+    toks = np.random.RandomState(SEED + 74).randint(0, vocab, (32, DEC_TF_LEN + 1)).astype(np.int32)
+    st = pool.alloc(32, DEC_MAX_LEN)
+    for slot in range(32):
+        st = pool.admit(st, slot, toks[slot], DEC_TF_LEN + 1, DEC_MAX_LEN)
+    for _ in range(DEC_TF_LEN // pool.steps):
+        st = pool.chunk(st)
+    card_step, _ = decoding.make_transformer_lm_pooled_step_fn(state, *dims.values())
+    ts_last = torch.full((32,), DEC_TF_LEN, dtype=torch.int32, device="cuda")
+    card_logits, _ = card_step(st["cache"], torch.from_numpy(toks[:, DEC_TF_LEN]).cuda(), ts_last)
+    card_kv = [x[:, :, :DEC_TF_LEN].cpu() for x in decoding.kv_tree_leaves(st["cache"])]
+    card_logits = card_logits.cpu()
+    srv.stop()
+    t = time.perf_counter()
+    cpu_step, cpu_cache = decoding.make_transformer_lm_pooled_step_fn(
+        state, *dims.values(), place=fluid.CPUPlace())
+    cc = cpu_cache(32, DEC_TF_LEN + 1)
+    for pos in range(DEC_TF_LEN + 1):
+        cpu_logits, cc = cpu_step(cc, torch.from_numpy(toks[:, pos]),
+                                  torch.full((32,), pos, dtype=torch.int32))
+    scale = max(1.0, float(cpu_logits.abs().max()))
+    kv_err = max(float((a - b[:, :, :DEC_TF_LEN]).abs().max()) / max(1.0, float(b.abs().max()))
+                 for a, b in zip(card_kv, decoding.kv_tree_leaves(cc)))
+    stats["card_vs_cpu"] = {"slots": 32, "positions": DEC_TF_LEN + 1,
+                            "logit_rel_err": float((card_logits - cpu_logits).abs().max()) / scale,
+                            "kv_rel_err": kv_err, "cpu_s": time.perf_counter() - t}
+    del cc, card_kv
+    # leg 4: isolation — 16 requests spread over total length (every sixth in
+    # sorted order, so each length rung is held) decoded alone by the scalar cached step
+    order = sorted(range(DEC_REQUESTS), key=lambda i: len(traffic[i][0]) + traffic[i][1])
+    picked = order[::DEC_REQUESTS // DEC_ISOLATED][:DEC_ISOLATED]
+    alone, margins = [], []
+    sf, mc = decoding.make_transformer_lm_step_fn(
+        state, *dims.values(), max(len(traffic[i][0]) + traffic[i][1] for i in picked))
+    for i in picked:
+        prompt, new = traffic[i]
+        total = len(prompt) + new
+        cache = mc(1)
+        for pos, tk in enumerate(prompt):
+            logits, cache = sf(cache, torch.tensor([int(tk)], device="cuda"), pos)
+        out, marg, pos = [], [], len(prompt)
+        while pos < total:
+            top2 = torch.topk(logits[0], 2)
+            nxt = int(top2.indices[0])
+            marg.append(float(top2.values[0] - top2.values[1]))
+            out.append(nxt)
+            if nxt == EOS:
+                break
+            logits, cache = sf(cache, torch.tensor([nxt], device="cuda"), pos)
+            pos += 1
+        alone.append(out)
+        margins.append(marg)
+    stats["isolation"] = _margin_rule([leg1["tokens"][i] for i in picked], alone, margins,
+                                      DECODE_TIE_MARGIN)
+    rung_of = [pool.len_policy.bucket_for(len(traffic[i][0]) + traffic[i][1]) for i in picked]
+    stats["isolation"]["by_length_rung"] = {
+        str(r): _margin_rule([leg1["tokens"][i] for i, ri in zip(picked, rung_of) if ri == r],
+                             [a for a, ri in zip(alone, rung_of) if ri == r],
+                             [m for m, ri in zip(margins, rung_of) if ri == r], DECODE_TIE_MARGIN)
+        for r in DEC_SERVER["len_ladder"]}
+    # leg 5: the int8 KV cache, the same traffic
+    _free_device_memory(torch)
+    srv8, stats["int8_warmup"] = _lm_server(torch, decoding, state, dims, "lm-decode-int8",
+                                            kv_dtype="int8")
+    pool8 = srv8._pool
+    kernels.reset_launch_counts()
+    leg5 = _serve_waves(torch, srv8, traffic, DEC_WAVES)
+    hand["int8"] = _hand_kernel_launches()
+    launches8 = hand["int8"][kda.KERNEL_NAME]
+    cap = {}
+    for s, t_ in pool.rung_pairs():
+        b32, b8 = pool.kv_rung_bytes(s, t_), pool8.kv_rung_bytes(s, t_)
+        budget = 4 * b32
+        cap["%dx%d" % (s, t_)] = ((budget // b8) * s) / float((budget // b32) * s)
+    stats["int8"] = {
+        "generated_tokens_per_s": leg5["generated"] / leg5["wall_s"],
+        "wall_s": leg5["wall_s"], "ticks": leg5["ticks"], "generated": leg5["generated"],
+        "ms_per_tick": 1e3 * leg5["wall_s"] / leg5["ticks"],
+        "kv_cache_bytes_max": leg5["kv_cache_bytes_max"],
+        "kv_rung_bytes_top": pool8.kv_rung_bytes(32, DEC_MAX_LEN),
+        "state_bytes_allocated": pool8.state_bytes(),
+        "graph_pool_bytes": pool8.graph_pool_bytes(),
+        "b3_launches": launches8,
+        "b3_launches_expected": LM["n_layer"] * pool8.steps * leg5["ticks"],
+        "sequences_at_fixed_budget_over_fp32": cap,
+        "misses_after_warmup": pool8.jit_cache_stats()["misses"],
+        "recompiles": int(srv8.metrics().get("recompiles", 0)),
+        "ms_per_step_8_slots": _chunk_step_ms(torch, pool8, 8, DEC_MAX_LEN, vocab, rng)[0]}
+    stats["int8"]["ms_per_step_32_slots"], st8 = _chunk_step_ms(torch, pool8, 32, DEC_MAX_LEN, vocab,
+                                                                rng)
+    prof8 = _profile_step(torch, lambda: pool8.chunk(st8), all_kernels=True, warmup=True)
+    # where the profiled replay started: one chunk before the state it left
+    stats["int8"]["profiled_positions"] = [int(st8["pos"].min()) - pool8.steps,
+                                           int(st8["pos"].max()) - pool8.steps]
+    stats["int8"]["profile"] = prof8 and {
+        "kernels_a_tick": prof8["launches"], "device_ms": prof8["device_ms"],
+        # B3's calls the profiler saw in the replay, beside the count the graph launches
+        "b3_calls": sum(k["calls"] for k in prof8["all_kernels"] if "decode_attention" in k["name"]),
+        "b3_calls_a_tick": LM["n_layer"] * pool8.steps,
+        "classes": _kernel_classes(prof8, [("decode_attention_int8", ("decode_attention",))]
+                                   + LM_KERNEL_CLASSES)}
+    srv8.stop()
+    _free_device_memory(torch)
+    # the int8 tokens against leg 1's, by leg 1's margins teacher-forced (fp32) and
+    # twice the int8 path's teacher-forced logit deviation from fp32
+    seqs = [list(p) + t_ for (p, _), t_ in zip(traffic, leg1["tokens"])]
+    tf = _teacher_forced(torch, {
+        "fp32": decoding.make_transformer_lm_pooled_step_fn(state, *dims.values()),
+        "int8": decoding.make_transformer_lm_pooled_step_fn(state, *dims.values(),
+                                                            kv_dtype="int8")},
+        seqs, [len(p) for p, _ in traffic])
+    dev8 = tf["deviation_abs"]["int8"]
+    stats["int8"]["teacher_forced_logit_deviation"] = dev8
+    stats["int8"]["teacher_forced_logit_deviation_rel"] = tf["deviation"]["int8"]
+    stats["int8"]["against_fp32"] = _margin_rule(leg5["tokens"], leg1["tokens"], tf["margins"],
+                                                 2 * dev8)
+    stats["fp32"]["teacher_forced_argmax_equal"] = sum(
+        int(a == t_) for a, t_ in zip(tf["argmax"], leg1["tokens"]))
+    del tf
+    _free_device_memory(torch)
+    # leg 6: the prefix cache — 16 sequential requests over a shared 128-token prefix
+    prng = np.random.RandomState(SEED + 75)
+    head = prng.randint(0, vocab, DEC_PREFIX["prefix"]).astype(np.int32)
+    preqs = [np.concatenate([head, prng.randint(0, vocab, prng.randint(
+        DEC_PREFIX["suffix"][0], DEC_PREFIX["suffix"][1] + 1))]).astype(np.int32)
+        for _ in range(DEC_PREFIX["reqs"])]
+    prefix_out = {}
+    for name, kw in (("plain", {}), ("cached", {"prefix_cache": DEC_PREFIX["budget"]})):
+        psrv, warm = _lm_server(torch, decoding, state, dims, "lm-prefix-" + name, side=True, **kw)
+        p0 = psrv.metrics()["decode"]["prefill_tokens"]
+        kernels.reset_launch_counts()
+        got = []
+        for pr in preqs:
+            got.append(np.asarray(psrv.submit({"tokens": pr}, max_new_tokens=DEC_PREFIX["new"])
+                                  .result(timeout=600)[0]).tolist())
+            if psrv.prefix_cache is not None:
+                deadline = time.time() + 10
+                while psrv.prefix_cache.stats()["entries"] == 0 and time.time() < deadline:
+                    time.sleep(0.002)
+        hand["prefix_" + name] = _hand_kernel_launches()
+        prefix_out[name] = {"tokens": got, "warmup": warm,
+                            "prefill": psrv.metrics()["decode"]["prefill_tokens"] - p0,
+                            "misses_after_warmup": psrv._pool.jit_cache_stats()["misses"],
+                            "cache": psrv.prefix_cache.stats() if psrv.prefix_cache else None}
+        psrv.stop()
+    tf = _teacher_forced(torch, {"fp32": decoding.make_transformer_lm_pooled_step_fn(
+        state, *dims.values())}, [list(p) + t_ for p, t_ in zip(preqs, prefix_out["plain"]["tokens"])],
+        [len(p) for p in preqs])
+    stats["prefix"] = {
+        "prefill_plain": prefix_out["plain"]["prefill"],
+        "prefill_cached": prefix_out["cached"]["prefill"],
+        "prefill_saved": prefix_out["plain"]["prefill"] - prefix_out["cached"]["prefill"],
+        "cache": prefix_out["cached"]["cache"],
+        "misses_after_warmup": [prefix_out[k]["misses_after_warmup"] for k in prefix_out],
+        "warmup_s": [prefix_out[k]["warmup"]["warmup_s"] for k in prefix_out],
+        "against_plain": _margin_rule(prefix_out["cached"]["tokens"], prefix_out["plain"]["tokens"],
+                                      tf["margins"], DECODE_TIE_MARGIN)}
+    _free_device_memory(torch)
+    # leg 7: speculative decode, k = 4: the target as its own draft, and a random small draft
+    srng = np.random.RandomState(SEED + 76)
+    sreqs = [srng.randint(0, vocab, srng.randint(DEC_SPEC["prompt"][0], DEC_SPEC["prompt"][1] + 1))
+             .astype(np.int32) for _ in range(DEC_SPEC["reqs"])]
+    dd = DEC_SPEC["draft"]
+    drafts = {
+        "self": dict(draft_state=state, draft_d_model=dims["d_model"],
+                     draft_n_layer=dims["n_layer"], draft_n_head=dims["n_head"],
+                     draft_d_inner=dims["d_inner"], draft_name="lm"),
+        "random": dict(draft_state=decoding.random_transformer_lm_state(
+            np.random.RandomState(SEED + 77), vocab=vocab, max_pos=LM["max_pos"], name="draft",
+            **dd), draft_d_model=dd["d_model"], draft_n_layer=dd["n_layer"],
+            draft_n_head=dd["n_head"], draft_d_inner=dd["d_inner"], draft_name="draft")}
+    stats["speculative"] = {}
+    plain_tokens = None
+    for name, dkw in drafts.items():
+        spec = make_lm_speculative(state, vocab_size=vocab, d_model=dims["d_model"],
+                                   n_layer=dims["n_layer"], n_head=dims["n_head"],
+                                   d_inner=dims["d_inner"], k=DEC_SPEC["k"], **dkw)
+        ssrv, warm = _lm_server(torch, decoding, state, dims, "lm-spec-" + name, side=True,
+                                speculative=spec)
+        kernels.reset_launch_counts()
+        if plain_tokens is None:  # plain greedy on the same server (plain chunks only)
+            t = time.perf_counter()
+            rs = [ssrv.submit({"tokens": p}, max_new_tokens=DEC_SPEC["new"]) for p in sreqs]
+            plain_tokens = [np.asarray(r.result(timeout=600)[0]).tolist() for r in rs]
+            plain_s = time.perf_counter() - t
+        t = time.perf_counter()
+        rs = [ssrv.submit({"tokens": p}, max_new_tokens=DEC_SPEC["new"], speculative=True)
+              for p in sreqs]
+        got = [np.asarray(r.result(timeout=600)[0]).tolist() for r in rs]
+        wall = time.perf_counter() - t
+        hand["spec_" + name] = _hand_kernel_launches()
+        sp = ssrv.metrics()["decode"]["speculative"]
+        stats["speculative"][name] = {
+            "tokens_equal_plain": sum(int(a == b) for a, b in zip(got, plain_tokens)),
+            "accepted": sp["accepted_tokens"], "proposed": sp["proposed_tokens"],
+            "acceptance": sp["accepted_tokens"] / max(1, sp["proposed_tokens"]),
+            "accepted_len_histogram": sp["accepted_len_histogram"],
+            "generated_tokens_per_s": sum(len(g) for g in got) / wall,
+            "plain_generated_tokens_per_s": sum(len(g) for g in plain_tokens) / plain_s,
+            "warmup": warm, "misses_after_warmup": ssrv._pool.jit_cache_stats()["misses"],
+            "tokens": got}
+        ssrv.stop()
+        _free_device_memory(torch)
+    tf = _teacher_forced(torch, {"fp32": decoding.make_transformer_lm_pooled_step_fn(
+        state, *dims.values())}, [list(p) + t_ for p, t_ in zip(sreqs, plain_tokens)],
+        [len(p) for p in sreqs])
+    for name in drafts:
+        stats["speculative"][name]["against_plain"] = _margin_rule(
+            stats["speculative"][name].pop("tokens"), plain_tokens, tf["margins"],
+            DECODE_TIE_MARGIN)
+    stats["hand_kernel_launches"] = hand
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log("[lm-decode-server]", json.dumps(stats)[:20000])
+    f32, i8 = stats["fp32"], stats["int8"]
+    misses = ([f32["misses_after_warmup"], f32["recompiles"], i8["misses_after_warmup"],
+               i8["recompiles"]] + stats["prefix"]["misses_after_warmup"]
+              + [stats["speculative"][n]["misses_after_warmup"] for n in drafts])
+    checks = {
+        "zero_captures_after_warmup": not any(misses),
+        "waves_joined_mid_decode": all(f32["waves_joined_mid_decode"]),
+        "card_vs_cpu": stats["card_vs_cpu"]["logit_rel_err"] <= DECODE_LOGIT_TOL,
+        "isolation": stats["isolation"]["holds"],
+        "int8_b3_launches": i8["b3_launches"] == i8["b3_launches_expected"] > 0,
+        "int8_b3_profiled": (i8["profile"] is None
+                             or i8["profile"]["b3_calls"] == i8["profile"]["b3_calls_a_tick"]),
+        "int8_sequences_1.8x": min(cap.values()) >= DEC_INT8_SEQS_FLOOR,
+        "int8_tokens": i8["against_fp32"]["holds"],
+        "prefix_saved": stats["prefix"]["prefill_saved"] >= (DEC_PREFIX["reqs"] - 1) * DEC_PREFIX["prefix"],
+        "prefix_hits": (stats["prefix"]["cache"] or {}).get("hits", 0) > 0,
+        "prefix_tokens": stats["prefix"]["against_plain"]["holds"],
+        "spec_tokens": all(stats["speculative"][n]["against_plain"]["holds"] for n in drafts),
+        "spec_self_acceptance": stats["speculative"]["self"]["acceptance"] >= DEC_SPEC_SELF_FLOOR,
+        "stream": stats["stream"]["chunks"] >= 2 and stats["stream"]["first_chunk_before_last_s"] > 0,
+        # the three attention kernels and dropout on none of the six servers,
+        # B3 on the int8 server alone
+        "no_attention_kernels": not any(v for h in hand.values() for k, v in h.items()
+                                        if k != kda.KERNEL_NAME),
+        "b3_on_int8_only": not any(h[kda.KERNEL_NAME] for p, h in hand.items() if p != "int8"),
+    }
+    stats["checks"] = checks
+    log("[lm-decode-server] checks", json.dumps(checks))
+    if not all(checks.values()):
+        raise AssertionError("phase 34 failed its checks: %s" % json.dumps(checks))
+    return stats
+
+
 def main() -> int:
     import torch
 
@@ -6229,6 +6863,7 @@ def main() -> int:
         return lm_dataset_child(sys.argv[2:])
     sys.path.insert(0, REPO)
     import paddle_tpu_torch  # noqa: F401 — fails outside a checkout of the repo
+    from paddle_tpu_torch.kernels import decode_attention as kda
     from paddle_tpu_torch.kernels import fused_attention as fa
 
     t_start = time.perf_counter()
@@ -6238,6 +6873,7 @@ def main() -> int:
     bwd_checks = check_bwd_kernels(torch)
     causal_checks = check_causal_kernels(torch)
     dropout_checks = check_dropout_kernel(torch)
+    decode_checks = check_decode_attention_kernel(torch)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         stats = run_slice(torch, workdir)
@@ -6322,6 +6958,8 @@ def main() -> int:
         run_lm_faults(torch, workdir, lm_ds_bits, lm_ds_paths, lm_ds_ckpt)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    lm_decode = run_lm_decode_server(
+        torch, nmt_decode["lm_cached"].get("greedy_cached_ms_per_step"))
     # the A7 paths (NMT training, decoding, the book's RNN models) run no hand kernel
     a7_launches = {"nmt_train": nmt["hand_kernel_launches"],
                    "nmt_decode": nmt_decode["hand_kernel_launches"],
@@ -6354,6 +6992,12 @@ def main() -> int:
     a1b_launches = {"vgg16": vgg["launches"], "core_ops": core_ops["launches"],
                     "sentiment": sentiment["launches"], "seq_unit_ops": seq_unit_ops["launches"]}
     fwd_launches.update({p: c[fa.KERNEL_NAME] for p, c in a1b_launches.items()})
+    # phase 34 (the six decode servers) launches none of the three attention
+    # kernels and no dropout, and B3 on the int8 server alone (checked)
+    a8_launches = {"decode_" + p: c for p, c in lm_decode["hand_kernel_launches"].items()}
+    # the paths whose five counts were read (phases 25 to 31 and 34)
+    b3_paths = dict(a7_launches, **a1b_launches, **a8_launches)
+    fwd_launches.update({p: c[fa.KERNEL_NAME] for p, c in a8_launches.items()})
     replaced = ("jax/experimental/pallas/ops/tpu/flash_attention.py:%d (%s), reached from "
                 "paddle_tpu/ops/nn_ops.py:694 through the vjp grad paddle_tpu/core/registry.py:131")
     entries = [{
@@ -6402,7 +7046,8 @@ def main() -> int:
                                      **{p: c.get(name, 0) for p, c in lm_launches.items()},
                                      **{p: c.get(name, 0) for p, c in lamb_launches.items()},
                                      **{p: c[name] for p, c in a7_launches.items()},
-                                     **{p: c[name] for p, c in a1b_launches.items()}),
+                                     **{p: c[name] for p, c in a1b_launches.items()},
+                                     **{p: c[name] for p, c in a8_launches.items()}),
             "max_abs_err": max(bwd_row["max_abs_err"][e] for e in errs),
             "ms": bwd_row[key + "_ms"],
             # one plain backward and one SDPA backward compute dQ, dK and dV together
@@ -6431,7 +7076,8 @@ def main() -> int:
                      + vgg["launches"]["dropout"]),
         "launches_by_path": dict({p: c.get("dropout", 0) for p, c in lm_launches.items()},
                                  **{p: c["dropout"] for p, c in a7_launches.items()},
-                                 **{p: c["dropout"] for p, c in a1b_launches.items()}),
+                                 **{p: c["dropout"] for p, c in a1b_launches.items()},
+                                 **{p: c["dropout"] for p, c in a8_launches.items()}),
         "max_abs_err": 0.0 if all(r["out_bit_equal"] and r["mask_bit_equal"]
                                   for r in dropout_checks["checks"]) else None,
         "ms": main_drop["ms"],
@@ -6444,6 +7090,27 @@ def main() -> int:
         "timed": dropout_checks["timed"],
         "vgg16_sites": [r for r in dropout_checks["timed"] if r["p"] == 0.5],
         "cases": dropout_checks["checks"],
+    })
+    b3 = decode_checks[0]  # the step's entry at the top rung
+    entries.append({
+        "name": "decode_attention_int8",
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "paddle_tpu/decoding.py:305-328, :496-537 (the int8 KV cache's "
+                    "dequant-at-attend; XLA-fused on the TPU, no pallas_call)",
+        "launches": sum(c[kda.KERNEL_NAME] for c in b3_paths.values()),
+        "launches_by_path": {p: c[kda.KERNEL_NAME] for p, c in b3_paths.items()},
+        "max_abs_err": max(r["max_abs_err"] for r in decode_checks),
+        "ms": b3["ms"],
+        "plain_ms": b3["plain_ms"],
+        "bound_ms": b3["bound_ms"],
+        "bound_by": b3["bound_by"],
+        "library_ms": b3["library_ms"],
+        "library_route": b3["library_route"],
+        "shape": b3["shape"],
+        "dtype": b3["dtype"],
+        "verify": decode_checks[1],
+        "cases": decode_checks,
     })
     log("[done] %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": entries}))

@@ -108,20 +108,27 @@ _exec_retired = {
 }  # folded-in dead executors
 
 
+_exec_dead: "collections.deque[Dict[str, Any]]" = collections.deque()
+
+
 def _retire_exec_stats(stats: Dict[str, Any]) -> None:
-    # weakref.finalize callback: fold a dead executor's totals into the
-    # retired base so the counters stay monotonic
-    with _exec_stats_lock:
-        try:
-            _exec_stats.remove(stats)
-        except ValueError:
-            return
-        for k in _exec_retired:
-            _exec_retired[k] += stats.get(k, 0)
+    # weakref.finalize callback: queue a dead executor's totals for the
+    # next reader to fold into the retired base (the counters stay
+    # monotonic).  It takes no lock: a garbage collection can run it in a
+    # thread that already holds _exec_stats_lock, inside _sum_exec_stats.
+    _exec_dead.append(stats)
 
 
 def _sum_exec_stats(key: str):
     with _exec_stats_lock:
+        while _exec_dead:
+            stats = _exec_dead.popleft()
+            try:
+                _exec_stats.remove(stats)
+            except ValueError:
+                continue
+            for k in _exec_retired:
+                _exec_retired[k] += stats.get(k, 0)
         return _exec_retired[key] + sum(d.get(key, 0) for d in _exec_stats)
 
 

@@ -92,6 +92,55 @@ def _load_device_trace(trace_dir: str) -> Tuple[List[Dict[str, object]], Dict[st
     return evs, meta
 
 
+_LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+_DEVICE_WORK_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _correlation(ev) -> Optional[object]:
+    return (ev.get("args") or {}).get("correlation") if isinstance(ev, dict) else None
+
+
+def _launch_ordered(device: List[Dict[str, object]]
+                    ) -> Tuple[List[Dict[str, object]], int, int, float]:
+    """The device events with each launch's device work moved to start no
+    earlier than the launch call that issued it, and (launches with device
+    work, launches moved, the largest move in us).
+
+    CUPTI converts the card's timestamps to the host clock by a model that
+    can misplace the work of one launch by milliseconds: on an H100 a
+    graph replay's kernels were timed 1.8 ms before the ``cudaGraphLaunch``
+    that issued them (same correlation id), while the launch itself sat in
+    its step's host span.  Work cannot start before its launch call, so
+    the events of such a correlation (and its launch-to-kernel flow end)
+    are shifted later by the difference, a moved work event keeping
+    CUPTI's own start in ``args["cupti_ts"]`` and the shift in
+    ``args["moved_us"]``; every other event is kept."""
+    launch: Dict[object, float] = {}
+    for ev in device:
+        if (isinstance(ev, dict) and ev.get("cat") in _LAUNCH_CATS and "ts" in ev
+                and "Launch" in str(ev.get("name", "")) and _correlation(ev) is not None):
+            launch[_correlation(ev)] = float(ev["ts"])
+    first: Dict[object, float] = {}
+    for ev in device:
+        c = _correlation(ev)
+        if c in launch and ev.get("cat") in _DEVICE_WORK_CATS and "ts" in ev:
+            first[c] = min(first.get(c, float("inf")), float(ev["ts"]))
+    shift = {c: launch[c] - t for c, t in first.items() if t < launch[c]}
+    if not shift:
+        return device, len(first), 0, 0.0
+    out = []
+    for ev in device:
+        if isinstance(ev, dict) and "ts" in ev:
+            if ev.get("cat") in _DEVICE_WORK_CATS and _correlation(ev) in shift:
+                ev = dict(ev, ts=float(ev["ts"]) + shift[_correlation(ev)],
+                          args=dict(ev.get("args") or {}, cupti_ts=ev["ts"],
+                                    moved_us=shift[_correlation(ev)]))
+            elif ev.get("cat") == "ac2g" and ev.get("ph") == "f" and ev.get("id") in shift:
+                ev = dict(ev, ts=float(ev["ts"]) + shift[ev.get("id")])
+        out.append(ev)
+    return out, len(first), len(shift), max(shift.values())
+
+
 def _device_anchor_default(trace_dir: str, device: Sequence[Dict[str, object]],
                            meta: Dict[str, object]) -> Tuple[Optional[float], str, Optional[float]]:
     """(wall-clock seconds at device-trace ts 0, where it came from, its
@@ -157,6 +206,7 @@ def export_chrome_trace(
     jsonl = _jsonl_events(jsonl_path) if jsonl_path else []
     device, device_meta_doc = (_load_device_trace(device_trace_dir)
                                if device_trace_dir else ([], {}))
+    device, launches, moved, moved_us = _launch_ordered(device)
     anchor_source, anchor_err = ("argument" if device_anchor is not None else None), None
     pid = os.getpid() if pid is None else pid
 
@@ -314,7 +364,10 @@ def export_chrome_trace(
         # the host timebase's zero, and the device lanes' alignment onto it
         doc["otherData"] = {"base_wall_s": base, "device_anchor_wall_s": device_anchor,
                             "device_anchor_source": anchor_source,
-                            "device_anchor_error_s": anchor_err}
+                            "device_anchor_error_s": anchor_err,
+                            "device_launches": launches,
+                            "device_launches_moved": moved,
+                            "device_largest_move_us": moved_us}
     with open(path, "w") as f:
         json.dump(doc, f)
     return path

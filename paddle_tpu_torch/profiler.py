@@ -93,6 +93,17 @@ class RecordEvent:
         return False
 
 
+def _warm_device_trace(torch) -> None:
+    """Launch and wait for a few hundred tiny kernels: on an H100 a trace
+    started late in a long process lost kernel records at its start (one
+    of its first step's attention kernels); these take that loss instead
+    of the caller's."""
+    w = torch.zeros(32, device="cuda")
+    for _ in range(256):
+        w.add_(1.0)
+    torch.cuda.synchronize()
+
+
 def start_profiler(state: str = "All", trace_dir: Optional[str] = None):
     """reference: profiler.py start_profiler / EnableProfiler.
 
@@ -119,6 +130,8 @@ def start_profiler(state: str = "All", trace_dir: Optional[str] = None):
         prof = profile(activities=activities)
         anchor = time.time()
         prof.start()
+        if ProfilerActivity.CUDA in activities:
+            _warm_device_trace(torch)
         with torch.profiler.record_function(ANCHOR_EVENT + "_warmup"):
             pass  # the first annotation pays the profiler's set-up; the anchor does not
         t_before = time.time()

@@ -32,16 +32,24 @@ class ServingRequest:
     """One submitted inference request: a row-oriented feed plus a
     future the submitter waits on.  ``n_rows`` is the leading dim shared
     by every feed array (validated by the server at submit);
-    ``priority`` is its admission class (lower = more important)."""
+    ``priority`` is its admission class (lower = more important).
+    ``trace_id`` (optional) is the request's trace id, which the spans
+    recorded while it is served carry; ``parent_span`` (optional) is the
+    submitter-side span id its own spans hang under."""
 
     def __init__(self, feed: Dict[str, np.ndarray], n_rows: int,
                  deadline: Optional[float] = None,
-                 priority: int = PRIORITY_NORMAL):
+                 priority: int = PRIORITY_NORMAL,
+                 trace_id: Optional[str] = None,
+                 parent_span: Optional[str] = None):
         self.feed = feed
         self.n_rows = n_rows
         self.deadline = deadline  # time.monotonic() deadline, or None
         self.priority = int(priority)
+        self.trace_id = trace_id
+        self.parent_span = parent_span
         self.submit_t = time.perf_counter()
+        self.done_t: Optional[float] = None  # perf_counter at completion
         self._done = threading.Event()
         self._value: Optional[List[np.ndarray]] = None
         self._exc: Optional[BaseException] = None
@@ -51,12 +59,14 @@ class ServingRequest:
         if self._done.is_set():
             return  # first completion wins (shutdown races)
         self._value = value
+        self.done_t = time.perf_counter()
         self._done.set()
 
     def fail(self, exc: BaseException) -> None:
         if self._done.is_set():
             return
         self._exc = exc
+        self.done_t = time.perf_counter()
         self._done.set()
 
     def expired(self, now: Optional[float] = None) -> bool:

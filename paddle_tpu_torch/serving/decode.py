@@ -1,0 +1,1012 @@
+"""Token-level decode scheduling: continuous batching + streaming (the
+port's ``serving/decode.py``).
+
+The request-batching server (``serving.server``) holds every sequence
+in a batch until the slowest finishes — fatal for autoregressive
+endpoints, where sequence lengths are wildly mixed and a late arrival
+would wait out a whole decode.  :class:`DecodeServer` replaces the
+request-at-a-time regime with vLLM-style CONTINUOUS batching:
+
+* one fused decode step per tick over a persistent **slot pool**
+  (``serving.kv_pool.KVSlotPool``): finished sequences (EOS or length
+  cap) free their slots mid-flight, and queued prompts join the running
+  batch at the next tick;
+* **prefill and decode are the same step** — a freshly admitted prompt
+  teacher-forces its stored tokens through the shared step fn, filling
+  its KV cache inside the running batch (no separate prefill
+  entry, no second shape);
+* the pool's bucket ladders (slot rungs x length rungs) keep the
+  shape set CLOSED: :meth:`warmup` captures every rung pair's entries
+  as CUDA graphs over the pool's fixed buffers, after which a mixed
+  prompt/decode storm captures **nothing** (``jit_cache_stats`` is the
+  ground truth, same contract as the request-batching path);
+* between scheduler interventions the step loop dispatches
+  **multi-step chunks** (``steps`` tokens per graph replay, the step
+  bodies unrolled inside) to amortize host overhead, with the KV cache
+  written in place;
+* requests flow through the SAME admission front door as the batching
+  server (``DynamicBatcher``/``AdmissionQueue``: EDF ordering, priority
+  classes with weighted fair sharing, AIMD admit limit, retry hints).
+
+Streaming: :meth:`submit` returns a :class:`DecodeRequest` whose
+``stream()`` yields token chunks as the scheduler produces them —
+``Client.infer_stream`` rides it (the wire surfaces come with the
+request-batching server's remainder).
+
+Observability: ``serving_decode_*`` metrics (generated/prefill token
+counters, tick counter, TTFT histogram, slot-occupancy gauge) on top of
+the standard ``ServingMetrics`` series; per-tick ``serving/decode_tick``
+spans carry the active requests' trace ids; the ``decode.step`` fault
+point injects failures into the tick dispatch for chaos coverage.
+
+Decode tier 2 (both independently toggleable, see README):
+
+* ``prefix_cache=`` attaches a :class:`serving.prefix_cache.
+  PrefixKVCache` — freed slots' prompt-prefix KV blocks are retained
+  and matching admissions skip the shared prefill (the
+  ``decode.prefix_admit`` fault point guards the degraded-not-wrong
+  fallback);
+* ``speculative=`` attaches a :class:`serving.speculative.
+  SpeculativeConfig` — requests submitted with ``speculative=True``
+  run draft-then-verify rounds, greedy-exact (output-identical) with
+  acceptance telemetry.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import queue
+import threading
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from paddle_tpu_torch import faults as _faults
+from paddle_tpu_torch import monitor
+from paddle_tpu_torch.monitor import events as _events
+from paddle_tpu_torch.monitor import spans as _mon_spans
+from paddle_tpu_torch.serving.admission import PRIORITY_NORMAL
+from paddle_tpu_torch.serving.batching import DynamicBatcher, ServingRequest
+from paddle_tpu_torch.serving.errors import (
+    DeadlineExceeded,
+    ServerClosed,
+    ServerOverloaded,
+)
+from paddle_tpu_torch.serving.kv_pool import KVSlotPool
+from paddle_tpu_torch.serving.metrics import ServingMetrics
+from paddle_tpu_torch.serving.prefix_cache import PrefixKVCache
+from paddle_tpu_torch.serving.speculative import (
+    SPEC_ACCEPTED,
+    SPEC_PROPOSED,
+    dispatch_spec_chunk,
+)
+
+__all__ = ["DecodeServer", "DecodeRequest", "save_decode_endpoint",
+           "load_decode_endpoint", "is_decode_endpoint"]
+
+_LABELS = ("server", "instance")
+DECODE_TOKENS = monitor.counter(
+    "serving_decode_tokens_total",
+    "tokens generated by the continuous-batching decode scheduler",
+    _LABELS)
+DECODE_PREFILL_TOKENS = monitor.counter(
+    "serving_decode_prefill_tokens_total",
+    "prompt tokens consumed (prefill) by the decode scheduler — the "
+    "prefill/decode traffic ratio is this over the generated counter",
+    _LABELS)
+DECODE_TICKS = monitor.counter(
+    "serving_decode_ticks_total",
+    "decode scheduler ticks (one multi-step chunk dispatch each)",
+    _LABELS)
+DECODE_TTFT = monitor.histogram(
+    "serving_decode_ttft_seconds",
+    "submit-to-first-token latency per decode request", _LABELS)
+DECODE_OCCUPANCY = monitor.gauge(
+    "serving_decode_slot_occupancy",
+    "active decode slots / current slot rung (continuous-batching "
+    "lane utilization)", _LABELS)
+DECODE_KV_BYTES = monitor.gauge(
+    "serving_kv_cache_bytes",
+    "KV-cache bytes held by the decode slot pool at its CURRENT "
+    "(slot, length) rung pair, from the stored dtype (int8 KV halves "
+    "this vs fp32 at the same rungs); 0 while the pool is idle",
+    _LABELS)
+
+# safety-net bound while parked on the empty-queue condition (real
+# wakeups are offer()/wake() notifies)
+_IDLE_WAIT_S = 0.5
+
+_END = ("end", None)
+_ERR = ("err", None)
+
+
+class DecodeRequest(ServingRequest):
+    """One decode request: a token prompt plus a streaming future.
+
+    ``result()`` blocks for the FULL generated sequence (a one-element
+    list ``[tokens]``, matching the infer outputs contract; the EOS
+    token, when emitted, is included).  ``stream()`` iterates token
+    chunks as the scheduler produces them — at least one chunk arrives
+    before the sequence completes whenever more than ``steps`` tokens
+    are generated, which is what makes ``infer_stream`` real."""
+
+    def __init__(self, prompt: np.ndarray, total_len: int,
+                 deadline: Optional[float] = None,
+                 trace_id: Optional[str] = None,
+                 parent_span: Optional[str] = None,
+                 priority: int = PRIORITY_NORMAL,
+                 speculative: bool = False):
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        super().__init__({"tokens": prompt[None, :]}, 1, deadline,
+                         trace_id=trace_id, parent_span=parent_span,
+                         priority=priority)
+        self.prompt = prompt
+        self.total_len = int(total_len)
+        self.speculative = bool(speculative)
+        self.first_token_t: Optional[float] = None  # perf_counter stamp
+        self._chunks: "queue.Queue" = queue.Queue()
+
+    # --- scheduler side -------------------------------------------------
+    def push_tokens(self, tokens: np.ndarray, now: float) -> None:
+        if self.first_token_t is None:
+            self.first_token_t = now
+        self._chunks.put(("tokens", tokens))
+
+    def complete(self, value) -> None:
+        if self._done.is_set():
+            return
+        super().complete(value)
+        self._chunks.put(_END)
+
+    def fail(self, exc: BaseException) -> None:
+        if self._done.is_set():
+            return
+        super().fail(exc)
+        self._chunks.put(_ERR)
+
+    # --- submitter side -------------------------------------------------
+    def stream(self):
+        """Yield generated-token chunks (1-D int32 arrays) until the
+        sequence completes; terminal errors re-raise typed, and the
+        request deadline bounds every wait (a stream can hang no longer
+        than ``result()`` would)."""
+        while True:
+            timeout = None
+            if self.deadline is not None:
+                timeout = max(0.0, self.deadline - time.monotonic()) + 0.05
+            try:
+                kind, val = self._chunks.get(timeout=timeout)
+            except queue.Empty:
+                raise DeadlineExceeded(
+                    "deadline passed mid-stream") from None
+            if kind == "tokens":
+                yield val
+            elif kind == "end":
+                return
+            else:
+                assert self._exc is not None
+                raise self._exc
+
+
+class _Slot:
+    """Host-side record of one occupied pool slot."""
+
+    __slots__ = ("req", "prompt_len", "seen", "spec")
+
+    def __init__(self, req: DecodeRequest):
+        self.req = req
+        self.prompt_len = len(req.prompt)
+        self.seen = 0  # generated tokens already streamed to the client
+        self.spec = bool(getattr(req, "speculative", False))
+
+
+class _PoolPredictorView:
+    """The predictor-shaped facade the admin/wire surfaces read
+    (``statusz``/``healthz`` expect a ``_predictor`` with names +
+    jit-cache stats; here the POOL owns the entries)."""
+
+    def __init__(self, server: "DecodeServer"):
+        self._server = server
+
+    def get_input_names(self) -> List[str]:
+        return ["tokens"]
+
+    def get_output_names(self) -> List[str]:
+        return ["tokens"]
+
+    def jit_cache_stats(self) -> Dict[str, int]:
+        return self._server._pool.jit_cache_stats()
+
+
+class DecodeServer:
+    """Continuous-batching decode endpoint over a slot-pooled step fn.
+
+    ``step_fn``/``make_cache``: a slot-pooled incremental model step
+    (``decoding.make_transformer_lm_pooled_step_fn``); the pool lives on
+    its device (``step_fn.device``), the card unless the step was built
+    for the CPU.  ``max_slots`` is
+    the slot ladder's top rung (the widest concurrent batch);
+    ``max_seq_len`` caps prompt + generated tokens per sequence.
+    ``steps_per_tick`` is the multi-step chunk size — the scheduler
+    intervenes (admits, streams, frees) every ``steps_per_tick`` tokens.
+    ``len_multiple`` rounds every KV length rung (and ``max_seq_len``)
+    up to a multiple.
+
+    Lifecycle mirrors ``InferenceServer``: construct (the tick thread
+    starts parked) -> ``warmup()`` -> ``submit()``/client traffic ->
+    ``stop(drain=True)``.
+    """
+
+    #: Client.infer_stream duck-types on this (an InferenceServer lacks it)
+    supports_streaming = True
+
+    def __init__(self, step_fn, make_cache, *, eos_id: int,
+                 max_seq_len: int, max_slots: int = 8,
+                 slot_ladder: Optional[Sequence[int]] = None,
+                 len_ladder: Optional[Sequence[int]] = None,
+                 steps_per_tick: int = 4,
+                 queue_capacity: int = 256,
+                 max_new_tokens: Optional[int] = None,
+                 name: str = "decode",
+                 target_queue_wait_ms: float = 50.0,
+                 class_weights="default",
+                 prefix_cache=None,
+                 speculative=None,
+                 kv_dtype: str = "fp32",
+                 len_multiple: int = 1):
+        self.name = name
+        self._metrics = ServingMetrics(name)
+        lbl = {"server": name, "instance": self._metrics.instance}
+        self._tokens_c = DECODE_TOKENS.labels(**lbl)
+        self._prefill_c = DECODE_PREFILL_TOKENS.labels(**lbl)
+        self._ticks_c = DECODE_TICKS.labels(**lbl)
+        self._ttft_h = DECODE_TTFT.labels(**lbl)
+        self._occupancy_g = DECODE_OCCUPANCY.labels(**lbl)
+        self._kv_bytes_g = DECODE_KV_BYTES.labels(**lbl)
+        # decode tier 2, each independently toggleable: ``prefix_cache``
+        # (a PrefixKVCache, or a byte budget to own one) retains freed
+        # slots' prefix KV for shared-prefix admission; ``speculative``
+        # (a SpeculativeConfig) arms draft-then-verify rounds for
+        # requests submitted with speculative=True.
+        self._prefix_owned = False
+        if isinstance(prefix_cache, (int, np.integer)):
+            prefix_cache = PrefixKVCache(
+                capacity_bytes=int(prefix_cache), name=name)
+            self._prefix_owned = True
+        self._prefix = prefix_cache
+        self._speculative = speculative
+        self._spec_proposed_c = self._spec_accepted_c = None
+        self._accept_len_hist: Dict[int, int] = {}
+        if speculative is not None:
+            self._spec_proposed_c = SPEC_PROPOSED.labels(**lbl)
+            self._spec_accepted_c = SPEC_ACCEPTED.labels(**lbl)
+        self._pool = KVSlotPool(
+            step_fn, make_cache, eos_id=eos_id, max_slots=max_slots,
+            max_seq_len=max_seq_len, slot_ladder=slot_ladder,
+            len_ladder=len_ladder, steps=steps_per_tick,
+            prefix=self._prefix is not None, speculative=speculative,
+            kv_dtype=kv_dtype, len_multiple=len_multiple,
+            on_recompile=lambda: self._metrics.count("recompiles"))
+        self._default_max_new = (
+            int(max_new_tokens) if max_new_tokens is not None else None)
+        # the SAME admission front door as the batching server: EDF +
+        # priority classes (weighted fair sharing) + AIMD admit limit.
+        # batch_timeout is irrelevant here — the tick IS the coalescing
+        # window — so the batcher runs eager.
+        self._batcher = DynamicBatcher(
+            max_slots, 0.0, queue_capacity,
+            target_wait_ms=target_queue_wait_ms,
+            class_weights=class_weights)
+        self._batcher.on_shed = self._on_queue_shed
+        self._batcher.on_expired = self._on_expired
+        self._feed_names = ["tokens"]
+        self._predictor = _PoolPredictorView(self)
+        # observed total sequence lengths (prompt + generation budget)
+        # per admitted request — the input to the offline KV length-
+        # ladder proposal (serving.autotune.propose_len_ladder)
+        self._seq_len_hist: Dict[int, int] = {}
+        self._seq_len_lock = threading.Lock()
+        self._closed = False
+        self._abort = False
+        self._stop = threading.Event()
+        self._warmed = False
+        self._state = None               # tick-thread owned pool state
+        self._slots: List[Optional[_Slot]] = []
+        self._worker = threading.Thread(
+            target=self._loop, name="serving-decode-%s" % name, daemon=True)
+        self._worker.start()
+
+    # ------------------------------------------------------------------
+    @property
+    def num_replicas(self) -> int:
+        return 0 if self._closed else 1
+
+    @property
+    def max_batch_size(self) -> int:
+        return self._pool.max_slots
+
+    @property
+    def max_seq_len(self) -> int:
+        return self._pool.max_seq_len
+
+    @property
+    def prefix_cache(self):
+        """The attached :class:`PrefixKVCache` (None when disabled) —
+        the wire surfaces advertise its stats via /healthz."""
+        return self._prefix
+
+    @property
+    def speculative_k(self) -> Optional[int]:
+        """Verify width of the attached draft (None when speculative
+        decoding is disabled)."""
+        return self._speculative.k if self._speculative is not None else None
+
+    @property
+    def kv_dtype(self) -> str:
+        """The pool's KV-cache storage dtype (``"fp32"`` or ``"int8"``)
+        — the wire surfaces advertise it via /healthz."""
+        return self._pool.kv_dtype
+
+    def load(self) -> Dict[str, object]:
+        return {
+            "queue_depth": self._batcher.qsize(),
+            "admit_limit": self._batcher.queue.limit,
+            "brownout_level": 0,
+        }
+
+    def metrics(self) -> Dict[str, object]:
+        snap = self._metrics.snapshot()
+        snap["queue_depth"] = self._batcher.qsize()
+        snap["admit_limit"] = self._batcher.queue.limit
+        snap["brownout_level"] = 0
+        snap["warmed_up"] = self._warmed
+        snap["decode"] = {
+            "generated_tokens": int(self._tokens_c.value),
+            "prefill_tokens": int(self._prefill_c.value),
+            "ticks": int(self._ticks_c.value),
+            "slot_occupancy": float(self._occupancy_g.value),
+            "steps_per_tick": self._pool.steps,
+            "slot_ladder": list(self._pool.slot_policy.ladder),
+            "len_ladder": list(self._pool.len_policy.ladder),
+            "max_seq_len": self._pool.max_seq_len,
+            "kv_dtype": self._pool.kv_dtype,
+            "kv_cache_bytes": int(self._kv_bytes_g.value),
+            "seq_len_histogram": {
+                str(k): v
+                for k, v in sorted(self.seq_len_histogram().items())},
+            "kv_ladder_plan": self._kv_ladder_plan(),
+        }
+        if self._prefix is not None:
+            snap["decode"]["prefix_cache"] = self._prefix.stats()
+        if self._speculative is not None:
+            with self._seq_len_lock:
+                hist = dict(self._accept_len_hist)
+            snap["decode"]["speculative"] = {
+                "k": self._speculative.k,
+                "proposed_tokens": int(self._spec_proposed_c.value),
+                "accepted_tokens": int(self._spec_accepted_c.value),
+                "accepted_len_histogram": {
+                    str(a): n for a, n in sorted(hist.items())},
+            }
+        return snap
+
+    def _kv_ladder_plan(self) -> Optional[Dict[str, object]]:
+        """The offline KV length-ladder proposal for the observed
+        sequence lengths (``serving.autotune.plan_kv_ladder``), embedded
+        in every metrics/statusz snapshot so a recorded snapshot is a
+        COMPLETE kv-ladder input for ``tools/autotune_ladder.py``.
+        Proposal only: applying a new ladder re-warms every rung pair,
+        so it is a restart-time decision — pass the proposed ladder to
+        ``DecodeServer(len_ladder=...)`` on the next deploy."""
+        hist = self.seq_len_histogram()
+        if not hist:
+            return None
+        from paddle_tpu_torch.serving.autotune import plan_kv_ladder
+
+        try:
+            return plan_kv_ladder(
+                hist, self._pool.max_seq_len,
+                current_ladder=list(self._pool.len_policy.ladder))
+        except Exception:
+            return None
+
+    def seq_len_histogram(self) -> Dict[int, int]:
+        """{total sequence length: admitted-request count} — the
+        observed input to ``serving.autotune.propose_len_ladder`` /
+        ``plan_kv_ladder`` (offline KV length-ladder proposal)."""
+        with self._seq_len_lock:
+            return dict(self._seq_len_hist)
+
+    def tracez(self) -> Dict[str, object]:
+        from paddle_tpu_torch.monitor import flight as _flight
+
+        rec = _flight.get()
+        if rec is None:
+            return {"recorder": False, "retained": 0, "requests": []}
+        doc = rec.statusz()
+        doc["recorder"] = True
+        return doc
+
+    def statusz(self) -> Dict[str, object]:
+        return {
+            "server": self.name,
+            "metrics": self.metrics(),
+            "jit_cache": self._pool.jit_cache_stats(),
+            "registry": monitor.snapshot(),
+        }
+
+    def replica_stats(self) -> Dict[str, Dict[str, object]]:
+        return {"decode": {"alive": not self._closed,
+                           "slots": len(self._slots)}}
+
+    # ------------------------------------------------------------------
+    def warmup(self, cache_dir: Optional[str] = None,
+               configure_cache: bool = True) -> int:
+        """Prepare chunk/admit/release (and admit_prefix / spec_chunk when
+        enabled) for every (slot, length) rung pair — on the card, capture
+        each as a CUDA graph; arms the recompile counter (any entry built
+        after this increments ``metrics()['recompiles']``).  Returns the
+        number of entries built.  ``cache_dir`` and ``configure_cache``
+        are accepted for the JAX package's signature and unused: the port
+        has no compile cache."""
+        compiles = self._pool.warmup()
+        self._metrics.count("warmup_compiles", compiles)
+        self._warmed = True
+        return compiles
+
+    # ------------------------------------------------------------------
+    def submit(self, feed, timeout_ms: Optional[float] = None,
+               trace_id: Optional[str] = None,
+               parent_span: Optional[str] = None,
+               priority: int = PRIORITY_NORMAL,
+               max_new_tokens: Optional[int] = None,
+               speculative: bool = False) -> DecodeRequest:
+        """Enqueue one prompt; returns its streaming future.
+
+        ``feed``: ``{"tokens": [L] or [1, L] int}`` (or the positional
+        one-array form) — ONE sequence per request; continuous batching
+        makes the server-side batch, so there is nothing to gain from
+        client-side batching.  ``max_new_tokens`` caps generation
+        (default: the server's cap, else to ``max_seq_len``).
+        ``speculative=True`` opts the request into draft-then-verify
+        rounds (requires a server-side ``SpeculativeConfig``; the
+        output is bit-identical either way — speculation only changes
+        speed).  Deadline, priority, shedding, and trace-id semantics
+        match ``InferenceServer.submit``."""
+        if self._closed:
+            raise ServerClosed("server %r is stopped" % self.name)
+        if speculative and self._speculative is None:
+            raise ValueError(
+                "server %r has no draft model: build the DecodeServer "
+                "with speculative=SpeculativeConfig(...) to accept "
+                "speculative submissions" % self.name)
+        if timeout_ms is not None and float(timeout_ms) <= 0:
+            self._metrics.count("expired")
+            raise DeadlineExceeded(
+                "deadline exhausted before admission (%.1f ms)"
+                % float(timeout_ms))
+        prompt = self._normalize_prompt(feed)
+        if max_new_tokens is not None and int(max_new_tokens) < 1:
+            raise ValueError(
+                "max_new_tokens must be >= 1, got %d (the decode server "
+                "always generates; use infer() shapes for prefill-only "
+                "probes)" % int(max_new_tokens))
+        cap = max_new_tokens if max_new_tokens is not None else self._default_max_new
+        total = len(prompt) + int(cap) if cap is not None else self._pool.max_seq_len
+        total = max(len(prompt) + 1, min(int(total), self._pool.max_seq_len))
+        deadline = (
+            time.monotonic() + float(timeout_ms) / 1e3
+            if timeout_ms is not None else None)
+        req = DecodeRequest(prompt, total, deadline, trace_id=trace_id,
+                            parent_span=parent_span, priority=priority,
+                            speculative=bool(speculative))
+        try:
+            self._batcher.offer(req)
+        except Exception:
+            self._metrics.count("shed")
+            raise
+        # record AFTER admission: a shed request was never decoded, so
+        # counting it would skew the ladder toward traffic never served
+        with self._seq_len_lock:
+            self._seq_len_hist[total] = (
+                self._seq_len_hist.get(total, 0) + 1)
+        self._metrics.count("requests")
+        if not self._worker.is_alive():
+            # the submit-vs-stop race — or a crashed tick thread:
+            # nothing will ever serve this queue, so never park a caller
+            self._fail_stragglers()
+            if req.done():
+                raise ServerClosed("server %r is stopped" % self.name)
+        return req
+
+    def _normalize_prompt(self, feed) -> np.ndarray:
+        if isinstance(feed, dict):
+            if set(feed) != {"tokens"}:
+                raise ValueError(
+                    "decode feed must be {'tokens': ...}, got %s"
+                    % sorted(feed))
+            arr = feed["tokens"]
+        elif isinstance(feed, (list, tuple)) and len(feed) == 1:
+            arr = feed[0]
+        else:
+            arr = feed
+        arr = np.asarray(arr)
+        if arr.ndim == 2:
+            if arr.shape[0] != 1:
+                raise ValueError(
+                    "one sequence per decode request (got %d rows); the "
+                    "scheduler batches server-side" % arr.shape[0])
+            arr = arr[0]
+        if arr.ndim != 1 or arr.size < 1:
+            raise ValueError(
+                "prompt must be a non-empty 1-D token array, got shape %s"
+                % (arr.shape,))
+        if arr.size >= self._pool.max_seq_len:
+            raise ValueError(
+                "prompt of %d tokens leaves no room to generate "
+                "(max_seq_len=%d)" % (arr.size, self._pool.max_seq_len))
+        return arr.astype(np.int32, copy=False)
+
+    # ------------------------------------------------------------------
+    def _on_queue_shed(self, req, retry_after_ms: float) -> None:
+        self._metrics.count("shed")
+        req.fail(ServerOverloaded(
+            "evicted by a higher-priority request",
+            retry_after_ms=retry_after_ms))
+
+    def _on_expired(self, req) -> None:
+        self._metrics.count("expired")
+        req.fail(DeadlineExceeded("deadline passed while queued"))
+
+    def _fail_stragglers(self) -> None:
+        for req in self._batcher.drain_pending():
+            req.fail(ServerClosed("server %r stopped" % self.name))
+
+    # ------------------------------------------------------------------
+    # the tick loop: admit -> chunk dispatch -> materialize/stream/free
+    # ------------------------------------------------------------------
+    def _active_count(self) -> int:
+        return sum(1 for s in self._slots if s is not None)
+
+    def _loop(self) -> None:
+        _mon_spans.set_thread_lane("serving/%s/decode" % self.name)
+        try:
+            while True:
+                self._admit_pending()
+                if self._active_count() == 0:
+                    if self._stop.is_set() and (
+                            self._abort or self._batcher.qsize() == 0):
+                        return
+                    # idle: drop the pool state (frees the KV memory;
+                    # the next admit re-allocs at the smallest rungs)
+                    self._state = None
+                    self._slots = []
+                    self._occupancy_g.set(0.0)
+                    self._kv_bytes_g.set(0.0)
+                    cv = self._batcher.queue.cv
+                    with cv:
+                        if (self._batcher.queue.qsize() == 0
+                                and not self._stop.is_set()):
+                            cv.wait(timeout=_IDLE_WAIT_S)
+                    continue
+                if self._abort:
+                    self._fail_in_flight(
+                        ServerClosed("server %r is stopped" % self.name))
+                    return
+                self._tick()
+        finally:
+            # a crash escaping the loop must not leave a zombie front
+            # door: close the server so later submits fail typed instead
+            # of queueing work nothing will ever drain
+            self._closed = True
+            self._stop.set()
+            self._fail_in_flight(
+                ServerClosed("server %r stopped" % self.name))
+            self._fail_stragglers()
+
+    def _admit_pending(self) -> None:
+        """Seat queued prompts into free slots, growing the slot/length
+        rungs as needed (the bucket ladders bound the shapes, so growth
+        lands on a warmed entry — never a capture)."""
+        pool = self._pool
+        while True:
+            free = [i for i, s in enumerate(self._slots) if s is None]
+            can_grow = len(self._slots) < pool.max_slots
+            if not free and not can_grow:
+                return
+            with self._batcher.queue.cv:
+                req, expired = self._batcher.queue.pop_locked()
+            for r in expired:
+                self._on_expired(r)
+            if req is None:
+                return
+            if req.expired():
+                self._on_expired(req)
+                continue
+            try:
+                pre_len, pre_kv = 0, None
+                if self._prefix is not None:
+                    pre_len, pre_kv = self._prefix.probe(req.prompt)
+                need_t = pool.len_policy.bucket_for(req.total_len)
+                if self._state is None:
+                    s0 = pool.slot_policy.bucket_for(1)
+                    self._state = pool.alloc(s0, need_t)
+                    self._slots = [None] * s0
+                    self._kv_bytes_g.set(float(pool.kv_rung_bytes(
+                        s0, need_t)))
+                else:
+                    cur_s, cur_t = pool.state_rungs(self._state)
+                    new_t = max(cur_t, need_t)
+                    new_s = cur_s
+                    if not free:
+                        new_s = pool.slot_policy.bucket_for(cur_s + 1)
+                    if (new_s, new_t) != (cur_s, cur_t):
+                        self._state = pool.resize(self._state, new_s, new_t)
+                        self._slots.extend([None] * (new_s - cur_s))
+                        self._kv_bytes_g.set(float(pool.kv_rung_bytes(
+                            new_s, new_t)))
+                slot = next(i for i, s in enumerate(self._slots)
+                            if s is None)
+                spec = bool(getattr(req, "speculative", False))
+                if pre_len > 0:
+                    try:
+                        # a corrupted or evicted-mid-admit prefix entry
+                        # must DEGRADE (full prefill), never emit wrong
+                        # tokens: any failure here falls back to the
+                        # plain warmed admit, typed and counted
+                        if _faults.active is not None:  # one is-None gate
+                            _faults.active.faultpoint(
+                                "decode.prefix_admit", server=self.name,
+                                prefix_len=pre_len)
+                        self._state = pool.admit_prefix(
+                            self._state, slot, req.prompt,
+                            len(req.prompt), req.total_len, pre_kv,
+                            pre_len, spec=spec)
+                    except Exception:
+                        self._metrics.count("prefix_fallback")
+                        if self._prefix is not None:
+                            self._prefix.count_fallback()
+                        # degraded-not-wrong is exactly what the event
+                        # ring exists to surface (+ span instant)
+                        _events.emit(
+                            "serving/prefix_fallback", severity="warning",
+                            cat="serving", server=self.name,
+                            prefix_len=pre_len,
+                            trace_id=req.trace_id or None)
+                        pre_len = 0
+                if pre_len == 0:
+                    self._state = pool.admit(
+                        self._state, slot, req.prompt, len(req.prompt),
+                        req.total_len, spec=spec)
+            except BaseException as exc:  # noqa: BLE001 — fail typed,
+                # keep serving (the _tick discipline): the popped
+                # request is in neither the queue nor a slot, so an
+                # escaping exception would strand its caller forever,
+                # and a failure mid-resize may have corrupted the pool
+                req.fail(exc)
+                self._metrics.count("failed")
+                self._fail_in_flight(exc)
+                self._state = None
+                self._slots = []
+                self._kv_bytes_g.set(0.0)
+                return
+            self._slots[slot] = _Slot(req)
+            # the shared-prefix win, measured where it happens: only the
+            # unmatched suffix re-enters prefill
+            self._prefill_c.inc(len(req.prompt) - pre_len)
+
+    def _tick(self) -> None:
+        """One scheduler turn: dispatch a multi-step chunk, then
+        materialize the (small) scheduler view and stream/complete."""
+        recs = [(i, s) for i, s in enumerate(self._slots) if s is not None]
+        tids = ()
+        if _mon_spans.recording():
+            tids = tuple(s.req.trace_id for _, s in recs if s.req.trace_id)
+        # a speculative round only when an opted-in slot is live: a pool
+        # with a draft attached but no speculative traffic ticks the
+        # plain chunk (one entry kind per tick, both warmed)
+        use_spec = self._speculative is not None and any(
+            s.spec for _, s in recs)
+        t0 = time.perf_counter()
+        try:
+            with contextlib.ExitStack() as stack:
+                if tids:
+                    stack.enter_context(_mon_spans.trace_context(tids))
+                # hot-path: begin decode_tick (fault gate + the chunk
+                # dispatch; materialization happens OUTSIDE, after the
+                # async dispatch returns)
+                if _faults.active is not None:  # disarmed: one is-None gate
+                    _faults.active.faultpoint(
+                        "decode.step", server=self.name,
+                        active=len(recs))
+                if use_spec:
+                    state = dispatch_spec_chunk(self._pool, self._state)
+                else:
+                    state = self._pool.chunk(self._state)
+                # hot-path: end decode_tick
+        except BaseException as exc:  # noqa: BLE001 — fail typed, keep serving
+            self._fail_in_flight(exc)
+            self._state = None
+            self._slots = []
+            self._kv_bytes_g.set(0.0)
+            return
+        self._state = state
+        self._ticks_c.inc()
+        # the scheduler intervention: one d2h of the control-plane
+        # arrays (tokens/pos/flags — KBs, not the KV cache)
+        view = {k: state[k].cpu().numpy()
+                for k in ("tokens", "pos", "active", "finished", "n_gen")}
+        now = time.perf_counter()
+        released: List[int] = []
+        for i, rec in recs:
+            n_gen = int(view["n_gen"][i])
+            fresh = n_gen - rec.seen
+            if fresh > 0:
+                lo = rec.prompt_len + rec.seen
+                chunk = view["tokens"][i, lo:lo + fresh].copy()
+                if rec.req.first_token_t is None:
+                    self._ttft_h.observe(
+                        now - rec.req.submit_t,
+                        exemplar=({"trace_id": rec.req.trace_id}
+                                  if rec.req.trace_id else None))
+                rec.req.push_tokens(chunk, now)
+                if use_spec and rec.spec and rec.seen > 0:
+                    # a pure decode-phase round (the slot had emitted
+                    # before, so no prefill teacher-forcing inflated
+                    # ``fresh``): the round's first token is the
+                    # target's own step, the rest are accepted
+                    # proposals out of the k - 1 drafted
+                    k1 = self._speculative.k - 1
+                    accepted = min(max(fresh - 1, 0), k1)
+                    self._spec_proposed_c.inc(k1)
+                    self._spec_accepted_c.inc(accepted)
+                    with self._seq_len_lock:
+                        self._accept_len_hist[accepted] = (
+                            self._accept_len_hist.get(accepted, 0) + 1)
+                rec.seen = n_gen
+                self._tokens_c.inc(fresh)
+            if bool(view["finished"][i]):
+                out = view["tokens"][
+                    i, rec.prompt_len:rec.prompt_len + n_gen].copy()
+                self._offer_prefix(i, rec, int(view["pos"][i]))
+                rec.req.complete([out])
+                self._metrics.observe_request(
+                    now - rec.req.submit_t, trace_id=rec.req.trace_id)
+                self._slots[i] = None
+            elif rec.req.expired():
+                # deadline passed mid-decode: abort the lane so the slot
+                # frees for queued work.  fail() is a no-op when the
+                # client already failed the request (its typed error
+                # wins), but the miss still counts as expired
+                rec.req.fail(DeadlineExceeded(
+                    "deadline passed mid-decode"))
+                self._metrics.count("expired")
+                self._offer_prefix(i, rec, int(view["pos"][i]))
+                released.append(i)
+                self._slots[i] = None
+            elif rec.req.done():
+                # the client gave up (an abandoned stream already failed
+                # the request) with its deadline intact: free the lane
+                # silently — this is not a deadline miss
+                self._offer_prefix(i, rec, int(view["pos"][i]))
+                released.append(i)
+                self._slots[i] = None
+        if released:
+            self._state = self._pool.release(self._state, released)
+        if self._slots:
+            self._occupancy_g.set(
+                self._active_count() / float(len(self._slots)))
+        if tids or _mon_spans.recording():
+            with _mon_spans.trace_context(tids):
+                _mon_spans.record_span(
+                    "serving/decode_tick", t0, now - t0, cat="serving",
+                    server=self.name, active=len(recs),
+                    steps=self._pool.steps)
+
+    def _offer_prefix(self, slot: int, rec: _Slot, consumed: int) -> None:
+        """Retain a freed slot's prefix KV in the cache (a control-plane
+        d2h per NEW entry, on the scheduler thread after the tick's
+        materialization — never inside the dispatch hot path).  Failures
+        degrade silently: retention is an optimization, losing one entry
+        must not take down the loop."""
+        if self._prefix is None:
+            return
+        try:
+            self._prefix.offer(
+                rec.req.prompt, consumed,
+                lambda m, s=slot: self._pool.extract_kv(
+                    self._state, s, m))
+        except Exception:
+            self._metrics.count("prefix_store_failed")
+
+    def _fail_in_flight(self, exc: BaseException) -> None:
+        n = 0
+        for i, rec in enumerate(self._slots):
+            if rec is not None:
+                rec.req.fail(exc)
+                self._slots[i] = None
+                n += 1
+        if n and not isinstance(exc, ServerClosed):
+            self._metrics.count("failed", n)
+
+    # ------------------------------------------------------------------
+    def stop(self, drain: bool = True, timeout: Optional[float] = None) -> None:
+        """``drain=True``: stop admitting, finish every queued and
+        in-flight sequence, then join the tick thread.  ``drain=False``:
+        queued and in-flight requests fail with ``ServerClosed``."""
+        self._closed = True
+        if not drain:
+            self._abort = True
+            self._fail_stragglers()
+        self._stop.set()
+        self._batcher.wake()
+        self._worker.join(timeout)
+        if not self._worker.is_alive():
+            self._fail_stragglers()
+            self._pool.close()  # the card's buffers and graphs go back
+        self._metrics.close()
+        lbl = {"server": self.name, "instance": self._metrics.instance}
+        for metric in (DECODE_TOKENS, DECODE_PREFILL_TOKENS, DECODE_TICKS,
+                       DECODE_TTFT, DECODE_OCCUPANCY, DECODE_KV_BYTES):
+            metric.remove_labels(**lbl)
+        if self._speculative is not None:
+            for metric in (SPEC_PROPOSED, SPEC_ACCEPTED):
+                metric.remove_labels(**lbl)
+        if self._prefix is not None and self._prefix_owned:
+            self._prefix.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stop(drain=exc == (None, None, None))
+        return False
+
+
+# ---------------------------------------------------------------------------
+# saved decode endpoints (the launch_server / fleet integration)
+# ---------------------------------------------------------------------------
+_DECODE_CONFIG = "decode.json"
+_DECODE_WEIGHTS = "weights.npz"
+_DRAFT_WEIGHTS = "draft_weights.npz"
+
+
+def save_decode_endpoint(dirname: str, state: Dict[str, np.ndarray], *,
+                         vocab_size: int, d_model: int, n_layer: int,
+                         n_head: int, d_inner: int, eos_id: int,
+                         max_seq_len: int, max_slots: int = 8,
+                         steps_per_tick: int = 4, name: str = "lm",
+                         draft: Optional[Dict[str, object]] = None,
+                         prefix_cache_bytes: Optional[int] = None,
+                         kv_dtype: str = "fp32") -> str:
+    """Persist a transformer-LM decode endpoint (weights + config) in the
+    JAX package's format (``decode.json``, ``weights.npz``, and
+    ``draft_weights.npz`` with a draft), so either package loads the
+    other's endpoint with :func:`load_decode_endpoint`.
+
+    ``draft``: an optional speculative-decoding manifest ``{"state":
+    weight dict, "d_model": ..., "n_layer": ..., "n_head": ...,
+    "d_inner": ..., "name": ..., "k": ...}`` — the draft LM shares the
+    target's vocabulary and rides the endpoint dir as
+    ``draft_weights.npz`` + a ``draft`` config block.  ``prefix_cache_bytes``: when set, loads
+    build the server with a prefix KV cache of that byte budget.
+    ``kv_dtype``: the KV-cache storage dtype (``"fp32"`` or ``"int8"``)
+    every load reconstructs — int8 halves per-slot KV bytes with
+    greedy-exact output parity (same tokens, per-head absmax scales)."""
+    from paddle_tpu_torch.decoding import normalize_kv_dtype
+
+    kv_dtype = normalize_kv_dtype(kv_dtype)
+    _check_pos_emb(state, name, max_seq_len)
+    os.makedirs(dirname, exist_ok=True)
+    np.savez(os.path.join(dirname, _DECODE_WEIGHTS),
+             **{k: _host(v) for k, v in state.items()})
+    cfg = {
+        "kind": "transformer_lm", "name": name,
+        "vocab_size": int(vocab_size), "d_model": int(d_model),
+        "n_layer": int(n_layer), "n_head": int(n_head),
+        "d_inner": int(d_inner), "eos_id": int(eos_id),
+        "max_seq_len": int(max_seq_len), "max_slots": int(max_slots),
+        "steps_per_tick": int(steps_per_tick),
+        "kv_dtype": kv_dtype,
+    }
+    if draft is not None:
+        draft_name = str(draft.get("name", "draft"))
+        draft_state = draft["state"]
+        _check_pos_emb(draft_state, draft_name, max_seq_len)
+        np.savez(os.path.join(dirname, _DRAFT_WEIGHTS),
+                 **{k: _host(v) for k, v in draft_state.items()})
+        cfg["draft"] = {
+            "d_model": int(draft["d_model"]),
+            "n_layer": int(draft["n_layer"]),
+            "n_head": int(draft["n_head"]),
+            "d_inner": int(draft["d_inner"]),
+            "name": draft_name,
+            "k": int(draft.get("k", 4)),
+        }
+    if prefix_cache_bytes is not None:
+        cfg["prefix_cache_bytes"] = int(prefix_cache_bytes)
+    with open(os.path.join(dirname, _DECODE_CONFIG), "w") as f:
+        json.dump(cfg, f)
+    return dirname
+
+
+def _host(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def _check_pos_emb(state, name: str, max_seq_len: int) -> None:
+    """``max_seq_len`` beyond the positional table would not crash —
+    the step's clamping gather silently reuses the last row — so refuse
+    it loudly instead of generating degraded sequences."""
+    pe = state.get(name + "_pos_emb")
+    if pe is not None and int(np.shape(pe)[0]) < int(max_seq_len):
+        raise ValueError(
+            "pos_emb covers %d positions but max_seq_len=%d — positions "
+            "past the table would silently clamp to its last row"
+            % (int(np.shape(pe)[0]), int(max_seq_len)))
+
+
+def is_decode_endpoint(dirname: str) -> bool:
+    return os.path.exists(os.path.join(dirname, _DECODE_CONFIG))
+
+
+def load_decode_endpoint(dirname: str, place=None, **overrides) -> DecodeServer:
+    """Build a :class:`DecodeServer` from a saved decode endpoint dir (the
+    JAX package's or the port's).  ``place``: where it serves (``cuda:0``
+    by default, raising without a card; ``CPUPlace()`` for the CPU).
+    ``overrides`` (``max_slots``, ``queue_capacity``, ``name``,
+    ``steps_per_tick``, ...) win over the saved config."""
+    from paddle_tpu_torch.decoding import (
+        make_transformer_lm_pooled_step_fn,
+        normalize_kv_dtype,
+    )
+
+    with open(os.path.join(dirname, _DECODE_CONFIG)) as f:
+        cfg = json.load(f)
+    if cfg.get("kind") != "transformer_lm":
+        raise ValueError(
+            "unsupported decode endpoint kind %r" % cfg.get("kind"))
+    weights = dict(np.load(os.path.join(dirname, _DECODE_WEIGHTS)))
+    # kv_dtype shapes the COMPILED step/verify fns, not just server
+    # config, so an override must land before they are built
+    kv_dtype = normalize_kv_dtype(
+        overrides.pop("kv_dtype", cfg.get("kv_dtype", "fp32")))
+    step_fn, make_cache = make_transformer_lm_pooled_step_fn(
+        weights, cfg["vocab_size"], cfg["d_model"], cfg["n_layer"],
+        cfg["n_head"], cfg["d_inner"], name=cfg.get("name", "lm"),
+        kv_dtype=kv_dtype, place=place)
+    kw = {
+        "eos_id": cfg["eos_id"],
+        "max_seq_len": cfg["max_seq_len"],
+        "max_slots": cfg.get("max_slots", 8),
+        "steps_per_tick": cfg.get("steps_per_tick", 4),
+        "kv_dtype": kv_dtype,
+    }
+    if cfg.get("draft"):
+        from paddle_tpu_torch.serving.speculative import make_lm_speculative
+
+        d = cfg["draft"]
+        draft_weights = dict(
+            np.load(os.path.join(dirname, _DRAFT_WEIGHTS)))
+        kw["speculative"] = make_lm_speculative(
+            weights, vocab_size=cfg["vocab_size"],
+            d_model=cfg["d_model"], n_layer=cfg["n_layer"],
+            n_head=cfg["n_head"], d_inner=cfg["d_inner"],
+            draft_state=draft_weights, draft_d_model=d["d_model"],
+            draft_n_layer=d["n_layer"], draft_n_head=d["n_head"],
+            draft_d_inner=d["d_inner"], k=d.get("k", 4),
+            name=cfg.get("name", "lm"),
+            draft_name=d.get("name", "draft"),
+            kv_dtype=kv_dtype, place=place)
+    if cfg.get("prefix_cache_bytes"):
+        kw["prefix_cache"] = int(cfg["prefix_cache_bytes"])
+    kw.update(overrides)
+    # after overrides: a hand-edited config (or max_seq_len override)
+    # must not outrun the positional table
+    _check_pos_emb(weights, cfg.get("name", "lm"), kw["max_seq_len"])
+    return DecodeServer(step_fn, make_cache, **kw)

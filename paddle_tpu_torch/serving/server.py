@@ -12,9 +12,11 @@ the other.
 
 Lifecycle: construct (the worker starts) -> ``warmup()`` -> ``submit()``
 / ``Client`` traffic -> ``stop(drain=True)`` for a graceful drain.
-Replicas, the ladder autotuner, the admin HTTP surface, precision
-variants, metrics export and fault injection come with later slices of
-the port.
+Replicas, the autotuner's wiring (``start_autotuner``, ``replan_ladder``;
+the ladder arithmetic is ported as ``serving.autotune``), the admin HTTP
+surface, precision variants, the move of this server's counters onto
+``serving.metrics.ServingMetrics`` and the ``serving.*`` fault points come
+with the request-batching server's remainder (ROADMAP A8b).
 """
 from __future__ import annotations
 
@@ -129,14 +131,16 @@ class InferenceServer:
 
     # ------------------------------------------------------------------
     def submit(self, feed, timeout_ms: Optional[float] = None,
-               priority: int = PRIORITY_NORMAL) -> ServingRequest:
+               priority: int = PRIORITY_NORMAL, trace_id: Optional[str] = None,
+               parent_span: Optional[str] = None) -> ServingRequest:
         """Enqueue one request; returns its future (ServingRequest).
 
         ``feed``: dict (or positional sequence) of arrays whose shared
         leading dim is the request's row count (1..max_batch_size).
         Raises ServerOverloaded (with a ``retry_after_ms`` hint) when
         shed, ServerClosed after stop(), and DeadlineExceeded at once
-        for a ``timeout_ms`` that is already <= 0.
+        for a ``timeout_ms`` that is already <= 0.  ``trace_id`` /
+        ``parent_span`` ride the request (``Client`` mints them).
         """
         if self._closed:
             raise ServerClosed("server %r is stopped" % self.name)
@@ -147,7 +151,8 @@ class InferenceServer:
         feed, n_rows = self._normalize_feed(feed)
         deadline = (time.monotonic() + float(timeout_ms) / 1e3
                     if timeout_ms is not None else None)
-        req = ServingRequest(feed, n_rows, deadline, priority=priority)
+        req = ServingRequest(feed, n_rows, deadline, priority=priority, trace_id=trace_id,
+                             parent_span=parent_span)
         try:
             self._batcher.offer(req)
         except ServerOverloaded:

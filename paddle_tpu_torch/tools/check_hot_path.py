@@ -33,6 +33,12 @@ CHECKED_FILES = [
     "paddle_tpu_torch/reader.py",
     # the armed ledger's per-step charges
     "paddle_tpu_torch/monitor/train.py",
+    # int8 KV quantize-on-write inside the captured step and verify fns
+    "paddle_tpu_torch/quant.py",
+    # the slot pool's dispatches: entry lookup + input copies + replay
+    "paddle_tpu_torch/serving/kv_pool.py",
+    # the decode scheduler's tick: fault gate + chunk dispatch
+    "paddle_tpu_torch/serving/decode.py",
 ]
 
 # blocking-sync tokens (substring match on code, not comments)

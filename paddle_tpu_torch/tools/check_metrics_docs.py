@@ -29,6 +29,10 @@ REGISTERING_MODULES = [
     "paddle_tpu_torch.executor",
     "paddle_tpu_torch.reader",
     "paddle_tpu_torch.faults.metrics",
+    "paddle_tpu_torch.serving.metrics",
+    "paddle_tpu_torch.serving.decode",
+    "paddle_tpu_torch.serving.prefix_cache",
+    "paddle_tpu_torch.serving.speculative",
 ]
 
 # table rows look like ``| `metric_name` | type | ... |``

@@ -29,7 +29,10 @@ random ones staying eager, their layers trained captured against eager,
 and VGG-16 under AMP with its dropouts captured against eager; and every
 op type of the sequence, RNN-unit and sampled-loss part (nce with each
 sampler, its negatives the CPU's draw) under capture, and their layers
-trained captured against eager.
+trained captured against eager; and continuous-batching decode: kernel
+B3 (int8-KV decode attention) against its plain version, the slot
+pool's captured ``chunk`` against the same chunk run eagerly, zero
+captures after warmup, and a resize across rungs while slots are live.
 
 Every test here needs a CUDA card and skips without one (marker
 ``cuda``).  The file imports neither jax nor paddle_tpu, so it also runs
@@ -2341,3 +2344,113 @@ def test_restore_keeps_a_bf16_persistable_bf16(card, tmp_path):
     ck.restore(main, scope)
     assert scope.vars[name].dtype == torch.bfloat16
     assert torch.equal(scope.vars[name], want)
+
+
+# ---------------------------------------------------------------------------
+# continuous-batching decode: kernel B3 and the slot pool's CUDA graphs
+# ---------------------------------------------------------------------------
+DEC_LM = dict(vocab=97, d_model=128, n_layer=2, n_head=2, d_inner=256, max_pos=64)
+DEC_DIMS = [DEC_LM[k] for k in ("vocab", "d_model", "n_layer", "n_head", "d_inner")]
+B3_TOL = 1e-5  # of max |ctx|: fp32 sums in another order
+
+
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_decode_attention_kernel_against_plain(card, K, dh):
+    from paddle_tpu_torch import quant
+    from paddle_tpu_torch.kernels import decode_attention as kda
+
+    gen = torch.Generator(device=card).manual_seed(K * 1000 + dh)
+    S, H, T = 5, 3, 300
+    q = torch.randn(S, K, H, dh, device=card, generator=gen)
+    kc, ks = quant.quantize_rows(torch.randn(S, H, T, dh, device=card, generator=gen) * 3)
+    vc, vs = quant.quantize_rows(torch.randn(S, H, T, dh, device=card, generator=gen))
+    ts = torch.tensor([0, 1, 127, 250, T - 1], dtype=torch.int32, device=card)
+    kernels.reset_launch_counts()
+    got = kda.decode_attention(q, kc, ks, vc, vs, ts, dh ** -0.5)
+    assert kernels.launch_counts().get(kda.KERNEL_NAME) == 1
+    want = kda.decode_attention_plain(q, kc, ks, vc, vs, ts, dh ** -0.5)
+    err = float((got - want).abs().max())
+    assert err <= B3_TOL * float(want.abs().max()), err
+    again = kda.decode_attention(q, kc, ks, vc, vs, ts, dh ** -0.5)
+    assert torch.equal(got, again)  # one order of sums: bit for bit across launches
+
+
+def _dec_pool(card, kv_dtype, **kw):
+    from paddle_tpu_torch import decoding
+    from paddle_tpu_torch.serving.kv_pool import KVSlotPool
+
+    state = decoding.random_transformer_lm_state(np.random.RandomState(3), **DEC_LM)
+    sf, mc = decoding.make_transformer_lm_pooled_step_fn(state, *DEC_DIMS, kv_dtype=kv_dtype,
+                                                         place=tfluid.CUDAPlace(0))
+    return KVSlotPool(sf, mc, eos_id=DEC_LM["vocab"] + 1, max_slots=4, max_seq_len=64,
+                      slot_ladder=[2, 4], len_ladder=[32, 64], steps=3, kv_dtype=kv_dtype, **kw)
+
+
+def _seat(pool, st, rng, slots):
+    for slot in slots:
+        n = int(rng.randint(3, 12))
+        st = pool.admit(st, slot, rng.randint(0, DEC_LM["vocab"], n).astype(np.int32), n,
+                        int(pool.state_rungs(st)[1]))
+    return st
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
+def test_captured_chunk_equals_eager_chunk(card, kv_dtype):
+    """The same admits and five chunks, through the warmed graphs and
+    through the plain functions on a copy of the state: ids and flags
+    equal, the cache within 1e-5 (a replay and an eager run launch the
+    same kernels, but cuBLAS may pick another algorithm under capture)."""
+    from paddle_tpu_torch import decoding
+
+    pool = _dec_pool(card, kv_dtype)
+    pool.warmup()
+    st = _seat(pool, pool.alloc(2, 32), np.random.RandomState(0), [0, 1])
+    eager = {k: (v.clone() if isinstance(v, torch.Tensor) else
+                 [{n: x.clone() for n, x in layer.items()} for layer in v]) for k, v in st.items()}
+    chunk = pool._plain["chunk"]
+    kernels.reset_launch_counts()
+    for _ in range(5):
+        st = pool.chunk(st)
+        chunk(eager)
+    torch.cuda.synchronize()
+    for k in ("tokens", "pos", "active", "finished", "n_gen"):
+        assert torch.equal(st[k], eager[k]), k
+    for a, b in zip(decoding.kv_tree_leaves(st["cache"]), decoding.kv_tree_leaves(eager["cache"])):
+        assert float((a.float() - b.float()).abs().max()) <= (1.0 if a.dtype == torch.int8 else 1e-5)
+    assert int(st["n_gen"].sum()) > 0
+    b3 = kernels.launch_counts().get("decode_attention_int8", 0)
+    # 2 layers x 3 steps a chunk x 5 chunks, each path (replays and eager)
+    assert b3 == (2 * 3 * 5 * 2 if kv_dtype == "int8" else 0)
+
+
+def test_zero_captures_after_warmup_and_resize_with_live_slots(card):
+    """Every dispatch after warmup is a replay (no miss), across a slot
+    and a length rung transition while two slots are mid-decode: the
+    resize copies the live state into the larger pair's buffers on the
+    card (zero-padded, as the JAX package's host resize leaves it), and
+    decoding goes on from there."""
+    from paddle_tpu_torch import decoding
+
+    pool = _dec_pool(card, "fp32")
+    n = pool.warmup()
+    assert n == len(pool.rung_pairs()) * 3
+    assert pool.state_bytes() > 0 and pool.graph_pool_bytes() >= 0
+    st = _seat(pool, pool.alloc(2, 32), np.random.RandomState(1), [0, 1])
+    for _ in range(2):
+        st = pool.chunk(st)
+    before = {k: st[k].clone() for k in ("tokens", "pos", "n_gen", "active")}
+    kv_before = [x.clone() for x in decoding.kv_tree_leaves(st["cache"])]
+    big = pool.resize(st, 4, 64)
+    assert pool.state_rungs(big) == (4, 64) and big is pool._buffers(4, 64)
+    assert torch.equal(big["tokens"][:2, :32], before["tokens"])
+    assert int(big["tokens"][2:].abs().sum()) == 0 and int(big["tokens"][:, 32:].abs().sum()) == 0
+    for k in ("pos", "n_gen", "active"):
+        assert torch.equal(big[k][:2], before[k]) and not bool(big[k][2:].any()), k
+    for a, b in zip(decoding.kv_tree_leaves(big["cache"]), kv_before):
+        assert torch.equal(a[:2, :, :32], b) and float(a[2:].abs().max()) == 0.0
+    big = pool.chunk(big)
+    assert bool((big["n_gen"][:2] >= before["n_gen"]).all())
+    big = pool.release(big, [1])
+    assert not bool(big["active"][1])
+    assert pool.jit_cache_stats()["misses"] == 0

@@ -176,9 +176,24 @@ def test_cached_step_logits_under_teacher_forcing():
 
 
 def test_int8_kv_and_entry_points_without_a_card():
-    with pytest.raises(NotImplementedError, match="A8"):
-        tdec._lm_forward_one({}, "lm", [{"k": torch.zeros(1, 1, 2, 1)}], torch.zeros(1, 1), 0,
-                             1, 1, 1, 1, 1.0, kv_int8=True)
+    """The int8 KV step (``_lm_forward_one(kv_int8=True)`` under the
+    pooled step) against the JAX package's: logits within 1e-4 over 6
+    steps at per-row positions; and the entry points' device rules."""
+    import jax.numpy as jnp
+
+    state = tdec.random_transformer_lm_state(np.random.RandomState(0), **LM)
+    dims = [LM[k] for k in ("vocab", "d_model", "n_layer", "n_head", "d_inner")]
+    jstep, jcache = jdec.make_transformer_lm_pooled_step_fn(_jax_arrays(state), *dims,
+                                                            kv_dtype="int8")
+    tstep, tcache = tdec.make_transformer_lm_pooled_step_fn(state, *dims, kv_dtype="int8",
+                                                            place=CPU)
+    jc, tc = jcache(2, LM["max_pos"]), tcache(2, LM["max_pos"])
+    toks = np.random.RandomState(1).randint(0, LM["vocab"], (6, 2)).astype(np.int32)
+    for t in range(6):
+        ts = np.array([t, t + 3], np.int32)
+        jl, jc = jstep(jc, jnp.asarray(toks[t]), jnp.asarray(ts))
+        tl, tc = tstep(tc, torch.from_numpy(toks[t]), torch.from_numpy(ts))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     assert tdec.normalize_kv_dtype("float32") == "fp32"
     if not torch.cuda.is_available():
         state = tdec.random_transformer_lm_state(np.random.RandomState(0), **LM)

@@ -353,6 +353,47 @@ def test_device_trace_merges_on_the_anchor_marker(tmp_path):
     assert not tprofiler._active_trace_dir  # the session stopped its trace
 
 
+def test_device_work_never_starts_before_its_launch(tmp_path):
+    """A device trace whose graph replay was timed before the
+    ``cudaGraphLaunch`` that issued it (CUPTI's clock conversion, seen on
+    an H100): the merge moves that launch's kernels, memcpy and flow end
+    to the launch, keeping CUPTI's own start and the shift in the moved
+    events' args, and leaves an in-order launch as it is."""
+    from paddle_tpu_torch.monitor import chrome_trace
+
+    d = tmp_path / "prof"
+    d.mkdir()
+    evs = [
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch", "ts": 5000.0, "dur": 20.0,
+         "pid": 1, "tid": 1, "args": {"correlation": 7}},
+        {"ph": "X", "cat": "kernel", "name": "k_early", "ts": 3200.0, "dur": 80.0, "pid": 0,
+         "tid": 7, "args": {"correlation": 7}},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "copy", "ts": 3300.0, "dur": 5.0, "pid": 0,
+         "tid": 7, "args": {"correlation": 7}},
+        {"ph": "f", "cat": "ac2g", "name": "ac2g", "id": 7, "ts": 3200.0, "pid": 0, "tid": 7},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 6000.0, "dur": 5.0,
+         "pid": 1, "tid": 1, "args": {"correlation": 8}},
+        {"ph": "X", "cat": "kernel", "name": "k_ok", "ts": 6010.0, "dur": 10.0, "pid": 0, "tid": 7,
+         "args": {"correlation": 8}},
+    ]
+    (d / "host.pt.trace.json").write_text(json.dumps({"traceEvents": evs}))
+    out = str(tmp_path / "trace.json")
+    chrome_trace.export_chrome_trace(out, spans=[], device_trace_dir=str(d), device_anchor=100.0)
+    doc = json.load(open(out))
+    by = {e["name"]: e["ts"] for e in doc["traceEvents"] if e.get("ph") in ("X", "f")}
+    assert by["k_early"] == pytest.approx(by["cudaGraphLaunch"])
+    assert by["copy"] - by["k_early"] == pytest.approx(100.0)
+    assert by["ac2g"] == pytest.approx(by["cudaGraphLaunch"])
+    assert by["k_ok"] - by["cudaLaunchKernel"] == pytest.approx(10.0)
+    other = doc["otherData"]
+    assert other["device_launches"] == 2 and other["device_launches_moved"] == 1
+    assert other["device_largest_move_us"] == pytest.approx(1800.0)
+    args = {e["name"]: e.get("args", {}) for e in doc["traceEvents"] if e.get("ph") == "X"}
+    assert args["k_early"]["cupti_ts"] == 3200.0 and args["copy"]["cupti_ts"] == 3300.0
+    assert args["k_early"]["moved_us"] == pytest.approx(1800.0)
+    assert "cupti_ts" not in args["k_ok"] and "moved_us" not in args["k_ok"]
+
+
 def test_reset_profiler_stops_a_running_trace_without_writing(tmp_path):
     d = str(tmp_path / "p")
     tprofiler.start_profiler(trace_dir=d)

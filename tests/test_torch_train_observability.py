@@ -324,3 +324,29 @@ def test_executor_phase_spans_match_the_jax_package():
                     exe.run(main, feed={"x": np.ones((2, 4), "float32")}, fetch_list=[out])
         names.append({s["name"] for s in sess.spans})
     assert names[1] == names[0] - {"executor/jit_compile", "lowering/trace_block"}
+
+
+def test_executor_counters_survive_a_finalizer_inside_their_lock():
+    """A dead executor's finalizer can run in a garbage collection that
+    fires while its thread holds the counters' lock (a scrape summing
+    them): it must not wait for that lock, and its runs stay counted."""
+    import threading
+
+    from paddle_tpu_torch import executor as texecutor
+
+    main, startup, _ = _reg_program()
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    exe.run(startup, scope=tfluid.Scope())
+    runs0 = tmonitor.counter_value("executor_runs_total")
+    stats = exe._cache_stats
+
+    def collect_inside_the_lock():
+        with texecutor._exec_stats_lock:
+            texecutor._retire_exec_stats(stats)  # as a collection would call it
+
+    t = threading.Thread(target=collect_inside_the_lock, daemon=True)
+    t.start()
+    t.join(timeout=10)
+    assert not t.is_alive()
+    assert tmonitor.counter_value("executor_runs_total") == runs0
+    assert not any(d is stats for d in texecutor._exec_stats)
