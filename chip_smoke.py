@@ -2,6 +2,7 @@
 """Chip smoke test of paddle_tpu_torch on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --b3   # kernel B3's build, check and sweep alone
 
 Phases, each of which raises (exit code != 0) on failure:
 
@@ -307,9 +308,13 @@ Phases, each of which raises (exit code != 0) on failure:
    (one fallback, a ``train/resume`` warning event), and the resumed
    steps match phase 32 bit for bit.
 34. Continuous-batching LM decode (with kernel B3's check beside the
-   dropout kernel's: ``decode_attention`` at [32, 8, 512, 64] for K = 1
-   and 4 against its plain version within 1e-5 of max |ctx|, timed with
-   the plain version and the dequantize-then-SDPA route): the causal LM at
+   dropout kernel's: ``decode_attention`` over B3_SWEEP, [32, 8, 512, 64]
+   with ts spread and every slot full and [32, 8, 2048, 64] full at K = 1,
+   4 and 8, and the int8 server's 8- and 16-slot rungs at 256 and 512
+   positions, spread, K = 1 and 4, against its plain version within 1e-5
+   of max |ctx|, bit for bit across launches and a graph replay, timed L2
+   hot and cold beside the plain version, the dequantize-then-SDPA route
+   and each split of the positions): the causal LM at
    LM widths (random weights from the seed) served by ``DecodeServer``
    (32 slots, slot rungs 8/16/32, length rungs 128/256/512, 4 steps a
    tick; every rung pair's chunk, admit and release captured as CUDA
@@ -330,10 +335,14 @@ Phases, each of which raises (exit code != 0) on failure:
    prefill tokens saved, tokens by the margin rule); speculative decode
    with k = 4, the target as its own draft (acceptance at least 0.9) and a
    random 2-layer draft, tokens equal to plain greedy by the margin rule;
-   one stream of 256 tokens in at least 2 chunks.  The hand kernels'
-   counts are reset after each server's warmup and read after its legs:
-   the attention kernels and dropout on none of the six servers, B3 on the
-   int8 server alone.
+   one stream of 256 tokens in at least 2 chunks; long context, an fp32
+   and an int8 server at one rung pair of 32 slots x 2,048 positions (the
+   LM's max_pos), 32 requests of 1,536 to 1,920 prompt tokens and 64 new
+   (generated tokens/s, ms a step of the captured chunk from position
+   1,700, a profiled tick with B3's calls (6 a step) and share).  The hand
+   kernels' counts are reset after each server's warmup and read after its
+   legs: the attention kernels and dropout on none of the eight servers,
+   B3 on the two int8 servers alone.
 
 Output: progress lines, then a ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
@@ -729,10 +738,30 @@ DEC_SPEC = dict(k=4, reqs=8, prompt=(16, 64), new=64, draft=dict(d_model=256, n_
 DEC_SPEC_SELF_FLOOR = 0.9  # self-draft accepted / proposed
 DEC_INT8_SEQS_FLOOR = 1.8  # int8 sequences at a fixed budget over fp32's (bench_serving.py)
 DEC_STREAM_NEW = 256
+# the long-context leg: an fp32 and an int8 server at one rung pair of 32
+# slots and the LM's max_pos, 32 requests of 1,536 to 1,920 prompt tokens and
+# 64 new; the captured chunk timed and profiled from position DEC_LONG_AT on
+DEC_LONG_SERVER = dict(max_slots=32, slot_ladder=[32], len_ladder=[2048], steps_per_tick=4)
+DEC_LONG = dict(reqs=32, prompt=(1536, 1920), new=64)
+DEC_LONG_AT = 1700
 DEC_QUEUE_WAIT_MS = 120_000.0  # the admission queue's AIMD wait target
-B3_SHAPE = (32, 8, 512, 64)  # [S, H, T, Dh] at the top rung pair
-B3_KS = (1, 4)
+# kernel B3's sweep: [S, H, T, Dh], which slots are how full, the verify
+# widths.  "spread": ts from 0 to T - 4 over the slots, as in traffic at
+# length rung T; "full": every slot reads all T positions (ts = T - K).  The
+# last four points are the int8 server's lower slot rungs (8 and 16 slots at
+# length rungs 256 and 512), whose 64 or 128 (slot, head) pairs are too few
+# for 132 SMs, so split_plan splits their positions
+B3_SWEEP = (((32, 8, 512, 64), "spread", (1, 4, 8)),
+            ((32, 8, 512, 64), "full", (1, 4, 8)),
+            ((32, 8, 2048, 64), "full", (1, 4, 8)),
+            ((8, 8, 256, 64), "spread", (1, 4)),
+            ((8, 8, 512, 64), "spread", (1, 4)),
+            ((16, 8, 256, 64), "spread", (1, 4)),
+            ((16, 8, 512, 64), "spread", (1, 4)))
+B3_SPREAD_GAP = 4  # "spread": the fullest slot's ts is T - 4
 B3_TOL = 1e-5             # of max |ctx|: fp32 sums in another order
+B3_COLD_BYTES = 100e6     # L2 cold: rotate over input copies that together exceed this
+B3_PLAN_SPLITS = (1, 2, 4, 8)  # the kernel also timed (L2 hot) under these splits
 ALIGN_SLACK_US = 50.0    # CUPTI's card clock mapped onto the host's, beyond the anchor's own error
 # the merge moves a launch's device work that CUPTI timed before its launch
 # call to the launch; the largest move it may make: about 3x the largest
@@ -797,7 +826,24 @@ def build_kernels():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log("[build]   " + line.strip())
     check_build(res["fused_attention"]["path"], res["fused_attention_bwd"]["path"])
+    b3_config(res["decode_attention"]["path"])
     return res
+
+
+def b3_config(path):
+    """Kernel B3's launch shape a verify width and head dim (ptxas' registers
+    for each instantiation are in the build log above)."""
+    import ctypes
+
+    fn = ctypes.CDLL(path).paddle_decode_attention_int8_config
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    cfg = (ctypes.c_int * 5)()
+    for k in (1, 2, 4, 8):
+        for dh in (32, 64, 128):
+            fn(k, dh, cfg)
+            log("[build] decode_attention K%d D%d: %d threads, tiles of %d positions, %d in flight "
+                "a warp, %d bytes of shared memory, at most %d CTAs a (slot, head)" % (k, dh, *cfg))
 
 
 def check_build(fwd_path, bwd_path):
@@ -6312,70 +6358,132 @@ def run_lm_faults(torch, workdir, bits, paths, ckdir32):
 FP32_SIMT_OPS_S = 67e12  # float32 outside the tensor cores (the H100 SXM data sheet)
 
 
+def _graph_replay(torch, fn):
+    """``fn`` (one kernel call) run once, then captured as a CUDA graph; its
+    output buffer filled with NaN and the graph replayed: what the replay
+    wrote."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    out.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def _b3_work(torch, ts, K, S, H, T, Dh):
+    """Kernel B3's least work on these inputs: bytes (the codes and scales of
+    the positions each slot reads, t <= ts + K - 1, read once; q read and ctx
+    written) and fp32 operations (4 Dh a position and query)."""
+    lim = torch.clamp(ts.long()[:, None] + torch.arange(K, device=ts.device)[None, :], max=T - 1)
+    n_read = int((lim[:, -1] + 1).sum()) * H
+    nbytes = 2 * n_read * (Dh + 4) + 2 * S * K * H * Dh * 4 + S * 4
+    return nbytes, int((lim + 1).sum()) * H * 4 * Dh, lim
+
+
 def check_decode_attention_kernel(torch):
-    """Kernel B3 (decode attention over an int8 KV cache) at B3_SHAPE, for
-    K = 1 (the step's entry) and K = 4 (the verify's), ``ts`` spread over 0
-    to 507: codes and scales from ``quant.quantize_rows`` of random fp32
-    rows, held against ``decode_attention_plain`` on the card within B3_TOL
-    of max |ctx|, bit for bit across two launches.  The kernel, the plain
-    version and the nearest library route (dequantize to fp32, then
+    """Kernel B3 (decode attention over an int8 KV cache) at each point of
+    B3_SWEEP: codes and scales from ``quant.quantize_rows`` of random fp32
+    rows; the kernel (its positions split by ``split_plan``, merged over a
+    thread-block cluster) held against ``decode_attention_plain`` on the
+    card within B3_TOL of max |ctx|, bit for bit across two launches and
+    across a CUDA graph's replay.  Timed L2 hot and L2 cold (rotating over
+    copies of the codes and scales that together exceed B3_COLD_BYTES);
+    L2 hot also: the plain version, the nearest library route (dequantize to fp32, then
     ``scaled_dot_product_attention`` with the same boolean mask: not the
-    same function, it reads the whole fp32 copy) are timed.  The bound:
-    the codes and scales of the positions each slot reads (t <= ts + K -
-    1) read once, q read and ctx written, at 3.35 TB/s; or its 4 Dh fp32
-    operations a position and query at 67 TFLOP/s."""
+    same function, it reads the whole fp32 copy), ``torch.sum`` over as
+    many bytes as the kernel must read (``read_ms``: what the card's own
+    reduction reaches, a practical floor below the bound) and the kernel
+    under each split of B3_PLAN_SPLITS (``ms_by_split``).  The bound: the larger of the bytes each
+    point reads and writes at 3.35 TB/s and its fp32 operations at 67
+    TFLOP/s (``_b3_work``)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch import quant
     from paddle_tpu_torch.kernels import decode_attention as kda
 
-    S, H, T, Dh = B3_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(SEED + 72)
-    scale = Dh ** -0.5
-    ts = torch.linspace(0, T - 1 - max(B3_KS) + 1, S, device="cuda").round().to(torch.int32)
     out = []
-    for K in B3_KS:
-        q = torch.randn(S, K, H, Dh, generator=gen, device="cuda")
+    for (S, H, T, Dh), fill, Ks in B3_SWEEP:
+        scale = Dh ** -0.5
         kc, ks = quant.quantize_rows(torch.randn(S, H, T, Dh, generator=gen, device="cuda") * 2)
         vc, vs = quant.quantize_rows(torch.randn(S, H, T, Dh, generator=gen, device="cuda"))
-        got = kda.decode_attention(q, kc, ks, vc, vs, ts, scale)
-        again = kda.decode_attention(q, kc, ks, vc, vs, ts, scale)
-        ref = kda.decode_attention_plain(q, kc, ks, vc, vs, ts, scale)
-        lim = torch.clamp(ts.long()[:, None] + torch.arange(K, device="cuda")[None, :], max=T - 1)
-        mask = torch.arange(T, device="cuda")[None, None, None, :] <= lim[:, :, None, None]
-        mask = mask.permute(0, 2, 1, 3)  # [S, 1, K, T] over SDPA's [S, H, K, T]
+        set_bytes = 2 * (kc.numel() + 4 * ks.numel())
+        copies = [(kc, ks, vc, vs)] + [tuple(x.clone() for x in (kc, ks, vc, vs))
+                                       for _ in range(int(B3_COLD_BYTES // set_bytes))]
+        blob = torch.ones(set_bytes // 4, device="cuda")
+        for K in Ks:
+            q = torch.randn(S, K, H, Dh, generator=gen, device="cuda")
+            if fill == "spread":
+                ts = torch.linspace(0, T - B3_SPREAD_GAP, S, device="cuda").round().to(torch.int32)
+            else:
+                ts = torch.full((S,), T - K, dtype=torch.int32, device="cuda")
+            args = (q, kc, ks, vc, vs, ts, scale)
+            nbytes, n_ops, lim = _b3_work(torch, ts, K, S, H, T, Dh)
+            bound_ms = max(nbytes / HBM_BYTES_PER_S, n_ops / FP32_SIMT_OPS_S) * 1e3
+            mask = (torch.arange(T, device="cuda")[None, None, None, :] <= lim[:, :, None, None])
+            mask = mask.permute(0, 2, 1, 3)  # [S, 1, K, T] over SDPA's [S, H, K, T]
 
-        def library():
-            kf = quant.dequantize_rows(kc, ks)
-            vf = quant.dequantize_rows(vc, vs)
-            return F.scaled_dot_product_attention(q.transpose(1, 2), kf, vf, attn_mask=mask,
-                                                  scale=scale).transpose(1, 2)
+            def library():
+                kf = quant.dequantize_rows(kc, ks)
+                vf = quant.dequantize_rows(vc, vs)
+                return F.scaled_dot_product_attention(q.transpose(1, 2), kf, vf, attn_mask=mask,
+                                                      scale=scale).transpose(1, 2)
 
-        lib_err = float((library() - ref).abs().max())
-        n_read = int((torch.clamp(ts.long() + K - 1, max=T - 1) + 1).sum()) * H
-        nbytes = 2 * n_read * (Dh + 4) + 2 * q.numel() * 4 + S * 4
-        n_ops = int((lim + 1).sum()) * H * 4 * Dh
-        err = float((got - ref).abs().max())
-        row = {"K": K, "shape": [S, H, T, Dh], "dtype": "int8 codes, fp32 scales and q",
-               "ts": [int(ts.min()), int(ts.max())],
-               "max_abs_err": err, "max_abs_ctx": float(ref.abs().max()),
-               "rel_err": err / float(ref.abs().max()),
-               "bit_equal_relaunch": bool(torch.equal(got, again)),
-               "library_max_abs_diff": lib_err,
-               "ms": _time_ms(torch, lambda: kda.decode_attention(q, kc, ks, vc, vs, ts, scale)),
-               "plain_ms": _time_ms(torch, lambda: kda.decode_attention_plain(
-                   q, kc, ks, vc, vs, ts, scale), samples=7, per_sample=4),
-               "library_ms": _time_ms(torch, library, samples=7, per_sample=4),
-               "library_route": "dequantize_rows to fp32, then SDPA with the boolean mask",
-               "bytes": nbytes, "ops": n_ops,
-               "bound_ms": max(nbytes / HBM_BYTES_PER_S, n_ops / FP32_SIMT_OPS_S) * 1e3,
-               "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= n_ops / FP32_SIMT_OPS_S
-               else "operations"}
-        log("[kernel] decode_attention_int8", json.dumps(row))
-        if not (row["rel_err"] <= B3_TOL and row["bit_equal_relaunch"]):
-            raise AssertionError("decode attention kernel disagrees with its plain version: %s"
-                                 % row)
-        out.append(row)
+            def cold(fn):
+                turn = [0]
+
+                def call():
+                    c = copies[turn[0] % len(copies)]
+                    turn[0] += 1
+                    return fn(q, *c, ts, scale)
+                return call
+
+            ref = kda.decode_attention_plain(*args)
+            max_ctx = float(ref.abs().max())
+            got = kda.decode_attention(*args)
+            again = kda.decode_attention(*args)
+            replay = _graph_replay(torch, lambda: kda.decode_attention(*args))
+            row = {"K": K, "shape": [S, H, T, Dh], "fill": fill, "ts": [int(ts.min()), int(ts.max())],
+                   "dtype": "int8 codes, fp32 scales and q",
+                   "plan": list(kda.split_plan(T, S * H, torch.cuda.get_device_properties(0)
+                                               .multi_processor_count, kda.tile_positions(K, Dh))),
+                   "max_abs_err": float((got - ref).abs().max()), "max_abs_ctx": max_ctx,
+                   "library_max_abs_diff": float((library() - ref).abs().max()),
+                   "bit_equal_relaunch": bool(torch.equal(got, again)),
+                   "bit_equal_graph_replay": bool(torch.equal(got, replay)),
+                   "ms": _time_ms(torch, lambda: kda.decode_attention(*args)),
+                   "ms_cold": _time_ms(torch, cold(kda.decode_attention)),
+                   "plain_ms": _time_ms(torch, lambda: kda.decode_attention_plain(*args),
+                                        samples=7, per_sample=4),
+                   "library_ms": _time_ms(torch, library, samples=7, per_sample=4),
+                   "library_route": "dequantize_rows to fp32, then SDPA with the boolean mask",
+                   # the card's practical read rate: torch's sum over as many bytes
+                   "read_ms": _time_ms(torch, lambda: blob[:nbytes // 4].sum()),
+                   "cold_copies": len(copies), "cold_bytes": len(copies) * set_bytes,
+                   "bytes": nbytes, "ops": n_ops, "bound_ms": bound_ms,
+                   "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= n_ops / FP32_SIMT_OPS_S
+                   else "operations"}
+            row["rel_err"] = row["max_abs_err"] / max_ctx
+            row["share_of_bound"] = bound_ms / row["ms"]
+            row["share_of_bound_cold"] = bound_ms / row["ms_cold"]
+            row["ms_by_split"] = {}
+            for C in B3_PLAN_SPLITS:
+                per = -(-T // C)
+                chunk = -(-per // kda.SPLIT_TILE) * kda.SPLIT_TILE
+                if (C - 1) * chunk < T:
+                    row["ms_by_split"]["%dx%d" % (C, chunk)] = _time_ms(
+                        torch, lambda: kda.decode_attention_kernel(*args, plan=(C, chunk)))
+            log("[kernel] decode_attention_int8", json.dumps(row))
+            ok = row["rel_err"] <= B3_TOL and row["bit_equal_relaunch"] and row["bit_equal_graph_replay"]
+            if not ok:
+                raise AssertionError("decode attention kernel disagrees with its plain version: %s"
+                                     % row)
+            out.append(row)
+        del copies, kc, ks, vc, vs, blob
+        torch.cuda.empty_cache()
     return out
 
 
@@ -6514,12 +6622,12 @@ def _chunk_step_ms(torch, pool, s, t, vocab, rng):
     return _time_ms(torch, lambda: pool.chunk(st), samples=5, per_sample=4) / pool.steps, st
 
 
-def _lm_server(torch, decoding, state, dims, name, kv_dtype="fp32", side=False, **kw):
+def _lm_server(torch, decoding, state, dims, name, kv_dtype="fp32", side=False, cfg=None, **kw):
     from paddle_tpu_torch.serving.decode import DecodeServer
 
     step_fn, make_cache = decoding.make_transformer_lm_pooled_step_fn(state, *dims.values(),
                                                                       kv_dtype=kv_dtype)
-    cfg = dict(DEC_SIDE_SERVER if side else DEC_SERVER)
+    cfg = dict(cfg or (DEC_SIDE_SERVER if side else DEC_SERVER))
     # the traffic queues on purpose (waves of 32 requests a 32-slot pool), so
     # the admission queue's AIMD target is set above the decode's own length
     srv = DecodeServer(step_fn, make_cache, eos_id=EOS, name=name, kv_dtype=kv_dtype,
@@ -6531,6 +6639,67 @@ def _lm_server(torch, decoding, state, dims, name, kv_dtype="fp32", side=False, 
     return srv, {"graphs": built, "warmup_s": time.perf_counter() - t,
                  "state_bytes": srv._pool.state_bytes(),
                  "graph_pool_bytes": srv._pool.graph_pool_bytes()}
+
+
+def _long_context_leg(torch, decoding, state, dims, hand):
+    """The LM at 32 slots x 2,048 positions (DEC_LONG_SERVER), fp32 and int8
+    KV: DEC_LONG's requests served at once (generated tokens/s, ms a tick in
+    traffic), then the captured chunk at 32 active slots from position
+    DEC_LONG_AT on, timed (ms a step) and profiled (kernels and device ms a
+    tick, B3's calls and share).  Each server's hand-kernel counts go to
+    ``hand`` under ``long_<kv>``."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import decode_attention as kda
+
+    vocab = dims["vocab"]
+    rng = np.random.RandomState(SEED + 78)
+    reqs = [(rng.randint(0, vocab, rng.randint(DEC_LONG["prompt"][0], DEC_LONG["prompt"][1] + 1))
+             .astype(np.int32), DEC_LONG["new"]) for _ in range(DEC_LONG["reqs"])]
+    T = max(DEC_LONG_SERVER["len_ladder"])
+    S = DEC_LONG_SERVER["max_slots"]
+    out = {"server": DEC_LONG_SERVER, "requests": len(reqs),
+           "prompt_tokens": int(sum(len(p) for p, _ in reqs))}
+    for kv in ("fp32", "int8"):
+        _free_device_memory(torch)
+        srv, warm = _lm_server(torch, decoding, state, dims, "lm-long-" + kv, kv_dtype=kv,
+                               cfg=DEC_LONG_SERVER)
+        pool = srv._pool
+        kernels.reset_launch_counts()
+        leg = _serve_waves(torch, srv, reqs, 1)
+        hand["long_" + kv] = _hand_kernel_launches()
+        st = pool.alloc(S, T)
+        for slot in range(S):
+            st = pool.admit(st, slot, rng.randint(0, vocab, T - 1).astype(np.int32), T - 1, T)
+        for _ in range(DEC_LONG_AT // pool.steps):
+            st = pool.chunk(st)
+        torch.cuda.synchronize()
+        ms_step = _time_ms(torch, lambda: pool.chunk(st), samples=5, per_sample=4) / pool.steps
+        prof = _profile_step(torch, lambda: pool.chunk(st), all_kernels=True, warmup=True)
+        b3 = [k for k in (prof or {}).get("all_kernels", []) if "decode_attention" in k["name"]]
+        out[kv] = {
+            "warmup": warm, "wall_s": leg["wall_s"], "ticks": leg["ticks"],
+            "generated": leg["generated"], "prefill": leg["prefill"],
+            "generated_tokens_per_s": leg["generated"] / leg["wall_s"],
+            "consumed_tokens_per_s": (leg["generated"] + leg["prefill"]) / leg["wall_s"],
+            "ms_per_tick_in_traffic": 1e3 * leg["wall_s"] / leg["ticks"],
+            "ms_per_step_32_slots": ms_step,
+            "timed_positions": [DEC_LONG_AT, int(st["pos"].max())],
+            "b3_launches": hand["long_" + kv][kda.KERNEL_NAME],
+            "b3_launches_expected": (LM["n_layer"] * pool.steps * leg["ticks"]) if kv == "int8" else 0,
+            "misses_after_warmup": pool.jit_cache_stats()["misses"],
+            "recompiles": int(srv.metrics().get("recompiles", 0)),
+            "profile": prof and {
+                "kernels_a_tick": prof["launches"], "device_ms": prof["device_ms"],
+                "b3_calls": sum(k["calls"] for k in b3), "b3_calls_a_tick":
+                    LM["n_layer"] * pool.steps if kv == "int8" else 0,
+                "b3_ms": sum(k["ms"] for k in b3),
+                "b3_share_of_device": sum(k["ms"] for k in b3) / prof["device_ms"],
+                "classes": _kernel_classes(prof, [("decode_attention_int8", ("decode_attention",))]
+                                           + LM_KERNEL_CLASSES)}}
+        srv.stop()
+        del st
+    _free_device_memory(torch)
+    return out
 
 
 def run_lm_decode_server(torch, lm_cached_ms_per_step=None):
@@ -6817,13 +6986,17 @@ def run_lm_decode_server(torch, lm_cached_ms_per_step=None):
         stats["speculative"][name]["against_plain"] = _margin_rule(
             stats["speculative"][name].pop("tokens"), plain_tokens, tf["margins"],
             DECODE_TIE_MARGIN)
+    # leg 9: long context, 32 slots x 2,048 positions, fp32 and int8
+    stats["long"] = _long_context_leg(torch, decoding, state, dims, hand)
     stats["hand_kernel_launches"] = hand
     stats["phase_s"] = time.perf_counter() - t_phase
     log("[lm-decode-server]", json.dumps(stats)[:20000])
     f32, i8 = stats["fp32"], stats["int8"]
+    lg = stats["long"]
     misses = ([f32["misses_after_warmup"], f32["recompiles"], i8["misses_after_warmup"],
                i8["recompiles"]] + stats["prefix"]["misses_after_warmup"]
-              + [stats["speculative"][n]["misses_after_warmup"] for n in drafts])
+              + [stats["speculative"][n]["misses_after_warmup"] for n in drafts]
+              + [lg[kv][k] for kv in ("fp32", "int8") for k in ("misses_after_warmup", "recompiles")])
     checks = {
         "zero_captures_after_warmup": not any(misses),
         "waves_joined_mid_decode": all(f32["waves_joined_mid_decode"]),
@@ -6844,13 +7017,41 @@ def run_lm_decode_server(torch, lm_cached_ms_per_step=None):
         # B3 on the int8 server alone
         "no_attention_kernels": not any(v for h in hand.values() for k, v in h.items()
                                         if k != kda.KERNEL_NAME),
-        "b3_on_int8_only": not any(h[kda.KERNEL_NAME] for p, h in hand.items() if p != "int8"),
+        "b3_on_int8_only": not any(h[kda.KERNEL_NAME] for p, h in hand.items()
+                                   if p not in ("int8", "long_int8")),
+        # the long-context leg: 6 B3 calls a step on the int8 server, in
+        # traffic and in the profiled tick
+        "long_b3_launches": (lg["int8"]["b3_launches"] == lg["int8"]["b3_launches_expected"] > 0
+                             and lg["fp32"]["b3_launches"] == 0),
+        "long_b3_profiled": (lg["int8"]["profile"] is None
+                             or lg["int8"]["profile"]["b3_calls"] == lg["int8"]["profile"]["b3_calls_a_tick"]),
     }
     stats["checks"] = checks
     log("[lm-decode-server] checks", json.dumps(checks))
     if not all(checks.values()):
         raise AssertionError("phase 34 failed its checks: %s" % json.dumps(checks))
     return stats
+
+
+def run_b3_alone(torch):
+    """``chip_smoke.py --b3``, a shortcut while working on kernel B3: its
+    source alone built, its check and sweep (``check_decode_attention_kernel``),
+    and the card's name and power limit; no other phase."""
+    from paddle_tpu_torch.kernels import build
+
+    info = device_info(torch)
+    t0 = time.perf_counter()
+    res = build.build(["decode_attention"])
+    for name, r in res.items():
+        log("[build] %s: %.2f s" % (name, r["seconds"]))
+        for line in r["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log("[build]   " + line.strip())
+    b3_config(res["decode_attention"]["path"])
+    check_decode_attention_kernel(torch)
+    log("[done] %.1f s" % (time.perf_counter() - t0))
+    print(info["nvidia_smi"])
+    return 0
 
 
 def main() -> int:
@@ -6863,6 +7064,8 @@ def main() -> int:
         return lm_dataset_child(sys.argv[2:])
     sys.path.insert(0, REPO)
     import paddle_tpu_torch  # noqa: F401 — fails outside a checkout of the repo
+    if sys.argv[1:2] == ["--b3"]:  # kernel B3's build, check and sweep alone
+        return run_b3_alone(torch)
     from paddle_tpu_torch.kernels import decode_attention as kda
     from paddle_tpu_torch.kernels import fused_attention as fa
 

@@ -2354,26 +2354,114 @@ DEC_DIMS = [DEC_LM[k] for k in ("vocab", "d_model", "n_layer", "n_head", "d_inne
 B3_TOL = 1e-5  # of max |ctx|: fp32 sums in another order
 
 
-@pytest.mark.parametrize("K", [1, 4])
+def _b3_case(card, T, K, dh, q_scale=1.0):
+    from torch_b3_cases import b3_inputs
+
+    rng = np.random.RandomState(T * 100 + K * 10 + dh)
+    q, kc, ks, vc, vs, ts = (torch.from_numpy(a).to(card)
+                             for a in b3_inputs(rng, T, K, dh, q_scale=q_scale))
+    return q, kc, ks, vc, vs, ts, dh ** -0.5
+
+
+def _b3_holds(got, want):
+    err = float((got.double() - want.double()).abs().max())
+    assert torch.isfinite(got).all()
+    assert err <= B3_TOL * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("T", [100, 300, 2048])
+@pytest.mark.parametrize("K", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("dh", [32, 64, 128])
-def test_decode_attention_kernel_against_plain(card, K, dh):
+def test_decode_attention_kernel_against_plain(card, T, K, dh):
+    """ts at 0, at each chunk boundary of split_plan(T) (its widest split)
+    and one either side of it (and where the last query lands there), at
+    T - K and at T - 1: the kernel with its own plan, and with that widest
+    split (merged over a cluster), within B3_TOL of the plain version, each
+    bit for bit across two launches."""
+    from paddle_tpu_torch.kernels import decode_attention as kda
+
+    args = _b3_case(card, T, K, dh)
+    kernels.reset_launch_counts()
+    got = kda.decode_attention(*args)
+    assert kernels.launch_counts().get(kda.KERNEL_NAME) == 1
+    want = kda.decode_attention_plain(*args)
+    _b3_holds(got, want)
+    assert torch.equal(got, kda.decode_attention(*args))  # one order of sums: bit for bit
+    split = kda.decode_attention_kernel(*args, plan=kda.split_plan(T))
+    _b3_holds(split, want)
+    assert torch.equal(split, kda.decode_attention_kernel(*args, plan=kda.split_plan(T)))
+
+
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("S,T", [(8, 256), (8, 512), (16, 256), (16, 512)])
+def test_decode_attention_kernel_at_the_server_rungs(card, S, T, K):
+    """The int8 server's lower slot rungs at its length rungs, 8 heads of
+    64, ts spread from 0 to T - 4 as in traffic, under the card's own
+    split_plan: within B3_TOL of the plain version, bit for bit across two
+    launches."""
     from paddle_tpu_torch import quant
     from paddle_tpu_torch.kernels import decode_attention as kda
 
-    gen = torch.Generator(device=card).manual_seed(K * 1000 + dh)
-    S, H, T = 5, 3, 300
+    gen = torch.Generator(device=card).manual_seed(S * 1000 + T + K)
+    H, dh = 8, 64
     q = torch.randn(S, K, H, dh, device=card, generator=gen)
-    kc, ks = quant.quantize_rows(torch.randn(S, H, T, dh, device=card, generator=gen) * 3)
+    kc, ks = quant.quantize_rows(torch.randn(S, H, T, dh, device=card, generator=gen) * 2)
     vc, vs = quant.quantize_rows(torch.randn(S, H, T, dh, device=card, generator=gen))
-    ts = torch.tensor([0, 1, 127, 250, T - 1], dtype=torch.int32, device=card)
-    kernels.reset_launch_counts()
-    got = kda.decode_attention(q, kc, ks, vc, vs, ts, dh ** -0.5)
-    assert kernels.launch_counts().get(kda.KERNEL_NAME) == 1
-    want = kda.decode_attention_plain(q, kc, ks, vc, vs, ts, dh ** -0.5)
-    err = float((got - want).abs().max())
-    assert err <= B3_TOL * float(want.abs().max()), err
-    again = kda.decode_attention(q, kc, ks, vc, vs, ts, dh ** -0.5)
-    assert torch.equal(got, again)  # one order of sums: bit for bit across launches
+    ts = torch.linspace(0, T - 4, S, device=card).round().to(torch.int32)
+    args = (q, kc, ks, vc, vs, ts, dh ** -0.5)
+    got = kda.decode_attention(*args)
+    _b3_holds(got, kda.decode_attention_plain(*args))
+    assert torch.equal(got, kda.decode_attention(*args))
+
+
+@pytest.mark.parametrize("K", [1, 4, 8])
+def test_decode_attention_kernel_large_scores(card, K):
+    """q scaled x100: scores in the thousands, so the running max moves
+    across tiles, warps and chunks, and nearly all weight sits on few
+    positions.  Held to the plain version's math in float64, within
+    B3_TOL of max |ctx| or twice the plain version's own fp32 error
+    against it, whichever is larger: in fp32 a dot product of 64 terms
+    near 1e4 rounds by about 1e-2, so either version's scores move by
+    about 1e-4, and its weights by as much relatively (a wrong merge of
+    the running max moves them by order 1)."""
+    from paddle_tpu_torch.kernels import decode_attention as kda
+
+    args = _b3_case(card, 2048, K, 64, q_scale=100.0)
+    q, kc, ks, vc, vs, ts, scale = args
+    want = kda.decode_attention_plain(q.double(), kc, ks.double(), vc, vs.double(), ts, scale)
+    plain_err = float((kda.decode_attention_plain(*args).double() - want).abs().max())
+    tol = max(B3_TOL * float(want.abs().max()), 2 * plain_err)
+    for got in (kda.decode_attention(*args),
+                kda.decode_attention_kernel(*args, plan=kda.split_plan(2048))):
+        assert torch.isfinite(got).all()
+        err = float((got.double() - want).abs().max())
+        assert err <= tol, (err, tol, plain_err)
+
+
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("split", [False, True])
+def test_decode_attention_kernel_in_a_cuda_graph(card, K, split):
+    """The kernel launched inside a captured CUDA graph (its own plan, or
+    split 8 ways: a cluster launch captured): the replay writes what the
+    eager launch wrote, bit for bit."""
+    from paddle_tpu_torch.kernels import decode_attention as kda
+
+    args = _b3_case(card, 2048, K, 64)
+
+    def launch():
+        if not split:
+            return kda.decode_attention(*args)
+        return kda.decode_attention_kernel(*args, plan=kda.split_plan(2048))
+
+    eager = launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = launch()
+    out.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 def _dec_pool(card, kv_dtype, **kw):
