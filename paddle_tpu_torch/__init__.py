@@ -14,8 +14,8 @@ module layout, so each module's counterpart is found by name:
 
 What is ported so far is the serving path of a fused, inference-mode
 BERT encoder (Program building, startup, ``io.save_inference_model``,
-``inference.AnalysisPredictor`` and a one-replica
-``serving.InferenceServer``) and the training path of fused BERT
+``inference.AnalysisPredictor``, with bf16 precision variants, and
+``serving.InferenceServer`` over one or more replicas) and the training path of fused BERT
 pretraining (``models.transformer.bert_pretrain``, ``backward``,
 ``optimizer.SGDOptimizer`` / ``AdamOptimizer``, optionally under
 ``contrib.mixed_precision.decorate`` for bf16 AMP), and the training of

@@ -46,6 +46,17 @@ _DTYPE_ALIASES = {
     "bool": "bool",
 }
 
+# serving precision-variant labels (the bf16 / int8 variants and the fp32
+# base program): one alias map shared by AnalysisPredictor's dispatch,
+# InferenceServer.submit's validation and the mixed-precision export, so
+# a dtype that submit admits is one the predictor serves.  These
+# canonicalize to the short variant labels ("bf16"), not dtype names.
+PRECISION_ALIASES = {
+    "bf16": "bf16", "bfloat16": "bf16",
+    "int8": "int8",
+    "fp32": "fp32", "float32": "fp32",
+}
+
 _TORCH_DTYPES = {
     "float32": torch.float32,
     "float64": torch.float64,

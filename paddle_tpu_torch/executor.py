@@ -191,7 +191,7 @@ _UNPORTED_PROGRAM_STATE = {
     "_dense_ps_ctx": "the dense parameter server (DistributeTranspiler; ROADMAP A6b)",
     "_pserver_ctx": "the dense parameter server (DistributeTranspiler; ROADMAP A6b)",
     "_mesh_tables": "mesh-resident tables (bind_mesh_tables; ROADMAP A10)",
-    "_embedding_cache": "the embedding cache (ROADMAP A8)",
+    "_embedding_cache": "the embedding cache (ROADMAP A8b part 2)",
     "_pipeline_plan": "the pipelined program (PipelineOptimizer cut_list; ROADMAP A10)",
 }
 

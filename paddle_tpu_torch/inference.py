@@ -6,22 +6,44 @@ CreatePaddlePredictor).  The predictor loads a saved inference model
 into its own scope on its device and runs it through an Executor; the
 weights stay resident on the device between runs.  On a card each feed
 signature (each serving bucket) becomes a captured CUDA graph at its
-second run on one thread.  Precision variants and sharding come with
-later slices of the port.
+second run on one thread.  A model saved with a precision policy
+(``save_inference_model(precision_policy={"dtype": "bf16"})``) is
+served in that dtype by default, with ``precision="fp32"`` as the
+per-request opt-out: the bf16 variant is the same rewrite the export
+gated, its hoisted parameters cast once onto the device, run through
+the same executor (one cache, one ``jit_cache_stats``; each bucket and
+dtype its own entry and CUDA graph).  Sharding comes with ROADMAP A10.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+import time
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from paddle_tpu_torch import framework, io
 from paddle_tpu_torch.core import types as core_types
+from paddle_tpu_torch.core.types import PRECISION_ALIASES as _DTYPE_ALIASES
 from paddle_tpu_torch.executor import Executor
+from paddle_tpu_torch.monitor import registry as _mon_registry
+from paddle_tpu_torch.monitor import spans as _mon_spans
 from paddle_tpu_torch.scope import Scope
 
 __all__ = ["AnalysisConfig", "PaddlePredictor", "AnalysisPredictor", "create_paddle_predictor"]
+
+# padding waste is the serving bucket ladder's rent: rows computed and
+# sliced away.  A waste ratio creeping toward 0.5 means the ladder is too
+# coarse for the traffic's size mix.
+_MON_PRED_RUNS = _mon_registry.REGISTRY.counter(
+    "predictor_runs_total", "AnalysisPredictor.run calls")
+_MON_PRED_PADDED_ROWS = _mon_registry.REGISTRY.counter(
+    "predictor_padded_rows_total", "total rows in padded batches (valid + padding)")
+_MON_PRED_WASTE_ROWS = _mon_registry.REGISTRY.counter(
+    "predictor_padding_waste_rows_total",
+    "padding rows computed then sliced away (padded - valid)")
+
+_SHARDING_PENDING = "sharded predictors come with ROADMAP A10"
 
 
 class AnalysisConfig:
@@ -74,30 +96,149 @@ class AnalysisPredictor(PaddlePredictor):
         self._program, self._feed_names, self._fetch_vars = io.load_inference_model(
             config.model_dir, self._exe, params_filename=config.params_file, scope=self._scope)
         self._fetch_names = [v.name for v in self._fetch_vars]
+        # a saved precision manifest rebuilds the same low-precision
+        # variant here: requests default to the policy dtype, and
+        # precision="fp32" opts a request back onto the base program
+        self._precision: Optional[Dict[str, Any]] = None
+        self._default_dtype = "fp32"
+        self._variants: Dict[str, Any] = {}  # dtype -> (program, scope)
+        self._variant_cast_params: Dict[str, List[str]] = {}  # dtype -> bf16 params
+        manifest = getattr(self._program, "_precision_manifest", None)
+        if manifest:
+            self._init_precision(manifest, config)
 
+    # --- precision variants (contrib/mixed_precision) ---
+    def _init_precision(self, manifest: Dict[str, Any], config: AnalysisConfig) -> None:
+        """Rebuild the endpoint's low-precision variant from its manifest:
+        the deterministic bf16 rewrite of the loaded program, its hoisted
+        parameters cast once to bf16 on this predictor's device (the
+        variant scope).  Both programs run through the same executor, so
+        its caches and ``jit_cache_stats`` cover every variant.  int8
+        comes with ROADMAP A11, the sharded composition with A10."""
+        from paddle_tpu_torch.contrib.mixed_precision import inference as mp_inf
+
+        dtype = mp_inf.normalize_dtype(manifest.get("dtype", ""))
+        if dtype == "int8":
+            raise mp_inf.PrecisionPolicyError(mp_inf.INT8_PENDING)
+        if dtype != "bf16":
+            raise mp_inf.PrecisionPolicyError(
+                "unsupported precision manifest dtype %r in %r"
+                % (manifest.get("dtype"), config.model_dir))
+        variant, info = mp_inf.build_bf16_variant(
+            self._program, self._fetch_names,
+            custom_white_list=manifest.get("custom_white_list"),
+            custom_black_list=manifest.get("custom_black_list"))
+        vscope = mp_inf.variant_scope(variant, self._scope, set(info["cast_params"]))
+        self._variant_cast_params[dtype] = list(info["cast_params"])
+        self._precision = dict(manifest)
+        self._default_dtype = dtype
+        self._variants[dtype] = (variant, vscope)
+
+    @property
+    def precision_policy(self) -> Optional[Dict[str, Any]]:
+        """The endpoint's saved precision policy (dtype, rtol, measured
+        ``max_rel_err``), or None for a plain fp32 endpoint."""
+        return dict(self._precision) if self._precision else None
+
+    def precision_dtypes(self) -> List[str]:
+        """The dtypes this predictor serves, default first: ``["bf16",
+        "fp32"]`` for a bf16 endpoint (fp32 stays the per-request opt-out),
+        ``["fp32"]`` without a policy.  The server's warmup runs every
+        bucket for each of them."""
+        if self._precision is None:
+            return ["fp32"]
+        return [self._default_dtype, "fp32"]
+
+    def _select_variant(self, precision: Optional[str]):
+        """(program, scope) of one dispatch: ``None`` the policy default,
+        ``"fp32"`` the base program."""
+        d = self._default_dtype if precision is None else (
+            _DTYPE_ALIASES.get(str(precision).lower()))
+        if d is None:
+            raise ValueError("unknown precision %r (endpoint serves %s)"
+                             % (precision, self.precision_dtypes()))
+        if d == "fp32":
+            return self._program, self._scope
+        entry = self._variants.get(d)
+        if entry is None:
+            raise ValueError("endpoint has no %r variant (it serves %s)"
+                             % (d, self.precision_dtypes()))
+        return entry
+
+    # --- sharding (ROADMAP A10) ---
+    def with_sharding_rules(self, rules, mesh=None, mesh_axes=None) -> "AnalysisPredictor":
+        raise NotImplementedError(_SHARDING_PENDING)
+
+    @property
+    def sharded(self) -> bool:
+        """True when this predictor spans a model-parallel mesh (never yet
+        in the port: ROADMAP A10)."""
+        return False
+
+    def param_placements(self, precision: Optional[str] = None) -> Dict[str, Dict[str, Any]]:
+        """Each persistable of the selected variant (None: the policy
+        default) as it is stored: shape, dtype, device and bytes."""
+        program, scope = self._select_variant(precision)
+        out: Dict[str, Dict[str, Any]] = {}
+        for v in program.list_vars():
+            if not v.persistable or v.is_data:
+                continue
+            val = scope.get(v.name)
+            if val is None:
+                continue
+            out[v.name] = {"spec": None, "shape": tuple(val.shape),
+                           "dtype": core_types.canonical_dtype(val.dtype),
+                           "device": str(val.device), "shard_shape": tuple(val.shape),
+                           "bytes_per_device": int(val.numel() * val.element_size()),
+                           "sharded": False, "placed": val.device == self.device}
+        return out
+
+    def sharding_stats(self, group: Optional[str] = None,
+                       precision: Optional[str] = None) -> Dict[str, Any]:
+        """Parameter count and device bytes of the selected variant, as the
+        JAX package reports them for an unsharded predictor; publishing a
+        group's bytes (``group=``) comes with ROADMAP A10."""
+        if group is not None:
+            raise NotImplementedError(_SHARDING_PENDING)
+        placements = self.param_placements(precision)
+        hbm = sum(p["bytes_per_device"] for p in placements.values())
+        return {"sharded": False, "mesh_axes": None, "n_params": len(placements),
+                "n_sharded": 0, "hbm_bytes_per_device": int(hbm),
+                "replicated_bytes": int(hbm)}
+
+    # --- reference surface ---
     def get_input_names(self) -> List[str]:
         return list(self._feed_names)
 
     def get_output_names(self) -> List[str]:
         return list(self._fetch_names)
 
-    def run(self, feed: Dict[str, np.ndarray] | Sequence[np.ndarray], return_numpy: bool = True):
+    def run(self, feed: Dict[str, np.ndarray] | Sequence[np.ndarray], return_numpy: bool = True,
+            precision: Optional[str] = None):
         """One predictor dispatch.  ``return_numpy=False`` returns the
         outputs as tensors on the device without waiting for them, so a
         caller can overlap their copy to the host with its next batch
-        (the serving worker does)."""
+        (the serving worker does).  ``precision``: the variant that serves
+        this call (None the policy default, ``"fp32"`` the opt-out)."""
         if not isinstance(feed, dict):
             feed = dict(zip(self._feed_names, feed))
-        return self._exe.run(self._program, feed=feed, fetch_list=self._fetch_names,
-                             scope=self._scope, return_numpy=return_numpy)
+        _MON_PRED_RUNS.inc()
+        # hot-path: begin predictor_dispatch (the variant is one dict
+        # lookup; every rewrite and cast happened at load)
+        program, scope = self._select_variant(precision)
+        return self._exe.run(program, feed=feed, fetch_list=self._fetch_names,
+                             scope=scope, return_numpy=return_numpy)
+        # hot-path: end predictor_dispatch
 
     Run = run  # C++-style alias
 
     def run_padded(self, feed: Dict[str, np.ndarray], n_valid: Optional[int] = None,
-                   return_numpy: bool = True):
+                   return_numpy: bool = True, precision: Optional[str] = None):
         """Run one batch padded up to a bucket size and slice every output
         whose leading dim is the padded batch back to its first
-        ``n_valid`` rows (the serving layer's entry)."""
+        ``n_valid`` rows (the serving layer's entry).  ``precision``
+        selects the variant (see :meth:`run`); one padded batch is always
+        one variant."""
         if not isinstance(feed, dict):
             feed = dict(zip(self._feed_names, feed))
         dims = {name: np.shape(v)[0] if np.ndim(v) else None for name, v in feed.items()}
@@ -109,18 +250,37 @@ class AnalysisPredictor(PaddlePredictor):
             n_valid = padded
         if not 0 < n_valid <= padded:
             raise ValueError("n_valid=%r out of range for padded batch %d" % (n_valid, padded))
-        outs = self.run(feed, return_numpy=return_numpy)
+        _MON_PRED_PADDED_ROWS.inc(padded)
+        _MON_PRED_WASTE_ROWS.inc(padded - n_valid)
+        # the predictor's hop in a request's span chain, between the
+        # serving batch and the executor's phases (one flag check when
+        # nothing records); its id parents the executor's spans
+        rec = _mon_spans.recording()
+        if rec:
+            t0 = time.perf_counter()
+            sid = _mon_spans.push_parent()
+        err = False
+        try:
+            outs = self.run(feed, return_numpy=return_numpy, precision=precision)
+        except BaseException:
+            err = True
+            raise
+        finally:
+            if rec:
+                _mon_spans.pop_parent()
+                _mon_spans.record_span("predictor/run_padded", t0, time.perf_counter() - t0,
+                                       cat="predictor", span_id=sid, error=err,
+                                       padded=int(padded), n_valid=int(n_valid))
         if n_valid == padded:
             return outs
         return [o[:n_valid] if o.ndim >= 1 and o.shape[0] == padded else o for o in outs]
 
     def jit_cache_stats(self) -> Dict[str, object]:
         """The wrapped executor's cache accounting (``Executor.
-        jit_cache_stats``): ``misses`` is the number of entries built,
-        one for each bucket the server's warm-up runs.  A bucket's CUDA
-        graph is captured at its entry's second run on one thread: the
-        warm-up runs on the caller's thread, so a served bucket is
-        captured at its second batch on the server's worker."""
+        jit_cache_stats``): ``misses`` is the number of entries built, one
+        for each bucket and dtype the server's warm-up runs; ``graphs``
+        the CUDA graphs captured, one for each of them on the card (the
+        warm-up captures them)."""
         return self._exe.jit_cache_stats()
 
     def input_specs(self):

@@ -16,9 +16,13 @@ package's, so a directory written by either package loads in the other.
 ops, nothing pruned) with every persistable, and
 ``load_inference_model`` loads such a directory into a program that
 trains on from the saved state.  ``PyReader`` and ``DataLoader`` are
-``reader.py``'s, as in ``fluid.io``.  Precision and
-sharding manifests come with later slices of the port; a model that
-carries one is refused here rather than served without it.
+``reader.py``'s, as in ``fluid.io``.  ``save_inference_model(
+precision_policy={"dtype": "bf16"})`` builds the bf16 serving variant,
+gates it on its parity with fp32 and writes the policy into
+``__model__``; ``load_inference_model`` hands that manifest to the
+predictor (``program._precision_manifest``).  An int8 policy (ROADMAP
+A11) and a sharding manifest (ROADMAP A10) are refused rather than
+served without them.
 """
 from __future__ import annotations
 
@@ -208,9 +212,11 @@ def _prune_program(program: Program, feed_names: Sequence[str], fetch_names: Seq
 
 
 def _save_model(dirname, program, feed_names, fetch_names, executor, model_filename,
-                params_filename, scope):
+                params_filename, scope, precision=None):
     """Write ``program`` as ``__model__`` JSON with its feed and fetch
-    names, and its persistable values beside it."""
+    names (and ``precision``, the precision-policy manifest a
+    mixed-precision endpoint carries), and its persistable values beside
+    it."""
     os.makedirs(dirname, exist_ok=True)
     model = {
         "format_version": 1,
@@ -218,6 +224,8 @@ def _save_model(dirname, program, feed_names, fetch_names, executor, model_filen
         "feed_names": list(feed_names),
         "fetch_names": list(fetch_names),
     }
+    if precision is not None:
+        model["precision"] = precision
     with open(os.path.join(dirname, model_filename or _MODEL_FILE), "w") as f:
         json.dump(model, f)
     save_vars(executor, dirname, program, predicate=_is_persistable,
@@ -225,16 +233,97 @@ def _save_model(dirname, program, feed_names, fetch_names, executor, model_filen
     return list(fetch_names)
 
 
+def _export_precision_variant(dirname, pruned, feed_names, fetch_names, executor, policy,
+                              scope=None):
+    """Build and parity-gate a low-precision variant of ``pruned`` and
+    return its manifest block (the ``precision`` entry of ``__model__``).
+
+    ``policy``: ``{"dtype": "bf16", "rtol": float?,
+    "custom_white_list"/"custom_black_list": [...]?, "parity_feeds":
+    [feed dicts]?}``.  The gate runs the variant against the fp32 program
+    on the parity feeds, eagerly on the executor's device, and refuses
+    the export (``PrecisionParityError``) when the worst relative error
+    exceeds the rtol; the measured value rides the manifest.  bf16 needs
+    no extra weights on disk: the loader rebuilds the rewrite and casts
+    the parameters as it places them.  ``"int8"`` (with its
+    ``calibration`` key) rides ``contrib/quantize``, which comes with
+    ROADMAP A11."""
+    from paddle_tpu_torch.contrib.mixed_precision import inference as mp_inf
+
+    scope = scope if scope is not None else global_scope()
+    policy = dict(policy)
+    dtype = mp_inf.normalize_dtype(policy.pop("dtype", None) or "")
+    if dtype == "fp32":
+        raise mp_inf.PrecisionPolicyError(
+            "precision_policy dtype 'fp32' is the base model: pass no policy instead")
+    rtol = float(policy.pop("rtol", mp_inf.DEFAULT_RTOL[dtype]))
+    parity_feeds = policy.pop("parity_feeds", None) or (
+        mp_inf.synthetic_parity_feeds(pruned, feed_names))
+    # every known key pops before dispatching on dtype, so an unknown key
+    # is refused for both dtypes, and a known key the dtype cannot honour
+    # is refused rather than dropped
+    wl = policy.pop("custom_white_list", None)
+    bl = policy.pop("custom_black_list", None)
+    calibration = policy.pop("calibration", None)
+    if policy:
+        raise mp_inf.PrecisionPolicyError("unknown precision_policy keys %s" % sorted(policy))
+    if dtype == "int8":
+        raise mp_inf.PrecisionPolicyError(mp_inf.INT8_PENDING)
+    if calibration:
+        raise mp_inf.PrecisionPolicyError(
+            "'calibration' is an int8-only policy key: the bf16 rewrite needs no "
+            "calibration data (drop the key)")
+    manifest = {"dtype": dtype, "rtol": rtol}
+    variant, info = mp_inf.build_bf16_variant(pruned, fetch_names, custom_white_list=wl,
+                                              custom_black_list=bl)
+    vscope = mp_inf.variant_scope(variant, scope, set(info["cast_params"]))
+    if wl:
+        manifest["custom_white_list"] = sorted(wl)
+    if bl:
+        manifest["custom_black_list"] = sorted(bl)
+    manifest["cast_params"] = len(info["cast_params"])
+    # the parity gate: fp32 against the variant on every parity feed
+    worst = 0.0
+    for feed in parity_feeds:
+        ref = executor.run(pruned, feed=feed, fetch_list=list(fetch_names), scope=scope,
+                           use_program_cache=False)
+        outs = executor.run(variant, feed=feed, fetch_list=list(fetch_names), scope=vscope,
+                            use_program_cache=False)
+        worst = max(worst, mp_inf.max_rel_err(ref, outs))
+    if worst > rtol:
+        raise mp_inf.PrecisionParityError(
+            "%s variant disagrees with fp32 beyond the policy bound: max_rel_err=%.4g > "
+            "rtol=%.4g; loosen the policy rtol or blacklist the offending ops"
+            % (dtype, worst, rtol))
+    manifest["max_rel_err"] = float(worst)
+    return manifest
+
+
 def save_inference_model(dirname, feeded_var_names: Sequence[str], target_vars: Sequence,
                          executor, main_program: Optional[Program] = None,
-                         model_filename=None, params_filename=None, scope=None):
+                         model_filename=None, params_filename=None, sharding_rules=None,
+                         sharding_mesh=None, precision_policy=None, scope=None):
     """reference: io.py:925 — prune to the fetch targets, then save the
-    program and its persistable values."""
+    program and its persistable values.
+
+    ``precision_policy`` (``{"dtype": "bf16", "rtol": float, ...}``, see
+    ``_export_precision_variant``): the endpoint's low-precision serving
+    policy, written into the manifest once its variant passes the parity
+    gate here, so every loader serves the same variant.
+    ``sharding_rules`` / ``sharding_mesh`` come with ROADMAP A10."""
+    if sharding_rules is not None or sharding_mesh is not None:
+        raise NotImplementedError(
+            "save_inference_model(sharding_rules=, sharding_mesh=): sharded "
+            "endpoints come with ROADMAP A10")
     program = main_program or framework.default_main_program()
     fetch_names = [t.name if isinstance(t, Variable) else str(t) for t in target_vars]
     pruned = _prune_program(program, feeded_var_names, fetch_names)
+    precision = None
+    if precision_policy is not None:
+        precision = _export_precision_variant(dirname, pruned, list(feeded_var_names),
+                                              fetch_names, executor, precision_policy, scope)
     return _save_model(dirname, pruned, feeded_var_names, fetch_names, executor,
-                       model_filename, params_filename, scope)
+                       model_filename, params_filename, scope, precision=precision)
 
 
 def save_program(dirname, feeded_var_names: Sequence[str], target_vars: Sequence, executor,
@@ -254,15 +343,27 @@ def save_program(dirname, feeded_var_names: Sequence[str], target_vars: Sequence
 def load_inference_model(dirname, executor, model_filename=None, params_filename=None, scope=None):
     """reference: io.py:1116 — returns (program, feed_names, fetch_vars),
     with the parameters in ``scope`` (default: the current global scope)
-    on the executor's device."""
+    on the executor's device.  A precision-policy manifest rides back on
+    the program as ``program._precision_manifest`` (``AnalysisPredictor``
+    builds the variant from it); an int8 one raises naming ROADMAP A11,
+    a sharding manifest naming ROADMAP A10."""
     with open(os.path.join(dirname, model_filename or _MODEL_FILE)) as f:
         model = json.load(f)
-    for key in ("sharding", "precision"):
-        if model.get(key):
-            raise NotImplementedError(
-                "model in %r carries a %s manifest, which paddle_tpu_torch "
-                "does not serve yet" % (dirname, key))
+    if model.get("sharding"):
+        raise NotImplementedError(
+            "model in %r carries a sharding manifest; sharded endpoints come with "
+            "ROADMAP A10" % dirname)
+    precision = model.get("precision")
+    if precision:
+        from paddle_tpu_torch.contrib.mixed_precision import inference as mp_inf
+
+        if mp_inf.normalize_dtype(precision.get("dtype", "")) == "int8":
+            raise mp_inf.PrecisionPolicyError(
+                "model in %r carries an int8 precision manifest: %s"
+                % (dirname, mp_inf.INT8_PENDING))
     program = Program.from_json(json.dumps(model["program"]))
+    if precision:
+        program._precision_manifest = precision
     load_vars(executor, dirname, program, scope=scope)
     fetch_vars = [program.global_block().var(n) for n in model["fetch_names"]]
     return program, model["feed_names"], fetch_vars

@@ -93,6 +93,8 @@ def _load_device_trace(trace_dir: str) -> Tuple[List[Dict[str, object]], Dict[st
 
 
 _LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+# the merge's own times in a device event's args, shifted with its ts
+_HOST_TIME_ARGS = ("launch_ts", "cupti_ts", "call_ts")
 _DEVICE_WORK_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -100,21 +102,63 @@ def _correlation(ev) -> Optional[object]:
     return (ev.get("args") or {}).get("correlation") if isinstance(ev, dict) else None
 
 
+def _sync_lateness(device: List[Dict[str, object]]) -> Dict[int, Tuple[float, float]]:
+    """{id(copy event): (start of the call that carried it, how long after
+    that call returned CUPTI timed the copy's end)} for each copy from the
+    device into pageable host memory.  Such a copy returns only after it
+    has finished, so a positive lateness is CUPTI's clock drifting from the
+    host's: on an H100 it grew to 44 ms within one 6 s trace (about 15 ms a
+    second) before CUPTI caught up again."""
+    calls: Dict[object, Tuple[float, float]] = {}
+    for ev in device:
+        if (isinstance(ev, dict) and ev.get("cat") in _LAUNCH_CATS and "ts" in ev
+                and "Memcpy" in str(ev.get("name", "")) and _correlation(ev) is not None):
+            calls[_correlation(ev)] = (float(ev["ts"]), float(ev["ts"]) + float(ev.get("dur", 0.0)))
+    out: Dict[int, Tuple[float, float]] = {}
+    for ev in device:
+        name = str(ev.get("name", "")) if isinstance(ev, dict) else ""
+        if ev.get("cat") == "gpu_memcpy" and "DtoH" in name and "Pageable" in name and "ts" in ev:
+            call = calls.get(_correlation(ev))
+            if call is not None:
+                out[id(ev)] = (call[0], float(ev["ts"]) + float(ev.get("dur", 0.0)) - call[1])
+    return out
+
+
+#: the largest shift the merge makes to bring a launch's work to its launch
+#: call.  CUPTI's offset drifts by a few ms (a shift repairs that); beyond
+#: this the error came with a step of CUPTI's clock inside the launch's own
+#: work (on an H100: a 21.9 ms gap between two consecutive kernels of one
+#: graph replay, its first 467 kernels timed 21.4 ms before the launch),
+#: where shifting the whole launch would throw its correctly timed tail past
+#: the step, so such work is left where CUPTI put it, tied to its launch.
+MAX_LAUNCH_MOVE_US = 10000.0
+
+
 def _launch_ordered(device: List[Dict[str, object]]
-                    ) -> Tuple[List[Dict[str, object]], int, int, float]:
-    """The device events with each launch's device work moved to start no
-    earlier than the launch call that issued it, and (launches with device
-    work, launches moved, the largest move in us).
+                    ) -> Tuple[List[Dict[str, object]], Dict[str, object]]:
+    """The device events with each launch's device work tied to the launch
+    call that issued it, and the merge's statistics (``otherData``):
+    launches with device work, launches moved, the largest move in us,
+    launches whose work was left early and by how much at most, and the
+    largest lateness of a synchronous copy in us.
 
     CUPTI converts the card's timestamps to the host clock by a model that
-    can misplace the work of one launch by milliseconds: on an H100 a
+    drifts from it by milliseconds either way and can step.  On an H100 a
     graph replay's kernels were timed 1.8 ms before the ``cudaGraphLaunch``
-    that issued them (same correlation id), while the launch itself sat in
-    its step's host span.  Work cannot start before its launch call, so
-    the events of such a correlation (and its launch-to-kernel flow end)
-    are shifted later by the difference, a moved work event keeping
-    CUPTI's own start in ``args["cupti_ts"]`` and the shift in
-    ``args["moved_us"]``; every other event is kept."""
+    that issued them (same correlation id); in another trace device work
+    was timed up to 44 ms after the return of the synchronous copy that had
+    waited for it; in a third the clock stepped inside one replay.  So every work event of a launch carries the launch call's
+    host time in ``args["launch_ts"]``, which places it in the host's
+    timeline whatever CUPTI's clock says.  Work cannot start before its
+    launch call, so the events of a launch timed up to MAX_LAUNCH_MOVE_US
+    before it (and its launch-to-kernel flow end) are shifted later by the
+    difference, a moved work event keeping CUPTI's own start in
+    ``args["cupti_ts"]`` and the shift in ``args["moved_us"]``; work timed
+    earlier than that keeps CUPTI's start, with how early it is in
+    ``args["cupti_early_us"]``.  Late work is left where CUPTI put it; a
+    synchronous copy into pageable memory, which ends before its call
+    returns, carries its call's start and CUPTI's lateness past that
+    return (``args["call_ts"]``, ``args["cupti_late_us"]``)."""
     launch: Dict[object, float] = {}
     for ev in device:
         if (isinstance(ev, dict) and ev.get("cat") in _LAUNCH_CATS and "ts" in ev
@@ -125,20 +169,35 @@ def _launch_ordered(device: List[Dict[str, object]]
         c = _correlation(ev)
         if c in launch and ev.get("cat") in _DEVICE_WORK_CATS and "ts" in ev:
             first[c] = min(first.get(c, float("inf")), float(ev["ts"]))
-    shift = {c: launch[c] - t for c, t in first.items() if t < launch[c]}
-    if not shift:
-        return device, len(first), 0, 0.0
+    early = {c: launch[c] - t for c, t in first.items() if t < launch[c]}
+    shift = {c: d for c, d in early.items() if d <= MAX_LAUNCH_MOVE_US}
+    left = {c: d for c, d in early.items() if d > MAX_LAUNCH_MOVE_US}
+    synced = _sync_lateness(device)
     out = []
     for ev in device:
         if isinstance(ev, dict) and "ts" in ev:
-            if ev.get("cat") in _DEVICE_WORK_CATS and _correlation(ev) in shift:
-                ev = dict(ev, ts=float(ev["ts"]) + shift[_correlation(ev)],
-                          args=dict(ev.get("args") or {}, cupti_ts=ev["ts"],
-                                    moved_us=shift[_correlation(ev)]))
+            c = _correlation(ev)
+            if id(ev) in synced:
+                call_ts, late = synced[id(ev)]
+                ev = dict(ev, args=dict(ev.get("args") or {}, call_ts=call_ts,
+                                        cupti_late_us=late))
+            elif ev.get("cat") in _DEVICE_WORK_CATS and c in launch:
+                args = dict(ev.get("args") or {}, launch_ts=launch[c])
+                if c in shift:
+                    ev = dict(ev, ts=float(ev["ts"]) + shift[c],
+                              args=dict(args, cupti_ts=ev["ts"], moved_us=shift[c]))
+                else:
+                    if c in left:
+                        args["cupti_early_us"] = left[c]
+                    ev = dict(ev, args=args)
             elif ev.get("cat") == "ac2g" and ev.get("ph") == "f" and ev.get("id") in shift:
                 ev = dict(ev, ts=float(ev["ts"]) + shift[ev.get("id")])
         out.append(ev)
-    return out, len(first), len(shift), max(shift.values())
+    return out, {"device_launches": len(first), "device_launches_moved": len(shift),
+                 "device_largest_move_us": max(shift.values(), default=0.0),
+                 "device_launches_left_early": len(left),
+                 "device_largest_early_left_us": max(left.values(), default=0.0),
+                 "device_sync_late_us": max([0.0] + [late for _, late in synced.values()])}
 
 
 def _device_anchor_default(trace_dir: str, device: Sequence[Dict[str, object]],
@@ -206,7 +265,7 @@ def export_chrome_trace(
     jsonl = _jsonl_events(jsonl_path) if jsonl_path else []
     device, device_meta_doc = (_load_device_trace(device_trace_dir)
                                if device_trace_dir else ([], {}))
-    device, launches, moved, moved_us = _launch_ordered(device)
+    device, merge_stats = _launch_ordered(device)
     anchor_source, anchor_err = ("argument" if device_anchor is not None else None), None
     pid = os.getpid() if pid is None else pid
 
@@ -332,6 +391,13 @@ def export_chrome_trace(
         if "ts" not in ev:
             continue
         ev["ts"] = float(ev["ts"]) + device_shift_us
+        # the merge's own times ride in args: on the same timebase
+        args = ev.get("args")
+        if isinstance(args, dict) and any(k in args for k in _HOST_TIME_ARGS):
+            ev["args"] = args = dict(args)
+            for k in _HOST_TIME_ARGS:
+                if k in args:
+                    args[k] = float(args[k]) + device_shift_us
         ev["cat"] = ev.get("cat", "device")
         events.append(ev)
 
@@ -365,9 +431,7 @@ def export_chrome_trace(
         doc["otherData"] = {"base_wall_s": base, "device_anchor_wall_s": device_anchor,
                             "device_anchor_source": anchor_source,
                             "device_anchor_error_s": anchor_err,
-                            "device_launches": launches,
-                            "device_launches_moved": moved,
-                            "device_largest_move_us": moved_us}
+                            **merge_stats}
     with open(path, "w") as f:
         json.dump(doc, f)
     return path

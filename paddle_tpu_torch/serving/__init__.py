@@ -1,8 +1,10 @@
 """Dynamic-batching inference serving over AnalysisPredictor, and
 continuous-batching decode (the port of the JAX package's ``serving/``).
 
-* ``InferenceServer`` (one replica) + ``Client`` — bucketed batches,
-  deadlines, overload shedding, graceful drain;
+* ``InferenceServer`` + ``Client`` — one or more predictor replicas
+  behind one queue, bucketed batches, deadlines, overload shedding, the
+  brownout ladder (``BrownoutController``), precision variants, the
+  ladder autotuner, the admin HTTP surface, graceful drain;
 * ``serving.decode`` (lazy module) — ``DecodeServer``: token-level
   continuous batching over the KV slot pool (``serving.kv_pool``, CUDA
   graphs on the card), with the prefix KV cache, speculative decode and
@@ -10,14 +12,14 @@ continuous-batching decode (the port of the JAX package's ``serving/``).
 * ``ServingMetrics`` — the per-server view over ``monitor``'s registry.
 
 The wire layer (``serving.wire``, ``RemoteClient``) and
-``EmbeddingRowCache`` come with the request-batching server's remainder
-(ROADMAP A8b).
+``EmbeddingRowCache`` come with ROADMAP A8b part 2; asking for either
+raises naming it.
 
 Quickstart::
 
     pred = create_paddle_predictor(AnalysisConfig(model_dir))
     server = serving.InferenceServer(pred, max_batch_size=16)
-    server.warmup()            # runs every bucket rung once
+    server.warmup()            # every rung and dtype on every replica
     out, = serving.Client(server).infer({"x": rows})
     server.stop(drain=True)
 """
@@ -26,6 +28,7 @@ from paddle_tpu_torch.serving.admission import (
     PRIORITY_LOW,
     PRIORITY_NORMAL,
     AdmissionQueue,
+    BrownoutController,
 )
 from paddle_tpu_torch.serving.batching import DynamicBatcher, ServingRequest
 from paddle_tpu_torch.serving.bucketing import BucketPolicy
@@ -48,6 +51,7 @@ __all__ = [
     "ServingRequest",
     "BucketPolicy",
     "AdmissionQueue",
+    "BrownoutController",
     "PRIORITY_HIGH",
     "PRIORITY_NORMAL",
     "PRIORITY_LOW",
@@ -72,4 +76,8 @@ def __getattr__(name):
         mod = importlib.import_module("paddle_tpu_torch.serving." + name)
         globals()[name] = mod
         return mod
+    if name in ("wire", "EmbeddingRowCache"):
+        raise NotImplementedError(
+            "serving.%s comes with ROADMAP A8b part 2 (the wire layer and the "
+            "embedding cache)" % name)
     raise AttributeError("module %r has no attribute %r" % (__name__, name))

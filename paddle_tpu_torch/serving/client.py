@@ -4,7 +4,7 @@ port's ``serving/client.py``).
 The test-and-bench-facing convenience surface: blocking single calls,
 scatter/gather for many requests, named-output dicts, and token streams
 from a decode server.  The remote twin (``RemoteClient``) comes with the
-wire layer (ROADMAP A8b).
+wire layer (ROADMAP A8b part 2).
 
 Request-scoped tracing: every ``infer*`` call mints a trace id (or
 accepts one via ``trace_id=``), propagates it through submit() into the
@@ -49,7 +49,8 @@ class Client:
         class (``serving.admission.PRIORITY_*``, lower = more
         important): under overload the server sheds low priority first.
         ``precision`` picks the variant on a mixed-precision endpoint
-        (the port's server has none yet: leave it None).
+        (``"fp32"`` opts this request out of the policy default; both are
+        warm, so neither choice builds anything).
         ``trace_id`` joins the call to an existing trace; by default a
         fresh id is minted — read it back via ``last_trace_id``."""
         tid = trace_id or monitor.new_trace_id()

@@ -39,6 +39,13 @@ CHECKED_FILES = [
     "paddle_tpu_torch/serving/kv_pool.py",
     # the decode scheduler's tick: fault gate + chunk dispatch
     "paddle_tpu_torch/serving/decode.py",
+    # the request-batching server's merge, pad and dispatch (the wait for
+    # the outputs is one batch behind, outside the region)
+    "paddle_tpu_torch/serving/server.py",
+    # admission's heap push and pop under the queue's lock
+    "paddle_tpu_torch/serving/admission.py",
+    # the predictor's dispatch: the precision variant is one dict lookup
+    "paddle_tpu_torch/inference.py",
 ]
 
 # blocking-sync tokens (substring match on code, not comments)

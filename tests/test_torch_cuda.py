@@ -2542,3 +2542,93 @@ def test_zero_captures_after_warmup_and_resize_with_live_slots(card):
     big = pool.release(big, [1])
     assert not bool(big["active"][1])
     assert pool.jit_cache_stats()["misses"] == 0
+
+
+# ---------------------------------------------------------------------------
+# bf16 precision variants served over two replicas on one card
+# ---------------------------------------------------------------------------
+def _export_bf16_bert(card, tmp_path):
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = tfluid.Program(), tfluid.Program()
+    main.random_seed = startup.random_seed = 16
+    with tfluid.program_guard(main, startup), tfluid.unique_name.guard():
+        ids = tfluid.layers.data("src_ids", [16], dtype="int64")
+        mask = tfluid.layers.data("input_mask", [16], dtype="float32")
+        out = transformer.bert_encoder(ids, mask, **SMALL_BERT)
+    exe, scope = tfluid.Executor(), tfluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(16)
+    tfluid.io.save_inference_model(
+        str(tmp_path), FEEDS, [out], exe, main_program=main, scope=scope,
+        precision_policy={"dtype": "bf16", "parity_feeds": [_bert_feed(rng, 4)]})
+    return str(tmp_path)
+
+
+def test_bf16_replicas_capture_at_warmup_and_match_eager(card, tmp_path):
+    """A bf16 endpoint on two replicas: the warm-up captures one graph per
+    (rung, dtype) on each replica's executor, traffic mixing bf16 and the
+    fp32 opt-out captures nothing more, each dispatch launches the forward
+    kernel twice in its dtype, and every answer equals the same request run
+    eagerly (``use_program_cache=False``) at the bucket it was served in
+    (a replayed graph runs the eager kernels: 1e-5 of the output scale)."""
+    d = _export_bf16_bert(card, tmp_path)
+    preds = [tfluid.inference.create_paddle_predictor(tfluid.inference.AnalysisConfig(d))
+             for _ in range(2)]
+    server = serving.InferenceServer(preds, max_batch_size=8, batch_timeout_ms=2,
+                                     target_queue_wait_ms=60_000.0, name="card-bf16")
+    kernels.reset_launch_counts()
+    rng = np.random.RandomState(17)
+    feeds = [_bert_feed(rng, r) for r in (1, 3, 8, 5, 2, 8, 4, 7)]
+    precs = [None if i % 3 else "fp32" for i in range(len(feeds))]
+    try:
+        server.warmup()
+        warm = [p.jit_cache_stats() for p in preds]
+        assert all(w["graphs"] == 2 * len(server.bucket_ladder) for w in warm)
+        answers = [None] * len(feeds)
+
+        def go(i):
+            answers[i] = serving.Client(server).infer(feeds[i], precision=precs[i])[0]
+
+        threads = [threading.Thread(target=go, args=(i,)) for i in range(len(feeds))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        m = server.metrics()
+    finally:
+        server.stop(drain=True, timeout=60)
+    assert [p.jit_cache_stats()["graphs"] for p in preds] == [w["graphs"] for w in warm]
+    assert m["recompiles"] == 0 and m["completed"] == len(feeds)
+    by = kernels.launch_counts_by_dtype()[fa.KERNEL_NAME]
+    each = m["warmup_runs"] // 2
+    assert by == {"bfloat16": 2 * (m["precision_batches"].get("bf16", 0) + each),
+                  "float32": 2 * (m["precision_batches"].get("fp32", 0) + each)}
+    policy = serving.BucketPolicy(8)
+    for f, prec, ans in zip(feeds, precs, answers):
+        rows = f["src_ids"].shape[0]
+        program, scope = preds[0]._select_variant(prec)
+        best = np.inf
+        for b in (x for x in policy.ladder if x >= rows):
+            eager, = preds[0]._exe.run(program, feed=policy.pad_feed(f, b),
+                                       fetch_list=preds[0]._fetch_names, scope=scope,
+                                       use_program_cache=False)
+            best = min(best, float(np.abs(eager[:rows] - ans).max()) / float(np.abs(ans).max()))
+        assert best <= 1e-5, (prec, rows, best)
+
+
+def test_bf16_endpoint_card_against_cpu(card, tmp_path):
+    """The same bf16 variant on the card and on the CPU: within the
+    policy's rtol of the output's scale (each is within it of fp32), and
+    the fp32 opt-out within 1e-4."""
+    d = _export_bf16_bert(card, tmp_path)
+    gpu = tfluid.inference.create_paddle_predictor(tfluid.inference.AnalysisConfig(d))
+    cfg = tfluid.inference.AnalysisConfig(d)
+    cfg.disable_gpu()
+    cpu = tfluid.inference.create_paddle_predictor(cfg)
+    rtol = gpu.precision_policy["rtol"]
+    f = _bert_feed(np.random.RandomState(18), 3)
+    g16, c16 = gpu.run(f)[0], cpu.run(f)[0]
+    assert np.abs(g16 - c16).max() / np.abs(c16).max() <= rtol
+    np.testing.assert_allclose(gpu.run(f, precision="fp32")[0], cpu.run(f, precision="fp32")[0],
+                               atol=1e-4, rtol=1e-4)

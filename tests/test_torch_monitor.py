@@ -394,6 +394,88 @@ def test_device_work_never_starts_before_its_launch(tmp_path):
     assert "cupti_ts" not in args["k_ok"] and "moved_us" not in args["k_ok"]
 
 
+def test_device_work_is_tied_to_its_launch_when_cupti_runs_late(tmp_path):
+    """The shape of a recorded H100 failure of the merged trace's check:
+    CUPTI's clock drifted from the host's, so a captured step's kernels and
+    its loss copy were timed after the return of the synchronous
+    ``cudaMemcpyAsync`` that waited for them (9.7 ms there), and the last
+    kernels of the step fell past its host span.  The merge ties each work
+    event to the launch call that issued it (``args["launch_ts"]``, on the
+    merged timebase) without moving late work, and tags the synchronous
+    copy with its call and CUPTI's lateness past the call's return
+    (``device_sync_late_us`` the largest)."""
+    from paddle_tpu_torch.monitor import chrome_trace
+
+    launch = {"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch", "ts": 2624.0,
+              "dur": 13301.0, "pid": 1, "tid": 1, "args": {"correlation": 11}}
+    copy_call = {"ph": "X", "cat": "cuda_runtime", "name": "cudaMemcpyAsync", "ts": 15000.0,
+                 "dur": 45630.0, "pid": 1, "tid": 1, "args": {"correlation": 12}}
+    kernels = [{"ph": "X", "cat": "kernel", "name": "k%d" % i, "ts": 8000.0 + 5000.0 * i,
+                "dur": 900.0, "pid": 0, "tid": 7, "args": {"correlation": 11, "stream": 7}}
+               for i in range(11)]  # the last ends at 58,900; ...
+    kernels[-1]["ts"] = 61000.0      # ... CUPTI put it past the copy's return
+    copy = {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoH (Device -> Pageable)",
+            "ts": 62000.0, "dur": 3.0, "pid": 0, "tid": 7,
+            "args": {"correlation": 12, "stream": 7}}
+    device = [launch, copy_call] + kernels + [copy]
+    out, stats = chrome_trace._launch_ordered(device)
+    assert stats["device_launches"] == 1 and stats["device_launches_moved"] == 0
+    assert stats["device_largest_move_us"] == 0.0 and stats["device_launches_left_early"] == 0
+    assert stats["device_sync_late_us"] == pytest.approx(62003.0 - 60630.0)
+    work = [e for e in out if e.get("cat") == "kernel"]
+    assert [e["ts"] for e in work] == [k["ts"] for k in kernels]  # late work is not moved
+    assert all(e["args"]["launch_ts"] == 2624.0 for e in work)
+    assert all("moved_us" not in e["args"] for e in work)
+    synced = next(e for e in out if e.get("cat") == "gpu_memcpy")["args"]
+    assert synced["call_ts"] == 15000.0 and synced["cupti_late_us"] == pytest.approx(1373.0)
+
+    d = tmp_path / "prof"
+    d.mkdir()
+    (d / "host.pt.trace.json").write_text(json.dumps({"traceEvents": device}))
+    path = str(tmp_path / "trace.json")
+    chrome_trace.export_chrome_trace(path, spans=[{"name": "step", "ts": 50.0, "dur": 0.06}],
+                                     device_trace_dir=str(d), device_anchor=50.001)
+    doc = json.load(open(path))
+    by = {e["name"]: e for e in doc["traceEvents"] if e.get("ph") == "X"}
+    assert by["k0"]["args"]["launch_ts"] == pytest.approx(by["cudaGraphLaunch"]["ts"])
+    assert doc["otherData"]["device_sync_late_us"] == pytest.approx(1373.0)
+
+
+def test_a_clock_step_inside_a_launch_is_not_shifted_whole():
+    """The shape of a second recorded failure: CUPTI's clock stepped 21.9
+    ms between two consecutive kernels of one graph replay, so its first
+    kernels were timed 21.4 ms before the launch and the rest where they
+    ran.  Shifting the whole launch by 21.4 ms would throw its correctly
+    timed tail past the step: the merge leaves work timed more than
+    MAX_LAUNCH_MOVE_US early where CUPTI put it, tied to its launch and
+    flagged, and still moves a launch a few ms early."""
+    from paddle_tpu_torch.monitor import chrome_trace
+
+    def launch(c, ts):
+        return {"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch", "ts": ts,
+                "dur": 15000.0, "pid": 1, "tid": 1, "args": {"correlation": c}}
+
+    def kernel(c, name, ts):
+        return {"ph": "X", "cat": "kernel", "name": name, "ts": ts, "dur": 5.0, "pid": 0,
+                "tid": 7, "args": {"correlation": c, "stream": 7}}
+
+    device = [launch(21, 100000.0), launch(22, 200000.0)]
+    device += [kernel(21, "early%d" % i, 78630.0 + 10.0 * i) for i in range(3)]  # 21.4 ms early
+    device += [kernel(21, "tail%d" % i, 100553.0 + 10.0 * i) for i in range(3)]  # after the step
+    device += [kernel(22, "drift%d" % i, 198000.0 + 10.0 * i) for i in range(3)]  # 2 ms early
+    out, stats = chrome_trace._launch_ordered(device)
+    by = {e["name"]: e for e in out}
+    assert stats["device_launches_moved"] == 1 and stats["device_launches_left_early"] == 1
+    assert stats["device_largest_move_us"] == pytest.approx(2000.0)
+    assert stats["device_largest_early_left_us"] == pytest.approx(21370.0)
+    assert by["early0"]["ts"] == 78630.0 and by["tail0"]["ts"] == 100553.0
+    assert by["early0"]["args"]["cupti_early_us"] == pytest.approx(21370.0)
+    assert by["tail2"]["args"]["launch_ts"] == 100000.0
+    assert by["drift0"]["ts"] == pytest.approx(200000.0)
+    assert by["drift0"]["args"]["moved_us"] == pytest.approx(2000.0)
+    assert chrome_trace.MAX_LAUNCH_MOVE_US == 10000.0
+
+
 def test_reset_profiler_stops_a_running_trace_without_writing(tmp_path):
     d = str(tmp_path / "p")
     tprofiler.start_profiler(trace_dir=d)
