@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --b3   # kernel B3's build, check and sweep alone
+    python3 chip_smoke.py --wire 3   # phase 35's export and phase 36, three times
 
 Phases, each of which raises (exit code != 0) on failure:
 
@@ -369,6 +370,46 @@ Phases, each of which raises (exit code != 0) on failure:
    brownout ladder to L3 with only the low class shed, then descending to
    0; and rows/s, p50 and p99 of 512 requests at 1, 2,
    2 and 1 replicas.
+36. The wire layer on the card (``serving.wire``; every wait has a
+   deadline).  (a) Phase 35's bf16 export served by
+   ``FleetBalancer.from_launch(n=2)``: two serving child processes on
+   cuda:0 (each one's seconds to READY printed), warmed through the fleet;
+   128 concurrent requests of 1 to 16 rows, every 4th in fp32: each
+   child's ``/statusz`` ``hand_kernels`` (its own kernel tally), read before
+   and after, shows the attention forward 12 times a dispatch in each dtype
+   and no other hand kernel; fp32 answers within 1e-4 of an in-process
+   predictor of the same export, bf16 within the manifest's rtol of fp32;
+   8 bf16 requests one at a time within 1e-4 of the in-process bf16
+   predictor at their rung; one request's span tree from
+   ``serving/client_infer`` through ``wire/request``,
+   ``wire/server_request`` and ``serving/queue_wait`` to the predictor and
+   executor spans under one trace id; rows/s, p50 and p99 of 256 requests
+   through the fleet, through a ``RemoteClient`` to one child and in
+   process at one replica (the wire tax); no entry built and no graph
+   captured in a child after warmup; ``wire.send=corrupt,times=2``
+   requeued and answered; a child SIGKILLed with 64 requests in flight,
+   every one answered and the dead backend retired; ``rolling_replace()``
+   under traffic (the old child exits 0, the fresh one builds nothing
+   after its warmup); the federated ``/metrics`` and ``/statusz`` parsed;
+   ``nvidia-smi --query-compute-apps``; ``stop(shutdown_backends=True)``
+   with every child exiting 0.  (b) The LM at transformer_lm's widths with
+   phase 34's weights saved as an int8-KV decode endpoint (8 slots, 256
+   positions) and served by one child: 16 concurrent streams, 4 of them
+   through ``FleetBalancer.infer_stream``, each in at least 2 chunks, the
+   tokens the same endpoint's in process by phase 34's margin rule, B3 in
+   the child's tally and no attention kernel, tokens/s over the wire and in
+   process.  (c) DeepFM at bench_deepfm.py's widths on phase 23's PS pair
+   with an ``EmbeddingRowCache`` bound: 8 sync steps of 1,024 lines
+   through the cache bit for bit against 8 without it under deterministic
+   algorithms; an async step invalidating through ``on_pushed``; a
+   Zipf(1.0) stream over 20,000 active ids scored through the inference
+   program, 30 warm-up and 30 measured batches of 26 lines (1,014 ids),
+   hit ratio at least 0.8 and predictions bit for bit the uncached ones; a
+   ``ps.pull`` outage under ``set_cache_only(True)`` answering every batch
+   (hits exact, misses from the counted fallback row) and reading through
+   again after the heal; lookup p50 and p99 of 1,024 Zipf ids with the
+   cache on and off and the PS rows each pulled.  The numbers are printed
+   on a ``[wire-numbers]`` line beside the card's name and power limit.
 
 Output: progress lines, then a ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
@@ -804,6 +845,21 @@ REPL_BURST_HOLD_S = 0.02   # the brownout leg's hold at each rung
 REPL_BURST_GAP_S = 0.0005  # between the burst's submits: 1,500 full batches and 500 rows a second
 REPL_REPLAN_RUNGS = 6      # max_rungs of the mid-traffic re-plan
 REPL_QUEUE_WAIT_MS = 120_000.0  # the traffic legs' AIMD wait target: 16 clients never shed
+WIRE_REQUESTS = 128        # phase 36 (a): the fleet's mixed traffic, 1 to 16 rows
+WIRE_ALONE = 8             # bf16 requests sent one at a time
+WIRE_TIMED_REQUESTS = 256  # each wire-tax leg (fleet of two, one child, in process)
+WIRE_KILL_REQUESTS = 64    # in flight from 64 client threads when a child is killed
+WIRE_MAX_IN_FLIGHT = 32    # the fleet's bound per backend
+WIRE_READY_S = 300.0       # a child's deadline to READY, and its warmup's
+WIRE_TIMEOUT_MS = 120_000.0  # every request's deadline
+# phase 36 (b): the int8-KV LM endpoint, phase 34's weights
+WIRE_LM = dict(reqs=16, fleet_reqs=4, prompt=(16, 65), new=(32, 97), max_len=256, slots=8)
+# phase 36 (c): bench_deepfm.py's _run_zipf_serving sizes (200,000 rows, 20,000
+# active ids, Zipf(1.0), 30 warm and 30 measured batches of about 1,024 ids:
+# 26 lines of 39 fields); DeepFM's two tables share the ids, so the scoring
+# cache holds 10,000 rows a table
+WIRE_CACHE = dict(table_rows=200_000, active=20_000, capacity=20_000, lookup_capacity=10_000,
+                  rows=26, warm=30, meas=30, train_steps=8, train_rows=1024)
 ALIGN_SLACK_US = 50.0    # CUPTI's card clock mapped onto the host's, beyond the anchor's own error
 # the merge moves a launch's device work that CUPTI timed before its launch
 # call to the launch; the largest move it may make (the merge's own cap,
@@ -6662,6 +6718,31 @@ def _teacher_forced(torch, steps_fns, seqs, plens):
     return {"margins": margins, "argmax": argmax, "deviation": dev, "deviation_abs": dev_abs}
 
 
+def _composition_deviation(torch, step_fn, make_cache, seqs, plens):
+    """The largest logit difference between ``seqs`` teacher-forced
+    together (one batch on the card) and each alone, at the positions whose
+    next token was generated: how far the batch a sequence shares moves its
+    logits (an int8 KV cache can turn a last-bit difference into a code
+    step)."""
+    n = len(seqs)
+    T = max(len(s) for s in seqs)
+    toks = np.zeros((n, T), np.int32)
+    for i, s in enumerate(seqs):
+        toks[i, :len(s)] = s
+    tok_d = torch.from_numpy(toks).cuda()
+    lens, plens_np = np.asarray([len(s) for s in seqs]), np.asarray(plens)
+    cache, alone = make_cache(n, T), [make_cache(1, T) for _ in range(n)]
+    dev = 0.0
+    for t in range(T - 1):
+        ts = torch.full((n,), t, dtype=torch.int32, device="cuda")
+        out, cache = step_fn(cache, tok_d[:, t], ts)
+        for i in np.nonzero(t < lens - 1)[0]:
+            one, alone[i] = step_fn(alone[i], tok_d[i:i + 1, t], ts[:1])
+            if t >= plens_np[i] - 1:
+                dev = max(dev, float((one[0] - out[i]).abs().max()))
+    return dev
+
+
 def _margin_rule(got, want, margins, tol):
     """``got`` equals ``want`` (token lists a request) up to the first
     position whose margin is below ``tol``: the positions held, the
@@ -7116,9 +7197,9 @@ def _on_replica_plan(faults, replica, after):
                                         error="BackendUnavailable", after=after)])
 
 
-def _serve_concurrently(client, feeds, precs, on_progress=None):
-    """Each request through ``client`` from REPL_CLIENTS threads: (answers,
-    client latencies in s, wall s).  ``on_progress(done)`` runs on this
+def _serve_concurrently(client, feeds, precs, on_progress=None, clients=REPL_CLIENTS):
+    """Each request through ``client`` from ``clients`` threads: (answers,
+    client latencies in s, wall s).  ``on_progress()`` runs on this
     thread once a third of the requests are answered.  Raises if one
     failed or did not return."""
     n = len(feeds)
@@ -7126,7 +7207,7 @@ def _serve_concurrently(client, feeds, precs, on_progress=None):
     done = threading.Semaphore(0)
 
     def worker(k):
-        for i in range(k, n, REPL_CLIENTS):
+        for i in range(k, n, clients):
             t = time.perf_counter()
             try:
                 answers[i] = client.infer(feeds[i], precision=precs[i])[0]
@@ -7136,7 +7217,7 @@ def _serve_concurrently(client, feeds, precs, on_progress=None):
             done.release()
 
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=worker, args=(k,)) for k in range(REPL_CLIENTS)]
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(clients)]
     for t in threads:
         t.start()
     if on_progress is not None:
@@ -7166,6 +7247,31 @@ def _alone_at_bucket(pred, policy, feed, precision, answer, buckets):
     return best
 
 
+def _export_bert_bf16(fluid, transformer, model_dir, rng):
+    """Full-width BERT-base (random weights from SEED) exported to
+    ``model_dir`` with a bf16 precision policy; the export's parity gate
+    runs the variant against fp32 on the card, on two 4-row feeds drawn
+    from ``rng``.  Returns the export's seconds."""
+    seq, vocab = BERT_BASE["seq_len"], BERT_BASE["vocab_size"]
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids = fluid.layers.data("src_ids", [seq], dtype="int64")
+        mask = fluid.layers.data("input_mask", [seq], dtype="float32")
+        enc = transformer.bert_encoder(ids, mask, dropout_rate=0.0, is_test=True,
+                                       fused_attention=True, **BERT_BASE)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    t = time.perf_counter()
+    fluid.io.save_inference_model(
+        model_dir, ["src_ids", "input_mask"], [enc], exe, main_program=main, scope=scope,
+        precision_policy={"dtype": "bf16",
+                          "parity_feeds": [_feed(rng, 4, seq, vocab) for _ in range(2)]})
+    seconds = time.perf_counter() - t
+    exe.close()
+    return seconds
+
+
 def run_bert_bf16_replicas(torch, workdir):
     """Phase 35 (see the module docstring).  Returns its statistics."""
     import paddle_tpu_torch as fluid
@@ -7178,26 +7284,9 @@ def run_bert_bf16_replicas(torch, workdir):
     t_phase = time.perf_counter()
     seq, vocab, n_layer = BERT_BASE["seq_len"], BERT_BASE["vocab_size"], BERT_BASE["n_layer"]
     stats, checks = {}, {}
-    main, startup = fluid.Program(), fluid.Program()
-    main.random_seed = startup.random_seed = SEED
-    with fluid.program_guard(main, startup), fluid.unique_name.guard():
-        ids = fluid.layers.data("src_ids", [seq], dtype="int64")
-        mask = fluid.layers.data("input_mask", [seq], dtype="float32")
-        enc = transformer.bert_encoder(ids, mask, dropout_rate=0.0, is_test=True,
-                                       fused_attention=True, **BERT_BASE)
-    exe, scope = fluid.Executor(), fluid.Scope()
-    exe.run(startup, scope=scope)
     rng = np.random.RandomState(SEED + 35)
     model_dir = os.path.join(workdir, "bert_base_bf16")
-    t = time.perf_counter()
-    # the export's parity gate runs the variant against fp32 on the card
-    fluid.io.save_inference_model(
-        model_dir, ["src_ids", "input_mask"], [enc], exe, main_program=main, scope=scope,
-        precision_policy={"dtype": "bf16",
-                          "parity_feeds": [_feed(rng, 4, seq, vocab) for _ in range(2)]})
-    stats["export_s"] = time.perf_counter() - t
-    exe.close()
-    del exe, scope
+    stats["export_s"] = _export_bert_bf16(fluid, transformer, model_dir, rng)
     with open(os.path.join(model_dir, "__model__")) as f:
         policy = json.load(f)["precision"]
     stats["policy"] = policy
@@ -7415,6 +7504,631 @@ def run_bert_bf16_replicas(torch, workdir):
         raise AssertionError("phase 35 failed its checks: %s" % json.dumps(checks))
     return stats
 
+# ---------------------------------------------------------------------------
+# phase 36: the wire layer on the card
+# ---------------------------------------------------------------------------
+
+def _child_status(be):
+    """One backend's ``/statusz`` (its server's metrics, its entries and
+    graphs, and ``hand_kernels``: the child's own kernel tally by dtype)."""
+    return be.transport.get_json("/statusz", timeout_s=60.0)
+
+
+def _tally_delta(after, before):
+    """{kernel: {dtype: launches}} between two ``hand_kernels`` reads."""
+    out = {}
+    for k, by in after.items():
+        for dt, n in by.items():
+            d = n - before.get(k, {}).get(dt, 0)
+            if d:
+                out.setdefault(k, {})[dt] = d
+    return out
+
+
+def _graphs_of(status):
+    return {r: (c["entries"], c.get("graphs")) for r, c in status["replica_jit_cache"].items()}
+
+
+def _wire_storm(client, feeds, precs, stop, threads=8):
+    """Clients cycling through ``feeds`` until ``stop`` is set: (threads,
+    answered count, errors)."""
+    done, errors, lock = [0], [], threading.Lock()
+
+    def run(k):
+        i = k
+        while not stop.is_set():
+            try:
+                client.infer(feeds[i % len(feeds)], precision=precs[i % len(feeds)],
+                             timeout_ms=WIRE_TIMEOUT_MS)
+                with lock:
+                    done[0] += 1
+            except Exception as e:  # noqa: BLE001 — raised by the caller
+                errors.append(repr(e))
+                return
+            i += threads
+
+    ts = [threading.Thread(target=run, args=(k,)) for k in range(threads)]
+    for t in ts:
+        t.start()
+    return ts, done, errors
+
+
+def _latency_leg(client, feeds, precs, rows):
+    _, lat, wall = _serve_concurrently(client, feeds, precs)
+    return {"requests": len(feeds), "rows": sum(rows), "wall_s": wall,
+            "rows_per_s": sum(rows) / wall,
+            "latency_ms_p50": 1e3 * float(np.percentile(lat, 50)),
+            "latency_ms_p99": 1e3 * float(np.percentile(lat, 99))}
+
+
+def _wire_bert_fleet(torch, model_dir):
+    """Phase 36 (a): BERT-base bf16 served by a FleetBalancer over two
+    serving child processes on the card.  Returns (stats, checks)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import faults, monitor, serving
+    from paddle_tpu_torch.contrib.mixed_precision import inference as mp_inf
+    from paddle_tpu_torch.kernels.fused_attention import KERNEL_NAME
+    from paddle_tpu_torch.monitor import registry as _registry
+    from paddle_tpu_torch.serving import wire
+    from paddle_tpu_torch.serving.bucketing import BucketPolicy
+    from paddle_tpu_torch.serving.wire import launch as wire_launch
+
+    seq, vocab, n_layer = BERT_BASE["seq_len"], BERT_BASE["vocab_size"], BERT_BASE["n_layer"]
+    stats, checks = {}, {}
+    with open(os.path.join(model_dir, "__model__")) as f:
+        rtol = json.load(f)["precision"]["rtol"]
+    # the children, each timed from spawn to READY
+    ready_s, launch = [], wire_launch.launch_server
+
+    def timed_launch(*a, **kw):
+        t = time.perf_counter()
+        h = launch(*a, **kw)
+        ready_s.append(time.perf_counter() - t)
+        return h
+
+    wire_launch.launch_server = timed_launch
+    try:
+        fleet = wire.FleetBalancer.from_launch(
+            model_dir, n=2, name="bert-fleet",
+            launch_kwargs=dict(max_batch_size=REPL_MAX_BATCH, flight_slow_ms=0.0,
+                               batch_timeout_ms=5.0, ready_timeout_s=WIRE_READY_S,
+                               target_queue_wait_ms=REPL_QUEUE_WAIT_MS),
+            max_in_flight=WIRE_MAX_IN_FLIGHT, timeout_s=WIRE_TIMEOUT_MS / 1e3,
+            health_interval_s=1.0)
+    finally:
+        wire_launch.launch_server = launch
+    stats["child_ready_s"] = ready_s
+    log("[wire] children ready in %s s" % ["%.1f" % s for s in ready_s])
+    killed, replaced_olds, fresh = None, [], []
+    try:
+        t = time.perf_counter()
+        stats["warmup_passes"] = fleet.warmup(timeout_s=WIRE_READY_S)
+        stats["warmup_s"] = time.perf_counter() - t
+        backends = list(fleet._backends)
+        warm = [_child_status(be) for be in backends]
+        # the parent's own predictor of the same export, for the answers
+        pred = fluid.inference.create_paddle_predictor(fluid.inference.AnalysisConfig(model_dir))
+        rng = np.random.RandomState(SEED + 36)
+        rows = [int(r) for r in rng.randint(1, REPL_MAX_BATCH + 1, WIRE_REQUESTS)]
+        feeds = [_feed(rng, r, seq, vocab) for r in rows]
+        precs = ["fp32" if i % REPL_FP32_EVERY == 0 else None for i in range(WIRE_REQUESTS)]
+
+        # --- the main path: 128 concurrent requests through the fleet -----
+        before = [_child_status(be)["hand_kernels"] for be in backends]
+        answers, lat, wall = _serve_concurrently(fleet, feeds, precs)
+        after = [_child_status(be) for be in backends]
+        per_child = []
+        for be, b, a, w in zip(backends, before, after, warm):
+            delta = _tally_delta(a["hand_kernels"], b)
+            pb = a["metrics"]["precision_batches"]
+            pb0 = w["metrics"]["precision_batches"]
+            batches = {d: pb.get(d, 0) - pb0.get(d, 0) for d in ("bf16", "fp32")}
+            per_child.append({"backend": be.name, "launches": delta, "batches": batches,
+                              "executed": fleet.backend_stats()[be.name]["executed"]})
+        stats["traffic"] = {"requests": WIRE_REQUESTS, "rows": sum(rows), "wall_s": wall,
+                            "rows_per_s": sum(rows) / wall,
+                            "latency_ms_p50": 1e3 * float(np.percentile(lat, 50)),
+                            "latency_ms_p99": 1e3 * float(np.percentile(lat, 99)),
+                            "per_child": per_child}
+        checks["attention_12_a_dispatch_in_each_dtype"] = all(
+            c["launches"].get(KERNEL_NAME, {}) == {
+                "bfloat16": n_layer * c["batches"]["bf16"], "float32": n_layer * c["batches"]["fp32"]}
+            and c["batches"]["bf16"] > 0 and c["batches"]["fp32"] > 0 for c in per_child)
+        checks["no_other_hand_kernel"] = not any(
+            k != KERNEL_NAME for c in per_child for k in c["launches"])
+        stats["launches"] = sum(sum(c["launches"].get(KERNEL_NAME, {}).values()) for c in per_child)
+        fp32_err, bf16_rel = 0.0, 0.0
+        for f, p, ans in zip(feeds, precs, answers):
+            if ans.shape != (f["src_ids"].shape[0], seq, BERT_BASE["d_model"]) or \
+                    not np.isfinite(ans).all():
+                raise AssertionError("bad answer over the wire: shape %s" % (ans.shape,))
+            ref32, = pred.run(f, precision="fp32")
+            if p == "fp32":
+                fp32_err = max(fp32_err, float(np.abs(ans - ref32).max()))
+            else:
+                bf16_rel = max(bf16_rel, mp_inf.max_rel_err([ref32], [ans]))
+        stats["answers"] = {"fp32_vs_in_process": fp32_err, "bf16_vs_fp32_max_rel_err": bf16_rel,
+                            "rtol": rtol}
+        checks["fp32_within_1e-4_of_in_process"] = fp32_err <= SERVE_TOL
+        checks["bf16_within_policy"] = bf16_rel <= rtol
+        # eight bf16 requests one at a time, each against the in-process bf16
+        # predictor at its own rung
+        ladder = BucketPolicy(REPL_MAX_BATCH)
+        alone = 0.0
+        for i in range(WIRE_ALONE):
+            f = _feed(rng, 1 + (i * 5) % REPL_MAX_BATCH, seq, vocab)
+            ans, = fleet.infer(f, timeout_ms=WIRE_TIMEOUT_MS)
+            r = f["src_ids"].shape[0]
+            rung = ladder.bucket_for(r)
+            ref, = pred.run_padded(ladder.pad_feed(f, rung), n_valid=r)
+            alone = max(alone, float(np.abs(np.asarray(ref) - ans).max()))
+        stats["bf16_alone_at_its_rung"] = alone
+        checks["bf16_alone_within_1e-4"] = alone <= SERVE_TOL
+        # one request's span tree across the hop
+        fr = monitor.flight_recorder(slow_ms=0.0)
+        try:
+            fleet.infer(feeds[1], timeout_ms=WIRE_TIMEOUT_MS)
+            tid = fleet.last_trace_id
+            rec = fr.get_record(tid) or {"spans": []}
+        finally:
+            fr.close()
+        spans = rec["spans"]
+        by_id = {s["id"]: s for s in spans if s.get("id")}
+        by_name = {s["name"]: s for s in spans}
+        chain = ["serving/client_infer", "wire/request", "wire/server_request", "serving/queue_wait"]
+        linked = all(n in by_name for n in chain) and all(
+            by_id.get(by_name[c].get("parent"), {}).get("name") == p
+            for p, c in zip(chain, chain[1:]))
+        names = sorted({s["name"] for s in spans})
+        stats["span_names"] = names
+        checks["one_span_tree_across_the_hop"] = (
+            linked and all(s.get("trace_ids") == [tid] for s in spans)
+            and any(n.startswith("predictor/") for n in names)
+            and any(n.startswith("executor/") for n in names))
+
+        # --- the wire tax: fleet of two, one child over the wire, in process
+        t_rows = [int(r) for r in rng.randint(1, REPL_MAX_BATCH + 1, WIRE_TIMED_REQUESTS)]
+        t_feeds = [_feed(rng, r, seq, vocab) for r in t_rows]
+        t_precs = ["fp32" if i % REPL_FP32_EVERY == 0 else None for i in range(WIRE_TIMED_REQUESTS)]
+        legs = {"fleet_of_two": _latency_leg(fleet, t_feeds, t_precs, t_rows)}
+        one = wire.RemoteClient(backends[0].transport.address, timeout_s=WIRE_TIMEOUT_MS / 1e3)
+        try:
+            legs["remote_client_one_child"] = _latency_leg(one, t_feeds, t_precs, t_rows)
+        finally:
+            one.close()
+        srv = serving.InferenceServer([pred], max_batch_size=REPL_MAX_BATCH, batch_timeout_ms=5.0,
+                                      name="bert-wire-local",
+                                      target_queue_wait_ms=REPL_QUEUE_WAIT_MS)
+        srv.warmup()
+        try:
+            legs["in_process_one_replica"] = _latency_leg(serving.Client(srv), t_feeds, t_precs,
+                                                          t_rows)
+        finally:
+            srv.stop(drain=True, timeout=120)
+        a, b = legs["remote_client_one_child"], legs["in_process_one_replica"]
+        legs["wire_tax"] = {"rows_per_s_ratio": a["rows_per_s"] / b["rows_per_s"],
+                            "p50_ms_added": a["latency_ms_p50"] - b["latency_ms_p50"],
+                            "p99_ms_added": a["latency_ms_p99"] - b["latency_ms_p99"]}
+        stats["timing"] = legs
+        late = [_child_status(be) for be in backends]
+        checks["children_build_nothing_after_warmup"] = all(
+            s["metrics"]["recompiles"] == 0 and _graphs_of(s) == _graphs_of(w)
+            for s, w in zip(late, warm))
+
+        # --- faults: corrupted frames, a killed child, a rolling replace --
+        req = lambda: monitor.counter_value("serving_requeued_total", server="bert-fleet")  # noqa: E731
+        r0 = req()
+        f0 = monitor.counter_value("faults_injected_total", point="wire.send")
+        with faults.armed("wire.send=corrupt,times=2"):
+            c_ans = [fleet.infer(feeds[k], timeout_ms=WIRE_TIMEOUT_MS)[0] for k in range(4)]
+        corrupt_err = max(float(np.abs(a - b).max()) for a, b in zip(c_ans, answers[:4]))
+        stats["corrupt"] = {"injected": monitor.counter_value("faults_injected_total",
+                                                              point="wire.send") - f0,
+                            "requeued": req() - r0, "vs_first_answers": corrupt_err}
+        checks["corrupt_frames_requeued_and_answered"] = (
+            stats["corrupt"]["injected"] == 2 and stats["corrupt"]["requeued"] >= 1)
+        victim = backends[1]
+        r0 = req()
+        k_feeds, k_precs = feeds[:WIRE_KILL_REQUESTS], precs[:WIRE_KILL_REQUESTS]
+        killed = victim.handle
+        k_answers, _, _ = _serve_concurrently(fleet, k_feeds, k_precs,
+                                              on_progress=killed.kill, clients=WIRE_KILL_REQUESTS)
+        deadline = time.monotonic() + 30
+        while victim.alive and time.monotonic() < deadline:
+            time.sleep(0.1)
+        stats["kill"] = {"requests": WIRE_KILL_REQUESTS, "requeued": req() - r0,
+                         "victim_rc": killed.wait(30), "victim_retired": not victim.alive,
+                         "answered": sum(a is not None for a in k_answers)}
+        checks["kill_loses_no_request"] = (stats["kill"]["answered"] == WIRE_KILL_REQUESTS
+                                           and stats["kill"]["requeued"] >= 1
+                                           and stats["kill"]["victim_retired"])
+        stop = threading.Event()
+        ts, done, errors = _wire_storm(fleet, feeds, precs, stop)
+        replaced_olds = [be.handle for be in fleet._backends if be.alive and be.handle]
+        t = time.perf_counter()
+        fresh = fleet.rolling_replace(warmup=True, drain_timeout_s=120.0)
+        roll_s = time.perf_counter() - t
+        n_during = done[0]
+        extra, _, _ = _serve_concurrently(fleet, feeds[:32], precs[:32])
+        stop.set()
+        for th in ts:
+            th.join(300)
+        fresh_be = [be for be in fleet._backends if be.alive and be.handle in fresh]
+        fresh_status = [_child_status(be) for be in fresh_be]
+        stats["rolling_replace"] = {
+            "seconds": roll_s, "answered_during": n_during, "answered": done[0] + len(extra),
+            "errors": errors[:3], "old_rc": [h.poll() for h in replaced_olds],
+            "fresh": [{"recompiles": s["metrics"]["recompiles"], "completed": s["metrics"]["completed"]}
+                      for s in fresh_status]}
+        checks["rolling_replace_under_traffic"] = (
+            not errors and n_during > 0 and len(fresh_status) == len(fresh) > 0
+            and all(rc == 0 for rc in stats["rolling_replace"]["old_rc"])
+            and all(s["metrics"]["recompiles"] == 0 and s["metrics"]["completed"] > 0
+                    for s in fresh_status))
+
+        # --- the federated admin surface ----------------------------------
+        host, port = fleet.start_admin(0)
+        fleet.scrape_once()
+        code, body = _http_get(host, port, "/metrics")
+        fams = _registry.parse_exposition(body.decode())
+        code2, body2 = _http_get(host, port, "/statusz")
+        fed = json.loads(body2)
+        stats["admin"] = {"families": len(fams), "statusz_backends": sorted(fed.get("backends", {}))}
+        checks["federated_metrics_parsed"] = (
+            code == 200 and code2 == 200 and "wire_requests_total" in fams
+            and "backend=" in body.decode() and len(fed.get("backends", {})) >= 1)
+        stats["compute_apps"] = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+            capture_output=True, text=True).stdout.strip().splitlines()
+        log("[wire] nvidia-smi compute apps: %s" % stats["compute_apps"])
+    finally:
+        live = [be.handle for be in fleet._backends if be.handle is not None and be.handle.poll() is None]
+        fleet.stop(shutdown_backends=True, timeout_s=120.0)
+    stats["shutdown_rc"] = [h.poll() for h in live]
+    checks["children_exit_0"] = bool(live) and all(rc == 0 for rc in stats["shutdown_rc"])
+    return stats, checks
+
+
+def _wire_lm_int8(torch, workdir):
+    """Phase 36 (b): the int8-KV LM streamed over the wire from one child.
+    Returns (stats, checks)."""
+    from paddle_tpu_torch import decoding
+    from paddle_tpu_torch.kernels import decode_attention as kda
+    from paddle_tpu_torch.serving import wire
+    from paddle_tpu_torch.serving.decode import load_decode_endpoint, save_decode_endpoint
+
+    stats, checks = {}, {}
+    dims = dict(vocab=LM["vocab_size"], d_model=LM["d_model"], n_layer=LM["n_layer"],
+                n_head=LM["n_head"], d_inner=LM["d_inner"])
+    state = decoding.random_transformer_lm_state(np.random.RandomState(SEED + 70),
+                                                 max_pos=LM["max_pos"], **dims)  # phase 34's
+    d = save_decode_endpoint(os.path.join(workdir, "lm_int8"), state, vocab_size=dims["vocab"],
+                             d_model=dims["d_model"], n_layer=dims["n_layer"],
+                             n_head=dims["n_head"], d_inner=dims["d_inner"], eos_id=EOS,
+                             max_seq_len=WIRE_LM["max_len"], max_slots=WIRE_LM["slots"],
+                             kv_dtype="int8", name="lm")
+    rng = np.random.RandomState(SEED + 361)
+    traffic = [(rng.randint(0, dims["vocab"], int(rng.randint(*WIRE_LM["prompt"]))).astype(np.int32),
+                int(rng.randint(*WIRE_LM["new"]))) for _ in range(WIRE_LM["reqs"])]
+    t = time.perf_counter()
+    handle = wire.launch_server(d, name="lm-int8", ready_timeout_s=WIRE_READY_S)
+    stats["child_ready_s"] = time.perf_counter() - t
+    fleet = None
+    try:
+        t = time.perf_counter()
+        stats["child_warmup"] = handle.warmup(timeout_s=WIRE_READY_S)
+        stats["child_warmup_s"] = time.perf_counter() - t
+        cli = wire.RemoteClient(handle.address, timeout_s=WIRE_TIMEOUT_MS / 1e3)
+        fleet = wire.FleetBalancer([handle], name="lm-fleet", health_interval_s=None,
+                                   timeout_s=WIRE_TIMEOUT_MS / 1e3)
+        status0 = cli.statusz()
+        via = ["fleet" if i < WIRE_LM["fleet_reqs"] else "client" for i in range(len(traffic))]
+        chunks = [None] * len(traffic)
+        errors = []
+
+        def stream(i):
+            p, m = traffic[i]
+            src = fleet if via[i] == "fleet" else cli
+            try:
+                chunks[i] = [np.asarray(c) for c in src.infer_stream(
+                    {"tokens": p}, max_new_tokens=m, timeout_ms=WIRE_TIMEOUT_MS)]
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(repr(e))
+
+        t = time.perf_counter()
+        ths = [threading.Thread(target=stream, args=(i,)) for i in range(len(traffic))]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(600)
+        wire_s = time.perf_counter() - t
+        if errors or any(c is None for c in chunks):
+            raise AssertionError("phase 36 (b): streams failed: %s" % errors[:3])
+        status1 = cli.statusz()
+        delta = _tally_delta(status1["hand_kernels"], status0["hand_kernels"])
+        wire_tokens = [np.concatenate(c).tolist() for c in chunks]
+        cli.close()
+    finally:
+        if fleet is not None:
+            fleet.stop()
+        rc = handle.shutdown(timeout_s=120.0)
+    # the same endpoint served in this process
+    local = load_decode_endpoint(d, name="lm-int8-local")
+    local.warmup()
+    try:
+        t = time.perf_counter()
+        reqs = [local.submit({"tokens": p}, max_new_tokens=m) for p, m in traffic]
+        local_tokens = [np.asarray(r.result(timeout=600)[0]).tolist() for r in reqs]
+        local_s = time.perf_counter() - t
+    finally:
+        local.stop()
+    # phase 34's rule: tokens equal up to the first position whose margin is
+    # below twice the measured teacher-forced logit deviation of the two
+    # paths; here both are the int8 endpoint, and what differs is the batch
+    # each request shared, so the yardstick is the sequences together
+    # against each alone
+    step8 = decoding.make_transformer_lm_pooled_step_fn(state, *dims.values(), kv_dtype="int8")
+    seqs = [list(p) + t_ for (p, _), t_ in zip(traffic, local_tokens)]
+    plens = [len(p) for p, _ in traffic]
+    tf = _teacher_forced(torch, {"int8": step8}, seqs, plens)
+    dev = _composition_deviation(torch, *step8, seqs, plens)
+    stats["teacher_forced_composition_deviation"] = dev
+    rule = _margin_rule(wire_tokens, local_tokens, tf["margins"], max(DECODE_TIE_MARGIN, 2 * dev))
+    generated = sum(len(t_) for t_ in wire_tokens)
+    stats.update({
+        "requests": len(traffic), "via_fleet": WIRE_LM["fleet_reqs"],
+        "chunks": [len(c) for c in chunks], "generated": generated,
+        "wire_tokens_per_s": generated / wire_s,
+        "in_process_tokens_per_s": sum(len(t_) for t_ in local_tokens) / local_s,
+        "wire_s": wire_s, "in_process_s": local_s, "against_in_process": rule,
+        "child_launches": delta, "child_tally": status1["hand_kernels"], "shutdown_rc": rc})
+    checks["streams_in_2_chunks_or_more"] = min(len(c) for c in chunks) >= 2
+    checks["tokens_equal_in_process"] = rule["holds"]
+    checks["b3_launched_in_the_child"] = delta.get(kda.KERNEL_NAME, {}).get("int8", 0) > 0
+    checks["no_attention_kernel_in_the_child"] = not any(
+        k != kda.KERNEL_NAME for k in status1["hand_kernels"])
+    checks["lm_child_exits_0"] = rc == 0
+    stats["launches"] = sum(delta.get(kda.KERNEL_NAME, {}).values())
+    return stats, checks
+
+
+def _deepfm_zipf_batches(rng, n, rows):
+    """``n`` DeepFM batches of ``rows`` lines whose 39 ids follow Zipf(1.0)
+    over the first WIRE_CACHE["active"] of WIRE_CACHE["table_rows"] ids."""
+    p = 1.0 / np.arange(1, WIRE_CACHE["active"] + 1)
+    cdf = np.cumsum(p / p.sum())
+    f = DEEPFM["num_fields"]
+    out = []
+    for _ in range(n):
+        ids = np.searchsorted(cdf, rng.rand(rows, f)).astype(np.int64)
+        out.append({"ids": ids.reshape(rows, f, 1),
+                    "vals": rng.uniform(0, 1, (rows, f)).astype(np.float32),
+                    "lbl": rng.randint(0, 2, (rows, 1)).astype(np.int64)})
+    return out
+
+
+def _deepfm_scoring_program(fluid):
+    from paddle_tpu_torch import models
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 42
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids = fluid.layers.data("ids", [DEEPFM["num_fields"], 1], dtype="int64")
+        vals = fluid.layers.data("vals", [DEEPFM["num_fields"]])
+        lbl = fluid.layers.data("lbl", [1], dtype="int64")
+        _, prob = models.deepfm_ctr(ids, vals, lbl, distributed_emb=True, **DEEPFM)
+    return main, startup, prob
+
+
+def _wire_cache(torch):
+    """Phase 36 (c): the hot-id embedding cache in front of the sparse
+    parameter servers, on the card.  Returns (stats, checks)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import faults
+    from paddle_tpu_torch.serving import EmbeddingRowCache
+
+    stats, checks = {}, {}
+    rng = np.random.RandomState(SEED + 362)
+    train = _deepfm_zipf_batches(rng, WIRE_CACHE["train_steps"], WIRE_CACHE["train_rows"])
+
+    def train_run(with_cache, async_mode=False):
+        servers = _ps_pair()
+        try:
+            main, startup, loss, _, _ = deepfm_program(fluid, distributed=True, opt="sgd", lr=PS_LR)
+            fluid.distributed.bind_distributed_tables(
+                main, [s.endpoint for s in servers], optimizer="sgd", lr=PS_LR, seed=SEED,
+                async_mode=async_mode)
+            cache = (EmbeddingRowCache(WIRE_CACHE["capacity"], name="deepfm-train").bind(main)
+                     if with_cache else None)
+            exe, scope = fluid.Executor(), fluid.Scope()
+            exe.run(startup, scope=scope)
+            steps = train[:1] if async_mode else train
+            losses = [np.asarray(exe.run(main, feed=dict(f), fetch_list=[loss], scope=scope)[0])
+                      for f in steps]
+            out = {"losses": losses}
+            if async_mode:
+                comm = main._ps_communicator
+                comm.flush()
+                out["wired"] = comm.on_pushed == cache.invalidate_ids
+                out["cached_after_flush"] = len(cache)
+                comm.stop()
+            else:
+                uniq = np.unique(np.concatenate([f["ids"].reshape(-1) for f in train]))
+                out["rows"] = {m["table"]: main._ps_client.pull_sparse(m["table"], uniq)
+                               for m in main._distributed_tables.values()}
+            if cache is not None:
+                out["cache"] = cache.stats()
+                cache.close()
+            exe.close()
+            main._ps_client.close()
+            return out
+        finally:
+            for s in servers:
+                s.stop()
+
+    with _deterministic(torch):
+        plain, cached = train_run(False), train_run(True)
+    same = (all(np.array_equal(a, b) for a, b in zip(plain["losses"], cached["losses"]))
+            and all(np.array_equal(plain["rows"][k], cached["rows"][k]) for k in plain["rows"]))
+    stats["train"] = {"steps": len(train), "rows": WIRE_CACHE["train_rows"],
+                      "losses": [float(x) for x in cached["losses"]], "cache": cached["cache"]}
+    checks["training_through_the_cache_bit_equal"] = same and cached["cache"]["misses"] > 0
+    a = train_run(True, async_mode=True)
+    stats["async"] = {"cache": a["cache"], "cached_after_flush": a["cached_after_flush"]}
+    checks["async_push_invalidates_via_on_pushed"] = (a["wired"] and a["cached_after_flush"] == 0
+                                                      and a["cache"]["misses"] > 0)
+
+    # --- scoring a Zipf stream through the inference program --------------
+    servers = _ps_pair()
+    try:
+        main, startup, prob = _deepfm_scoring_program(fluid)
+        client = fluid.distributed.bind_distributed_tables(
+            main, [s.endpoint for s in servers], optimizer="sgd", lr=PS_LR, seed=SEED)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        batches = _deepfm_zipf_batches(rng, WIRE_CACHE["warm"] + WIRE_CACHE["meas"],
+                                       WIRE_CACHE["rows"])
+
+        def score(fs):
+            return [np.asarray(exe.run(main, feed=dict(f), fetch_list=[prob], scope=scope)[0])
+                    for f in fs]
+
+        plain = score(batches)
+        cache = EmbeddingRowCache(WIRE_CACHE["capacity"], name="deepfm-serve").bind(main)
+        warm = score(batches[:WIRE_CACHE["warm"]])
+        s0 = cache.stats()
+        meas = score(batches[WIRE_CACHE["warm"]:])
+        s1 = cache.stats()
+        hits, misses = s1["hits"] - s0["hits"], s1["misses"] - s0["misses"]
+        stats["scoring"] = {"batches": len(batches), "rows": WIRE_CACHE["rows"],
+                            "ids_a_batch": WIRE_CACHE["rows"] * DEEPFM["num_fields"],
+                            "hit_ratio": hits / (hits + misses),
+                            "pulled_rows_measured": s1["pulled_rows"] - s0["pulled_rows"],
+                            "cache": s1}
+        checks["hit_ratio_0.8"] = stats["scoring"]["hit_ratio"] >= 0.8
+        checks["cached_predictions_bit_equal"] = all(
+            np.array_equal(a, b) for a, b in zip(plain, warm + meas))
+        # a PS outage under the cache-only rung: every batch answers, hits
+        # exactly, misses from the counted fallback row
+        hot = batches[-1]  # every id of the last measured batch is cached now
+        cold = _deepfm_zipf_batches(rng, 1, WIRE_CACHE["rows"])[0]
+        cold["ids"] = cold["ids"] + WIRE_CACHE["active"]  # ids no batch drew
+        fb0 = cache.stats()["fallback_rows"]
+        cache.set_cache_only(True)
+        with faults.armed("ps.pull=error:BackendUnavailable"):
+            out_hot, out_cold = score([hot, cold])
+        fb = cache.stats()["fallback_rows"] - fb0
+        cache.set_cache_only(False)
+        p0 = cache.stats()["pulled_rows"]
+        healed, = score([cold])
+        main._embedding_cache = None  # the same batch without the cache
+        want_cold, = score([cold])
+        stats["outage"] = {"fallback_rows": fb,
+                           "pulled_after_heal": cache.stats()["pulled_rows"] - p0}
+        checks["outage_served_hits_exact_misses_fallback"] = (
+            np.array_equal(out_hot, plain[-1]) and np.isfinite(out_cold).all() and fb > 0
+            and stats["outage"]["pulled_after_heal"] > 0 and np.array_equal(healed, want_cold))
+        cache.close()
+        exe.close()
+
+        # --- lookup latency with the cache on and off (bench_deepfm.py's) --
+        client.create_table("wire_zipf", DEEPFM["embed_dim"], initializer="uniform", seed=3)
+        p = 1.0 / np.arange(1, WIRE_CACHE["active"] + 1)
+        cdf = np.cumsum(p / p.sum())
+
+        def lookups(c, n):
+            lats, pulled = [], 0
+            for _ in range(n):
+                ids = np.searchsorted(cdf, rng.rand(1024)).astype(np.int64)
+                uniq, counts = np.unique(ids, return_counts=True)
+                t = time.perf_counter()
+                if c is not None:
+                    c.lookup_through(client, "wire_zipf", uniq, counts=counts)
+                else:
+                    client.pull_sparse("wire_zipf", uniq)
+                    pulled += len(uniq)
+                lats.append(time.perf_counter() - t)
+            return lats, pulled
+
+        off, off_pulled = lookups(None, WIRE_CACHE["meas"])
+        lc = EmbeddingRowCache(WIRE_CACHE["lookup_capacity"], name="wire-lookup")
+        lookups(lc, WIRE_CACHE["warm"])
+        l0 = lc.stats()
+        on, _ = lookups(lc, WIRE_CACHE["meas"])
+        l1 = lc.stats()
+        stats["lookup"] = {
+            "ids_a_batch": 1024, "capacity": WIRE_CACHE["lookup_capacity"],
+            "p50_ms_on": 1e3 * float(np.percentile(on, 50)),
+            "p99_ms_on": 1e3 * float(np.percentile(on, 99)),
+            "p50_ms_off": 1e3 * float(np.percentile(off, 50)),
+            "p99_ms_off": 1e3 * float(np.percentile(off, 99)),
+            "ps_rows_pulled_on": l1["pulled_rows"] - l0["pulled_rows"],
+            "ps_rows_pulled_off": off_pulled,
+            "hit_ratio": (l1["hits"] - l0["hits"]) / max(
+                1, l1["hits"] - l0["hits"] + l1["misses"] - l0["misses"])}
+        lc.close()
+        client.close()
+    finally:
+        for s in servers:
+            s.stop()
+    return stats, checks
+
+
+def run_wire_layer(torch, model_dir, workdir, smi):
+    """Phase 36 (see the module docstring).  Returns its statistics."""
+    t_phase = time.perf_counter()
+    _free_device_memory(torch)
+    bert, checks = _wire_bert_fleet(torch, model_dir)
+    _free_device_memory(torch)
+    lm, lm_checks = _wire_lm_int8(torch, workdir)
+    _free_device_memory(torch)
+    cache, cache_checks = _wire_cache(torch)
+    checks.update(lm_checks)
+    checks.update(cache_checks)
+    stats = {"bert_fleet": bert, "lm_int8": lm, "cache": cache,
+             "phase_s": time.perf_counter() - t_phase}
+    tm = bert["timing"]
+    log("[wire-numbers] %s | %s" % (smi, json.dumps({
+        "rows_per_s": {k: tm[k]["rows_per_s"] for k in ("fleet_of_two", "remote_client_one_child",
+                                                        "in_process_one_replica")},
+        "p50_ms": {k: tm[k]["latency_ms_p50"] for k in ("fleet_of_two", "remote_client_one_child",
+                                                         "in_process_one_replica")},
+        "p99_ms": {k: tm[k]["latency_ms_p99"] for k in ("fleet_of_two", "remote_client_one_child",
+                                                         "in_process_one_replica")},
+        "wire_tax": tm["wire_tax"],
+        "decode_tokens_per_s": {"wire": lm["wire_tokens_per_s"],
+                                "in_process": lm["in_process_tokens_per_s"]},
+        "cache_lookup": cache["lookup"]})))
+    log("[wire]", json.dumps(stats, default=str)[:30000])
+    log("[wire] checks", json.dumps(checks))
+    if not all(checks.values()):
+        raise AssertionError("phase 36 failed its checks: %s" % json.dumps(checks))
+    return stats
+
+
+def run_wire_alone(torch, passes):
+    """``chip_smoke.py --wire [N]``, a shortcut while working on the wire
+    layer: the build, phase 35's export and phase 36 ``N`` times (the spread
+    of its numbers), and the card's name and power limit; no other phase."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer
+
+    info = device_info(torch)
+    t0 = time.perf_counter()
+    build_kernels()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        model_dir = os.path.join(workdir, "bert_base_bf16")
+        _export_bert_bf16(fluid, transformer, model_dir, np.random.RandomState(SEED + 35))
+        for k in range(passes):
+            log("[wire] pass %d of %d" % (k + 1, passes))
+            run_wire_layer(torch, model_dir, workdir, info["nvidia_smi"])
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log("[done] %.1f s" % (time.perf_counter() - t0))
+    print(info["nvidia_smi"])
+    return 0
+
 
 def run_b3_alone(torch):
     """``chip_smoke.py --b3``, a shortcut while working on kernel B3: its
@@ -7449,6 +8163,8 @@ def main() -> int:
     import paddle_tpu_torch  # noqa: F401 — fails outside a checkout of the repo
     if sys.argv[1:2] == ["--b3"]:  # kernel B3's build, check and sweep alone
         return run_b3_alone(torch)
+    if sys.argv[1:2] == ["--wire"]:  # phase 35's export and phase 36 alone, N times
+        return run_wire_alone(torch, int(sys.argv[2]) if len(sys.argv) > 2 else 1)
     from paddle_tpu_torch.kernels import decode_attention as kda
     from paddle_tpu_torch.kernels import fused_attention as fa
 
@@ -7549,6 +8265,9 @@ def main() -> int:
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         bert_bf16 = run_bert_bf16_replicas(torch, workdir)
+        # phase 36 serves phase 35's bf16 export from child processes
+        wire36 = run_wire_layer(torch, os.path.join(workdir, "bert_base_bf16"), workdir,
+                                info["nvidia_smi"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     # the A7 paths (NMT training, decoding, the book's RNN models) run no hand kernel
@@ -7592,6 +8311,11 @@ def main() -> int:
     # phase 35 (BERT-base bf16 over two replicas) launches the forward kernel
     # alone (checked: no other hand kernel)
     fwd_launches["bert_bf16_replicas"] = bert_bf16["launches"]
+    # phase 36, read from the serving children's /statusz: the BERT fleet's
+    # main traffic launches the forward kernel alone, the int8 LM child B3
+    # alone (checked)
+    fwd_launches["wire_bert_fleet"] = wire36["bert_fleet"]["launches"]
+    fwd_launches["wire_lm_int8"] = 0
     replaced = ("jax/experimental/pallas/ops/tpu/flash_attention.py:%d (%s), reached from "
                 "paddle_tpu/ops/nn_ops.py:694 through the vjp grad paddle_tpu/core/registry.py:131")
     entries = [{
@@ -7643,7 +8367,7 @@ def main() -> int:
                                      **{p: c[name] for p, c in a7_launches.items()},
                                      **{p: c[name] for p, c in a1b_launches.items()},
                                      **{p: c[name] for p, c in a8_launches.items()},
-                                     bert_bf16_replicas=0),
+                                     bert_bf16_replicas=0, wire_bert_fleet=0, wire_lm_int8=0),
             "max_abs_err": max(bwd_row["max_abs_err"][e] for e in errs),
             "ms": bwd_row[key + "_ms"],
             # one plain backward and one SDPA backward compute dQ, dK and dV together
@@ -7674,7 +8398,7 @@ def main() -> int:
                                  **{p: c["dropout"] for p, c in a7_launches.items()},
                                  **{p: c["dropout"] for p, c in a1b_launches.items()},
                                  **{p: c["dropout"] for p, c in a8_launches.items()},
-                                 bert_bf16_replicas=0),
+                                 bert_bf16_replicas=0, wire_bert_fleet=0, wire_lm_int8=0),
         "max_abs_err": 0.0 if all(r["out_bit_equal"] and r["mask_bit_equal"]
                                   for r in dropout_checks["checks"]) else None,
         "ms": main_drop["ms"],
@@ -7695,9 +8419,11 @@ def main() -> int:
         "source": "paddle_tpu_torch/csrc/decode_attention.cu",
         "replaces": "paddle_tpu/decoding.py:305-328, :496-537 (the int8 KV cache's "
                     "dequant-at-attend; XLA-fused on the TPU, no pallas_call)",
-        "launches": sum(c[kda.KERNEL_NAME] for c in b3_paths.values()),
+        "launches": (sum(c[kda.KERNEL_NAME] for c in b3_paths.values())
+                     + wire36["lm_int8"]["launches"]),
         "launches_by_path": dict({p: c[kda.KERNEL_NAME] for p, c in b3_paths.items()},
-                                 bert_bf16_replicas=0),
+                                 bert_bf16_replicas=0, wire_bert_fleet=0,
+                                 wire_lm_int8=wire36["lm_int8"]["launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in decode_checks),
         "ms": b3["ms"],
         "plain_ms": b3["plain_ms"],

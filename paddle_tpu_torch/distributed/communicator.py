@@ -73,6 +73,10 @@ class Communicator:
         self._thread: Optional[threading.Thread] = None
         self._send_client: Optional[PSClient] = None  # the thread's own
         self._error: Optional[BaseException] = None
+        # called as on_pushed(table, ids) from the sending thread after
+        # each merged push has applied server-side (an embedding cache's
+        # invalidate_ids: the rows are dropped only once they changed)
+        self.on_pushed = None
 
     # -- lifecycle (reference: Communicator::Start/Stop) --
     def start(self):
@@ -177,6 +181,10 @@ class Communicator:
                     self._dropped += len(batch)
                     self._add_unsent(-len(batch))
                 raise
+            # before the unsent count drops: flush() returns with the
+            # pushed rows already invalidated
+            if self.on_pushed is not None:
+                self.on_pushed(table, ids)
             self._add_unsent(-len(batch))
             return True
 

@@ -41,8 +41,8 @@ def bind_distributed_tables(
     (batch N+1's pulls run behind batch N's device compute).
 
     ``id_bucket_ladder``: an explicit unique-id-count bucket ladder for
-    the prefetch, as a list (the JAX package's offline autotuner that
-    proposes one, ``autotune.propose_id_bucket_ladder``, is ROADMAP A8b part 2);
+    the prefetch, as a list (``serving.autotune.propose_id_bucket_ladder``
+    proposes one from a unique-count histogram);
     without it unique counts pad to power-of-two buckets.  Unique counts
     above the ladder's top rung fall back to power-of-two (a new entry:
     an eager run, then a capture, so size the ladder from a

@@ -191,7 +191,6 @@ _UNPORTED_PROGRAM_STATE = {
     "_dense_ps_ctx": "the dense parameter server (DistributeTranspiler; ROADMAP A6b)",
     "_pserver_ctx": "the dense parameter server (DistributeTranspiler; ROADMAP A6b)",
     "_mesh_tables": "mesh-resident tables (bind_mesh_tables; ROADMAP A10)",
-    "_embedding_cache": "the embedding cache (ROADMAP A8b part 2)",
     "_pipeline_plan": "the pipelined program (PipelineOptimizer cut_list; ROADMAP A10)",
 }
 
@@ -806,10 +805,18 @@ class Executor:
         return pool[:n]
 
     @staticmethod
-    def _pull_one_table(client, meta, uniq_p):
-        return np.asarray(client.pull_sparse(meta["table"], uniq_p), np.float32)
+    def _pull_one_table(client, cache, job):
+        """One job's rows: through the hot-id embedding cache when one is
+        bound (``program._embedding_cache``), else from the server."""
+        meta, uniq_p, n_uniq, counts = job[:4]
+        if cache is not None:
+            rows = cache.lookup_through(client, meta["table"], uniq_p, n_valid=n_uniq,
+                                        counts=counts)
+        else:
+            rows = client.pull_sparse(meta["table"], uniq_p)
+        return np.asarray(rows, np.float32)
 
-    def _fanout_table_pulls(self, jobs, clients):
+    def _fanout_table_pulls(self, jobs, clients, cache):
         """Job 0 on the calling thread with ``clients[0]``, the others on
         worker threads, each with a client of its own.  Returns
         ``(rows by rows name, [(error, client)])``."""
@@ -817,9 +824,8 @@ class Executor:
         errors = []
 
         def work(job, cl):
-            meta, uniq_p = job[0], job[1]
             try:
-                results[meta["rows_name"]] = self._pull_one_table(cl, meta, uniq_p)
+                results[job[0]["rows_name"]] = self._pull_one_table(cl, cache, job)
             except BaseException as e:  # noqa: BLE001 — the caller re-raises
                 errors.append((e, cl))
 
@@ -833,16 +839,16 @@ class Executor:
             th.join()
         return results, errors
 
-    def _pull_tables_concurrent(self, program, client, jobs):
+    def _pull_tables_concurrent(self, program, client, cache, jobs):
         """Every job's ``pull_sparse`` at once (job 0 on this thread with
         the bound client, the rest on pool clients).  The first error
         propagates after all joins, with its pool client closed and
         dropped (the next pull redials)."""
         pool = self._sparse_client_pool(program, len(jobs) - 1) if len(jobs) > 1 else []
         if pool is None:
-            return {job[0]["rows_name"]: self._pull_one_table(client, job[0], job[1])
+            return {job[0]["rows_name"]: self._pull_one_table(client, cache, job)
                     for job in jobs}
-        results, errors = self._fanout_table_pulls(jobs, [client] + pool)
+        results, errors = self._fanout_table_pulls(jobs, [client] + pool, cache)
         if errors:
             pool_list = program.__dict__.get("_sparse_pull_pool", [])
             for _, cl in errors:
@@ -896,7 +902,8 @@ class Executor:
                     "program has distributed lookup tables; call "
                     "paddle_tpu_torch.distributed.bind_distributed_tables("
                     "program, endpoints) before running it")
-            rows = self._pull_tables_concurrent(program, client, pulls)
+            rows = self._pull_tables_concurrent(
+                program, client, getattr(program, "_embedding_cache", None), pulls)
             for job in pulls:
                 feed[job[0]["rows_name"]] = rows[job[0]["rows_name"]]
         return ps_push
@@ -904,16 +911,26 @@ class Executor:
     @staticmethod
     def _push_sparse(program, ps_push, grads) -> None:
         """Push each prefetched table's row gradients (host arrays): onto
-        the Communicator's queue in async mode, else blocking."""
+        the Communicator's queue in async mode, else blocking.  A bound
+        embedding cache drops the pushed rows after the server applied
+        them: the blocking push invalidates once it returns, the async
+        one from the Communicator's send thread after each applied merge
+        (``on_pushed``).  Dropping them earlier would let a concurrent
+        read-through cache the rows from before the update for good."""
         if not ps_push:
             return
         comm = getattr(program, "_ps_communicator", None)
         client = getattr(program, "_ps_client", None)
+        cache = getattr(program, "_embedding_cache", None)
+        if comm is not None and cache is not None:
+            comm.on_pushed = cache.invalidate_ids
         for (table, uniq, _), grad in zip(ps_push, grads):
             if comm is not None:
                 comm.push(table, uniq, grad)
             else:
                 client.push_sparse(table, uniq, grad)
+                if cache is not None:
+                    cache.invalidate_ids(table, uniq)
 
     # the overlapped sparse prefetch of async mode: batch N+1's pulls run
     # on a background thread while batch N steps (bounded staleness 1,
@@ -952,6 +969,7 @@ class Executor:
         clients, redials and retries under the pull RetryPolicy; on
         exhaustion the error surfaces at the join."""
         ladder = getattr(program, "_sparse_id_ladder", None)
+        cache = getattr(program, "_embedding_cache", None)
         endpoints = getattr(getattr(program, "_ps_client", None), "endpoints", None)
         jobs = []
         for meta in program._distributed_tables.values():
@@ -972,7 +990,7 @@ class Executor:
                 while True:
                     try:
                         clients = self._sparse_overlap_clients(ctx, endpoints, len(jobs))
-                        vals, errs = self._fanout_table_pulls(jobs, clients)
+                        vals, errs = self._fanout_table_pulls(jobs, clients, cache)
                         if errs:
                             raise errs[0][0]
                         result["vals"] = vals

@@ -557,6 +557,11 @@ class TrainCheckpoint:
                     "checkpoint %s carries PS tables but no ps_client was "
                     "given to restore them" % path)
             self._restore_ps(os.path.join(path, "ps"), ps_client)
+            cache = getattr(program, "_embedding_cache", None)
+            if cache is not None:
+                # the restore rewrote the tables' rows wholesale: a row
+                # cached before it is stale
+                cache.invalidate()
         try:
             with open(os.path.join(path, "cursor.json")) as f:
                 return json.load(f)

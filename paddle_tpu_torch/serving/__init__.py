@@ -9,11 +9,12 @@ continuous-batching decode (the port of the JAX package's ``serving/``).
   continuous batching over the KV slot pool (``serving.kv_pool``, CUDA
   graphs on the card), with the prefix KV cache, speculative decode and
   the int8 KV cache, streamed through ``Client.infer_stream``;
+* ``serving.wire`` (lazy subpackage) — the cross-host tier: the codec,
+  ``ServingProcess``, ``RemoteClient``, ``launch_server`` and the
+  ``FleetBalancer`` over serving child processes;
+* ``EmbeddingRowCache`` — the hot-id embedding row cache in front of the
+  parameter server's lookups (brownout's cache-only rung);
 * ``ServingMetrics`` — the per-server view over ``monitor``'s registry.
-
-The wire layer (``serving.wire``, ``RemoteClient``) and
-``EmbeddingRowCache`` come with ROADMAP A8b part 2; asking for either
-raises naming it.
 
 Quickstart::
 
@@ -33,6 +34,7 @@ from paddle_tpu_torch.serving.admission import (
 from paddle_tpu_torch.serving.batching import DynamicBatcher, ServingRequest
 from paddle_tpu_torch.serving.bucketing import BucketPolicy
 from paddle_tpu_torch.serving.client import Client
+from paddle_tpu_torch.serving.embedding_cache import EmbeddingRowCache
 from paddle_tpu_torch.serving.errors import (
     BackendUnavailable,
     DeadlineExceeded,
@@ -56,6 +58,7 @@ __all__ = [
     "PRIORITY_NORMAL",
     "PRIORITY_LOW",
     "ServingMetrics",
+    "EmbeddingRowCache",
     "ServingError",
     "ServerOverloaded",
     "DeadlineExceeded",
@@ -63,21 +66,18 @@ __all__ = [
     "WireProtocolError",
     "BackendUnavailable",
     "decode",
+    "wire",
 ]
 
 
 def __getattr__(name):
-    # the decode module is imported lazily: the request-batching path
-    # does not pay the decode scheduler's import (and its metric
-    # registrations) unless the process uses it
-    if name == "decode":
+    # the wire subpackage and the decode module are imported lazily: the
+    # request-batching path does not pay their import (and their metric
+    # registrations) unless the process uses them
+    if name in ("wire", "decode"):
         import importlib
 
         mod = importlib.import_module("paddle_tpu_torch.serving." + name)
         globals()[name] = mod
         return mod
-    if name in ("wire", "EmbeddingRowCache"):
-        raise NotImplementedError(
-            "serving.%s comes with ROADMAP A8b part 2 (the wire layer and the "
-            "embedding cache)" % name)
     raise AttributeError("module %r has no attribute %r" % (__name__, name))

@@ -386,12 +386,14 @@ class BrownoutController:
       1  drop flight-recorder capture (tracing rent off the hot path)
       2  force the batch window to 0 (eager batching: ship what's here)
       3  shed the lowest priority class at admission
-      4  (embedding-cache endpoints only) serve lookups cache-only: it
-         comes with the embedding cache (ROADMAP A8b part 2), and a
-         ladder of more than 3 thresholds raises naming it
+      4  (embedding-cache endpoints only) serve lookups cache-only:
+         misses get the fallback row instead of queuing on PS pulls
 
-    The rung count is the threshold tuple's length; the same hold and
-    4x-hysteresis machinery governs every rung.
+    The rung count is the threshold tuple's length: the default ladder
+    stops at 3; an ``InferenceServer`` with a bound ``EmbeddingRowCache``
+    passes a 4-threshold ladder, so the cache-only rung exists only where
+    it has a cache to serve from.  The same hold and 4x-hysteresis
+    machinery governs every rung.
 
     Deterministic by construction: level changes are a pure function of
     the (ratio, clock) series — chaos tests drive it with an injected
@@ -414,10 +416,6 @@ class BrownoutController:
             raise ValueError(
                 "brownout thresholds must ascend, got %r"
                 % (self.thresholds,))
-        if len(self.thresholds) > self.MAX_LEVEL:
-            raise NotImplementedError(
-                "brownout level 4 serves embedding lookups cache-only; the "
-                "embedding cache comes with ROADMAP A8b part 2")
         self.max_level = len(self.thresholds)
         self._clock = clock
         self.level = 0

@@ -3,8 +3,8 @@ port's ``serving/client.py``).
 
 The test-and-bench-facing convenience surface: blocking single calls,
 scatter/gather for many requests, named-output dicts, and token streams
-from a decode server.  The remote twin (``RemoteClient``) comes with the
-wire layer (ROADMAP A8b part 2).
+from a decode server.  Its remote twin over a wire hop, with the same
+signatures and errors, is ``serving.wire.RemoteClient``.
 
 Request-scoped tracing: every ``infer*`` call mints a trace id (or
 accepts one via ``trace_id=``), propagates it through submit() into the

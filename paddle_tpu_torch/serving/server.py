@@ -94,9 +94,6 @@ _REPLICA_FAIL_LIMIT = 3
 # notifies from _release / _retire_replica / stop)
 _ROUTE_WAIT_S = 0.5
 
-_EMBEDDING_CACHE_PENDING = ("InferenceServer(embedding_cache=) and brownout's cache-only "
-                            "rung come with the embedding cache (ROADMAP A8b part 2)")
-
 
 class _Replica:
     """One predictor behind the shared batcher: its own worker thread,
@@ -152,8 +149,10 @@ class InferenceServer:
 
     ``input_specs`` (``{name: (per_row_shape, dtype)}``) defaults to the
     first predictor's program-derived specs; pass it explicitly when a
-    feed var has dynamic non-batch dims.  ``embedding_cache`` comes with
-    ROADMAP A8b part 2 and raises when given.
+    feed var has dynamic non-batch dims.  ``embedding_cache``: an
+    ``EmbeddingRowCache`` bound to every replica's program (sparse
+    lookups read through it) and to a 4-rung brownout ladder whose L4
+    serves lookups cache-only.
     """
 
     def __init__(
@@ -171,8 +170,6 @@ class InferenceServer:
         class_weights="default",
         embedding_cache=None,
     ):
-        if embedding_cache is not None:
-            raise NotImplementedError(_EMBEDDING_CACHE_PENDING)
         self.name = name
         # circuit-breaker re-admission of a failure-retired replica: after
         # this cooldown it goes half-open and takes one probe batch (it
@@ -196,10 +193,19 @@ class InferenceServer:
         # through the server's accounting
         self._batcher.on_shed = self._on_queue_shed
         self._batcher.on_expired = self._on_expired
-        self._embedding_cache = None
+        # the hot-id embedding cache, bound to every replica's program so
+        # that their sparse lookups read through it
+        self._embedding_cache = embedding_cache
+        if embedding_cache is not None:
+            for p in predictors:
+                embedding_cache.bind(p)
         # the degradation ladder, driven by queue pressure from the
-        # dispatcher loop and the admission door
-        self._brownout = BrownoutController(name, hold_s=brownout_hold_s)
+        # dispatcher loop and the admission door; with a cache its 4th
+        # rung serves lookups cache-only
+        thresholds = (BrownoutController.THRESHOLDS + (BrownoutController.CACHE_ONLY_THRESHOLD,)
+                      if embedding_cache is not None else None)
+        self._brownout = BrownoutController(name, hold_s=brownout_hold_s,
+                                            thresholds=thresholds)
         self._admission_expired = ADMISSION_EXPIRED.labels(server=name)
         self._specs = dict(input_specs) if input_specs else predictors[0].input_specs()
         self._feed_names = list(predictors[0].get_input_names())
@@ -297,6 +303,8 @@ class InferenceServer:
         snap["precision_dtypes"] = list(self._precision_dtypes)
         snap["warmed_up"] = self._warmed
         snap["replicas"] = self.replica_stats()
+        if self._embedding_cache is not None:
+            snap["embedding_cache"] = self._embedding_cache.stats()
         return snap
 
     def load(self) -> Dict[str, object]:
@@ -624,10 +632,12 @@ class InferenceServer:
         """The side effect of a (possibly new) brownout level outside the
         controller: eager batching from L2 (the coalescing window only
         adds latency to a saturated server).  L1's dropped flight capture
-        is read in ``_execute``, L3's door shed in ``submit``; the
-        cache-only L4 comes with the embedding cache (ROADMAP A8b part 2),
-        and ``BrownoutController`` refuses a ladder that has it."""
+        is read in ``_execute``, L3's door shed in ``submit``; on an
+        embedding-cache endpoint L4 serves lookups cache-only, released
+        with the controller's slower descent when the level steps down."""
         self._batcher.eager = level >= 2
+        if self._embedding_cache is not None:
+            self._embedding_cache.set_cache_only(level >= 4)
 
     # ------------------------------------------------------------------
     # Dispatcher: one thread owns the batcher (single-consumer

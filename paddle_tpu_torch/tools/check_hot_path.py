@@ -46,6 +46,14 @@ CHECKED_FILES = [
     "paddle_tpu_torch/serving/admission.py",
     # the predictor's dispatch: the precision variant is one dict lookup
     "paddle_tpu_torch/inference.py",
+    # the wire layer: encode/decode, the client POST, the traced call and
+    # the fleet's acquire -> exchange -> release (socket waits only)
+    "paddle_tpu_torch/serving/wire/codec.py",
+    "paddle_tpu_torch/serving/wire/http.py",
+    "paddle_tpu_torch/serving/wire/client.py",
+    "paddle_tpu_torch/serving/wire/fleet.py",
+    # the hot-id cache's probe under its lock (the PS pull is outside)
+    "paddle_tpu_torch/serving/embedding_cache.py",
 ]
 
 # blocking-sync tokens (substring match on code, not comments)

@@ -33,6 +33,8 @@ REGISTERING_MODULES = [
     "paddle_tpu_torch.serving.decode",
     "paddle_tpu_torch.serving.prefix_cache",
     "paddle_tpu_torch.serving.speculative",
+    "paddle_tpu_torch.serving.embedding_cache",
+    "paddle_tpu_torch.serving.wire.metrics",
 ]
 
 # table rows look like ``| `metric_name` | type | ... |``

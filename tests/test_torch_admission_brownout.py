@@ -146,11 +146,34 @@ def test_brownout_ladder_matches_the_jax_package(seed):
 
 
 def test_cache_only_rung_raises_naming_a8b_part2():
+    """A8b part 2 is ported: the 4-rung ladder builds (it raised naming A8b
+    part 2 before) and climbs to the cache-only rung level for level with
+    the JAX package's, and an InferenceServer given an embedding cache
+    builds it; a descending ladder still raises."""
+    from paddle_tpu_torch.serving.embedding_cache import EmbeddingRowCache
+
     thresholds = BrownoutController.THRESHOLDS + (BrownoutController.CACHE_ONLY_THRESHOLD,)
-    with pytest.raises(NotImplementedError, match="A8b part 2"):
-        BrownoutController("l4", thresholds=thresholds)
-    with pytest.raises(NotImplementedError, match="A8b part 2"):
-        InferenceServer(SlowPredictor(), embedding_cache=object(), name="l4srv")
+    clk = [0.0]
+    ours = BrownoutController("l4", hold_s=0.3, clock=lambda: clk[0], thresholds=thresholds)
+    ref = jadmission.BrownoutController("l4", hold_s=0.3, clock=lambda: clk[0],
+                                        thresholds=thresholds)
+    rng = np.random.RandomState(4)
+    levels = []
+    for _ in range(400):
+        clk[0] += float(rng.uniform(0.0, 0.2))
+        ratio = float(rng.choice([0.0, 0.6, 0.95, 0.98, 1.0]))
+        levels.append(ours.update(ratio))
+        assert levels[-1] == ref.update(ratio)
+    assert ours.max_level == 4 and 4 in levels
+    ours.close()
+    ref.close()
+    cache = EmbeddingRowCache(capacity_rows=4, name="l4srv")
+    srv = InferenceServer(SlowPredictor(), embedding_cache=cache, name="l4srv")
+    try:
+        assert srv._brownout.max_level == 4
+    finally:
+        srv.stop(drain=False)
+        cache.close()
     with pytest.raises(ValueError, match="ascend"):
         BrownoutController("bad", thresholds=(0.9, 0.5))
 

@@ -19,7 +19,7 @@ from paddle_tpu_torch.tools import (check_checkpoint, check_fault_points, check_
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_POINTS = {"executor.run", "reader.prefetch", "ps.pull", "ps.push", "checkpoint.commit",
                "checkpoint.restore", "decode.step", "decode.prefix_admit", "server.admit",
-               "replica.dispatch"}
+               "replica.dispatch", "wire.send", "fleet.dispatch"}
 
 
 def test_fault_points_documented_and_tested():

@@ -169,7 +169,11 @@ def test_bf16_variant_desc_matches_the_jax_package(family):
         fetch = [t.name for t in targets]
         pruned = io_._prune_program(prog, feed_names, fetch)
         inf = jmp if fl is jfluid else mp_inf
-        variant, info = inf.build_bf16_variant(pruned, fetch)
+        # the variant's cast names come from the package's global name
+        # generator: a fresh one on each side, whatever ran before in the
+        # process (an AMP test's decorate advances it)
+        with fl.unique_name.guard():
+            variant, info = inf.build_bf16_variant(pruned, fetch)
         programs.append((variant, info))
     (jv, jinfo), (tv, tinfo) = programs
     assert_same_program(jv, tv)
