@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --b3   # kernel B3's build, check and sweep alone
     python3 chip_smoke.py --wire 3   # phase 35's export and phase 36, three times
+    python3 chip_smoke.py --dist 3   # phase 37, three times
 
 Phases, each of which raises (exit code != 0) on failure:
 
@@ -198,8 +199,8 @@ Phases, each of which raises (exit code != 0) on failure:
    batch 4 against the CPU in fp32 (1e-3) and in AMP (the AMP limits).
 26. Decoding: greedy and beam (beam 4, max_len 64) over 8 sources with
    phase 25's weights, full prefix through ``make_program_logits_fn``;
-   each source's tokens on the card against the CPU's up to the first
-   step where the CPU's margin for that source is below 1e-3; a profiled
+   the first source's tokens on the card against the CPU's up to the
+   first step where the CPU's margin for it is below 1e-3; a profiled
    greedy decode; the cached decode at ``transformer_lm``'s defaults
    against its full-prefix decode (teacher-forced logits within 1e-4); ms
    per generated token.
@@ -234,7 +235,7 @@ Phases, each of which raises (exit code != 0) on failure:
    timed there (phase 14's checks).
 29. The core layers' op types (the math, tensor and plain nn ops) at
    model widths (BERT-base activations, its vocabulary table, NMT's
-   logits, ResNet-50's stage-1 activation, DeepFM's [4096, 39], and
+   logits at 2,048 of its batch's 8,192 tokens, ResNet-50's stage-1 activation, DeepFM's [4096, 39], and
    bench_ops.py's shapes where it has the op), each alone through
    ``Executor.run`` on cuda:0: captured replays bit for bit against
    eager under deterministic algorithms, forward and vjp against the CPU,
@@ -323,8 +324,9 @@ Phases, each of which raises (exit code != 0) on failure:
    joining mid-decode (generated tokens/s, TTFT p50 and p99, ms a tick and
    a token, occupancy, KV bytes, memory, a profiled top-rung replay; no
    capture after warmup); the same requests request at a time; 32
-   teacher-forced 256-token slots through the captured top-rung chunk
-   against the CPU (logits within 1e-4 of max(1, max |logit|)); 16
+   teacher-forced 256-token slots through the captured top-rung chunk,
+   the first 8 against the CPU (logits within 1e-4 of max(1, max
+   |logit|)); 16
    requests spread over total length (every sixth in sorted order) decoded
    alone by the scalar cached step (tokens equal up to a top-2 margin under
    1e-3, positions held printed by length rung); the int8 KV cache on the
@@ -410,6 +412,35 @@ Phases, each of which raises (exit code != 0) on failure:
    again after the heal; lookup p50 and p99 of 1,024 Zipf ids with the
    cache on and off and the PS rows each pulled.  The numbers are printed
    on a ``[wire-numbers]`` line beside the card's name and power limit.
+37. Distributed training on the card (``transpiler``, ``parallel``,
+   ``distributed.launch``; the attention kernels counted in every trainer
+   process, each count set to 0 before a leg and read after it there).  The
+   port's launcher starts four parameter server processes (``chip_smoke.py
+   --dist-child pserver``: phase 5's BERT-base program transpiled, its
+   pserver program run by the default ``Executor()``; each must end with no
+   CUDA context) and two trainer processes on the card (``--dist-child
+   trainer``, deterministic algorithms), which run three legs in turn.  (a)
+   ``DistributeTranspiler`` over the first two servers, sync: both trainers
+   feed one batch of 32 rows for 3 steps (eager, captured, replayed); each
+   trainer's losses within rtol 2e-4 of this process's single-process run of
+   the same steps from the same startup, 24 forward, 12 dK/dV and 12 dQ fp32
+   launches a step, the step captured, its host seconds split into the
+   device step, the push and the pull wait.  (b) The same model on the
+   other two servers, async: Hogwild through ``train_from_dataset`` over 8
+   fed batches with the phase ledger; every loss finite, the overlapped
+   pull's ``ps_pull_overlap_s`` above 0, the ledger's ``ps_wait`` printed.
+   (c) ``GradAllReduce`` for the two ranks over a gloo group (NCCL refuses
+   two ranks on one card), each rank half of (a)'s batch (each row masks as
+   many positions, so the ranks' mean loss is the batch's): 2 steps, the
+   mean loss and CHECK_GRADS' parameters within 1e-3 of the single-process
+   run, the plan eager (``c_allreduce_sum`` in ``eager_ops``, no graph).
+   (d) ResNet-50 ``is_test`` NCHW fp32 with batch-norm statistics drawn
+   from a seed, exported, folded by ``InferenceTranspiler`` in the card's
+   tensors (53 folds) and exported again; both served by
+   ``AnalysisPredictor``, the folded answers within 1e-4 (max relative) of
+   the unfolded ones at 1, 8 and 16 rows, the ms of both at 16.  The numbers
+   are printed on a ``[dist-numbers]`` line beside the card's name and power
+   limit.
 
 Output: progress lines, then a ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
@@ -436,6 +467,7 @@ import numpy as np
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+_T0 = time.perf_counter()
 SEED = 1234
 
 # the attention kernel's checks: (N, H, S, D, dtype, causal, layout).
@@ -699,6 +731,9 @@ NMT_CHECK_GRADS = ["nmt_tgt_word_emb", "nmt_dec_0_cross_q_w", "nmt_head_w"]
 # DECODE_TIE_MARGIN; the cached LM step's teacher-forced logits within
 # DECODE_LOGIT_TOL of the full program's, relative to max(1, max |logit|)
 DECODE_SOURCES = 8
+# the CPU's reference decodes the first DECODE_CPU_SOURCES of them: its
+# beam search takes about 7 s a source on the host
+DECODE_CPU_SOURCES = 1
 DECODE_BEAM = 4
 DECODE_TIE_MARGIN = 1e-3
 DECODE_LOGIT_TOL = 1e-4
@@ -739,12 +774,14 @@ VGG_AMP_YARDSTICK = 1.25  # AMP: every gradient measure within 1.25x its nudge d
 VGG_SERVE_ROWS = [1, 3, 8, 2, 5]
 VGG_SERVE_REL_TOL = 1e-3  # served against eager, relative to the smallest top probability
 # phase 29's shapes: bench_ops.py's HOT_OPS (reduce_mean; transpose_attn),
-# BERT-base's activations and vocabulary, NMT's logits [tokens, vocab],
+# BERT-base's activations and vocabulary, NMT's logits [tokens, vocab] (its
+# 8,192 tokens cut to 2,048, 32 sentences: the CPU's reference of the three
+# logits cases took 55 s on the host),
 # ResNet-50's stage-1 activation (conv2d_s2's input), bench_ops.py's top_k
 # input, DeepFM's [batch, fields], a BERT FFN weight, and
 # bilinear_tensor_product's [rows, size]
 CORE_SHAPES = {"hot": (128, 128, 768), "attn": (128, 128, 12, 64), "bert": (32, 128, 768),
-               "vocab": (30522, 768), "indices": 4096, "logits": (8192, 32000),
+               "vocab": (30522, 768), "indices": 4096, "logits": (2048, 32000),
                "resnet": (64, 64, 56, 56), "wide": (256, 30522), "ctr": (4096, 39),
                "spectral": (3072, 768), "btp": (4096, 16)}
 
@@ -798,6 +835,7 @@ DEC_WAVES = 3
 DEC_PROMPT = (16, 192)
 DEC_NEW = (16, 256)
 DEC_TF_LEN = 256          # leg 3: teacher-forced positions a slot
+DEC_CPU_SLOTS = 8         # leg 3: the slots the CPU recomputes (2 s a slot on the host)
 DEC_ISOLATED = 16         # leg 4: requests decoded alone (spread over total length)
 DEC_PREFIX = dict(reqs=16, prefix=128, suffix=(1, 15), new=32, budget=64 << 20)
 DEC_SIDE_SERVER = dict(max_slots=8, slot_ladder=[8], len_ladder=[256], steps_per_tick=4)
@@ -860,6 +898,22 @@ WIRE_LM = dict(reqs=16, fleet_reqs=4, prompt=(16, 65), new=(32, 97), max_len=256
 # cache holds 10,000 rows a table
 WIRE_CACHE = dict(table_rows=200_000, active=20_000, capacity=20_000, lookup_capacity=10_000,
                   rows=26, warm=30, meas=30, train_steps=8, train_rows=1024)
+# phase 37: phase 5's BERT-base (fp32, Adam 1e-4, batch 32) trained by
+# DIST_TRAINERS trainer processes on the card through DIST_PSERVERS // 2
+# sync and DIST_PSERVERS // 2 async parameter server processes, then
+# GradAllReduce over a gloo group; ResNet-50 NCHW folded for inference
+DIST_TRAINERS = 2
+DIST_PSERVERS = 4
+DIST_STEPS = 3             # (a): eager, captured, replayed
+DIST_HOGWILD_BATCHES = 8   # (b)
+DIST_GAR_STEPS = 2         # (c)
+DIST_PS_RTOL = 2e-4        # (a)'s losses against the single process
+DIST_GAR_TOL = 1e-3        # (c)'s losses and parameters against the full batch
+DIST_FOLD_TOL = 1e-4       # (d)'s folded answers against the unfolded ones (max relative)
+DIST_FOLD_ROWS = [1, 8, 16]
+DIST_FOLD_TIMED = 10
+DIST_CHILD_S = 600         # a trainer's limit; a pserver's is its trainers'
+
 ALIGN_SLACK_US = 50.0    # CUPTI's card clock mapped onto the host's, beyond the anchor's own error
 # the merge moves a launch's device work that CUPTI timed before its launch
 # call to the launch; the largest move it may make (the merge's own cap,
@@ -873,7 +927,8 @@ ATTN_SYMBOLS = {"fused_attention_fwd": "fused_attention_fwd_kernel",
 
 
 def log(*args):
-    print(*args, flush=True)
+    """A progress line, stamped with the seconds since the script started."""
+    print("[%7.1f s]" % (time.perf_counter() - _T0), *args, flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4361,9 +4416,10 @@ def _same_until_tie(card, cpu, margins, tol=DECODE_TIE_MARGIN):
 def run_nmt_decode(torch, state):
     """Phase 26: greedy and beam search (beam DECODE_BEAM, max_len 64) of
     phase 25's trained NMT (its fp32 master weights) over DECODE_SOURCES
-    sources, full prefix through ``make_program_logits_fn``; each source's
-    tokens against the CPU's, equal up to the first step where the CPU's
-    margin for that source is below DECODE_TIE_MARGIN; a profiled greedy
+    sources, full prefix through ``make_program_logits_fn``; the first
+    DECODE_CPU_SOURCES sources' tokens against the CPU's, equal up to the
+    first step where the CPU's margin for that source is below
+    DECODE_TIE_MARGIN; a profiled greedy
     decode (the card's idle share);
     then the cached LM decode at transformer_lm's defaults against its
     full-prefix decode on the same weights (teacher-forced logits within
@@ -4405,16 +4461,18 @@ def run_nmt_decode(torch, state):
     cpu_fn = decoding.make_program_logits_fn(main, {n: v.cpu() for n, v in weights.items()},
                                              ["src", "tgt", "smask"], logits.name,
                                              place=fluid.CPUPlace())
+    n_cpu = DECODE_CPU_SOURCES
     for name, beam in (("greedy", 1), ("beam", DECODE_BEAM)):
         t = time.perf_counter()
         with _record_top_k() as rec:
-            toks, _ = decoding.beam_search(cpu_fn, torch.from_numpy(src), BOS, EOS,
+            toks, _ = decoding.beam_search(cpu_fn, torch.from_numpy(src[:n_cpu]), BOS, EOS,
                                            beam_size=beam, max_len=NMT["tgt_len"],
-                                           extra_feeds={"smask": smask})
+                                           extra_feeds={"smask": smask[:n_cpu]})
         if beam == 1:
             toks = toks[:, 0]
-        stats[name]["against_cpu"] = dict(_same_until_tie(out[name][0], toks.numpy(), rec.margins),
-                                          cpu_s=time.perf_counter() - t)
+        stats[name]["against_cpu"] = dict(
+            _same_until_tie(out[name][0][:n_cpu], toks.numpy(), rec.margins),
+            sources=n_cpu, cpu_s=time.perf_counter() - t)
     prof = _profile_step(torch, lambda: decoding.greedy_search(
         fn, src, BOS, EOS, max_len=NMT["tgt_len"], extra_feeds={"smask": smask})[0].cpu())
     stats["greedy"]["profile"] = prof and {k: prof[k] for k in (
@@ -6938,15 +6996,18 @@ def run_lm_decode_server(torch, lm_cached_ms_per_step=None):
     t = time.perf_counter()
     cpu_step, cpu_cache = decoding.make_transformer_lm_pooled_step_fn(
         state, *dims.values(), place=fluid.CPUPlace())
-    cc = cpu_cache(32, DEC_TF_LEN + 1)
+    n_cpu = DEC_CPU_SLOTS
+    cc = cpu_cache(n_cpu, DEC_TF_LEN + 1)
     for pos in range(DEC_TF_LEN + 1):
-        cpu_logits, cc = cpu_step(cc, torch.from_numpy(toks[:, pos]),
-                                  torch.full((32,), pos, dtype=torch.int32))
+        cpu_logits, cc = cpu_step(cc, torch.from_numpy(toks[:n_cpu, pos]),
+                                  torch.full((n_cpu,), pos, dtype=torch.int32))
     scale = max(1.0, float(cpu_logits.abs().max()))
-    kv_err = max(float((a - b[:, :, :DEC_TF_LEN]).abs().max()) / max(1.0, float(b.abs().max()))
+    kv_err = max(float((a[:n_cpu] - b[:, :, :DEC_TF_LEN]).abs().max())
+                 / max(1.0, float(b.abs().max()))
                  for a, b in zip(card_kv, decoding.kv_tree_leaves(cc)))
-    stats["card_vs_cpu"] = {"slots": 32, "positions": DEC_TF_LEN + 1,
-                            "logit_rel_err": float((card_logits - cpu_logits).abs().max()) / scale,
+    stats["card_vs_cpu"] = {"slots": n_cpu, "card_slots": 32, "positions": DEC_TF_LEN + 1,
+                            "logit_rel_err": float((card_logits[:n_cpu] - cpu_logits).abs().max())
+                            / scale,
                             "kv_rel_err": kv_err, "cpu_s": time.perf_counter() - t}
     del cc, card_kv
     # leg 4: isolation — 16 requests spread over total length (every sixth in
@@ -8106,6 +8167,507 @@ def run_wire_layer(torch, model_dir, workdir, smi):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phase 37: distributed training on the card (DistributeTranspiler's dense
+# parameter servers, Hogwild, GradAllReduce) and InferenceTranspiler
+# ---------------------------------------------------------------------------
+def _dist_plan(workdir):
+    with open(os.path.join(workdir, "plan.json")) as f:
+        return json.load(f)
+
+
+def _free_ports(n):
+    """A free port with its n - 1 successors free too (the launcher numbers
+    its workers' endpoints from a started port)."""
+    import socket
+
+    for _ in range(100):
+        socks = []
+        try:
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            socks.append(s)
+            port = s.getsockname()[1]
+            for k in range(1, n):
+                s = socket.socket()
+                s.bind(("127.0.0.1", port + k))
+                socks.append(s)
+            return port
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError("no %d consecutive free ports" % n)
+
+
+def _half_feed(feed, rank, n_ranks=2):
+    """Rank ``rank``'s share of a pretraining batch: its rows, their masked
+    positions (rebased onto its own rows) and labels.  Every row masks
+    TRAIN_MASKS positions, so each rank's MLM mean is over as many
+    positions and the ranks' mean loss is the full batch's."""
+    rows = len(feed["src_ids"]) // n_ranks
+    r0, s = rank * rows, BERT_BASE["seq_len"]
+    out = {k: feed[k][r0:r0 + rows] for k in ("src_ids", "sent_ids", "input_mask", "nsp_label")}
+    m0 = r0 * TRAIN_MASKS
+    out["mask_pos"] = feed["mask_pos"][m0:m0 + rows * TRAIN_MASKS] - r0 * s
+    out["mask_label"] = feed["mask_label"][m0:m0 + rows * TRAIN_MASKS]
+    return out
+
+
+def dist_pserver_child(workdir):
+    """A phase-37 parameter server process (started by the port's
+    launcher): the first DIST_PSERVERS // 2 endpoints serve (a)'s sync
+    program, the others (b)'s async one.  It runs the pserver program
+    through the default ``Executor()`` (the card's place: the pserver
+    branch returns before any device is touched) until SIGTERM, then
+    prints a ``PSERVER`` line: whether this process made a CUDA context,
+    the versions applied and the seconds its numpy optimizer took."""
+    import signal
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.models import transformer
+
+    me = os.environ["PADDLE_CURRENT_ENDPOINT"]
+    endpoints = os.environ["PADDLE_TRAINER_ENDPOINTS"].split(",")
+    half = len(endpoints) // 2
+    sync = endpoints.index(me) < half
+    group = endpoints[:half] if sync else endpoints[half:]
+    opt_s = {"s": 0.0, "n": 0}
+    optimize = ps._DenseParam._optimize
+
+    def timed(self, grad, lr):  # the server's host cost of one update
+        t = time.perf_counter()
+        optimize(self, grad, lr)
+        opt_s["s"] += time.perf_counter() - t
+        opt_s["n"] += 1
+
+    ps._DenseParam._optimize = timed
+    main, _, _, _, _ = pretrain_program(fluid, transformer)
+    t = fluid.DistributeTranspiler()
+    t.transpile(0, program=main, pservers=",".join(group), trainers=DIST_TRAINERS, sync_mode=sync)
+    pprog = t.get_pserver_program(me)
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *a: stop.set())
+    server_thread = threading.Thread(target=fluid.Executor().run, args=(pprog,), daemon=True)
+    server_thread.start()
+    while not stop.wait(0.2):
+        if not server_thread.is_alive():
+            print("PSERVER_FAILED", flush=True)
+            return 1
+    server = pprog._pserver
+    dense = server._dense
+    print("PSERVER " + json.dumps({
+        "endpoint": me, "sync": sync, "params": len(dense),
+        "floats": int(sum(np.prod(d.shape) for d in dense.values())),
+        "versions": sorted({d.version for d in dense.values()}),
+        "optimize_s": opt_s["s"], "optimize_calls": opt_s["n"],
+        "cuda_initialized": torch.cuda.is_initialized()}), flush=True)
+    server.stop()
+    return 0
+
+
+def _trainer_leg_a(torch, fluid, transformer, kernels, plan, tid, feed):
+    """(a): DIST_STEPS sync dense-PS steps on the shared batch (eager,
+    captured, replayed), each with its host seconds split and its launches."""
+    main, startup, outs, _, _ = pretrain_program(fluid, transformer)
+    t = fluid.DistributeTranspiler()
+    t.transpile(tid, program=main, pservers=",".join(plan["sync_pservers"]),
+                trainers=DIST_TRAINERS, sync_mode=True)
+    tprog = t.get_trainer_program()
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = {"losses": [], "rounds": [], "step_s": [], "launches_per_step": []}
+    for _ in range(DIST_STEPS):
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        loss, = exe.run(tprog, feed=feed, fetch_list=[outs[0]], scope=scope)
+        out["step_s"].append(time.perf_counter() - t0)
+        after = kernels.launch_counts()
+        out["launches_per_step"].append({k: after.get(k, 0) - before.get(k, 0) for k in after})
+        out["losses"].append(float(loss))
+        out["rounds"].append(dict(exe.last_dense_ps_round))
+    out["launches"] = kernels.launch_counts()
+    out["launches_by_dtype"] = kernels.launch_counts_by_dtype()
+    out["cache"] = exe.jit_cache_stats()
+    out["params"] = len(tprog._dense_ps_ctx["params"])
+    out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    exe.close()
+    return out
+
+
+def _trainer_leg_b(torch, fluid, transformer, kernels, plan, tid):
+    """(b): Hogwild over DIST_HOGWILD_BATCHES fed batches on the async
+    pservers, with the overlapped pull and the phase ledger."""
+    from paddle_tpu_torch.trainer_desc import TrainerFactory
+
+    main, startup, outs, _, _ = pretrain_program(fluid, transformer)
+    t = fluid.DistributeTranspiler()
+    t.transpile(tid, program=main, pservers=",".join(plan["async_pservers"]),
+                trainers=DIST_TRAINERS, sync_mode=False)
+    tprog = t.get_trainer_program()
+    desc = TrainerFactory().create_trainer()  # Hogwild
+    desc.set_fetch_var_and_info([outs[0]], ["loss"], 1000)
+    batches = [pretrain_feed(np.random.RandomState(SEED + 3700 + 100 * tid + i), TRAIN_BATCH)
+               for i in range(DIST_HOGWILD_BATCHES)]
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = exe.train_from_dataset(program=tprog, dataset=batches, scope=scope, trainer_desc=desc,
+                                 phase_ledger=True)
+    epoch_s = time.perf_counter() - t0
+    cache = exe.jit_cache_stats()
+    led = exe.last_train_ledger
+    out = {"losses": [float(r[0]) for r in res], "epoch_s": epoch_s,
+           "sync_flipped": tprog._dense_ps_ctx["sync"] is False,
+           "ps_pull_overlap_s": cache["ps_pull_overlap_s"],
+           "ps_pull_wait_s": cache["ps_pull_wait_s"],
+           "ledger_s": dict(led.seconds), "graphs": cache["graphs"],
+           "launches": kernels.launch_counts()}
+    exe.close()
+    return out
+
+
+def _trainer_leg_c(torch, fluid, transformer, kernels, workdir, tid, feed):
+    """(c): GradAllReduce for DIST_TRAINERS ranks over a gloo group, half of
+    the batch a rank, DIST_GAR_STEPS steps; the three parameters saved."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import env as penv
+
+    main, startup, outs, _, _ = pretrain_program(fluid, transformer)
+    fluid.parallel.GradAllReduce().transpile(
+        startup, main, tid, ["r%d" % r for r in range(DIST_TRAINERS)], "r%d" % tid)
+    penv.init_from_env(backend="gloo", timeout_s=DIST_CHILD_S)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)  # c_comm_init checks the ring's ranks
+    half = _half_feed(feed, tid, DIST_TRAINERS)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = {"losses": [], "step_s": []}
+    for _ in range(DIST_GAR_STEPS):
+        t0 = time.perf_counter()
+        loss, = exe.run(main, feed=half, fetch_list=[outs[0]], scope=scope)
+        out["step_s"].append(time.perf_counter() - t0)
+        out["losses"].append(float(loss))
+    out["launches"] = kernels.launch_counts()
+    out["eager_ops"] = list(exe._analyze(main, tuple(sorted(half)), (outs[0].name,)).eager_ops)
+    out["graphs"] = exe.jit_cache_stats()["graphs"]
+    out["allreduces"] = sum(op.type == "c_allreduce_sum" for op in main.global_block().ops)
+    np.savez(os.path.join(workdir, "gar_params%d.npz" % tid),
+             **{n: scope.get(n).cpu().numpy() for n in CHECK_GRADS})
+    exe.close()
+    dist.destroy_process_group()
+    return out
+
+
+def dist_trainer_child(workdir):
+    """A phase-37 trainer process (started by the port's launcher, on the
+    card): legs (a), (b) and (c) in turn, under deterministic algorithms;
+    writes ``trainer<rank>.json``."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import transformer
+
+    tid = int(os.environ["PADDLE_TRAINER_ID"])
+    plan = _dist_plan(workdir)
+    feed = dict(np.load(os.path.join(workdir, "batch.npz")))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"rank": tid}
+    with _deterministic(torch):
+        res["a"] = _trainer_leg_a(torch, fluid, transformer, kernels, plan, tid, feed)
+        _free_device_memory(torch)
+        res["b"] = _trainer_leg_b(torch, fluid, transformer, kernels, plan, tid)
+        _free_device_memory(torch)
+        res["c"] = _trainer_leg_c(torch, fluid, transformer, kernels, workdir, tid, feed)
+    with open(os.path.join(workdir, "trainer%d.json" % tid), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _dist_reference(torch, feed):
+    """One process, the whole batch, on the card (eager, captured, replayed):
+    the losses of DIST_STEPS Adam steps and (c)'s three parameters after
+    DIST_GAR_STEPS of them."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer
+
+    main, startup, outs, _, _ = pretrain_program(fluid, transformer)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    losses, params, step_s = [], None, []
+    with _deterministic(torch):
+        exe.run(startup, scope=scope)
+        for i in range(DIST_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, = exe.run(main, feed=feed, fetch_list=[outs[0]], scope=scope)
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            if i + 1 == DIST_GAR_STEPS:
+                params = {n: scope.get(n).cpu().numpy() for n in CHECK_GRADS}
+    exe.close()
+    return {"losses": losses, "step_s": step_s}, params
+
+
+def _wait_procs(procs, timeout, what):
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        raise AssertionError("%s did not finish within %d s" % (what, timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _log_tail(path, n=4000):
+    try:
+        with open(path) as f:
+            return f.read()[-n:]
+    except OSError:
+        return ""
+
+
+def _inference_fold(torch, workdir):
+    """(d): ResNet-50 ``is_test`` (NCHW fp32, the startup's weights, batch
+    norm statistics, scale and shift drawn from a seed so that the fold
+    moves every filter) exported, folded by ``InferenceTranspiler`` in the
+    card's scope and exported again; both served by ``AnalysisPredictor``
+    on the card."""
+    import paddle_tpu_torch as fluid
+
+    _free_device_memory(torch)
+    test_main, startup, _, pred, _ = resnet_program(fluid, "NCHW", is_test=True)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED + 371)
+    for op in test_main.global_block().ops:
+        if op.type == "batch_norm":
+            c = int(np.prod(scope.get(op.inputs["Mean"][0]).shape))
+            scope.set(op.inputs["Mean"][0], rng.uniform(-0.2, 0.2, c).astype(np.float32))
+            scope.set(op.inputs["Variance"][0], rng.uniform(0.5, 1.5, c).astype(np.float32))
+            scope.set(op.inputs["Scale"][0], rng.uniform(0.5, 1.5, c).astype(np.float32))
+            scope.set(op.inputs["Bias"][0], rng.uniform(-0.2, 0.2, c).astype(np.float32))
+    # the logits too: a saturated softmax would hide a wrong fold
+    block = test_main.global_block()
+    logits = block.var(next(op for op in block.ops if op.type == "softmax").inputs["X"][0])
+    plain_dir = os.path.join(workdir, "resnet50_nchw")
+    fluid.io.save_inference_model(plain_dir, ["img"], [pred, logits], exe,
+                                  main_program=test_main, scope=scope)
+    exe.close()
+    load_exe, folded_scope = fluid.Executor(), fluid.Scope()
+    prog, feed_names, fetch_vars = fluid.io.load_inference_model(plain_dir, load_exe,
+                                                                 scope=folded_scope)
+    ops_before = len(prog.global_block().ops)
+    t0 = time.perf_counter()
+    folds = fluid.InferenceTranspiler().transpile(prog, fluid.CUDAPlace(0), folded_scope)
+    torch.cuda.synchronize()
+    fold_s = time.perf_counter() - t0
+    on_card = all(folded_scope.get(v.name).is_cuda for v in prog.list_vars()
+                  if v.persistable and folded_scope.get(v.name) is not None)
+    folded_dir = os.path.join(workdir, "resnet50_nchw_folded")
+    fluid.io.save_inference_model(folded_dir, feed_names, fetch_vars, load_exe, main_program=prog,
+                                  scope=folded_scope)
+    preds = {k: fluid.inference.create_paddle_predictor(fluid.inference.AnalysisConfig(d))
+             for k, d in (("plain", plain_dir), ("folded", folded_dir))}
+    stats = {"folds": folds, "ops_before": ops_before, "ops_after": len(prog.global_block().ops),
+             "batch_norm_after": sum(op.type == "batch_norm" for op in prog.global_block().ops),
+             "fold_s": fold_s, "folded_in_card_tensors": on_card, "max_rel_err": {},
+             "logits_max_rel_err": {}, "mean_top_probability": {}, "ms": {}}
+    for rows in DIST_FOLD_ROWS:
+        feed = {"img": resnet_feed(None, rng, rows, "NCHW")["img"]}
+        got = {k: p.run(feed) for k, p in preds.items()}
+        if not all(np.isfinite(o).all() and o.shape == (rows, RESNET_CLASSES)
+                   for v in got.values() for o in v):
+            raise AssertionError("phase 37 (d): bad predictor output at %d rows" % rows)
+        stats["max_rel_err"][rows] = _max_rel(got["folded"][0], got["plain"][0])
+        stats["logits_max_rel_err"][rows] = _max_rel(got["folded"][1], got["plain"][1])
+        stats["mean_top_probability"][rows] = float(got["plain"][0].max(1).mean())
+    feed = {"img": resnet_feed(None, rng, DIST_FOLD_ROWS[-1], "NCHW")["img"]}
+    for k, p in preds.items():
+        for _ in range(3):  # the capture, then replays
+            p.run(feed)
+        times = []
+        for _ in range(DIST_FOLD_TIMED):
+            t0 = time.perf_counter()
+            p.run(feed)
+            times.append(time.perf_counter() - t0)
+        stats["ms"][k] = 1e3 * statistics.median(times)
+    return stats
+
+
+def run_dist_training(torch, workdir, smi):
+    """Phase 37 (see the module docstring).  Returns its statistics, with
+    each trainer process's kernel launches by leg."""
+    from paddle_tpu_torch.distributed import launch
+
+    t_phase = time.perf_counter()
+    _free_device_memory(torch)
+    feed = pretrain_feed(np.random.RandomState(SEED + 37), TRAIN_BATCH)
+    np.savez(os.path.join(workdir, "batch.npz"), **feed)
+    ps_port = _free_ports(DIST_PSERVERS)
+    tr_port = _free_ports(DIST_TRAINERS)
+    eps = ["127.0.0.1:%d" % (ps_port + i) for i in range(DIST_PSERVERS)]
+    half = DIST_PSERVERS // 2
+    with open(os.path.join(workdir, "plan.json"), "w") as f:
+        json.dump({"sync_pservers": eps[:half], "async_pservers": eps[half:]}, f)
+    script = os.path.join(REPO, "chip_smoke.py")
+    logs = {k: os.path.join(workdir, k + "_logs") for k in ("pserver", "trainer")}
+    pservers = launch.start_procs(launch._parse_args([
+        "--nproc_per_node=%d" % DIST_PSERVERS, "--started_port=%d" % ps_port,
+        "--log_dir=%s" % logs["pserver"], script, "--dist-child", "pserver", workdir]))
+    trainers = []
+    try:
+        trainers = launch.start_procs(launch._parse_args([
+            "--nproc_per_node=%d" % DIST_TRAINERS, "--started_port=%d" % tr_port,
+            "--log_dir=%s" % logs["trainer"], script, "--dist-child", "trainer", workdir]))
+        # the single-process reference runs while the children start
+        ref, ref_params = _dist_reference(torch, feed)
+        _free_device_memory(torch)
+        _wait_procs(trainers, DIST_CHILD_S, "the phase-37 trainers")
+    finally:
+        for p in trainers + pservers:  # a trainer still running here is killed
+            if p.poll() is None:
+                p.kill() if p in trainers else p.terminate()
+        _wait_procs(pservers, 60, "the phase-37 pservers")
+    bad = [r for r, p in enumerate(trainers) if p.returncode != 0]
+    if bad:
+        raise AssertionError("phase 37: trainer(s) %s failed: %s" % (bad, {
+            r: _log_tail(os.path.join(logs["trainer"], "workerlog.%d" % r)) for r in bad}))
+    res = []
+    for r in range(DIST_TRAINERS):
+        with open(os.path.join(workdir, "trainer%d.json" % r)) as f:
+            res.append(json.load(f))
+    ps_status = []
+    for r in range(DIST_PSERVERS):
+        text = _log_tail(os.path.join(logs["pserver"], "workerlog.%d" % r), 100000)
+        line = [ln for ln in text.splitlines() if ln.startswith("PSERVER ")]
+        ps_status.append(json.loads(line[-1][len("PSERVER "):]) if line else {"log": text[-2000:]})
+    t_d = time.perf_counter()
+    fold = _inference_fold(torch, workdir)
+    fold["phase_s"] = time.perf_counter() - t_d
+
+    per_step = {"fused_attention_fwd": 2 * BERT_BASE["n_layer"],
+                "fused_attention_bwd_dkv": BERT_BASE["n_layer"],
+                "fused_attention_bwd_dq": BERT_BASE["n_layer"]}
+    names = list(per_step)
+    checks = {}
+    a = [r["a"] for r in res]
+    checks["a_losses"] = all(np.allclose(x["losses"], ref["losses"], rtol=DIST_PS_RTOL, atol=0)
+                             for x in a)
+    checks["a_launches"] = all({k: d.get(k, 0) for k in names} == per_step
+                               for x in a for d in x["launches_per_step"])
+    checks["a_fp32"] = all(set(x["launches_by_dtype"].get(k, {})) == {"float32"}
+                           for x in a for k in names)
+    checks["a_captured"] = all(x["cache"]["graphs"] == 1 for x in a)
+    checks["pservers_without_cuda"] = all(s.get("cuda_initialized") is False for s in ps_status)
+    checks["pservers_served_all"] = (sum(s.get("params", 0) for s in ps_status[:half])
+                                     == sum(s.get("params", 0) for s in ps_status[half:])
+                                     == a[0]["params"])
+    b = [r["b"] for r in res]
+    checks["b_finite"] = all(len(x["losses"]) == DIST_HOGWILD_BATCHES
+                             and np.isfinite(x["losses"]).all() for x in b)
+    checks["b_overlap"] = all(x["ps_pull_overlap_s"] > 0 and x["sync_flipped"] for x in b)
+    checks["b_launches"] = all(x["launches"].get(k, 0) == DIST_HOGWILD_BATCHES * per_step[k]
+                               for x in b for k in names)
+    c = [r["c"] for r in res]
+    gar_losses = np.mean([x["losses"] for x in c], axis=0)
+    gar_loss_err = [abs(g - w) / abs(w) for g, w in zip(gar_losses, ref["losses"])]
+    gar_param_err = {}
+    for r in range(DIST_TRAINERS):
+        got = np.load(os.path.join(workdir, "gar_params%d.npz" % r))
+        for n, want in ref_params.items():
+            gar_param_err[n] = max(gar_param_err.get(n, 0.0), _max_rel(got[n], want))
+    checks["c_losses"] = max(gar_loss_err) <= DIST_GAR_TOL
+    checks["c_params"] = max(gar_param_err.values()) <= DIST_GAR_TOL
+    checks["c_eager"] = all(x["eager_ops"] == ["c_allreduce_sum"] and x["graphs"] == 0 for x in c)
+    checks["c_launches"] = all(x["launches"].get(k, 0) == DIST_GAR_STEPS * per_step[k]
+                               for x in c for k in names)
+    # BERT trains with dropout off: the attention kernels are the only hand
+    # kernels these processes launch
+    checks["no_other_kernel"] = all(v == 0 for r in res for leg in ("a", "b", "c")
+                                    for k, v in r[leg]["launches"].items() if k not in names)
+    checks["d_folds"] = (fold["folds"] == 53 and fold["batch_norm_after"] == 0
+                         and fold["folded_in_card_tensors"])
+    checks["d_answers"] = (max(fold["max_rel_err"].values()) <= DIST_FOLD_TOL
+                           and max(fold["logits_max_rel_err"].values()) <= DIST_FOLD_TOL)
+
+    rounds = [rd for x in a for rd in x["rounds"]]
+    stats = {
+        "reference": ref,
+        "a": {"losses": [x["losses"] for x in a], "step_s": [x["step_s"] for x in a],
+              "rounds": [x["rounds"] for x in a], "params": a[0]["params"],
+              "max_rel_loss_err": max(abs(l - w) / abs(w) for x in a
+                                      for l, w in zip(x["losses"], ref["losses"])),
+              "max_memory_allocated_bytes": [x["max_memory_allocated_bytes"] for x in a]},
+        "b": {"losses": [x["losses"] for x in b], "epoch_s": [x["epoch_s"] for x in b],
+              "ps_pull_overlap_s": [x["ps_pull_overlap_s"] for x in b],
+              "ps_pull_wait_s": [x["ps_pull_wait_s"] for x in b],
+              "ledger_s": [x["ledger_s"] for x in b]},
+        "c": {"losses": [x["losses"] for x in c], "mean_losses": list(gar_losses),
+              "loss_rel_err": gar_loss_err, "param_max_rel_err": gar_param_err,
+              "step_s": [x["step_s"] for x in c], "allreduces": c[0]["allreduces"],
+              "eager_ops": c[0]["eager_ops"]},
+        "d": fold, "pservers": ps_status, "phase_s": time.perf_counter() - t_phase,
+        # each trainer process's attention launches by leg (counts set to 0
+        # before each leg and read after it, in that process)
+        "launches": {"dist_%s_trainer%d" % (leg, r["rank"]): dict(
+            {k: 0 for k in names}, **r[leg]["launches"]) for r in res for leg in ("a", "b", "c")},
+    }
+    log("[dist-numbers] %s | %s" % (smi, json.dumps({
+        "a_step_s": stats["a"]["step_s"], "reference_step_s": ref["step_s"],
+        "a_round_s": [{k: round(v, 4) for k, v in rd.items() if k != "overlapped"}
+                      for rd in rounds],
+        "b_epoch_s": stats["b"]["epoch_s"], "b_ps_pull_overlap_s": stats["b"]["ps_pull_overlap_s"],
+        "b_ps_pull_wait_s": stats["b"]["ps_pull_wait_s"],
+        "b_ledger_ps_wait_s": [x["ledger_s"]["ps_wait"] for x in b],
+        "b_ledger_device_execute_s": [x["ledger_s"]["device_execute"] for x in b],
+        "c_step_s": stats["c"]["step_s"],
+        "pserver_optimize_s": [s.get("optimize_s") for s in ps_status],
+        "d_ms": fold["ms"], "d_ops": [fold["ops_before"], fold["ops_after"]],
+        "phase_s": stats["phase_s"]})))
+    log("[dist]", json.dumps(stats, default=str)[:30000])
+    checks = {k: bool(v) for k, v in checks.items()}
+    log("[dist] checks", json.dumps(checks))
+    if not all(checks.values()):
+        raise AssertionError("phase 37 failed its checks: %s" % json.dumps(checks))
+    return stats
+
+
+def run_dist_alone(torch, passes):
+    """``chip_smoke.py --dist [N]``, a shortcut while working on the
+    distributed layer: the build and phase 37 ``N`` times, and the card's
+    name and power limit; no other phase."""
+    info = device_info(torch)
+    t0 = time.perf_counter()
+    build_kernels()
+    for k in range(passes):
+        log("[dist] pass %d of %d" % (k + 1, passes))
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            run_dist_training(torch, workdir, info["nvidia_smi"])
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+    log("[done] %.1f s" % (time.perf_counter() - t0))
+    print(info["nvidia_smi"])
+    return 0
+
+
 def run_wire_alone(torch, passes):
     """``chip_smoke.py --wire [N]``, a shortcut while working on the wire
     layer: the build, phase 35's export and phase 36 ``N`` times (the spread
@@ -8159,12 +8721,17 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--lm-dataset-child"]:  # phase 33's child process
         return lm_dataset_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--dist-child"]:  # phase 37's pserver and trainer processes
+        role, workdir = sys.argv[2], sys.argv[3]
+        return dist_pserver_child(workdir) if role == "pserver" else dist_trainer_child(workdir)
     sys.path.insert(0, REPO)
     import paddle_tpu_torch  # noqa: F401 — fails outside a checkout of the repo
     if sys.argv[1:2] == ["--b3"]:  # kernel B3's build, check and sweep alone
         return run_b3_alone(torch)
     if sys.argv[1:2] == ["--wire"]:  # phase 35's export and phase 36 alone, N times
         return run_wire_alone(torch, int(sys.argv[2]) if len(sys.argv) > 2 else 1)
+    if sys.argv[1:2] == ["--dist"]:  # phase 37 alone, N times
+        return run_dist_alone(torch, int(sys.argv[2]) if len(sys.argv) > 2 else 1)
     from paddle_tpu_torch.kernels import decode_attention as kda
     from paddle_tpu_torch.kernels import fused_attention as fa
 
@@ -8270,6 +8837,11 @@ def main() -> int:
                                 info["nvidia_smi"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        dist37 = run_dist_training(torch, workdir, info["nvidia_smi"])
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     # the A7 paths (NMT training, decoding, the book's RNN models) run no hand kernel
     a7_launches = {"nmt_train": nmt["hand_kernel_launches"],
                    "nmt_decode": nmt_decode["hand_kernel_launches"],
@@ -8316,6 +8888,9 @@ def main() -> int:
     # alone (checked)
     fwd_launches["wire_bert_fleet"] = wire36["bert_fleet"]["launches"]
     fwd_launches["wire_lm_int8"] = 0
+    # phase 37: each trainer process's count by leg, read in that process
+    dist_launches = dist37["launches"]
+    fwd_launches.update({p: c[fa.KERNEL_NAME] for p, c in dist_launches.items()})
     replaced = ("jax/experimental/pallas/ops/tpu/flash_attention.py:%d (%s), reached from "
                 "paddle_tpu/ops/nn_ops.py:694 through the vjp grad paddle_tpu/core/registry.py:131")
     entries = [{
@@ -8358,7 +8933,8 @@ def main() -> int:
             "replaces": replaced % (line, fn),
             "launches": (train["launches"][name] + train_amp["launches"][name]
                          + sum(c.get(name, 0) for c in lm_launches.values())
-                         + sum(c.get(name, 0) for c in lamb_launches.values())),
+                         + sum(c.get(name, 0) for c in lamb_launches.values())
+                         + sum(c[name] for c in dist_launches.values())),
             "launches_by_path": dict({"train": train["launches"][name],
                                       "train_amp": train_amp["launches"][name]},
                                      **{p: c.get(name, 0) for p, c in resnet_launches.items()},
@@ -8367,6 +8943,7 @@ def main() -> int:
                                      **{p: c[name] for p, c in a7_launches.items()},
                                      **{p: c[name] for p, c in a1b_launches.items()},
                                      **{p: c[name] for p, c in a8_launches.items()},
+                                     **{p: c[name] for p, c in dist_launches.items()},
                                      bert_bf16_replicas=0, wire_bert_fleet=0, wire_lm_int8=0),
             "max_abs_err": max(bwd_row["max_abs_err"][e] for e in errs),
             "ms": bwd_row[key + "_ms"],
@@ -8398,6 +8975,7 @@ def main() -> int:
                                  **{p: c["dropout"] for p, c in a7_launches.items()},
                                  **{p: c["dropout"] for p, c in a1b_launches.items()},
                                  **{p: c["dropout"] for p, c in a8_launches.items()},
+                                 **{p: c.get("dropout", 0) for p, c in dist_launches.items()},
                                  bert_bf16_replicas=0, wire_bert_fleet=0, wire_lm_int8=0),
         "max_abs_err": 0.0 if all(r["out_bit_equal"] and r["mask_bit_equal"]
                                   for r in dropout_checks["checks"]) else None,
@@ -8422,6 +9000,7 @@ def main() -> int:
         "launches": (sum(c[kda.KERNEL_NAME] for c in b3_paths.values())
                      + wire36["lm_int8"]["launches"]),
         "launches_by_path": dict({p: c[kda.KERNEL_NAME] for p, c in b3_paths.items()},
+                                 **{p: c.get(kda.KERNEL_NAME, 0) for p, c in dist_launches.items()},
                                  bert_bf16_replicas=0, wire_bert_fleet=0,
                                  wire_lm_int8=wire36["lm_int8"]["launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in decode_checks),

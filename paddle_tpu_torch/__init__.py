@@ -46,6 +46,12 @@ and the parameter server (``distributed``: ``ParameterServer``,
 ``PSClient``, ``bind_distributed_tables``, the async ``Communicator``,
 ``GeoSGD``) behind ``embedding(is_distributed=True)``.
 
+Multi-process training: ``transpiler.DistributeTranspiler`` (dense
+parameters on parameter-server processes, or "nccl2" mode),
+``parallel.GradAllReduce`` / ``LocalSGD`` with the collective ops over
+``torch.distributed`` (``parallel.env``), ``distributed.launch``,
+``AsyncExecutor``, and ``InferenceTranspiler``'s conv + batch_norm fold.
+
 Seq2seq: Programs with sub-blocks and the control-flow layers
 (``While``, ``cond``, ``StaticRNN``, ``DynamicRNN``, ``IfElse``,
 ``Switch``, the tensor arrays), the recurrent layers (``dynamic_lstm``,
@@ -73,7 +79,7 @@ from paddle_tpu_torch.framework import (
     name_scope,
     program_guard,
 )
-from paddle_tpu_torch.executor import Executor
+from paddle_tpu_torch.executor import AsyncExecutor, Executor
 from paddle_tpu_torch.scope import Scope, global_scope, scope_guard
 
 from paddle_tpu_torch import initializer, layers, unique_name
@@ -108,6 +114,15 @@ from paddle_tpu_torch import serving
 from paddle_tpu_torch import contrib
 from paddle_tpu_torch import dataset, decoding, distributed, incubate, metrics, native, recordio_writer
 from paddle_tpu_torch import fluid_dataset, trainer_desc
+from paddle_tpu_torch import parallel
+from paddle_tpu_torch import transpiler
+from paddle_tpu_torch.transpiler import (
+    DistributeTranspiler,
+    DistributeTranspilerConfig,
+    InferenceTranspiler,
+    memory_optimize,
+    release_memory,
+)
 from paddle_tpu_torch.fluid_dataset import DatasetFactory, InMemoryDataset, QueueDataset
 from paddle_tpu_torch.trainer_desc import TrainerFactory
 

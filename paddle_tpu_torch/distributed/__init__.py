@@ -2,9 +2,10 @@
 paddle/fluid/operators/distributed/, gRPC/BRPC parameter-server RPC).
 
 The port's own copies of the JAX package's ``distributed/ps.py``,
-``communicator.py`` and ``lookup.py``.  The process launcher
-(``launch.py``) comes with the multi-device slice (ROADMAP A10).
+``communicator.py``, ``lookup.py`` and ``launch.py`` (the process
+launcher, ``python -m paddle_tpu_torch.distributed.launch``).
 """
 from paddle_tpu_torch.distributed.communicator import Communicator, GeoSGD  # noqa: F401
 from paddle_tpu_torch.distributed.lookup import bind_distributed_tables  # noqa: F401
 from paddle_tpu_torch.distributed.ps import ParameterServer, PSClient  # noqa: F401
+from paddle_tpu_torch.distributed import launch  # noqa: F401

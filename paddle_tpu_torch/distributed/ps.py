@@ -19,8 +19,8 @@ message size is bounded, so an exposed port is a data-plane risk only
 a ``bfloat16`` payload decodes to float32 (its bits shifted into the high
 half of each float32, exact), and a ``torch.bfloat16`` tensor encodes as
 a ``bfloat16`` payload of its own bits.  ``pull_sparse`` and
-``push_sparse`` carry the JAX package's ``ps.pull`` and ``ps.push`` fault
-points.
+``pull_dense`` carry the JAX package's ``ps.pull`` fault point,
+``push_sparse`` and ``push_dense`` its ``ps.push``.
 """
 from __future__ import annotations
 
@@ -624,12 +624,16 @@ class PSClient:
         return bool(r["seeded"])
 
     def push_dense(self, name: str, grad: np.ndarray, lr: float) -> int:
+        if _faults.active is not None:  # disarmed: one is-None gate
+            _faults.active.faultpoint("ps.push", param=name)
         r = self._call(self.shard_for(name),
                        {"op": "push_dense", "name": name,
                         "grad": np.asarray(grad, np.float32), "lr": float(lr)})
         return int(r["version"])
 
     def pull_dense(self, name: str, min_version: int = 0, timeout: float = 60.0):
+        if _faults.active is not None:  # disarmed: one is-None gate
+            _faults.active.faultpoint("ps.pull", param=name)
         r = self._call(self.shard_for(name),
                        {"op": "pull_dense", "name": name,
                         "min_version": int(min_version), "timeout": timeout})

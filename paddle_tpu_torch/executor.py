@@ -64,6 +64,21 @@ overlapped prefetch installed ahead of ``run`` share the plan and the
 entry of the inline pull.  ``Executor.train_from_dataset`` loops a
 dataset's batches through ``run``, with ``thread=N`` prefetch onto the
 executor's device.
+
+The dense parameter server (``transpiler.DistributeTranspiler``'s
+"pserver" mode): a trainer program (``_dense_ps_ctx``) has no optimizer
+updates.  Its first run creates the server-side parameters, trainer 0
+seeds them with its initial values and every trainer pulls them.  Each
+run fetches every parameter's gradient (hidden from the caller, a host
+copy taken before the entry's lock is released), pushes them all, then
+pulls every parameter into the scope: a new tensor that the next replay
+copies into its graph's buffer.  In sync mode the pull waits for the
+servers to apply all trainers' gradients of the step.  In async mode
+(Hogwild) ``train_from_dataset`` overlaps each step's pull with the step
+on a thread of its own; the next run installs what it pulled.  Running a
+pserver program (``_pserver_ctx``) serves its share of the parameters
+from this process's host memory and blocks; it returns before the scope
+binds a device, so a pserver process makes no CUDA context.
 """
 from __future__ import annotations
 
@@ -88,9 +103,10 @@ from paddle_tpu_torch.monitor import flight as _mon_flight
 from paddle_tpu_torch.monitor import registry as _mon_registry
 from paddle_tpu_torch.monitor import spans as _mon_spans
 from paddle_tpu_torch.monitor import train as _mon_train
+from paddle_tpu_torch.parallel import env as _penv
 from paddle_tpu_torch.scope import Scope, global_scope, host_copy, to_numpy
 
-__all__ = ["Executor", "pow2_id_bucket"]
+__all__ = ["Executor", "AsyncExecutor", "pow2_id_bucket"]
 
 # run-phase observability (the JAX package's, ``monitor/``).  The cache
 # counters are COLLECT-ON-READ: every Executor's ``_cache_stats`` dict
@@ -188,8 +204,6 @@ def pow2_id_bucket(n_unique: int) -> int:
 # program attributes of JAX package features that the port does not run
 # yet: a program that carries one raises instead of training without it
 _UNPORTED_PROGRAM_STATE = {
-    "_dense_ps_ctx": "the dense parameter server (DistributeTranspiler; ROADMAP A6b)",
-    "_pserver_ctx": "the dense parameter server (DistributeTranspiler; ROADMAP A6b)",
     "_mesh_tables": "mesh-resident tables (bind_mesh_tables; ROADMAP A10)",
     "_pipeline_plan": "the pipelined program (PipelineOptimizer cut_list; ROADMAP A10)",
 }
@@ -209,24 +223,29 @@ class _RunPlan:
     """The block analysis of one plan key: the feed and fetch names, the
     persistable vars the block reads from the scope (``state_in``) and
     writes back (``state_out``), each feed's torch dtype, the op types
-    that keep the plan on the interpreter (``eager_ops``: random ops, and
-    ops that read a value on the host, a loop or branch predicate; at any
-    depth of the control-flow bodies), and ``n_push``: how many fetches
-    at the end of ``fetch_names`` are prefetched rows' gradients that the
-    run pushes and hides from the caller."""
+    that keep the plan on the interpreter (``eager_ops``: random ops, ops
+    that read a value on the host, a loop or branch predicate, and
+    collectives on a ring of more than one rank, which wait for their
+    peers; at any depth of the control-flow bodies), ``n_push``: how many
+    fetches after the caller's are prefetched rows' gradients that the
+    run pushes, and ``n_dense``: how many after those are the dense-PS
+    parameters' gradients that the run pushes; both are hidden from the
+    caller."""
 
     __slots__ = ("feed_names", "fetch_names", "state_in", "state_out", "feed_dtypes",
-                 "eager_ops", "n_push")
+                 "eager_ops", "n_push", "n_dense")
 
     def __init__(self, feed_names, fetch_names, state_in, state_out, feed_dtypes, eager_ops,
-                 n_push=0):
+                 n_push=0, n_dense=0):
         self.feed_names = feed_names
-        self.fetch_names = fetch_names  # the caller's, then the pushed rows' gradients
+        # the caller's, then the pushed rows' gradients, then the dense ones
+        self.fetch_names = fetch_names
         self.state_in = state_in
         self.state_out = state_out
         self.feed_dtypes = feed_dtypes
         self.eager_ops = eager_ops
         self.n_push = n_push
+        self.n_dense = n_dense
 
 
 class _LRUCache:
@@ -418,7 +437,7 @@ class Executor:
         t = torch.from_numpy(np.ascontiguousarray(arr))
         return t.to(dtype) if dtype is not None else t
 
-    def _analyze(self, program, feed_names, fetch_names, n_push=0) -> _RunPlan:
+    def _analyze(self, program, feed_names, fetch_names, n_push=0, n_dense=0) -> _RunPlan:
         """The block's true dataflow reads: a name is read from outside
         only when some op reads it before any op writes it."""
         block = program.global_block()
@@ -438,13 +457,16 @@ class Executor:
             if var is not None:
                 feed_dtypes[n] = core_types.torch_dtype(var.dtype)
         # ops a capture cannot hold, at any depth of the bodies
-        eager_ops = tuple(sorted({t for t in lowering.op_types(block.ops) if registry.has_op(t)
-                                  and (registry.get_op(t).random or registry.get_op(t).host_read)}))
+        eager_ops = {t for t in lowering.op_types(block.ops) if registry.has_op(t)
+                     and (registry.get_op(t).random or registry.get_op(t).host_read)}
+        from paddle_tpu_torch.ops import collective_ops
+
+        eager_ops |= collective_ops.live_collectives(block.ops)
         return _RunPlan(
             feed_names, fetch_names,
             tuple(sorted((read & persistable) - set(feed_names))),
             tuple(sorted(written & persistable)),
-            feed_dtypes, eager_ops, n_push)
+            feed_dtypes, tuple(sorted(eager_ops)), n_push, n_dense)
 
     # ------------------------------------------------------------------
     def run(
@@ -495,11 +517,27 @@ class Executor:
         stats = self._cache_stats
         program = program if program is not None else framework.default_main_program()
         scope = scope if scope is not None else global_scope()
+        if getattr(program, "_pserver_ctx", None):
+            # a parameter server serves from the host: before the scope
+            # binds a device, so its process never makes a CUDA context
+            return self._run_pserver(program)
         scope.bind_device(self.device)
         feed = dict(feed or {})
         for attr, what in _UNPORTED_PROGRAM_STATE.items():
             if getattr(program, attr, None):
                 raise NotImplementedError("%s is not ported to paddle_tpu_torch yet" % what)
+        dense_ps = getattr(program, "_dense_ps_ctx", None)
+        if dense_ps is not None:
+            if steps != 1:
+                raise ValueError(
+                    "steps>1 is incompatible with dense PS mode (the grad "
+                    "send / param recv is host-side per batch)")
+            self._dense_ps_init(dense_ps, scope)
+            # overlapped mode: install the params the background thread
+            # pulled while the previous step ran (before this run reads
+            # its state)
+            join_wait = self._dense_ps_join_pending(dense_ps, scope)
+            t_step0 = time.perf_counter()
         user_fetch = tuple(_as_fetch_name(f) for f in (fetch_list or []))
         # distributed lookup tables: the plan key takes the feed names
         # before the prefetch adds its rows and ids-to-row maps, and
@@ -527,6 +565,7 @@ class Executor:
             per_step_feed,
             str(self.device),
             manual_prefetch,
+            _penv.generation(),  # a bound ring decides whether its collectives run
         )
         ps_push = self._prefetch_distributed_tables(program, feed) if dist_tables else []
         with self._lock:
@@ -535,8 +574,11 @@ class Executor:
                 stats["plan_hits"] += 1
             else:
                 stats["plan_misses"] += 1
+                dense_grads = (tuple(d["grad"] for d in dense_ps["params"].values())
+                               if dense_ps is not None else ())
                 plan = self._analyze(program, tuple(sorted(feed)),
-                                     user_fetch + tuple(g for _, _, g in ps_push), len(ps_push))
+                                     user_fetch + tuple(g for _, _, g in ps_push) + dense_grads,
+                                     len(ps_push), len(dense_grads))
                 if use_program_cache:
                     self._plans[plan_key] = plan
 
@@ -597,7 +639,11 @@ class Executor:
                 overhead, exemplar={"trace_id": ids[0]} if ids else None)
 
         check_nan_inf = flags.get_flags("FLAGS_check_nan_inf")["FLAGS_check_nan_inf"]
-        n_user = len(plan.fetch_names) - plan.n_push
+        n_user = len(plan.fetch_names) - plan.n_push - plan.n_dense
+        n_sparse = n_user + plan.n_push
+        # the async dense-PS pull of train_from_dataset starts as soon as
+        # the step is queued, so it overlaps the step
+        overlap = dense_ps is not None and bool(dense_ps.get("overlap_pull")) and not dense_ps["sync"]
         graph_path = (use_program_cache and self.device.type == "cuda" and not plan.eager_ops
                       and all(scope.vars.get(n) is not None for n in plan.state_out))
         if graph_path:
@@ -620,6 +666,8 @@ class Executor:
                                                time.perf_counter() - t0, cat="execute",
                                                steps=steps)
                     # hot-path: end dispatch (the replay is queued; everything below may sync)
+                    if overlap:
+                        self._dense_ps_spawn_pull(dense_ps)
                     if check_nan_inf:
                         _check_nan_inf(list(zip(plan.fetch_names, fetches))
                                        + [(n, graph.bufs[n]) for n in plan.state_out])
@@ -637,7 +685,10 @@ class Executor:
                                                time.perf_counter() - t0, cat="transfer",
                                                n_fetch=len(out))
             if replayed:
-                self._push_sparse(program, ps_push, grads)
+                self._push_sparse(program, ps_push, grads[:plan.n_push])
+                if dense_ps is not None:
+                    self._dense_ps_round(dense_ps, scope, grads[plan.n_push:], overlap, t_step0,
+                                         join_wait)
                 return out
         t0 = time.perf_counter()
         feeds = {n: t.to(self.device, non_blocking=True) for n, t in feeds.items()}
@@ -649,10 +700,15 @@ class Executor:
             _mon_spans.record_span("executor/device_execute", t0, time.perf_counter() - t0,
                                    cat="execute", steps=steps, eager=True)
         entry.warmed.done = True
+        if overlap:
+            self._dense_ps_spawn_pull(dense_ps)
         if check_nan_inf:
             _check_nan_inf(list(zip(plan.fetch_names, fetches))
                            + [(n, scope.vars[n]) for n in plan.state_out if n in scope.vars])
-        self._push_sparse(program, ps_push, [host_copy(g) for g in fetches[n_user:]])
+        self._push_sparse(program, ps_push, [host_copy(g) for g in fetches[n_user:n_sparse]])
+        if dense_ps is not None:
+            self._dense_ps_round(dense_ps, scope, [host_copy(g) for g in fetches[n_sparse:]],
+                                 overlap, t_step0, join_wait)
         fetches = fetches[:n_user]
         if return_numpy:
             t0 = time.perf_counter()
@@ -932,6 +988,180 @@ class Executor:
                 if cache is not None:
                     cache.invalidate_ids(table, uniq)
 
+    # ------------------------------------------------------------------
+    # The dense parameter server (reference: distribute_transpiler.py's
+    # trainer side + listen_and_serv_op.cc's server loop): a trainer
+    # program of DistributeTranspiler carries ``_dense_ps_ctx``, its
+    # pserver program ``_pserver_ctx``.
+    # ------------------------------------------------------------------
+    last_dense_ps_round = None  # the last dense-PS run's host seconds by part
+
+    @staticmethod
+    def _dense_ps_client(ctx):
+        client = ctx.get("_client")
+        if client is None:
+            from paddle_tpu_torch.distributed.ps import PSClient
+
+            client = ctx["_client"] = PSClient(ctx["endpoints"])
+        return client
+
+    @staticmethod
+    def _dense_ps_pull_client(ctx):
+        # the overlapped pull runs on its own thread beside the main
+        # thread's push, and a PSClient socket is not thread-safe
+        # (interleaved frames corrupt the wire): a client of its own
+        client = ctx.get("_pull_client")
+        if client is None:
+            from paddle_tpu_torch.distributed.ps import PSClient
+
+            client = ctx["_pull_client"] = PSClient(ctx["endpoints"])
+        return client
+
+    def _dense_ps_init(self, ctx, scope) -> None:
+        """First-run handshake: create the server-side entries, trainer 0
+        seeds its initial param values (deterministic broadcast), everyone
+        pulls the seeded copy — the reference pserver startup + initial
+        recv (distribute_transpiler.py get_startup_program)."""
+        if ctx["initialized"]:
+            return
+        client = self._dense_ps_client(ctx)
+        for name, desc in ctx["params"].items():
+            val = scope.get(name)
+            if val is None:
+                raise RuntimeError(
+                    "dense PS param %r not in scope — run the startup program first" % name)
+            client.create_dense(name, tuple(val.shape), optimizer=desc["optimizer"],
+                                attrs=desc["attrs"], n_trainers=ctx["n_trainers"],
+                                sync=ctx["sync"])
+            if ctx["trainer_id"] == 0:
+                client.seed_dense(name, to_numpy(val))
+            scope.set(name, client.pull_dense(name, min_version=0))
+        ctx["initialized"] = True
+
+    def _dense_ps_round(self, ctx, scope, grads, overlap, t_step0, join_wait) -> None:
+        """Push every gradient (host copies), then, unless the overlapped
+        pull is on its way, pull every parameter: in sync mode the pull
+        waits for the server to apply all trainers' gradients of this
+        step, so pushing all first is what keeps a trainer from waiting on
+        itself (reference: send_barrier -> send -> recv,
+        distribute_transpiler.py:320).  ``last_dense_ps_round`` keeps the
+        run's host seconds: the step up to its gradients' host copies, the
+        push, and the pull (or, overlapped, the wait at this run's join)."""
+        t0 = time.perf_counter()
+        client = self._dense_ps_client(ctx)
+        names = list(ctx["params"])
+        lrs: Dict[str, float] = {}  # one host read a learning-rate var
+        for name, grad in zip(names, grads):
+            lr_var = ctx["params"][name]["lr_var"]
+            if lr_var not in lrs:
+                lr_val = scope.get(lr_var)
+                lrs[lr_var] = float(to_numpy(lr_val).reshape(-1)[0]) if lr_val is not None else 0.1
+            client.push_dense(name, grad, lrs[lr_var])
+        ctx["step"] += 1
+        t1 = time.perf_counter()
+        if not overlap:
+            min_v = ctx["step"] if ctx["sync"] else 0
+            for name in names:
+                scope.set(name, client.pull_dense(name, min_version=min_v))
+            led = self._train_ledger
+            if led is not None:  # the blocking pull is PS wire wait, not device time
+                led.charge("ps_wait", time.perf_counter() - t1)
+        self.last_dense_ps_round = {"step_s": t0 - t_step0, "push_s": t1 - t0,
+                                    "pull_wait_s": join_wait if overlap else time.perf_counter() - t1,
+                                    "overlapped": overlap}
+
+    def _dense_ps_spawn_pull(self, ctx) -> None:
+        """Start the next step's param pull on a background thread (one in
+        flight at a time: ``run`` joins the previous one first).  A
+        transient failure (a refused or reset connection) closes the
+        thread's client, redials on a fresh one and retries under the pull
+        RetryPolicy; any error surfaces at the join, with the failing
+        client's sockets closed."""
+        from paddle_tpu_torch.distributed.ps import PSClient
+
+        names = list(ctx["params"])
+        client = self._dense_ps_pull_client(ctx)
+        result: Dict[str, Any] = {}
+        budget = self._ps_pull_policy().budget(op="ps.pull")
+
+        def pull():
+            nonlocal client
+            t0 = time.perf_counter()
+            try:
+                while True:
+                    try:
+                        result["vals"] = {n: client.pull_dense(n, min_version=0) for n in names}
+                        return
+                    except _PS_PULL_RETRYABLE:
+                        try:
+                            client.close()
+                        finally:
+                            ctx.pop("_pull_client", None)
+                        if not budget.backoff():
+                            raise
+                        client = ctx["_pull_client"] = PSClient(ctx["endpoints"])
+            except BaseException as e:  # noqa: BLE001 — re-raised at the join
+                result["exc"] = e
+            finally:
+                result["dur"] = time.perf_counter() - t0
+
+        th = threading.Thread(target=pull, name="ptpu-ps-pull", daemon=True)
+        ctx["_pull_pending"] = (th, result)
+        th.start()
+
+    def _dense_ps_join_pending(self, ctx, scope) -> float:
+        """Join the in-flight overlapped pull, if any, install the pulled
+        params and return the seconds waited.  ``ps_pull_overlap_s`` counts
+        the pull seconds that hid behind the step, ``ps_pull_wait_s`` what
+        this join waited; an armed ledger is charged the wait as
+        ``ps_wait``."""
+        pending = ctx.pop("_pull_pending", None)
+        if pending is None:
+            return 0.0
+        th, result = pending
+        t0 = time.perf_counter()
+        th.join()
+        wait = time.perf_counter() - t0
+        with self._lock:
+            self._cache_stats["ps_pull_wait_s"] += wait
+            self._cache_stats["ps_pull_overlap_s"] += max(0.0, result.get("dur", 0.0) - wait)
+        led = self._train_ledger
+        if led is not None:
+            led.charge("ps_wait", wait)
+        if "exc" in result:
+            raise result["exc"]
+        for n, v in result["vals"].items():
+            scope.set(n, v)
+        return wait
+
+    def _run_pserver(self, program):
+        """Serve the dense params hashed to this endpoint and block, like
+        the reference's listen_and_serv op.  The live server is
+        ``program._pserver``, so its caller can stop it.  A server keeps its
+        parameters and their optimizer state in host memory: it never
+        touches the executor's device."""
+        from paddle_tpu_torch.distributed.ps import ParameterServer, PSClient, _DenseParam
+
+        ctx = program._pserver_ctx
+        server = ParameterServer(ctx["endpoint"])
+        # register this shard's dense params directly (no wire round-trip;
+        # the placement is the trainer-side PSClient.shard_for)
+        placer = PSClient(ctx["endpoints"])
+        my_idx = ctx["endpoints"].index(ctx["endpoint"])
+        for name, desc in ctx["params"].items():
+            if placer.shard_for(name) != my_idx:
+                continue
+            server._dense[name] = _DenseParam(
+                desc["shape"], optimizer=desc["optimizer"], attrs=desc["attrs"],
+                n_trainers=ctx["n_trainers"], sync=ctx["sync"])
+        program._pserver = server
+        server.start()
+        try:
+            server._thread.join()
+        except KeyboardInterrupt:
+            server.stop()
+        return []
+
     # the overlapped sparse prefetch of async mode: batch N+1's pulls run
     # on a background thread while batch N steps (bounded staleness 1,
     # which async mode accepts; sync mode keeps the strict pull-after-push
@@ -1092,7 +1322,10 @@ class Executor:
         where there is none), on the host for a ``CPUPlace`` one; a
         distributed table's ids stay on the host, where each batch's
         unique ids are taken.  With distributed tables in async mode (a
-        Communicator bound), batch N+1's pulls overlap batch N's step.
+        Communicator bound), batch N+1's pulls overlap batch N's step; on
+        an async dense-PS program, each step's parameter pull overlaps the
+        step (``ps_pull_overlap_s``), and the loop joins the last one
+        before it returns.
 
         Crash-resumable training, exact to a step:
         ``checkpoint_dir`` + ``checkpoint_every=N`` commits an atomic
@@ -1228,6 +1461,15 @@ class Executor:
             batches = self._sparse_overlap_iter(program, batches)
         if led is not None:
             batches = led.timed_iter(batches)
+        # dense-PS async mode: each step's param pull overlaps the step (the
+        # pull thread runs while the card works; ps_pull_overlap_s counts
+        # the hidden seconds).  Sync mode keeps the strict barrier order,
+        # so the flag arms async runs only, and only for this loop.
+        ps_ctx = getattr(program, "_dense_ps_ctx", None)
+        overlap_prev = None
+        if ps_ctx is not None and not ps_ctx.get("sync", True):
+            overlap_prev = ps_ctx.get("overlap_pull")
+            ps_ctx["overlap_pull"] = True
         # the epoch trace id: minted per call (or joined via trace_id=);
         # the epoch span id parents every step span
         tid = trace_id or _mon_flight.new_trace_id()
@@ -1312,6 +1554,20 @@ class Executor:
             closer = getattr(batches, "close", None)
             if closer is not None:
                 closer()  # stop the prefetch producer and the overlap thread
+            if ps_ctx is not None:
+                # drain the in-flight dense pull, so the scope leaves with the
+                # freshest params and no thread dangles, then close the pull
+                # thread's client (a next epoch redials)
+                try:
+                    self._dense_ps_join_pending(ps_ctx, scope)
+                finally:
+                    if overlap_prev is None:
+                        ps_ctx.pop("overlap_pull", None)
+                    else:
+                        ps_ctx["overlap_pull"] = overlap_prev
+                    pull_client = ps_ctx.get("_pull_client")
+                    if pull_client is not None:
+                        pull_client.close()
         return results
 
     @staticmethod
@@ -1351,11 +1607,15 @@ class Executor:
             wd.raise_if_halt(anomalies)
 
     def _train_checkpoint(self, ckpt, program, scope, step, epoch, async_=False) -> None:
-        """Quiesce, then commit one atomic checkpoint: the async
+        """Quiesce, then commit one atomic checkpoint: the overlapped dense
+        pull is joined (its params land in the scope first) and the async
         Communicator is flushed (every queued sparse gradient reaches the
         server) so the saved params, PS rows and cursor describe the SAME
         step.  ``async_``: snapshot on this thread, write and commit on the
         checkpoint's background writer."""
+        ps_ctx = getattr(program, "_dense_ps_ctx", None)
+        if ps_ctx is not None:
+            self._dense_ps_join_pending(ps_ctx, scope)
         comm = getattr(program, "_ps_communicator", None)
         if comm is not None:
             comm.flush()
@@ -1411,8 +1671,8 @@ class Executor:
         of the live entries (one per entry and scope), and
         ``graph_pool_bytes`` the device memory their captures reserved.
         ``ps_pull_overlap_s`` sums the seconds of the overlapped sparse
-        pulls that hid behind a step, ``ps_pull_wait_s`` the seconds the
-        loop waited for them."""
+        and dense-PS pulls that hid behind a step, ``ps_pull_wait_s`` the
+        seconds the loop waited for them."""
         with self._lock:
             graphs = [g for e in self._cache.values() for g in list(e.graphs.values())]
         return {
@@ -1438,3 +1698,35 @@ class Executor:
                 entry.release()
             self._cache.clear()
             self._plans.clear()
+
+
+class AsyncExecutor:
+    """The legacy filelist-driven trainer facade (reference:
+    framework/async_executor.h:62 + executor_thread_worker.cc, the
+    pre-Trainer API that ran ExecutorThreadWorker threads over a Dataset).
+    The cached step is the device worker, so ``run`` builds an
+    ``InMemoryDataset`` over the filelist and hands it to
+    ``Executor.train_from_dataset``.  The place rule is ``Executor``'s:
+    ``cuda:0`` unless given ``CPUPlace()``."""
+
+    def __init__(self, place=None):
+        self._exe = Executor(place)
+
+    def run(self, program, data_feed, filelist, thread_num=1, fetch_list=None,
+            fetch_info=None, debug=False, mode="", scope=None):
+        from paddle_tpu_torch.fluid_dataset import DatasetFactory
+
+        slots = getattr(data_feed, "slots", None)
+        if not slots:
+            raise ValueError(
+                "AsyncExecutor needs a data_feed with a .slots list of the "
+                "program's input Variables (DataFeedDesc analog)")
+        if isinstance(filelist, str):
+            filelist = [filelist]
+        dataset = DatasetFactory().create_dataset("InMemoryDataset")
+        dataset.set_use_var(slots)
+        dataset.set_filelist(list(filelist))
+        dataset.load_into_memory()
+        return self._exe.train_from_dataset(
+            program=program, dataset=dataset, scope=scope,
+            fetch_list=fetch_list, fetch_info=fetch_info, debug=debug)

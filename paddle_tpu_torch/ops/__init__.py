@@ -4,6 +4,7 @@ Only the op types of the ported slices are here so far; each sits in
 the file that holds it in the JAX package's ``ops/``.
 """
 from paddle_tpu_torch.ops import (  # noqa: F401
+    collective_ops,
     control_flow_ops,
     math_ops,
     metric_ops,

@@ -9,9 +9,10 @@ by one cached step (executor.py; a captured CUDA graph on the card), so
 these descriptors configure HOW ``Executor.train_from_dataset`` drives
 that step rather than spawning thread workers:
 
-* ``Hogwild``     -> the cached step per batch.  On a dense-PS program
-  it flips the PS round to async; the dense PS is not ported yet
-  (ROADMAP A6b), so here it has nothing to flip.
+* ``Hogwild``     -> the cached step per batch.  On a dense-PS trainer
+  program (``DistributeTranspiler``) it flips the PS round to async:
+  each push applies at once, and ``train_from_dataset`` overlaps each
+  step's parameter pull with the step.
 * ``DownpourSGD`` -> the cached step + the distributed-table
   prefetch/push (executor._prefetch_distributed_tables), async through
   the Communicator.

@@ -32,7 +32,10 @@ sampler, its negatives the CPU's draw) under capture, and their layers
 trained captured against eager; and continuous-batching decode: kernel
 B3 (int8-KV decode attention) against its plain version, the slot
 pool's captured ``chunk`` against the same chunk run eagerly, zero
-captures after warmup, and a resize across rungs while slots are live.
+captures after warmup, and a resize across rungs while slots are live;
+and a dense-PS trainer's captured steps against their eager twin (the
+pulled parameters reach the graph), and a one-rank collective plan
+captured.
 
 Every test here needs a CUDA card and skips without one (marker
 ``cuda``).  The file imports neither jax nor paddle_tpu, so it also runs
@@ -2632,3 +2635,93 @@ def test_bf16_endpoint_card_against_cpu(card, tmp_path):
     assert np.abs(g16 - c16).max() / np.abs(c16).max() <= rtol
     np.testing.assert_allclose(gpu.run(f, precision="fp32")[0], cpu.run(f, precision="fp32")[0],
                                atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the dense parameter server and the collectives on the card
+# ---------------------------------------------------------------------------
+def _dense_ps_mlp(opt="adam"):
+    main, startup = tfluid.Program(), tfluid.Program()
+    main.random_seed = startup.random_seed = 5
+    with tfluid.program_guard(main, startup), tfluid.unique_name.guard():
+        x = tfluid.layers.data("x", [64])
+        y = tfluid.layers.data("y", [1], dtype="int64")
+        h = tfluid.layers.fc(x, 128, act="relu")
+        loss = tfluid.layers.mean(tfluid.layers.softmax_with_cross_entropy(
+            tfluid.layers.fc(h, 10), y))
+        (tfluid.optimizer.AdamOptimizer(0.01) if opt == "adam"
+         else tfluid.optimizer.SGDOptimizer(0.1)).minimize(loss)
+    return main, startup, loss
+
+
+def _dense_ps_trainer_run(card, init, feeds, cached):
+    """One sync trainer on a pserver served from a thread of this process:
+    each step pushes its gradients, the server applies Adam, the pull puts
+    new tensors in the scope."""
+    main, _, loss = _dense_ps_mlp()
+    ep_sock = __import__("socket").socket()
+    ep_sock.bind(("127.0.0.1", 0))
+    ep = "127.0.0.1:%d" % ep_sock.getsockname()[1]
+    ep_sock.close()
+    t = tfluid.DistributeTranspiler()
+    t.transpile(0, program=main, pservers=ep, trainers=1)
+    tprog, pprog = t.get_trainer_program(), t.get_pserver_program(ep)
+    threading.Thread(target=tfluid.Executor(tfluid.CPUPlace()).run, args=(pprog,),
+                     daemon=True).start()
+    try:
+        exe, scope = tfluid.Executor(), _scope_from(init, card)
+        out = [exe.run(tprog, feed=f, fetch_list=[loss], scope=scope,
+                       use_program_cache=cached)[0] for f in feeds]
+        return out, exe.jit_cache_stats(), _state(scope)
+    finally:
+        for _ in range(100):
+            if getattr(pprog, "_pserver", None) is not None:
+                break
+            threading.Event().wait(0.05)
+        pprog._pserver.stop()
+
+
+def test_dense_ps_captured_steps_match_their_eager_twin(card):
+    """A dense-PS trainer's captured steps read the parameters each pull
+    put in the scope (the replay copies them into its buffers first): its
+    losses and pulled parameters bit for bit those of the same steps run
+    eagerly (``use_program_cache=False``) against a server of their own."""
+    _, startup, _ = _dense_ps_mlp()
+    boot = tfluid.Scope()
+    tfluid.Executor().run(startup, scope=boot)
+    init = _state(boot)
+    rng = np.random.RandomState(4)
+    feed = {"x": rng.randn(32, 64).astype("float32"),
+            "y": rng.randint(0, 10, (32, 1)).astype("int64")}
+    feeds = [feed] * 5  # one batch: each step's loss must fall from the last
+    with _Deterministic():
+        got, stats, got_state = _dense_ps_trainer_run(card, init, feeds, cached=True)
+        ref, _, ref_state = _dense_ps_trainer_run(card, init, feeds, cached=False)
+    assert stats["graphs"] == 1
+    assert [g.tobytes() for g in got] == [r.tobytes() for r in ref]
+    assert all(b < a for a, b in zip(got, got[1:])), got
+    for n in got_state:
+        assert got_state[n].tobytes() == ref_state[n].tobytes(), n
+
+
+def test_one_rank_collective_plan_is_captured(card):
+    """A GradAllReduce program at one rank (no process group bound): its
+    collectives are identities, the plan is captured, and its losses are
+    bit for bit those of the program without the rewrite."""
+    main, startup, loss = _dense_ps_mlp("sgd")
+    boot = tfluid.Scope()
+    tfluid.Executor().run(startup, scope=boot)
+    init = _state(boot)
+    plain, _, plain_loss = _dense_ps_mlp("sgd")
+    tfluid.parallel.GradAllReduce().transpile(startup, main, 0, ["r0"], "r0")
+    rng = np.random.RandomState(6)
+    feeds = [{"x": rng.randn(32, 64).astype("float32"),
+              "y": rng.randint(0, 10, (32, 1)).astype("int64")} for _ in range(4)]
+    exe, ref_exe = tfluid.Executor(), tfluid.Executor()
+    scope, ref_scope = _scope_from(init, card), _scope_from(init, card)
+    with _Deterministic():
+        got = [exe.run(main, feed=f, fetch_list=[loss], scope=scope)[0] for f in feeds]
+        ref = [ref_exe.run(plain, feed=f, fetch_list=[plain_loss], scope=ref_scope)[0]
+               for f in feeds]
+    assert exe.jit_cache_stats()["graphs"] == 1
+    assert [g.tobytes() for g in got] == [r.tobytes() for r in ref]

@@ -101,7 +101,9 @@ def test_attention_wrapper_meta_is_shape_only():
 def test_import_leaves_jax_and_paddle_tpu_out():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.models.transformer, paddle_tpu_torch.serving.wire, "
-            "paddle_tpu_torch.serving.wire.launch, paddle_tpu_torch.serving.embedding_cache\n"
+            "paddle_tpu_torch.serving.wire.launch, paddle_tpu_torch.serving.embedding_cache, "
+            "paddle_tpu_torch.transpiler, paddle_tpu_torch.parallel, "
+            "paddle_tpu_torch.ops.collective_ops, paddle_tpu_torch.distributed.launch\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
