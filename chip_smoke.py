@@ -5,6 +5,7 @@
     python3 chip_smoke.py --b3   # kernel B3's build, check and sweep alone
     python3 chip_smoke.py --wire 3   # phase 35's export and phase 36, three times
     python3 chip_smoke.py --dist 3   # phase 37, three times
+    python3 chip_smoke.py --mesh 3   # phase 38, three times
 
 Phases, each of which raises (exit code != 0) on failure:
 
@@ -99,7 +100,9 @@ Phases, each of which raises (exit code != 0) on failure:
    its plain version (the same Philox in torch's int64 ops, on the card)
    bit for bit, at the LM's FFN and attention-weight shapes, VGG-16's two
    dropout inputs and an odd size, fp32 and bf16, p 0.1 and 0.5, both
-   implementations, also on an unaligned view; the keep rate within 5
+   implementations, also on an unaligned view and on a data-parallel
+   rank's batch slice (also at slice offsets 1, 2 and 3 past a multiple
+   of 4), each the slice of the whole batch's mask; the keep rate within 5
    standard deviations; timed at the unfused LM's three dropout sites and
    VGG-16's two against its bytes bound.
 15. LM served: ``transformer_lm`` at its defaults (vocab 32,000,
@@ -441,6 +444,29 @@ Phases, each of which raises (exit code != 0) on failure:
    the unfolded ones at 1, 8 and 16 rows, the ms of both at 16.  The numbers
    are printed on a ``[dist-numbers]`` line beside the card's name and power
    limit.
+38. The LM over a mesh of ranks (``parallel.make_mesh``, ``CompiledProgram``,
+   ``sharding``; the attention kernels counted in every rank, each count set
+   to 0 before a leg and read after it there).  This process runs the LM at
+   its defaults (vocab 32,000, d_model 512, 6 layers, 8 heads, seq 256),
+   fused, fp32 Adam 1e-4, for MESH_STEPS steps of a global batch of 16
+   (eager, captured, replayed), and exports its logits-only build twice
+   from the same initial parameters: with ``canonical_rules(
+   "transformer_lm", "tp")`` on ``sharding_mesh={"tp": 2}``, and replicated.
+   The port's launcher starts two ranks on the card (``chip_smoke.py
+   --mesh-child``, a gloo group: NCCL refuses two ranks on one card), which
+   start from the same parameters and feed the same global batches.  (a)
+   ``sharded_train_program`` under the ``fsdp`` layout on ``{"fsdp": 2}`` and
+   (b) under the ``tp`` layout on ``{"tp": 2}``: every rank's losses within
+   rtol 2e-4 of this process's, a rank's persistable bytes at most 0.55 of
+   this process's, 12 forward, 6 dK/dV and 6 dQ launches a step, the step
+   seconds and the host seconds of the parameter gather.  (c) The fsdp run
+   writes a shard-wise checkpoint after step 2; this process restores it
+   through a ``{"fsdp": 1}`` compiled program and its step 3 is within rtol
+   2e-4 of the ranks'.  (d) Each rank's ``AnalysisPredictor`` loads the tp
+   export sharded and answers 4 rows within 2e-4 (rtol and atol) of the
+   replicated predictor here, with 6 forward launches.  The numbers are
+   printed on a ``[mesh-numbers]`` line beside the card's name and power
+   limit.
 
 Output: progress lines, then a ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
@@ -629,6 +655,9 @@ LM_ATTN_CASES = [(64, 8, 256, 64, "float32"), (64, 8, 256, 64, "bfloat16"),
 # size), both types, both rates
 DROPOUT_SHAPES = [(64, 256, 2048), (64, 8, 256, 256), (64, 512, 7, 7), (64, 4096), (7, 1001)]
 DROPOUT_RATES = [0.1, 0.5]
+# row widths of a [6, w] batch whose second half starts 1, 2 and 3 elements
+# past a multiple of 4 (a data-parallel rank's slice offset, 3 w)
+DROPOUT_ODD_WIDTHS = (25, 26, 27, 4097, 4098, 4099)
 # timed at the unfused AMP LM's three dropout sites (p = LM_DROPOUT) and
 # VGG-16's two (bf16 under AMP, p = 0.5): (shape, dtype, p)
 DROPOUT_TIMED = [((64, 256, 2048), "bfloat16", LM_DROPOUT), ((64, 8, 256, 256), "float32", LM_DROPOUT),
@@ -902,6 +931,16 @@ WIRE_CACHE = dict(table_rows=200_000, active=20_000, capacity=20_000, lookup_cap
 # DIST_TRAINERS trainer processes on the card through DIST_PSERVERS // 2
 # sync and DIST_PSERVERS // 2 async parameter server processes, then
 # GradAllReduce over a gloo group; ResNet-50 NCHW folded for inference
+# phase 38: the LM over a mesh of ranks sharing the card (gloo)
+MESH_RANKS = 2
+MESH_BATCH = 16            # the global batch every rank feeds (no dp axis: each runs it whole)
+MESH_STEPS = 3             # fp32 Adam steps a layout
+MESH_CKPT_STEP = 2         # (c): the fsdp run's shard-wise checkpoint after this step
+MESH_SERVE_ROWS = 4        # (d)
+MESH_RTOL = 2e-4           # losses against one process, and the restored step
+MESH_SERVE_TOL = 2e-4      # (d)'s logits against the replicated predictor (rtol and atol)
+MESH_BYTES_SHARE = 0.55    # a rank's persistable bytes against one process's
+MESH_CHILD_S = 600
 DIST_TRAINERS = 2
 DIST_PSERVERS = 4
 DIST_STEPS = 3             # (a): eager, captured, replayed
@@ -2620,7 +2659,10 @@ def check_dropout_kernel(torch):
     """The dropout kernel against ``dropout_plain`` (the same Philox in
     torch's int64 ops, on the card): Out and Mask bit-equal, for every
     DROPOUT_SHAPES, type, rate and implementation, also on an unaligned
-    view; the keep rate within 5 standard deviations of 1 - p.  At the
+    view; the keep rate within 5 standard deviations of 1 - p.  A
+    data-parallel rank's batch slice draws the slice of the whole batch's
+    mask, bit for bit, at every shape of an even batch and at the slice
+    offsets of DROPOUT_ODD_WIDTHS.  At the
     unfused LM's and VGG-16's dropout sites (DROPOUT_TIMED, each at its
     rate) the kernel, the plain version and
     ``torch.nn.functional.dropout`` (which draws other bits) are timed;
@@ -2643,6 +2685,13 @@ def check_dropout_kernel(torch):
         flat = x.reshape(-1)[1:]
         u_out, u_mask = kd.dropout_train(flat, p, seed, up)
         u_ref = kd.dropout_plain(flat, p, seed, up)
+        # the second of two batch slices (a data-parallel rank's): the slice of
+        # the whole batch's mask
+        sliced = None
+        if shape[0] % 2 == 0:
+            with kd.batch_slice(1, 2, rows=(shape[0] // 2,)):
+                s_out, s_mask = kd.dropout_train(x[shape[0] // 2:], p, seed, up)
+            sliced = (s_out, s_mask)
         torch.cuda.synchronize()
         n = x.numel()
         kept = mask.double().mean().item()
@@ -2651,13 +2700,36 @@ def check_dropout_kernel(torch):
                "out_bit_equal": bool(torch.equal(out, ref_out)),
                "mask_bit_equal": bool(torch.equal(mask, ref_mask)),
                "unaligned_bit_equal": bool(torch.equal(u_out, u_ref[0]) and torch.equal(u_mask, u_ref[1])),
+               "batch_slice_bit_equal": None if sliced is None else bool(
+                   torch.equal(sliced[0], out[shape[0] // 2:])
+                   and torch.equal(sliced[1], mask[shape[0] // 2:])),
                "keep_rate": kept, "keep_rate_sigmas": abs(kept - (1 - p)) / sigma}
         ok = (row["out_bit_equal"] and row["mask_bit_equal"] and row["unaligned_bit_equal"]
-              and row["keep_rate_sigmas"] <= 5.0)
+              and row["batch_slice_bit_equal"] is not False and row["keep_rate_sigmas"] <= 5.0)
         log("[kernel] dropout", json.dumps(row))
         if not ok:
             raise AssertionError("dropout kernel disagrees with its plain version: %s" % row)
         rows.append(row)
+    # the second rank's slice of a batch of 6 rows over 2 ranks, at widths
+    # whose slice offset (3 * width) is 1, 2 and 3 past a multiple of 4: as
+    # a view (the element-wise path) and as a fresh aligned copy (the
+    # vector path), each the slice of the whole batch's mask
+    offsets = []
+    for width in DROPOUT_ODD_WIDTHS:
+        for dt in ("float32", "bfloat16"):
+            x = torch.randn((6, width), generator=gen, device="cuda").to(getattr(torch, dt))
+            out, mask = kd.dropout_train(x, 0.3, 77, True)
+            row = {"shape": [6, width], "dtype": dt, "slice_offset": 3 * width}
+            for how, part in (("view", x[3:]), ("copy", x[3:].clone())):
+                with kd.batch_slice(1, 2, rows=(3,)):
+                    s_out, s_mask = kd.dropout_train(part, 0.3, 77, True)
+                row[how + "_bit_equal"] = bool(torch.equal(s_out, out[3:])
+                                               and torch.equal(s_mask, mask[3:]))
+            log("[kernel] dropout slice offset", json.dumps(row))
+            if not (row["view_bit_equal"] and row["copy_bit_equal"]):
+                raise AssertionError("dropout kernel at a slice offset disagrees with the "
+                                     "whole batch's mask: %s" % row)
+            offsets.append(row)
     timed = []
     for shape, dt, p in DROPOUT_TIMED:
         x = torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dt))
@@ -2670,7 +2742,7 @@ def check_dropout_kernel(torch):
                "bound_ms": 3 * x.numel() * item / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
         log("[kernel] dropout timed", json.dumps(row))
         timed.append(row)
-    return {"checks": rows, "timed": timed}
+    return {"checks": rows, "offsets": offsets, "timed": timed}
 
 
 def lm_program(fluid, fused=True, dropout=0.0, amp=False, recipe=False, train=True):
@@ -8649,6 +8721,308 @@ def run_dist_training(torch, workdir, smi):
     return stats
 
 
+def _mesh_lm_program(fluid):
+    """(main, startup, loss, optimizer): the fused LM at its defaults under
+    fp32 Adam 1e-4, as lm_program builds it, with the optimizer whose
+    accumulator map the train rules read."""
+    from paddle_tpu_torch.models import transformer
+
+    s = LM["seq_len"]
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids = fluid.layers.data("src_ids", [s], dtype="int64")
+        labels = fluid.layers.data("labels", [s, 1], dtype="int64")
+        loss, _ = transformer.transformer_lm(ids, labels, dropout_rate=0.0, is_test=False,
+                                             fused_attention=True, **LM)
+        opt = fluid.optimizer.AdamOptimizer(1e-4)
+        opt.minimize(loss)
+    return main, startup, loss, opt
+
+
+def _persistable_bytes(program, scope):
+    return int(sum(scope.vars[v.name].numel() * scope.vars[v.name].element_size()
+                   for v in program.list_vars() if v.persistable and v.name in scope.vars))
+
+
+def _mesh_train_leg(torch, fluid, kernels, workdir, mode, ckpt=False):
+    """(a) or (b) in a rank: MESH_STEPS steps of the LM under
+    canonical_rules("transformer_lm", mode) on a {mode: MESH_RANKS} mesh
+    from the reference's initial parameters; with ``ckpt`` a shard-wise
+    checkpoint after MESH_CKPT_STEP."""
+    from paddle_tpu_torch import sharding
+    from paddle_tpu_torch.faults.checkpoint import TrainCheckpoint
+
+    main, startup, loss, opt = _mesh_lm_program(fluid)
+    compiled = sharding.sharded_train_program(
+        main, sharding.canonical_rules("transformer_lm", mode), optimizer=opt,
+        mesh_axes={mode: MESH_RANKS})
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    fluid.io.set_params_from_numpy(scope, dict(np.load(os.path.join(workdir, "init.npz"))),
+                                   "cuda:0")
+    feeds = dict(np.load(os.path.join(workdir, "batches.npz")))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = {"losses": [], "step_s": [], "collectives_s": []}
+    for i in range(MESH_STEPS):
+        feed = {"src_ids": feeds["src_ids"][i], "labels": feeds["labels"][i]}
+        t0 = time.perf_counter()
+        out["losses"].append(float(exe.run(compiled, feed=feed, fetch_list=[loss],
+                                           scope=scope)[0]))
+        out["step_s"].append(time.perf_counter() - t0)
+        out["collectives_s"].append(dict(compiled.last_step_seconds))
+        if ckpt and i + 1 == MESH_CKPT_STEP:
+            t0 = time.perf_counter()
+            TrainCheckpoint(os.path.join(workdir, "ckpt")).save(main, scope, i + 1,
+                                                               compiled=compiled)
+            out["save_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    out["launches"] = kernels.launch_counts()
+    out["bytes"] = _persistable_bytes(main, scope)
+    out["eager_ops"] = list(compiled._plan(exe, ("labels", "src_ids"), (loss.name,))[0].eager_ops)
+    out["emb_shard"] = list(scope.vars["lm_word_emb"].shape)
+    out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    exe.close()
+    return out
+
+
+def mesh_child(workdir):
+    """A phase-38 rank (started by the port's launcher, on the card): legs
+    (a) fsdp, (b) tp and (d) the sharded predictor, under deterministic
+    algorithms; writes ``mesh<rank>.json``."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.parallel import env as penv
+
+    penv.init_from_env(backend="gloo", timeout_s=MESH_CHILD_S)
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"rank": rank}
+    with _deterministic(torch):
+        res["a"] = _mesh_train_leg(torch, fluid, kernels, workdir, "fsdp", ckpt=True)
+        _free_device_memory(torch)
+        res["b"] = _mesh_train_leg(torch, fluid, kernels, workdir, "tp")
+        _free_device_memory(torch)
+        pred = fluid.inference.create_paddle_predictor(
+            fluid.inference.AnalysisConfig(os.path.join(workdir, "lm_tp2")))
+        ids = np.load(os.path.join(workdir, "serve_ids.npy"))
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, = pred.run({"src_ids": ids})
+        d = {"run_s": time.perf_counter() - t0, "launches": kernels.launch_counts(),
+             "stats": pred.sharding_stats(group="lm_tp"), "sharded": pred.sharded,
+             "emb_shard": pred.param_placements()["lm_word_emb"]["shard_shape"]}
+        np.save(os.path.join(workdir, "logits%d.npy" % rank), logits)
+        res["d"] = d
+    with open(os.path.join(workdir, "mesh%d.json" % rank), "w") as f:
+        json.dump(res, f, default=list)
+    return 0
+
+
+def _mesh_reference(torch, fluid, workdir, feeds):
+    """One process on the card, the same steps from the same start (eager,
+    captured, replayed): the losses, the step seconds, the persistable
+    bytes, and the initial parameters written for the ranks."""
+    main, startup, loss, _ = _mesh_lm_program(fluid)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    params = {p.name: scope.get(p.name).cpu().numpy() for p in main.all_parameters()}
+    np.savez(os.path.join(workdir, "init.npz"), **params)
+    out = {"losses": [], "step_s": []}
+    with _deterministic(torch):
+        for i in range(MESH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out["losses"].append(float(exe.run(
+                main, feed={"src_ids": feeds["src_ids"][i], "labels": feeds["labels"][i]},
+                fetch_list=[loss], scope=scope)[0]))
+            out["step_s"].append(time.perf_counter() - t0)
+    out["bytes"] = _persistable_bytes(main, scope)
+    exe.close()
+    return out, params
+
+
+def _mesh_export(torch, fluid, workdir, params):
+    """(d)'s two exports of the logits-only LM with the reference's initial
+    parameters: one with canonical_rules("transformer_lm", "tp") on a
+    {"tp": MESH_RANKS} mesh, one replicated; the replicated predictor's
+    logits at MESH_SERVE_ROWS rows."""
+    from paddle_tpu_torch import sharding
+
+    main, startup, _, logits, _, _ = lm_program(fluid, train=False)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    fluid.io.set_params_from_numpy(scope, {p.name: params[p.name] for p in main.all_parameters()},
+                                   "cuda:0")
+    fluid.io.save_inference_model(os.path.join(workdir, "lm_tp2"), ["src_ids"], [logits], exe,
+                                  main, scope=scope,
+                                  sharding_rules=sharding.canonical_rules("transformer_lm", "tp"),
+                                  sharding_mesh={"tp": MESH_RANKS})
+    fluid.io.save_inference_model(os.path.join(workdir, "lm_rep"), ["src_ids"], [logits], exe,
+                                  main, scope=scope)
+    ids = np.random.RandomState(SEED + 38).randint(
+        0, LM["vocab_size"], (MESH_SERVE_ROWS, LM["seq_len"])).astype("int64")
+    np.save(os.path.join(workdir, "serve_ids.npy"), ids)
+    pred = fluid.inference.create_paddle_predictor(
+        fluid.inference.AnalysisConfig(os.path.join(workdir, "lm_rep")))
+    ref, = pred.run({"src_ids": ids})
+    exe.close()
+    return ref
+
+
+def _mesh_restore_step(torch, fluid, workdir, feeds):
+    """(c): this one process restores the ranks' fsdp checkpoint through a
+    {"fsdp": 1} compiled program and runs the step after it."""
+    from paddle_tpu_torch import sharding
+    from paddle_tpu_torch.faults.checkpoint import TrainCheckpoint
+
+    main, startup, loss, opt = _mesh_lm_program(fluid)
+    compiled = sharding.sharded_train_program(
+        main, sharding.canonical_rules("transformer_lm", "fsdp"), optimizer=opt,
+        mesh_axes={"fsdp": 1})
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    ck = TrainCheckpoint(os.path.join(workdir, "ckpt"))
+    t0 = time.perf_counter()
+    with _deterministic(torch):
+        cursor = ck.restore(main, scope, compiled=compiled)
+        restore_s = time.perf_counter() - t0
+        i = cursor["step"]
+        loss_v = float(exe.run(compiled, feed={"src_ids": feeds["src_ids"][i],
+                                               "labels": feeds["labels"][i]},
+                               fetch_list=[loss], scope=scope)[0])
+    exe.close()
+    return {"step": cursor["step"], "loss": loss_v, "restore_s": restore_s,
+            "stats": ck.last_restore_stats}
+
+
+def run_mesh_training(torch, workdir, smi):
+    """Phase 38 (see the module docstring).  Returns its statistics, with
+    each rank's kernel launches by leg."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.distributed import launch
+
+    import paddle_tpu_torch as fluid
+
+    t_phase = time.perf_counter()
+    _free_device_memory(torch)
+    rng = np.random.RandomState(SEED + 38)
+    batches = [lm_feed(rng, MESH_BATCH) for _ in range(MESH_STEPS)]
+    feeds = {k: np.stack([b[k] for b in batches]) for k in ("src_ids", "labels")}
+    np.savez(os.path.join(workdir, "batches.npz"), **feeds)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref, params = _mesh_reference(torch, fluid, workdir, feeds)
+    serve_ref = _mesh_export(torch, fluid, workdir, params)
+    del params
+    _free_device_memory(torch)
+    logs = os.path.join(workdir, "mesh_logs")
+    ranks = launch.start_procs(launch._parse_args([
+        "--nproc_per_node=%d" % MESH_RANKS, "--started_port=%d" % _free_ports(MESH_RANKS),
+        "--log_dir=%s" % logs, os.path.join(REPO, "chip_smoke.py"), "--mesh-child", workdir]))
+    _wait_procs(ranks, MESH_CHILD_S, "the phase-38 ranks")
+    bad = [r for r, p in enumerate(ranks) if p.returncode != 0]
+    if bad:
+        raise AssertionError("phase 38: rank(s) %s failed: %s" % (bad, {
+            r: _log_tail(os.path.join(logs, "workerlog.%d" % r)) for r in bad}))
+    res = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(workdir, "mesh%d.json" % r)) as f:
+            res.append(json.load(f))
+    restored = _mesh_restore_step(torch, fluid, workdir, feeds)
+
+    n_layer = LM["n_layer"]
+    per_step = {"fused_attention_fwd": 2 * n_layer, "fused_attention_bwd_dkv": n_layer,
+                "fused_attention_bwd_dq": n_layer}
+    names = list(per_step)
+    checks = {}
+    for leg in ("a", "b"):
+        legs = [r[leg] for r in res]
+        checks[leg + "_losses"] = all(np.allclose(x["losses"], ref["losses"], rtol=MESH_RTOL, atol=0)
+                                      for x in legs)
+        checks[leg + "_bytes"] = all(x["bytes"] <= MESH_BYTES_SHARE * ref["bytes"] for x in legs)
+        checks[leg + "_launches"] = all(x["launches"].get(k, 0) == MESH_STEPS * per_step[k]
+                                        for x in legs for k in names)
+        checks[leg + "_eager"] = all("c_allgather" in x["eager_ops"] for x in legs)
+    checks["a_emb_shard"] = all(r["a"]["emb_shard"] == [LM["vocab_size"] // MESH_RANKS,
+                                                        LM["d_model"]] for r in res)
+    step3 = res[0]["a"]["losses"][MESH_CKPT_STEP]
+    checks["c_restore"] = (restored["step"] == MESH_CKPT_STEP
+                           and abs(restored["loss"] - step3) <= MESH_RTOL * abs(step3))
+    logit_err = []
+    for r in range(MESH_RANKS):
+        got = np.load(os.path.join(workdir, "logits%d.npy" % r))
+        logit_err.append(float(np.abs(got - serve_ref).max()))
+        checks["d_logits_rank%d" % r] = bool(np.allclose(got, serve_ref, rtol=MESH_SERVE_TOL,
+                                                         atol=MESH_SERVE_TOL))
+    checks["d_sharded"] = all(r["d"]["sharded"] and r["d"]["emb_shard"] == [
+        LM["vocab_size"] // MESH_RANKS, LM["d_model"]] for r in res)
+    checks["d_launches"] = all(r["d"]["launches"].get("fused_attention_fwd", 0) == n_layer
+                               for r in res)
+    # the LM trains and serves with dropout off: the attention kernels are
+    # the only hand kernels the ranks launch
+    checks["no_other_kernel"] = all(v == 0 for r in res for leg in ("a", "b", "d")
+                                    for k, v in r[leg]["launches"].items() if k not in names)
+    stats = {
+        "reference": ref,
+        "a": {"losses": [r["a"]["losses"] for r in res], "step_s": [r["a"]["step_s"] for r in res],
+              "collectives_s": [r["a"]["collectives_s"] for r in res],
+              "bytes": [r["a"]["bytes"] for r in res], "save_s": [r["a"]["save_s"] for r in res],
+              "max_memory_allocated_bytes": [r["a"]["max_memory_allocated_bytes"] for r in res],
+              "eager_ops": res[0]["a"]["eager_ops"]},
+        "b": {"losses": [r["b"]["losses"] for r in res], "step_s": [r["b"]["step_s"] for r in res],
+              "collectives_s": [r["b"]["collectives_s"] for r in res],
+              "bytes": [r["b"]["bytes"] for r in res],
+              "max_memory_allocated_bytes": [r["b"]["max_memory_allocated_bytes"] for r in res]},
+        "c": restored,
+        "d": {"run_s": [r["d"]["run_s"] for r in res], "logits_max_abs_err": logit_err,
+              "stats": [r["d"]["stats"] for r in res]},
+        "phase_s": time.perf_counter() - t_phase,
+        # each rank's attention launches by leg (counts set to 0 before each
+        # leg and read after it, in that rank)
+        "launches": {"mesh_%s_rank%d" % (leg, r["rank"]): dict(
+            {k: 0 for k in names}, **r[leg]["launches"]) for r in res for leg in ("a", "b", "d")},
+    }
+    log("[mesh-numbers] %s | %s" % (smi, json.dumps({
+        "reference_step_s": ref["step_s"], "reference_bytes": ref["bytes"],
+        "a_step_s": stats["a"]["step_s"], "a_collectives_s": stats["a"]["collectives_s"],
+        "a_bytes": stats["a"]["bytes"], "a_save_s": stats["a"]["save_s"],
+        "b_step_s": stats["b"]["step_s"], "b_collectives_s": stats["b"]["collectives_s"],
+        "b_bytes": stats["b"]["bytes"], "c_restore_s": restored["restore_s"],
+        "d_run_s": stats["d"]["run_s"], "d_logits_max_abs_err": logit_err,
+        "phase_s": stats["phase_s"]})))
+    log("[mesh]", json.dumps(stats, default=str)[:30000])
+    checks = {k: bool(v) for k, v in checks.items()}
+    log("[mesh] checks", json.dumps(checks))
+    if not all(checks.values()):
+        raise AssertionError("phase 38 failed its checks: %s" % json.dumps(checks))
+    return stats
+
+
+def run_mesh_alone(torch, passes):
+    """``chip_smoke.py --mesh [N]``, a shortcut while working on the mesh
+    layer: the build and phase 38 ``N`` times, and the card's name and
+    power limit; no other phase."""
+    info = device_info(torch)
+    t0 = time.perf_counter()
+    build_kernels()
+    for k in range(passes):
+        log("[mesh] pass %d of %d" % (k + 1, passes))
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            run_mesh_training(torch, workdir, info["nvidia_smi"])
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+    log("[done] %.1f s" % (time.perf_counter() - t0))
+    print(info["nvidia_smi"])
+    return 0
+
+
 def run_dist_alone(torch, passes):
     """``chip_smoke.py --dist [N]``, a shortcut while working on the
     distributed layer: the build and phase 37 ``N`` times, and the card's
@@ -8724,6 +9098,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--dist-child"]:  # phase 37's pserver and trainer processes
         role, workdir = sys.argv[2], sys.argv[3]
         return dist_pserver_child(workdir) if role == "pserver" else dist_trainer_child(workdir)
+    if sys.argv[1:2] == ["--mesh-child"]:  # phase 38's ranks
+        return mesh_child(sys.argv[2])
     sys.path.insert(0, REPO)
     import paddle_tpu_torch  # noqa: F401 — fails outside a checkout of the repo
     if sys.argv[1:2] == ["--b3"]:  # kernel B3's build, check and sweep alone
@@ -8732,6 +9108,8 @@ def main() -> int:
         return run_wire_alone(torch, int(sys.argv[2]) if len(sys.argv) > 2 else 1)
     if sys.argv[1:2] == ["--dist"]:  # phase 37 alone, N times
         return run_dist_alone(torch, int(sys.argv[2]) if len(sys.argv) > 2 else 1)
+    if sys.argv[1:2] == ["--mesh"]:  # phase 38 alone, N times
+        return run_mesh_alone(torch, int(sys.argv[2]) if len(sys.argv) > 2 else 1)
     from paddle_tpu_torch.kernels import decode_attention as kda
     from paddle_tpu_torch.kernels import fused_attention as fa
 
@@ -8842,6 +9220,11 @@ def main() -> int:
         dist37 = run_dist_training(torch, workdir, info["nvidia_smi"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        mesh38 = run_mesh_training(torch, workdir, info["nvidia_smi"])
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     # the A7 paths (NMT training, decoding, the book's RNN models) run no hand kernel
     a7_launches = {"nmt_train": nmt["hand_kernel_launches"],
                    "nmt_decode": nmt_decode["hand_kernel_launches"],
@@ -8888,8 +9271,9 @@ def main() -> int:
     # alone (checked)
     fwd_launches["wire_bert_fleet"] = wire36["bert_fleet"]["launches"]
     fwd_launches["wire_lm_int8"] = 0
-    # phase 37: each trainer process's count by leg, read in that process
-    dist_launches = dist37["launches"]
+    # phase 37: each trainer process's count by leg, read in that process;
+    # phase 38: each rank's, likewise
+    dist_launches = dict(dist37["launches"], **mesh38["launches"])
     fwd_launches.update({p: c[fa.KERNEL_NAME] for p, c in dist_launches.items()})
     replaced = ("jax/experimental/pallas/ops/tpu/flash_attention.py:%d (%s), reached from "
                 "paddle_tpu/ops/nn_ops.py:694 through the vjp grad paddle_tpu/core/registry.py:131")
@@ -8989,6 +9373,7 @@ def main() -> int:
         "timed": dropout_checks["timed"],
         "vgg16_sites": [r for r in dropout_checks["timed"] if r["p"] == 0.5],
         "cases": dropout_checks["checks"],
+        "slice_offsets": dropout_checks["offsets"],
     })
     b3 = decode_checks[0]  # the step's entry at the top rung
     entries.append({

@@ -51,6 +51,11 @@ parameters on parameter-server processes, or "nccl2" mode),
 ``parallel.GradAllReduce`` / ``LocalSGD`` with the collective ops over
 ``torch.distributed`` (``parallel.env``), ``distributed.launch``,
 ``AsyncExecutor``, and ``InferenceTranspiler``'s conv + batch_norm fold.
+Across a mesh of ranks (one rank a mesh device, ``parallel.make_mesh``):
+``CompiledProgram`` (``with_data_parallel``, ``with_strategy``,
+``with_sharding_rules``) and the partition rules (``sharding``) for data-,
+FSDP- and tensor-parallel training and sharded serving, shard-wise
+checkpoints and ``batch_norm``'s ``sync_bn``.
 
 Seq2seq: Programs with sub-blocks and the control-flow layers
 (``While``, ``cond``, ``StaticRNN``, ``DynamicRNN``, ``IfElse``,
@@ -115,6 +120,13 @@ from paddle_tpu_torch import contrib
 from paddle_tpu_torch import dataset, decoding, distributed, incubate, metrics, native, recordio_writer
 from paddle_tpu_torch import fluid_dataset, trainer_desc
 from paddle_tpu_torch import parallel
+from paddle_tpu_torch import sharding
+from paddle_tpu_torch.parallel.compiled_program import CompiledProgram, ParallelExecutor
+from paddle_tpu_torch.parallel.strategy import (
+    BuildStrategy,
+    DistributedStrategy,
+    ExecutionStrategy,
+)
 from paddle_tpu_torch import transpiler
 from paddle_tpu_torch.transpiler import (
     DistributeTranspiler,

@@ -27,8 +27,10 @@ accuracy bound.
 
 The int8 variant rides ``contrib/quantize`` in the JAX package, which
 the port does not have yet: an int8 policy raises naming ROADMAP A11.
-The host-side cast that the sharded composition needs
-(``variant_scope(host_cast=True)``) raises naming ROADMAP A10.
+The sharded composition (``variant_scope(host_cast=True)``) shares the
+host-staged fp32 parameters and leaves the cast to the placement: the
+compiled program casts each rank's shard once as it moves it to the card
+(``CompiledProgram.with_cast_dtypes``).
 """
 from __future__ import annotations
 
@@ -202,15 +204,18 @@ def variant_scope(program, base_scope, cast_params: Set[str], host_cast: bool = 
     hoisted parameters cast to bf16 once, there; every other value shared
     with the base scope (an inference program writes no persistable).
 
-    ``host_cast=True`` keeps the casts on the host for the sharded
-    composition, which comes with ROADMAP A10."""
+    ``host_cast=True`` (the sharded composition): every value is shared
+    as it is, the hoisted parameters too; the variant's compiled program
+    casts each rank's shard as it places it (``with_cast_dtypes``), so no
+    full-width copy is cast on the card."""
     from paddle_tpu_torch.scope import Scope
 
-    if host_cast:
-        raise NotImplementedError(
-            "variant_scope(host_cast=True) serves a sharded bf16 endpoint; sharding "
-            "comes with ROADMAP A10")
     sc = Scope(device=base_scope.device)
+    if host_cast:
+        for v in program.list_vars():
+            if v.persistable and not v.is_data and base_scope.get(v.name) is not None:
+                sc.vars[v.name] = base_scope.get(v.name)
+        return sc
     for v in program.list_vars():
         if not v.persistable or v.is_data:
             continue

@@ -11,8 +11,10 @@
 //
 // What it computes, for X of n elements (fp32 or bf16, in row-major order):
 //   (w0, w1, w2, w3) = Philox4x32-10(key = (seed, 0), counter = (g lo, g hi, 0, 0))
-//                      for g = i / 4 (Salmon et al., SC'11, "Random123")
-//   keep_i = (w_{i mod 4} >> 8) < threshold     (threshold = round((1 - p) 2^24),
+//                      for g = (offset + i) / 4 (Salmon et al., SC'11, "Random123";
+//                      offset, any index >= 0, is that of X's first element in the
+//                      global tensor a rank's slice of the batch is part of)
+//   keep_i = (w_{(offset + i) mod 4} >> 8) < threshold     (threshold = round((1 - p) 2^24),
 //                                                reckoned once on the host)
 //   Out_i  = keep_i ? (upscale ? X_i / divisor : X_i) : 0   (divisor = 1 - p in
 //                                                X's type; an IEEE division in
@@ -33,7 +35,11 @@
 // Design: a grid-stride loop over groups of 16 bytes of X (4 fp32 or 8 bf16
 // elements, one or two Philox calls), each loaded and stored as one 16-byte
 // access when X, Out and Mask are 16-byte aligned; the ragged last group and
-// unaligned tensors go element by element.
+// unaligned tensors go element by element.  An offset that is not a multiple
+// of 4 shifts every group across a Philox boundary by the same s = offset mod
+// 4: the kernel is instantiated for each s, so element j of a group takes word
+// (s + j) mod 4 of call (s + j) / 4, both known at compile time, and a group
+// makes one Philox call more than it would at s = 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,6 +79,7 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
 
 struct Params {
   long long n;
+  unsigned long long ctr0;  // offset / 4 (the shift, offset mod 4, is the kernel's kShift)
   uint32_t seed, threshold;
   float divisor;
   int upscale, vec;
@@ -90,19 +97,22 @@ __device__ __forceinline__ uint32_t word_of(const uint4& w, int j) {
   return j == 0 ? w.x : j == 1 ? w.y : j == 2 ? w.z : w.w;
 }
 
-// One thread a group of kVec elements (16 bytes of X) at a time.
-template <typename T>
+// One thread a group of kVec elements (16 bytes of X) at a time; element j of
+// a group is global element offset + base + j, word (kShift + j) mod 4 of the
+// group's call (kShift + j) / 4.
+template <typename T, int kShift>
 __global__ void __launch_bounds__(kThreads) dropout_kernel(const T* __restrict__ x, T* __restrict__ out,
                                                          T* __restrict__ mask, Params p) {
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int kCalls = kVec / 4;  // Philox calls a group
+  constexpr int kCalls = (kShift + kVec + 3) / 4;  // Philox calls a group
   const long long groups = (p.n + kVec - 1) / kVec;
   for (long long g = blockIdx.x * (long long)blockDim.x + threadIdx.x; g < groups;
        g += (long long)gridDim.x * blockDim.x) {
     uint4 w[kCalls];
 #pragma unroll
     for (int c = 0; c < kCalls; ++c) {
-      const unsigned long long ctr = (unsigned long long)g * kCalls + c;  // = i / 4
+      // = (offset + g kVec) / 4 + c: kVec is a multiple of 4
+      const unsigned long long ctr = p.ctr0 + (unsigned long long)g * (kVec / 4) + c;
       w[c] = philox4x32_10(make_uint4(uint32_t(ctr), uint32_t(ctr >> 32), 0u, 0u), p.seed, 0u);
     }
     const long long base = g * kVec;
@@ -113,13 +123,16 @@ __global__ void __launch_bounds__(kThreads) dropout_kernel(const T* __restrict__
       T* oe = reinterpret_cast<T*>(&oraw);
       T* me = reinterpret_cast<T*>(&mraw);
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) apply(xe[j], word_of(w[j / 4], j % 4), p, oe + j, me + j);
+      for (int j = 0; j < kVec; ++j)
+        apply(xe[j], word_of(w[(kShift + j) / 4], (kShift + j) % 4), p, oe + j, me + j);
       *reinterpret_cast<uint4*>(out + base) = oraw;
       *reinterpret_cast<uint4*>(mask + base) = mraw;
     } else {
 #pragma unroll
       for (int j = 0; j < kVec; ++j) {
-        if (base + j < p.n) apply(x[base + j], word_of(w[j / 4], j % 4), p, out + base + j, mask + base + j);
+        if (base + j < p.n)
+          apply(x[base + j], word_of(w[(kShift + j) / 4], (kShift + j) % 4), p, out + base + j,
+                mask + base + j);
       }
     }
   }
@@ -128,32 +141,45 @@ __global__ void __launch_bounds__(kThreads) dropout_kernel(const T* __restrict__
 bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
 
 template <typename T>
-cudaError_t launch(const void* x, void* out, void* mask, const Params& p, cudaStream_t stream) {
+cudaError_t launch(const void* x, void* out, void* mask, const Params& p, int shift, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const long long groups = (p.n + kVec - 1) / kVec;
   long long blocks = (groups + kThreads - 1) / kThreads;
   if (blocks > 132 * 16) blocks = 132 * 16;  // 16 blocks an SM; the loop strides over the rest
-  dropout_kernel<T><<<int(blocks), kThreads, 0, stream>>>(static_cast<const T*>(x), static_cast<T*>(out),
-                                                         static_cast<T*>(mask), p);
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  T* mt = static_cast<T*>(mask);
+  switch (shift) {
+    case 0: dropout_kernel<T, 0><<<int(blocks), kThreads, 0, stream>>>(xt, ot, mt, p); break;
+    case 1: dropout_kernel<T, 1><<<int(blocks), kThreads, 0, stream>>>(xt, ot, mt, p); break;
+    case 2: dropout_kernel<T, 2><<<int(blocks), kThreads, 0, stream>>>(xt, ot, mt, p); break;
+    default: dropout_kernel<T, 3><<<int(blocks), kThreads, 0, stream>>>(xt, ot, mt, p); break;
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x, out, mask: n contiguous elements of type dtype (0 fp32, 1 bf16).
+// x, out, mask: n contiguous elements of type dtype (0 fp32, 1 bf16); offset: the
+// global index of x's first element.
 // Returns a cudaError_t (0 on a successful launch).
-extern "C" int paddle_dropout(const void* x, void* out, void* mask, long long n, int dtype, unsigned int seed,
-                              unsigned int threshold, int upscale, float divisor, void* stream) {
-  if (n < 1 || (dtype != 0 && dtype != 1) || threshold > (1u << 24)) return int(cudaErrorInvalidValue);
+extern "C" int paddle_dropout(const void* x, void* out, void* mask, long long n, long long offset,
+                              int dtype, unsigned int seed, unsigned int threshold, int upscale,
+                              float divisor, void* stream) {
+  if (n < 1 || offset < 0 || (dtype != 0 && dtype != 1) || threshold > (1u << 24))
+    return int(cudaErrorInvalidValue);
   Params p;
   p.n = n;
+  p.ctr0 = (unsigned long long)offset / 4;
   p.seed = seed;
   p.threshold = threshold;
   p.divisor = divisor;
   p.upscale = upscale ? 1 : 0;
   p.vec = aligned16(x) && aligned16(out) && aligned16(mask) ? 1 : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return int(dtype == 0 ? launch<float>(x, out, mask, p, s) : launch<__nv_bfloat16>(x, out, mask, p, s));
+  const int shift = int(offset & 3);
+  return int(dtype == 0 ? launch<float>(x, out, mask, p, shift, s)
+                        : launch<__nv_bfloat16>(x, out, mask, p, shift, s));
 }
 
 extern "C" const char* paddle_cuda_error_string(int err) {

@@ -204,8 +204,8 @@ def pow2_id_bucket(n_unique: int) -> int:
 # program attributes of JAX package features that the port does not run
 # yet: a program that carries one raises instead of training without it
 _UNPORTED_PROGRAM_STATE = {
-    "_mesh_tables": "mesh-resident tables (bind_mesh_tables; ROADMAP A10)",
-    "_pipeline_plan": "the pipelined program (PipelineOptimizer cut_list; ROADMAP A10)",
+    "_mesh_tables": "mesh-resident tables (bind_mesh_tables; ROADMAP A10 part 4)",
+    "_pipeline_plan": "the pipelined program (PipelineOptimizer cut_list; ROADMAP A10 part 3)",
 }
 
 # transient PS pull failures the overlap thread retries: the connection
@@ -391,9 +391,15 @@ class Executor:
 
     def __init__(self, place: Optional[framework.Place] = None,
                  plan_cache_capacity: Optional[int] = None,
-                 jit_cache_capacity: Optional[int] = None):
-        self.place = place if place is not None else framework.CUDAPlace(0)
+                 jit_cache_capacity: Optional[int] = None,
+                 reshard_on_gather: Optional[bool] = None):
+        self.place = place if place is not None else framework.default_cuda_place()
         self.device: torch.device = framework.device_of(place)
+        # an uncompiled run over a compiled run's shards gathers them back
+        # once (every rank runs it) instead of raising MeshCommittedStateError
+        self._reshard_on_gather = (
+            bool(reshard_on_gather) if reshard_on_gather is not None
+            else os.environ.get("PADDLE_TPU_RESHARD_ON_GATHER", "") == "1")
         if self.device.type == "cuda":
             # FLAGS_fraction_of_gpu_memory_to_use caps the card's share
             # before this executor allocates on it
@@ -516,6 +522,12 @@ class Executor:
         rec = _mon_spans.recording()
         stats = self._cache_stats
         program = program if program is not None else framework.default_main_program()
+        compiled = None
+        if getattr(program, "_is_compiled_program", False):
+            # the compiled program's own program runs the same path as an
+            # uncompiled one; a mesh of more than one rank takes its
+            # sharded step (_run_compiled), a one-rank mesh the plain one
+            compiled, program = program, program._program
         scope = scope if scope is not None else global_scope()
         if getattr(program, "_pserver_ctx", None):
             # a parameter server serves from the host: before the scope
@@ -523,6 +535,9 @@ class Executor:
             return self._run_pserver(program)
         scope.bind_device(self.device)
         feed = dict(feed or {})
+        if compiled is not None and compiled.mesh.size > 1:
+            return self._run_compiled(compiled, feed, fetch_list, scope, return_numpy, steps,
+                                      per_step_feed)
         for attr, what in _UNPORTED_PROGRAM_STATE.items():
             if getattr(program, attr, None):
                 raise NotImplementedError("%s is not ported to paddle_tpu_torch yet" % what)
@@ -592,6 +607,8 @@ class Executor:
                 raise ValueError(
                     "per_step_feed=True: every feed needs a leading steps=%d axis; got %s"
                     % (steps, bad))
+        if compiled is not None:
+            compiled._prepare_one_rank(self, scope, plan.state_in + plan.state_out)
         # hot-path: begin dispatch (plan hit -> feed coercion -> entry hit -> replay)
         if rec or led is not None:
             t0 = time.perf_counter()
@@ -602,6 +619,8 @@ class Executor:
             _mon_spans.record_span("executor/h2d_feed", t0, time.perf_counter() - t0,
                                    cat="transfer", n_feeds=len(feeds))
 
+        if scope.__dict__.get("_mesh_committed"):
+            self._check_mesh_committed(scope, plan)
         state, missing = {}, []
         for n in plan.state_in:
             v = scope.vars.get(n)
@@ -726,6 +745,57 @@ class Executor:
             fetches = [f.clone() if f.untyped_storage().data_ptr() in state_ptrs else f
                        for f in fetches]
         return fetches
+
+    def _run_compiled(self, compiled, feed, fetch_list, scope, return_numpy, steps,
+                      per_step_feed):
+        """``steps`` runs of a compiled program's sharded step on this rank
+        (``parallel/compiled_program.py``); the last one's fetches.  The
+        sharded step has no parameter-server round, distributed tables or
+        pipeline: a program that carries one raises, naming its part."""
+        program = compiled._program
+        for attr, what in _UNPORTED_PROGRAM_STATE.items():
+            if getattr(program, attr, None):
+                raise NotImplementedError("%s is not ported to paddle_tpu_torch yet" % what)
+        for attr, what in (("_dense_ps_ctx", "a dense parameter-server trainer program"),
+                           ("_distributed_tables", "distributed lookup tables")):
+            if getattr(program, attr, None):
+                raise NotImplementedError(
+                    "%s under a CompiledProgram of %d ranks is not ported to "
+                    "paddle_tpu_torch yet (ROADMAP A10 part 4); run it uncompiled, one "
+                    "trainer a process" % (what, compiled.mesh.size))
+        if steps < 1:
+            raise ValueError("steps=%d: a run takes steps >= 1" % steps)
+        fetch_names = tuple(_as_fetch_name(f) for f in (fetch_list or []))
+        out = []
+        for i in range(steps):
+            step_feed = {n: v[i] for n, v in feed.items()} if per_step_feed else feed
+            out = compiled._execute(self, step_feed, fetch_names, scope, return_numpy)
+        return out
+
+    def _check_mesh_committed(self, scope, plan) -> None:
+        """An uncompiled run over state that a compiled run left as this
+        rank's shards: gather it back once (``reshard_on_gather``) or raise
+        the typed ``MeshCommittedStateError``."""
+        committed = scope.__dict__["_mesh_committed"]
+        hit = sorted(n for n in set(plan.state_in) | set(plan.state_out)
+                     if n in committed and committed[n][1] is scope.vars.get(n))
+        if not hit:
+            return
+        if self._reshard_on_gather:
+            for n in hit:
+                compiled, local = committed.pop(n)
+                scope.vars[n] = compiled.gather_state(n, local)
+            return
+        from paddle_tpu_torch.sharding.rules import MeshCommittedStateError
+
+        descs = ["%r on %s" % (n, dict(committed[n][0].mesh.shape)) for n in hit[:4]]
+        more = len(hit) - len(descs)
+        raise MeshCommittedStateError(
+            "running this program UNCOMPILED, but its scope state holds this rank's "
+            "shards, placed by a previous compiled run: %s%s. Run it through the same "
+            "CompiledProgram, or opt into a one-time gather with "
+            "Executor(reshard_on_gather=True) / PADDLE_TPU_RESHARD_ON_GATHER=1."
+            % ("; ".join(descs), " (+%d more)" % more if more > 0 else ""))
 
     # ------------------------------------------------------------------
     def _capture(self, entry: _Entry, plan: _RunPlan, scope: Scope, feeds,
@@ -1368,11 +1438,12 @@ class Executor:
         record per step (``monitor.train.replay_step_log`` reads it).
         ``start_train_admin()`` serves it all at ``/trainz``.
 
-        A compiled (multi-device) program is ROADMAP A10 and raises."""
+        A compiled (multi-device) program is ROADMAP A10 part 4 and
+        raises; ``Executor.run`` runs its steps."""
         if program is not None and getattr(program, "_is_compiled_program", False):
             raise NotImplementedError(
-                "train_from_dataset over a compiled (multi-device) program is ROADMAP A10, "
-                "not ported to paddle_tpu_torch yet")
+                "train_from_dataset over a compiled (multi-device) program is ROADMAP A10 "
+                "part 4, not ported to paddle_tpu_torch yet; run its steps with Executor.run")
         program = program if program is not None else framework.default_main_program()
         n_prefetch = int(thread)
         if trainer_desc is not None:

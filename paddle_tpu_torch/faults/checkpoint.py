@@ -42,8 +42,31 @@ existing tensor in place where there is one (its dtype kept, so a bf16
 persistable saved as float32, or as the JAX package's raw 2-byte
 bfloat16, comes back as bf16), else set as a new tensor in the program
 var's dtype.  A captured step's buffers are the scope's tensors, so the
-next replay reads the restored values.  The sharded and mesh-table
-checkpoints (``compiled=``) are ROADMAP A10 and raise.
+next replay reads the restored values.
+
+**Shard-wise mode** (``save(..., compiled=<CompiledProgram>)``): each rank
+of a mesh holds its shard of every sharded persistable, and no rank ever
+holds the full tensor.  Every rank calls ``save``: it writes the shards
+it is the first rank to hold (one ``.npy`` per distinct shard, replicas
+written once), then rank 0 writes the shard manifest (global shape,
+dtype, PartitionSpec, each file's index box), the replicated state under
+``params/``, the cursor and the integrity manifest, and commits; the ranks
+meet at barriers of the world group around the writes.  The layout is
+the JAX package's, file for file, so either package restores the other's
+shard-wise checkpoint.  ``save_async`` writes the shard files on the
+caller's thread and leaves rank 0's commit to the snapshot thread.
+
+**Topology-elastic restore** (``restore(..., compiled=)``): each rank
+reads its own region of each sharded var out of the saved shard files:
+the file whole where its box is a saved shard's (the same mesh), else
+assembled from the overlapping shards by slice-wise reads of
+memory-mapped ``.npy`` files (another mesh shape, a world of another
+size, one process: ``last_restore_stats`` records the largest region
+buffer).  :class:`CheckpointMeshMismatchError` is kept for the genuinely
+incompatible: a layout that does not resolve on the new mesh, a global
+shape that drifted, saved shards that do not tile a region.  The
+mesh-resident tables' entries (``kind: mesh_table*``) are ROADMAP A10
+part 4 and raise.
 
 **Integrity-verified recovery**: every committed checkpoint carries an
 ``integrity.json`` manifest — a content hash (sha256) and byte size
@@ -68,7 +91,10 @@ Layout::
         integrity.json    # {"algo": "sha256", "files": {relpath:
                           #   {"sha256": ..., "bytes": ...}}} — every
                           #   other file in the checkpoint
-        params/           # io.save_vars output (__manifest__.json + .npy)
+        params/           # io.save_vars output (__manifest__.json + .npy;
+                          #   the replicated state only in shard-wise mode)
+        shards/           # optional: manifest.json + v<i>_s<j>.npy —
+                          #   per-shard dumps of a mesh's sharded state
         ps/               # optional: manifest.json + t<i>_{ids,rows}.npy
                           #   (+ t<i>_moments.npy: adagrad accumulators)
 """
@@ -96,8 +122,8 @@ __all__ = ["TrainCheckpoint", "CheckpointMeshMismatchError",
            "CheckpointCorruptionError", "verify_checkpoint_dir",
            "hash_file"]
 
-_SHARDED = ("shard-wise checkpoints of a compiled (multi-device) program are "
-            "ROADMAP A10, not ported to paddle_tpu_torch yet")
+_MESH_TABLES = ("mesh-resident table state (bind_mesh_tables) comes with ROADMAP A10 "
+                "part 4, not ported to paddle_tpu_torch yet")
 
 class CheckpointMeshMismatchError(RuntimeError):
     """A shard-wise checkpoint is GENUINELY incompatible with the
@@ -182,6 +208,13 @@ def verify_checkpoint_dir(path: str) -> None:
                 % (path, rel, digest, want_digest))
 
 
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def _load_shard(fpath: str, mmap_mode=None) -> np.ndarray:
     """``np.load`` with unreadable/truncated content re-typed as
     :class:`CheckpointCorruptionError` — a damaged PRE-integrity
@@ -240,15 +273,23 @@ class TrainCheckpoint:
              compiled=None) -> str:
         """Commit one checkpoint; returns the finished directory path.
         ``step`` is the number of COMPLETED steps (the resume cursor).
-        ``compiled`` (a sharded run's CompiledProgram) is ROADMAP A10 and
-        raises.  The caller is responsible for quiescing async state
-        first (the executor flushes the Communicator before calling)."""
-        if compiled is not None:
-            raise NotImplementedError(_SHARDED)
+        ``compiled``: the CompiledProgram a sharded run executes through;
+        its sharded state then saves shard-wise (every rank calls ``save``
+        and writes its own shards, never a gathered full tensor).  The
+        caller is responsible for quiescing async state first (the
+        executor flushes the Communicator before calling)."""
         self.wait()  # never interleave with an in-flight async save
         ps_state = (self._gather_ps(ps_client)
                     if ps_client is not None else None)
-        return self._commit(program, scope, step, epoch, ps_state, extra)
+        shard_state = self._gather_shards(program, scope, compiled, copy=False)
+        if shard_state is None:
+            return self._commit(program, scope, step, epoch, ps_state, extra)
+        tmp = self._stage_shards(step, shard_state)
+        final = os.path.join(self.run_dir, self._name(step))
+        if shard_state["rank"] == 0:
+            self._commit(program, scope, step, epoch, ps_state, extra, shard_state, tmp)
+        _barrier()  # every rank returns once the checkpoint is committed
+        return final
 
     def save_async(self, program, scope, step: int, epoch: int = 0,
                    ps_client=None, extra: Optional[Dict] = None,
@@ -265,11 +306,16 @@ class TrainCheckpoint:
         scope's tensors in place the instant this returns.  A previous
         in-flight save is joined first (its error, if any, re-raises
         HERE — a silent checkpoint gap must not go unnoticed); call
-        :meth:`wait` at end of epoch to commit the tail save."""
-        if compiled is not None:
-            raise NotImplementedError(_SHARDED)
+        :meth:`wait` at end of epoch to commit the tail save.  Shard-wise
+        (``compiled``), every rank writes its shard files here, and rank
+        0's snapshot thread commits."""
         self.wait()
-        snap = self._snapshot_scope(program, scope)
+        shard_state = self._gather_shards(program, scope, compiled, copy=True)
+        tmp = self._stage_shards(step, shard_state) if shard_state is not None else None
+        if shard_state is not None and shard_state["rank"] != 0:
+            return  # rank 0 commits
+        snap = self._snapshot_scope(program, scope,
+                                    exclude=set(shard_state["vars"]) if shard_state else ())
         ps_state = (self._gather_ps(ps_client)
                     if ps_client is not None else None)
         self._bg_result = self._bg_error = None
@@ -277,7 +323,7 @@ class TrainCheckpoint:
         def _write():
             try:
                 self._bg_result = self._commit(
-                    program, snap, step, epoch, ps_state, extra)
+                    program, snap, step, epoch, ps_state, extra, shard_state, tmp)
             except BaseException as e:  # noqa: BLE001 — re-raised at wait()
                 self._bg_error = e
 
@@ -306,7 +352,93 @@ class TrainCheckpoint:
         return self._bg is not None and self._bg.is_alive()
 
     @staticmethod
-    def _snapshot_scope(program, scope):
+    def _gather_shards(program, scope, compiled, copy: bool):
+        """This rank's shards of the compiled program's sharded state, as
+        host arrays: ``{"rank", "mesh_axes", "vars": {name: {"shape",
+        "dtype", "spec", "boxes": [every distinct box, sorted], "own":
+        [(box index, array)] for the boxes this rank writes}}}``.  None
+        when ``compiled`` is None or nothing is sharded."""
+        if compiled is None:
+            committed = scope.__dict__.get("_mesh_committed") or {}
+            if any(scope.vars.get(n) is c[1] for n, c in committed.items()):
+                raise ValueError(
+                    "scope holds this rank's shards of a compiled run; pass the run's "
+                    "CompiledProgram (compiled=) to save them shard-wise")
+            return None
+        from paddle_tpu_torch import io as _io
+        from paddle_tpu_torch.core import types as core_types
+        from paddle_tpu_torch.scope import to_numpy
+        from paddle_tpu_torch.sharding.rules import spec_to_manifest
+        from paddle_tpu_torch.sharding.train import shard_boxes
+
+        mesh = compiled.mesh
+        entries: Dict[str, Dict] = {}
+        for v in _io._collect(program, _io._is_persistable, None):
+            val = scope.get(v.name)
+            if val is None:
+                continue
+            sh = compiled.state_sharding(v.name)
+            if sh.is_fully_replicated:
+                continue  # the params/ path: one portable copy
+            shape = compiled._var_shape(v.name)
+            if shape is None or tuple(val.shape) != sh.shard_shape(shape):
+                raise ValueError(
+                    "var %r holds shape %s, not this rank's shard of %s: run the compiled "
+                    "program once before saving it shard-wise" % (v.name, tuple(val.shape),
+                                                                  shape))
+            boxes = shard_boxes(sh, shape)
+            order = sorted(boxes)
+            mine = sh.local_box(shape)
+            own = []
+            if min(boxes[mine]) == mesh.rank:  # the first rank holding a box writes it
+                arr = to_numpy(val)  # a host copy (bfloat16 as float32)
+                own.append((order.index(mine), np.array(arr, copy=True) if copy else arr))
+            entries[v.name] = {
+                "shape": tuple(shape),
+                "dtype": str(core_types.np_dtype(val.dtype)),
+                "spec": spec_to_manifest(sh.spec),
+                "boxes": order,
+                "own": own,
+            }
+        if not entries:
+            return None
+        return {"rank": mesh.rank, "mesh_axes": dict(mesh.shape), "vars": entries}
+
+    def _stage_shards(self, step: int, shard_state) -> str:
+        """Every rank writes its shard files into the staging directory
+        rank 0 made; returns it after the last rank is done."""
+        tmp = os.path.join(self.run_dir, _TMP_PREFIX + self._name(step))
+        final = os.path.join(self.run_dir, self._name(step))
+        if shard_state["rank"] == 0:
+            for stale in (tmp, final):  # a crashed previous attempt
+                if os.path.isdir(stale):
+                    shutil.rmtree(stale)
+            os.makedirs(os.path.join(tmp, "shards"))
+        _barrier()
+        for i, (name, ent) in enumerate(sorted(shard_state["vars"].items())):
+            for j, arr in ent["own"]:
+                np.save(os.path.join(tmp, "shards", "v%03d_s%02d.npy" % (i, j)), arr)
+        _barrier()
+        return tmp
+
+    @staticmethod
+    def _write_shard_manifest(dirname: str, shard_state) -> None:
+        """The JAX package's ``shards/manifest.json``: each var's global
+        shape, dtype, spec and its files with their index boxes."""
+        manifest = {"mesh_axes": shard_state["mesh_axes"], "vars": {}}
+        for i, (name, ent) in enumerate(sorted(shard_state["vars"].items())):
+            manifest["vars"][name] = {
+                "shape": list(ent["shape"]),
+                "dtype": ent["dtype"],
+                "spec": ent["spec"],
+                "shards": [{"file": "v%03d_s%02d.npy" % (i, j), "index": [list(se) for se in box]}
+                           for j, box in enumerate(ent["boxes"])],
+            }
+        with open(os.path.join(dirname, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+
+    @staticmethod
+    def _snapshot_scope(program, scope, exclude=()):
         """Copy every persistable's current value into a detached host
         scope (dtype kept): the writer thread reads ONLY these copies, so
         training may mutate the live scope the instant this returns.
@@ -320,6 +452,8 @@ class TrainCheckpoint:
 
         snap = Scope(device="cpu")
         for v in _io._collect(program, _io._is_persistable, None):
+            if v.name in exclude:  # saved shard-wise
+                continue
             val = scope.get(v.name)
             if val is None:
                 continue
@@ -329,21 +463,28 @@ class TrainCheckpoint:
                 snap.vars[v.name] = torch.from_numpy(np.array(val, copy=True))
         return snap
 
-    def _commit(self, program, scope, step, epoch, ps_state, extra) -> str:
+    def _commit(self, program, scope, step, epoch, ps_state, extra, shard_state=None,
+                staged=None) -> str:
         """The write + atomic-rename phase (caller thread for ``save``,
         snapshot thread for ``save_async``); reads only the given scope
-        and the pre-gathered ``ps_state``."""
+        and the pre-gathered ``ps_state``.  ``staged``: the directory the
+        ranks wrote their shard files into (``_stage_shards``)."""
         from paddle_tpu_torch import io as _io
 
         final = os.path.join(self.run_dir, self._name(step))
         tmp = os.path.join(self.run_dir, _TMP_PREFIX + self._name(step))
-        for stale in (tmp, final):  # a crashed previous attempt
-            if os.path.isdir(stale):
-                shutil.rmtree(stale)
-        os.makedirs(tmp)
+        if staged is None:
+            for stale in (tmp, final):  # a crashed previous attempt
+                if os.path.isdir(stale):
+                    shutil.rmtree(stale)
+            os.makedirs(tmp)
+        shard_names = set(shard_state["vars"]) if shard_state else set()
         _io.save_vars(
             None, os.path.join(tmp, "params"), main_program=program,
-            predicate=_io._is_persistable, scope=scope)
+            predicate=lambda v: _io._is_persistable(v) and v.name not in shard_names,
+            scope=scope)
+        if shard_state is not None:
+            self._write_shard_manifest(os.path.join(tmp, "shards"), shard_state)
         if ps_state is not None:
             self._write_ps(os.path.join(tmp, "ps"), ps_state)
         cursor = {"step": int(step), "epoch": int(epoch)}
@@ -473,10 +614,12 @@ class TrainCheckpoint:
 
         Each value is written into ``scope``'s tensor of that name in
         place where there is one (dtype kept), else set in the program
-        var's dtype on the scope's device.  A shard-wise checkpoint, or
-        ``compiled``, is ROADMAP A10 and raises."""
-        if compiled is not None:
-            raise NotImplementedError(_SHARDED)
+        var's dtype on the scope's device.  A shard-wise checkpoint needs
+        ``compiled`` (the run's sharded layout); each rank then takes its
+        own region of each sharded var, on any mesh the layout resolves
+        on.  Genuinely incompatible specs stay a typed
+        :class:`CheckpointMeshMismatchError` and do NOT fall back (they
+        are configuration errors, not disk corruption)."""
         self.last_restore_path = None
         self.last_restore_fallbacks = 0
         self.last_restore_stats = None
@@ -541,15 +684,18 @@ class TrainCheckpoint:
         cursor).  Unreadable/truncated file content re-raises as
         :class:`CheckpointCorruptionError` (restore's fallback class);
         configuration errors (a missing ps_client, a shard-wise
-        checkpoint) keep their own types and do NOT fall back."""
-        if os.path.isdir(os.path.join(path, "shards")):
-            raise NotImplementedError("checkpoint %s: %s" % (path, _SHARDED))
+        checkpoint without ``compiled``, a layout that does not resolve)
+        keep their own types and do NOT fall back."""
         try:
             self._load_params(os.path.join(path, "params"), program, scope)
         except (OSError, ValueError, KeyError) as e:
             raise CheckpointCorruptionError(
                 "checkpoint %s: params failed to load (%s)"
                 % (path, e)) from None
+        shards_dir = os.path.join(path, "shards")
+        if os.path.isdir(shards_dir):
+            self.last_restore_stats = self._restore_shards(shards_dir, scope, compiled,
+                                                           program)
         ps_dir = os.path.isdir(os.path.join(path, "ps"))
         if ps_dir:
             if ps_client is None:
@@ -605,6 +751,125 @@ class TrainCheckpoint:
                 continue
             dtype = core_types.torch_dtype(var.dtype) if var is not None else value.dtype
             scope.set(v.name, value.to(dtype))
+
+    # ------------------------------------------------------------------
+    # shard-exchange restore
+    # ------------------------------------------------------------------
+    def _restore_shards(self, dirname: str, scope, compiled, program) -> Dict:
+        """This rank's region of each saved sharded var, into ``scope``:
+        the saved file whole where the region is a saved shard, else
+        assembled from the overlapping shards (slice-wise reads of
+        memory-mapped files); the largest region buffer is recorded as
+        ``max_region_bytes``, so the full tensor is never materialized
+        on a rank whose region is smaller."""
+        import torch
+
+        try:
+            with open(os.path.join(dirname, "manifest.json")) as f:
+                manifest = json.load(f)
+        except (OSError, ValueError) as e:
+            raise CheckpointCorruptionError(
+                "checkpoint shards manifest %s is unreadable (%s)"
+                % (os.path.join(dirname, "manifest.json"), e)) from None
+        stats = {"direct": 0, "exchanged": 0, "regions": 0,
+                 "shard_files_read": 0, "max_region_bytes": 0, "mesh_tables": 0}
+        for name, ent in manifest["vars"].items():
+            if str(ent.get("kind", "")).startswith("mesh_table"):
+                raise NotImplementedError("checkpoint entry %r: %s" % (name, _MESH_TABLES))
+            shape = tuple(int(d) for d in ent["shape"])
+            dtype = np.dtype(ent["dtype"])
+            saved = []
+            for doc in ent["shards"]:
+                box = tuple(tuple(int(x) for x in se) for se in doc["index"])
+                saved.append((box, os.path.join(dirname, doc["file"])))
+            if compiled is None:
+                raise ValueError(
+                    "checkpoint %s holds SHARD-wise state — pass the "
+                    "run's CompiledProgram (compiled=) so shards "
+                    "re-place onto its mesh" % os.path.dirname(dirname))
+            try:
+                sharding = compiled.state_sharding(name)
+            except Exception as e:
+                raise CheckpointMeshMismatchError(
+                    "var %r: the current layout cannot resolve on this "
+                    "mesh (%s) — the checkpoint itself is fine; fix the "
+                    "layout or resume on a compatible mesh"
+                    % (name, e)) from None
+            var = program.global_block()._find_var_recursive(name)
+            if (var is not None and var.shape is not None
+                    and -1 not in tuple(var.shape)
+                    and tuple(int(d) for d in var.shape) != shape):
+                raise CheckpointMeshMismatchError(
+                    "var %r was saved with global shape %s but the "
+                    "program declares %s — the model changed since the "
+                    "checkpoint" % (name, shape, tuple(var.shape)))
+            self._check_disjoint(name, saved)
+            box = sharding.local_box(shape)
+            stats["regions"] += 1
+            arr = self._assemble_region(name, box, dtype, saved, box, stats)
+            value = torch.from_numpy(np.require(arr, requirements=["C", "W"]))
+            cur = scope.vars.get(name)
+            if isinstance(cur, torch.Tensor) and tuple(cur.shape) == tuple(value.shape):
+                cur.copy_(value)
+            else:
+                if isinstance(cur, torch.Tensor):
+                    value = value.to(cur.dtype)
+                scope.set(name, value)
+        return stats
+
+    @staticmethod
+    def _check_disjoint(name, saved) -> None:
+        """The coverage check sums overlap volumes, exact only over a
+        disjoint shard grid; the boxes come from an untrusted manifest, so
+        overlapping entries are typed before assembly."""
+        from paddle_tpu_torch.sharding.train import box_overlap
+
+        for i in range(len(saved)):
+            for j in range(i + 1, len(saved)):
+                if box_overlap(saved[i][0], saved[j][0]) is not None:
+                    raise CheckpointMeshMismatchError(
+                        "var %r: saved shard indexes %s and %s overlap "
+                        "— a PartitionSpec shard grid is disjoint, so "
+                        "the manifest was doctored or mis-written"
+                        % (name, saved[i][0], saved[j][0]))
+
+    @staticmethod
+    def _assemble_region(name, box, dtype, saved, required, stats):
+        """One target region: the exact-match fast path loads the saved
+        file whole; otherwise overlapping saved shards are slice-read
+        (mmap) into a region-sized buffer, which they must tile."""
+        from paddle_tpu_torch.sharding.train import box_overlap, box_volume
+
+        for sbox, fpath in saved:
+            if sbox == box:
+                arr = _load_shard(fpath)  # shard-sized, never the full tensor
+                stats["direct"] += 1
+                stats["shard_files_read"] += 1
+                stats["max_region_bytes"] = max(stats["max_region_bytes"], int(arr.nbytes))
+                return arr
+        buf = np.zeros(tuple(hi - lo for lo, hi in box), dtype)
+        covered = 0
+        for sbox, fpath in saved:
+            ov = box_overlap(sbox, box)
+            if ov is None:
+                continue
+            src = _load_shard(fpath, mmap_mode="r")  # slice-wise read only
+            src_sl = tuple(slice(lo - s[0], hi - s[0]) for (lo, hi), s in zip(ov, sbox))
+            dst_sl = tuple(slice(lo - b[0], hi - b[0]) for (lo, hi), b in zip(ov, box))
+            buf[dst_sl] = src[src_sl]
+            stats["shard_files_read"] += 1
+            req_ov = box_overlap(ov, required)
+            if req_ov is not None:
+                covered += box_volume(req_ov)
+        if covered != box_volume(required):
+            raise CheckpointMeshMismatchError(
+                "var %r: the saved shards cover only %d of %d cells of "
+                "target region %s — the checkpoint's shard set is "
+                "incomplete for this layout/mesh (doctored manifest, or "
+                "a partial save)" % (name, covered, box_volume(required), box))
+        stats["exchanged"] += 1
+        stats["max_region_bytes"] = max(stats["max_region_bytes"], int(buf.nbytes))
+        return buf
 
     @staticmethod
     def _restore_ps(dirname: str, ps_client) -> None:

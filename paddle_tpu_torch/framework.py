@@ -82,12 +82,24 @@ class CUDAPlace(Place):
         return "CUDAPlace(%d)" % self.device_id
 
 
+def default_cuda_place() -> "CUDAPlace":
+    """The card an entry point takes when given no place: ``cuda:0``, or
+    in a ``torch.distributed`` world rank ``r``'s ``cuda:(r % cards)``
+    (ranks of one card share it)."""
+    import torch.distributed as dist
+
+    if (dist.is_available() and dist.is_initialized() and torch.cuda.is_available()
+            and torch.cuda.device_count() > 0):
+        return CUDAPlace(dist.get_rank() % torch.cuda.device_count())
+    return CUDAPlace(0)
+
+
 def device_of(place: Optional[Place]) -> torch.device:
-    """The torch.device an entry point runs on.  No place means the
-    first CUDA card; a CUDA place with no such card raises — there is
-    no silent fall back to the CPU (pass ``CPUPlace()`` for that)."""
+    """The torch.device an entry point runs on.  No place means
+    ``default_cuda_place()``; a CUDA place with no such card raises — there
+    is no silent fall back to the CPU (pass ``CPUPlace()`` for that)."""
     if place is None:
-        place = CUDAPlace(0)
+        place = default_cuda_place()
     dev = place.device()
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -12,7 +12,15 @@ served in that dtype by default, with ``precision="fp32"`` as the
 per-request opt-out: the bf16 variant is the same rewrite the export
 gated, its hoisted parameters cast once onto the device, run through
 the same executor (one cache, one ``jit_cache_stats``; each bucket and
-dtype its own entry and CUDA graph).  Sharding comes with ROADMAP A10.
+dtype its own entry and CUDA graph).
+
+A model saved with a sharding manifest (``save_inference_model(
+sharding_rules=, sharding_mesh=)``) loads sharded: every rank of a world
+of the manifest's size builds the predictor, each keeps its shard of each
+parameter the rules shard (``param_placements``, ``sharding_stats``), and
+each run gathers the shards and returns the whole answer on every rank
+(``CompiledProgram``).  A bf16 endpoint composes: the variant's hoisted
+parameters are cast once a shard, at placement.
 """
 from __future__ import annotations
 
@@ -42,8 +50,6 @@ _MON_PRED_PADDED_ROWS = _mon_registry.REGISTRY.counter(
 _MON_PRED_WASTE_ROWS = _mon_registry.REGISTRY.counter(
     "predictor_padding_waste_rows_total",
     "padding rows computed then sliced away (padded - valid)")
-
-_SHARDING_PENDING = "sharded predictors come with ROADMAP A10"
 
 
 class AnalysisConfig:
@@ -103,18 +109,45 @@ class AnalysisPredictor(PaddlePredictor):
         self._default_dtype = "fp32"
         self._variants: Dict[str, Any] = {}  # dtype -> (program, scope)
         self._variant_cast_params: Dict[str, List[str]] = {}  # dtype -> bf16 params
-        manifest = getattr(self._program, "_precision_manifest", None)
-        if manifest:
-            self._init_precision(manifest, config)
+        self._compiled = None  # the sharded program (with_sharding_rules)
+        self._variant_compiled: Dict[str, Any] = {}
+        pmanifest = getattr(self._program, "_precision_manifest", None)
+        smanifest = getattr(self._program, "_sharding_manifest", None)
+        from paddle_tpu_torch.sharding.rules import PartitionRules, ShardingRuleError
+
+        # the two blocks are cross-linked at export: one without the other is
+        # a doctored manifest, never a silently degraded endpoint
+        if pmanifest and pmanifest.get("sharded") and not smanifest:
+            raise ShardingRuleError(
+                "precision manifest in %r says the endpoint is sharded but the model "
+                "carries no sharding block — re-export the endpoint" % (config.model_dir,))
+        if smanifest and smanifest.get("precision_dtype") and not pmanifest:
+            raise ShardingRuleError(
+                "sharding manifest in %r names precision_dtype=%r but the model carries "
+                "no precision block — the manifest was doctored or truncated; re-export "
+                "the endpoint" % (config.model_dir, smanifest.get("precision_dtype")))
+        if pmanifest:
+            self._init_precision(pmanifest, config, composed=bool(smanifest))
+        if smanifest:
+            rules_doc = smanifest.get("rules")
+            if not rules_doc:
+                raise ShardingRuleError(
+                    "malformed sharding manifest in %r: missing 'rules' (%r)"
+                    % (config.model_dir, smanifest))
+            self.with_sharding_rules(PartitionRules.from_manifest(rules_doc),
+                                     mesh_axes=smanifest.get("mesh_axes"))
 
     # --- precision variants (contrib/mixed_precision) ---
-    def _init_precision(self, manifest: Dict[str, Any], config: AnalysisConfig) -> None:
+    def _init_precision(self, manifest: Dict[str, Any], config: AnalysisConfig,
+                        composed: bool = False) -> None:
         """Rebuild the endpoint's low-precision variant from its manifest:
         the deterministic bf16 rewrite of the loaded program, its hoisted
         parameters cast once to bf16 on this predictor's device (the
         variant scope).  Both programs run through the same executor, so
         its caches and ``jit_cache_stats`` cover every variant.  int8
-        comes with ROADMAP A11, the sharded composition with A10."""
+        comes with ROADMAP A11.  ``composed`` (the model is also sharded):
+        the hoisted parameters stay fp32 on the host and each rank's shard
+        is cast as it is placed."""
         from paddle_tpu_torch.contrib.mixed_precision import inference as mp_inf
 
         dtype = mp_inf.normalize_dtype(manifest.get("dtype", ""))
@@ -128,7 +161,8 @@ class AnalysisPredictor(PaddlePredictor):
             self._program, self._fetch_names,
             custom_white_list=manifest.get("custom_white_list"),
             custom_black_list=manifest.get("custom_black_list"))
-        vscope = mp_inf.variant_scope(variant, self._scope, set(info["cast_params"]))
+        vscope = mp_inf.variant_scope(variant, self._scope, set(info["cast_params"]),
+                                      host_cast=composed)
         self._variant_cast_params[dtype] = list(info["cast_params"])
         self._precision = dict(manifest)
         self._default_dtype = dtype
@@ -158,27 +192,53 @@ class AnalysisPredictor(PaddlePredictor):
             raise ValueError("unknown precision %r (endpoint serves %s)"
                              % (precision, self.precision_dtypes()))
         if d == "fp32":
-            return self._program, self._scope
+            return (self._compiled if self._compiled is not None else self._program), self._scope
         entry = self._variants.get(d)
         if entry is None:
             raise ValueError("endpoint has no %r variant (it serves %s)"
                              % (d, self.precision_dtypes()))
+        compiled = self._variant_compiled.get(d)
+        if compiled is not None:
+            return compiled, entry[1]
         return entry
 
-    # --- sharding (ROADMAP A10) ---
+    # --- sharding (paddle_tpu_torch/sharding) ---
     def with_sharding_rules(self, rules, mesh=None, mesh_axes=None) -> "AnalysisPredictor":
-        raise NotImplementedError(_SHARDING_PENDING)
+        """Span this predictor across a model-parallel group of ranks: the
+        loaded program runs as a ``CompiledProgram`` whose partition rules
+        place each parameter shard-wise (every rank of the world builds
+        its predictor the same way).  Called on load when the saved model
+        carries a sharding manifest.  Each bf16 variant gets its own
+        compiled program over the same mesh and rules, with its hoisted
+        parameters cast as they are placed."""
+        from paddle_tpu_torch.parallel.compiled_program import CompiledProgram
+
+        self._compiled = CompiledProgram(self._program).with_sharding_rules(
+            rules, mesh=mesh, mesh_axes=mesh_axes)
+        self._variant_compiled = {}
+        for d, (vprog, _vscope) in self._variants.items():
+            cast_params = self._variant_cast_params.get(d)
+            if cast_params is None:
+                continue
+            vc = CompiledProgram(vprog).with_sharding_rules(rules, mesh=self._compiled.mesh)
+            vc.with_cast_dtypes({n: "bfloat16" for n in cast_params})
+            self._variant_compiled[d] = vc
+        return self
 
     @property
     def sharded(self) -> bool:
-        """True when this predictor spans a model-parallel mesh (never yet
-        in the port: ROADMAP A10)."""
-        return False
+        """True when this predictor spans a model-parallel mesh."""
+        return self._compiled is not None
 
     def param_placements(self, precision: Optional[str] = None) -> Dict[str, Dict[str, Any]]:
         """Each persistable of the selected variant (None: the policy
-        default) as it is stored: shape, dtype, device and bytes."""
-        program, scope = self._select_variant(precision)
+        default) as this rank stores it: its resolved spec, global shape,
+        this rank's shard shape, stored dtype, device and bytes.  Read
+        after the first run (before it, a sharded predictor's parameters
+        are host-staged whole, ``placed=False``)."""
+        target, scope = self._select_variant(precision)
+        compiled = target if getattr(target, "_is_compiled_program", False) else None
+        program = getattr(target, "_program", target)
         out: Dict[str, Dict[str, Any]] = {}
         for v in program.list_vars():
             if not v.persistable or v.is_data:
@@ -186,25 +246,47 @@ class AnalysisPredictor(PaddlePredictor):
             val = scope.get(v.name)
             if val is None:
                 continue
-            out[v.name] = {"spec": None, "shape": tuple(val.shape),
+            spec = compiled._spec_for_state(v.name) if compiled is not None else None
+            shape = (tuple(int(d) for d in v.shape)
+                     if v.shape is not None and -1 not in tuple(v.shape) else tuple(val.shape))
+            shard_shape = tuple(val.shape)
+            out[v.name] = {"spec": list(tuple(spec)) if spec is not None else None,
+                           "shape": shape,
                            "dtype": core_types.canonical_dtype(val.dtype),
-                           "device": str(val.device), "shard_shape": tuple(val.shape),
+                           "device": str(val.device), "shard_shape": shard_shape,
                            "bytes_per_device": int(val.numel() * val.element_size()),
-                           "sharded": False, "placed": val.device == self.device}
+                           "sharded": shard_shape != shape,
+                           "placed": val.device == self.device}
         return out
 
     def sharding_stats(self, group: Optional[str] = None,
                        precision: Optional[str] = None) -> Dict[str, Any]:
-        """Parameter count and device bytes of the selected variant, as the
-        JAX package reports them for an unsharded predictor; publishing a
-        group's bytes (``group=``) comes with ROADMAP A10."""
-        if group is not None:
-            raise NotImplementedError(_SHARDING_PENDING)
+        """Placement accounting of this predictor's group: parameter
+        counts, this rank's device bytes against the replicated baseline,
+        both in the selected variant's stored dtype.  ``group=<label>``
+        also publishes the rank's bytes to ``sharding_group_hbm_bytes``."""
         placements = self.param_placements(precision)
         hbm = sum(p["bytes_per_device"] for p in placements.values())
-        return {"sharded": False, "mesh_axes": None, "n_params": len(placements),
-                "n_sharded": 0, "hbm_bytes_per_device": int(hbm),
-                "replicated_bytes": int(hbm)}
+        total = 0  # every param whole, per rank
+        for p in placements.values():
+            n_shard = int(np.prod(p["shard_shape"])) if p["shard_shape"] else 1
+            itemsize = p["bytes_per_device"] // max(1, n_shard)
+            total += (int(np.prod(p["shape"])) if p["shape"] else 1) * itemsize
+        stats = {
+            "sharded": self.sharded,
+            "mesh_axes": (dict(self._compiled._mesh_axes)
+                          if self._compiled is not None and self._compiled._mesh_axes
+                          else None),
+            "n_params": len(placements),
+            "n_sharded": sum(1 for p in placements.values() if p["sharded"]),
+            "hbm_bytes_per_device": int(hbm),
+            "replicated_bytes": int(total),
+        }
+        if group is not None:
+            from paddle_tpu_torch.sharding.metrics import GROUP_HBM_BYTES
+
+            GROUP_HBM_BYTES.labels(group=str(group)).set(float(hbm))
+        return stats
 
     # --- reference surface ---
     def get_input_names(self) -> List[str]:

@@ -21,8 +21,18 @@ precision_policy={"dtype": "bf16"})`` builds the bf16 serving variant,
 gates it on its parity with fp32 and writes the policy into
 ``__model__``; ``load_inference_model`` hands that manifest to the
 predictor (``program._precision_manifest``).  An int8 policy (ROADMAP
-A11) and a sharding manifest (ROADMAP A10) are refused rather than
-served without them.
+A11) is refused rather than served without it.
+
+``save_inference_model(sharding_rules=, sharding_mesh=)`` validates a
+partition-rule set against the pruned program (every persistable covered,
+each spec's rank, each sharded dim divisible by its axes; each a typed
+``ShardingRuleError``) and writes it into ``__model__`` beside the mesh
+shape, key for key the JAX package's manifest; ``load_inference_model``
+hands it to the predictor (``program._sharding_manifest``), which then
+spans a group of ranks, and stages the parameters on the host so a rank
+moves only its shard to its card.  Saving from a scope that a compiled
+run left as this rank's shards gathers each whole (every rank calls the
+save; rank 0 writes).
 """
 from __future__ import annotations
 
@@ -118,10 +128,13 @@ def save_vars(executor, dirname, main_program=None, vars=None, predicate=None, f
     os.makedirs(dirname, exist_ok=True)
     manifest = {"format_version": 1, "vars": []}
     arrays = {}
+    writer = _writer(scope)
     for v in _collect(program, predicate or _is_persistable, vars):
-        val = scope.get(v.name)
+        val = _whole_value(scope, v.name)
         if val is None:
             raise RuntimeError("variable %r has no value in scope; run startup first" % v.name)
+        if not writer:
+            continue
         arr = to_numpy(val)
         arrays[v.name] = arr
         manifest["vars"].append({
@@ -130,6 +143,8 @@ def save_vars(executor, dirname, main_program=None, vars=None, predicate=None, f
             "dtype": str(arr.dtype),
             "is_parameter": isinstance(v, Parameter),
         })
+    if not writer:
+        return
     if filename is not None:
         np.savez(os.path.join(dirname, filename), **arrays)
         manifest["packed_file"] = filename
@@ -138,6 +153,33 @@ def save_vars(executor, dirname, main_program=None, vars=None, predicate=None, f
             np.save(_var_path(dirname, name), arr)
     with open(os.path.join(dirname, _MANIFEST), "w") as f:
         json.dump(manifest, f)
+
+
+def _committed(scope: Scope) -> Dict[str, tuple]:
+    """The scope's names that hold this rank's shard, placed by a compiled
+    run: ``{name: (compiled program, shard)}`` (the shard still in place)."""
+    committed = scope.__dict__.get("_mesh_committed") or {}
+    return {n: c for n, c in committed.items() if scope.vars.get(n) is c[1]}
+
+
+def _whole_value(scope: Scope, name: str):
+    """The var's whole value: a committed shard is gathered (a collective:
+    every rank of the mesh calls it)."""
+    val = scope.get(name)
+    c = scope.__dict__.get("_mesh_committed", {}).get(name)
+    if c is not None and val is c[1]:
+        return c[0].gather_state(name, val)
+    return val
+
+
+def _writer(scope: Scope) -> bool:
+    """Whether this process writes a save: all but rank 0 of a mesh skip
+    the files of a save that gathers shards."""
+    if not _committed(scope):
+        return True
+    from paddle_tpu_torch.parallel import mesh as mesh_lib
+
+    return mesh_lib.world()[0] == 0
 
 
 def _read_arrays(dirname: str) -> Dict[str, np.ndarray]:
@@ -212,7 +254,7 @@ def _prune_program(program: Program, feed_names: Sequence[str], fetch_names: Seq
 
 
 def _save_model(dirname, program, feed_names, fetch_names, executor, model_filename,
-                params_filename, scope, precision=None):
+                params_filename, scope, precision=None, sharding=None):
     """Write ``program`` as ``__model__`` JSON with its feed and fetch
     names (and ``precision``, the precision-policy manifest a
     mixed-precision endpoint carries), and its persistable values beside
@@ -224,10 +266,13 @@ def _save_model(dirname, program, feed_names, fetch_names, executor, model_filen
         "feed_names": list(feed_names),
         "fetch_names": list(fetch_names),
     }
+    if sharding is not None:
+        model["sharding"] = sharding
     if precision is not None:
         model["precision"] = precision
-    with open(os.path.join(dirname, model_filename or _MODEL_FILE), "w") as f:
-        json.dump(model, f)
+    if _writer(scope if scope is not None else global_scope()):
+        with open(os.path.join(dirname, model_filename or _MODEL_FILE), "w") as f:
+            json.dump(model, f)
     save_vars(executor, dirname, program, predicate=_is_persistable,
               filename=params_filename, scope=scope)
     return list(fetch_names)
@@ -310,20 +355,82 @@ def save_inference_model(dirname, feeded_var_names: Sequence[str], target_vars: 
     ``_export_precision_variant``): the endpoint's low-precision serving
     policy, written into the manifest once its variant passes the parity
     gate here, so every loader serves the same variant.
-    ``sharding_rules`` / ``sharding_mesh`` come with ROADMAP A10."""
-    if sharding_rules is not None or sharding_mesh is not None:
-        raise NotImplementedError(
-            "save_inference_model(sharding_rules=, sharding_mesh=): sharded "
-            "endpoints come with ROADMAP A10")
+    ``sharding_rules`` (a ``paddle_tpu_torch.sharding.PartitionRules``,
+    a ``TrainPartitionRules``, which unwraps to its serving rules, or a
+    ``(regex, spec)`` list) is embedded in the ``__model__`` manifest with
+    ``sharding_mesh`` (axis→size, e.g. ``{"tp": 2}``) so every loader
+    reconstructs the same model-parallel layout.  The rules are validated
+    against the pruned program's persistables HERE (coverage, rank and,
+    with the mesh, divisibility), so a bad layout fails at export."""
     program = main_program or framework.default_main_program()
     fetch_names = [t.name if isinstance(t, Variable) else str(t) for t in target_vars]
     pruned = _prune_program(program, feeded_var_names, fetch_names)
+    if precision_policy is not None and sharding_rules is not None:
+        from paddle_tpu_torch.contrib.mixed_precision.inference import (
+            PrecisionPolicyError,
+            normalize_dtype,
+        )
+
+        # bf16 composes: hoisting keeps param names and shapes, so the rules
+        # cover the variant's params verbatim and the loader casts each
+        # shard as it places it; int8's frozen sub-model has its own params
+        if normalize_dtype(precision_policy.get("dtype") or "") != "bf16":
+            raise PrecisionPolicyError(
+                "precision_policy dtype %r is not composable with "
+                "sharding_rules on one endpoint — only the bf16 variant "
+                "shares the base program's param set (hoisted casts); "
+                "export the int8 model unsharded or drop one"
+                % precision_policy.get("dtype"))
     precision = None
     if precision_policy is not None:
         precision = _export_precision_variant(dirname, pruned, list(feeded_var_names),
                                               fetch_names, executor, precision_policy, scope)
+    sharding = None
+    if sharding_rules is not None:
+        sharding = _sharding_manifest(pruned, sharding_rules, sharding_mesh)
+    if precision is not None and sharding is not None:
+        # cross-link the two blocks, so a manifest that lost one is a typed
+        # load error, not a silently degraded endpoint
+        precision["sharded"] = True
+        sharding["precision_dtype"] = precision["dtype"]
     return _save_model(dirname, pruned, feeded_var_names, fetch_names, executor,
-                       model_filename, params_filename, scope, precision=precision)
+                       model_filename, params_filename, scope, precision=precision,
+                       sharding=sharding)
+
+
+def _sharding_manifest(pruned: Program, sharding_rules, sharding_mesh) -> Dict:
+    """The ``sharding`` block of ``__model__``, after the JAX package's
+    fail-at-export checks: the mesh carries every axis the rules shard
+    over, every persistable resolves, and every sharded dim divides."""
+    from paddle_tpu_torch.sharding.rules import PartitionRules, ShardingRuleError
+
+    if not isinstance(sharding_rules, PartitionRules):
+        sharding_rules = PartitionRules(sharding_rules)
+    # a training layout unwraps to its base serving rules: the pruned
+    # inference program has no optimizer accumulators
+    sharding_rules = getattr(sharding_rules, "serving_rules", sharding_rules)
+    shapes = {v.name: tuple(v.shape or ()) for v in pruned.list_vars() if _is_persistable(v)}
+    axes = sharding_rules.axes()
+    if sharding_mesh is not None:
+        mesh_axes = dict(sharding_mesh)
+        missing = sorted(axes - set(mesh_axes))
+        if missing:
+            raise ShardingRuleError(
+                "sharding_rules shard over axes %s which are not in "
+                "sharding_mesh %s" % (missing, mesh_axes))
+        sharding_rules.validate_shapes(shapes, mesh_axes)  # coverage + rank + divisibility
+    else:
+        if len(axes) > 1:
+            raise ShardingRuleError(
+                "sharding_rules span axes %s — pass sharding_mesh= "
+                "to fix their sizes (a loader cannot infer a "
+                "multi-axis mesh shape)" % sorted(axes))
+        sharding_rules.match(shapes)  # coverage + rank
+    return {
+        "mesh_axes": ({str(a): int(n) for a, n in dict(sharding_mesh).items()}
+                      if sharding_mesh else None),
+        "rules": sharding_rules.to_manifest(),
+    }
 
 
 def save_program(dirname, feeded_var_names: Sequence[str], target_vars: Sequence, executor,
@@ -345,14 +452,12 @@ def load_inference_model(dirname, executor, model_filename=None, params_filename
     with the parameters in ``scope`` (default: the current global scope)
     on the executor's device.  A precision-policy manifest rides back on
     the program as ``program._precision_manifest`` (``AnalysisPredictor``
-    builds the variant from it); an int8 one raises naming ROADMAP A11,
-    a sharding manifest naming ROADMAP A10."""
+    builds the variant from it); an int8 one raises naming ROADMAP A11.
+    A sharding manifest rides back as ``program._sharding_manifest``, and
+    the parameters of such a model stay on the host (CPU tensors in the
+    scope) until a compiled program places each rank's shard."""
     with open(os.path.join(dirname, model_filename or _MODEL_FILE)) as f:
         model = json.load(f)
-    if model.get("sharding"):
-        raise NotImplementedError(
-            "model in %r carries a sharding manifest; sharded endpoints come with "
-            "ROADMAP A10" % dirname)
     precision = model.get("precision")
     if precision:
         from paddle_tpu_torch.contrib.mixed_precision import inference as mp_inf
@@ -364,6 +469,13 @@ def load_inference_model(dirname, executor, model_filename=None, params_filename
     program = Program.from_json(json.dumps(model["program"]))
     if precision:
         program._precision_manifest = precision
-    load_vars(executor, dirname, program, scope=scope)
+    if model.get("sharding"):
+        program._sharding_manifest = model["sharding"]
+        scope = scope if scope is not None else global_scope()
+        scope.bind_device(executor.device)
+        for name, arr in _read_arrays(dirname).items():
+            scope.vars[name] = torch.from_numpy(np.require(arr, requirements=["C", "W"]))
+    else:
+        load_vars(executor, dirname, program, scope=scope)
     fetch_vars = [program.global_block().var(n) for n in model["fetch_names"]]
     return program, model["feed_names"], fetch_vars

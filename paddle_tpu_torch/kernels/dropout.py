@@ -22,16 +22,26 @@ By device, ``dropout_train``:
 Its gradient (``Dropout``, a ``torch.autograd.Function``) is
 dX = where(Mask, dOut, 0), divided by the divisor under
 ``upscale_in_train``, as the JAX op's vjp gives it.
+
+Under ``batch_slice(index, count, rows)`` (a compiled step that gives each
+of ``count`` ranks one slice of the batch, of ``rows`` rows) an X whose
+leading dim is one of ``rows`` is batch-leading: its element ``i`` is
+element ``index * X.numel() + i`` of the global tensor, so a rank's mask
+is its slice of the mask of the unsliced run.  Any other X is whole on
+every rank, as in the unsliced run, and draws the unsliced run's mask.
+The offset may be any element index, on the card as in the plain version.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import torch
 
 from paddle_tpu_torch.kernels import build, count_launch
 
-__all__ = ["KERNEL_NAME", "Dropout", "divisor", "dropout_plain", "dropout_train",
+__all__ = ["KERNEL_NAME", "Dropout", "batch_slice", "divisor", "dropout_plain", "dropout_train",
            "keep_threshold", "philox4x32_10", "philox_words"]
 
 KERNEL_NAME = "dropout"
@@ -41,6 +51,28 @@ _M0, _M1 = 0xD2511F53, 0xCD9E8D57    # Philox4x32 multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85    # its key increments
 _MASK32 = 0xFFFFFFFF
 _bound = {}
+_slice = threading.local()  # .at: (index, count, rows) of this thread's batch slice
+
+
+@contextlib.contextmanager
+def batch_slice(index: int, count: int, rows=()):
+    """Draw the mask of each X whose leading dim is one of ``rows`` (the
+    rank's sliced feeds' leading dims) as slice ``index`` of ``count``
+    equal slices, along the outermost dim, of the global tensor (a
+    compiled step's data-parallel rank)."""
+    prev = getattr(_slice, "at", None)
+    _slice.at = (int(index), int(count), frozenset(int(r) for r in rows))
+    try:
+        yield
+    finally:
+        _slice.at = prev
+
+
+def _offset(x) -> int:
+    at = getattr(_slice, "at", None)
+    if at is None or at[1] <= 1 or x.dim() == 0 or x.shape[0] not in at[2]:
+        return 0
+    return at[0] * x.numel()
 
 
 def keep_threshold(p: float) -> int:
@@ -84,18 +116,20 @@ def philox4x32_10(ctr, key):
     return c0, c1, c2, c3
 
 
-def philox_words(n: int, seed: int, device) -> torch.Tensor:
-    """The int64 [n] words of elements 0..n-1 under ``seed``."""
-    g = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+def philox_words(n: int, seed: int, device, offset: int = 0) -> torch.Tensor:
+    """The int64 [n] words of elements offset..offset+n-1 under ``seed``."""
+    g = torch.arange(offset // 4, (offset + n + 3) // 4, dtype=torch.int64, device=device)
     zero = torch.zeros_like(g)
     words = philox4x32_10([g & _MASK32, g >> 32, zero, zero], (_seed_word(seed), 0))
-    return torch.stack(words, dim=1).reshape(-1)[:n]
+    return torch.stack(words, dim=1).reshape(-1)[offset % 4:offset % 4 + n]
 
 
-def dropout_plain(x, p: float, seed: int, upscale: bool):
+def dropout_plain(x, p: float, seed: int, upscale: bool, offset: int = 0):
     """(Out, Mask) of the training branch, in torch ops on any device:
-    the kernel's arithmetic, bit for bit."""
-    keep = ((philox_words(x.numel(), seed, x.device) >> 8) < keep_threshold(p)).reshape(x.shape)
+    the kernel's arithmetic, bit for bit.  ``offset``: the global index of
+    X's first element."""
+    keep = ((philox_words(x.numel(), seed, x.device, offset) >> 8)
+            < keep_threshold(p)).reshape(x.shape)
     out = x
     if upscale:
         xf = x.float()
@@ -109,7 +143,8 @@ def _entry():
     fn = _bound.get(id(lib))
     if fn is None:
         fn = lib.paddle_dropout
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_uint,
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                                               ctypes.c_uint,
                                                ctypes.c_uint, ctypes.c_int, ctypes.c_float,
                                                ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -119,7 +154,7 @@ def _entry():
     return lib, fn
 
 
-def _kernel(x, p: float, seed: int, upscale: bool):
+def _kernel(x, p: float, seed: int, upscale: bool, offset: int = 0):
     if x.dtype not in _DTYPE_CODES:
         raise TypeError("dropout kernel takes float32 or bfloat16, got %s" % x.dtype)
     x = x.contiguous()
@@ -129,7 +164,8 @@ def _kernel(x, p: float, seed: int, upscale: bool):
     lib, fn = _entry()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), mask.data_ptr(), x.numel(), _DTYPE_CODES[x.dtype],
+        err = fn(x.data_ptr(), out.data_ptr(), mask.data_ptr(), x.numel(), offset,
+                 _DTYPE_CODES[x.dtype],
                  _seed_word(seed), keep_threshold(p), int(bool(upscale)),
                  divisor(p, x.dtype), stream)
     if err != 0:
@@ -139,14 +175,14 @@ def _kernel(x, p: float, seed: int, upscale: bool):
     return out, mask
 
 
-def _forward(x, p, seed, upscale):
+def _forward(x, p, seed, upscale, offset=0):
     if x.device.type == "meta":
         return torch.empty_like(x), torch.empty_like(x)
     if x.device.type == "cpu":
-        return dropout_plain(x, p, seed, upscale)
+        return dropout_plain(x, p, seed, upscale, offset)
     if x.device.type != "cuda":
         raise ValueError("dropout: no kernel for device %s" % x.device)
-    return _kernel(x, p, seed, upscale)
+    return _kernel(x, p, seed, upscale, offset)
 
 
 class Dropout(torch.autograd.Function):
@@ -154,8 +190,8 @@ class Dropout(torch.autograd.Function):
     the divisor under upscale_in_train.  No gradient reaches Mask."""
 
     @staticmethod
-    def forward(ctx, x, p, seed, upscale):
-        out, mask = _forward(x, p, seed, upscale)
+    def forward(ctx, x, p, seed, upscale, offset=0):
+        out, mask = _forward(x, p, seed, upscale, offset)
         ctx.mark_non_differentiable(mask)
         ctx.save_for_backward(mask)
         ctx.div = divisor(p, x.dtype) if upscale else None
@@ -168,13 +204,15 @@ class Dropout(torch.autograd.Function):
         if ctx.div is not None:  # a true division by a tensor, as the forward's
             gf = d_out.float()
             g = (gf / torch.full_like(gf, ctx.div)).to(d_out.dtype)
-        return torch.where(mask != 0, g, torch.zeros((), dtype=g.dtype, device=g.device)), None, None, None
+        return (torch.where(mask != 0, g, torch.zeros((), dtype=g.dtype, device=g.device)),
+                None, None, None, None)
 
 
 def dropout_train(x, p: float, seed: int, upscale: bool):
     """(Out, Mask) of dropout's training branch: the kernel on a CUDA
     tensor, the plain version on a CPU one, shape-only on a meta one;
     differentiable in X when a gradient is asked for."""
+    offset = _offset(x)
     if torch.is_grad_enabled() and x.requires_grad:
-        return Dropout.apply(x, float(p), int(seed), bool(upscale))
-    return _forward(x, float(p), int(seed), bool(upscale))
+        return Dropout.apply(x, float(p), int(seed), bool(upscale), offset)
+    return _forward(x, float(p), int(seed), bool(upscale), offset)

@@ -106,18 +106,13 @@ def c_broadcast(inputs, attrs, device):
 @register_op("c_allgather", differentiable=False)
 def c_allgather(inputs, attrs, device):
     """The ranks' values concatenated along axis 0, in rank order."""
-    import torch.distributed as dist
+    from paddle_tpu_torch.parallel.mesh import all_gather_cat
 
     x = one(inputs, "X")
     group = _group(x, attrs)
     if group is None:
         return {"Out": x}
-    src = x.contiguous()
-    if src.is_cuda and dist.get_backend(group) == "gloo":
-        src = src.cpu()
-    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, src, group=group)
-    return {"Out": torch.cat(parts, 0).to(x.device)}
+    return {"Out": all_gather_cat(x, group)}
 
 
 @register_op("c_reducescatter", differentiable=False)

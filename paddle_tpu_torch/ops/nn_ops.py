@@ -240,6 +240,24 @@ def pool2d(inputs, attrs, device):
 # ---------------------------------------------------------------------------
 # normalization
 # ---------------------------------------------------------------------------
+def _stat_group(attrs):
+    """The process group batch_norm reduces its statistics over, or None."""
+    import torch.distributed  # noqa: F401 — get_world_size below
+
+    from paddle_tpu_torch.parallel import env as penv
+
+    if attrs.get("sync_bn", False):
+        axis = attrs.get("axis_name") or penv.axis_for_ring(attrs.get("ring_id", 0))
+    else:
+        axis = penv.batch_axis()
+    if axis is None or not penv.axis_active(axis):
+        return None
+    group = penv.group_for_axis(axis)
+    if group is None or torch.distributed.get_world_size(group) <= 1:
+        return None
+    return group
+
+
 @register_op("batch_norm", no_grad_set={"Mean", "Variance"})
 def batch_norm(inputs, attrs, device):
     """reference: batch_norm_op.cc.  The statistics and the normalisation
@@ -249,11 +267,15 @@ def batch_norm(inputs, attrs, device):
     batch's biased variance and updates the running stats as
     ``momentum * old + (1 - momentum) * batch``, as the JAX op does
     (torch's own running-stat update differs in both); ``MeanOut`` and
-    ``VarianceOut`` name the same vars as ``Mean`` and ``Variance``."""
-    if attrs.get("sync_bn", False):
-        raise NotImplementedError(
-            "batch_norm with sync_bn reduces its statistics across devices; "
-            "the multi-device slice of paddle_tpu_torch is not ported yet")
+    ``VarianceOut`` name the same vars as ``Mean`` and ``Variance``.
+
+    Global statistics (reference: sync_batch_norm_op.cu): with ``sync_bn``
+    while the op's axis (``axis_name``, else its ring's) is active, and in
+    a compiled step that slices its batch over an axis
+    (``parallel.env.batch_axis``), the mean and E[x^2] are summed over the
+    axis's ranks and the variance is E[x^2] - E[x]^2, as in the JAX op;
+    the sum is ``torch.distributed.nn``'s, whose gradient sums the ranks'
+    gradients, so the vjp is the global batch's."""
     x = one(inputs, "X")
     scale, bias = one(inputs, "Scale"), one(inputs, "Bias")
     mean, var = one(inputs, "Mean"), one(inputs, "Variance")
@@ -267,7 +289,17 @@ def batch_norm(inputs, attrs, device):
         use_mean, use_var = mean, var
         new_mean, new_var = mean, var
     else:
-        use_var, use_mean = torch.var_mean(xf, dim=axes, correction=0)
+        group = _stat_group(attrs) if device.type != "meta" else None
+        if group is None:
+            use_var, use_mean = torch.var_mean(xf, dim=axes, correction=0)
+        else:
+            from torch.distributed.nn import functional as dist_fn
+
+            n = float(torch.distributed.get_world_size(group))
+            stats = torch.stack([xf.mean(dim=axes), (xf * xf).mean(dim=axes)])
+            stats = dist_fn.all_reduce(stats, group=group) / n
+            use_mean = stats[0]
+            use_var = stats[1] - use_mean * use_mean
         new_mean = momentum * mean + (1 - momentum) * use_mean
         new_var = momentum * var + (1 - momentum) * use_var
     gain = scale / torch.sqrt(use_var + eps)

@@ -168,7 +168,11 @@ def rmsprop(inputs, attrs, device):
 @register_op("ftrl", differentiable=False)
 def ftrl(inputs, attrs, device):
     """Follow-the-regularized-leader (operators/optimizers/ftrl_op.h):
-    with lr_power -0.5 a zero accumulator's power is 0, not nan."""
+    with lr_power -0.5 a zero accumulator's power is 0, not nan.  Where the
+    squared accumulator is 0 while the linear one is not (a gradient too
+    small for its square to be a float: 1e-23 in fp32), the reference's
+    x / y is an infinity that turns every later step to nan; here such an
+    element takes the closed form's value for no gradient seen, 0."""
     p, g = one(inputs, "Param"), one(inputs, "Grad")
     sq = one(inputs, "SquaredAccumulator")
     lin = one(inputs, "LinearAccumulator")
@@ -181,7 +185,7 @@ def ftrl(inputs, attrs, device):
     new_lin = lin + g - sigma * p
     x = l1 * torch.sign(new_lin) - new_lin
     y = new_sq ** -power / lr + 2 * l2
-    p_new = torch.where(torch.abs(new_lin) > l1, x / y, torch.zeros_like(p))
+    p_new = torch.where((torch.abs(new_lin) > l1) & (y > 0), x / y, torch.zeros_like(p))
     return {"ParamOut": p_new, "SquaredAccumOut": new_sq, "LinearAccumOut": new_lin}
 
 
@@ -276,11 +280,11 @@ def dgc_momentum(inputs, attrs, device):
     the parameter steps with the selected values.  Before
     ``rampup_begin_step`` it is dense momentum with u as the velocity and
     v left alone.  The sparse allreduce across devices
-    (``use_collective``) comes with the multi-device slice (A10)."""
+    (``use_collective``) comes with ROADMAP A10 part 4."""
     if attrs.get("use_collective", False):
         raise NotImplementedError(
             "dgc_momentum with use_collective allreduces the sparse gradient across "
-            "devices; the multi-device slice of paddle_tpu_torch (A10) is not ported yet")
+            "devices; it comes with ROADMAP A10 part 4, not ported to paddle_tpu_torch yet")
     p, g = one(inputs, "Param"), one(inputs, "Grad")
     u, v = one(inputs, "U"), one(inputs, "V")
     step = one(inputs, "CurrentStep").reshape(())

@@ -94,6 +94,17 @@ class Optimizer:
     def _get_accumulator(self, name, param):
         return self._accumulators[name][param.name]
 
+    def accumulator_map(self) -> Dict[str, tuple]:
+        """``{accumulator var name: (param name, accumulator kind)}`` for
+        every optimizer-state var this optimizer created (populated by
+        ``minimize``): the name↔param surface the sharded-training rules
+        read (``sharding.train.train_rules``), as the JAX package's."""
+        out: Dict[str, tuple] = {}
+        for kind, per_param in self._accumulators.items():
+            for pname, var in per_param.items():
+                out[var.name] = (pname, kind)
+        return out
+
     # ------------------------------------------------------------------
     def _create_accumulators(self, block, parameters):
         pass
@@ -698,14 +709,14 @@ class PipelineOptimizer:
     Without a ``cut_list`` it is the wrapped optimizer plus a recorded
     microbatch plan (``program._pipeline_config``), as in the JAX
     package.  A ``cut_list`` cuts the program into stages across
-    devices, which comes with the multi-device slice (A10)."""
+    devices, which comes with ROADMAP A10 part 3 (the pipelined programs)."""
 
     def __init__(self, optimizer, cut_list=None, place_list=None, concurrency_list=None,
                  queue_size=30, sync_steps=1, start_cpu_core_id=0, num_microbatches=None):
         if cut_list:
             raise NotImplementedError(
                 "PipelineOptimizer with a cut_list runs its stages across devices; the "
-                "multi-device slice of paddle_tpu_torch (A10) is not ported yet")
+                "pipelined programs (ROADMAP A10 part 3) are not ported to paddle_tpu_torch yet")
         self._optimizer = optimizer
         self._num_microbatches = num_microbatches or 1
 

@@ -1,11 +1,21 @@
-"""Multi-process training: the ring registry over ``torch.distributed``
-(``env``) and the collective program rewriters (``collective_transpiler``).
+"""Multi-process execution: the ring registry over ``torch.distributed``
+(``env``), device meshes (``mesh``: one rank a mesh device), the strategies,
+``CompiledProgram`` (data-, FSDP- and tensor-parallel steps over a mesh)
+and the collective program rewriters (``collective_transpiler``).
 
-The port's counterpart of part of the JAX package's ``parallel/``; the
-mesh, ``CompiledProgram``, fleet and the pipelined and hybrid programs are
-not ported yet (ROADMAP A10).
+The port's counterpart of the JAX package's ``parallel/``; ring attention,
+the hybrid engine and fleet (ROADMAP A10 part 2) and the pipelined
+programs (part 3) are not ported yet.
 """
 from paddle_tpu_torch.parallel import env  # noqa: F401
+from paddle_tpu_torch.parallel import mesh  # noqa: F401
+from paddle_tpu_torch.parallel.mesh import MeshGuard, data_parallel_mesh, make_mesh  # noqa: F401
+from paddle_tpu_torch.parallel.strategy import (  # noqa: F401
+    BuildStrategy,
+    DistributedStrategy,
+    ExecutionStrategy,
+)
+from paddle_tpu_torch.parallel.compiled_program import CompiledProgram  # noqa: F401
 from paddle_tpu_torch.parallel import collective_transpiler  # noqa: F401
 from paddle_tpu_torch.parallel.collective_transpiler import (  # noqa: F401
     Collective,

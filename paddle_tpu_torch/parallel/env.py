@@ -12,17 +12,87 @@ outside a mapped axis.
 The backend is the caller's choice.  NCCL refuses two ranks on one card,
 so ranks that share a device use gloo, which reduces CUDA tensors through
 host copies.
+
+A device mesh (``parallel/mesh.py``) binds each of its axes' process
+groups here by name (``bind_axis``).  A ring resolves to an axis as in the
+JAX package (``set_ring_axis``, ``axis_for_ring``; ring 0 is ``"data"``),
+and a collective on a ring with no group of its own runs over that axis's
+group while the axis is active (``active_axes``: the port's ``shard_map``
+and a ``CompiledProgram``'s step), as the JAX package's ``psum`` runs only
+inside a mapped axis.  ``batch_axis`` names the axis a compiled step
+slices its batch over: ``batch_norm`` then reduces its statistics over it,
+as the JAX package's compiled program normalises over the global batch.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
-__all__ = ["bind_ring", "group_for_ring", "ring_size", "init_from_env", "generation"]
+__all__ = ["bind_ring", "group_for_ring", "ring_size", "init_from_env", "generation",
+           "bind_axis", "group_for_axis", "axis_for_ring", "set_ring_axis", "axis_active",
+           "active_axes", "batch_axis", "batch_axis_guard"]
 
 _rings: Dict[int, object] = {}
 _generation = 0  # bumped by every bind: run plans keyed on it re-read the rings
+_axes: Dict[str, object] = {}  # mesh axis name -> its process group (None: one rank)
+_ring_to_axis: Dict[int, str] = {0: "data"}
+_active_axes: List[str] = []
+_batch_axis: List[str] = []
+
+
+def bind_axis(name: str, group) -> None:
+    """Bind mesh axis ``name`` to this rank's process group along it
+    (None for an axis of one rank)."""
+    global _generation
+    _axes[str(name)] = group
+    _generation += 1
+
+
+def group_for_axis(name: str):
+    """The axis's process group, or None (unbound, or one rank)."""
+    return _axes.get(str(name))
+
+
+def axis_for_ring(ring_id: int) -> str:
+    return _ring_to_axis.get(int(ring_id), "data")
+
+
+def set_ring_axis(ring_id: int, axis: str) -> None:
+    global _generation
+    _ring_to_axis[int(ring_id)] = axis
+    _generation += 1
+
+
+def axis_active(name: str) -> bool:
+    return name in _active_axes
+
+
+@contextlib.contextmanager
+def active_axes(names):
+    """Make ``names`` the mapped axes while the body runs."""
+    added = list(names)
+    _active_axes.extend(added)
+    try:
+        yield
+    finally:
+        for n in added:
+            _active_axes.remove(n)
+
+
+def batch_axis() -> Optional[str]:
+    """The axis the running compiled step slices its batch over, or None."""
+    return _batch_axis[-1] if _batch_axis else None
+
+
+@contextlib.contextmanager
+def batch_axis_guard(name: Optional[str]):
+    _batch_axis.append(name)
+    try:
+        yield
+    finally:
+        _batch_axis.pop()
 
 
 def generation() -> int:
@@ -49,8 +119,14 @@ def bind_ring(ring_id: int, group=None) -> None:
 
 
 def group_for_ring(ring_id: int):
-    """The ring's process group, or None when none is bound."""
-    return _rings.get(int(ring_id))
+    """The ring's process group: its own, else while the ring's axis is
+    active that axis's group; None when neither is bound."""
+    group = _rings.get(int(ring_id))
+    if group is None:
+        axis = axis_for_ring(ring_id)
+        if axis in _active_axes:
+            group = _axes.get(axis)
+    return group
 
 
 def ring_size(ring_id: int) -> int:

@@ -17,7 +17,7 @@ such tensors as feeds where they lie (no trip through the host).
 ``device="auto"`` means ``cuda:0`` and raises when there is no card;
 host staging happens only when the caller asks for it (``device=None``
 or ``"cpu"``).  The sharded mode (``compiled=``: each replica's slice in
-its own memory) comes with the multi-device slice (A10).
+its own memory) comes with ROADMAP A10 part 4 (the sharded prefetch).
 """
 from __future__ import annotations
 
@@ -349,7 +349,7 @@ def device_buffered(reader, size: int = 2, device="auto", steps: Optional[int] =
     if compiled is not None:
         raise NotImplementedError(
             "device_buffered(compiled=...) stages each replica's slice on its own device; "
-            "the multi-device slice of paddle_tpu_torch (A10) is not ported yet")
+            "the sharded prefetch (ROADMAP A10 part 4) is not ported to paddle_tpu_torch yet")
     dev = _staging_device(device)
 
     def reader_():
@@ -612,11 +612,11 @@ def _places_device(places):
     if not ps or not all(isinstance(p, framework.Place) for p in ps):
         raise NotImplementedError(
             "PyReader places=%r: staging for a compiled or sharded program belongs to the "
-            "multi-device slice of paddle_tpu_torch (A10), which is not ported yet" % (places,))
+            "sharded prefetch (ROADMAP A10 part 4), which is not ported yet" % (places,))
     if len({str(p.device()) for p in ps}) > 1:
         raise NotImplementedError(
-            "PyReader over %d devices belongs to the multi-device slice of paddle_tpu_torch "
-            "(A10), which is not ported yet" % len(ps))
+            "PyReader over %d devices belongs to the sharded prefetch of paddle_tpu_torch "
+            "(ROADMAP A10 part 4), which is not ported yet" % len(ps))
     return ps[0]
 
 

@@ -170,11 +170,11 @@ def launch_server(
     configured as an in-process server it is compared with.
 
     ``pipeline_stages`` (a ``PipelinePredictor`` group inside the child)
-    comes with ROADMAP A10 and raises here, before anything is spawned."""
+    comes with ROADMAP A10 part 3 and raises here, before anything is spawned."""
     if pipeline_stages is not None:
         raise NotImplementedError(
             "launch_server(pipeline_stages=) serves a PipelinePredictor, which "
-            "comes with ROADMAP A10 (multi-device)")
+            "comes with ROADMAP A10 part 3 (the pipelined programs)")
     if place not in (None, "cpu", "cuda:0"):
         raise ValueError("place must be None, 'cuda:0' or 'cpu', got %r" % (place,))
     spec = {

@@ -1,23 +1,30 @@
 """Offline checkpoint verifier for the port: is this run directory restorable?
 
-The JAX package's ``tools/check_checkpoint.py`` for the single-device
-checkpoints the port writes (the directory format is shared).  It walks
-a training-checkpoint run directory (``TrainCheckpoint`` layout) and
+The JAX package's ``tools/check_checkpoint.py`` for the checkpoints the
+port writes (the directory format is shared).  It walks a
+training-checkpoint run directory (``TrainCheckpoint`` layout) and
 verifies each committed checkpoint WITHOUT loading any state onto a
 device:
 
 1. **Manifest completeness** — ``cursor.json`` parses with an integer
    step; ``params/__manifest__.json`` exists and every variable it
-   lists has its file on disk; ``ps/manifest.json`` (when present)
-   likewise, with matching id and row counts.
-2. **Content hashes** — ``integrity.json`` must exist, list every
+   lists has its file on disk; ``shards/manifest.json`` and
+   ``ps/manifest.json`` (when present) likewise, the latter with
+   matching id and row counts.
+2. **Shard-index coverage** — for every shard-wise variable, the saved
+   shard boxes must lie inside the recorded global shape, each file's
+   array header must match its box extents and dtype, and the boxes
+   must exactly tile the variable's full shape: what the shard-exchange
+   restore needs to place the state on any compatible mesh of ranks.
+   The mesh-resident tables' entries (``kind: mesh_table*``) are ROADMAP
+   A10 part 4 and are reported as not restorable by the port.
+3. **Content hashes** — ``integrity.json`` must exist, list every
    other file (and nothing extra), and every size + sha256 must match
    (``paddle_tpu_torch.faults.checkpoint.verify_checkpoint_dir``, the
    same verification ``restore()`` runs before trusting a checkpoint).
 
-A shard-wise checkpoint (``shards/``, ROADMAP A10) is reported as not
-restorable by the port.  Run-level: a ``LATEST`` pointer naming a
-missing directory is flagged.  Run::
+Run-level: a ``LATEST`` pointer naming a missing directory is flagged.
+Run::
 
     python -m paddle_tpu_torch.tools.check_checkpoint RUN_DIR [--checkpoint ckpt-000040]
 """
@@ -28,6 +35,8 @@ import json
 import os
 import sys
 from typing import List, Optional
+
+import numpy as np
 
 
 def _layout():
@@ -49,6 +58,71 @@ def _shape_of_npy(path: str):
     except (OSError, ValueError) as e:
         return None, str(e)
     return tuple(int(d) for d in shape), str(dtype)
+
+
+def _shape_of_npy(path: str):
+    """(shape, dtype str) from a .npy header without reading the data."""
+    try:
+        with open(path, "rb") as f:
+            version = np.lib.format.read_magic(f)
+            shape, _, dtype = np.lib.format._read_array_header(f, version)
+    except (OSError, ValueError) as e:
+        return None, str(e)
+    return tuple(int(d) for d in shape), str(dtype)
+
+
+def _check_shards(sdir: str, ck_name: str, problems: List[str]) -> None:
+    from paddle_tpu_torch.sharding.train import boxes_cover
+
+    mpath = os.path.join(sdir, "manifest.json")
+    if not os.path.exists(mpath):
+        problems.append("%s: shards/ has no manifest.json" % ck_name)
+        return
+    try:
+        with open(mpath) as f:
+            manifest = json.load(f)
+    except ValueError as e:
+        problems.append("%s: shards/manifest.json unreadable (%s)" % (ck_name, e))
+        return
+    for name, ent in sorted(manifest.get("vars", {}).items()):
+        if str(ent.get("kind", "")).startswith("mesh_table"):
+            problems.append(
+                "%s: var %r is mesh-resident table state (%s), which comes with "
+                "ROADMAP A10 part 4; the port cannot restore it" % (ck_name, name, ent["kind"]))
+            continue
+        shape = tuple(int(d) for d in ent["shape"])
+        required = tuple((0, d) for d in shape)
+        boxes = []
+        for doc in ent.get("shards", ()):
+            box = tuple(tuple(int(x) for x in se) for se in doc["index"])
+            fpath = os.path.join(sdir, doc["file"])
+            if not os.path.exists(fpath):
+                problems.append("%s: var %r shard file %r is missing"
+                                % (ck_name, name, doc["file"]))
+                continue
+            if len(box) != len(shape) or any(
+                    lo < 0 or hi > d for (lo, hi), d in zip(box, shape)):
+                problems.append("%s: var %r shard index %s lies outside global shape %s"
+                                % (ck_name, name, box, shape))
+                continue
+            fshape, fdtype = _shape_of_npy(fpath)
+            want = tuple(hi - lo for lo, hi in box)
+            if fshape is None:
+                problems.append("%s: var %r shard file %r has an unreadable array header (%s)"
+                                % (ck_name, name, doc["file"], fdtype))
+                continue
+            if fshape != want:
+                problems.append("%s: var %r shard file %r has shape %s but its index %s "
+                                "implies %s" % (ck_name, name, doc["file"], fshape, box, want))
+            if fdtype != str(ent["dtype"]):
+                problems.append("%s: var %r shard file %r dtype %s != manifest %s"
+                                % (ck_name, name, doc["file"], fdtype, ent["dtype"]))
+            boxes.append(box)
+        if not boxes_cover(boxes, required):
+            problems.append(
+                "%s: var %r: saved shard indexes do not exactly tile its required region "
+                "%s — a restore (on ANY mesh) cannot assemble this variable"
+                % (ck_name, name, required))
 
 
 def _check_params(pdir: str, ck_name: str, problems: List[str]) -> None:
@@ -143,10 +217,8 @@ def check_checkpoint(path: str) -> List[str]:
     # belt and braces: a manifest malformed in a way a specific guard
     # above didn't anticipate must become a PROBLEM, not a crash that
     # swallows every finding already collected
-    if os.path.isdir(os.path.join(path, "shards")):
-        problems.append("%s: shard-wise state (shards/) is ROADMAP A10; the port "
-                        "cannot restore it" % name)
     for sub, checker in (("params", _check_params),
+                         ("shards", _check_shards),
                          ("ps", _check_ps)):
         subdir = os.path.join(path, sub)
         if sub != "params" and not os.path.isdir(subdir):

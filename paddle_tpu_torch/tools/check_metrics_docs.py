@@ -35,6 +35,7 @@ REGISTERING_MODULES = [
     "paddle_tpu_torch.serving.speculative",
     "paddle_tpu_torch.serving.embedding_cache",
     "paddle_tpu_torch.serving.wire.metrics",
+    "paddle_tpu_torch.sharding.metrics",
 ]
 
 # table rows look like ``| `metric_name` | type | ... |``

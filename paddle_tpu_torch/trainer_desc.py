@@ -18,7 +18,7 @@ that step rather than spawning thread workers:
   the Communicator.
 * ``Section``     -> the pipelined program of a PipelineOptimizer with a
   ``cut_list``; without one ``train_from_dataset`` raises, as the JAX
-  package does (the pipelined schedule is ROADMAP A10).
+  package does (the pipelined schedule is ROADMAP A10 part 3).
 """
 from __future__ import annotations
 

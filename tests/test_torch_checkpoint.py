@@ -329,14 +329,34 @@ def test_ps_tables_ride_the_checkpoint(tmp_path):
 
 
 def test_sharded_checkpoints_wait_for_a10(tmp_path):
+    """A compiled program at one rank holds its state whole: save(compiled=)
+    writes no shards/ and restore(compiled=) reads it back (the shard-wise
+    mode across ranks: tests/test_torch_sharded_training.py).  A
+    mesh-resident table's entry is ROADMAP A10 part 4 and raises."""
     main, startup, loss = _program(tfluid)
-    scope = tfluid.Scope(device="cpu")
+    exe, scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope(device="cpu")
+    exe.run(startup, scope=scope)
+    compiled = tfluid.CompiledProgram(main).with_data_parallel(loss_name=loss.name)
     ck = tckpt.TrainCheckpoint(str(tmp_path / "run"))
-    for call in (lambda: ck.save(main, scope, 1, compiled=object()),
-                 lambda: ck.save_async(main, scope, 1, compiled=object()),
-                 lambda: ck.restore(main, scope, compiled=object())):
-        with pytest.raises(NotImplementedError, match="A10"):
-            call()
+    path = ck.save(main, scope, 1, compiled=compiled)
+    assert not os.path.isdir(os.path.join(path, "shards"))
+    ck.save_async(main, scope, 2, compiled=compiled)
+    ck.wait()
+    fresh = tfluid.Scope(device="cpu")
+    exe.run(startup, scope=fresh)
+    assert ck.restore(main, fresh, compiled=compiled)["step"] == 2
+    for n, v in scope.vars.items():
+        if n in fresh.vars:
+            torch.testing.assert_close(fresh.vars[n], v, rtol=0, atol=0)
+    ck_dir = os.path.join(str(tmp_path / "run"), "ckpt-000002")
+    os.remove(os.path.join(ck_dir, "integrity.json"))
+    os.makedirs(os.path.join(ck_dir, "shards"))
+    with open(os.path.join(ck_dir, "shards", "manifest.json"), "w") as f:
+        json.dump({"mesh_axes": {"dp": 1}, "vars": {"emb": {
+            "kind": "mesh_table", "table": "emb", "shape": [4, 2], "dtype": "float32",
+            "spec": ["dp"], "shards": []}}}, f)
+    with pytest.raises(NotImplementedError, match="A10 part 4"):
+        ck.restore(main, fresh, compiled=compiled)
 
 
 # ---------------------------------------------------------------------------

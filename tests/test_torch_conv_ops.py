@@ -328,9 +328,16 @@ def test_batch_norm_bf16_x_keeps_fp32_statistics(is_test):
 
 
 def test_batch_norm_sync_bn_raises():
+    """sync_bn reduces its statistics over the op's axis only while that
+    axis is active (the JAX op psums inside a mapped axis alone); outside
+    one it is the local batch's, as the plain op (tests/test_torch_sharded_
+    training.py holds it over gloo ranks against the full batch)."""
     inputs = {s: [torch.from_numpy(a[0])] for s, a in _bn_inputs("NCHW").items()}
-    with pytest.raises(NotImplementedError, match="sync_bn"):
-        treg.get_kernel("batch_norm")(inputs, {"sync_bn": True}, CPU)
+    kernel = treg.get_kernel("batch_norm")
+    synced = kernel(inputs, {"sync_bn": True}, CPU)
+    local = kernel(inputs, {"sync_bn": False}, CPU)
+    for slot in ("Y", "MeanOut", "VarianceOut", "SavedMean", "SavedVariance"):
+        torch.testing.assert_close(synced[slot], local[slot], rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------------

@@ -169,6 +169,37 @@ def test_steps_above_one_refused():
         exe.run(tprog, feed=batch(), fetch_list=[loss], scope=scope, steps=2)
 
 
+def test_compiled_trainer_program_pushes_and_pulls():
+    """A transpiled trainer program wrapped in ``CompiledProgram(...)
+    .with_data_parallel`` (a one-rank mesh) runs the executor's dense-PS
+    round, as the JAX package unwraps it: one trainer's losses are the JAX
+    package's single-process run (rtol 2e-4), so every step pushed its
+    gradients and pulled the server's update.  Over more than one rank the
+    compiled step has no dense-PS round and raises naming A10 part 4."""
+    from paddle_tpu_torch.parallel import mesh as tmesh
+
+    steps = 4
+    jm, js, jloss = model("jax")
+    state = jax_startup_state(js, jm)
+    feed = batch()
+    base = [float(o[0]) for o in run_jax(jm, state, feed, [jloss.name], steps)[0]]
+    endpoints = [free_endpoint()]
+    pservers = start_pservers(endpoints, trainers=1)
+    tprog, _, loss = trainer_program(0, endpoints, trainers=1)
+    try:
+        cp = tfluid.CompiledProgram(tprog).with_data_parallel(loss_name=loss.name)
+        exe, scope = tfluid.Executor(tfluid.CPUPlace()), port_scope(state)
+        got = [float(exe.run(cp, feed=feed, fetch_list=[loss], scope=scope)[0])
+               for _ in range(steps)]
+        np.testing.assert_allclose(got, base, rtol=2e-4)
+        assert got[-1] < got[0]
+        cp._mesh = tmesh.Mesh({"dp": 2}, 0, groups={})  # seen from rank 0 of two
+        with pytest.raises(NotImplementedError, match="parameter-server.*A10 part 4"):
+            exe.run(cp, feed=feed, fetch_list=[loss], scope=scope)
+    finally:
+        stop_pservers(pservers)
+
+
 def test_pserver_run_binds_no_device():
     """The pserver branch returns before the scope binds a device: a
     pserver process never touches its executor's device."""

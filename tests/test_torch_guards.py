@@ -138,7 +138,7 @@ def test_checkpoint_verifier_flags_damage(run_dir, tmp_path, damage):
     problems = check_checkpoint.check(d)
     want = {"flip_param": "content hash", "drop_param": "has no file",
             "dangling_latest": "LATEST points", "bad_cursor": "cursor.json",
-            "no_integrity": "no integrity.json", "shards": "A10"}[damage]
+            "no_integrity": "no integrity.json", "shards": "shards/ has no manifest.json"}[damage]
     assert any(want in p for p in problems), problems
 
 

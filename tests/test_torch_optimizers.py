@@ -159,6 +159,25 @@ def test_update_op_matches_jax(case):
         assert moved == (30 if "before" in case else 6)  # dense, or k = round(30 * 0.2)
 
 
+def test_ftrl_underflowed_accumulator_stays_finite():
+    """A gradient of 1e-25 squares to 0 in fp32, so the squared accumulator
+    stays 0 while the linear one moves: the JAX op's (and ftrl_op.h's)
+    x / y is an infinity there; the port's element takes 0, the closed
+    form's value for no gradient seen, and elsewhere both ops agree."""
+    g = np.array([1e-25, -1e-25, 0.3, 0.0], np.float32)
+    ins = {"Param": np.array([0.5, -0.5, 0.5, 0.0], np.float32), "Grad": g,
+           "SquaredAccumulator": np.zeros(4, np.float32),
+           "LinearAccumulator": np.zeros(4, np.float32),
+           "LearningRate": np.array([1e-3], np.float32)}
+    attrs = {"l1": 0.0, "l2": 0.0, "lr_power": -0.5}
+    want = jreg.get_kernel("ftrl")({k: [v] for k, v in ins.items()}, attrs)["ParamOut"]
+    got = treg.get_kernel("ftrl")({k: [torch.from_numpy(v)] for k, v in ins.items()},
+                                  attrs, CPU)["ParamOut"].numpy()
+    assert np.isinf(np.asarray(want)[:2]).all()
+    np.testing.assert_array_equal(got[:2], [0.0, 0.0])
+    np.testing.assert_allclose(got[2:], np.asarray(want)[2:], rtol=1e-6)
+
+
 def test_dgc_collective_and_pipeline_stages_raise():
     op_type, inputs, attrs = _op_cases()["dgc_momentum_after_rampup"]
     with pytest.raises(NotImplementedError, match="A10"):

@@ -11,7 +11,8 @@ per-request dtype.
   package's, each dtype within a stated tolerance of the other package's
   answer;
 * the parity gate refuses an impossible rtol in both packages; int8
-  raises naming ROADMAP A11 and sharding naming A10 in the port.
+  raises naming ROADMAP A11 in the port, and a sharding manifest (with
+  the bf16 composition) loads, one rank serving the whole mesh.
 
 Tolerances: fp32 answers 1e-5 relative to the output's scale (the same
 fp32 programs, sums in other orders).  bf16 answers 3e-2 of the output's
@@ -263,25 +264,38 @@ def test_int8_raises_naming_a11_and_sharding_a10(tmp_path):
     d = _export_jax(tmp_path / "j", "lenet", precision={"dtype": "int8", "calibration": cal})
     with pytest.raises(mp_inf.PrecisionPolicyError, match="A11"):
         _port_predictor(d)
+    from paddle_tpu_torch.sharding import PartitionSpec, ShardingRuleError
+
     prog, startup, feed_names, targets = _program(tfluid, tmodels, _build_lenet)
     exe, scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
     exe.run(startup, scope=scope)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tfluid.io.save_inference_model(str(tmp_path / "s"), feed_names, targets, exe, prog,
-                                       scope=scope, sharding_rules=[(".*", None)])
-    # a sharding manifest in the model is refused naming A10
+    # sharding rules ride the export's manifest and the predictor loads them
+    # (a world of one rank: a mesh whose axes have size 1)
+    tfluid.io.save_inference_model(str(tmp_path / "s"), feed_names, targets, exe, prog,
+                                   scope=scope, sharding_rules=[(".*", None)],
+                                   sharding_mesh={"tp": 1})
+    assert json.load(open(tmp_path / "s" / "__model__"))["sharding"]["mesh_axes"] == {"tp": 1}
+    feed = _lenet_feed(n=2)
+    sharded = _port_predictor(str(tmp_path / "s"))
     plain = _export_port(tmp_path / "plain", "lenet")
+    np.testing.assert_allclose(sharded.run(feed)[0], _port_predictor(plain).run(feed)[0],
+                               rtol=FP32_TOL, atol=FP32_TOL)
+    assert sharded.sharded and sharded.sharding_stats()["n_sharded"] == 0
+    # a manifest with no rules is a typed load error
     model = json.load(open(os.path.join(plain, "__model__")))
     model["sharding"] = {"mesh_axes": {"tp": 2}, "rules": []}
     json.dump(model, open(os.path.join(plain, "__model__"), "w"))
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(ShardingRuleError, match="missing 'rules'"):
         _port_predictor(plain)
+    # the bf16 composition: the variant's hoisted params cast as they are placed
     pred = _port_predictor(_export_port(tmp_path / "bf", "lenet", precision=_policy(_lenet_feed)))
-    with pytest.raises(NotImplementedError, match="A10"):
-        pred.with_sharding_rules([])
-    with pytest.raises(NotImplementedError, match="A10"):
-        mp_inf.variant_scope(pred._program, pred._scope, set(), host_cast=True)
     assert pred.sharded is False
+    bf16_out = pred.run(feed)[0]
+    pred.with_sharding_rules([(".*", PartitionSpec())], mesh_axes={"tp": 1})
+    assert pred.sharded
+    np.testing.assert_array_equal(pred.run(feed)[0], bf16_out)
+    shared = mp_inf.variant_scope(pred._program, pred._scope, set(), host_cast=True)
+    assert all(shared.vars[n] is pred._scope.vars[n] for n in shared.vars)
 
 
 def test_variant_stores_hoisted_weights_in_bf16(tmp_path):
