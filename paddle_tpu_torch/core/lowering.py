@@ -117,6 +117,12 @@ def run_sub_block(block, local: Dict[str, Any], device: torch.device) -> Dict[st
 
 
 def _trace(ops, env, device, block, dead):
+    # a sequence-parallel step's constrainer (sharding/activations.py): it
+    # hands each op its inputs as windows or whole, and keeps each output
+    # as this rank holds it
+    from paddle_tpu_torch.sharding import activations as _sh_act
+
+    act = _sh_act.current()
     for i, op in enumerate(ops):
         kernel = registry.get_kernel(op.type)
         ins: Dict[str, List[Any]] = {}
@@ -133,6 +139,8 @@ def _trace(ops, env, device, block, dead):
                 vals.append(env[n])
             if vals:
                 ins[slot] = vals
+        if act is not None:
+            ins = act.prepare_inputs(op, ins)
         outs = kernel(ins, op.attrs, device)
         if outs is None:
             continue
@@ -144,7 +152,7 @@ def _trace(ops, env, device, block, dead):
                 vals = [vals]
             for n, v in zip(names, vals):
                 if n != EMPTY_VAR_NAME and v is not None:
-                    env[n] = v
+                    env[n] = v if act is None else act.constrain(n, v)
         if dead is not None:
             for n in dead[i]:
                 env.pop(n, None)

@@ -20,7 +20,11 @@ of the manifest's size builds the predictor, each keeps its shard of each
 parameter the rules shard (``param_placements``, ``sharding_stats``), and
 each run gathers the shards and returns the whole answer on every rank
 (``CompiledProgram``).  A bf16 endpoint composes: the variant's hoisted
-parameters are cast once a shard, at placement.
+parameters are cast once a shard, at placement.  An ``sp`` export
+(``canonical_rules("transformer_lm", "sp")``) keeps every parameter whole
+and each rank's window of the sequence axis: its attention runs as ring
+attention over the ranks (``parallel/ring_attention.py``), and the fetches
+are gathered whole on every rank.
 """
 from __future__ import annotations
 
@@ -264,7 +268,10 @@ class AnalysisPredictor(PaddlePredictor):
         """Placement accounting of this predictor's group: parameter
         counts, this rank's device bytes against the replicated baseline,
         both in the selected variant's stored dtype.  ``group=<label>``
-        also publishes the rank's bytes to ``sharding_group_hbm_bytes``."""
+        also publishes the rank's bytes to ``sharding_group_hbm_bytes``.  An
+        ``sp`` export also reports ``activation_bytes_unsharded``,
+        ``activation_bytes_per_device`` and ``n_activations_constrained``
+        (and publishes the rank's bytes to ``sharding_activation_bytes``)."""
         placements = self.param_placements(precision)
         hbm = sum(p["bytes_per_device"] for p in placements.values())
         total = 0  # every param whole, per rank
@@ -282,10 +289,21 @@ class AnalysisPredictor(PaddlePredictor):
             "hbm_bytes_per_device": int(hbm),
             "replicated_bytes": int(total),
         }
+        # an activation-sharded (sp) layout also reports its intermediates'
+        # footprint from the last run: all zero before a run, or after one
+        # that constrained nothing
+        act = self._compiled.activation_stats() if self._compiled is not None else None
+        if act is not None:
+            stats["activation_bytes_unsharded"] = act["activation_bytes_unsharded"]
+            stats["activation_bytes_per_device"] = act["activation_bytes_per_device"]
+            stats["n_activations_constrained"] = act["n_constrained"]
         if group is not None:
-            from paddle_tpu_torch.sharding.metrics import GROUP_HBM_BYTES
+            from paddle_tpu_torch.sharding.metrics import ACTIVATION_BYTES, GROUP_HBM_BYTES
 
             GROUP_HBM_BYTES.labels(group=str(group)).set(float(hbm))
+            if act is not None:
+                ACTIVATION_BYTES.labels(group=str(group)).set(
+                    float(act["activation_bytes_per_device"]))
         return stats
 
     # --- reference surface ---

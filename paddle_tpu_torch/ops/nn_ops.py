@@ -638,11 +638,30 @@ def fused_attention(inputs, attrs, device):
     """Fused scaled-dot-product attention: Q/K/V [N, H, S, D] -> ctx
     [N, H, S, D], with padding as ``Mask`` [N, S] (1 = token) and
     ``causal``.  On a card this is the hand-written kernel; the JAX
-    package's opt-in switch between its branches does not carry over."""
-    return {"Out": fused_attention_fwd(
-        one(inputs, "Q"), one(inputs, "K"), one(inputs, "V"),
-        maybe(inputs, "Mask"), bool(attrs.get("causal", False)),
-        float(attrs.get("scale", 1.0)))}
+    package's opt-in switch between its branches does not carry over.
+
+    In a sequence-parallel step (a compiled program whose rules carry sp
+    activation rules, ``sharding/activations.py``) the op dispatches where
+    the JAX op does: with an sp axis of more than one rank, no ``Mask``, a
+    sequence the axis divides and K shaped as Q, it runs
+    ``parallel/ring_attention.py`` on this rank's windows of Q, K and V.
+    Otherwise it gathers its windows and attends the whole sequence."""
+    from paddle_tpu_torch.sharding import activations as _sh_act
+
+    q, k, v, mask = one(inputs, "Q"), one(inputs, "K"), one(inputs, "V"), maybe(inputs, "Mask")
+    causal, scale = bool(attrs.get("causal", False)), float(attrs.get("scale", 1.0))
+    act = _sh_act.current()
+    if act is not None:
+        wins = [act.input_window(s) for s in ("Q", "K", "V")]
+        if act.sp_axis is not None and mask is None:
+            n_sp = act.axis_sizes[act.sp_axis]
+            S = int(q.shape[2]) * (n_sp if wins[0] == 2 else 1)
+            if n_sp > 1 and S % n_sp == 0 and tuple(k.shape) == tuple(q.shape) \
+                    and wins == [2, 2, 2]:
+                return {"Out": act.ring(q, k, v, causal, scale)}
+        q, k, v, mask = (act.whole(t, s) for t, s in ((q, "Q"), (k, "K"), (v, "V"),
+                                                        (mask, "Mask")))
+    return {"Out": fused_attention_fwd(q, k, v, mask, causal, scale)}
 
 
 # ---------------------------------------------------------------------------

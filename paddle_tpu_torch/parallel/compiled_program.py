@@ -35,6 +35,16 @@ FSDP2's design on the placements the partition rules resolve:
 * **Fetches.** Every rank gets the global result: a value with a leading
   batch dim is gathered along ``dp``, another floating value (a mean
   loss) is averaged over it, and a sharded persistable is gathered whole.
+* **Activations.** Rules with activation rules (the ``sp`` layout:
+  sequence-parallel serving) install an ``ActivationConstrainer``
+  (``sharding/activations.py``) around the step: each rank keeps its
+  window of the sequence axis of every intermediate the rules shard, the
+  ops run on windows (a replicated operand meeting a window along that
+  axis is cut to it; an op that mixes positions gets its windows gathered),
+  ``fused_attention`` runs as ring attention over the axis
+  (``parallel/ring_attention.py``), and a fetched window is gathered whole.
+  A feed whose spec shards a dim other than the batch is cut to the rank's
+  window of it.
 
 A mesh of one rank has nothing to gather, reduce or cut: the executor
 runs the plain step on the compiled program's program (its CUDA graph
@@ -73,7 +83,6 @@ _SHARD_SAFE = frozenset((
     "elementwise_sub", "elementwise_mul", "elementwise_div", "elementwise_max",
     "elementwise_min", "elementwise_pow"))
 _WHOLE_TENSOR_UPDATES = frozenset(("lamb", "lars_momentum"))
-_PART2 = "ROADMAP A10 part 2 (ring attention and sequence-parallel serving)"
 
 
 def _is_update(op) -> bool:
@@ -113,6 +122,7 @@ class CompiledProgram:
         # bf16 + sharded endpoint's hoisted casts; with_cast_dtypes)
         self._cast_dtypes: Dict[str, torch.dtype] = {}
         self._plans: Dict[tuple, _ShardedPlan] = {}
+        self._act_constrainer = None  # activation_constrainer(), per rules+mesh bind
         # scope -> {name: the tensor this program placed there}: a name whose
         # scope tensor is still that object is placed (the steady state)
         self._placed: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -212,15 +222,29 @@ class CompiledProgram:
         return self._rules
 
     def activation_constrainer(self):
-        """Activation rules (sequence-parallel serving) need ring attention:
-        ROADMAP A10 part 2.  None when the rules carry none."""
+        """The activation constrainer of this plan
+        (``sharding/activations.py``), or None when the bound rules carry
+        no activation rules.  Built once per rules+mesh bind; its own
+        (name, shape) memo keeps a run from re-scanning the regex list."""
+        if self._act_constrainer is not None:
+            return self._act_constrainer
         rules = self._rules
         if rules is None or not (getattr(rules, "activations", ())
                                  or getattr(rules, "activation_default", None) is not None):
             return None
-        raise NotImplementedError(
-            "rule set %r carries activation rules (sequence-parallel serving); they come "
-            "with %s" % (rules.name, _PART2))
+        from paddle_tpu_torch.sharding.activations import ActivationConstrainer
+
+        self._act_constrainer = ActivationConstrainer(
+            rules, self.mesh, self._mesh_axes or dict(self.mesh.shape),
+            block=self._program.global_block())
+        return self._act_constrainer
+
+    def activation_stats(self):
+        """Aggregate activation-bytes report of the last run's constrained
+        intermediates (``ActivationConstrainer.stats``), or None when
+        activations are not ruled."""
+        c = self.activation_constrainer()
+        return c.stats() if c is not None else None
 
     def _clear_sharding_memos(self) -> None:
         if getattr(self._rules, "state_kind", None) is not None:
@@ -231,6 +255,7 @@ class CompiledProgram:
         self._sharding_memo.clear()
         self._state_sh_memo.clear()
         self._feed_sh_memo.clear()
+        self._act_constrainer = None
         self._plans.clear()
         self._placed = weakref.WeakKeyDictionary()
 
@@ -374,18 +399,21 @@ class CompiledProgram:
         return plan, False
 
     def _local_feed(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a feed: its rows over ``dp``, and its window
+        of any other dim its spec shards (a sequence axis over ``sp``)."""
         sh = self.feed_sharding(name, t.dim())
         if sh.is_fully_replicated:
             return t
-        if tuple(sh.axes) != (self._batch_axis,) or any(e is not None for e in sh.spec[1:]):
-            raise NotImplementedError(
-                "feed %r is sharded as %s; only the batch dim over %r is sliced here, a "
-                "sequence-sharded feed comes with %s" % (name, sh.spec, self._batch_axis, _PART2))
-        n = self.mesh.axis_size(self._batch_axis)
-        if t.shape[0] % n:
-            raise ValueError(
-                "feed %r has a batch of %d rows, which does not divide the %r axis of %d "
-                "ranks (nothing is padded)" % (name, t.shape[0], self._batch_axis, n))
+        for d in range(min(len(sh.spec), t.dim())):
+            k = mesh_lib._block(sh, d)
+            if k > 1 and t.shape[d] % k:
+                if d == 0 and self._batch_axis in sh.axes:
+                    raise ValueError(
+                        "feed %r has a batch of %d rows, which does not divide the %r axis of "
+                        "%d ranks (nothing is padded)" % (name, t.shape[0], self._batch_axis, k))
+                raise ValueError(
+                    "feed %r has %d entries on dim %d, which does not divide the %d ranks of "
+                    "its spec %s (nothing is padded)" % (name, t.shape[d], d, k, sh.spec))
         return sh.shard(t)
 
     def _place(self, scope, plan, device) -> Tuple[Dict[str, torch.Tensor], int]:
@@ -472,7 +500,6 @@ class CompiledProgram:
         scope holds on the host (a sharded model's load) or in another
         dtype than its placement cast (``with_cast_dtypes``) is moved and
         cast, once."""
-        self.activation_constrainer()  # activation rules raise: part 2
         moved = False
         for n in names:
             self.state_sharding(n)
@@ -544,8 +571,11 @@ class CompiledProgram:
         from paddle_tpu_torch.kernels import dropout as kdropout
         from paddle_tpu_torch.scope import to_numpy
 
-        if getattr(self._rules, "activations", ()):
-            self.activation_constrainer()  # raises: part 2
+        from paddle_tpu_torch.sharding import activations as _sh_act
+
+        act = self.activation_constrainer()
+        if act is not None and act.n <= 1:
+            act = None  # no axis of the rules spans more than one rank
         device = exe.device
         mesh = self.mesh
         plan, hit = self._plan(exe, tuple(sorted(feed)), fetch_names)
@@ -556,7 +586,7 @@ class CompiledProgram:
         for n in plan.feed_names:
             t = exe._coerce_feed(feed[n], plan.feed_dtypes.get(n))
             local = self._local_feed(n, t)
-            if local is not t:
+            if local.dim() and local.shape[0] != t.shape[0]:
                 rows.add(local.shape[0])  # a slice of the batch's rows
             feeds[n] = local.to(device, non_blocking=True)
         t0 = time.perf_counter()
@@ -576,7 +606,9 @@ class CompiledProgram:
         kept_full = {}
         with penv.active_axes(mesh.axis_names), penv.batch_axis_guard(batch_axis), \
                 kdropout.batch_slice(mesh.coords.get(self._batch_axis, 0), dp, rows), \
-                torch.no_grad():
+                _sh_act.tracing(act), torch.no_grad():
+            if act is not None:
+                act.begin_trace()
             lowering.trace_ops(ops[:plan.a1], env, device, block, dead[:plan.a1])
             t3 = time.perf_counter()
             red = [n for n in plan.reduce if n in env]
@@ -592,6 +624,8 @@ class CompiledProgram:
                         kept_full[g] = env[g]
                     env[g] = self.state_sharding(p).shard(env[g]).contiguous()
             lowering.trace_ops(ops[plan.a2:], env, device, block, dead[plan.a2:])
+            if act is not None:
+                act.end_trace()
         self.last_step_seconds = {"place_s": t1 - t0, "gather_s": t2 - t1,
                                   "reduce_s": t4 - t3}
         placed = self._placed[scope]
@@ -613,6 +647,10 @@ class CompiledProgram:
             v = kept_full.get(n, env.get(n))
             if v is None:
                 v = scope.vars[n]
+            if act is not None and n not in plan.names and isinstance(v, torch.Tensor):
+                wd = act.window_dim(n, v.shape)
+                if wd is not None:  # a window of the sequence: gathered whole
+                    v = act.gather(v, wd)
             if n in plan.names and not self.state_sharding(n).is_fully_replicated:
                 v = self.gather_state(n, v)
             elif dp > 1 and n not in plan.names:

@@ -17,11 +17,13 @@ replicating every parameter on each:
   TRAIN program: :class:`TrainPartitionRules` derives every optimizer
   accumulator's spec from its param's matched rule, so params and
   optimizer state live sharded,
+* :mod:`paddle_tpu_torch.sharding.activations` — the activation rules
+  applied to a compiled program's step: each rank keeps its window of the
+  sequence axis (sequence-parallel serving under the ``sp`` layout),
 * :mod:`paddle_tpu_torch.sharding.metrics` — placement observability.
 
 The mesh-resident sparse tables (the JAX package's ``sharding/sparse.py``)
-are ROADMAP A10 part 4 and the activation constraints
-(``sharding/activations.py``) part 2.
+are ROADMAP A10 part 4.
 
 Entry points: ``CompiledProgram.with_sharding_rules(rules, ...)``
 (``paddle_tpu_torch/parallel/compiled_program.py``),

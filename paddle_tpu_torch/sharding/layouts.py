@@ -24,9 +24,9 @@ Modes
   replicated weight dim sharded over ``fsdp`` instead.
 * ``sp`` (transformer family only, outside ``MODES``) — sequence
   parallelism for long-context serving: parameters replicate and the
-  layout's ACTIVATION rules shard the sequence axis over ``sp``.  The
-  rule set builds here; serving under it needs ring attention (ROADMAP
-  A10 part 2) and raises.
+  layout's ACTIVATION rules shard the sequence axis over ``sp``: each
+  rank keeps its window of it (``sharding/activations.py``) and the fused
+  attention op runs as ring attention (``parallel/ring_attention.py``).
 
 Coverage is a tested invariant, not an intention:
 ``python -m paddle_tpu_torch.tools.check_partition_rules`` builds each
@@ -88,7 +88,9 @@ def _transformer_rules(mode: str, name: str) -> PartitionRules:
         # ([N, S, ...]).  reshape/transpose tmps are deliberately
         # unconstrained (the seq axis moves around in them; GSPMD
         # propagation places them from their producers/consumers).
-        # Divisibility contract: serve with seq_len % sp == 0.
+        # Divisibility contract: serve with seq_len % sp == 0 — the
+        # constrainer skips a non-divisible dim rather than erroring,
+        # and the fused_attention op falls back to its gathered path.
         col_w = col_b = row_w = row_b = emb = ln = _P()
         act_rules = (
             (attn + r"fused_\d+\.tmp", _P(None, None, AXIS_SP)),

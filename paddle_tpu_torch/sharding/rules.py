@@ -29,9 +29,8 @@ with the weights and a loader reconstructs the same placement
 ACTIVATION rules (``activations=``) are a second ordered rule list over
 *intermediate* var names (sequence-parallel serving shards activations,
 not params).  An unmatched activation resolves to ``activation_default``,
-which is ``None`` by default and means no constraint at all.  The port
-keeps and round-trips them; serving under them is ROADMAP A10 part 2
-(ring attention) and raises.
+which is ``None`` by default and means no constraint at all.  A compiled
+program applies them with ``sharding/activations.py``.
 """
 from __future__ import annotations
 

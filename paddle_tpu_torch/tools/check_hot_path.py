@@ -54,6 +54,8 @@ CHECKED_FILES = [
     "paddle_tpu_torch/serving/wire/fleet.py",
     # the hot-id cache's probe under its lock (the PS pull is outside)
     "paddle_tpu_torch/serving/embedding_cache.py",
+    # a sequence-parallel step's per-output constrain: spec lookup and a slice
+    "paddle_tpu_torch/sharding/activations.py",
 ]
 
 # blocking-sync tokens (substring match on code, not comments)

@@ -220,8 +220,10 @@ def check_sp() -> List[str]:
     dead rule (all-replicated, but coverage is what lets one manifest
     carry the layout); activation rules must each match a real
     intermediate name, and the fused attention output — the tensor the
-    ring attention (ROADMAP A10 part 2) will key on — must resolve to a
-    constraint."""
+    ring attention keys on — must resolve to a constraint.  A run of the
+    build under the sp constrainer of a two-rank axis, on meta tensors
+    (shapes only, no collective), must dispatch every fused attention op
+    to the ring (``parallel/ring_attention.py``)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import framework, models
     from paddle_tpu_torch.sharding.layouts import transformer_lm_rules
@@ -268,7 +270,37 @@ def check_sp() -> List[str]:
             "sp layout leaves the fused attention output unconstrained "
             "— the ring-attention target must carry the sp "
             "spec")
+    n_attn = sum(op.type == "fused_attention" for op in prog.global_block().ops)
+    ring_calls = _sp_ring_calls(prog, rules)
+    if ring_calls != n_attn:
+        problems.append(
+            "a traced sp build dispatched %d of its %d fused attention ops to "
+            "the ring" % (ring_calls, n_attn))
     return problems
+
+
+def _sp_ring_calls(prog, rules, n_sp: int = 2) -> int:
+    """The ring dispatches of one run of ``prog`` under the sp constrainer of
+    an ``n_sp``-rank axis (rank 0's view), on meta tensors: feeds of 2 rows,
+    every persistable at its declared shape."""
+    import torch
+
+    from paddle_tpu_torch.core import lowering
+    from paddle_tpu_torch.core import types as core_types
+    from paddle_tpu_torch.parallel.ring_attention import reset_ring_stats, ring_stats
+    from paddle_tpu_torch.sharding import activations
+
+    block = prog.global_block()
+    env = {v.name: torch.empty([2 if int(d) < 0 else int(d) for d in v.shape],
+                               dtype=core_types.torch_dtype(core_types.canonical_dtype(v.dtype)),
+                               device="meta")
+           for v in prog.list_vars() if v.persistable or v.is_data}
+    ctx = activations.ActivationConstrainer(rules, None, {"sp": n_sp}, coords={"sp": 0},
+                                            block=block)
+    reset_ring_stats()
+    with activations.tracing(ctx), torch.no_grad():
+        lowering.trace_ops(block.ops, env, torch.device("meta"), block)
+    return ring_stats()["calls"]
 
 
 def main() -> int:

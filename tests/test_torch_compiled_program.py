@@ -27,9 +27,12 @@ startup state (an .npz the ranks load).
 * In process: a compiled program at one rank is the plain executor's run
   (its plan and entry caches); dropout's mask on a rank's slice of the batch is that slice of the whole
   batch's mask at any element offset, and a tensor that is not
-  batch-leading draws the whole run's mask; activation (``sp``) rules and
-  sequence-sharded feeds raise naming ROADMAP A10 part 2; over more than
-  one rank a pipelined or mesh-table program raises naming its part.
+  batch-leading draws the whole run's mask; activation (``sp``) rules at
+  one rank run the plain step (its answer, an activation report of
+  nothing constrained) and a sequence-sharded feed is cut to the rank's
+  window (a length its ranks do not divide is a typed ``ValueError``);
+  over more than one rank a pipelined or mesh-table program raises naming
+  its part.
 
 Every rank has a time limit and the ports are free ones.
 """
@@ -234,15 +237,20 @@ def test_activation_rules_and_sequence_sharded_feeds_name_part_2():
     exe.run(startup, scope=scope)
     sp = tfluid.CompiledProgram(prog).with_sharding_rules(
         canonical_rules("transformer_lm", "sp"), mesh_axes={"sp": 1})
-    feed = {"src_ids": np.ones((2, 16), np.int64)}
-    with pytest.raises(NotImplementedError, match="A10 part 2"):
-        exe.run(sp, feed=feed, fetch_list=[logits], scope=scope)
+    feed = {"src_ids": np.arange(32, dtype=np.int64).reshape(2, 16) % 64}
+    got, = exe.run(sp, feed=feed, fetch_list=[logits], scope=scope)
+    want, = exe.run(prog, feed=feed, fetch_list=[logits], scope=scope)
+    np.testing.assert_array_equal(got, want)
+    assert sp.activation_stats() == {"activation_bytes_unsharded": 0,
+                                     "activation_bytes_per_device": 0, "n_constrained": 0}
     strat = tfluid.DistributedStrategy()
     strat.sharding_specs = {"src_ids": ("dp", "sp")}
     cp = tfluid.CompiledProgram(prog).with_strategy(strat)
     from paddle_tpu_torch.parallel import mesh as tmesh
 
-    # a mesh with an sp axis of two ranks, seen from rank 0 (box math only)
-    cp._mesh = tmesh.Mesh({"dp": 1, "sp": 2}, 0, groups={})
-    with pytest.raises(NotImplementedError, match="A10 part 2"):
-        cp._local_feed("src_ids", torch.ones(2, 16, dtype=torch.int64))
+    # a mesh with an sp axis of two ranks, seen from rank 1 (box math only)
+    cp._mesh = tmesh.Mesh({"dp": 1, "sp": 2}, 1, groups={})
+    ids = torch.arange(32, dtype=torch.int64).reshape(2, 16)
+    assert torch.equal(cp._local_feed("src_ids", ids), ids[:, 8:])
+    with pytest.raises(ValueError, match="does not divide"):
+        cp._local_feed("src_ids", torch.ones(2, 15, dtype=torch.int64))

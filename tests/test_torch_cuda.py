@@ -2725,3 +2725,40 @@ def test_one_rank_collective_plan_is_captured(card):
                for f in feeds]
     assert exe.jit_cache_stats()["graphs"] == 1
     assert [g.tobytes() for g in got] == [r.tobytes() for r in ref]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape,head_split", [((2, 8, 1024, 64), True), ((1, 3, 17, 10), False)],
+                         ids=["lm_block", "ragged"])
+def test_ring_merge_kernel_against_plain(card, dtype, shape, head_split):
+    """Kernel B2 (ring attention's merge) against its plain version, with a
+    masked-fill row in one block and in both: out within one rounding of
+    the output's type (fp32 1e-5; bf16 rtol 2**-7), the statistics within
+    1e-5, once counted, bit for bit across two launches."""
+    from paddle_tpu_torch.kernels import ring_attention as kra
+
+    n, h, t, d = shape
+    g = torch.Generator(device=card).manual_seed(3)
+
+    def block(masked):
+        o = torch.randn((n, t, h, d) if head_split else shape, generator=g, device=card)
+        o = (o.permute(0, 2, 1, 3) if head_split else o).to(dtype)
+        st = torch.stack([3 * torch.randn((n, h, t), generator=g, device=card),
+                          torch.rand((n, h, t), generator=g, device=card) * float(np.log(t))])
+        for r in masked:
+            st[0].view(-1)[r], st[1].view(-1)[r] = kra.MASKED_FILL
+        return o, st
+
+    oa, sa = block((0, 1))
+    ob, sb = block((1,))
+    kernels.reset_launch_counts()
+    out, st = kra.ring_merge(oa, sa, ob, sb)
+    assert kernels.launch_counts().get(kra.KERNEL_NAME) == 1
+    assert out.stride() == oa.stride()
+    ref, ref_st = kra.ring_merge_plain(oa, sa, ob, sb)
+    tol = dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32 else dict(rtol=2.0 ** -7, atol=1e-5)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(st, ref_st, rtol=1e-6, atol=1e-5)
+    assert out.float().reshape(-1, d)[1].abs().max() == 0  # both blocks empty: 0
+    again = kra.ring_merge(oa, sa, ob, sb)
+    assert torch.equal(out, again[0]) and torch.equal(st, again[1])

@@ -356,8 +356,49 @@ def scenario_serve(ctx, model_dir, ids, precisions=(None,)):
                                                  group="tp_lm")}
 
 
+def scenario_sp_serve(ctx, model_dir, feeds, storm=()):
+    """The rank's predictor of an ``sp`` export: its answer to each feed
+    (each a dict of name -> rows), its stats, the misses of a storm of
+    ``storm`` (indices into ``feeds``) after one run of each, and the ring's
+    counters."""
+    from paddle_tpu_torch.inference import AnalysisConfig, create_paddle_predictor
+    from paddle_tpu_torch.parallel.ring_attention import reset_ring_stats, ring_stats
+
+    cfg = AnalysisConfig(model_dir)
+    cfg.disable_gpu()
+    pred = create_paddle_predictor(cfg)
+    reset_ring_stats()
+    feeds = [{n: np.asarray(v) for n, v in f.items()} for f in feeds]
+    outs = [np.asarray(pred.run(f)[0]).tolist() for f in feeds]
+    misses = pred.jit_cache_stats()["misses"]
+    for i in storm:
+        pred.run(feeds[i])
+    return {"sharded": pred.sharded, "outs": outs, "stats": pred.sharding_stats(group="sp_lm"),
+            "storm_misses": pred.jit_cache_stats()["misses"] - misses,
+            "ring": ring_stats()}
+
+
+def scenario_ring(ctx, q, k, v, causal, scale):
+    """``parallel.ring_attention`` on this rank's window of the full
+    [B, H, S, D] q/k/v (rank r holds tokens [r S/n, (r+1) S/n))."""
+    import torch
+
+    from paddle_tpu_torch.parallel import mesh as mesh_lib
+    from paddle_tpu_torch.parallel.ring_attention import reset_ring_stats, ring_attention, ring_stats
+
+    mesh = mesh_lib.make_mesh({"sp": ctx["world"]})
+    group, _ = mesh.group(("sp",))
+    r, n = ctx["rank"], ctx["world"]
+    win = [torch.as_tensor(np.asarray(t, np.float32)).chunk(n, dim=2)[r].contiguous()
+           for t in (q, k, v)]
+    reset_ring_stats()
+    out = ring_attention(*win, group, causal=causal, scale=scale)
+    return {"out": out.numpy().tolist(), "ring": ring_stats()}
+
+
 SCENARIOS = {"dp_mlp": scenario_dp_mlp, "tp_specs": scenario_tp_specs, "lm": scenario_lm,
-             "lm_restore": scenario_lm_restore, "bn": scenario_bn, "serve": scenario_serve}
+             "lm_restore": scenario_lm_restore, "bn": scenario_bn, "serve": scenario_serve,
+             "sp_serve": scenario_sp_serve, "ring": scenario_ring}
 
 
 def main(out_dir):
