@@ -98,6 +98,42 @@
 //    and 384 at N=32 are 0.73 and 1.45 waves on 132 SMs.  bf16 blocks of
 //    128 threads own 64 rows with 25,344 bytes; registers allow four a SM,
 //    so the 384 blocks at N=16 are 0.73 waves.
+//
+// The ring step (kernel B2; the kMerge instantiation, entry
+// paddle_fused_attention_ring_step).  Replaces what XLA fused on the TPU
+// inside the JAX package's ring attention (its parallel/ring_attention.py:26,
+// the body of the `lax.scan`: the running max, the correction factor and the
+// rescaled accumulator; no pallas_call).  A rank attends each K/V block that
+// reaches it and folds the result into the running output of its queries,
+// Acc [N, H, Sq, D] in Q's dtype, and its statistics AccStats, fp32
+// [2, N, H, Sq] in the format above.  The walk is the forward's; at the
+// epilogue a thread holds its two rows' unnormalised O, their max m_b and
+// their sum l_b in registers, and for each row computes, in fp32:
+//   m   = max(m_a, m_b)                      (m_a, log l_a from AccStats)
+//   w_a = exp((m_a - m) + log l_a),  e_b = exp(m_b - m)
+//   L   = max(w_a + l_b e_b, 1e-20)
+//   O   = O (e_b / L) + Acc (w_a / L)        (Acc read at the thread's own
+//                                             fragment columns 8j + 2 t4 + {0, 1})
+//   Out = O in Q's dtype,  Stats = (m, log L)
+// which is the plain merge of the block's normalised output into Acc
+// (kernels/ring_attention.py ring_merge_plain) with the block's output never
+// rounded to T: bf16 rounds once, at the store.  Out and Stats are Acc and
+// AccStats, in place: each block owns its rows, reads them before its
+// epilogue's barrier and writes them after it.  Acc's masked fill (m =
+// -1e30, log l = -inf: nothing attended yet) weighs 0 exactly
+// (ex2.approx.ftz(-inf) = +0); the 1e-20 guard is the JAX function's.
+//
+// Why fused, not a pass of its own: a separate merge reads the block's
+// output back from device memory with Acc and both statistics and writes
+// the result, 3 N H Sq D item + 6 N H Sq 4 bytes and a launch of about 2 us
+// a hop, where its bf16 bound at [2, 8, 1024, 64] is 2.0 us.  Fused, a hop
+// is one launch; the block's output never leaves the SM, and what the merge
+// adds to the forward is the read of Acc and AccStats: N H Sq (D item + 8)
+// bytes, 4.33 MB in fp32 and 2.23 MB in bf16 at that shape (1.29 and 0.67 us
+// at 3.35 TB/s), behind the walk's operations.  The epilogue issues all of a
+// thread's loads of Acc and AccStats before it uses any (one round trip, not
+// one a load); a prefetch of them into L2 at the block's start measured
+// slower.
 
 #include <stdint.h>
 
@@ -133,12 +169,50 @@ struct FwdParams {
   int causal;
   int vec;            // every row allows 16-byte copies and stores
   float scale;
+  // the ring step only: the running output [N, H, Sq, D] in T with (n, h, s)
+  // strides a_s*, and its statistics, fp32 [2, N, H, Sq], contiguous; the
+  // entry makes out and stats these same two (the merge is in place)
+  const void* acc;
+  const float* acc_stats;
+  long long a_sn, a_sh, a_ss;
 };
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// The thread's values of one row of a [., D] array at its accumulator
+// fragment's columns 8 j + 2 t4 + {0, 1} (0 past D, and everywhere for a row
+// that is not live), as floats: 8- or 4-byte loads where `vec` vouches for
+// the alignment (the columns are even, D fills 16-byte chunks), else scalar
+// ones.  Each branch is one run of predicated loads, so they all issue
+// before the first value is used.
+template <typename T, int DP>
+__device__ __forceinline__ void load_frag_row(float2 (&a)[DP / 8], const T* row, int t4, int d,
+                                              bool live, bool vec) {
+  if (live && vec) {
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + 2 * t4;
+      if constexpr (sizeof(T) == 4)
+        a[j] = c < d ? *reinterpret_cast<const float2*>(row + c) : make_float2(0.f, 0.f);
+      else
+        a[j] = c < d ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + c))
+                     : make_float2(0.f, 0.f);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + 2 * t4;
+      a[j] = make_float2(live && c < d ? to_float(row[c]) : 0.f,
+                         live && c + 1 < d ? to_float(row[c + 1]) : 0.f);
+    }
+  }
+}
 
 // Two blocks a SM: in fp32 at D = 64 that holds ptxas to 128 registers a
 // thread (it takes 166 unbounded, which leaves room for one block), and
 // shared memory (115,456 bytes a block) allows two.
-template <typename T, int DP>
+template <typename T, int DP, bool kMerge>
 __global__ void __launch_bounds__(Cfg<T, DP>::kThreads, 2)
     fused_attention_fwd_kernel(const FwdParams p) {
   using C = Cfg<T, DP>;
@@ -295,6 +369,39 @@ __global__ void __launch_bounds__(Cfg<T, DP>::kThreads, 2)
     l_run[hh] += __shfl_xor_sync(0xffffffffu, l_run[hh], 2);
     inv[hh] = 1.0f / l_run[hh];
   }
+  if constexpr (kMerge) {
+    // the ring step (see the head note): O merged with Acc's rows, already
+    // normalised; the statistics become the merged (m, L)
+    const T* ag = static_cast<const T*>(p.acc) + n * p.a_sn + h * p.a_sh;
+    const long long at = (n * gridDim.y + h) * p.sq;
+    float2 a[2][DP / 8];
+    float m_a[2], ll_a[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {  // every load first
+      const int qi = q0 + row_lo + 8 * hh;
+      const bool live = qi < p.sq;  // rows past Sq read nothing and are not stored
+      m_a[hh] = live ? p.acc_stats[at + qi] : -1e30f;
+      ll_a[hh] = live ? p.acc_stats[p.nhs + at + qi] : -INFINITY;
+      load_frag_row<T, DP>(a[hh], ag + (live ? qi : 0) * p.a_ss, t4, p.d, live, vec);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float m = fmaxf(m_a[hh], m_run[hh]);
+      const float w_a = ex2(((m_a[hh] - m) + ll_a[hh]) * kLog2e);
+      const float e_b = ex2((m_run[hh] - m) * kLog2e);
+      const float big_l = fmaxf(w_a + l_run[hh] * e_b, 1e-20f);
+      const float cb = e_b / big_l, ca = w_a / big_l;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        o[4 * j + 2 * hh] = o[4 * j + 2 * hh] * cb + a[hh][j].x * ca;
+        o[4 * j + 2 * hh + 1] = o[4 * j + 2 * hh + 1] * cb + a[hh][j].y * ca;
+      }
+      m_run[hh] = m;
+      l_run[hh] = big_l;
+      inv[hh] = 1.0f;  // O is final
+    }
+    __syncwarp();  // the quad has read its rows' AccStats before lane t4 = 0 rewrites them
+  }
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) o[i] *= inv[(i >> 1) & 1];
   if (p.stats != nullptr && t4 == 0) {
@@ -313,32 +420,43 @@ __global__ void __launch_bounds__(Cfg<T, DP>::kThreads, 2)
                         b0, p.sq, p.d, vec);
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool kMerge>
 cudaError_t launch(const FwdParams& p, int n, int h, cudaStream_t stream) {
   using C = Cfg<T, DP>;
   const int smem = C::smem_bytes(kFwd);
   static SmemLimit limit;
-  cudaError_t err = limit.raise_once(fused_attention_fwd_kernel<T, DP>, smem);
+  cudaError_t err = limit.raise_once(fused_attention_fwd_kernel<T, DP, kMerge>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.sq + C::kBlockRows - 1) / C::kBlockRows, h, n);
-  fused_attention_fwd_kernel<T, DP><<<grid, C::kThreads, smem, stream>>>(p);
+  fused_attention_fwd_kernel<T, DP, kMerge><<<grid, C::kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kMerge>
 cudaError_t dispatch_dim(const FwdParams& p, int n, int h, cudaStream_t stream) {
-  if (p.d <= 32) return launch<T, 32>(p, n, h, stream);
-  if (p.d <= 64) return launch<T, 64>(p, n, h, stream);
-  return launch<T, 128>(p, n, h, stream);
+  if (p.d <= 32) return launch<T, 32, kMerge>(p, n, h, stream);
+  if (p.d <= 64) return launch<T, 64, kMerge>(p, n, h, stream);
+  return launch<T, 128, kMerge>(p, n, h, stream);
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool kMerge>
 void config_of(int* out) {
   using C = Cfg<T, DP>;
   out[0] = C::kThreads;
   out[1] = C::kBlockRows;
   out[2] = C::kWalk;
   out[3] = C::smem_bytes(kFwd);
+  cudaFuncAttributes attr;
+  const bool ok = cudaFuncGetAttributes(&attr, fused_attention_fwd_kernel<T, DP, kMerge>) ==
+                  cudaSuccess;
+  out[4] = ok ? attr.numRegs : -1;
+  out[5] = ok ? int(attr.localSizeBytes) : -1;
+}
+
+template <typename T, bool kMerge>
+void config_dim(int dp, int* out) {
+  dp <= 32 ? config_of<T, 32, kMerge>(out)
+           : dp <= 64 ? config_of<T, 64, kMerge>(out) : config_of<T, 128, kMerge>(out);
 }
 
 }  // namespace
@@ -380,19 +498,66 @@ extern "C" int paddle_fused_attention_fwd(
   p.vec = vec ? 1 : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      dtype == 0 ? dispatch_dim<float>(p, n, h, s) : dispatch_dim<__nv_bfloat16>(p, n, h, s);
+      dtype == 0 ? dispatch_dim<float, false>(p, n, h, s)
+                 : dispatch_dim<__nv_bfloat16, false>(p, n, h, s);
   return int(err);
 }
 
-// The launch configuration of one instantiation, for reports: out[0..3] =
+// The ring step: the forward of Q against one K/V block (no Mask), merged
+// in place into the running output acc, [n, h, sq, d] of type dtype, and its
+// statistics acc_stats, fp32 [2, n, h, sq], contiguous (see the head note).
+// strides: 12 values, the (n, h, s) strides of q, k, v and acc, in elements.
+// Returns the launch's cudaError_t (0 on success).
+extern "C" int paddle_fused_attention_ring_step(const void* q, const void* k, const void* v,
+                                                void* acc, void* acc_stats, int dtype, int n,
+                                                int h, int sq, int sk, int d,
+                                                const long long* strides, int causal,
+                                                float scale, void* stream) {
+  if (n < 1 || h < 1 || sq < 1 || sk < 1 || d < 1 || d > 128 || n > 65535 || h > 65535)
+    return int(cudaErrorInvalidValue);
+  if ((dtype != 0 && dtype != 1) || acc == nullptr || acc_stats == nullptr)
+    return int(cudaErrorInvalidValue);
+  FwdParams p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.out = acc;
+  p.acc = acc;
+  p.stats = static_cast<float*>(acc_stats);
+  p.acc_stats = p.stats;
+  p.sq = sq;
+  p.sk = sk;
+  p.d = d;
+  p.nhs = (long long)n * h * sq;
+  long long* dst[12] = {&p.q_sn, &p.q_sh, &p.q_ss, &p.k_sn, &p.k_sh, &p.k_ss,
+                        &p.v_sn, &p.v_sh, &p.v_ss, &p.a_sn, &p.a_sh, &p.a_ss};
+  for (int i = 0; i < 12; ++i) *dst[i] = strides[i];
+  p.o_sn = p.a_sn;
+  p.o_sh = p.a_sh;
+  p.o_ss = p.a_ss;
+  p.causal = causal;
+  p.scale = scale;
+  const long long item = dtype == 0 ? 4 : 2;
+  bool vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(acc) && (d * item) % 16 == 0;
+  for (int i = 0; i < 12; ++i) vec = vec && (strides[i] * item) % 16 == 0;
+  p.vec = vec ? 1 : 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      dtype == 0 ? dispatch_dim<float, true>(p, n, h, s)
+                 : dispatch_dim<__nv_bfloat16, true>(p, n, h, s);
+  return int(err);
+}
+
+// The launch configuration of one instantiation, for reports: out[0..5] =
 // threads a block, rows a block owns, rows a walked tile, dynamic shared
-// memory bytes.  dtype as above; dp: the head dim.
-extern "C" void paddle_fused_attention_fwd_config(int dtype, int dp, int* out) {
+// memory bytes, registers a thread and local (spill) bytes a thread (-1
+// where the runtime cannot say).  dtype as above; dp: the head dim; merge:
+// the ring step's instantiation (1) or the forward's (0).
+extern "C" void paddle_fused_attention_fwd_config(int dtype, int dp, int merge, int* out) {
   if (dtype == 0)
-    dp <= 32 ? config_of<float, 32>(out) : dp <= 64 ? config_of<float, 64>(out) : config_of<float, 128>(out);
+    merge ? config_dim<float, true>(dp, out) : config_dim<float, false>(dp, out);
   else
-    dp <= 32 ? config_of<__nv_bfloat16, 32>(out)
-             : dp <= 64 ? config_of<__nv_bfloat16, 64>(out) : config_of<__nv_bfloat16, 128>(out);
+    merge ? config_dim<__nv_bfloat16, true>(dp, out) : config_dim<__nv_bfloat16, false>(dp, out);
 }
 
 extern "C" const char* paddle_cuda_error_string(int err) {

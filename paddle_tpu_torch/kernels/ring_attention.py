@@ -1,11 +1,12 @@
-"""Ring attention's merge step (kernel B2): the CUDA kernel's wrapper and
-its plain version.
+"""Ring attention's step (kernel B2): the CUDA kernel's wrapper and its
+plain version.
 
-``ring_merge(o_a, stats_a, o_b, stats_b)`` folds one K/V block's attention
-output ``o_b`` into the running output ``o_a`` of the same queries, by the
-two blocks' row statistics in kernel B1's format (``stats[0]`` the row max
-m of the scores, ``stats[1]`` log l, the log of the row sum of exp(s - m);
-see ``kernels/fused_attention.py`` ``_row_stats`` and ``row_lse``):
+A rank of the ring attends each K/V block that reaches it and folds the
+block into the running output ``acc`` of its queries, by the row
+statistics in kernel B1's format (``stats[0]`` the row max m of the
+scores, ``stats[1]`` log l, the log of the row sum of exp(s - m); see
+``kernels/fused_attention.py`` ``_row_stats`` and ``row_lse``).  The
+merge of a block's output o_b into o_a:
 
     m = max(m_a, m_b),  w = exp((m_x - m) + log l_x) for x = a, b,
     l = w_a + w_b,      out = (o_a w_a + o_b w_b) / max(l, 1e-20),
@@ -17,17 +18,23 @@ logaddexp(lse_a, lse_b).  A block with no valid key is the masked fill
 merge to 0 with the masked fill's statistics: the ``max(l, 1e-20)``
 guard of the JAX package's ``parallel/ring_attention.py``.
 
-By device, ``ring_merge``:
+``ring_step(q, k, v, causal, scale, acc=None, acc_stats=None)`` is one
+hop: the attention of ``q`` against the block ``k``, ``v`` (no Mask),
+merged into ``acc`` and ``acc_stats`` when they are given.  By device:
 
-* on a CUDA tensor launches ``csrc/ring_attention.cu`` (o in fp32 or bf16,
-  statistics in fp32), or raises; there is no fall back to the plain
-  version on the card;
-* on a CPU tensor runs ``ring_merge_plain``, the same arithmetic in
-  torch (fp32, or fp64 for fp64 inputs);
+* on a CUDA tensor, without ``acc`` it launches B1's forward with its
+  statistics (``fused_attention._forward(..., want_stats=True)``,
+  counted under ``fused_attention.KERNEL_NAME``); with ``acc`` it
+  launches B1's forward with the merge in its epilogue
+  (``csrc/fused_attention.cu``'s kMerge instantiation, counted under
+  ``KERNEL_NAME``), which writes the merged rows and statistics into
+  ``acc`` and ``acc_stats`` in place and returns them.  The block's own
+  output never leaves the SM, and a hop is one launch.  A failed launch
+  raises; there is no fall back to the plain version on the card;
+* on a CPU tensor runs ``ring_step_plain``: ``fused_attention_plain``
+  with its statistics, then ``ring_merge_plain`` written into ``acc``
+  and ``acc_stats`` in place;
 * on a meta tensor returns shape-only results.
-
-The kernel counts its launches under ``KERNEL_NAME``
-(``paddle_tpu_torch.kernels.launch_counts()``).
 """
 from __future__ import annotations
 
@@ -35,22 +42,22 @@ import ctypes
 
 import torch
 
-from paddle_tpu_torch.kernels import build, count_launch
+from paddle_tpu_torch.kernels import count_launch
+from paddle_tpu_torch.kernels import fused_attention as fa
 
-__all__ = ["KERNEL_NAME", "MASKED_FILL", "ring_merge", "ring_merge_plain"]
+__all__ = ["KERNEL_NAME", "MASKED_FILL", "ring_merge_plain", "ring_step", "ring_step_plain"]
 
-KERNEL_NAME = "ring_merge"
+KERNEL_NAME = "ring_step"
 MASKED_FILL = (-1e30, float("-inf"))  # (m, log l) of a block with no valid key
-_LIB = "ring_attention"
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 9
-         + [ctypes.c_void_p])
-_bound = {}
+_ARGS = ([ctypes.c_void_p] * 5           # q, k, v, acc, acc_stats
+         + [ctypes.c_int] * 6             # dtype, n, h, sq, sk, d
+         + [ctypes.c_void_p]              # 12 strides (q, k, v, acc)
+         + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])  # causal, scale, stream
 
 
 def ring_merge_plain(o_a, stats_a, o_b, stats_b):
-    """(out, stats) of the merge, in torch: the kernel's arithmetic in fp32
-    (fp64 for fp64 inputs), out in o_a's dtype."""
+    """(out, stats) of the merge, in torch: fp32 (fp64 for fp64 inputs),
+    out in o_a's dtype.  Returns new tensors."""
     ct = torch.promote_types(o_a.dtype, torch.float32)
     sa, sb = stats_a.to(ct), stats_b.to(ct)
     m = torch.maximum(sa[0], sb[0])
@@ -61,63 +68,62 @@ def ring_merge_plain(o_a, stats_a, o_b, stats_b):
     return out.to(o_a.dtype), torch.stack([m, torch.log(l)]).to(stats_a.dtype)
 
 
-def _check(o_a, stats_a, o_b, stats_b):
-    if o_a.dim() != 4 or o_b.shape != o_a.shape:
-        raise ValueError("ring_merge: o_a %s and o_b %s must be one [N, H, T, D] shape"
-                         % (tuple(o_a.shape), tuple(o_b.shape)))
-    if o_a.dtype not in _DTYPE_CODES or o_b.dtype != o_a.dtype:
-        raise TypeError("ring_merge kernel takes float32 or bfloat16 outputs of one type, got "
-                        "%s and %s" % (o_a.dtype, o_b.dtype))
-    shape = (2,) + tuple(o_a.shape[:3])
-    for name, t in (("o_a", o_a), ("o_b", o_b), ("stats_a", stats_a), ("stats_b", stats_b)):
-        if t.device != o_a.device:
-            raise ValueError("ring_merge: %s on %s, o_a on %s" % (name, t.device, o_a.device))
-    for name, t in (("stats_a", stats_a), ("stats_b", stats_b)):
-        if t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError("ring_merge: %s must be float32 %s, got %s %s"
-                             % (name, list(shape), t.dtype, tuple(t.shape)))
-    for name, t in (("o_a", o_a), ("o_b", o_b)):
-        if t.stride(-1) != 1:
-            raise ValueError("ring_merge: %s needs a unit stride on its last dim" % name)
+def ring_step_plain(q, k, v, causal: bool, scale: float, acc=None, acc_stats=None):
+    """``ring_step`` in torch, on any device: B1's plain forward with its
+    statistics; with ``acc``, that block merged into ``acc`` and
+    ``acc_stats`` by ``ring_merge_plain``, written there in place, and
+    those two returned."""
+    out, stats = fa.fused_attention_plain(q, k, v, None, causal, scale, return_stats=True)
+    if acc is None:
+        return out, stats
+    merged, merged_stats = ring_merge_plain(acc, acc_stats, out, stats)
+    acc.copy_(merged)
+    acc_stats.copy_(merged_stats)
+    return acc, acc_stats
 
 
-def _entry():
-    lib = build.load(_LIB)
-    fn = _bound.get(id(lib))
-    if fn is None:
-        fn = lib.paddle_ring_merge
-        fn.argtypes = _ARGS
-        fn.restype = ctypes.c_int
-        lib.paddle_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.paddle_cuda_error_string.restype = ctypes.c_char_p
-        _bound[id(lib)] = fn
-    return lib, fn
+def _check(q, acc, acc_stats):
+    shape = tuple(q.shape[:3])
+    if tuple(acc.shape) != tuple(q.shape):
+        raise ValueError("ring_step: acc %s must be Q's shape %s"
+                         % (tuple(acc.shape), tuple(q.shape)))
+    if acc.dtype != q.dtype or acc.device != q.device:
+        raise TypeError("ring_step: acc is %s on %s, Q is %s on %s"
+                        % (acc.dtype, acc.device, q.dtype, q.device))
+    if acc.stride(-1) != 1:
+        raise ValueError("ring_step: acc needs a unit stride on its last dim")
+    if (acc_stats is None or acc_stats.dtype != torch.float32 or acc_stats.device != q.device
+            or tuple(acc_stats.shape) != (2,) + shape or not acc_stats.is_contiguous()):
+        raise ValueError("ring_step: acc_stats must be contiguous float32 %s on %s"
+                         % ([2] + list(shape), q.device))
 
 
-def ring_merge(o_a, stats_a, o_b, stats_b):
-    """(out, stats): ``o_b`` merged into ``o_a`` by their row statistics
-    (see the module's docstring); the kernel on a CUDA tensor, the plain
-    version on a CPU one, shape-only results on a meta one.  Returns new
-    tensors; out keeps o_a's memory layout."""
-    if o_a.device.type == "meta":
-        return torch.empty_like(o_a), torch.empty_like(stats_a)
-    if o_a.device.type == "cpu":
-        return ring_merge_plain(o_a, stats_a, o_b, stats_b)
-    if o_a.device.type != "cuda":
-        raise ValueError("ring_merge: no kernel for device %s" % o_a.device)
-    _check(o_a, stats_a, o_b, stats_b)
-    stats_a, stats_b = stats_a.contiguous(), stats_b.contiguous()
-    out = torch.empty_like(o_a)
-    stats = torch.empty_like(stats_a)
-    n, h, t, d = o_a.shape
-    lib, fn = _entry()
-    with torch.cuda.device(o_a.device):
-        stream = torch.cuda.current_stream(o_a.device).cuda_stream
-        err = fn(o_a.data_ptr(), stats_a.data_ptr(), o_b.data_ptr(), stats_b.data_ptr(),
-                 out.data_ptr(), stats.data_ptr(), _DTYPE_CODES[o_a.dtype], n, h, t, d,
-                 *[s for x in (o_a, o_b, out) for s in x.stride()[:3]], stream)
-    if err != 0:
-        raise RuntimeError("ring_merge kernel launch failed: %s (cudaError %d)"
-                           % (lib.paddle_cuda_error_string(err).decode(), err))
-    count_launch(KERNEL_NAME, o_a.dtype, stream)
-    return out, stats
+def ring_step(q, k, v, causal: bool, scale: float, acc=None, acc_stats=None):
+    """(out, stats) of one ring hop over [N, H, T, D] (see the module's
+    docstring): the block's attention with its row statistics when
+    ``acc`` is None, else the block merged into ``acc`` and ``acc_stats``
+    in place, which are returned.  The kernels on a CUDA tensor, the plain
+    version on a CPU one, shape-only results on a meta one."""
+    if q.device.type == "meta":
+        if acc is not None:
+            return acc, acc_stats
+        return fa._forward(q, k, v, None, causal, scale, want_stats=True)
+    if q.device.type == "cpu":
+        return ring_step_plain(q, k, v, causal, scale, acc, acc_stats)
+    if acc is None:
+        return fa._forward(q, k, v, None, causal, scale, want_stats=True)
+    if q.device.type != "cuda":
+        raise ValueError("ring_step: no kernel for device %s" % q.device)
+    fa._check(q, k, v, None, causal)
+    _check(q, acc, acc_stats)
+    n, h, sq, d = q.shape
+    strides = (ctypes.c_int64 * 12)(*fa._strides(q, k, v, acc))
+    fn = fa._entry(fa._LIB, "paddle_fused_attention_ring_step", _ARGS)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(), acc_stats.data_ptr(),
+                 fa._DTYPE_CODES[q.dtype], n, h, sq, k.shape[2], d, ctypes.addressof(strides),
+                 int(bool(causal)), float(scale), stream)
+    fa._raise_on(err, fa._LIB, "ring_step")
+    count_launch(KERNEL_NAME, q.dtype, stream)
+    return acc, acc_stats

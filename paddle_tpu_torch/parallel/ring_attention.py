@@ -14,20 +14,23 @@ whose body attends one K/V block with einsums, folds it into a running
   (``isend`` / ``irecv``) before it attends the block, so the hop overlaps
   the attention; gloo moves host tensors only, so over gloo a CUDA block
   goes through the host, as ``parallel/mesh.py`` ``all_gather_cat`` does;
-* each block is attended by kernel B1's forward with its row statistics
-  (``kernels/fused_attention.py`` ``_forward(..., want_stats=True)``):
-  rank r's own block with ``causal`` (queries and keys share the window),
-  the blocks of lower ranks with no mask, and, when ``causal``, the
-  blocks of higher ranks not at all (every key lies after every query:
-  the JAX scan adds exactly 0 for them);
-* the blocks' outputs merge by their statistics in kernel B2,
-  ``kernels/ring_attention.py`` ``ring_merge``, whose final normalisation
-  keeps the JAX function's ``max(l, 1e-20)`` guard.
+* each block is attended and merged in one launch,
+  ``kernels/ring_attention.py`` ``ring_step``: rank r's own block first,
+  with ``causal`` (queries and keys share the window), by kernel B1's
+  forward with its row statistics; then the blocks of lower ranks, with
+  no mask, by B1's forward with the merge in its epilogue (kernel B2),
+  which folds the block into the running output and its statistics in
+  place with the JAX function's ``max(l, 1e-20)`` guard; and, when
+  ``causal``, the blocks of higher ranks not at all (every key lies after
+  every query: the JAX scan adds exactly 0 for them).
 
-So rank r launches B1 r + 1 times and B2 r times under ``causal`` (n and
-n - 1 times without), and sends n - 1 blocks of K and V.  There is no
-backward: the ``sp`` layout serves (the JAX package's
-``sharding/layouts.py``), and the ring's gradient comes with sp training.
+So rank r launches B1's forward once and B2 r times under ``causal`` (once
+and n - 1 times without), and sends n - 1 blocks of K and V.  After the
+last hop the running statistics are the rows' (m, log l) over the whole
+sequence.  There is no backward yet: the ``sp`` layout serves (the JAX
+package's ``sharding/layouts.py``), and the ring's gradient, which can
+rebuild each block's probabilities from those statistics, comes with sp
+training.
 """
 from __future__ import annotations
 
@@ -70,7 +73,6 @@ def ring_attention(q, k, v, group=None, causal: bool = True, scale: Optional[flo
     position with ``causal``) times V."""
     import torch.distributed as dist
 
-    from paddle_tpu_torch.kernels import fused_attention as fa
     from paddle_tpu_torch.kernels import ring_attention as kra
 
     D = q.shape[-1]
@@ -95,8 +97,7 @@ def ring_attention(q, k, v, group=None, causal: bool = True, scale: Optional[flo
             reqs = [dist.isend(wire, nxt, group=group), dist.irecv(incoming, prv, group=group)]
         src = (r - s) % n
         if not (causal and src > r):
-            ob, sb = fa._forward(q, kv[0], kv[1], None, causal and s == 0, scale, want_stats=True)
-            out, stats = (ob, sb) if out is None else kra.ring_merge(out, stats, ob, sb)
+            out, stats = kra.ring_step(q, kv[0], kv[1], causal and s == 0, scale, out, stats)
         if reqs:
             t_wait = time.perf_counter()
             for req in reqs:

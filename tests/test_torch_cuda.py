@@ -35,7 +35,9 @@ pool's captured ``chunk`` against the same chunk run eagerly, zero
 captures after warmup, and a resize across rungs while slots are live;
 and a dense-PS trainer's captured steps against their eager twin (the
 pulled parameters reach the graph), and a one-rank collective plan
-captured.
+captured; and kernel B2, ring attention's step (B1's forward with the
+merge in its epilogue), against its plain version in place, and a ring
+of steps against attention over the whole sequence.
 
 Every test here needs a CUDA card and skips without one (marker
 ``cuda``).  The file imports neither jax nor paddle_tpu, so it also runs
@@ -2727,38 +2729,94 @@ def test_one_rank_collective_plan_is_captured(card):
     assert [g.tobytes() for g in got] == [r.tobytes() for r in ref]
 
 
+# Kernel B2, the ring step: B1's forward with the merge in its epilogue,
+# against ring_step_plain (B1's plain forward with statistics, then
+# ring_merge_plain).  fp32 at this file's B1 tolerance; bf16 at B1's plus one
+# rounding of the output (rtol 2**-8): the plain route rounds the block's
+# output to bf16 before it merges, the kernel rounds once, at the store.
+STEP_TOL = {torch.float32: TOL[torch.float32],
+            torch.bfloat16: dict(atol=2e-2, rtol=2.0 ** -7 + 2.0 ** -8)}
+
+
+def _ring_acc(card, q, dtype, seed):
+    """A running output and its statistics as a ring holds them after its
+    first block (B1's forward of q against another K/V block), in q's
+    layout, with row 1 (n 0, h 0, t 1) the masked fill."""
+    from paddle_tpu_torch.kernels import ring_attention as kra
+
+    g = torch.Generator(device=card).manual_seed(seed)
+    k0, v0 = (torch.randn(q.shape, generator=g, device=card).to(dtype) for _ in range(2))
+    acc, st = fa.fused_attention_fwd(q, k0, v0, None, False, 0.125, return_stats=True)
+    st[0, 0, 0, 1], st[1, 0, 0, 1] = kra.MASKED_FILL
+    return acc, st
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("shape,head_split", [((2, 8, 1024, 64), True), ((1, 3, 17, 10), False)],
                          ids=["lm_block", "ragged"])
-def test_ring_merge_kernel_against_plain(card, dtype, shape, head_split):
-    """Kernel B2 (ring attention's merge) against its plain version, with a
-    masked-fill row in one block and in both: out within one rounding of
-    the output's type (fp32 1e-5; bf16 rtol 2**-7), the statistics within
-    1e-5, once counted, bit for bit across two launches."""
+@pytest.mark.parametrize("causal", [True, False], ids=["diagonal", "full"])
+def test_ring_step_kernel_against_plain(card, dtype, shape, head_split, causal):
+    """Kernel B2 on a running output with a masked-fill row: against
+    ring_step_plain (STEP_TOL; statistics within 1e-5), written into acc's
+    own storage with its strides kept, the masked-fill row equal to the
+    block's own output, one launch counted under B2 and none under B1, and
+    bit for bit across two launches."""
     from paddle_tpu_torch.kernels import ring_attention as kra
 
-    n, h, t, d = shape
-    g = torch.Generator(device=card).manual_seed(3)
+    q, k, v, _ = _inputs(card, *shape, dtype, head_split, seed=11)
+    scale = 1.0 / float(np.sqrt(shape[3]))
+    acc, st = _ring_acc(card, q, dtype, seed=12)
+    ref_acc, ref_st = acc.clone(), st.clone()
+    runs = []
+    for _ in range(2):
+        a, s_ = acc.clone(), st.clone()
+        kernels.reset_launch_counts()
+        out, out_st = kra.ring_step(q, k, v, causal, scale, a, s_)
+        assert kernels.launch_counts() == {kra.KERNEL_NAME: 1}
+        assert out is a and out_st is s_ and out.stride() == acc.stride()
+        runs.append((a, s_))
+    ptr = acc.data_ptr()
+    kra.ring_step(q, k, v, causal, scale, acc, st)
+    assert acc.data_ptr() == ptr
+    block, _ = kra.ring_step(q, k, v, causal, scale)
+    kra.ring_step_plain(q, k, v, causal, scale, ref_acc, ref_st)
+    torch.cuda.synchronize()
+    (a, s_), (a2, s2) = runs
+    assert torch.equal(a, a2) and torch.equal(s_, s2) and torch.equal(a, acc)
+    assert torch.isfinite(a.float()).all()
+    torch.testing.assert_close(a.float(), ref_acc.float(), **STEP_TOL[dtype])
+    torch.testing.assert_close(s_, ref_st, rtol=1e-5, atol=1e-5)
+    assert torch.equal(a[0, 0, 1], block[0, 0, 1])
 
-    def block(masked):
-        o = torch.randn((n, t, h, d) if head_split else shape, generator=g, device=card)
-        o = (o.permute(0, 2, 1, 3) if head_split else o).to(dtype)
-        st = torch.stack([3 * torch.randn((n, h, t), generator=g, device=card),
-                          torch.rand((n, h, t), generator=g, device=card) * float(np.log(t))])
-        for r in masked:
-            st[0].view(-1)[r], st[1].view(-1)[r] = kra.MASKED_FILL
-        return o, st
 
-    oa, sa = block((0, 1))
-    ob, sb = block((1,))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_ring_steps_on_card_are_full_attention(card, dtype, causal):
+    """A ring of 4 windows of [2, 8, 256, 64] in one process: each window's
+    queries through ring_step over the K/V windows in the ring's order (its
+    own first, causal; the higher ones skipped under causal) against
+    attention over the whole sequence in float64 (STEP_TOL)."""
+    from paddle_tpu_torch.kernels import ring_attention as kra
+
+    n, tl = 4, 256
+    g = torch.Generator(device=card).manual_seed(13)
+    q, k, v = (torch.randn(2, 8, n * tl, 64, generator=g, device=card).to(dtype)
+               for _ in range(3))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()) * 0.125
+    if causal:
+        s = s.masked_fill(~torch.ones(n * tl, n * tl, dtype=torch.bool, device=card).tril(),
+                          float("-inf"))
+    want = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), v.double())
     kernels.reset_launch_counts()
-    out, st = kra.ring_merge(oa, sa, ob, sb)
-    assert kernels.launch_counts().get(kra.KERNEL_NAME) == 1
-    assert out.stride() == oa.stride()
-    ref, ref_st = kra.ring_merge_plain(oa, sa, ob, sb)
-    tol = dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32 else dict(rtol=2.0 ** -7, atol=1e-5)
-    torch.testing.assert_close(out.float(), ref.float(), **tol)
-    torch.testing.assert_close(st, ref_st, rtol=1e-6, atol=1e-5)
-    assert out.float().reshape(-1, d)[1].abs().max() == 0  # both blocks empty: 0
-    again = kra.ring_merge(oa, sa, ob, sb)
-    assert torch.equal(out, again[0]) and torch.equal(st, again[1])
+    for r in range(n):
+        out = st = None
+        for hop in range(n):
+            src = (r - hop) % n
+            if causal and src > r:
+                continue
+            win, kw = slice(r * tl, (r + 1) * tl), slice(src * tl, (src + 1) * tl)
+            out, st = kra.ring_step(q[:, :, win], k[:, :, kw], v[:, :, kw], causal and hop == 0,
+                                    0.125, out, st)
+        torch.testing.assert_close(out.double(), want[:, :, win], **STEP_TOL[dtype])
+    merges = sum(range(n)) if causal else n * (n - 1)
+    assert kernels.launch_counts() == {fa.KERNEL_NAME: n, kra.KERNEL_NAME: merges}

@@ -8,10 +8,12 @@
   H=3, D=10, seq 32), causal and not, ``scale=None`` and given: within
   1e-5 (rtol and atol; both sides are fp32 sums of the same terms in
   another order).  Each rank sends its n - 1 hops of K and V.
-* Kernel B2's plain version, ``ring_merge_plain``, against a float64
+* Kernel B2's plain versions: ``ring_merge_plain`` against a float64
   log-sum-exp merge of two blocks, rows with the masked fill (a block with
-  no valid key) included, and a ring built from it against full attention;
-  the wrapper's CPU and meta paths.
+  no valid key) included; ``ring_step_plain`` written in place into the
+  running output (a strided view kept) against a fresh merge; a ring of
+  ``ring_step`` calls against full attention; the wrapper's CPU and meta
+  paths and its argument checks.
 """
 import numpy as np
 import pytest
@@ -128,25 +130,85 @@ def test_ring_merge_plain_matches_a_float64_logsumexp_merge(dtype, tol):
     np.testing.assert_allclose(lse[ok], want_lse[ok], rtol=tol, atol=tol)
 
 
-def test_ring_merge_wrapper_cpu_and_meta_paths():
+def _step_inputs(rng, shape, head_split=False, dtype=torch.float32):
+    """q, k, v of one block and a running (acc, acc_stats) whose row 1 is the
+    masked fill; with ``head_split`` acc is the [N, T, H, D] view's permute."""
+    n, h, t, d = shape
+    q, k, v = (torch.tensor(rng.randn(*shape), dtype=dtype) for _ in range(3))
+    o, st = _block(rng, shape, masked_rows=(1,))
+    acc = torch.tensor(o, dtype=dtype)
+    if head_split:
+        acc = acc.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+    return q, k, v, acc, torch.tensor(st, dtype=torch.float32)
+
+
+def test_ring_step_wrapper_cpu_and_meta_paths():
     rng = np.random.RandomState(6)
     shape = (1, 2, 4, 8)
-    oa, sa = (torch.tensor(a, dtype=torch.float32) for a in _block(rng, shape))
-    ob, sb = (torch.tensor(a, dtype=torch.float32) for a in _block(rng, shape))
-    got = kra.ring_merge(oa, sa, ob, sb)
-    want = kra.ring_merge_plain(oa, sa, ob, sb)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    meta = kra.ring_merge(oa.to("meta"), sa.to("meta"), ob.to("meta"), sb.to("meta"))
-    assert [t.shape for t in meta] == [oa.shape, sa.shape] and meta[0].device.type == "meta"
+    q, k, v, acc, st = _step_inputs(rng, shape)
+    for causal in (True, False):
+        got = kra.ring_step(q, k, v, causal, 0.3)
+        want = kra.ring_step_plain(q, k, v, causal, 0.3)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        a1, s1, a2, s2 = acc.clone(), st.clone(), acc.clone(), st.clone()
+        got = kra.ring_step(q, k, v, causal, 0.3, a1, s1)
+        want = kra.ring_step_plain(q, k, v, causal, 0.3, a2, s2)
+        assert got[0] is a1 and got[1] is s1
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    meta = [t.to("meta") for t in (q, k, v, acc, st)]
+    first = kra.ring_step(*meta[:3], True, 0.3)
+    assert [t.shape for t in first] == [q.shape, st.shape]
+    assert all(t.device.type == "meta" for t in first)
+    merged = kra.ring_step(*meta[:3], False, 0.3, meta[3], meta[4])
+    assert merged[0] is meta[3] and merged[1] is meta[4]
+
+
+@pytest.mark.parametrize("head_split", [False, True], ids=["contiguous", "head_split"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_ring_step_plain_in_place_matches_fresh(head_split, causal):
+    """The merged rows written into acc's own storage, its strides kept,
+    equal a fresh merge of the block's plain output; acc's masked-fill row
+    comes out as the block's own output."""
+    from paddle_tpu_torch.kernels import fused_attention as fa
+
+    rng = np.random.RandomState(8)
+    shape = (2, 3, 16, 8)
+    q, k, v, acc, st = _step_inputs(rng, shape, head_split)
+    ob, sb = fa.fused_attention_plain(q, k, v, None, causal, 0.35, return_stats=True)
+    fresh, fresh_st = kra.ring_merge_plain(acc.clone(), st.clone(), ob, sb)
+    ptr, strides = acc.data_ptr(), acc.stride()
+    out, out_st = kra.ring_step_plain(q, k, v, causal, 0.35, acc, st)
+    assert out is acc and out_st is st
+    assert acc.data_ptr() == ptr and acc.stride() == strides
+    assert torch.equal(acc, fresh) and torch.equal(st, fresh_st)
+    torch.testing.assert_close(acc.reshape(-1, 8)[1], ob.reshape(-1, 8)[1], rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(st[:, 0, 0, 1], sb[:, 0, 0, 1], rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "last_stride", "stats_layout", "stats_dtype"])
+def test_ring_step_checks_the_running_output(bad):
+    """The card path's checks of acc and acc_stats, on CPU tensors."""
+    rng = np.random.RandomState(9)
+    q, _, _, acc, st = _step_inputs(rng, (1, 2, 4, 8))
+    if bad == "shape":
+        acc = acc[:, :, :3]
+    elif bad == "dtype":
+        acc = acc.double()
+    elif bad == "last_stride":
+        acc = torch.empty(1, 2, 4, 16)[..., ::2]
+    elif bad == "stats_layout":
+        st = torch.empty(2, 1, 2, 8)[..., ::2]
+    else:
+        st = st.double()
+    with pytest.raises((ValueError, TypeError), match="ring_step"):
+        kra._check(q, acc, st)
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_blockwise_merges_of_b1_blocks_are_full_attention(causal):
-    """The ring's arithmetic in one process: B1's plain forward with its
-    statistics on each (query window, key window) pair the ring attends,
-    merged by ring_merge_plain in the ring's order, equals full attention."""
-    from paddle_tpu_torch.kernels import fused_attention as fa
-
+    """The ring's arithmetic in one process: ``ring_step`` on each (query
+    window, key window) pair the ring attends, in the ring's order, each hop
+    merged into the running output, equals full attention."""
     n, tl = 4, SEQ // 4
     q, k, v = (torch.from_numpy(a) for a in _qkv())
     want = _full_attention(*_qkv(), causal, D ** -0.5)
@@ -158,7 +220,6 @@ def test_blockwise_merges_of_b1_blocks_are_full_attention(causal):
                 continue
             win = slice(r * tl, (r + 1) * tl)
             kw = slice(src * tl, (src + 1) * tl)
-            ob, sb = fa._forward(q[:, :, win], k[:, :, kw], v[:, :, kw], None,
-                                 causal and s == 0, D ** -0.5, want_stats=True)
-            out, st = (ob, sb) if out is None else kra.ring_merge(out, st, ob, sb)
+            out, st = kra.ring_step(q[:, :, win], k[:, :, kw], v[:, :, kw], causal and s == 0,
+                                    D ** -0.5, out, st)
         np.testing.assert_allclose(out.numpy(), want[:, :, r * tl:(r + 1) * tl], rtol=TOL, atol=TOL)
