@@ -7,6 +7,7 @@
     python3 chip_smoke.py --dist 3   # phase 37, three times
     python3 chip_smoke.py --mesh 3   # phase 38, three times
     python3 chip_smoke.py --sp 3     # phase 39, three times
+    python3 chip_smoke.py --hybrid 3 # phase 40, three times
 
 Phases, each of which raises (exit code != 0) on failure:
 
@@ -330,7 +331,7 @@ Phases, each of which raises (exit code != 0) on failure:
    a token, occupancy, KV bytes, memory, a profiled top-rung replay; no
    capture after warmup); the same requests request at a time; 32
    teacher-forced 256-token slots through the captured top-rung chunk,
-   the first 8 against the CPU (logits within 1e-4 of max(1, max
+   the first 4 against the CPU (logits within 1e-4 of max(1, max
    |logit|)); 16
    requests spread over total length (every sixth in sorted order) decoded
    alone by the scalar cached step (tokens equal up to a top-2 margin under
@@ -378,7 +379,7 @@ Phases, each of which raises (exit code != 0) on failure:
    whole); a burst beyond a 16-deep queue (every 4th request a high-class
    row, the rest low-class 16-row batches, 2,000 a second), climbing the
    brownout ladder to L3 with only the low class shed, then descending to
-   0; and rows/s, p50 and p99 of 256 requests at 1, 2,
+   0; and rows/s, p50 and p99 of 128 requests at 1, 2,
    2 and 1 replicas.
 36. The wire layer on the card (``serving.wire``; every wait has a
    deadline).  (a) Phase 35's bf16 export served by
@@ -393,7 +394,7 @@ Phases, each of which raises (exit code != 0) on failure:
    predictor at their rung; one request's span tree from
    ``serving/client_infer`` through ``wire/request``,
    ``wire/server_request`` and ``serving/queue_wait`` to the predictor and
-   executor spans under one trace id; rows/s, p50 and p99 of 128 requests
+   executor spans under one trace id; rows/s, p50 and p99 of 64 requests
    through the fleet, through a ``RemoteClient`` to one child and in
    process at one replica (the wire tax); no entry built and no graph
    captured in a child after warmup; ``wire.send=corrupt,times=2``
@@ -496,6 +497,42 @@ Phases, each of which raises (exit code != 0) on failure:
    ranks' run seconds, the ring's hop seconds and bytes sent a layer are
    printed on an ``[sp-numbers]`` line beside the card's name and power
    limit.
+40. The 5D hybrid engine trained, run after phase 39.  (a) Ring attention's
+   backward, kernel by kernel, at phase 39's block [2, 8, 1024, 64] in
+   fp32 and bf16: a two-block ring in this process (the second rank's
+   queries: its own, causal diagonal block by B1's forward with statistics,
+   then a full block merged by ``ring_step``), whose backward runs through
+   ``kernels/ring_attention.py`` ``ring_block_bwd``: B1's dK/dV and dQ
+   kernels with the ring's merged statistics.  Each block's dQ, dK, dV
+   against the plain version (``check_bwd_kernels``' limits), bit for bit
+   across two launches; in fp32 the ring's whole gradient against float64
+   attention of the window's queries over both blocks; each kernel timed on
+   the diagonal and the full block beside the plain version, SDPA's
+   backward over the block (``is_causal`` on the diagonal) and its bound
+   (bytes read and written once, the products over the causal triangle on
+   the diagonal, as ``_causal_bwd_bounds`` counts them); printed on a ``[ring-bwd]`` line.  (b) This
+   process runs the port's ``parallel.hybrid.reference_loss`` at the LM's
+   widths (vocab 32,000, d_model 512, 8 heads, d_ff 2,048, 6 layers, 4
+   experts, seq 2,048, batch 4 in 2 microbatches; weights
+   ``init_params(cfg, SEED + 100)``, tokens from the seed) on the card for
+   2 steps of Adam (lr 0.01, epsilon 1e-3, L2 decay 0.02) written out as the
+   JAX package's ``test_hybrid_engine_adam_parity`` writes it, TF32 off.
+   Four ranks (``chip_smoke.py --hybrid-child``, gloo), started by the
+   port's launcher when the phase starts (their imports, group and weights
+   on the host overlap (a) and the reference; they touch the card once
+   both are done), train on the mesh ``{"pp": 2, "sp": 2}``, each building
+   the step through ``fleet.distributed_optimizer(AdamOptimizer(...),
+   strategy).build_hybrid_train_step()`` with ring attention, from the same
+   weights and tokens: each step's loss on every rank within rtol 2e-4 of
+   the reference's; after step 2 ``wq``, ``wo``, ``moe_w0``, ``word_emb``,
+   ``head`` and ``ln1_scale`` within rtol 3e-3, atol 2e-5; each step on the
+   rank of sp index r launches B1's forward 9 times (3 layers x 3 time
+   steps), ``ring_step`` 9 r, dK/dV and dQ 9 (r + 1) each and no other hand
+   kernel (counts set to 0 before the step and read after it, in the rank).
+   Each rank's step seconds, the gradient reduction's seconds, the ring's
+   forward and backward hop seconds and bytes and each rank's
+   ``max_memory_allocated()`` are printed on a ``[hybrid-numbers]`` line
+   beside the card's name and power limit.
 
 Output: progress lines, then a ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
@@ -893,7 +930,7 @@ DEC_WAVES = 3
 DEC_PROMPT = (16, 192)
 DEC_NEW = (16, 256)
 DEC_TF_LEN = 256          # leg 3: teacher-forced positions a slot
-DEC_CPU_SLOTS = 8         # leg 3: the slots the CPU recomputes (2 s a slot on the host)
+DEC_CPU_SLOTS = 4         # leg 3: the slots the CPU recomputes (2 s a slot on the host)
 DEC_ISOLATED = 16         # leg 4: requests decoded alone (spread over total length)
 DEC_PREFIX = dict(reqs=16, prefix=128, suffix=(1, 15), new=32, budget=64 << 20)
 DEC_SIDE_SERVER = dict(max_slots=8, slot_ladder=[8], len_ladder=[256], steps_per_tick=4)
@@ -935,7 +972,7 @@ REPL_CLIENTS = 16          # client threads
 REPL_REMOVE_REQUESTS = 32  # the leg during which r1 is removed
 REPL_FAULT_REQUESTS = 48   # the leg during which r1's dispatches fail
 REPL_FAULT_AFTER = 2       # r1's dispatches that pass before the fault fires
-REPL_TIMED_REQUESTS = 256  # each timing leg (1 replica, 2, 2, 1)
+REPL_TIMED_REQUESTS = 128  # each timing leg (1 replica, 2, 2, 1)
 REPL_BURST_CAPACITY = 16   # the brownout leg's queue
 REPL_BURST_HOLD_S = 0.02   # the brownout leg's hold at each rung
 REPL_BURST_GAP_S = 0.0005  # between the burst's submits: 1,500 full batches and 500 rows a second
@@ -943,7 +980,7 @@ REPL_REPLAN_RUNGS = 6      # max_rungs of the mid-traffic re-plan
 REPL_QUEUE_WAIT_MS = 120_000.0  # the traffic legs' AIMD wait target: 16 clients never shed
 WIRE_REQUESTS = 128        # phase 36 (a): the fleet's mixed traffic, 1 to 16 rows
 WIRE_ALONE = 8             # bf16 requests sent one at a time
-WIRE_TIMED_REQUESTS = 128  # each wire-tax leg (fleet of two, one child, in process)
+WIRE_TIMED_REQUESTS = 64   # each wire-tax leg (fleet of two, one child, in process)
 WIRE_KILL_REQUESTS = 64    # in flight from 64 client threads when a child is killed
 WIRE_KILL_SEND_DELAY_S = 0.05  # each send of the kill leg is held this long before it leaves
 WIRE_MAX_IN_FLIGHT = 32    # the fleet's bound per backend
@@ -988,6 +1025,20 @@ SP_MERGE_SHAPE = (2, 8, 1024, 64)  # B2 at the phase's own block: [rows, heads, 
 SP_MERGE_TOL = {"float32": (0.0, 1e-4), "bfloat16": (2.0 ** -7 + 2.0 ** -8, 2e-2)}  # (rtol, atol)
 SP_STATS_TOL = 1e-5
 SP_CHILD_S = 300
+# phase 40: the 5D hybrid engine at the LM's widths with the engine's 4 experts,
+# trained by ranks sharing the card (gloo) on HYBRID_MESH with ring attention;
+# the ring's block is SP_MERGE_SHAPE: [microbatch, heads, seq / sp, D]
+HYBRID_MESH = {"pp": 2, "sp": 2}
+HYBRID_RANKS = 4
+HYBRID_CFG = dict(vocab_size=32000, d_model=512, n_head=8, d_ff=2048, n_layers=6, n_experts=4,
+                  seq_len=2048, batch=4, microbatches=2, ring_attention=True)
+HYBRID_STEPS = 2
+# tests/test_hybrid_parallel.py's test_hybrid_engine_adam_parity: Adam and its limits
+HYBRID_ADAM = dict(lr=0.01, b1=0.9, b2=0.999, eps=1e-3, decay=0.02)
+HYBRID_LOSS_RTOL = 2e-4
+HYBRID_PARAM_TOL = (3e-3, 2e-5)  # (rtol, atol)
+HYBRID_CHECKED = ("wq", "wo", "moe_w0", "word_emb", "head", "ln1_scale")
+HYBRID_CHILD_S = 600
 DIST_TRAINERS = 2
 DIST_PSERVERS = 4
 DIST_STEPS = 3             # (a): eager, captured, replayed
@@ -9364,6 +9415,336 @@ def run_sp_serving(torch, workdir, smi):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phase 40: the 5D hybrid engine trained (ring attention's backward)
+# ---------------------------------------------------------------------------
+def _ring_bwd_bounds(dtype, causal):
+    """{kernel: (bound ms, what bounds it)} of dK/dV and dQ on one ring
+    block at SP_MERGE_SHAPE (no Mask): Q, K, V, dO and the
+    block's outputs moved once, the row statistics and Di read once; the
+    products over the block's pairs (the causal triangle on the diagonal)."""
+    n, h, t, d = SP_MERGE_SHAPE
+    item = 4 if dtype == "float32" else 2
+    nhtd, pairs = n * h * t * d, n * h * (t * (t + 1) // 2 if causal else t * t)
+    small = 3 * n * h * t * 4
+    out = {}
+    for name, nbytes, ops in (("dkv", 6 * nhtd * item + small, 8 * pairs * d),
+                              ("dq", 5 * nhtd * item + small, 6 * pairs * d)):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, _ops_s(ops, dtype)
+        out[name] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def check_ring_bwd_kernels(torch, smi):
+    """Phase 40 (a): ring attention's backward on the card, kernel by
+    kernel (see the module docstring)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import fused_attention as fa
+    from paddle_tpu_torch.kernels import ring_attention as kra
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 40)
+    n, h, t, d = SP_MERGE_SHAPE
+    scale = 1.0 / float(np.sqrt(d))
+    rows, checks = [], {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+
+        def heads(s):  # the head split's [N, S, H, D] view, as the engine feeds the ring
+            return torch.randn((n, s, h, d), generator=gen, device="cuda").to(dt).permute(0, 2, 1, 3)
+
+        q, d_out, k, v = heads(t), heads(t), heads(2 * t), heads(2 * t)
+        blocks = {"diagonal": (k[:, :, t:], v[:, :, t:], True),  # the window's own block
+                  "full": (k[:, :, :t], v[:, :, :t], False)}      # the lower rank's
+        out, st = kra.ring_step(q, *blocks["diagonal"][:2], True, scale)
+        out, st = kra.ring_step(q, *blocks["full"][:2], False, scale, out, st)
+        di = (out.float() * d_out.float()).sum(-1)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        got = {b: kra.ring_block_bwd(q, kb, vb, c, scale, d_out, st, di)
+               for b, (kb, vb, c) in blocks.items()}
+        torch.cuda.synchronize()
+        launches = _hand_kernel_launches()
+        again = {b: kra.ring_block_bwd(q, kb, vb, c, scale, d_out, st, di)
+                 for b, (kb, vb, c) in blocks.items()}
+        plain = {b: kra.ring_block_bwd_plain(q, kb, vb, c, scale, d_out, st, di)
+                 for b, (kb, vb, c) in blocks.items()}
+        torch.cuda.synchronize()
+        checks["launches_" + dtype] = launches == dict(
+            {k_: 0 for k_ in launches}, **{fa.BWD_DKV_NAME: 2, fa.BWD_DQ_NAME: 2})
+        whole = None
+        if dtype == "float32":
+            # the window's queries at [t, 2t) against keys [0, 2t), causal, in float64
+            qd, kd, vd, dod = q.double(), k.double(), v.double(), d_out.double()
+            s = torch.einsum("bhqd,bhkd->bhqk", qd, kd) * scale
+            keep = torch.arange(2 * t, device="cuda")[None, :] <= (
+                t + torch.arange(t, device="cuda"))[:, None]
+            p = torch.softmax(s.masked_fill(~keep, float("-inf")), -1)
+            dp = torch.einsum("bhqd,bhkd->bhqk", dod, vd)
+            ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+            ref = (torch.einsum("bhqk,bhkd->bhqd", ds, kd) * scale,
+                   torch.einsum("bhqk,bhqd->bhkd", ds, qd) * scale,
+                   torch.einsum("bhqk,bhqd->bhkd", p, dod))
+            ring = (got["diagonal"][0].float() + got["full"][0].float(),
+                    torch.cat([got["full"][1], got["diagonal"][1]], 2),
+                    torch.cat([got["full"][2], got["diagonal"][2]], 2))
+            whole = {name: _within(g, r_, dtype) for name, g, r_ in zip(("dq", "dk", "dv"), ring, ref)}
+            del qd, kd, vd, dod, s, p, dp, ds, ref
+        for b, (kb, vb, c) in blocks.items():
+            errs = {name: _within(g, r_, dtype)
+                    for name, g, r_ in zip(("dq", "dk", "dv"), got[b], plain[b])}
+            repeat = all(bool(torch.equal(x, y)) for x, y in zip(got[b], again[b]))
+            finite = all(bool(torch.isfinite(g.float()).all().item()) for g in got[b])
+            qs, ks, vs = (x.detach().requires_grad_(True) for x in (q, kb, vb))
+            o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=c, scale=scale)
+            bound = _ring_bwd_bounds(dtype, c)
+            row = {"shape": list(SP_MERGE_SHAPE), "dtype": dtype, "block": b,
+                   "max_abs_err": {name: e for name, (e, _) in errs.items()},
+                   "repeat_bit_equal": repeat,
+                   "dkv_ms": _time_ms(torch, lambda: fa.fused_attention_bwd_dkv(
+                       q, kb, vb, None, c, scale, d_out, st, di)),
+                   "dq_ms": _time_ms(torch, lambda: fa.fused_attention_bwd_dq(
+                       q, kb, vb, None, c, scale, d_out, st, di)),
+                   "plain_ms": _time_ms(torch, lambda: kra.ring_block_bwd_plain(
+                       q, kb, vb, c, scale, d_out, st, di), samples=11, per_sample=3),
+                   "library_ms": _time_ms(torch, lambda: torch.autograd.grad(
+                       o, (qs, ks, vs), d_out, retain_graph=True)),
+                   "dkv_bound_ms": bound["dkv"][0], "dkv_bound_by": bound["dkv"][1],
+                   "dq_bound_ms": bound["dq"][0], "dq_bound_by": bound["dq"][1]}
+            if whole is not None:
+                row["ring_vs_fp64_max_abs_err"] = {name: e for name, (e, _) in whole.items()}
+            rows.append(row)
+            checks["%s_%s" % (dtype, b)] = (finite and repeat
+                                            and all(ok for _, ok in errs.values()))
+            del o, qs, ks, vs
+        if whole is not None:
+            checks["ring_vs_fp64_" + dtype] = all(ok for _, ok in whole.values())
+    log("[ring-bwd] %s | %s" % (smi, json.dumps(rows)))
+    checks = {k_: bool(v_) for k_, v_ in checks.items()}
+    log("[ring-bwd] checks", json.dumps(checks))
+    if not all(checks.values()):
+        raise AssertionError("phase 40 (a): the ring's backward disagrees: %s" % json.dumps(checks))
+    return rows
+
+
+def _hybrid_config(hybrid):
+    return hybrid.HybridConfig(**HYBRID_CFG, **HYBRID_MESH)
+
+
+def _hybrid_tokens(cfg):
+    rng = np.random.RandomState(SEED + 100)
+    return (rng.randint(0, cfg.vocab_size, (cfg.batch, cfg.seq_len)).astype(np.int64),
+            rng.randint(0, cfg.vocab_size, (cfg.batch, cfg.seq_len)).astype(np.int64))
+
+
+def _hybrid_reference(torch):
+    """Phase 40 (b)'s reference: the port's ``reference_loss`` on the card in
+    one process, HYBRID_STEPS steps of Adam written out as the JAX package's
+    test_hybrid_engine_adam_parity writes it.  Returns the losses, each
+    step's seconds and HYBRID_CHECKED's parameters after the last step."""
+    from paddle_tpu_torch.parallel import hybrid
+
+    a = HYBRID_ADAM
+    cfg = _hybrid_config(hybrid)
+    p = {k: torch.tensor(v, device="cuda") for k, v in hybrid.init_params(cfg, SEED + 100).items()}
+    tokens, labels = (torch.from_numpy(x).cuda() for x in _hybrid_tokens(cfg))
+    m1 = {k: torch.zeros_like(v) for k, v in p.items()}
+    m2 = {k: torch.zeros_like(v) for k, v in p.items()}
+    b1p, b2p = a["b1"], a["b2"]
+    losses, seconds = [], []
+    for _ in range(HYBRID_STEPS):
+        t0 = time.perf_counter()
+        leaves = {k: v.requires_grad_(True) for k, v in p.items()}
+        loss = hybrid.reference_loss(leaves, tokens, labels, cfg)
+        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        losses.append(float(loss.detach()))
+        with torch.no_grad():
+            lr_t = a["lr"] * np.sqrt(1 - b2p) / (1 - b1p)
+            for k in p:
+                gk = grads[k] + a["decay"] * p[k]
+                m1[k] = a["b1"] * m1[k] + (1 - a["b1"]) * gk
+                m2[k] = a["b2"] * m2[k] + (1 - a["b2"]) * gk * gk
+                p[k] = p[k].detach() - lr_t * m1[k] / (torch.sqrt(m2[k]) + a["eps"])
+        b1p *= a["b1"]
+        b2p *= a["b2"]
+        del loss, grads, leaves
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return {"losses": losses, "step_s": seconds,
+            "params": {k: p[k].cpu().numpy() for k in HYBRID_CHECKED},
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+
+
+def hybrid_child(workdir):
+    """A phase-40 rank (started by the port's launcher, on the card): the
+    engine through fleet, HYBRID_STEPS Adam steps, each step's hand-kernel
+    launches counted from 0; writes ``hybrid<rank>.json`` and (rank 0) the
+    checked parameters gathered whole."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.parallel import env as penv
+    from paddle_tpu_torch.parallel.ring_attention import reset_ring_stats, ring_stats
+
+    from paddle_tpu_torch.parallel import hybrid
+
+    penv.init_from_env(backend="gloo", timeout_s=HYBRID_CHILD_S)
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    a = HYBRID_ADAM
+    strategy = fluid.DistributedStrategy()
+    strategy.hybrid = dict(HYBRID_CFG, **HYBRID_MESH)
+    params = hybrid.init_params(hybrid.HybridConfig(**strategy.hybrid), seed=SEED + 100)
+    # the host's part is done; the card is this process's once the parent's
+    # timed check and reference are
+    go = os.path.join(workdir, "hybrid_go")
+    deadline = time.monotonic() + HYBRID_CHILD_S
+    while not os.path.exists(go):
+        if time.monotonic() > deadline:
+            raise TimeoutError("phase 40: no go from the parent in %d s" % HYBRID_CHILD_S)
+        time.sleep(0.05)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    opt = fluid.optimizer.AdamOptimizer(learning_rate=a["lr"], epsilon=a["eps"],
+                                        regularization=fluid.regularizer.L2Decay(a["decay"]))
+    step, helpers = fluid.parallel.fleet.distributed_optimizer(
+        opt, strategy).build_hybrid_train_step()
+    p, tok, lab = helpers.place(params, *_hybrid_tokens(helpers.config))
+    aux = helpers.place_aux(helpers.init_opt_state(params))
+    del params
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for _ in range(HYBRID_STEPS):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        reset_ring_stats()
+        t0 = time.perf_counter()
+        loss, p, aux = step(p, aux, tok, lab)
+        loss = float(loss)
+        steps.append({"loss": loss, "step_s": time.perf_counter() - t0,
+                      "seconds": dict(step.last_seconds), "launches": _hand_kernel_launches(),
+                      "ring": ring_stats()})
+    full = helpers.gather({k: p[k] for k in HYBRID_CHECKED})
+    if rank == 0:
+        np.savez(os.path.join(workdir, "hybrid_params.npz"), **full)
+    res = {"rank": rank, "coords": helpers.mesh.coords, "device": str(helpers.mesh.device),
+           "steps": steps, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    with open(os.path.join(workdir, "hybrid%d.json" % rank), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def run_hybrid_training(torch, workdir, smi):
+    """Phase 40 (see the module docstring).  Returns its statistics, with
+    each rank's hand-kernel launches in each step."""
+    from paddle_tpu_torch.distributed import launch
+    from paddle_tpu_torch.kernels import fused_attention as fa
+    from paddle_tpu_torch.kernels import ring_attention as kra
+
+    t_phase = time.perf_counter()
+    _free_device_memory(torch)
+    # the ranks start first: their imports, group and weights (host work)
+    # overlap (a) and the reference, and they touch the card after the go
+    logs = os.path.join(workdir, "hybrid_logs")
+    ranks = launch.start_procs(launch._parse_args([
+        "--nproc_per_node=%d" % HYBRID_RANKS, "--started_port=%d" % _free_ports(HYBRID_RANKS),
+        "--log_dir=%s" % logs, os.path.join(REPO, "chip_smoke.py"), "--hybrid-child", workdir]))
+    try:
+        ring_bwd = check_ring_bwd_kernels(torch, smi)
+        _free_device_memory(torch)
+        ref = _hybrid_reference(torch)
+        log("[hybrid] reference losses %s, step seconds %s" % (ref["losses"], ref["step_s"]))
+        _free_device_memory(torch)
+    except BaseException:
+        for p in ranks:
+            p.kill()
+            p.wait()
+        raise
+    with open(os.path.join(workdir, "hybrid_go"), "w"):
+        pass
+    _wait_procs(ranks, HYBRID_CHILD_S, "the phase-40 ranks")
+    bad = [r for r, p in enumerate(ranks) if p.returncode != 0]
+    if bad:
+        raise AssertionError("phase 40: rank(s) %s failed: %s" % (bad, {
+            r: _log_tail(os.path.join(logs, "workerlog.%d" % r)) for r in bad}))
+    res = []
+    for r in range(HYBRID_RANKS):
+        with open(os.path.join(workdir, "hybrid%d.json" % r)) as f:
+            res.append(json.load(f))
+    got = dict(np.load(os.path.join(workdir, "hybrid_params.npz")))
+    rtol, atol = HYBRID_PARAM_TOL
+    checks, param_err = {}, {}
+    for k in HYBRID_CHECKED:
+        err = np.abs(got[k] - ref["params"][k])
+        param_err[k] = {"max_abs_err": float(err.max()),
+                        "worst_share_of_limit": float((err / (atol + rtol * np.abs(
+                            ref["params"][k]))).max())}
+        checks["param_" + k] = bool(np.allclose(got[k], ref["params"][k], rtol=rtol, atol=atol))
+    for x in res:
+        r, sp = x["rank"], x["coords"]["sp"]
+        want = {k: 0 for k in x["steps"][0]["launches"]}
+        want.update({fa.KERNEL_NAME: 9, kra.KERNEL_NAME: 9 * sp, fa.BWD_DKV_NAME: 9 * (sp + 1),
+                     fa.BWD_DQ_NAME: 9 * (sp + 1)})
+        checks["launches_rank%d" % r] = all(s["launches"] == want for s in x["steps"])
+        checks["losses_rank%d" % r] = all(
+            abs(s["loss"] - l_ref) <= HYBRID_LOSS_RTOL * abs(l_ref)
+            for s, l_ref in zip(x["steps"], ref["losses"]))
+        checks["on_the_card_rank%d" % r] = x["device"].startswith("cuda")
+    stats = {
+        "ring_bwd": ring_bwd,
+        "reference": {k: v for k, v in ref.items() if k != "params"},
+        "losses": [[s["loss"] for s in x["steps"]] for x in res],
+        "step_s": [[s["step_s"] for s in x["steps"]] for x in res],
+        "seconds": [[s["seconds"] for s in x["steps"]] for x in res],
+        "reduce_s": [[s["seconds"]["reduce"] for s in x["steps"]] for x in res],
+        "ring_fwd": [[{k: s["ring"][k] for k in ("calls", "hops", "bytes_sent", "hop_s", "wait_s")}
+                      for s in x["steps"]] for x in res],
+        "ring_bwd_hops": [[{k: s["ring"]["bwd_" + k] for k in ("calls", "hops", "bytes_sent",
+                                                              "hop_s", "wait_s")}
+                           for s in x["steps"]] for x in res],
+        "coords": [x["coords"] for x in res],
+        "param_err": param_err,
+        "max_memory_allocated_bytes": [x["max_memory_allocated_bytes"] for x in res],
+        "phase_s": time.perf_counter() - t_phase,
+        # each rank's hand-kernel launches in each step (counts set to 0
+        # before the step and read after it, in that rank)
+        "launches": {"hybrid_rank%d_step%d" % (x["rank"], i + 1): s["launches"]
+                     for x in res for i, s in enumerate(x["steps"])},
+    }
+    log("[hybrid-numbers] %s | %s" % (smi, json.dumps({
+        k: stats[k] for k in ("losses", "step_s", "reduce_s", "ring_fwd", "ring_bwd_hops",
+                              "max_memory_allocated_bytes", "param_err", "phase_s")},
+        default=str)))
+    log("[hybrid] seconds by part", json.dumps(stats["seconds"]))
+    checks = {k: bool(v) for k, v in checks.items()}
+    log("[hybrid] checks", json.dumps(checks))
+    if not all(checks.values()):
+        raise AssertionError("phase 40 failed its checks: %s" % json.dumps(checks))
+    return stats
+
+
+def run_hybrid_alone(torch, passes):
+    """``chip_smoke.py --hybrid [N]``, a shortcut while working on the hybrid
+    engine: the build and phase 40 ``N`` times, and the card's name and
+    power limit; no other phase."""
+    info = device_info(torch)
+    t0 = time.perf_counter()
+    build_kernels()
+    for k in range(passes):
+        log("[hybrid] pass %d of %d" % (k + 1, passes))
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            run_hybrid_training(torch, workdir, info["nvidia_smi"])
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+    log("[done] %.1f s" % (time.perf_counter() - t0))
+    print(info["nvidia_smi"])
+    return 0
+
+
 def run_sp_alone(torch, passes):
     """``chip_smoke.py --sp [N]``, a shortcut while working on sequence-
     parallel serving: the build and phase 39 ``N`` times, and the card's name
@@ -9481,6 +9862,8 @@ def main() -> int:
         return mesh_child(sys.argv[2])
     if sys.argv[1:2] == ["--sp-child"]:  # phase 39's ranks
         return sp_child(sys.argv[2])
+    if sys.argv[1:2] == ["--hybrid-child"]:  # phase 40's ranks
+        return hybrid_child(sys.argv[2])
     sys.path.insert(0, REPO)
     import paddle_tpu_torch  # noqa: F401 — fails outside a checkout of the repo
     if sys.argv[1:2] == ["--b3"]:  # kernel B3's build, check and sweep alone
@@ -9493,6 +9876,8 @@ def main() -> int:
         return run_mesh_alone(torch, int(sys.argv[2]) if len(sys.argv) > 2 else 1)
     if sys.argv[1:2] == ["--sp"]:  # phase 39 alone, N times
         return run_sp_alone(torch, int(sys.argv[2]) if len(sys.argv) > 2 else 1)
+    if sys.argv[1:2] == ["--hybrid"]:  # phase 40 alone, N times
+        return run_hybrid_alone(torch, int(sys.argv[2]) if len(sys.argv) > 2 else 1)
     from paddle_tpu_torch.kernels import decode_attention as kda
     from paddle_tpu_torch.kernels import fused_attention as fa
     from paddle_tpu_torch.kernels import ring_attention as kra
@@ -9614,6 +9999,11 @@ def main() -> int:
         sp39 = run_sp_serving(torch, workdir, info["nvidia_smi"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        hybrid40 = run_hybrid_training(torch, workdir, info["nvidia_smi"])
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     # the A7 paths (NMT training, decoding, the book's RNN models) run no hand kernel
     a7_launches = {"nmt_train": nmt["hand_kernel_launches"],
                    "nmt_decode": nmt_decode["hand_kernel_launches"],
@@ -9661,8 +10051,10 @@ def main() -> int:
     fwd_launches["wire_bert_fleet"] = wire36["bert_fleet"]["launches"]
     fwd_launches["wire_lm_int8"] = 0
     # phase 37: each trainer process's count by leg, read in that process;
-    # phase 38: each rank's, likewise; phase 39: each rank's in its first run
-    dist_launches = dict(dist37["launches"], **mesh38["launches"], **sp39["launches"])
+    # phase 38: each rank's, likewise; phase 39: each rank's in its first run;
+    # phase 40: each rank's in each step
+    dist_launches = dict(dist37["launches"], **mesh38["launches"], **sp39["launches"],
+                         **hybrid40["launches"])
     fwd_launches.update({p: c[fa.KERNEL_NAME] for p, c in dist_launches.items()})
     replaced = ("jax/experimental/pallas/ops/tpu/flash_attention.py:%d (%s), reached from "
                 "paddle_tpu/ops/nn_ops.py:694 through the vjp grad paddle_tpu/core/registry.py:131")
@@ -9728,6 +10120,11 @@ def main() -> int:
             "shape": bwd_row["shape"],
             "dtype": bwd_row["dtype"],
             "amp_shape": bwd_amp_row,
+            # phase 40 (a): at the ring's block, from its merged statistics
+            "ring_block": [{k: r[k] for k in ("dtype", "block", "shape", key + "_ms", "plain_ms",
+                                              "library_ms", key + "_bound_ms", key + "_bound_by",
+                                              "max_abs_err")}
+                           for r in hybrid40["ring_bwd"]],
             "lm_causal": {dt: {"ms": lm_rows[(64, dt)][key + "_ms"],
                                "bound_ms": lm_rows[(64, dt)][key + "_bound_ms"],
                                "plain_ms": lm_rows[(64, dt)]["bwd_plain_ms"],
@@ -9798,7 +10195,7 @@ def main() -> int:
         "source": "paddle_tpu_torch/csrc/fused_attention.cu",
         "replaces": "paddle_tpu/parallel/ring_attention.py:26 (ring_attention's online-softmax "
                     "merge in its lax.scan body; XLA-fused on the TPU, no pallas_call)",
-        "launches": sum(c.get(kra.KERNEL_NAME, 0) for c in sp39["launches"].values()),
+        "launches": sum(c.get(kra.KERNEL_NAME, 0) for c in dist_launches.values()),
         "launches_by_path": {p: c.get(kra.KERNEL_NAME, 0) for p, c in dist_launches.items()},
         "max_abs_err": max(r["max_abs_err"] for r in sp39["step"]),
         "ms": step["ms"],

@@ -35,6 +35,18 @@ merged into ``acc`` and ``acc_stats`` when they are given.  By device:
   with its statistics, then ``ring_merge_plain`` written into ``acc``
   and ``acc_stats`` in place;
 * on a meta tensor returns shape-only results.
+
+The ring's backward attends each block again: ``ring_block_bwd(q, k, v,
+causal, scale, d_out, stats, di)`` is dQ, dK, dV of one block given the
+ring's final statistics (the rows' (m, log l) over every block, so a
+block's probabilities sum to less than 1) and Di = rowsum(O * dO) of the
+ring's final output.  P = exp((s - m) - log l) of the block's scores is
+then that block's share of the softmax, and the block's terms of the
+whole attention's gradient are B1's backward with those statistics: on a
+CUDA tensor B1's dK/dV and dQ kernels (``fused_attention_bwd_dkv``,
+``fused_attention_bwd_dq``, counted under their names) or a raise, on a
+CPU tensor ``ring_block_bwd_plain`` (B1's plain backward,
+``fused_attention._bwd_plain``), on a meta tensor shapes.
 """
 from __future__ import annotations
 
@@ -45,7 +57,8 @@ import torch
 from paddle_tpu_torch.kernels import count_launch
 from paddle_tpu_torch.kernels import fused_attention as fa
 
-__all__ = ["KERNEL_NAME", "MASKED_FILL", "ring_merge_plain", "ring_step", "ring_step_plain"]
+__all__ = ["KERNEL_NAME", "MASKED_FILL", "ring_merge_plain", "ring_step", "ring_step_plain",
+           "ring_block_bwd", "ring_block_bwd_plain"]
 
 KERNEL_NAME = "ring_step"
 MASKED_FILL = (-1e30, float("-inf"))  # (m, log l) of a block with no valid key
@@ -127,3 +140,22 @@ def ring_step(q, k, v, causal: bool, scale: float, acc=None, acc_stats=None):
     fa._raise_on(err, fa._LIB, "ring_step")
     count_launch(KERNEL_NAME, q.dtype, stream)
     return acc, acc_stats
+
+
+def ring_block_bwd_plain(q, k, v, causal: bool, scale: float, d_out, stats, di):
+    """dQ, dK, dV of one block of the ring, in torch on any device: B1's
+    plain backward from the ring's final statistics and Di (fp32 [N, H,
+    T]), results in the inputs' dtype."""
+    return fa._bwd_plain(q, k, v, None, causal, scale, d_out, stats, di)
+
+
+def ring_block_bwd(q, k, v, causal: bool, scale: float, d_out, stats, di):
+    """dQ, dK, dV of one block of the ring (see the module's docstring):
+    B1's dK/dV and dQ kernels on a CUDA tensor, the plain version on a CPU
+    one, shape-only results on a meta one."""
+    if q.device.type == "meta":
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.device.type == "cpu":
+        return ring_block_bwd_plain(q, k, v, causal, scale, d_out, stats, di)
+    dk, dv = fa.fused_attention_bwd_dkv(q, k, v, None, causal, scale, d_out, stats, di)
+    return fa.fused_attention_bwd_dq(q, k, v, None, causal, scale, d_out, stats, di), dk, dv

@@ -1,13 +1,14 @@
 """Multi-process execution: the ring registry over ``torch.distributed``
-(``env``), device meshes (``mesh``: one rank a mesh device), the strategies,
-``CompiledProgram`` (data-, FSDP- and tensor-parallel steps over a mesh)
-and the collective program rewriters (``collective_transpiler``).
+(``env``), device meshes (``mesh``: one rank a mesh device, with
+differentiable collectives), the strategies, ``CompiledProgram`` (data-,
+FSDP- and tensor-parallel steps over a mesh), the collective program
+rewriters (``collective_transpiler``), fleet (``fleet_mod``; ``fleet`` is
+its singleton, as the JAX package exports it), the 5D hybrid engine
+(``hybrid``) and ring attention (the module ``ring_attention``:
+sequence-parallel exact attention over a group of ranks, differentiable).
 
-The port's counterpart of the JAX package's ``parallel/``, with ring
-attention (the module ``ring_attention``, as the JAX package exports it:
-sequence-parallel exact attention over a group of ranks); the hybrid
-engine and fleet (ROADMAP A10 part 2 item 4) and the pipelined programs
-(part 3) are not ported yet.
+The port's counterpart of the JAX package's ``parallel/``; the pipelined
+programs (ROADMAP A10 part 3) are not ported yet.
 """
 from paddle_tpu_torch.parallel import env  # noqa: F401
 from paddle_tpu_torch.parallel import mesh  # noqa: F401
@@ -25,3 +26,6 @@ from paddle_tpu_torch.parallel.collective_transpiler import (  # noqa: F401
     GradAllReduce,
     LocalSGD,
 )
+from paddle_tpu_torch.parallel import fleet as fleet_mod  # noqa: F401
+from paddle_tpu_torch.parallel.fleet import fleet  # noqa: F401
+from paddle_tpu_torch.parallel import hybrid  # noqa: F401

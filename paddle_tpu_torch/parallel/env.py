@@ -25,6 +25,7 @@ as the JAX package's compiled program normalises over the global batch.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import datetime
 import os
@@ -139,13 +140,37 @@ def ring_size(ring_id: int) -> int:
     return dist.get_world_size(group)
 
 
+def _destroy_group() -> None:
+    """At exit: drop the groups this registry and the mesh cache hold, and
+    destroy torch.distributed's, so each group's C++ threads are joined
+    while the interpreter still runs."""
+    import gc
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import mesh
+
+    _rings.clear()
+    _axes.clear()
+    mesh._mesh_cache.clear()
+    mesh._current_mesh = None
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    gc.collect()
+
+
 def init_from_env(backend: str = "gloo", ring_id: int = 0,
                   timeout_s: float = 300.0) -> Optional[object]:
     """Initialise ``torch.distributed`` from the launcher's environment
     (``PADDLE_TRAINER_ID``, ``PADDLE_TRAINERS_NUM``,
     ``PADDLE_TRAINER_ENDPOINTS``; trainer 0's endpoint hosts the
     rendezvous store) and bind the world group to ``ring_id``.  One
-    trainer needs no group: nothing is initialised and None is returned."""
+    trainer needs no group: nothing is initialised and None is returned.
+    A group started here is destroyed when the process exits
+    (``_destroy_group``): left to the interpreter's teardown, the C++
+    threads of a gloo group still referenced can abort the process
+    (``terminate called without an active exception``, exit code -6) after
+    its work is done."""
     import torch.distributed as dist
 
     rank = int(os.environ["PADDLE_TRAINER_ID"])
@@ -157,5 +182,6 @@ def init_from_env(backend: str = "gloo", ring_id: int = 0,
         dist.init_process_group(backend, init_method="tcp://" + endpoints[0], rank=rank,
                                 world_size=world,
                                 timeout=datetime.timedelta(seconds=timeout_s))
+        atexit.register(_destroy_group)
     bind_ring(ring_id)
     return dist.group.WORLD

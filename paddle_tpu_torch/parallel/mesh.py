@@ -27,6 +27,19 @@ as jax's ``NamedSharding.devices_indices_map`` gives it.  ``gather`` and
 ``gather_many`` rebuild full tensors from the ranks' shards with one
 ``all_gather`` a group of axes and dtype; over gloo, which gathers only
 host tensors, a CUDA buffer goes through the host and back.
+
+The collectives a mapped function calls (``psum``, ``pmean``,
+``ppermute``, ``all_gather``) run over the group of the active axes they
+name, and are differentiable.  Each backward is the collective that the
+JAX package's ``shard_map(check_rep=False)`` transposes it to (its
+``pre_vma`` route, ``parallel/hybrid.py``): ``psum``'s is ``psum``,
+``ppermute``'s the inverse permutation, a tiled ``all_gather``'s the sum
+over the group of the cotangent, cut to this rank's block.  So a rank's
+gradient is that of the sum of every rank's output, and a caller whose
+ranks all seed the same replicated loss with 1 divides by the mesh's size
+(``hybrid.make_train_step``'s ``reduce_grads``).  A backward's collectives
+run on autograd's thread, in its order: every rank must build the same
+graph, or the group deadlocks.
 """
 from __future__ import annotations
 
@@ -39,9 +52,11 @@ import torch
 from paddle_tpu_torch.parallel import env as penv
 
 __all__ = ["Mesh", "NamedSharding", "make_mesh", "default_mesh", "data_parallel_mesh",
-           "MeshGuard", "local_devices", "shard_map", "psum", "pmean", "world"]
+           "MeshGuard", "local_devices", "shard_map", "psum", "pmean", "ppermute",
+           "all_gather", "world"]
 
 _current_mesh = None
+_mapped: List["Mesh"] = []  # the meshes of the running shard_map calls, innermost last
 _mesh_cache: Dict[tuple, "Mesh"] = {}
 
 
@@ -74,10 +89,11 @@ def local_devices(backend: Optional[str] = None) -> List[torch.device]:
 class Mesh:
     """Named axes over the world's ranks.  ``devices`` is the array of
     ranks in the mesh's shape (``devices.shape`` as jax's), ``shape`` the
-    axis sizes, ``coords`` this rank's coordinate on each axis."""
+    axis sizes, ``coords`` this rank's coordinate on each axis, ``device``
+    the device this rank computes on."""
 
     def __init__(self, axes: Dict[str, int], rank: int, groups: Dict[tuple, object],
-                 device_mesh=None):
+                 device_mesh=None, device: Optional[torch.device] = None):
         self.axis_names: Tuple[str, ...] = tuple(str(a) for a in axes)
         self.shape: Dict[str, int] = {str(a): int(n) for a, n in axes.items()}
         sizes = [self.shape[a] for a in self.axis_names]
@@ -87,6 +103,7 @@ class Mesh:
         self.coords: Dict[str, int] = self.rank_coords(self.rank)
         self._groups = groups  # axes tuple -> process group (None: one rank)
         self.device_mesh = device_mesh
+        self.device = torch.device("cpu") if device is None else torch.device(device)
 
     def rank_coords(self, rank: int) -> Dict[str, int]:
         if not self.axis_names:
@@ -147,7 +164,9 @@ def make_mesh(axes: Dict[str, int], devices=None, backend: Optional[str] = None)
     package's ``ValueError``).  ``devices``, where given, is the list of
     ranks (or devices, one a rank) the mesh may use; else they are
     ``local_devices(backend)``, so a backend the port has no device for
-    raises.  Each rank's step runs on its Executor's place."""
+    raises.  ``mesh.device`` is this rank's entry of ``devices`` where it
+    is a device, else of ``local_devices(backend)``; a program compiled
+    over the mesh runs on its Executor's place."""
     import torch.distributed as dist
 
     axes = {str(a): int(n) for a, n in dict(axes).items()}
@@ -163,8 +182,11 @@ def make_mesh(axes: Dict[str, int], devices=None, backend: Optional[str] = None)
         raise ValueError(
             "mesh %r spans %d ranks but the world has %d: each rank is one mesh device, "
             "so start as many ranks as the mesh has devices" % (axes, n, size))
+    mine = devices[rank]
+    device = (torch.device(mine) if isinstance(mine, (str, torch.device))
+              else local_devices(backend)[rank])
     key = (tuple(axes.items()), rank, size,
-           id(dist.group.WORLD) if size > 1 else None)
+           id(dist.group.WORLD) if size > 1 else None, str(device))
     mesh = _mesh_cache.get(key)
     if mesh is None:
         groups, device_mesh = {}, None
@@ -176,7 +198,7 @@ def make_mesh(axes: Dict[str, int], devices=None, backend: Optional[str] = None)
             device_mesh = DeviceMesh("cpu", torch.arange(n).reshape(sizes),
                                      mesh_dim_names=tuple(axes))
             groups = _build_groups(axes, rank)
-        mesh = _mesh_cache[key] = Mesh(axes, rank, groups, device_mesh)
+        mesh = _mesh_cache[key] = Mesh(axes, rank, groups, device_mesh, device)
     for a in mesh.axis_names:
         penv.bind_axis(a, mesh.group((a,))[0])
     return mesh
@@ -275,15 +297,22 @@ class NamedSharding:
         return "NamedSharding(%s, %s)" % (self.mesh.shape, self.spec)
 
 
+def _to_wire(x, group):
+    """x contiguous, as gloo takes it for a gather or a point-to-point
+    message: on the host."""
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    return x.cpu() if x.is_cuda and dist.get_backend(group) == "gloo" else x
+
+
 def all_gather_cat(x: torch.Tensor, group) -> torch.Tensor:
     """The group's ``x`` (one shape and dtype on every member) concatenated
     along dim 0 in rank order, on ``x``'s device.  gloo gathers host
     tensors only, so over gloo a CUDA tensor goes to the host and back."""
     import torch.distributed as dist
 
-    src = x.contiguous()
-    if src.is_cuda and dist.get_backend(group) == "gloo":
-        src = src.cpu()
+    src = _to_wire(x, group)
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, 0).to(x.device)
@@ -371,8 +400,12 @@ def shard_map(f, mesh: Mesh, in_specs, out_specs, check_vma: bool = True):
 
     def mapped(*args):
         args = tuple(_with_specs(a, s, local) for a, s in zip(args, in_specs))
-        with penv.active_axes(mesh.axis_names):
-            out = f(*args)
+        _mapped.append(mesh)
+        try:
+            with penv.active_axes(mesh.axis_names):
+                out = f(*args)
+        finally:
+            _mapped.pop()
         return _with_specs(out, out_specs, full)
 
     return mapped
@@ -387,22 +420,128 @@ def _block(sh: NamedSharding, dim: int) -> int:
     return k
 
 
-def psum(x, axis_name):
-    """The sum of ``x`` over an active mesh axis (``x`` itself outside)."""
+def _axes_group(axis_name):
+    """The process group over the active axes among ``axis_name`` (a name
+    or a tuple of names): the innermost running shard_map's mesh's, else
+    for one axis the group ``parallel/env.py`` binds to it; None where they
+    span one rank or none is active."""
+    names = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+    active = tuple(a for a in names if penv.axis_active(a))
+    if not active:
+        return None
+    if _mapped:
+        return _mapped[-1].group(active)[0]
+    if len(active) == 1:
+        return penv.group_for_axis(active[0])
+    raise ValueError("a collective over the axes %r runs inside shard_map" % (active,))
+
+
+
+
+def _all_reduce(x, group):
     import torch.distributed as dist
 
-    group = penv.group_for_axis(axis_name) if penv.axis_active(axis_name) else None
+    out = x.reshape(-1).clone()  # a 0-d value reduces as one element
+    dist.all_reduce(out, group=group)
+    return out.view(x.shape)
+
+
+class _PSum(torch.autograd.Function):
+    """psum over a group; its backward is psum of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+def _permute(x, group, perm):
+    """This rank's value after ``perm`` ((source, destination) group ranks):
+    what its source sent, zeros where none did."""
+    import torch.distributed as dist
+
+    r = dist.get_rank(group)
+    wire = _to_wire(x, group)
+    out = torch.zeros_like(wire)
+    reqs = [dist.isend(wire, dist.get_global_rank(group, d), group=group)
+            for s, d in perm if s == r]
+    reqs += [dist.irecv(out, dist.get_global_rank(group, s), group=group)
+             for s, d in perm if d == r]
+    for req in reqs:
+        req.wait()
+    return out.to(x.device)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, perm):
+        ctx.group, ctx.perm = group, perm
+        return _permute(x, group, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permute(g, ctx.group, [(d, s) for s, d in ctx.perm]), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """Tiled all_gather along ``dim``; its backward sums the cotangent over
+    the group and keeps this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        import torch.distributed as dist
+
+        ctx.group, ctx.dim, ctx.block = group, dim, x.shape[dim]
+        ctx.rank = dist.get_rank(group)
+        full = all_gather_cat(x.movedim(dim, 0), group)
+        return full.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = _all_reduce(g, ctx.group)
+        return total.narrow(ctx.dim, ctx.rank * ctx.block, ctx.block), None, None
+
+
+def psum(x, axis_name):
+    """The sum of ``x`` over the active mesh axes ``axis_name`` (a name or a
+    tuple of names; ``x`` itself outside them).  Differentiable."""
+    group = _axes_group(axis_name)
     t = torch.as_tensor(x)
     if group is None:
         return t
-    out = t.clone()
-    dist.all_reduce(out, group=group)
-    return out
+    return _PSum.apply(t, group)
 
 
 def pmean(x, axis_name):
     import torch.distributed as dist
 
-    group = penv.group_for_axis(axis_name) if penv.axis_active(axis_name) else None
+    group = _axes_group(axis_name)
     out = psum(x, axis_name)
     return out / dist.get_world_size(group) if group is not None else out
+
+
+def ppermute(x, axis_name, perm):
+    """jax.lax.ppermute over one active axis: ``perm`` lists (source,
+    destination) axis indices; a rank no source names receives zeros.
+    Differentiable (the backward sends back along the inverse pairs)."""
+    group = _axes_group(axis_name)
+    if group is None:
+        return x
+    return _PPermute.apply(x, group, [(int(s), int(d)) for s, d in perm])
+
+
+def all_gather(x, axis_name, axis: int = 0, tiled: bool = False):
+    """jax.lax.all_gather over the active axes ``axis_name``: the group's
+    ``x`` in rank order, stacked on a new dim ``axis`` or, ``tiled``,
+    concatenated along ``axis``.  Differentiable."""
+    group = _axes_group(axis_name)
+    axis = axis % (x.dim() + (0 if tiled else 1))
+    if not tiled:
+        x = x.unsqueeze(axis)
+    if group is None:
+        return x
+    return _AllGather.apply(x, group, axis)

@@ -37,7 +37,10 @@ and a dense-PS trainer's captured steps against their eager twin (the
 pulled parameters reach the graph), and a one-rank collective plan
 captured; and kernel B2, ring attention's step (B1's forward with the
 merge in its epilogue), against its plain version in place, and a ring
-of steps against attention over the whole sequence.
+of steps against attention over the whole sequence; and the ring's
+backward: each block's dQ, dK, dV by B1's dK/dV and dQ kernels from a
+two-block ring's merged statistics against the plain version and, summed,
+against float64 attention, and the differentiable ring of one rank.
 
 Every test here needs a CUDA card and skips without one (marker
 ``cuda``).  The file imports neither jax nor paddle_tpu, so it also runs
@@ -2820,3 +2823,104 @@ def test_ring_steps_on_card_are_full_attention(card, dtype, causal):
         torch.testing.assert_close(out.double(), want[:, :, win], **STEP_TOL[dtype])
     merges = sum(range(n)) if causal else n * (n - 1)
     assert kernels.launch_counts() == {fa.KERNEL_NAME: n, kra.KERNEL_NAME: merges}
+
+
+# Ring attention's backward: each block's dQ, dK, dV by B1's dK/dV and dQ
+# kernels from the ring's merged statistics (kernels/ring_attention.py
+# ring_block_bwd), against ring_block_bwd_plain at the backward kernels'
+# limits (fp32 1e-4 * max(1, max|ref|); bf16 atol 2e-2 plus rtol 2**-7).
+def _within_bwd(got, ref, dtype):
+    got, ref = got.float(), ref.float()
+    if dtype == torch.float32:
+        return (got - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+    return bool(((got - ref).abs() <= 2e-2 + 2.0 ** -7 * ref.abs()).all().item())
+
+
+def _two_block_ring(card, dtype, seed):
+    """The second rank's window of a two-block causal ring at the hybrid
+    engine's block [2, 8, 1024, 64] in the head split's layout: its own
+    block (causal) then the lower rank's merged by ring_step; returns the
+    inputs, the blocks, the merged statistics and Di."""
+    from paddle_tpu_torch.kernels import ring_attention as kra
+
+    n, h, t, d = 2, 8, 1024, 64
+    g = torch.Generator(device=card).manual_seed(seed)
+
+    def heads(s):
+        return torch.randn(n, s, h, d, generator=g, device=card).to(dtype).permute(0, 2, 1, 3)
+
+    q, d_out, k, v = heads(t), heads(t), heads(2 * t), heads(2 * t)
+    blocks = {"diagonal": (k[:, :, t:], v[:, :, t:], True), "full": (k[:, :, :t], v[:, :, :t], False)}
+    out, st = kra.ring_step(q, *blocks["diagonal"][:2], True, 0.125)
+    out, st = kra.ring_step(q, *blocks["full"][:2], False, 0.125, out, st)
+    di = (out.float() * d_out.float()).sum(-1)
+    return q, k, v, d_out, blocks, st, di
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("block", ["diagonal", "full"])
+def test_ring_block_bwd_kernels_against_plain(card, dtype, block):
+    """One dK/dV and one dQ launch a block, against the plain version, bit
+    for bit across two launches."""
+    from paddle_tpu_torch.kernels import ring_attention as kra
+
+    q, _, _, d_out, blocks, st, di = _two_block_ring(card, dtype, seed=31)
+    kb, vb, causal = blocks[block]
+    kernels.reset_launch_counts()
+    got = kra.ring_block_bwd(q, kb, vb, causal, 0.125, d_out, st, di)
+    assert kernels.launch_counts() == {fa.BWD_DKV_NAME: 1, fa.BWD_DQ_NAME: 1}
+    again = kra.ring_block_bwd(q, kb, vb, causal, 0.125, d_out, st, di)
+    ref = kra.ring_block_bwd_plain(q, kb, vb, causal, 0.125, d_out, st, di)
+    torch.cuda.synchronize()
+    for name, g_, a_, r_ in zip(("dq", "dk", "dv"), got, again, ref):
+        assert g_.dtype == dtype and torch.isfinite(g_.float()).all(), name
+        assert torch.equal(g_, a_), name
+        assert _within_bwd(g_, r_, dtype), name
+
+
+def test_ring_backward_on_card_is_attention_gradient(card):
+    """The two blocks' gradients of the window (dQ summed, dK and dV in
+    their blocks) against float64 attention of the window's queries over
+    both blocks, causal (fp32 at the backward kernels' limit)."""
+    from paddle_tpu_torch.kernels import ring_attention as kra
+
+    q, k, v, d_out, blocks, st, di = _two_block_ring(card, torch.float32, seed=32)
+    got = {b: kra.ring_block_bwd(q, kb, vb, c, 0.125, d_out, st, di)
+           for b, (kb, vb, c) in blocks.items()}
+    t = q.shape[2]
+    qd, kd, vd, dod = q.double(), k.double(), v.double(), d_out.double()
+    keep = torch.arange(2 * t, device=card)[None, :] <= (t + torch.arange(t, device=card))[:, None]
+    p = torch.softmax((torch.einsum("bhqd,bhkd->bhqk", qd, kd) * 0.125).masked_fill(
+        ~keep, float("-inf")), -1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dod, vd)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    want = (torch.einsum("bhqk,bhkd->bhqd", ds, kd) * 0.125,
+            torch.einsum("bhqk,bhqd->bhkd", ds, qd) * 0.125,
+            torch.einsum("bhqk,bhqd->bhkd", p, dod))
+    ring = (got["diagonal"][0] + got["full"][0],
+            torch.cat([got["full"][1], got["diagonal"][1]], 2),
+            torch.cat([got["full"][2], got["diagonal"][2]], 2))
+    for name, g_, w_ in zip(("dq", "dk", "dv"), ring, want):
+        assert _within_bwd(g_, w_, torch.float32), name
+
+
+def test_differentiable_ring_of_one_rank_on_card(card):
+    """parallel.ring_attention with a gradient asked for, in one process (no
+    group): B1's forward once, its dK/dV and dQ once, and the gradient of
+    attention in float64."""
+    from paddle_tpu_torch.parallel.ring_attention import ring_attention
+
+    g = torch.Generator(device=card).manual_seed(33)
+    q, k, v, d_out = (torch.randn(2, 8, 512, 64, generator=g, device=card) for _ in range(4))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    kernels.reset_launch_counts()
+    out = ring_attention(*leaves, None, causal=True)
+    got = torch.autograd.grad(out, leaves, d_out)
+    assert kernels.launch_counts() == {fa.KERNEL_NAME: 1, fa.BWD_DKV_NAME: 1, fa.BWD_DQ_NAME: 1}
+    qd, kd, vd = (x.double().requires_grad_(True) for x in (q, k, v))
+    s = (torch.einsum("bhqd,bhkd->bhqk", qd, kd) * 0.125).masked_fill(
+        ~torch.ones(512, 512, dtype=torch.bool, device=card).tril(), float("-inf"))
+    want = torch.autograd.grad(torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), vd),
+                               (qd, kd, vd), d_out.double())
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        assert _within_bwd(g_, w_, torch.float32), name

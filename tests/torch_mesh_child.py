@@ -28,6 +28,11 @@ CHILD_S = 240  # a rank's time limit
 
 # the small transformer LM of tests/test_sharded_training.py
 LM = dict(seq=16, d_model=32, vocab=128, batch=4, n_layer=1, n_head=4, d_inner=64)
+# the hybrid engine's widths in tests/test_hybrid_parallel.py
+HYBRID = dict(vocab_size=64, d_model=16, n_head=4, d_ff=32, n_layers=4, n_experts=4, seq_len=16,
+              batch=8, microbatches=2)
+# test_hybrid_engine_adam_parity's Adam: beta1, beta2, epsilon, learning rate, L2 decay
+HYBRID_ADAM = dict(b1=0.9, b2=0.999, eps=1e-3, lr=0.01, decay=0.02)
 # the BN model of tests/test_parallel_executor.py's batch-norm test
 BN = dict(B=16, C=4, H=3, W=3)
 BN_STEPS = 3  # SGD steps of the compiled data-parallel BN run
@@ -396,9 +401,93 @@ def scenario_ring(ctx, q, k, v, causal, scale):
     return {"out": out.numpy().tolist(), "ring": ring_stats()}
 
 
+def hybrid_tokens(seed, cfg):
+    """tests/test_hybrid_parallel.py's tokens and labels for a seed (int64)."""
+    rng = np.random.RandomState(seed + 1)
+    tokens = rng.randint(0, cfg.vocab_size, (cfg.batch, cfg.seq_len)).astype(np.int64)
+    labels = rng.randint(0, cfg.vocab_size, (cfg.batch, cfg.seq_len)).astype(np.int64)
+    return tokens, labels
+
+
+def hybrid_adam(fluid):
+    a = HYBRID_ADAM
+    return fluid.optimizer.AdamOptimizer(
+        learning_rate=a["lr"], beta1=a["b1"], beta2=a["b2"], epsilon=a["eps"],
+        regularization=fluid.regularizer.L2DecayRegularizer(a["decay"]))
+
+
+def scenario_hybrid(ctx, axes, seed=0, ring=True, steps=1, adam=False, via_fleet=False):
+    """The hybrid engine's step on this rank's shards over ``axes``: one
+    SGD step at lr 0.1, or ``steps`` Adam steps (``hybrid_adam``, the
+    engine built directly or through ``fleet``); the losses, each step's
+    ring counters, and (rank 0) every parameter gathered whole."""
+    from paddle_tpu_torch.parallel import hybrid
+    from paddle_tpu_torch.parallel import mesh as mesh_lib
+    from paddle_tpu_torch.parallel.ring_attention import reset_ring_stats, ring_stats
+
+    fluid = ctx["fluid"]
+    cfg = hybrid.HybridConfig(lr=0.1, ring_attention=ring, **HYBRID, **axes)
+    mesh = mesh_lib.make_mesh(cfg.mesh_axes(), backend="cpu")
+    tokens, labels = hybrid_tokens(seed, cfg)
+    if via_fleet:
+        strat = fluid.DistributedStrategy()
+        strat.hybrid = dict(HYBRID, **axes)
+        step, helpers = fluid.parallel.fleet.distributed_optimizer(
+            hybrid_adam(fluid), strat).build_hybrid_train_step(mesh=mesh)
+        params = helpers.init_params(seed=seed)
+        p, tok, lab = helpers.place(params, tokens, labels)
+        aux = helpers.place_aux(helpers.init_opt_state(params))
+    elif adam:
+        opt = hybrid_adam(fluid)
+        step, place, _ = hybrid.make_train_step(cfg, mesh, optimizer=opt)
+        params = hybrid.init_params(cfg, seed=seed)
+        p, tok, lab = place(params, tokens, labels)
+        aux = step.place_aux(hybrid.init_opt_state(cfg, params, opt))
+    else:
+        step, place, _ = hybrid.make_train_step(cfg, mesh)
+        p, tok, lab = place(hybrid.init_params(cfg, seed=seed), tokens, labels)
+    shard_shapes = {n: list(t.shape) for n, t in p.items()}
+    losses, rings = [], []
+    for _ in range(steps):
+        reset_ring_stats()
+        if adam or via_fleet:
+            loss, p, aux = step(p, aux, tok, lab)
+        else:
+            loss, p = step(p, tok, lab)
+        losses.append(float(loss))
+        rings.append(ring_stats())
+    full = hybrid.gather(cfg, mesh, p)
+    res = {"losses": losses, "ring": rings, "coords": mesh.coords, "shard_shapes": shard_shapes}
+    if ctx["rank"] == 0:
+        res["params"] = {n: a.tolist() for n, a in full.items()}
+    return res
+
+
+def scenario_ring_grad(ctx, q, k, v, d_out, causal, scale):
+    """``parallel.ring_attention``'s gradient on this rank's window of the
+    full [B, H, S, D] q/k/v, the upstream gradient d_out's window."""
+    import torch
+
+    from paddle_tpu_torch.parallel import mesh as mesh_lib
+    from paddle_tpu_torch.parallel.ring_attention import reset_ring_stats, ring_attention, ring_stats
+
+    mesh = mesh_lib.make_mesh({"sp": ctx["world"]}, backend="cpu")
+    group, _ = mesh.group(("sp",))
+    r, n = ctx["rank"], ctx["world"]
+    win = [torch.as_tensor(np.asarray(t, np.float32)).chunk(n, dim=2)[r].contiguous()
+           for t in (q, k, v, d_out)]
+    leaves = [t.requires_grad_(True) for t in win[:3]]
+    reset_ring_stats()
+    out = ring_attention(*leaves, group, causal=causal, scale=scale)
+    dq, dk, dv = torch.autograd.grad(out, leaves, win[3])
+    return {"dq": dq.numpy().tolist(), "dk": dk.numpy().tolist(), "dv": dv.numpy().tolist(),
+            "ring": ring_stats()}
+
+
 SCENARIOS = {"dp_mlp": scenario_dp_mlp, "tp_specs": scenario_tp_specs, "lm": scenario_lm,
              "lm_restore": scenario_lm_restore, "bn": scenario_bn, "serve": scenario_serve,
-             "sp_serve": scenario_sp_serve, "ring": scenario_ring}
+             "sp_serve": scenario_sp_serve, "ring": scenario_ring, "hybrid": scenario_hybrid,
+             "ring_grad": scenario_ring_grad}
 
 
 def main(out_dir):
